@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points default to the card and raise without one, and chip_smoke.py
+refuses to run without a card or outside a checkout."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = "gptq_gguf_tpu_torch"
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
+        for p in (REPO / PKG).rglob("*.py"))
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules()
+    assert f"{PKG}.ops.qmatmul" in mods and f"{PKG}.serving.engine" in mods
+    code = (
+        "import importlib, importlib.util, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(REPO / 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'gptq_gguf_tpu' or m.startswith('gptq_gguf_tpu.')]\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a card")
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.models.llama import LlamaConfig
+    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.ops.kquant import SuperGroupParams
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    cfg = LlamaConfig(vocab_size=8, hidden_size=256, intermediate_size=256,
+                      num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1)
+    z = np.zeros((4, 1), np.float16)
+    zi = np.zeros((4, 8), np.uint8)
+    calls = [
+        lambda: qmodel.init_cache(cfg, 1, 8),
+        lambda: qmatmul.pack_runtime_v2(np.zeros((4, 256), np.uint8),
+                                        SuperGroupParams(z, z, zi, zi), T.Q4_K),
+        lambda: qmodel.load_gguf_for_serving(REPO / "missing.gguf"),
+        lambda: qmodel.params_from_numpy({"embed_tokens": np.zeros((8, 256))}, cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        qmodel.init_cache(cfg, 1, 8, device="cuda")
+    qmodel.init_cache(cfg, 1, 8, device="cpu")  # explicit CPU works
+
+
+def test_chip_smoke_fails_without_card_or_checkout(no_cuda, tmp_path):
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, shutil.copy(REPO / "chip_smoke.py", tmp_path))):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout

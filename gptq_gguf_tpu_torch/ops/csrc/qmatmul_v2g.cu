@@ -7,14 +7,13 @@
 // behind dequant_matmul_pallas_v2 with variant "v2g"), which carries every
 // projection and the lm_head of the serving path.
 //
-// Computes, for x (M, d_in) f32 and one v2-packed weight:
+// Computes, for x (M, d_in) f32 or bf16 and one v2-packed weight:
 //   y (M, d_out) f32 = bf16(x) @ bf16(scale * q)  -  xsum @ off2
 //   scale[g, n] = d_sg[d_rep * (g / gpsg), n] * f32(sc_q[g, n])   (exact: 17-bit product)
 //   q           = the raw unsigned code (no shift)
 //   off2[g, n]  = dmin_sg[...] * f32(mn_q[g, n])   (types with a min)
 //               = scale[g, n] * shift              (signed Q3_K / Q6_K)
-//   xsum[m, g]  = f32 sum of the UN-rounded x over group g (computed by the
-//                 wrapper, as the JAX wrapper computes it outside its kernel)
+//   xsum[m, g]  = f32 sum of the UN-rounded x over group g
 // scale * q is exact in f32, so the bf16 weight equals the JAX kernel's bit
 // for bit; only the order of the f32 sums differs.
 //
@@ -23,19 +22,23 @@
 // before compute matters. One Llama-3-8B decoder layer at Q4_K holds
 // 136,314,880 bytes of qs plus scale planes; a decode step reads them once.
 //
-// Design (first version: simple and right):
-//   * one thread per output column n: consecutive threads read consecutive
-//     bytes of each qs row, so every weight read is coalesced along d_out;
-//   * x is staged in shared memory one 256-row supergroup at a time, already
-//     rounded to bf16 (round to nearest even, like JAX's astype), for MT
-//     rows at once, so each dequantized weight feeds MT accumulators;
-//   * f32 accumulation; the offset term is kept in its own accumulator and
-//     subtracted once at the end, as the JAX kernel's second dot does;
-//   * at decode d_out = 4096 gives only 32 column blocks, so the K axis is
-//     split over supergroups (gridDim.z) to fill the 132 SMs; the partial
-//     sums are reduced by a second kernel in a fixed order (no float
-//     atomics), so token streams stay reproducible run to run.
-// wgmma / TMA staging is left for later work.
+// Design (CUDA cores, f32 accumulation; wgmma / TMA are later work):
+//   * each thread owns VEC = 4 adjacent output columns and reads one 32-bit
+//     word per weight row, so a warp reads 128 contiguous bytes per row
+//     (VEC = 1 for a d_out that is not a multiple of 4);
+//   * x is staged in shared memory one 256-row supergroup at a time for MT
+//     rows, rounded to bf16 (round to nearest even, like JAX's astype) and
+//     laid out k-major so one vector load fetches a row's MT values; the
+//     group sums xsum of the un-rounded x are taken while staging;
+//   * codes become floats by the 2^23 magic-number trick and pairs of
+//     weights are rounded to bf16 by one packed conversion, keeping the
+//     slow int-to-float unit out of the inner loop;
+//   * at decode the block's 4 warps split each supergroup's rows four ways
+//     and add their partial sums through shared memory in a fixed order;
+//     d_out = 4096 still gives few blocks, so the wrapper also splits the
+//     K axis over supergroups (gridDim.z) and a second kernel reduces those
+//     partials in a fixed order (no float atomics): token streams stay
+//     reproducible run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,122 +46,236 @@
 
 namespace {
 
-constexpr int kQK = 256;      // rows per supergroup
-constexpr int kHalf = 128;    // nibble split: byte k holds rows k and k+128
-constexpr int kBN = 128;      // output columns (threads) per block
+constexpr int kQK = 256;       // rows per supergroup
+constexpr int kHalf = 128;     // nibble split: byte k holds rows k and k+128
+constexpr int kThreads = 128;  // threads per block
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool SIGNED>
-__device__ __forceinline__ float load_scale_code(const void* p, size_t i) {
-  if (SIGNED) return static_cast<float>(__ldg(static_cast<const signed char*>(p) + i));
-  return static_cast<float>(__ldg(static_cast<const unsigned char*>(p) + i));
+// exact float of a small unsigned integer without the int-to-float unit
+__device__ __forceinline__ float small_u2f(uint32_t q) {
+  return __uint_as_float(0x4B000000u | q) - 8388608.f;
 }
 
-template <int PB, int GS, bool HAS_MIN, int MT>
-__global__ void __launch_bounds__(kBN) v2g_kernel(
-    const float* __restrict__ x,        // (M, d_in)
-    const float* __restrict__ xsum,     // (M, d_in / GS)
+// round two f32 to bf16 (nearest even) in one packed conversion
+__device__ __forceinline__ void bf16_round2(float& a, float& b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  a = __low2float(p);
+  b = __high2float(p);
+}
+
+template <int VEC>
+__device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
+  if constexpr (VEC == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  else return __ldg(p);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// the MT staged x values of one row k (k-major tile), by 16-byte loads
+template <int MT>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[MT]) {
+  if constexpr (MT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < MT / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) v[i] = p[i];
+  }
+}
+
+// byte c of a loaded word as the group's scale code (int8 for signed types)
+template <bool SIGNED>
+__device__ __forceinline__ float scale_code(uint32_t w, int c) {
+  const uint32_t b = (w >> (8 * c)) & 0xFFu;
+  return SIGNED ? static_cast<float>(static_cast<int8_t>(b)) : static_cast<float>(b);
+}
+
+// MT rows x (kThreads / KS * VEC) columns per block; KS warps-slices split
+// each supergroup's rows when MT is small (decode), 1 otherwise.
+template <int MT>
+struct Slices {
+  static constexpr int KS = MT <= 8 ? 4 : 1;
+};
+
+template <typename XT, int PB, int GS, bool HAS_MIN, int MT, int VEC>
+__global__ void __launch_bounds__(kThreads) v2g_kernel(
+    const XT* __restrict__ x,           // (M, d_in)
     const uint8_t* __restrict__ qs,     // (d_in / PB, d_out)
     const float* __restrict__ d_sg,     // (d_rep * n_sg, d_out)
     const float* __restrict__ dmin_sg,  // (d_rep * n_sg, d_out) or null
-    const void* __restrict__ sc_q,      // (d_in / GS, d_out) u8 or i8
+    const uint8_t* __restrict__ sc_q,   // (d_in / GS, d_out) u8 or i8 bytes
     const uint8_t* __restrict__ mn_q,   // (d_in / GS, d_out) or null
     float* __restrict__ out,            // (gridDim.z, M, d_out)
     int M, int d_in, int d_out, int d_rep, float shift, int sg_per_split) {
-  constexpr int GPSG = kQK / GS;
-  __shared__ float xs[MT][kQK];
-  __shared__ float xg[MT][GPSG];
+  constexpr int KS = Slices<MT>::KS;
+  constexpr int COLT = kThreads / KS;  // column threads per slice
+  constexpr int GPSG = kQK / GS;       // groups per supergroup
+  constexpr int GPS = GPSG / KS;       // groups per slice (PB == 1)
+  constexpr int PPS = GPSG / 2 / KS;   // low/high group pairs per slice (PB == 2)
+  static_assert(PB == 1 ? GPS * KS == GPSG : PPS * KS * 2 == GPSG, "slices");
+  __shared__ __align__(16) float xs[kQK * MT];   // k-major: xs[k * MT + m]
+  __shared__ float xg[MT * GPSG];                // xsum of this supergroup
+  __shared__ __align__(16) float red[(KS - 1) * MT * COLT * VEC + 1];
 
-  const int n = blockIdx.x * kBN + threadIdx.x;
+  const int tx = threadIdx.x % COLT;
+  const int slice = threadIdx.x / COLT;
+  const int n0 = (blockIdx.x * COLT + tx) * VEC;
   const int m0 = blockIdx.y * MT;
   const int n_sg = d_in / kQK;
-  const int ng = d_in / GS;
   const int sg_begin = blockIdx.z * sg_per_split;
   const int sg_end = min(n_sg, sg_begin + sg_per_split);
-  const bool live = n < d_out;
+  const bool live = n0 < d_out;
   const size_t ldo = static_cast<size_t>(d_out);
 
-  float acc[MT];
-  float acc_off[MT];
+  float acc[MT][VEC];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    acc[m] = 0.f;
-    acc_off[m] = 0.f;
-  }
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) acc[m][c] = 0.f;
 
   for (int sg = sg_begin; sg < sg_end; ++sg) {
     __syncthreads();  // the previous supergroup's tile is fully consumed
-    for (int i = threadIdx.x; i < MT * kQK; i += kBN) {
-      const int m = i / kQK, k = i % kQK, row = m0 + m;
-      const float v = row < M ? x[static_cast<size_t>(row) * d_in + static_cast<size_t>(sg) * kQK + k] : 0.f;
-      xs[m][k] = bf16_round(v);
-    }
-    for (int i = threadIdx.x; i < MT * GPSG; i += kBN) {
-      const int m = i / GPSG, g = i % GPSG, row = m0 + m;
-      xg[m][g] = row < M ? xsum[static_cast<size_t>(row) * ng + sg * GPSG + g] : 0.f;
+    // stage: one (row, group) per task; group sums of the raw x, tile in bf16
+    for (int t = threadIdx.x; t < MT * GPSG; t += kThreads) {
+      const int m = t / GPSG, g = t % GPSG, row = m0 + m;
+      const XT* src = x + static_cast<size_t>(row) * d_in + static_cast<size_t>(sg) * kQK + g * GS;
+      float s = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < GS; ++j) {
+        const float v = row < M ? to_f32(src[j]) : 0.f;
+        s += v;
+        xs[(g * GS + j) * MT + m] = bf16_round(v);
+      }
+      xg[m * GPSG + g] = s;
     }
     __syncthreads();
     if (!live) continue;
 
-    const size_t sg_row = static_cast<size_t>(sg) * d_rep * ldo + n;
-    const float d = __ldg(d_sg + sg_row);
-    const float dmin = HAS_MIN ? __ldg(dmin_sg + sg_row) : 0.f;
+    float d[VEC], dmin[VEC];
+    const size_t sg_row = static_cast<size_t>(sg) * d_rep * ldo + n0;
+    load_f32<VEC>(d_sg + sg_row, d);
+    if (HAS_MIN) load_f32<VEC>(dmin_sg + sg_row, dmin);
+
+    // one group: its scales, its offset term, then GS rows of codes
+    auto group_scales = [&](int g, float (&s)[VEC], float (&o)[VEC]) {
+      const size_t gi = static_cast<size_t>(sg * GPSG + g) * ldo + n0;
+      const uint32_t scw = load_bytes<VEC>(sc_q + gi);
+      const uint32_t mnw = HAS_MIN ? load_bytes<VEC>(mn_q + gi) : 0u;
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) {
+        s[c] = d[c] * scale_code<!HAS_MIN>(scw, c);
+        o[c] = HAS_MIN ? dmin[c] * static_cast<float>((mnw >> (8 * c)) & 0xFFu) : s[c] * shift;
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) acc[m][c] = fmaf(-xg[m * GPSG + g], o[c], acc[m][c]);
+    };
 
     if (PB == 2) {
-      // groups g (rows < 128) and g + GPSG/2 (rows >= 128) share bytes
-      const uint8_t* qrow = qs + static_cast<size_t>(sg) * kHalf * ldo + n;
+      const uint8_t* qrow = qs + static_cast<size_t>(sg) * kHalf * ldo + n0;
 #pragma unroll 1
-      for (int g = 0; g < GPSG / 2; ++g) {
-        const int g_hi = g + GPSG / 2;
-        const size_t i_lo = static_cast<size_t>(sg * GPSG + g) * ldo + n;
-        const size_t i_hi = static_cast<size_t>(sg * GPSG + g_hi) * ldo + n;
-        const float s_lo = d * load_scale_code<!HAS_MIN>(sc_q, i_lo);
-        const float s_hi = d * load_scale_code<!HAS_MIN>(sc_q, i_hi);
-        const float o_lo = HAS_MIN ? dmin * static_cast<float>(__ldg(mn_q + i_lo)) : s_lo * shift;
-        const float o_hi = HAS_MIN ? dmin * static_cast<float>(__ldg(mn_q + i_hi)) : s_hi * shift;
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-          acc_off[m] = fmaf(xg[m][g], o_lo, fmaf(xg[m][g_hi], o_hi, acc_off[m]));
-#pragma unroll
+      for (int p = 0; p < PPS; ++p) {
+        const int g = slice * PPS + p, g_hi = g + GPSG / 2;
+        float s_lo[VEC], s_hi[VEC], o[VEC];
+        group_scales(g, s_lo, o);
+        group_scales(g_hi, s_hi, o);
+#pragma unroll 8
         for (int j = 0; j < GS; ++j) {
           const int k = g * GS + j;
-          const uint32_t b = __ldg(qrow + static_cast<size_t>(k) * ldo);
-          const float w_lo = bf16_round(s_lo * static_cast<float>(b & 15u));
-          const float w_hi = bf16_round(s_hi * static_cast<float>(b >> 4));
+          const uint32_t w = load_bytes<VEC>(qrow + static_cast<size_t>(k) * ldo);
+          float w_lo[VEC], w_hi[VEC];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) {
+            w_lo[c] = s_lo[c] * small_u2f((w >> (8 * c)) & 0xFu);
+            w_hi[c] = s_hi[c] * small_u2f((w >> (8 * c + 4)) & 0xFu);
+            bf16_round2(w_lo[c], w_hi[c]);
+          }
+          float xa[MT], xb[MT];
+          load_x<MT>(xs + k * MT, xa);
+          load_x<MT>(xs + (k + kHalf) * MT, xb);
 #pragma unroll
           for (int m = 0; m < MT; ++m)
-            acc[m] = fmaf(xs[m][k], w_lo, fmaf(xs[m][k + kHalf], w_hi, acc[m]));
+#pragma unroll
+            for (int c = 0; c < VEC; ++c)
+              acc[m][c] = fmaf(xa[m], w_lo[c], fmaf(xb[m], w_hi[c], acc[m][c]));
         }
       }
     } else {
-      const uint8_t* qrow = qs + static_cast<size_t>(sg) * kQK * ldo + n;
+      const uint8_t* qrow = qs + static_cast<size_t>(sg) * kQK * ldo + n0;
 #pragma unroll 1
-      for (int g = 0; g < GPSG; ++g) {
-        const size_t gi = static_cast<size_t>(sg * GPSG + g) * ldo + n;
-        const float s = d * load_scale_code<!HAS_MIN>(sc_q, gi);
-        const float o = HAS_MIN ? dmin * static_cast<float>(__ldg(mn_q + gi)) : s * shift;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc_off[m] = fmaf(xg[m][g], o, acc_off[m]);
-#pragma unroll
-        for (int j = 0; j < GS; ++j) {
+      for (int p = 0; p < GPS; ++p) {
+        const int g = slice * GPS + p;
+        float s[VEC], o[VEC];
+        group_scales(g, s, o);
+#pragma unroll 8
+        for (int j = 0; j < GS; j += 2) {
           const int k = g * GS + j;
-          const float w = bf16_round(s * static_cast<float>(__ldg(qrow + static_cast<size_t>(k) * ldo)));
+          const uint32_t w0 = load_bytes<VEC>(qrow + static_cast<size_t>(k) * ldo);
+          const uint32_t w1 = load_bytes<VEC>(qrow + static_cast<size_t>(k + 1) * ldo);
+          float a[VEC], b[VEC];
 #pragma unroll
-          for (int m = 0; m < MT; ++m) acc[m] = fmaf(xs[m][k], w, acc[m]);
+          for (int c = 0; c < VEC; ++c) {
+            a[c] = s[c] * small_u2f((w0 >> (8 * c)) & 0xFFu);
+            b[c] = s[c] * small_u2f((w1 >> (8 * c)) & 0xFFu);
+            bf16_round2(a[c], b[c]);
+          }
+          float xa[MT], xb[MT];
+          load_x<MT>(xs + k * MT, xa);
+          load_x<MT>(xs + (k + 1) * MT, xb);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int c = 0; c < VEC; ++c)
+              acc[m][c] = fmaf(xa[m], a[c], fmaf(xb[m], b[c], acc[m][c]));
         }
       }
     }
   }
 
+  if (KS > 1) {  // slices 1..KS-1 hand their sums to slice 0
+    if (slice > 0 && live) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          red[((slice - 1) * MT + m) * COLT * VEC + tx * VEC + c] = acc[m][c];
+    }
+    __syncthreads();
+    if (slice > 0) return;
+    for (int s = 1; s < KS; ++s)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          acc[m][c] += red[((s - 1) * MT + m) * COLT * VEC + tx * VEC + c];
+  }
   if (!live) return;
   float* o = out + static_cast<size_t>(blockIdx.z) * M * ldo;
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     const int row = m0 + m;
-    if (row < M) o[static_cast<size_t>(row) * ldo + n] = acc[m] - acc_off[m];
+    if (row >= M) break;
+#pragma unroll
+    for (int c = 0; c < VEC; ++c)
+      if (n0 + c < d_out) o[static_cast<size_t>(row) * ldo + n0 + c] = acc[m][c];
   }
 }
 
@@ -174,12 +291,11 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
 }
 
 struct Args {
-  const float* x;
-  const float* xsum;
+  const void* x;
   const uint8_t* qs;
   const float* d_sg;
   const float* dmin_sg;
-  const void* sc_q;
+  const uint8_t* sc_q;
   const uint8_t* mn_q;
   float* dst;
   int M, d_in, d_out, d_rep;
@@ -188,59 +304,77 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int PB, int GS, bool HAS_MIN, int MT>
+template <typename XT, int PB, int GS, bool HAS_MIN, int MT, int VEC>
 void launch(const Args& a) {
-  const dim3 grid((a.d_out + kBN - 1) / kBN, (a.M + MT - 1) / MT, a.splits);
-  v2g_kernel<PB, GS, HAS_MIN, MT><<<grid, kBN, 0, a.stream>>>(
-      a.x, a.xsum, a.qs, a.d_sg, a.dmin_sg, a.sc_q, a.mn_q, a.dst, a.M,
-      a.d_in, a.d_out, a.d_rep, a.shift, a.sg_per_split);
+  constexpr int cols = kThreads / Slices<MT>::KS * VEC;
+  const dim3 grid((a.d_out + cols - 1) / cols, (a.M + MT - 1) / MT, a.splits);
+  v2g_kernel<XT, PB, GS, HAS_MIN, MT, VEC><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const XT*>(a.x), a.qs, a.d_sg, a.dmin_sg, a.sc_q, a.mn_q,
+      a.dst, a.M, a.d_in, a.d_out, a.d_rep, a.shift, a.sg_per_split);
 }
 
-template <int PB, int GS, bool HAS_MIN>
-bool launch_rows(const Args& a, int mt) {
-  switch (mt) {
-    case 1: launch<PB, GS, HAS_MIN, 1>(a); return true;
-    case 2: launch<PB, GS, HAS_MIN, 2>(a); return true;
-    case 4: launch<PB, GS, HAS_MIN, 4>(a); return true;
-    case 8: launch<PB, GS, HAS_MIN, 8>(a); return true;
-    case 16: launch<PB, GS, HAS_MIN, 16>(a); return true;
-    case 32: launch<PB, GS, HAS_MIN, 32>(a); return true;
-    default: return false;
+// row tiles: MT in {1, 2, 4, 8, 16, 32} for VEC 4, {1, 8, 32} for VEC 1
+template <typename XT, int PB, int GS, bool HAS_MIN>
+bool launch_tile(const Args& a, int mt, int vec) {
+  if (vec == 4) {
+    switch (mt) {
+      case 1: launch<XT, PB, GS, HAS_MIN, 1, 4>(a); return true;
+      case 2: launch<XT, PB, GS, HAS_MIN, 2, 4>(a); return true;
+      case 4: launch<XT, PB, GS, HAS_MIN, 4, 4>(a); return true;
+      case 8: launch<XT, PB, GS, HAS_MIN, 8, 4>(a); return true;
+      case 16: launch<XT, PB, GS, HAS_MIN, 16, 4>(a); return true;
+      case 32: launch<XT, PB, GS, HAS_MIN, 32, 4>(a); return true;
+      default: return false;
+    }
   }
+  if (vec == 1) {
+    switch (mt) {
+      case 1: launch<XT, PB, GS, HAS_MIN, 1, 1>(a); return true;
+      case 8: launch<XT, PB, GS, HAS_MIN, 8, 1>(a); return true;
+      case 32: launch<XT, PB, GS, HAS_MIN, 32, 1>(a); return true;
+      default: return false;
+    }
+  }
+  return false;
+}
+
+template <typename XT>
+bool launch_format(const Args& a, int per_byte, int group_size, int has_min,
+                   int mt, int vec) {
+  if (per_byte == 2 && group_size == 32 && has_min)  // Q4_K
+    return launch_tile<XT, 2, 32, true>(a, mt, vec);
+  if (per_byte == 2 && group_size == 16 && has_min)  // Q2_K
+    return launch_tile<XT, 2, 16, true>(a, mt, vec);
+  if (per_byte == 2 && group_size == 16 && !has_min)  // Q3_K
+    return launch_tile<XT, 2, 16, false>(a, mt, vec);
+  if (per_byte == 1 && group_size == 32 && has_min)  // Q5_K
+    return launch_tile<XT, 1, 32, true>(a, mt, vec);
+  if (per_byte == 1 && group_size == 16 && !has_min)  // Q6_K
+    return launch_tile<XT, 1, 16, false>(a, mt, vec);
+  return false;
 }
 
 }  // namespace
 
 // Returns 0 on success, else a cudaError_t value (cudaGetLastError() after
-// the launches, or cudaErrorInvalidValue for a format this file does not
-// instantiate). partials is (splits, M, d_out) f32 scratch when splits > 1,
-// ignored otherwise. Every pointer is a device pointer of contiguous data.
-extern "C" int gg_v2g_matmul(const float* x, const float* xsum,
-                             const uint8_t* qs, const float* d_sg,
-                             const float* dmin_sg, const void* sc_q,
-                             const uint8_t* mn_q, float* partials, float* out,
-                             int M, int d_in, int d_out, int per_byte,
-                             int group_size, int has_min, int shift, int d_rep,
-                             int mt, int sg_per_split, int splits,
-                             void* stream) {
-  Args a{x, xsum, qs, d_sg, dmin_sg, sc_q, mn_q,
-         splits > 1 ? partials : out, M, d_in, d_out, d_rep,
-         static_cast<float>(shift), sg_per_split, splits,
-         static_cast<cudaStream_t>(stream)};
-  bool ok;
-  if (per_byte == 2 && group_size == 32 && has_min) {         // Q4_K
-    ok = launch_rows<2, 32, true>(a, mt);
-  } else if (per_byte == 2 && group_size == 16 && has_min) {  // Q2_K
-    ok = launch_rows<2, 16, true>(a, mt);
-  } else if (per_byte == 2 && group_size == 16 && !has_min) { // Q3_K
-    ok = launch_rows<2, 16, false>(a, mt);
-  } else if (per_byte == 1 && group_size == 32 && has_min) {  // Q5_K
-    ok = launch_rows<1, 32, true>(a, mt);
-  } else if (per_byte == 1 && group_size == 16 && !has_min) { // Q6_K
-    ok = launch_rows<1, 16, false>(a, mt);
-  } else {
-    ok = false;
-  }
+// the launches, or cudaErrorInvalidValue for a format or tile this file
+// does not instantiate). x is bf16 when x_bf16 != 0, else f32. partials is
+// (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. vec 4
+// needs d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
+// pointer of contiguous data.
+extern "C" int gg_v2g_matmul(const void* x, int x_bf16, const uint8_t* qs,
+                             const float* d_sg, const float* dmin_sg,
+                             const uint8_t* sc_q, const uint8_t* mn_q,
+                             float* partials, float* out, int M, int d_in,
+                             int d_out, int per_byte, int group_size,
+                             int has_min, int shift, int d_rep, int mt, int vec,
+                             int sg_per_split, int splits, void* stream) {
+  Args a{x, qs, d_sg, dmin_sg, sc_q, mn_q, splits > 1 ? partials : out,
+         M, d_in, d_out, d_rep, static_cast<float>(shift), sg_per_split,
+         splits, static_cast<cudaStream_t>(stream)};
+  const bool ok = x_bf16
+      ? launch_format<__nv_bfloat16>(a, per_byte, group_size, has_min, mt, vec)
+      : launch_format<float>(a, per_byte, group_size, has_min, mt, vec);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (splits > 1) {
     const size_t count = static_cast<size_t>(M) * d_out;

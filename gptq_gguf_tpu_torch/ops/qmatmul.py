@@ -26,6 +26,7 @@ tensor. There is no other path: a CUDA call launches or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -54,6 +55,7 @@ class RuntimeQuantLinearV2:
         self.per_byte = int(per_byte)
         self.shift = int(shift)
         self.d_rep = int(d_rep)
+        self._checked_on = None  # device the kernel wrapper validated the planes for
 
     @property
     def d_out(self) -> int:
@@ -200,11 +202,21 @@ def dequant_matmul_v2g_reference(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> 
     return y
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.gg_v2g_matmul
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The bound C entry point (library built and loaded on first use)."""
+    from .cuda_build import load
+
+    fn = load("qmatmul_v2g").gg_v2g_matmul
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -212,8 +224,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _check_planes(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> None:
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise ValueError(f"x must be 2-D f32/bf16/f16, got {tuple(x.shape)} {x.dtype}")
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be 2-D f32 or bf16, got {tuple(x.shape)} {x.dtype}")
     if x.shape[1] != rql.d_in_local or x.shape[1] % QK_K or x.shape[0] < 1:
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     want = {"qs": torch.uint8, "d_sg": torch.float32, "dmin_sg": torch.float32,
@@ -235,13 +247,18 @@ def _check_planes(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> None:
         raise ValueError("scale planes do not match d_in")
 
 
-def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int):
-    """(rows per block, supergroups per split, splits): split the K axis
-    only as far as needed to put ~4 blocks on every SM."""
+def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4):
+    """(rows per block, supergroups per split, splits). Blocks cover 128
+    columns at MT <= 8 (four warps split each supergroup) and 512 beyond,
+    a quarter of that with vec 1; the K axis is split over supergroups only
+    as far as needed to put ~4 blocks on every SM."""
     mt = 1
     while mt < min(M, 32):
         mt *= 2
-    base = -(-M // mt) * -(-d_out // 128)
+    if vec == 1:
+        mt = 1 if mt == 1 else 8 if mt <= 8 else 32
+    cols = (128 if mt <= 8 else 512) * vec // 4
+    base = -(-M // mt) * -(-d_out // cols)
     target = 4 * n_sm
     splits = 1 if base >= target else min(n_sg, -(-target // base))
     per = -(-n_sg // splits)
@@ -251,32 +268,36 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int):
 def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tensor:
     """y (M, d_out) f32 = x @ dequant(W)^T through the v2g kernel.
 
-    A CUDA ``x`` launches ``csrc/qmatmul_v2g.cu`` on the current stream
-    (and counts one launch); a CPU ``x`` runs the plain version. The kernel
-    library is built on first use."""
+    A CUDA ``x`` (f32 or bf16) launches ``csrc/qmatmul_v2g.cu`` on the
+    current stream and counts one launch; a CPU ``x`` runs the plain
+    version. The kernel library is built on first use. The planes are
+    validated on the first call with each weight."""
     if x.device.type == "cpu":
         return dequant_matmul_v2g_reference(x, rql)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_planes(x, rql)
-    from .cuda_build import load
-
-    fn = _bind(load("qmatmul_v2g"))
-    x32 = x.float().contiguous()
-    M, d_in = x32.shape
-    gs = rql.group_size
-    xsum = x32.view(M, d_in // gs, gs).sum(dim=-1)
-    n_sg = d_in // QK_K
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    mt, per, splits = _launch_plan(M, rql.d_out, n_sg, n_sm)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    x = x.contiguous()
+    if rql._checked_on != x.device:
+        _check_planes(x, rql)
+        rql._checked_on = x.device
+    elif x.dim() != 2 or x.shape[1] != rql.d_in_local:
+        raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
+    M, d_in = x.shape
+    vec = 4 if rql.d_out % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in rql.planes()) else 1
+    mt, per, splits = _launch_plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index),
+                                   vec)
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, M, rql.d_out), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    rc = fn(_ptr(x32), _ptr(xsum), _ptr(rql.qs), _ptr(rql.d_sg), _ptr(rql.dmin_sg),
-            _ptr(rql.sc_q), _ptr(rql.mn_q), _ptr(part), _ptr(out),
-            M, d_in, rql.d_out, rql.per_byte, gs, int(rql.has_min), rql.shift,
-            rql.d_rep, mt, per, splits,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _kernel_fn()(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.d_sg),
+        _ptr(rql.dmin_sg), _ptr(rql.sc_q), _ptr(rql.mn_q), _ptr(part), out.data_ptr(),
+        M, d_in, rql.d_out, rql.per_byte, rql.group_size, int(rql.has_min), rql.shift,
+        rql.d_rep, mt, vec, per, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_v2g launch failed: CUDA error {rc}")
     dequant_matmul_v2g.launches += 1

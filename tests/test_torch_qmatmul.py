@@ -113,17 +113,18 @@ def test_bf16_activations_take_the_same_path():
         qmatmul.dequant_matmul(xb.float(), tr).numpy())
 
 
-@pytest.mark.parametrize("M,d_out,n_sg,want", [
-    (8, 4096, 16, (8, 1, 16)),      # o: 32 column blocks -> K split 16 ways
-    (8, 6144, 16, (8, 2, 8)),       # qkv
-    (8, 28672, 16, (8, 6, 3)),      # gate/up
-    (8, 4096, 56, (8, 4, 14)),      # down
-    (8, 128512, 16, (8, 16, 1)),    # lm_head: enough column blocks, no split
-    (128, 4096, 16, (32, 4, 4)),    # prefill: 32-row tiles
-    (1, 1000, 8, (1, 1, 8)),
+@pytest.mark.parametrize("M,d_out,n_sg,vec,want", [
+    (8, 4096, 16, 4, (8, 1, 16)),     # o: 32 column blocks -> K split 16 ways
+    (8, 6144, 16, 4, (8, 2, 8)),      # qkv
+    (8, 28672, 16, 4, (8, 6, 3)),     # gate/up
+    (8, 4096, 56, 4, (8, 4, 14)),     # down
+    (8, 128512, 16, 4, (8, 16, 1)),   # lm_head: enough column blocks, no split
+    (128, 4096, 16, 4, (32, 1, 16)),  # prefill: 32-row tiles
+    (5, 1000, 8, 1, (8, 1, 8)),       # ragged d_out: one column per thread
+    (3, 1000, 8, 1, (8, 1, 8)),
 ])
-def test_launch_plan(M, d_out, n_sg, want):
-    assert qmatmul._launch_plan(M, d_out, n_sg, n_sm=132) == want
+def test_launch_plan(M, d_out, n_sg, vec, want):
+    assert qmatmul._launch_plan(M, d_out, n_sg, n_sm=132, vec=vec) == want
 
 
 def test_wrapper_checks_planes():

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +40,6 @@ class LlamaConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
-
-    @property
-    def rope_dim(self) -> int:
-        """Rotated dims per head (full rotary on the dense Llama path)."""
-        return self.head_dim_
 
 
 # JAX LlamaConfig fields the dense path does not implement, with the value
@@ -95,11 +90,11 @@ def apply_norm(x: torch.Tensor, cfg: LlamaConfig, weight: torch.Tensor) -> torch
     return rms_norm(x, weight, cfg.rms_norm_eps)
 
 
-def _rope_params(cfg: LlamaConfig, seq_len: Optional[int] = None) -> Tuple[np.ndarray, float]:
+def _rope_params(cfg: LlamaConfig) -> Tuple[np.ndarray, float]:
     """(inv_freq, attention_scaling) following HF transformers'
     modeling_rope_utils for default / linear / llama3, plus llama.cpp's
     per-dim frequency factors (``gguf_factors``, rope_freqs.weight)."""
-    hd = cfg.rope_dim
+    hd = cfg.head_dim_  # full rotary on the dense Llama path
     base = cfg.rope_theta
     inv_freq = 1.0 / (base ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
     rs = cfg.rope_scaling
@@ -129,19 +124,18 @@ def _rope_params(cfg: LlamaConfig, seq_len: Optional[int] = None) -> Tuple[np.nd
     return inv_freq.astype(np.float32), 1.0
 
 
-def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor,
-                 seq_len: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for given positions: (..., seq, head_dim) f32."""
-    inv_freq_np, scaling = _rope_params(cfg, seq_len)
+    inv_freq_np, scaling = _rope_params(cfg)
     inv_freq = torch.from_numpy(inv_freq_np).to(positions.device)
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb) * scaling, torch.sin(emb) * scaling
 
 
-def rope_cos_sin_all(cfg: LlamaConfig, positions: torch.Tensor, seq_len=None):
+def rope_cos_sin_all(cfg: LlamaConfig, positions: torch.Tensor):
     """cos/sin for the forward pass (one rope base on the dense path)."""
-    return rope_cos_sin(cfg, positions, seq_len)
+    return rope_cos_sin(cfg, positions)
 
 
 def is_sliding_layer(cfg: LlamaConfig, layer_idx: int) -> bool:
@@ -237,4 +231,3 @@ def _mlp_act(gate: torch.Tensor, up: torch.Tensor, cfg: LlamaConfig) -> torch.Te
 #  "layers": [{"input_layernorm", "post_attention_layernorm": (H,),
 #              "qkv_proj" | "q_proj"/"k_proj"/"v_proj", "o_proj",
 #              "gateup_proj" | "gate_proj"/"up_proj", "down_proj"}, ...]}
-Params = Dict[str, Any]

@@ -70,10 +70,6 @@ class RuntimeQuantLinearV2:
         return self.dmin_sg is not None
 
     @property
-    def device(self) -> torch.device:
-        return self.qs.device
-
-    @property
     def nbytes(self) -> int:
         """Device bytes of all planes (what one matmul must read)."""
         return sum(t.numel() * t.element_size() for t in self.planes())
@@ -82,10 +78,6 @@ class RuntimeQuantLinearV2:
         """The tensors of this weight, None-free."""
         return [t for t in (self.qs, self.d_sg, self.dmin_sg, self.sc_q, self.mn_q)
                 if t is not None]
-
-    @property
-    def packed_bits_per_weight(self) -> float:
-        return self.nbytes * 8 / (self.d_in * self.d_out)
 
 
 def pack_runtime_v2(qweight, params: SuperGroupParams, qtype: GGMLQuantizationType,
@@ -307,11 +299,10 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tens
 dequant_matmul_v2g.launches = 0
 
 
-def dequant_matmul(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tensor:
-    """Dispatch for v2-format weights: every v2 tensor on CUDA goes through
-    the v2g kernel (any d_in % 256 == 0, any d_out); CPU tensors take its
-    plain version."""
-    return dequant_matmul_v2g(x, rql)
+# The dispatch for v2-format weights: every v2 tensor on CUDA goes through
+# the v2g kernel (any d_in % 256 == 0, any d_out); CPU tensors take its
+# plain version.
+dequant_matmul = dequant_matmul_v2g
 
 
 def fuse_rql_v2(parts: Sequence) -> Optional[RuntimeQuantLinearV2]:

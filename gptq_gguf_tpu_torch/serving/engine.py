@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch

@@ -121,7 +121,7 @@ def forward_cached(
     dev = input_ids.device
 
     positions = lengths[:, None] + torch.arange(S, device=dev)[None, :]
-    cos, sin = llama.rope_cos_sin_all(cfg, positions, seq_len=L)
+    cos, sin = llama.rope_cos_sin_all(cfg, positions)
     write_pos = torch.where(positions < L, positions, L)  # L = drop row
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
     n_live = None

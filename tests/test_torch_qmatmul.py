@@ -3,8 +3,8 @@
 Layers are quantized by the JAX package from numpy inputs made from a seed;
 both packages pack the same codes. Planes must be byte-equal and
 dequantization bit-equal. The plain v2g version is held to JAX's v2g
-kernel run in interpret mode, and to JAX's exact XLA path. Kernel checks on
-the card are marked ``cuda`` and skip on a CPU-only host."""
+kernel run in interpret mode, and to JAX's exact XLA path. The kernel
+itself is checked on the card by tests/test_torch_kernel_cuda.py."""
 
 import numpy as np
 import pytest
@@ -138,32 +138,3 @@ def test_wrapper_checks_planes():
     with pytest.raises(ValueError, match="sc_q"):
         qmatmul._check_planes(x, bad)
     qmatmul._check_planes(x, tr)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the v2g CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("qtype", ALL_K)
-@pytest.mark.parametrize("M,d_out", [(1, 512), (8, 1000), (40, 768)])
-def test_kernel_matches_plain_on_card(cuda_device, qtype, M, d_out):
-    """Kernel vs plain version on the card: same bf16 products, f32 sums in
-    another order: atol 1e-4 of max|y|."""
-    _, tr = _layer(qtype, d_out=d_out, seed=30 + int(qtype))
-    tr = qmatmul.RuntimeQuantLinearV2(
-        *(None if t is None else t.to(cuda_device) for t in
-          (tr.qs, tr.d_sg, tr.dmin_sg, tr.sc_q, tr.mn_q)),
-        tr.d_in, tr.group_size, tr.per_byte, tr.shift, tr.d_rep)
-    x = torch.from_numpy(np.random.default_rng(M).normal(size=(M, 512)).astype(
-        np.float32)).to(cuda_device)
-    n0 = qmatmul.dequant_matmul_v2g.launches
-    got = qmatmul.dequant_matmul(x, tr)
-    want = qmatmul.dequant_matmul_v2g_reference(x, tr)
-    torch.cuda.synchronize()
-    assert qmatmul.dequant_matmul_v2g.launches == n0 + 1
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5,
-                               atol=1e-4 * want.abs().max().item())

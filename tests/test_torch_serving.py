@@ -195,3 +195,38 @@ def test_serve_cli_matches_generate(gguf, capsys):
     want = engine.generate(tp, tcfg, [np.asarray([5, 6, 7])], max_new_tokens=6,
                            max_len=64)[0]
     assert printed[-1] == str(want)
+
+
+def _serve(params, cfg, prompts, max_new=8):
+    eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=1, max_len=128)
+    ids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    done = {r.uid: r.output for r in eng.run_until_done()}
+    return [done[i] for i in ids], eng
+
+
+def test_prefix_reuse_matches_cold(loaded):
+    """Turn 2 re-sends turn 1's conversation into the retiring slot: the
+    shared KV prefix is reused and the reply equals a cold engine's."""
+    _, _, tp, tcfg = loaded
+    tp = qmodel.fuse_params_for_serving(tp, tcfg)
+    rng = np.random.default_rng(56)
+    turn1 = rng.integers(0, 256, size=10)
+    [reply1], _ = _serve(tp, tcfg, [turn1])
+    turn2 = np.concatenate([turn1, reply1, rng.integers(0, 256, size=4)])
+    [cold2], cold = _serve(tp, tcfg, [turn2])
+    assert cold.prefix_hits == 0
+    [warm1, warm2], warm = _serve(tp, tcfg, [turn1, turn2])
+    assert warm.prefix_hits == 1 and warm.prefix_tokens_reused >= len(turn1)
+    assert warm1 == reply1 and warm2 == cold2
+
+
+def test_cancel_frees_the_slot(loaded):
+    _, _, tp, tcfg = loaded
+    eng = engine.ContinuousBatchingEngine(tp, tcfg, num_slots=1, max_len=64)
+    a = eng.submit(np.arange(5), max_new_tokens=20)
+    b = eng.submit(np.arange(3), max_new_tokens=4)
+    eng.step()  # admits a
+    assert eng.cancel(a) and not eng.cancel(a)
+    assert int(eng.cache.lengths[0]) == 0 and eng.slot_req[0] is None
+    done = eng.run_until_done()
+    assert [r.uid for r in done] == [b] and len(done[0].output) == 4

@@ -10,6 +10,7 @@ variants raise ``NotImplementedError`` naming what is missing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
@@ -124,10 +125,17 @@ def _rope_params(cfg: LlamaConfig) -> Tuple[np.ndarray, float]:
     return inv_freq.astype(np.float32), 1.0
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(cfg: LlamaConfig, device: torch.device) -> Tuple[torch.Tensor, float]:
+    """The rope frequencies on ``device``, copied there once: a copy from
+    host memory on every step would make the host wait for the card."""
+    inv_freq, scaling = _rope_params(cfg)
+    return torch.from_numpy(inv_freq).to(device), scaling
+
+
 def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for given positions: (..., seq, head_dim) f32."""
-    inv_freq_np, scaling = _rope_params(cfg)
-    inv_freq = torch.from_numpy(inv_freq_np).to(positions.device)
+    inv_freq, scaling = _inv_freq(cfg, positions.device)
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb) * scaling, torch.sin(emb) * scaling

@@ -88,12 +88,14 @@ def _prefill_slot(params, cfg: LlamaConfig, prompt: torch.Tensor, cache: KVCache
     S = prompt.shape[1]
     n = S if n_valid is None else int(n_valid)
     dev = prompt.device
+    # device-side fills, not host tensors: a host-to-device copy would make
+    # the host wait for the card
     sub = KVCache([kb[slot:slot + 1] for kb in cache.k],
                   [vb[slot:slot + 1] for vb in cache.v],
-                  torch.tensor([start], dtype=torch.int32, device=dev))
+                  torch.full((1,), start, dtype=torch.int32, device=dev))
     logits, _ = qmodel.forward_cached(
         params, cfg, prompt, sub,
-        n_valid=torch.tensor([n], dtype=torch.int32, device=dev))
+        n_valid=torch.full((1,), n, dtype=torch.int32, device=dev))
     cache.lengths[slot] = start + n
     next_token = torch.argmax(logits[0], dim=-1).to(torch.int32)
     return next_token, logits[0], cache

@@ -20,7 +20,9 @@
 // What bounds it: bytes. At decode (M <= 8) each packed weight byte feeds
 // at most 2 * M multiply-adds, far below the ~295 flop/byte the H100 needs
 // before compute matters. One Llama-3-8B decoder layer at Q4_K holds
-// 136,314,880 bytes of qs plus scale planes; a decode step reads them once.
+// 136,314,880 bytes of qs plus scale planes, of which this kernel reads
+// 129,499,136 once per decode step: d_sg / dmin_sg hold each supergroup's
+// row d_rep = 2 times (a TPU tiling rule) and only row d_rep * sg is read.
 //
 // Design (CUDA cores, f32 accumulation; wgmma / TMA are later work):
 //   * each thread owns VEC = 4 adjacent output columns and reads one 32-bit

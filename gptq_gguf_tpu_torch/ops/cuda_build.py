@@ -2,9 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``ops/csrc/_build/lib<name>-<hash>.so`` (a directory git ignores),
-keyed on a hash of the source and the flags, at first use. ``build`` starts
-one nvcc per missing library, all at once, and waits for them together.
-Nothing here runs at import time: the CPU-only test host has no nvcc.
+keyed on a hash of the source and the flags, at first use. Nothing here
+runs at import time: a CPU-only host has no nvcc.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -40,36 +39,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every library in ``names`` that is not built yet, in
-    parallel. Returns nvcc's ptxas report (registers, spills) per library
-    built; raises with nvcc's output if any build fails."""
+def build(name: str) -> Optional[str]:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns
+    nvcc's output (with the ptxas report: registers, spills) when it
+    built, None when the library was there; raises with nvcc's output if
+    the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True),
-                         tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-        logs[name] = log
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return logs
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return proc.stdout
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    build([name])
+    build(name)
     return ctypes.CDLL(str(library_path(name)))

@@ -56,6 +56,7 @@ class RuntimeQuantLinearV2:
         self.shift = int(shift)
         self.d_rep = int(d_rep)
         self._checked_on = None  # device the kernel wrapper validated the planes for
+        self._vec = 1  # columns per kernel thread, chosen with that validation
 
     @property
     def d_out(self) -> int:
@@ -70,9 +71,13 @@ class RuntimeQuantLinearV2:
         return self.dmin_sg is not None
 
     @property
-    def nbytes(self) -> int:
-        """Device bytes of all planes (what one matmul must read)."""
-        return sum(t.numel() * t.element_size() for t in self.planes())
+    def bytes_read(self) -> int:
+        """Plane bytes one matmul must read: every plane once, but only one
+        of the ``d_rep`` copies of each super-scale row (the copies exist
+        for the TPU's tiling; the kernel reads row ``d_rep * sg``)."""
+        return sum(t.numel() * t.element_size() // (self.d_rep if t is self.d_sg
+                                                     or t is self.dmin_sg else 1)
+                   for t in self.planes())
 
     def planes(self):
         """The tensors of this weight, None-free."""
@@ -263,7 +268,8 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tens
     A CUDA ``x`` (f32 or bf16) launches ``csrc/qmatmul_v2g.cu`` on the
     current stream and counts one launch; a CPU ``x`` runs the plain
     version. The kernel library is built on first use. The planes are
-    validated on the first call with each weight."""
+    validated, and their alignment read, on the first call with each
+    weight; later calls check only x."""
     if x.device.type == "cpu":
         return dequant_matmul_v2g_reference(x, rql)
     if x.device.type != "cuda":
@@ -273,12 +279,13 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tens
     x = x.contiguous()
     if rql._checked_on != x.device:
         _check_planes(x, rql)
+        rql._vec = 4 if rql.d_out % 4 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in rql.planes()) else 1
         rql._checked_on = x.device
     elif x.dim() != 2 or x.shape[1] != rql.d_in_local:
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     M, d_in = x.shape
-    vec = 4 if rql.d_out % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in rql.planes()) else 1
+    vec = rql._vec
     mt, per, splits = _launch_plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index),
                                    vec)
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)

@@ -90,6 +90,24 @@ def test_plain_v2g_matches_jax_interpret(qtype, M):
     np.testing.assert_array_equal(qmatmul.dequant_matmul(torch.from_numpy(x), tr).numpy(), got)
 
 
+@pytest.mark.parametrize("qtype", ALL_K)
+def test_bytes_read_counts_one_copy_of_each_super_scale_row(qtype):
+    """The kernel reads codes, group scales (and mins), and one f32 super
+    scale (and super min) per supergroup and column: the JAX planes' bytes
+    less the d_rep - 1 replicas of d_sg / dmin_sg."""
+    d_out, d_in = 512, 512
+    jr, tr = _layer(qtype, seed=30 + int(qtype))
+    spec = ggml.KQUANT_SPECS[ggml.GGMLQuantizationType(int(qtype))]
+    per_weight = (1 / tr.per_byte + (2 if tr.has_min else 1) / spec.group_size
+                  + (2 if tr.has_min else 1) * 4 / 256)
+    assert tr.bytes_read == int(per_weight * d_out * d_in)
+    jax_bytes = sum(np.asarray(getattr(jr, n)).nbytes for n in PLANES
+                    if getattr(jr, n) is not None)
+    sg_bytes = sum(np.asarray(getattr(jr, n)).nbytes for n in ("d_sg", "dmin_sg")
+                   if getattr(jr, n) is not None)
+    assert tr.bytes_read == jax_bytes - sg_bytes * (jr.d_rep - 1) // jr.d_rep
+
+
 @pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K])
 def test_plain_v2g_close_to_exact_xla(qtype):
     """Against the exact f32 XLA path the plain version differs by the bf16

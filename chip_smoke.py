@@ -17,7 +17,16 @@ checkout of the repository. Phases, each raising on failure:
    checks budgets, token ranges and the kernel's launch count, and prints
    decode tok/s and ms/step (plus a steady B=8 block);
 4. consistency: 2 layers at full width, one prefill plus 4 decode steps
-   through the kernel and through the plain version, logits compared.
+   through the kernel and through the plain version, logits compared;
+5. GPTQ at full width: the column-block solve kernel against its plain
+   version at every Llama-3-8B solve shape (bit-equal); the ``quantize``
+   command line on a seeded 2-layer Llama-3-8B-width bf16 checkpoint with
+   262144 synthetic calibration tokens, once as a user runs it (14
+   artifacts, 416 kernel launches, GPTQ objective at or below RTN's on
+   every linear, seconds per layer) and once instrumented (the stage
+   breakdown, the refit's and the factorizations' seconds); one whole
+   o-projection solve through the kernel and through the plain version;
+   the artifacts packed into the v2 serving format and run through v2g.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -27,15 +36,20 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12     # f32 on the CUDA cores
 SEED = 7
 V, H, I, N_LAYERS, N_HEAD, N_KV, HD = 128256, 4096, 14336, 32, 32, 8, 128
 
@@ -135,13 +149,21 @@ def phase_device_and_build():
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    t0 = time.time()
-    nvcc_log = cuda_build.build("qmatmul_v2g")
-    log(f"build: qmatmul_v2g in {time.time() - t0:.1f} s "
-        f"({'cached' if nvcc_log is None else 'built'})")
-    for line in (nvcc_log or "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    def timed_build(name):
+        t0 = time.time()
+        out = cuda_build.build(name)
+        return out, time.time() - t0
+
+    names = ("qmatmul_v2g", "gptq_solve")
+    with ThreadPoolExecutor(len(names)) as ex:  # one nvcc per source, all at once
+        builds = dict(zip(names, ex.map(timed_build, names)))
+    for name, (nvcc_log, secs) in builds.items():
+        log(f"build: {name} in {secs:.1f} s ({'cached' if nvcc_log is None else 'built'})")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", nvcc_log or "")]
+        spill = sum(int(m) for m in re.findall(r"(\d+) bytes spill", nvcc_log or ""))
+        if regs:
+            log(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+                f"{spill} bytes of spill stores and loads")
 
 
 def term_magnitude(x, rql) -> float:
@@ -404,8 +426,359 @@ def phase_consistency(params, cfg, rng, device):
         raise RuntimeError("the limit does not tell the exact-f32 control from the plain version")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: GPTQ at full width
+# ---------------------------------------------------------------------------
+
+GPTQ_LAYERS = 2           # depth of the quantized checkpoint (every layer is the same work)
+# the command line's documented calibration set: 262144 tokens in sequences
+# of its default length, min(max_position_embeddings, 4096); at this size
+# the capture takes the flash-attention branch and the activations (4 GiB)
+# live in host memory between blocks
+CALIB_TOKENS, CALIB_SEQ = 262144, 4096
+BLOCK = 128               # the default GPTQ block
+# (name, rows of one block solve, column blocks per 8B layer): q/k/v solved
+# row-concatenated, o, gate/up row-concatenated, down over 14336 columns
+SOLVE_SHAPES = (("qkv", 6144, 32), ("o", 4096, 32), ("gateup", 28672, 32), ("down", 4096, 112))
+
+
+def solve_cost(d_row: int, bs: int):
+    """(bytes, f32 operations) one block solve needs: w, s, z read and q,
+    err written once, U's block read once; per row and column i ten
+    operations for q and err, two per later column for the update."""
+    return 4 * (5 * d_row * bs + bs * bs), d_row * (10 * bs + bs * (bs - 1))
+
+
+def solve_inputs(rng, U, d_row, qtype, device):
+    """One block's w, U and per-column s / z: s / z from a K-quant fit of
+    a w-like (d_row, 256) draw, U a diagonal block of a real factor."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS
+    from gptq_gguf_tpu_torch.ops import kquant
+
+    spec = KQUANT_SPECS[qtype]
+    x = torch.as_tensor(rng.normal(size=(d_row, 256)) * 0.02, dtype=torch.float32, device=device)
+    s, z = kquant._expanded_scales(kquant.fit_supergroups(x, qtype), spec, 256)
+    return (x[:, :BLOCK].contiguous(), U, s[:, :BLOCK].contiguous(), z[:, :BLOCK].contiguous(),
+            spec.qmin, spec.qmax, 1e-9)
+
+
+def phase_gptq_kernel(rng, device):
+    """The block-solve kernel against its plain version at every 8B solve
+    shape, for Q4_K, Q6_K and Q3_K: codes and err bit-equal."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import gptq
+
+    # a seeded SPD Hessian of an H-wide layer, factorized as the walk does
+    n = H
+    X = torch.as_tensor(rng.normal(size=(2 * n, n)), dtype=torch.float32, device=device)
+    X = X @ (torch.eye(n, device=device) + torch.as_tensor(
+        rng.normal(size=(n, n)) / np.sqrt(n), dtype=torch.float32, device=device))
+    hess = 2.0 * X.T @ X / X.shape[0]
+    del X
+    _, U_full, bad = gptq.prepare_hessian_inverse(hess, torch.ones(1, n, device=device), 1e-2,
+                                                  method="device")
+    if bad:
+        raise RuntimeError("the seeded Hessian did not factorize")
+    U = U_full[n // 4:n // 4 + BLOCK, n // 4:n // 4 + BLOCK].contiguous()
+    del U_full, hess
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    recs = []
+    for qtype in (T.Q4_K, T.Q6_K, T.Q3_K):
+        for name, d_row, per_layer in SOLVE_SHAPES:
+            if qtype != T.Q4_K and name == "down":
+                continue  # the same kernel shape as o
+            args = solve_inputs(rng, U, d_row, qtype, device)
+            qk, ek = gptq.solve_block(*args)
+            qp, ep = gptq.solve_block_reference(*args)
+            torch.cuda.synchronize()
+            err = max((qk - qp).abs().max().item(), (ek - ep).abs().max().item())
+            if not (torch.equal(qk, qp) and torch.equal(ek, ep)):
+                raise RuntimeError(f"gptq_solve {name} {qtype.name}: kernel and plain differ "
+                                   f"(max |diff| {err:.3e})")
+            nbytes, ops = solve_cost(d_row, BLOCK)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+            rec = dict(name=name, qtype=qtype.name, d_row=d_row, bs=BLOCK, per_layer=per_layer,
+                       max_abs_err=err,
+                       ms=cuda_ms(lambda: gptq.solve_block(*args), 20, flush_buf.zero_),
+                       call_ms=call_ms(lambda: gptq.solve_block(*args), 20),
+                       plain_ms=cuda_ms(lambda: gptq.solve_block_reference(*args), 2,
+                                        flush_buf.zero_),
+                       bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            recs.append(rec)
+            log(f"  gptq_solve {name:>6} {qtype.name} ({d_row}x{BLOCK}) bit-equal; kernel "
+                f"{rec['ms']:.4f} ms (call {rec['call_ms']:.4f})  plain {rec['plain_ms']:.2f} ms"
+                f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, {ops:.3e} ops)")
+    return recs
+
+
+def write_safetensors(tensors, path) -> None:
+    """A minimal safetensors writer (u64 header length, JSON header, raw
+    little-endian data), enough for the synthetic checkpoint."""
+    import torch
+
+    names = sorted(tensors)
+    header, off = {}, 0
+    for name in names:
+        t = tensors[name]
+        nb = t.numel() * t.element_size()
+        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype],
+                        "shape": list(t.shape), "data_offsets": [off, off + nb]}
+        off += nb
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name in names:
+            f.write(tensors[name].contiguous().view(torch.uint8).numpy())
+
+
+def write_checkpoint(path: Path, device) -> None:
+    """A seeded Llama-3-8B-width llama checkpoint of GPTQ_LAYERS layers,
+    bf16 weights of std 0.02, as config.json plus one safetensors file."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02).to(torch.bfloat16).cpu()
+
+    ones = torch.ones(H, dtype=torch.bfloat16)
+    t = {"model.embed_tokens.weight": rnd(V, H), "model.norm.weight": ones,
+         "lm_head.weight": rnd(V, H)}
+    for i in range(GPTQ_LAYERS):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": ones, p + "post_attention_layernorm.weight": ones,
+                  p + "self_attn.q_proj.weight": rnd(N_HEAD * HD, H),
+                  p + "self_attn.k_proj.weight": rnd(N_KV * HD, H),
+                  p + "self_attn.v_proj.weight": rnd(N_KV * HD, H),
+                  p + "self_attn.o_proj.weight": rnd(H, N_HEAD * HD),
+                  p + "mlp.gate_proj.weight": rnd(I, H), p + "mlp.up_proj.weight": rnd(I, H),
+                  p + "mlp.down_proj.weight": rnd(H, I)})
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(dict(
+        model_type="llama", vocab_size=V, hidden_size=H, intermediate_size=I,
+        num_hidden_layers=GPTQ_LAYERS, num_attention_heads=N_HEAD, num_key_value_heads=N_KV,
+        head_dim=HD, rope_theta=500000.0, rms_norm_eps=1e-5, max_position_embeddings=8192,
+        tie_word_embeddings=False, torch_dtype="bfloat16")))
+    write_safetensors(t, path / "model.safetensors")
+
+
+def h_objective(D, Hm) -> float:
+    """tr(D H D^T), summed in f64 (D: (rows, d_col), H: (d_col, d_col))."""
+    import torch
+
+    return float(((D @ Hm) * D).sum(dtype=torch.float64))
+
+
+def quantize_argv(ckpt: Path, save: Path, device, profile: bool):
+    argv = ["quantize", "--model_name_or_path", str(ckpt), "--calibration_data", "synthetic",
+            "--calibration_tokens", str(CALIB_TOKENS), "--calibration_sequence_length",
+            str(CALIB_SEQ), "--default_bit_width", "Q4_K", "--save_dir", str(save),
+            "--device", str(device)]
+    return argv + ["--stage-profile"] if profile else argv
+
+
+def phase_gptq_quantize(tmp: Path, device):
+    """The quantize command line at Llama-3-8B width, 2 layers, twice. The
+    first run is the user's (no stage profile, no timers): seconds per
+    layer, kernel launches, artifacts, GPTQ against RTN on every linear.
+    The second is instrumented: stage breakdown, refit and factorization."""
+    import torch
+
+    from gptq_gguf_tpu_torch.__main__ import main as port_main
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import gptq, kquant
+    from gptq_gguf_tpu_torch.quant import artifacts
+
+    t = time.time()
+    ckpt = tmp / "ckpt"
+    write_checkpoint(ckpt, device)
+    log(f"checkpoint: {GPTQ_LAYERS} layers at Llama-3-8B width written in {time.time() - t:.1f} s")
+    per_layer_launches = sum(n for _, _, n in SOLVE_SHAPES)
+
+    def run_quantize(save, profile):
+        gptq.solve_block.launches = 0
+        t = time.perf_counter()
+        port_main(quantize_argv(ckpt, save, device, profile))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = gptq.solve_block.launches
+        if launches != per_layer_launches * GPTQ_LAYERS:
+            raise RuntimeError(f"{launches} solve-kernel launches, want "
+                               f"{per_layer_launches} x {GPTQ_LAYERS}")
+        return launches, wall, json.loads((save / "stage_timings.json").read_text())
+
+    # run 1, as a user runs it; each solve's inputs are recorded by
+    # reference only (no copy, no wait for the card)
+    solves = []
+    solve0 = gptq.gptq_quantize_matrix
+
+    def recording_solve(W, Hm, qtype, *a, **kw):
+        solves.append((W, Hm, qtype))
+        return solve0(W, Hm, qtype, *a, **kw)
+
+    save = tmp / "layers"
+    gptq.gptq_quantize_matrix = recording_solve
+    try:
+        launches, wall, timings = run_quantize(save, profile=False)
+    finally:
+        gptq.gptq_quantize_matrix = solve0
+    s_layer = timings["quantize"] / GPTQ_LAYERS
+    log(f"quantize ({CALIB_TOKENS} tokens in sequences of {CALIB_SEQ}): {GPTQ_LAYERS} layers, "
+        f"command {wall:.2f} s, walk {timings['quantize']:.2f} s = {s_layer:.2f} s/layer; "
+        f"{launches} solve-kernel launches")
+
+    # run 2, instrumented: stage ends synchronised (--stage-profile) and
+    # each refit and factorization timed between two synchronisations
+    timers = {"refit": 0.0, "factorize": 0.0}
+    fit0, fact0 = gptq.kquant.fit_supergroups, gptq.factorize_hinv_cholesky
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timers[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    gptq.kquant.fit_supergroups = timed("refit", fit0)
+    gptq.factorize_hinv_cholesky = timed("factorize", fact0)
+    try:
+        _, wall_p, timings_p = run_quantize(tmp / "layers_profiled", profile=True)
+    finally:
+        gptq.kquant.fit_supergroups, gptq.factorize_hinv_cholesky = fit0, fact0
+    stages = {k.split("/", 1)[1]: v for k, v in timings_p.items() if k.startswith("quantize/")}
+    log(f"  instrumented run: walk {timings_p['quantize']:.2f} s = "
+        f"{timings_p['quantize'] / GPTQ_LAYERS:.2f} s/layer; stages (s): "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; inside factorize_solve: "
+        f"refit {timers['refit']:.3f}, factorize {timers['factorize']:.3f}")
+
+    # 14 artifacts with the JAX names, shapes and dtypes
+    want = {"q_proj": (N_HEAD * HD, H), "k_proj": (N_KV * HD, H), "v_proj": (N_KV * HD, H),
+            "o_proj": (H, N_HEAD * HD), "gate_proj": (I, H), "up_proj": (I, H),
+            "down_proj": (H, I)}
+    names = sorted(artifacts.list_layers(save))
+    expect = sorted(f"model.layers.{i}.{'self_attn' if k[0] in 'qkvo' else 'mlp'}.{k}"
+                    for i in range(GPTQ_LAYERS) for k in want)
+    if names != expect:
+        raise RuntimeError(f"artifacts {names} != {expect}")
+    arts = {}
+    for name in names:
+        art = artifacts.load_layer(save, name)
+        d_row, d_col = want[name.split(".")[-1]]
+        shapes = {"qweight": ((d_row, d_col), np.uint8),
+                  "super_group_scale": ((d_row, d_col // 256), np.float16),
+                  "super_group_zero": ((d_row, d_col // 256), np.float16),
+                  "group_scale_quant": ((d_row, d_col // 32), np.uint8),
+                  "group_zero_quant": ((d_row, d_col // 32), np.uint8)}
+        for f, (shape, dt) in shapes.items():
+            a = getattr(art, f)
+            if a.shape != shape or a.dtype != dt:
+                raise RuntimeError(f"{name}.{f}: {a.shape} {a.dtype}, want {shape} {dt}")
+        if art.q_type != T.Q4_K:
+            raise RuntimeError(f"{name}: {art.q_type}")
+        arts[name] = art
+
+    # GPTQ at or below RTN in the H-weighted objective, on every linear
+    order = [("q_proj", "k_proj", "v_proj"), ("o_proj",), ("gate_proj", "up_proj"),
+             ("down_proj",)]
+    if len(solves) != len(order) * GPTQ_LAYERS:
+        raise RuntimeError(f"{len(solves)} solves recorded")
+    objectives = {}
+    for j, (W, Hm, qtype) in enumerate(solves):
+        li, keys = j // len(order), order[j % len(order)]
+        row = 0
+        for key in keys:
+            name = f"model.layers.{li}.{'self_attn' if key[0] in 'qkvo' else 'mlp'}.{key}"
+            Wk = W[row:row + want[key][0]]
+            row += want[key][0]
+            w_gptq = arts[name].dequantize(device)
+            w_rtn = kquant.dequantize_rtn(Wk, qtype)
+            o_g, o_r = h_objective(Wk - w_gptq, Hm), h_objective(Wk - w_rtn, Hm)
+            objectives[name] = (o_g, o_r)
+            if not o_g <= o_r:
+                raise RuntimeError(f"{name}: GPTQ objective {o_g:.6e} above RTN's {o_r:.6e}")
+    worst = max(o_g / o_r for o_g, o_r in objectives.values())
+    log(f"  GPTQ/RTN objective <= {worst:.4f} on all {len(objectives)} linears")
+    record = dict(layers=GPTQ_LAYERS, calibration_tokens=CALIB_TOKENS,
+                  sequence_length=CALIB_SEQ, wall_s=wall, s_per_layer=s_layer,
+                  launches=launches, instrumented=dict(
+                      wall_s=wall_p, s_per_layer=timings_p["quantize"] / GPTQ_LAYERS,
+                      stages=stages, refit_s=timers["refit"], factorize_s=timers["factorize"]),
+                  worst_gptq_over_rtn=worst,
+                  objectives={k: list(v) for k, v in objectives.items()})
+    return launches, record, solves, arts
+
+
+def phase_gptq_whole_solve(solves, device):
+    """gptq_quantize_matrix on layer 0's o-projection with its captured
+    Hessian, through the kernel and through the plain version."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import gptq, kquant
+
+    W, Hm, qtype = solves[1]
+    runs = {}
+    for label, fn in (("kernel", gptq.solve_block), ("plain", gptq.solve_block_reference)):
+        solve0 = gptq.solve_block
+        gptq.solve_block = fn
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = gptq.gptq_quantize_matrix(W, Hm, qtype, device=device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            gptq.solve_block = solve0
+        obj = h_objective(W - kquant.dequantize(res.qweight, res.params, qtype), Hm)
+        runs[label] = (res, secs, obj)
+    (rk, sk, ok), (rp, sp, op) = runs["kernel"], runs["plain"]
+    agree = (rk.qweight == rp.qweight).float().mean().item()
+    rel = abs(ok - op) / op
+    log(f"whole o-projection solve ({H}x{N_HEAD * HD}): kernel {sk:.3f} s, plain {sp:.3f} s; codes "
+        f"agree {agree:.6f}, objective {ok:.6e} vs {op:.6e} (rel {rel:.2e})")
+    if agree < 0.9999 or rel > 1e-4:
+        raise RuntimeError("whole solve: kernel and plain disagree")
+    return dict(kernel_s=sk, plain_s=sp, code_agreement=agree, objective_rel_diff=rel)
+
+
+def phase_gptq_to_serving(arts, device):
+    """Each artifact packed into the v2 serving format: its dequantization
+    equals the artifact's bit for bit; one v2g call on the fused gate/up."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import kquant, qmatmul
+
+    packed = {}
+    for name, art in arts.items():
+        rql = qmatmul.pack_runtime_v2(art.qweight, art.params(), art.q_type, device=device)
+        if not torch.equal(qmatmul.dequantize_runtime_v2(rql), art.dequantize(device)):
+            raise RuntimeError(f"{name}: v2 dequantization differs from the artifact's")
+        packed[name] = rql
+    gateup = qmatmul.fuse_rql_v2([packed["model.layers.0.mlp.gate_proj"],
+                                  packed["model.layers.0.mlp.up_proj"]])
+    x = (torch.randn(8, H, device=device) * 0.5).to(torch.bfloat16)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    rec = kernel_case(f"GPTQ gate/up {H}->{2 * I}", x, gateup, flush_buf.zero_)
+    log(f"serving bridge: {len(packed)} artifacts packed to v2, dequantization bit-equal; "
+        f"v2g on the GPTQ gate/up within tolerance")
+    return rec
+
+
+
 def run(device) -> dict:
-    """All four phases on ``device``; returns the kernel summary."""
+    """All five phases on ``device``; returns the kernel summary."""
+    import torch
+
     t_start = time.time()
     rng = np.random.default_rng(SEED)
     log("== phase 1: device and build")
@@ -419,6 +792,16 @@ def run(device) -> dict:
     launches, serve = phase_serving(params, cfg, rng)
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
+    del params
+    torch.cuda.empty_cache()
+
+    log("== phase 5: GPTQ at full width")
+    grecs = phase_gptq_kernel(rng, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gptq_") as tmp:
+        g_launches, gptq_rec, solves, arts = phase_gptq_quantize(Path(tmp), device)
+        gptq_rec["whole_o_solve"] = phase_gptq_whole_solve(solves, device)
+        del solves
+        phase_gptq_to_serving(arts, device)
 
     # the kernel's numbers for one decode step at B=8: the four projections
     # of every layer plus the lm_head, at the M=8 shapes measured above
@@ -434,6 +817,18 @@ def run(device) -> dict:
     log(f"one B=8 decode step: {int(per_step('bytes'))} bytes read by the kernel "
         f"(planes {int(per_step('plane_bytes'))}, of which {layer_planes} per layer), "
         f"byte bound {t_bytes:.4f} ms, operation bound {t_ops:.4f} ms")
+    # the solve kernel's numbers for one 8B-width layer at Q4_K: 208 launches
+    # at the shapes measured above
+    q4 = [r for r in grecs if r["qtype"] == "Q4_K"]
+
+    def per_layer(key):
+        return sum(r[key] * r["per_layer"] for r in q4)
+
+    g_bytes = per_layer("bytes") / HBM_BYTES_PER_S * 1e3
+    g_ops = per_layer("ops") / F32_FLOP_PER_S * 1e3
+    log(f"one 8B-width layer of GPTQ solves: {int(per_layer('bytes'))} bytes, "
+        f"{per_layer('ops'):.4e} f32 operations; kernel {per_layer('ms'):.3f} ms, byte bound "
+        f"{g_bytes:.4f} ms, operation bound {g_ops:.4f} ms")
     return {"kernels": [{
         "name": "qmatmul_v2g", "route": "cuda",
         "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2g.cu",
@@ -445,7 +840,18 @@ def run(device) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": per_step("library_ms"),
         "per": f"one B=8 decode step: {4 * cfg.num_hidden_layers + 1} calls",
-    }], "serving": serve, "seconds": time.time() - t_start}
+    }, {
+        "name": "gptq_solve", "route": "cuda",
+        "source": "gptq_gguf_tpu_torch/ops/csrc/gptq_solve.cu",
+        "replaces": "gptq_gguf_tpu/ops/gptq.py:240",
+        "launches": g_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in grecs),
+        "ms": per_layer("ms"), "plain_ms": per_layer("plain_ms"),
+        "bound_ms": max(g_bytes, g_ops),
+        "bound_by": "bytes" if g_bytes >= g_ops else "operations",
+        "library_ms": None,
+        "per": f"one Llama-3-8B-width layer at Q4_K: {sum(r['per_layer'] for r in q4)} calls",
+    }], "serving": serve, "gptq": gptq_rec, "seconds": time.time() - t_start}
 
 
 def main() -> int:

@@ -1,8 +1,10 @@
-"""Command line of the port: ``python -m gptq_gguf_tpu_torch serve ...``.
+"""Command line of the port: ``python -m gptq_gguf_tpu_torch {quantize,serve} ...``.
 
-``serve`` loads a K-quant llama GGUF onto the card, fuses q/k/v and
-gate/up, and greedily decodes one prompt of token ids through the
-continuous-batching engine (the non-HTTP ``serve`` of the JAX package).
+``quantize`` runs the GPTQ calibration walk over an HF llama checkpoint and
+writes one K-quant artifact per linear (``cli/quantize.py``). ``serve``
+loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
+greedily decodes one prompt of token ids through the continuous-batching
+engine (the non-HTTP ``serve`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -45,9 +47,15 @@ def run_serve(args) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m gptq_gguf_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    from .cli import quantize
+
+    quantize.build_parser(sub.add_parser("quantize", help="GPTQ K-quant calibration walk"))
     build_serve(sub.add_parser("serve", help="greedy decoding from a K-quant GGUF"))
     args = ap.parse_args(argv)
-    run_serve(args)
+    if args.cmd == "quantize":
+        quantize.run(args)
+    else:
+        run_serve(args)
     return 0
 
 

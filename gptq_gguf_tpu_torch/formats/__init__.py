@@ -1,1 +1,1 @@
-"""GGUF container and GGML block codecs (numpy; no torch needed)."""
+"""GGUF and safetensors containers and GGML block codecs."""

@@ -2,9 +2,11 @@
 
 Port of the dense-Llama subset of ``gptq_gguf_tpu/models/llama.py``:
 the config, RMSNorm, RoPE (default / linear / llama3 / gguf_factors), the
-SwiGLU activation and the chunked online-softmax attention the serving
-path uses on long caches. Other model families, rope types and attention
-variants raise ``NotImplementedError`` naming what is missing.
+SwiGLU activation, the chunked online-softmax attention the serving path
+uses on long caches, and the non-cached block the calibration walk runs
+(``block_capture``: the block and the inputs of its linears). Other model
+families, rope types and attention variants raise ``NotImplementedError``
+naming what is missing.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +43,36 @@ class LlamaConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def from_hf_dict(d: Dict[str, Any], dtype: torch.dtype = torch.float32) -> "LlamaConfig":
+        """Build from a HF transformers config.json dict (llama only)."""
+        mt = d.get("model_type", "llama")
+        if mt != "llama":
+            raise NotImplementedError(f"model_type {mt!r} is not ported yet (llama only)")
+        for key in ("attention_bias", "mlp_bias"):
+            if d.get(key):
+                raise NotImplementedError(f"llama with {key}=True is not ported yet")
+        return LlamaConfig(
+            vocab_size=d["vocab_size"], hidden_size=d["hidden_size"],
+            intermediate_size=d["intermediate_size"],
+            num_hidden_layers=d["num_hidden_layers"],
+            num_attention_heads=d["num_attention_heads"],
+            num_key_value_heads=d.get("num_key_value_heads", d["num_attention_heads"]),
+            head_dim=d.get("head_dim"), rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+            rope_theta=d.get("rope_theta", 10000.0),
+            max_position_embeddings=d.get("max_position_embeddings", 4096),
+            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            rope_scaling=_freeze_value(d.get("rope_scaling")), dtype=dtype)
+
+
+def _freeze_value(v):
+    """Nested dict/list -> hashable item-tuples (the config is hashed)."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze_value(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze_value(x) for x in v)
+    return v
 
 
 # JAX LlamaConfig fields the dense path does not implement, with the value
@@ -71,6 +103,47 @@ def config_from_reference(ref) -> LlamaConfig:
     kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(LlamaConfig)
           if f.name != "dtype"}
     return LlamaConfig(**kw, dtype=_DTYPES[np.dtype(ref.dtype).name])
+
+
+# the keys of a dense Llama block, and the module-level keys of the params
+_LAYER_KEYS = frozenset(("input_layernorm", "post_attention_layernorm", "q_proj", "k_proj",
+                         "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"))
+_TOP_KEYS = frozenset(("embed_tokens", "norm", "lm_head", "layers"))
+
+
+def check_dense_layer(layer: Dict[str, Any]) -> None:
+    """Raise NotImplementedError for a block that is not a dense Llama
+    block (MoE, MLA, biases, extra norms)."""
+    extra = sorted(set(layer) - _LAYER_KEYS)
+    if extra:
+        raise NotImplementedError(f"block params {extra} are not ported yet (dense Llama only)")
+
+
+def dense_params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device="cuda"):
+    """The JAX package's dense param tree (numpy arrays, as its
+    ``loader.load_params(host=True)`` gives) as the port's: the same keys,
+    each array a tensor on ``device`` with its dtype kept."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    extra = sorted(set(tree) - _TOP_KEYS)
+    if extra:
+        raise NotImplementedError(f"params {extra} are not ported yet (dense Llama only)")
+
+    def conv(a):
+        a = np.array(a, order="C")  # writable copy: arrays from JAX are read-only
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = []
+    for layer in tree["layers"]:
+        check_dense_layer(layer)
+        out["layers"].append({k: conv(v) for k, v in layer.items()})
+    if len(out["layers"]) != cfg.num_hidden_layers:
+        raise ValueError("layer count does not match the config")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +305,128 @@ def _act_only(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
 
 def _mlp_act(gate: torch.Tensor, up: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return _act_only(gate, cfg) * up
+
+
+# ---------------------------------------------------------------------------
+# The non-cached block (calibration and propagation)
+# ---------------------------------------------------------------------------
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w^T with f32 accumulation, cast back to x's dtype."""
+    y = torch.matmul(x.float(), w.float().T)
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def attention_scores(q, k, v, mask, scale=None) -> torch.Tensor:
+    """Plain attention: q (B, nH, S, hd), k/v (B, nKV, S, hd), mask (B, S, S)
+    bool; GQA by head grouping. Returns f32 (B, nH, S, hd)."""
+    B, nH, S, hd = q.shape
+    nKV = k.shape[1]
+    qg = q.reshape(B, nKV, nH // nKV, S, hd)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bkgsh,bkth->bkgst", qg.float(), k.float()) * scale
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,bkth->bkgsh", probs.float(), v.float())
+    return out.reshape(B, nH, S, v.shape[-1])
+
+
+def causal_mask(B: int, S: int, device=None) -> torch.Tensor:
+    return torch.tril(torch.ones((S, S), dtype=torch.bool, device=device)).expand(B, S, S)
+
+
+def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
+                  layer_idx: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One dense Llama block, also returning the inputs of its quantizable
+    linears: (out, {"qkv", "o", "gateup", "down"}). x: (B, S, H); cos/sin:
+    (B, S, hd); mask: (B, S, S) causal."""
+    check_dense_layer(layer)
+    B, S, H = x.shape
+    hd = cfg.head_dim_
+    nH, nKV = cfg.num_attention_heads, cfg.num_key_value_heads
+    h1 = apply_norm(x, cfg, layer["input_layernorm"])
+    q = _linear(h1, layer["q_proj"]).reshape(B, S, nH, hd).transpose(1, 2)
+    k = _linear(h1, layer["k_proj"]).reshape(B, S, nKV, hd).transpose(1, 2)
+    v = _linear(h1, layer["v_proj"]).reshape(B, S, nKV, hd).transpose(1, 2)
+    q, k = apply_rope(q, k, cos, sin)
+    if S >= 2 * FLASH_CHUNK:
+        # long sequences stream KV chunks (the causal mask is implied)
+        qpos = torch.arange(S, device=x.device).expand(B, S)
+        attn = flash_attention(q, k, v, qpos)
+    else:
+        attn = attention_scores(q, k, v, mask)
+    attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
+    x = x + _linear(attn, layer["o_proj"])
+    h2 = apply_norm(x, cfg, layer["post_attention_layernorm"])
+    gate = _linear(h2, layer["gate_proj"])
+    up = _linear(h2, layer["up_proj"])
+    down_in = _mlp_act(gate, up, cfg)
+    x = x + _linear(down_in, layer["down_proj"])
+    return x, {"qkv": h1, "o": attn, "gateup": h2, "down": down_in}
+
+
+def block_forward(layer, x, cos, sin, mask, cfg: LlamaConfig, layer_idx: int = 0) -> torch.Tensor:
+    """One dense Llama block: (B, S, H) -> (B, S, H)."""
+    return block_capture(layer, x, cos, sin, mask, cfg, layer_idx)[0]
+
+
+def embed_forward(params, input_ids: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    return params["embed_tokens"][input_ids].to(cfg.dtype)
+
+
+def head_forward(params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm + lm head -> logits (B, S, V) in f32."""
+    h = apply_norm(x, cfg, params["norm"])
+    w = params.get("lm_head", params["embed_tokens"])
+    return torch.matmul(h.float(), w.float().T)
+
+
+# ---------------------------------------------------------------------------
+# Quantizable-layer accounting: the HF module names, so artifact
+# directories match the JAX package's
+# ---------------------------------------------------------------------------
+
+BLOCK_LINEAR_KEYS = (
+    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"
+)
+
+
+def linear_layer_names(cfg: LlamaConfig, include_non_block: bool = False) -> List[str]:
+    names = ["model.embed_tokens"] if include_non_block else []
+    for i in range(cfg.num_hidden_layers):
+        for key in BLOCK_LINEAR_KEYS:
+            mod = "self_attn" if key[0] in "qkvo" else "mlp"
+            names.append(f"model.layers.{i}.{mod}.{key}")
+    if include_non_block and not cfg.tie_word_embeddings:
+        names.append("lm_head")
+    return names
+
+
+def get_linear(params, name: str) -> torch.Tensor:
+    """A weight matrix by HF module name."""
+    if name == "model.embed_tokens":
+        return params["embed_tokens"]
+    if name == "lm_head":
+        return params.get("lm_head", params["embed_tokens"])
+    parts = name.split(".")
+    return params["layers"][int(parts[2])][parts[4]]
+
+
+def set_linear(params, name: str, value):
+    """A copy of params with one weight matrix replaced (by HF module name)."""
+    if name == "model.embed_tokens":
+        return {**params, "embed_tokens": value}
+    if name == "lm_head":
+        return {**params, "lm_head": value}
+    parts = name.split(".")
+    idx = int(parts[2])
+    layers = list(params["layers"])
+    layers[idx] = {**layers[idx], parts[4]: value}
+    return {**params, "layers": layers}
 
 
 # Param dict layout (what serving/model.py builds):

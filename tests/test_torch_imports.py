@@ -25,6 +25,7 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert f"{PKG}.ops.qmatmul" in mods and f"{PKG}.serving.engine" in mods
+    assert f"{PKG}.ops.gptq" in mods and f"{PKG}.quant.calibrate" in mods
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -64,6 +65,18 @@ def test_entry_points_default_to_cuda(no_cuda):
                                         SuperGroupParams(z, z, zi, zi), T.Q4_K),
         lambda: qmodel.load_gguf_for_serving(REPO / "missing.gguf"),
         lambda: qmodel.params_from_numpy({"embed_tokens": np.zeros((8, 256))}, cfg),
+    ]
+    # the quantize path: the walk, one solve, and the command line without --device
+    from gptq_gguf_tpu_torch.__main__ import main
+    from gptq_gguf_tpu_torch.ops import gptq
+    from gptq_gguf_tpu_torch.quant import calibrate
+
+    calls += [
+        lambda: calibrate.quantize_model({"layers": []}, cfg, [np.zeros((1, 4), np.int64)]),
+        lambda: gptq.gptq_quantize_matrix(np.zeros((4, 256), np.float32),
+                                          np.eye(256, dtype=np.float32), T.Q4_K),
+        lambda: main(["quantize", "--model_name_or_path", str(REPO / "missing"),
+                      "--save_dir", str(REPO / "missing")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,4 +1,5 @@
-"""The v2g CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (v2g dequant-matmul, GPTQ column-block solve) against
+their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor the JAX package, so on
@@ -6,8 +7,10 @@ a card host it runs without them:
 
     python -m pytest tests/test_torch_kernel_cuda.py --noconftest -q
 
-Tolerance: kernel and plain version compute the same bf16 products and
-differ only in the order of the f32 sums: atol 1e-4 of max|y|."""
+Tolerances: v2g and its plain version compute the same bf16 products and
+differ only in the order of the f32 sums: atol 1e-4 of max|y|. The GPTQ
+solve repeats its plain version's IEEE f32 operations in the same order:
+codes and errors equal bit for bit."""
 
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ import torch
 
 from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS, GGMLQuantizationType as T
 from gptq_gguf_tpu_torch.models.llama import LlamaConfig
-from gptq_gguf_tpu_torch.ops import qmatmul
+from gptq_gguf_tpu_torch.ops import gptq, qmatmul
 from gptq_gguf_tpu_torch.ops.kquant import SuperGroupParams
 from gptq_gguf_tpu_torch.serving import model as qmodel
 
@@ -25,7 +28,7 @@ ALL_K = [T.Q2_K, T.Q3_K, T.Q4_K, T.Q5_K, T.Q6_K]
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the v2g CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
     return torch.device("cuda")
 
 
@@ -144,3 +147,64 @@ def test_forward_cached_on_card_matches_cpu(cuda):
     want = out["cpu"]
     np.testing.assert_allclose(out["cuda"].numpy(), want.numpy(), rtol=0,
                                atol=2e-2 * want.abs().max().item())
+
+
+def _solve_inputs(d_row, bs, qtype, seed, device):
+    """w, U (the upper factor of a seeded SPD matrix), s, z for one block."""
+    spec = KQUANT_SPECS[qtype]
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(bs, 4 * bs))
+    Hm = torch.from_numpy(A @ A.T / (4 * bs) + 0.1 * np.eye(bs))
+    Ur = torch.linalg.cholesky(Hm.flip(0, 1)).flip(0, 1)
+    U = torch.linalg.solve_triangular(Ur, torch.eye(bs, dtype=torch.float64), upper=True)
+    w = rng.normal(size=(d_row, bs)) * 0.05
+    s = rng.uniform(0.002, 0.01, size=(d_row, bs))
+    z = np.zeros_like(s) if spec.signed else rng.uniform(0, 0.05, size=(d_row, bs))
+    return [torch.as_tensor(a, dtype=torch.float32).to(device).contiguous()
+            for a in (w, U, s, z)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K, T.Q3_K], ids=lambda q: q.name)
+@pytest.mark.parametrize("d_row,bs", [(1, 32), (77, 128), (4096, 128), (300, 256),
+                                      (20000, 128), (33, 64)])
+def test_gptq_solve_kernel_matches_plain(cuda, qtype, d_row, bs):
+    spec = KQUANT_SPECS[qtype]
+    args = _solve_inputs(d_row, bs, qtype, d_row + bs, cuda) + [spec.qmin, spec.qmax, 1e-9]
+    n0 = gptq.solve_block.launches
+    qk, ek = gptq.solve_block(*args)
+    qp, ep = gptq.solve_block_reference(*args)
+    torch.cuda.synchronize()
+    assert gptq.solve_block.launches == n0 + 1
+    assert torch.equal(qk, qp) and torch.equal(ek, ep)
+
+
+@pytest.mark.cuda
+def test_gptq_solve_kernel_refuses_what_it_does_not_take(cuda):
+    w, U, s, z = _solve_inputs(64, 128, T.Q4_K, 1, cuda)
+    w2, U2, s2, z2 = _solve_inputs(8, 512, T.Q4_K, 2, cuda)
+    with pytest.raises(ValueError, match="at most 256"):
+        gptq.solve_block(w2, U2, s2, z2, 0, 15, 1e-9)
+    with pytest.raises(ValueError, match="u:"):
+        gptq.solve_block(w, U.double(), s, z, 0, 15, 1e-9)
+    with pytest.raises(ValueError, match="s:"):
+        gptq.solve_block(w, U, s.T.contiguous().T, z, 0, 15, 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype,kw", [(T.Q4_K, {}), (T.Q6_K, {"act_order": True,
+                                                               "static_groups": True})])
+def test_gptq_quantize_matrix_kernel_equals_plain_on_card(cuda, qtype, kw, monkeypatch):
+    rng = np.random.default_rng(3)
+    W = (rng.normal(size=(96, 512)) * 0.08).astype(np.float32)
+    X = rng.normal(size=(2048, 512)).astype(np.float32) @ (
+        rng.normal(size=(512, 512)).astype(np.float32) / 23 + np.eye(512, dtype=np.float32))
+    H = 2 * X.T @ X / 2048
+    n0 = gptq.solve_block.launches
+    got = gptq.gptq_quantize_matrix(W, H, qtype, gptq.GPTQConfig(**kw))
+    assert gptq.solve_block.launches - n0 == 4  # 512 columns in blocks of 128
+    monkeypatch.setattr(gptq, "solve_block", gptq.solve_block_reference)
+    want = gptq.gptq_quantize_matrix(W, H, qtype, gptq.GPTQConfig(**kw))
+    assert torch.equal(got.qweight, want.qweight)
+    for a, b in zip(got.params, want.params):
+        assert torch.equal(a, b)

@@ -6,8 +6,9 @@
 Needs one CUDA card and nvcc; exits non-zero without a card or outside a
 checkout of the repository. Phases, each raising on failure:
 
-1. device and build: the card's name and power limit; the v2g kernel is
-   built from gptq_gguf_tpu_torch/ops/csrc/ and its build time printed;
+1. device and build: the card's name and power limit; the kernels are
+   built from gptq_gguf_tpu_torch/ops/csrc/ (one nvcc per source, all at
+   once) and their build times printed;
 2. kernel against its plain PyTorch version on the card, at every
    projection shape of Llama-3-8B (Q4_K, Q6_K lm_head) at M = 8 and 128,
    plus Q2_K / Q3_K / Q5_K and a ragged d_out: error, kernel / plain /
@@ -26,7 +27,21 @@ checkout of the repository. Phases, each raising on failure:
    every linear, seconds per layer) and once instrumented (the stage
    breakdown, the refit's and the factorizations' seconds); one whole
    o-projection solve through the kernel and through the plain version;
-   the artifacts packed into the v2 serving format and run through v2g.
+   the artifacts packed into the v2 serving format and run through v2g;
+6. paged serving at full width (run before phase 5, while the serving
+   weights are on the card): both paged flash-decode kernels against their
+   plain versions at the 8B attention shape (B=8, 8 kv heads of 4 query
+   heads, hd 128, page 64, lengths 0-2047 with -1 past the live pages;
+   plain, window, sinks, softcap), timed at fill 300 and 1900 beside their
+   byte bound and one SDPA call over the gathered live K/V; 2-layer logits
+   paged through the kernels against paged through the plain versions and
+   against the contiguous cache, with a planted-fault control (a decode
+   attention without its last live chunk) that must fail the same limit;
+   PagedContinuousBatchingEngine serving
+   phase 3's 12-request mix in bf16, int4 and on an oversubscribed 24-page
+   pool (budgets, pages returned, 32 kernel launches per decode step); a
+   steady B=8 step at fill 300 and 1900; HTTP (serve_http on port 0): 8
+   concurrent requests equal the engine's direct outputs, one streamed.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -154,7 +169,7 @@ def phase_device_and_build():
         out = cuda_build.build(name)
         return out, time.time() - t0
 
-    names = ("qmatmul_v2g", "gptq_solve")
+    names = ("qmatmul_v2g", "gptq_solve", "paged_decode")
     with ThreadPoolExecutor(len(names)) as ex:  # one nvcc per source, all at once
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (nvcc_log, secs) in builds.items():
@@ -773,10 +788,412 @@ def phase_gptq_to_serving(arts, device):
         f"v2g on the GPTQ gate/up within tolerance")
     return rec
 
+# ---------------------------------------------------------------------------
+# Phase 6: paged serving at full width
+# ---------------------------------------------------------------------------
+
+PAGE, PPS, POOL_PAGES = 64, 32, 256  # 8 slots x 2048 positions, fully provisioned
+PAGED_LENGTHS = (0, 5, 63, 64, 300, 1000, 1500, 2047)
+STEADY_FILLS = (300, 1900)   # uniform fills of the timed steps; the first is the summary's
+SERVE_MIX = (100, 301, 32, 65)  # phase 3's prompt lengths and budgets, [lo, hi)
+HTTP_MIX = (50, 151, 16, 17)
+
+
+def paged_pools(q4: bool, device):
+    """Random K / V pools of POOL_PAGES + 1 pages at the 8B attention shape:
+    bf16, or int4 in the combined layout (quantized by the port)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    shape = (POOL_PAGES + 1, N_KV, PAGE, HD)
+    k = torch.randn(shape, generator=gen, device=device) * 0.3
+    v = torch.randn(shape, generator=gen, device=device)
+    if not q4:
+        return k.to(torch.bfloat16), v.to(torch.bfloat16)
+    kq, ks = qmodel._quantize_kv_q4(k)
+    vq, vs = qmodel._quantize_kv_q4(v)
+    return torch.cat([kq, vq], -1), torch.cat([ks, vs], -1).transpose(2, 3).contiguous()
+
+
+def paged_table(rng, lengths, device):
+    """Each slot's live pages from one permutation of the pool; -1 after."""
+    import torch
+
+    order = rng.permutation(POOL_PAGES)
+    table = np.full((len(lengths), PPS), -1, np.int32)
+    used = 0
+    for b, length in enumerate(lengths):
+        live = length // PAGE + 1
+        table[b, :live] = order[used:used + live]
+        used += live
+    return torch.as_tensor(table, device=device)
+
+
+def paged_cost(lengths, q4: bool, window: int = 0):
+    """(bytes, f32 operations) one call must spend: each attended position's
+    K and V (or codes and group scales) of every kv head read once, the
+    table entries of the pages it reads, q and lengths read and the f32
+    output written once; ~4 hd operations per (query head, attended
+    position): q.k, p.v and the softmax."""
+    per_pos = HD + 2 * (HD // 32) * 4 if q4 else 2 * HD * 2
+    pages = positions = 0
+    for length in lengths:
+        lo = max(length - window + 1, 0) if window else 0
+        pages += length // PAGE + 1 - lo // PAGE
+        positions += length + 1 - lo
+    n = len(lengths)
+    nbytes = positions * N_KV * per_pos + 2 * n * N_HEAD * HD * 4 + pages * 4 + n * 4
+    return nbytes, 4.0 * HD * N_HEAD * positions
+
+
+def phase_paged_kernels(rng, device):
+    """Both paged decode kernels against their plain versions at the 8B
+    attention shape, at mixed lengths with -1 past the live pages (plain,
+    window 48, sinks, softcap 30), then timed at a uniform fill."""
+    import torch
+    import torch.nn.functional as F
+
+    from gptq_gguf_tpu_torch.models.llama import dequant_kv_q4
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    q = torch.randn(len(PAGED_LENGTHS), N_KV, N_HEAD // N_KV, HD, device=device)
+    sinks = torch.randn(N_HEAD, device=device)
+    scale = HD ** -0.5
+    cases = [("plain", {}), ("window 48", {"window": 48}), ("sinks", {"sinks": sinks}),
+             ("softcap 30", {"softcap": 30.0})]
+    recs = {}
+    for q4 in (False, True):
+        name = "paged_flash_decode_q4" if q4 else "paged_flash_decode"
+        fn = pa.paged_flash_decode_q4 if q4 else pa.paged_flash_decode
+        ref = pa.paged_flash_decode_q4_reference if q4 else pa.paged_flash_decode_reference
+        kp, vp = paged_pools(q4, device)
+        lengths = torch.as_tensor(PAGED_LENGTHS, dtype=torch.int32, device=device)
+        table = paged_table(rng, PAGED_LENGTHS, device)
+        errs = []
+        for label, kw in cases:
+            got = fn(q, kp, vp, table, lengths, scale=scale, **kw)
+            want = ref(q, kp, vp, table, lengths, scale=scale, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} {label}: output is not finite")
+            # tolerance: kernel and plain version sum the same f32 terms in
+            # another order, with exp / tanh from other libraries
+            err = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            log(f"  {name:>22} {label:>10}: max|err| {err:.3e} (tol {tol:.3e}: f32 sums in "
+                f"another order)")
+            if not err <= tol:
+                raise RuntimeError(f"{name} {label}: kernel vs plain {err:.3e} > {tol:.3e}")
+            errs.append(err)
+
+        def timed(fill):
+            """Kernel, plain and library ms at a uniform fill of B = 8 slots."""
+            fills = [fill] * 8
+            ln = torch.full((8,), fill, dtype=torch.int32, device=device)
+            tb = paged_table(rng, fills, device)
+            qq = q[:8].contiguous()
+            args = (qq, kp, vp, tb, ln)
+            ms = cuda_ms(lambda: fn(*args, scale=scale), 50, flush_buf.zero_)
+            plain_ms = cuda_ms(lambda: ref(*args, scale=scale), 5, flush_buf.zero_)
+            # yardstick: one SDPA call over the live K / V, already gathered
+            # contiguous (int4 dequantized first) in bf16; the port never calls it
+            L = fill + 1
+            if q4:
+                hd2, ng = HD // 2, HD // 32
+                codes = pa._gather_slot_kv(kp, tb)[:, :, :L]
+                scl = pa._gather_slot_scales_t(vp, tb)[:, :, :L]
+                k_l = dequant_kv_q4(codes[..., :hd2], scl[..., :ng]).to(torch.bfloat16)
+                v_l = dequant_kv_q4(codes[..., hd2:], scl[..., ng:]).to(torch.bfloat16)
+            else:
+                k_l = pa._gather_slot_kv(kp, tb)[:, :, :L].contiguous()
+                v_l = pa._gather_slot_kv(vp, tb)[:, :, :L].contiguous()
+            q_l = qq.reshape(8, N_HEAD, 1, HD).to(torch.bfloat16)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q_l, k_l, v_l, scale=scale, enable_gqa=True), 50, flush_buf.zero_)
+            nbytes, ops = paged_cost(fills, q4)
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+            return dict(fill=fill, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bytes=nbytes, ops=ops, bound_ms=max(t_b, t_o),
+                        bound_by="bytes" if t_b >= t_o else "operations")
+
+        steady = {fill: timed(fill) for fill in STEADY_FILLS}
+        for r in steady.values():
+            log(f"  {name:>22} B=8 fill {r['fill']}: kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.3f} ms  library {r['library_ms']:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']} B, {r['ops']:.3e} ops)")
+        recs[name] = dict(max_abs_err=max(errs), steady=steady)
+        del kp, vp
+    return recs
+
+
+def phase_paged_consistency(params, cfg, rng, device):
+    """2 layers at full width: a 60-token prefill and 8 decode steps across
+    the page boundary; paged through the kernels against paged through
+    their plain versions (bf16 and int4), paged bf16 against the
+    contiguous cache."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import model as qmodel, paged
+
+    p2 = {**params, "layers": params["layers"][:2]}
+    c2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 60)), device=device)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 8)), device=device)
+    table = torch.randperm(2 * PPS, device=device).to(torch.int32).reshape(2, PPS)
+
+    plain_fns = {"paged_flash_decode": pa.paged_flash_decode_reference,
+                 "paged_flash_decode_q4": pa.paged_flash_decode_q4_reference}
+
+    def drop_last_chunk(q, kp, vp, table, lengths, **kw):
+        """Planted fault: the plain version without the last live chunk of
+        32 positions (the kernel's chunk), the query's own among them."""
+        return pa.paged_flash_decode_reference(q, kp, vp, table, lengths // 32 * 32 - 1, **kw)
+
+    def run_paged(kv_dtype, swap):
+        saved = {k: getattr(pa, k) for k in swap}
+        for k, fn in swap.items():
+            setattr(pa, k, fn)
+        try:
+            cache = paged.init_paged_cache(c2, 2, PAGE * PPS, PAGE, kv_dtype=kv_dtype,
+                                           device=device)
+            cache = cache._replace(page_table=table)
+            rows = []
+            logits, cache = paged.forward_paged(p2, c2, prompt, cache)
+            rows.append(logits)
+            for j in range(feed.shape[1]):
+                logits, cache = paged.forward_paged(p2, c2, feed[:, j:j + 1], cache)
+                rows.append(logits)
+            return torch.stack(rows)
+        finally:
+            for k, fn in saved.items():
+                setattr(pa, k, fn)
+
+    def run_contiguous():
+        cache = qmodel.init_cache(c2, 2, PAGE * PPS, device=device)
+        rows = []
+        logits, cache = qmodel.forward_cached(p2, c2, prompt, cache)
+        rows.append(logits)
+        for j in range(feed.shape[1]):
+            logits, cache = qmodel.forward_cached(p2, c2, feed[:, j:j + 1], cache)
+            rows.append(logits)
+        return torch.stack(rows)
+
+    n0 = pa.paged_flash_decode.launches, pa.paged_flash_decode_q4.launches
+    bf16 = run_paged(None, {})
+    pairs = {"bf16 kernel vs plain": (bf16, run_paged(None, plain_fns)),
+             "int4 kernel vs plain": (run_paged("int4", {}), run_paged("int4", plain_fns)),
+             "bf16 paged vs contiguous": (bf16, run_contiguous())}
+    launched = (pa.paged_flash_decode.launches - n0[0], pa.paged_flash_decode_q4.launches - n0[1])
+    if launched != (2 * 8, 2 * 8):
+        raise RuntimeError(f"paged kernel launches {launched}, want 16 of each")
+    # the control: a decode attention that skips its last live chunk must
+    # come out as not correct under the same limit
+    pairs["bf16 kernel vs planted fault (control)"] = (
+        bf16, run_paged(None, {"paged_flash_decode": drop_last_chunk}))
+    for label, (a, b) in pairs.items():
+        # tolerance as phase 4: f32 sum order, turned into rare bf16 flips
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"paged consistency ({label}, 2 layers, prefill 60 + 8 decode): max|dlogit| "
+            f"{err:.3e}, tol {3e-3 * scale:.3e} (3e-3 of max|logit|); argmax agreement "
+            f"{agree:.2f}")
+        correct = bool(torch.isfinite(a).all()) and err <= 3e-3 * scale
+        if correct == label.endswith("(control)"):
+            raise RuntimeError(f"paged consistency {label}: "
+                               + ("the planted fault passes" if correct else "logits disagree"))
+
+
+def serve_requests(rng, cfg, n, lo, hi, budget_lo, budget_hi):
+    return [(rng.integers(0, cfg.vocab_size, size=int(rng.integers(lo, hi))),
+             int(rng.integers(budget_lo, budget_hi))) for _ in range(n)]
+
+
+def phase_paged_serving(params, cfg, rng, device):
+    """PagedContinuousBatchingEngine(num_slots=8, max_len=2048, page 64) at
+    full width on phase 3's request mix: bf16, int4, and bf16 on an
+    oversubscribed 24-page pool. Returns each run's kernel launches and the
+    bf16 engine (idle) for the steady-step and HTTP checks."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import engine
+
+    requests = serve_requests(rng, cfg, 12, *SERVE_MIX)
+    step0 = engine._paged_decode_step
+    runs, keep = {}, None
+    for label, kw in (("bf16", {}), ("int4", {"kv_quantized": "int4"}),
+                      ("bf16, 24-page pool", {"n_pages": 24})):
+        eng = engine.PagedContinuousBatchingEngine(params, cfg, num_slots=8, max_len=PAGE * PPS,
+                                                   page_size=PAGE, device=device, **kw)
+        uids = {eng.submit(p, max_new_tokens=n): n for p, n in requests}
+        decode = {"s": 0.0, "steps": 0}
+
+        def timed_step(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step0(*a, **k)
+            torch.cuda.synchronize()
+            decode["s"] += time.perf_counter() - t
+            decode["steps"] += 1
+            return out
+
+        engine._paged_decode_step = timed_step
+        pa.paged_flash_decode.launches = pa.paged_flash_decode_q4.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            engine._paged_decode_step = step0
+        launches = (pa.paged_flash_decode.launches, pa.paged_flash_decode_q4.launches)
+        q4 = "kv_quantized" in kw
+        if len(done) != 12 or {r.uid for r in done} != set(uids):
+            raise RuntimeError(f"paged {label}: served {len(done)} of 12 requests")
+        for r in done:
+            if len(r.output) != uids[r.uid] or r.finish_reason != "length":
+                raise RuntimeError(f"paged {label} request {r.uid}: {len(r.output)} tokens, "
+                                   f"budget {uids[r.uid]}, {r.finish_reason}")
+            if not all(0 <= t < cfg.vocab_size for t in r.output):
+                raise RuntimeError(f"paged {label} request {r.uid}: token id out of range")
+        if eng.alloc.available != eng.cache.n_pages:
+            raise RuntimeError(f"paged {label}: {eng.alloc.available} of "
+                               f"{eng.cache.n_pages} pages back in the pool")
+        want = (0, cfg.num_hidden_layers * decode["steps"]) if q4 else \
+            (cfg.num_hidden_layers * decode["steps"], 0)
+        if decode["steps"] == 0 or launches != want:
+            raise RuntimeError(f"paged {label}: kernel launches {launches}, want {want} "
+                               f"({decode['steps']} decode forwards)")
+        gen_tokens = sum(len(r.output) for r in done)
+        ms = decode["s"] / decode["steps"] * 1e3
+        log(f"paged serving ({label}): 12 requests, {gen_tokens} tokens in {wall:.2f} s; "
+            f"{decode['steps']} decode steps at {ms:.2f} ms/step, "
+            f"{(gen_tokens - 12) / decode['s']:.1f} generated tok/s; "
+            f"{max(launches)} paged-kernel launches ({cfg.num_hidden_layers} per step); "
+            f"all {eng.cache.n_pages} pages returned")
+        runs[label] = dict(wall_s=wall, decode_steps=decode["steps"], decode_ms_per_step=ms,
+                           decode_tok_s=(gen_tokens - 12) / decode["s"],
+                           launches=max(launches), n_pages=eng.cache.n_pages)
+        if keep is None:
+            keep = eng
+        else:
+            del eng
+            torch.cuda.empty_cache()
+    return runs, keep
+
+
+def phase_paged_steady(eng, cfg, device):
+    """A steady B = 8 decode step of the paged engine with every slot live
+    at fill 300 and at fill 1900 (a fully provisioned table), and the bf16
+    kernel's device time per step at that fill. Leaves the engine idle."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import engine
+
+    cache = eng.cache
+    cache.page_table.copy_(torch.arange(8 * PPS, dtype=torch.int32, device=device).reshape(8, PPS))
+    tokens = torch.randint(0, cfg.vocab_size, (8,), device=device, dtype=torch.int32)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    for fill in STEADY_FILLS:
+        for warm in (True, False):
+            cache = cache._replace(lengths=torch.full((8,), fill, dtype=torch.int32,
+                                                      device=device))
+            steps = 2 if warm else 16
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                tokens, _, cache = engine._paged_decode_step(eng.params, cfg, tokens, cache)
+            tokens.tolist()
+            dt = (time.perf_counter() - t) / steps
+        qk = torch.randn(8, N_KV, N_HEAD // N_KV, HD, device=device)
+        ln = torch.full((8,), fill, dtype=torch.int32, device=device)
+        k_ms = cuda_ms(lambda: pa.paged_flash_decode(qk, cache.k_pages[0], cache.v_pages[0],
+                                                     cache.page_table, ln, scale=HD ** -0.5),
+                       50, flush_buf.zero_) * cfg.num_hidden_layers
+        log(f"paged steady decode B=8 fill {fill}: {dt * 1e3:.2f} ms/step, {8 / dt:.1f} tok/s; "
+            f"paged kernel {k_ms:.4f} ms/step ({cfg.num_hidden_layers} calls)")
+        out[fill] = dict(ms_per_step=dt * 1e3, tok_s=8 / dt, kernel_ms_per_step=k_ms)
+    eng.cache.page_table.fill_(-1)
+    eng.cache.lengths.zero_()
+    return out
+
+
+def phase_paged_http(eng, cfg, rng):
+    """serve_http over the paged engine on port 0: 8 concurrent
+    /completion requests equal the same prompts run on the engine directly;
+    one streamed request's chunks concatenate to its tokens; /health ok."""
+    import urllib.request
+
+    from gptq_gguf_tpu_torch.serving import server
+
+    requests = serve_requests(rng, cfg, 8, *HTTP_MIX)
+    uids = [eng.submit(p, max_new_tokens=n) for p, n in requests]
+    direct = {r.uid: r.output for r in eng.run_until_done()}
+    direct = [direct[u] for u in uids]
+    eng.completed.clear()
+    srv, runner = server.serve_http(eng, port=0, block=False)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(payload):
+        req = urllib.request.Request(f"{base}/completion", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as ex:
+            outs = list(ex.map(lambda pn: json.loads(post({
+                "prompt_tokens": pn[0].tolist(), "max_new_tokens": pn[1]}))["tokens"],
+                requests))
+        wall = time.perf_counter() - t0
+        if outs != direct:
+            raise RuntimeError("HTTP outputs differ from the engine run directly")
+        body = post({"prompt_tokens": requests[0][0].tolist(), "max_new_tokens": requests[0][1],
+                     "stream": True}).decode()
+        events = [e[len("data: "):] for e in body.split("\n\n") if e]
+        chunks = [json.loads(e) for e in events[:-1]]
+        streamed = [t for c in chunks for t in c.get("tokens", [])]
+        if events[-1] != "[DONE]" or streamed != direct[0]:
+            raise RuntimeError("streamed chunks do not concatenate to the request's tokens")
+        with urllib.request.urlopen(f"{base}/health", timeout=30) as r:
+            health = json.loads(r.read())
+        if health["status"] != "ok":
+            raise RuntimeError(f"/health: {health}")
+    finally:
+        srv.shutdown()
+        runner.stop()
+    log(f"paged HTTP: 8 concurrent /completion requests in {wall:.2f} s equal the engine's "
+        f"direct outputs; {len(chunks) - 1} streamed chunks concatenate to the tokens; "
+        f"/health ok")
+    return dict(wall_s=wall, stream_chunks=len(chunks) - 1)
+
+
+def paged_summary(name, source_line, krec, launches):
+    """The summary entry of one paged kernel: one B=8 decode step at the
+    first steady fill (300), one call per layer at the times of phase 6a."""
+    r = krec["steady"][STEADY_FILLS[0]]
+    n = N_LAYERS
+    return {"name": name, "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/paged_decode.cu",
+            "replaces": f"gptq_gguf_tpu/ops/paged_attention.py:{source_line}",
+            "launches": launches, "max_abs_err": krec["max_abs_err"],
+            "ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n, "bound_ms": r["bound_ms"] * n,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"] * n,
+            "per": f"one B=8 decode step at fill {STEADY_FILLS[0]}: {n} calls"}
 
 
 def run(device) -> dict:
-    """All five phases on ``device``; returns the kernel summary."""
+    """All six phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
@@ -792,7 +1209,15 @@ def run(device) -> dict:
     launches, serve = phase_serving(params, cfg, rng)
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
-    del params
+    log("== phase 6: paged serving at full width")
+    t6 = time.time()
+    precs = phase_paged_kernels(rng, device)
+    phase_paged_consistency(params, cfg, rng, device)
+    paged_runs, paged_eng = phase_paged_serving(params, cfg, rng, device)
+    paged_rec = dict(runs=paged_runs, steady=phase_paged_steady(paged_eng, cfg, device),
+                     http=phase_paged_http(paged_eng, cfg, rng))
+    log(f"phase 6 took {time.time() - t6:.1f} s")
+    del params, paged_eng
     torch.cuda.empty_cache()
 
     log("== phase 5: GPTQ at full width")
@@ -851,7 +1276,12 @@ def run(device) -> dict:
         "bound_by": "bytes" if g_bytes >= g_ops else "operations",
         "library_ms": None,
         "per": f"one Llama-3-8B-width layer at Q4_K: {sum(r['per_layer'] for r in q4)} calls",
-    }], "serving": serve, "gptq": gptq_rec, "seconds": time.time() - t_start}
+    }, paged_summary("paged_flash_decode", 70, precs["paged_flash_decode"],
+                     paged_runs["bf16"]["launches"]),
+        paged_summary("paged_flash_decode_q4", 160, precs["paged_flash_decode_q4"],
+                      paged_runs["int4"]["launches"])],
+        "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
+        "seconds": time.time() - t_start}
 
 
 def main() -> int:

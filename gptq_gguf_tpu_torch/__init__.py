@@ -7,13 +7,16 @@ is copied and trimmed. Entry points run on the card (``device="cuda"``) and
 raise when CUDA is missing; only an explicit ``device="cpu"`` runs the plain
 PyTorch versions on the host.
 
-Two slices are ported. GPTQ quantization of a dense Llama checkpoint:
+Three slices are ported. GPTQ quantization of a dense Llama checkpoint:
 the safetensors reader, K-quant fitting, the GPTQ solver with its
 hand-written column-block CUDA kernel, the calibration walk and its
 per-layer artifacts (``quantize``). Greedy serving of a K-quant GGUF
 Llama: GGUF reading, the v2 runtime weight format, the hand-written v2g
 dequant-matmul CUDA kernel, the dense Llama decoder with a contiguous bf16
-KV cache, and the continuous-batching engine (``serve``).
+KV cache, and the continuous-batching engine (``serve``). Paged serving
+over HTTP: block-table KV page pools (bf16 or int4), the paged engine,
+the hand-written paged flash-decode CUDA kernels, the GGUF tokenizer and
+the HTTP server (``serve --http --paged``).
 """
 
 import torch

@@ -247,6 +247,20 @@ def apply_rope(q, k, cos, sin):
 # this long stream chunks instead of materializing (S, L) scores
 FLASH_CHUNK = 512
 
+# int4 KV group size: one symmetric f32 scale per KV_Q4_GROUP consecutive
+# head-dim features
+KV_Q4_GROUP = 32
+
+
+def dequant_kv_q4(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Unpack split-layout int4 KV: (..., hd//2) u8 codes (low nibbles hold
+    the first hd/2 features, high nibbles the rest; codes carry +8) and
+    (..., hd//KV_Q4_GROUP) f32 group scales -> (..., hd) f32."""
+    lo = (codes & 0xF).to(torch.int32) - 8
+    hi = (codes >> 4).to(torch.int32) - 8
+    w = torch.cat([lo, hi], dim=-1).float()
+    return w * torch.repeat_interleave(scales.float(), KV_Q4_GROUP, dim=-1)
+
 
 def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
                     dynamic_length: bool = False,

@@ -1,11 +1,13 @@
 """Generation engine: prefill/decode steps + greedy continuous batching.
 
-Port of the contiguous-cache part of ``gptq_gguf_tpu/serving/engine.py``.
-B fixed slots; finished requests free their slot and queued requests are
-prefilled into it (reusing any KV prefix the slot's previous occupant left)
-while other slots keep decoding. Decoding runs in k-step blocks: tokens stay
-on the device between the steps of a block and come back to the host once,
-as one (k, B) array.
+Port of the greedy engines of ``gptq_gguf_tpu/serving/engine.py``.
+``ContinuousBatchingEngine`` (contiguous cache): B fixed slots; finished
+requests free their slot and queued requests are prefilled into it (reusing
+any KV prefix the slot's previous occupant left) while other slots keep
+decoding. Decoding runs in k-step blocks: tokens stay on the device between
+the steps of a block and come back to the host once, as one (k, B) array.
+``PagedContinuousBatchingEngine`` (paged cache): slots own pages of shared
+pools, admission waits for free pages, one decode step per ``step()``.
 
 PyTorch runs eagerly, so the JAX package's jitted programs become plain
 functions; the cache is updated in place instead of being donated.
@@ -21,9 +23,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..models.llama import LlamaConfig
-from . import model as qmodel
+from . import model as qmodel, paged
 from .model import KVCache
+from .paged import PagedKVCache
 from .sampling import GREEDY, SamplingParams
 
 # multi_step="auto" block-size caps: 128 when nobody waits, 8 while requests
@@ -346,5 +350,175 @@ class ContinuousBatchingEngine:
         while (self.queue or any(r is not None for r in self.slot_req)) \
                 and steps < max_steps:
             self.step()
+            steps += 1
+        return self.completed
+
+
+# ---------------------------------------------------------------------------
+# Paged continuous batching (block-table KV, vLLM-style)
+# ---------------------------------------------------------------------------
+
+
+def _paged_decode_step(params, cfg: LlamaConfig, tokens: torch.Tensor, cache: PagedKVCache):
+    """One greedy decode step for all slots of a paged cache (in place)."""
+    logits, cache = paged.forward_paged(params, cfg, tokens[:, None], cache)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
+
+
+def _paged_prefill_slot(params, cfg: LlamaConfig, prompt: torch.Tensor, cache: PagedKVCache,
+                        slot: int, n_valid: int):
+    """Prefill one slot of a paged cache with a (1, S) right-padded prompt
+    (its pages must be assigned), IN PLACE, through a one-row view of the
+    table over the shared pools: other slots' pages and lengths are not
+    touched. Returns (next token (0-d int32 on device), logits row, cache)."""
+    dev = prompt.device
+    sub = PagedKVCache(cache.k_pages, cache.v_pages, cache.page_table[slot:slot + 1],
+                       torch.zeros((1,), dtype=torch.int32, device=dev))
+    logits, _ = paged.forward_paged(
+        params, cfg, prompt, sub, n_valid=torch.full((1,), n_valid, dtype=torch.int32,
+                                                     device=dev))
+    cache.lengths[slot] = n_valid
+    return torch.argmax(logits[0], dim=-1).to(torch.int32), logits[0], cache
+
+
+_PAGED_KV = {False: None, "int4": "int4"}  # kv_quantized -> init_paged_cache kv_dtype
+
+
+class PagedContinuousBatchingEngine:
+    """Greedy continuous batching over the paged KV cache.
+
+    Pages come from a shared pool, possibly oversubscribed (fewer pages
+    than slots x max_len / page_size): a request is admitted only when its
+    worst-case page need (prompt plus budget, never above max_len) fits,
+    so decode never needs another page. One decode step per ``step()``.
+    kv_quantized: False (bf16 pools) or "int4" (combined int4 pools).
+    The engine runs on ``device`` (the card unless the caller asks for the
+    CPU), where its params must live.
+    """
+
+    def __init__(self, params, cfg: LlamaConfig, num_slots: int = 8, max_len: int = 2048,
+                 page_size: int = 64, n_pages: Optional[int] = None,
+                 eos_token_id: Optional[int] = None, kv_quantized=False, device="cuda"):
+        if kv_quantized not in _PAGED_KV:
+            raise ValueError(f"kv_quantized must be False or 'int4', got {kv_quantized!r}")
+        self.device = resolve_device(device)
+        if _params_device(params).type != self.device.type:
+            raise ValueError(f"params live on {_params_device(params)}, not on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.eos = eos_token_id
+        self.cache = paged.init_paged_cache(cfg, num_slots, max_len, page_size, n_pages,
+                                            kv_dtype=_PAGED_KV[kv_quantized],
+                                            device=self.device)
+        self.alloc = paged.PageAllocator(self.cache.n_pages)
+        self.slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+        self.tokens = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
+        self.slot_req: List[Optional[Request]] = [None] * num_slots
+        # host mirror of cache.lengths for the live slots (no readback per step)
+        self._fill = np.zeros((num_slots,), np.int64)
+        # 1 for a live slot: idle slots' lengths stay 0, so the kernel reads
+        # one page for them however long they sit idle
+        self._live = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
+        self.queue: deque = deque()
+        self._uid = 0
+        self.completed: List[Request] = []
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 64,
+               sampling_params: Optional[SamplingParams] = None) -> int:
+        if np.asarray(prompt).size == 0:
+            raise ValueError("empty prompt: every request needs >= 1 token")
+        self._uid += 1
+        max_new_tokens = min(max_new_tokens, self.max_len - 1)
+        self.queue.append(Request(self._uid, np.asarray(prompt).reshape(-1), max_new_tokens,
+                                  sampling=sampling_params or GREEDY))
+        return self._uid
+
+    def _set_table_row(self, slot: int, pages: List[int]) -> None:
+        row = np.full((self.cache.page_table.shape[1],), -1, np.int32)
+        row[:len(pages)] = pages
+        self.cache.page_table[slot] = torch.from_numpy(row).to(self.device)
+
+    def _admit(self) -> None:
+        for slot in range(self.num_slots):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue[0]
+            keep = max(1, self.max_len - req.max_new_tokens)
+            prompt = req.prompt[-keep:]
+            # the prompt is cut so that prompt + budget <= max_len, a whole
+            # number of pages: the table row always holds the need
+            need = -(-(len(prompt) + req.max_new_tokens) // self.page_size)
+            pages = self.alloc.alloc(need)
+            if pages is None:
+                return  # pool exhausted: wait for retirements
+            self.queue.popleft()
+            self.slot_pages[slot] = pages
+            self._set_table_row(slot, pages)
+            padded, n = _pad_prompt(np.asarray(prompt, dtype=np.int64), self.max_len)
+            tok, _, self.cache = _paged_prefill_slot(
+                self.params, self.cfg, torch.as_tensor(padded, device=self.device)[None, :],
+                self.cache, slot, n)
+            self.tokens[slot] = tok
+            self._live[slot] = 1
+            self._fill[slot] = n
+            req.output.append(int(tok))
+            self.slot_req[slot] = req
+
+    def _free_slot(self, slot: int, reason: str) -> Request:
+        """Retire the slot's request and return its pages to the pool."""
+        req = self.slot_req[slot]
+        req.done = True
+        req.finish_reason = reason
+        req.finished_at = time.time()
+        self.slot_req[slot] = None
+        self.alloc.release(self.slot_pages[slot])
+        self.slot_pages[slot] = []
+        self._set_table_row(slot, [])
+        self.cache.lengths[slot] = 0
+        self._live[slot] = 0
+        self._fill[slot] = 0
+        return req
+
+    def cancel(self, uid: int) -> bool:
+        """Drop a queued or in-flight request, releasing its pages."""
+        for i, r in enumerate(self.queue):
+            if r.uid == uid:
+                del self.queue[i]
+                return True
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and r.uid == uid:
+                self._free_slot(slot, "cancelled")
+                return True
+        return False
+
+    def step(self) -> int:
+        """Admit, then one decode step for all slots; returns the number of
+        active slots."""
+        self._admit()
+        active = [s for s, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        self.tokens, _, self.cache = _paged_decode_step(self.params, self.cfg, self.tokens,
+                                                        self.cache)
+        self.cache = self.cache._replace(lengths=self.cache.lengths * self._live)
+        host = self.tokens.tolist()
+        for slot in active:
+            self._fill[slot] += 1
+            req = self.slot_req[slot]
+            req.output.append(host[slot])
+            hit_eos = self.eos is not None and host[slot] == self.eos
+            if (hit_eos or len(req.output) >= req.max_new_tokens
+                    or self._fill[slot] >= self.max_len - 1):
+                self.completed.append(self._free_slot(slot, "stop" if hit_eos else "length"))
+        return len(active)
+
+    def run_until_done(self, max_steps: int = 100000) -> List[Request]:
+        steps = 0
+        while (self.queue or any(r is not None for r in self.slot_req)) and steps < max_steps:
+            if self.step() == 0 and self.queue:
+                raise RuntimeError("page pool too small to admit any queued request")
             steps += 1
         return self.completed

@@ -64,6 +64,22 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     )
 
 
+def _quantize_kv_q4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> (u8 packed codes (..., hd//2), f32 group scales
+    (..., hd//KV_Q4_GROUP)): symmetric int4 per group of KV_Q4_GROUP
+    features, codes + 8, low nibbles holding the first hd/2 features.
+    Rounds half to even, as the JAX package does."""
+    gs = llama.KV_Q4_GROUP
+    hd = x.shape[-1]
+    xf = x.float().reshape(*x.shape[:-1], hd // gs, gs)
+    s = xf.abs().amax(dim=-1) / 7.0
+    inv = torch.where(s > 0, 1.0 / torch.where(s > 0, s, torch.ones_like(s)),
+                      torch.zeros_like(s))
+    q = torch.clamp(torch.round(xf * inv[..., None]), -7, 7).to(torch.int32)
+    q = (q + 8).reshape(*x.shape[:-1], hd).to(torch.uint8)
+    return q[..., : hd // 2] | (q[..., hd // 2:] << 4), s
+
+
 def _cached_attention(q, k_cache, v_cache, lengths, scale=None,
                       n_live: Optional[int] = None):
     """q: (B, nH, S, hd); caches (B, nKV, L, hd); slot b's queries sit at
@@ -172,15 +188,19 @@ def forward_cached(
     else:
         last = x[torch.arange(B, device=dev), n_valid - 1, :]
         advance = n_valid
-    h = llama.apply_norm(last, cfg, params["norm"])
+    logits = _head_logits(params, cfg, llama.apply_norm(last, cfg, params["norm"]))
+    return logits, KVCache(cache.k, cache.v, (lengths + advance).to(torch.int32))
+
+
+def _head_logits(params: Dict[str, Any], cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+    """(B, vocab) f32 logits of the normed final hidden states."""
     head = params.get("lm_head", params["embed_tokens"])
     if isinstance(head, RuntimeQuantLinearV2):
         logits = qmatmul.dequant_matmul(h, head)
         if logits.shape[-1] > cfg.vocab_size:
             logits = logits[..., :cfg.vocab_size]  # drop pad_dout_v2 rows
-    else:  # tied dense embeddings
-        logits = h.float() @ head.float().T
-    return logits, KVCache(cache.k, cache.v, (lengths + advance).to(torch.int32))
+        return logits
+    return h.float() @ head.float().T  # dense (or tied) head
 
 
 # ---------------------------------------------------------------------------

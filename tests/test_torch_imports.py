@@ -26,6 +26,8 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert f"{PKG}.ops.qmatmul" in mods and f"{PKG}.serving.engine" in mods
     assert f"{PKG}.ops.gptq" in mods and f"{PKG}.quant.calibrate" in mods
+    for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer"):
+        assert f"{PKG}.{m}" in mods
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -77,6 +79,15 @@ def test_entry_points_default_to_cuda(no_cuda):
                                           np.eye(256, dtype=np.float32), T.Q4_K),
         lambda: main(["quantize", "--model_name_or_path", str(REPO / "missing"),
                       "--save_dir", str(REPO / "missing")]),
+    ]
+    # the paged serving path: its cache, its engine and the HTTP command line
+    from gptq_gguf_tpu_torch.serving import engine, paged
+
+    cpu_params = {"embed_tokens": torch.zeros(8, 256)}
+    calls += [
+        lambda: paged.init_paged_cache(cfg, 1, 64),
+        lambda: engine.PagedContinuousBatchingEngine(cpu_params, cfg, max_len=64),
+        lambda: main(["serve", "--http", "--paged", "--gguf-file", str(REPO / "missing.gguf")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,5 +1,6 @@
-"""The CUDA kernels (v2g dequant-matmul, GPTQ column-block solve) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (v2g dequant-matmul, GPTQ column-block solve, paged
+flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
+versions, on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor the JAX package, so on
@@ -10,7 +11,9 @@ a card host it runs without them:
 Tolerances: v2g and its plain version compute the same bf16 products and
 differ only in the order of the f32 sums: atol 1e-4 of max|y|. The GPTQ
 solve repeats its plain version's IEEE f32 operations in the same order:
-codes and errors equal bit for bit."""
+codes and errors equal bit for bit. The paged decode kernels and their
+plain versions sum the same f32 terms in another order (and take exp and
+tanh from other libraries): atol 1e-4 of max|out|."""
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ import torch
 
 from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS, GGMLQuantizationType as T
 from gptq_gguf_tpu_torch.models.llama import LlamaConfig
-from gptq_gguf_tpu_torch.ops import gptq, qmatmul
+from gptq_gguf_tpu_torch.ops import gptq, paged_attention as pa, qmatmul
 from gptq_gguf_tpu_torch.ops.kquant import SuperGroupParams
 from gptq_gguf_tpu_torch.serving import model as qmodel
 
@@ -208,3 +211,66 @@ def test_gptq_quantize_matrix_kernel_equals_plain_on_card(cuda, qtype, kw, monke
     assert torch.equal(got.qweight, want.qweight)
     for a, b in zip(got.params, want.params):
         assert torch.equal(a, b)
+
+
+def _paged_inputs(B, nKV, G, hd, page, pps, mode, seed, device):
+    """q, the pools (bf16 / f32, or combined int4), a scrambled table with
+    -1 past each slot's live pages, and lengths from 0 to the table's end."""
+    gen = torch.Generator().manual_seed(seed)
+    n_pages = B * pps
+    lengths = torch.linspace(0, pps * page - 1, B).to(torch.int32)
+    table = torch.full((B, pps), -1, dtype=torch.int32)
+    order = torch.randperm(n_pages, generator=gen).to(torch.int32)
+    for b in range(B):
+        live = int(lengths[b]) // page + 1
+        table[b, :live] = order[b * pps:b * pps + live]
+    q = torch.randn(B, nKV, G, hd, generator=gen)
+    k = torch.randn(n_pages + 1, nKV, page, hd, generator=gen) * 0.3
+    v = torch.randn(n_pages + 1, nKV, page, hd, generator=gen)
+    if mode == "q4":
+        kq, ks = qmodel._quantize_kv_q4(k)
+        vq, vs = qmodel._quantize_kv_q4(v)
+        k, v = torch.cat([kq, vq], -1), torch.cat([ks, vs], -1).transpose(2, 3).contiguous()
+    elif mode == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return [t.to(device) for t in (q, k, v, table, lengths)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "f32", "q4"])
+@pytest.mark.parametrize("B,nKV,G,hd,page,pps,kw", [
+    (8, 8, 4, 128, 64, 32, {}),                                  # Llama-3-8B decode
+    (3, 2, 8, 64, 16, 9, {"window": 20}),                         # window page skip
+    (2, 1, 16, 256, 40, 5, {"softcap": 30.0, "sinks": True}),    # ragged 32-chunks
+    (5, 4, 1, 192, 256, 3, {"sinks": True, "window": 300}),
+])
+def test_paged_decode_kernel_matches_plain(cuda, mode, B, nKV, G, hd, page, pps, kw):
+    q, k, v, table, lengths = _paged_inputs(B, nKV, G, hd, page, pps, mode, B * hd + page, cuda)
+    kw = dict(kw, scale=hd ** -0.5)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn(nKV * G, generator=torch.Generator().manual_seed(1)).to(cuda)
+    fn, ref = ((pa.paged_flash_decode_q4, pa.paged_flash_decode_q4_reference) if mode == "q4"
+               else (pa.paged_flash_decode, pa.paged_flash_decode_reference))
+    n0 = fn.launches
+    got = fn(q, k, v, table, lengths, **kw)
+    want = ref(q, k, v, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert got.shape == want.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, table, lengths = _paged_inputs(2, 2, 4, 128, 16, 4, "bf16", 3, cuda)
+    kw = dict(scale=0.1)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pa.paged_flash_decode(q[..., :96].contiguous(), k[..., :96].contiguous(),
+                              v[..., :96].contiguous(), table, lengths, **kw)
+    with pytest.raises(ValueError, match="query heads"):
+        pa.paged_flash_decode(q.repeat(1, 1, 5, 1), k, v, table, lengths, **kw)
+    with pytest.raises(ValueError, match="table"):
+        pa.paged_flash_decode(q, k, v, table.long(), lengths, **kw)
+    with pytest.raises(ValueError, match="pools must be bf16 or f32"):
+        pa.paged_flash_decode(q, k.half(), v.half(), table, lengths, **kw)

@@ -41,7 +41,21 @@ checkout of the repository. Phases, each raising on failure:
    phase 3's 12-request mix in bf16, int4 and on an oversubscribed 24-page
    pool (budgets, pages returned, 32 kernel launches per decode step); a
    steady B=8 step at fill 300 and 1900; HTTP (serve_http on port 0): 8
-   concurrent requests equal the engine's direct outputs, one streamed.
+   concurrent requests equal the engine's direct outputs, one streamed;
+7. the v1 and v4 runtime formats at full width (after phase 6, on the same
+   model: the v2 weights converted on the card, every format's planes held
+   to the package's packers first): (a) the v1 kernel and the v4 kernel's
+   three bodies (f32 and bf16 scales, i32 and i8 layouts) against their
+   plain versions at every 8B projection shape and the unpadded Q6_K
+   lm_head at M = 8, 128, 1024, plus Q2_K / Q3_K / Q5_K and ragged d_out;
+   (b) 2-layer logits kernel vs plain per format; (c) phase 3's 12 requests
+   served in v1, v4 and v4 i8 (129 launches of that format's kernel per
+   forward, none of another's) beside phase 3's v2 numbers; (d) perplexity
+   through the serving path on the 32-layer model in v2, v1 and v4 (2
+   sequences of 512 tokens, within 0.05 nats/token of each other); (e)
+   after phase 5, its GPTQ artifacts served through
+   quantize_params_for_serving in v1, v2 and v4 (dequantization bit-equal
+   to the artifacts', greedy tokens).
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -114,8 +128,15 @@ def call_ms(fn, reps: int) -> float:
 def synthetic_rql(rng, d_out, d_in, qtype, device):
     """Random codes and two-level scales packed by the port's
     pack_runtime_v2; scales give weights of std ~ 1/sqrt(d_in)."""
-    from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS
     from gptq_gguf_tpu_torch.ops import qmatmul
+
+    return qmatmul.pack_runtime_v2(*synthetic_codes(rng, d_out, d_in, qtype), qtype,
+                                   device=device)
+
+
+def synthetic_codes(rng, d_out, d_in, qtype):
+    """(codes, SuperGroupParams) of a random layer, numpy."""
+    from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS
     from gptq_gguf_tpu_torch.ops.kquant import SuperGroupParams
 
     spec = KQUANT_SPECS[qtype]
@@ -132,8 +153,7 @@ def synthetic_rql(rng, d_out, d_in, qtype, device):
         sc = rng.integers(1, spec.scale_maxq + 1, (d_out, ng), dtype=np.uint8)
         sz = ss.copy()
         zq = rng.integers(0, spec.scale_maxq + 1, (d_out, ng), dtype=np.uint8)
-    return qmatmul.pack_runtime_v2(q, SuperGroupParams(ss, sz, sc, zq), qtype,
-                                   device=device)
+    return q, SuperGroupParams(ss, sz, sc, zq)
 
 
 def layer_variant(base, gen, code_bits):
@@ -169,7 +189,7 @@ def phase_device_and_build():
         out = cuda_build.build(name)
         return out, time.time() - t0
 
-    names = ("qmatmul_v2g", "gptq_solve", "paged_decode")
+    names = ("qmatmul_v2g", "gptq_solve", "paged_decode", "qmatmul_v1", "qmatmul_v4")
     with ThreadPoolExecutor(len(names)) as ex:  # one nvcc per source, all at once
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (nvcc_log, secs) in builds.items():
@@ -190,8 +210,7 @@ def term_magnitude(x, rql) -> float:
 
     M, d_in = x.shape
     gs = rql.group_size
-    scale, off = qmatmul._group_scales_v2(rql)
-    off2 = off + scale * rql.shift
+    scale, off2 = qmatmul._folded_planes_v2(rql)
     q = qmatmul._unpack_codes(rql.qs, rql.per_byte, d_in).float()
     wsq = (scale[:, None, :] * q.reshape(-1, gs, rql.d_out)).reshape(d_in, rql.d_out)
     x32 = x.float()
@@ -316,10 +335,39 @@ def phase_kernels(params, rng, device):
     return recs
 
 
-def phase_serving(params, cfg, rng):
+MATMUL_KERNELS = ("v2g", "v1", "v4")  # the dequant-matmul wrappers, by format
+
+
+def matmul_wrappers():
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+
+    return {"v2g": qmatmul.dequant_matmul_v2g, "v1": qmatmul.dequant_matmul_v1,
+            "v4": qmv4.dequant_matmul_v4}
+
+
+def reset_matmul_counts() -> None:
+    """Every dequant-matmul wrapper's launch count to 0 (and the v4
+    wrapper's count per JAX body)."""
+    fns = matmul_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    fns["v4"].body_launches = dict.fromkeys(fns["v4"].body_launches, 0)
+
+
+def matmul_counts() -> dict:
+    fns = matmul_wrappers()
+    out = {k: fn.launches for k, fn in fns.items()}
+    out.update({f"v4_{b}": n for b, n in fns["v4"].body_launches.items()})
+    return out
+
+
+def phase_serving(params, cfg, requests, kernel="v2g", label="v2"):
+    """ContinuousBatchingEngine(num_slots=8, max_len=2048) on ``requests``
+    with ``params`` in one runtime format: budgets, token ranges, and every
+    packed matmul through ``kernel``'s wrapper (4 per layer + the lm_head
+    per forward) and no other's; then a steady B=8 decode block."""
     import torch
 
-    from gptq_gguf_tpu_torch.ops import qmatmul
     from gptq_gguf_tpu_torch.serving import engine, model as qmodel
 
     n_fwd = [0]
@@ -340,12 +388,9 @@ def phase_serving(params, cfg, rng):
         return out
 
     eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=8, max_len=2048)
-    uids = set()
-    for _ in range(12):
-        p = rng.integers(0, cfg.vocab_size, size=int(rng.integers(100, 301)))
-        uids.add(eng.submit(p, max_new_tokens=int(rng.integers(32, 65))))
+    uids = {eng.submit(p, max_new_tokens=n) for p, n in requests}
     qmodel.forward_cached, engine._decode_steps_scan = counting_forward, timed_scan
-    qmatmul.dequant_matmul_v2g.launches = 0
+    reset_matmul_counts()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -354,7 +399,8 @@ def phase_serving(params, cfg, rng):
         wall = time.perf_counter() - t0
     finally:
         qmodel.forward_cached, engine._decode_steps_scan = fwd0, scan0
-    launches = qmatmul.dequant_matmul_v2g.launches
+    counts = matmul_counts()
+    launches = counts[kernel]
     by_uid = {r.uid: r for r in done}
     if len(done) != 12 or set(by_uid) != uids:
         raise RuntimeError(f"served {len(done)} of 12 requests")
@@ -368,8 +414,10 @@ def phase_serving(params, cfg, rng):
     per_fwd = 4 * cfg.num_hidden_layers + 1
     if launches == 0 or launches != per_fwd * n_fwd[0]:
         raise RuntimeError(f"kernel launches {launches} != {per_fwd} x {n_fwd[0]} forwards")
+    if any(counts[k] for k in MATMUL_KERNELS if k != kernel):
+        raise RuntimeError(f"{label} serving launched other formats' kernels: {counts}")
     gen_tokens = sum(len(r.output) for r in done)
-    log(f"serving: depth {cfg.num_hidden_layers}, 12 requests, {gen_tokens} tokens in "
+    log(f"serving ({label}): depth {cfg.num_hidden_layers}, 12 requests, {gen_tokens} tokens in "
         f"{wall:.2f} s; {n_fwd[0]} forwards, {launches} kernel launches "
         f"({per_fwd} per forward), prefix hits {eng.prefix_hits}")
     log(f"serving decode: {decode['steps']} block steps in {decode['s']:.3f} s "
@@ -387,12 +435,17 @@ def phase_serving(params, cfg, rng):
     _, toks, _ = engine._decode_steps_scan(params, cfg, tokens, cache, 32, 300)
     toks.cpu()
     dt = (time.perf_counter() - t) / 32
-    log(f"steady decode B=8: {dt * 1e3:.2f} ms/step, {8 / dt:.1f} tok/s")
-    return launches, dict(wall_s=wall, decode_ms_per_step=dt * 1e3,
-                          decode_tok_s=8 / dt)
+    log(f"steady decode B=8 ({label}): {dt * 1e3:.2f} ms/step, {8 / dt:.1f} tok/s")
+    return counts, dict(wall_s=wall, decode_ms_per_step=dt * 1e3, decode_tok_s=8 / dt,
+                        serve_decode_ms_per_step=decode["s"] / max(decode["steps"], 1) * 1e3,
+                        generated_tok_s=(gen_tokens - 12) / decode["s"], launches=launches,
+                        forwards=n_fwd[0])
 
 
-def phase_consistency(params, cfg, rng, device):
+def two_layer_logits(params, cfg, prompt, feed, mm, device):
+    """Logits of the first 2 layers of ``params``: one prefill of ``prompt``
+    (1, S) and one decode step per token of ``feed``, with every packed
+    matmul through ``mm`` (a kernel wrapper or a plain version)."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
@@ -400,21 +453,29 @@ def phase_consistency(params, cfg, rng, device):
 
     p2 = {**params, "layers": params["layers"][:2]}
     c2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    fn0 = qmatmul.dequant_matmul
+    qmatmul.dequant_matmul = mm
+    try:
+        cache = qmodel.init_cache(c2, 1, 2048, device=device)
+        _, row, cache = engine._prefill_slot(p2, c2, prompt, cache, 0)
+        rows = [row[None]]
+        for j in range(feed.shape[0]):  # the same fed tokens on every path
+            logits, cache = qmodel.forward_cached(p2, c2, feed[j][None, None], cache)
+            rows.append(logits)
+        return torch.cat(rows)
+    finally:
+        qmatmul.dequant_matmul = fn0
+
+
+def phase_consistency(params, cfg, rng, device):
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 128)), device=device)
 
     def run(mm):
-        fn0 = qmatmul.dequant_matmul
-        qmatmul.dequant_matmul = mm
-        try:
-            cache = qmodel.init_cache(c2, 1, 2048, device=device)
-            _, row, cache = engine._prefill_slot(p2, c2, prompt, cache, 0)
-            rows = [row[None]]
-            for j in range(4):  # the same fed tokens on both paths
-                logits, cache = qmodel.forward_cached(p2, c2, feed[j][None, None], cache)
-                rows.append(logits)
-            return torch.cat(rows)
-        finally:
-            qmatmul.dequant_matmul = fn0
+        return two_layer_logits(params, cfg, prompt, feed, mm, device)
 
     def exact_f32(x, rql):  # control: no bf16 rounding of weights or x
         return x.float() @ qmatmul.dequantize_runtime_v2(rql).T
@@ -1178,6 +1239,363 @@ def phase_paged_http(eng, cfg, rng):
     return dict(wall_s=wall, stream_chunks=len(chunks) - 1)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the v1 and v4 formats at full width
+# ---------------------------------------------------------------------------
+
+FORMATS = ("v1", "v4", "v4 i8", "v4 bf16")  # 7a: every kernel body, both scale dtypes
+FORMAT_MS = (8, 128, 1024)  # decode, a prefill chunk, a perplexity batch (B * S rows)
+PPL_SEQS, PPL_LEN = 2, 512  # 7d: seeded synthetic sequences scored per format
+# one summary entry per TPU kernel body: (name, source, replaces, body, the
+# format whose 7a times and 7c serving launches it reports, the shapes of
+# one B=8 decode step it runs)
+V1_V4_BODIES = (
+    ("qmatmul_v1", "qmatmul_v1.cu", "gptq_gguf_tpu/ops/qmatmul.py:157", "v1", "v1",
+     ("qkv", "o", "gateup", "down", "lm_head")),
+    ("qmatmul_v4_pb2", "qmatmul_v4.cu", "gptq_gguf_tpu/ops/qmv4.py:264", "pb2", "v4",
+     ("qkv", "o", "gateup", "down")),
+    ("qmatmul_v4_pb2_i8", "qmatmul_v4.cu", "gptq_gguf_tpu/ops/qmv4.py:305", "pb2_i8", "v4 i8",
+     ("qkv", "o", "gateup", "down")),
+    ("qmatmul_v4_pb1", "qmatmul_v4.cu", "gptq_gguf_tpu/ops/qmv4.py:346", "pb1", "v4",
+     ("lm_head",)),
+)
+
+
+def as_format(v2, fmt: str):
+    """The weight of a v2 one in another runtime format, on its device.
+    "v4" is qmv4.v4_from_v2 (f32 scales, i32 layout: the v2 code bytes,
+    per-group planes); "v1" holds the same bytes and planes (its scale_t and
+    offset_t equal v4's scale and offc for every K-quant type); "v4 bf16"
+    rounds the scales; "v4 i8" biases the high nibbles by -8 and folds the
+    x16 and the +8 into the planes, as pack_runtime_v4(layout="i8") does
+    (check_format_conversions holds all of them to the packers)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+
+    if fmt == "v2":
+        return v2
+    if fmt == "v4 bf16":
+        return qmv4.v4_from_v2(v2, scale_dtype=torch.bfloat16)
+    v4 = qmv4.v4_from_v2(v2)
+    if fmt == "v4":
+        return v4
+    if fmt == "v1":
+        return qmatmul.RuntimeQuantLinear(v4.qs, v4.scale, v4.offc, v4.d_in, v4.group_size,
+                                          v4.per_byte)
+    if fmt != "v4 i8":
+        raise ValueError(fmt)
+    if v4.per_byte == 1:  # 5/6-bit codes are < 128: the same bytes and planes
+        return qmv4.RuntimeQuantLinearV4(v4.qs, v4.scale, v4.offc, v4.d_in, v4.group_size,
+                                         1, "i8")
+    gpsg = 256 // v4.group_size
+    gh = gpsg // 2
+    sc = v4.scale.reshape(-1, gpsg, v4.d_out).clone()
+    of = v4.offc.reshape(-1, gpsg, v4.d_out).clone()
+    of[:, gh:] -= 8.0 * sc[:, gh:]
+    sc[:, gh:] /= 16.0
+    return qmv4.RuntimeQuantLinearV4(v4.qs ^ 0x80, sc.reshape(v4.scale.shape),
+                                     of.reshape(v4.offc.shape), v4.d_in, v4.group_size, 2, "i8")
+
+
+def format_params(params, fmt: str):
+    """``params`` with every packed weight in ``fmt`` (the lm_head unpadded:
+    only v2 pads its vocab)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def conv(v):
+        return as_format(v, fmt) if isinstance(v, qmatmul.RuntimeQuantLinearV2) else v
+
+    return {**params, "lm_head": as_format(unpad(params["lm_head"], V), fmt),
+            "layers": [{k: conv(v) for k, v in layer.items()} for layer in params["layers"]]}
+
+
+def unpad(v2, d_out: int):
+    """A v2 weight cut back to its first d_out columns (contiguous planes)."""
+    from gptq_gguf_tpu_torch.ops.qmatmul import RuntimeQuantLinearV2
+
+    cut = lambda t: None if t is None else t[:, :d_out].contiguous()  # noqa: E731
+    return RuntimeQuantLinearV2(cut(v2.qs), cut(v2.d_sg), cut(v2.dmin_sg), cut(v2.sc_q),
+                                cut(v2.mn_q), v2.d_in, v2.group_size, v2.per_byte, v2.shift,
+                                v2.d_rep)
+
+
+def check_format_conversions(rng, device):
+    """as_format against the package's packers on the same codes, every
+    plane bit-equal, for one type of each kernel path; and v1 / v4
+    dequantize bit-equal to v2 (one model in every format)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+
+    packers = {
+        "v1": qmatmul.pack_runtime,
+        "v4": qmv4.pack_runtime_v4,
+        "v4 bf16": lambda *a, **k: qmv4.pack_runtime_v4(*a, scale_dtype=torch.bfloat16, **k),
+        "v4 i8": lambda *a, **k: qmv4.pack_runtime_v4(*a, layout="i8", **k),
+    }
+    for qtype in (T.Q4_K, T.Q3_K, T.Q6_K):
+        q, p = synthetic_codes(rng, 256, 1024, qtype)
+        v2 = qmatmul.pack_runtime_v2(q, p, qtype, device=device)
+        w2 = qmatmul.dequantize_runtime_v2(v2)
+        for fmt, pack in packers.items():
+            got, want = as_format(v2, fmt), pack(q, p, qtype, device=device)
+            if getattr(got, "layout", None) != getattr(want, "layout", None):
+                raise RuntimeError(f"as_format({fmt}): layout {got.layout}")
+            for a, b in zip(got.planes(), want.planes(), strict=True):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise RuntimeError(f"as_format({fmt}) {qtype.name}: planes differ from the "
+                                       "package's packer")
+        for fmt in ("v1", "v4"):
+            w = as_format(v2, fmt)
+            deq = (qmatmul.dequantize_runtime(w) if fmt == "v1"
+                   else qmv4.dequantize_runtime_v4(w))
+            if not torch.equal(deq, w2):
+                raise RuntimeError(f"{fmt} {qtype.name}: dequantization differs from v2's")
+    log("format conversions: planes bit-equal to pack_runtime / pack_runtime_v4 (f32, bf16, "
+        "i8) for Q4_K, Q3_K, Q6_K; v1 and v4 dequantize bit-equal to v2")
+
+
+def format_terms(x, rql) -> float:
+    """max over outputs of the sum of |terms| a v1 / v4 product adds up."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+
+    if isinstance(rql, qmatmul.RuntimeQuantLinear):
+        return (x.float().abs() @ qmatmul.dequantize_runtime(rql).T.abs()).max().item()
+    ng = rql.scale.shape[0]
+    s = rql.scale.to(torch.bfloat16).float()
+    w = qmv4._codes_v4(rql).reshape(ng, rql.group_size, rql.d_out) * s[:, None, :]
+    mag = x.to(torch.bfloat16).float().abs() @ w.reshape(rql.d_in_local, rql.d_out).abs()
+    del w
+    if rql.offc is not None:
+        mag += qmv4._group_sums(x, rql.group_size).abs() @ rql.offc.abs()
+    return mag.max().item()
+
+
+def format_case(name, fmt, x, rql, flush):
+    """A v1 / v4 kernel against its plain version on the same inputs, then
+    timed: kernel, call, plain, library (torch.matmul on the dequantized
+    weight: f32 with TF32 off for v1, bf16 for v4) and the bound (bytes at
+    3.35 TB/s, operations at f32 67 TFLOP/s for v1, bf16 989 for v4)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+
+    M, d_in = x.shape
+    v1 = isinstance(rql, qmatmul.RuntimeQuantLinear)
+    fn, ref = ((qmatmul.dequant_matmul_v1, qmatmul.dequant_matmul_v1_reference) if v1
+               else (qmv4.dequant_matmul_v4, qmv4.dequant_matmul_v4_reference))
+    y_k = fn(x, rql)
+    y_p = ref(x, rql)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y_k).all():
+        raise RuntimeError(f"{fmt} {name}: kernel output is not finite")
+    # tolerance: the same products (f32 for v1, bf16 x bf16 for v4), f32
+    # sums in another order: 1e-4 of the largest sum of |terms| of an output
+    err = (y_k - y_p).abs().max().item()
+    tol = 1e-4 * max(format_terms(x, rql), 1e-30)
+    del y_k, y_p
+    if not err <= tol:
+        raise RuntimeError(f"{fmt} {name} M={M}: kernel vs plain max|err| {err:.3e} > {tol:.3e}")
+    if v1:
+        w_lib, x_lib = qmatmul.dequantize_runtime(rql).T.contiguous(), x.float()
+    else:
+        w_lib = qmv4.dequantize_runtime_v4(rql).T.contiguous().to(torch.bfloat16)
+        x_lib = x.to(torch.bfloat16)
+    reps = 20 if M <= 128 else 5
+    ms = cuda_ms(lambda: fn(x, rql), reps, flush)
+    wall_ms = call_ms(lambda: fn(x, rql), reps)
+    plain_ms = cuda_ms(lambda: ref(x, rql), 2, flush)
+    library_ms = cuda_ms(lambda: torch.matmul(x_lib, w_lib), reps, flush)
+    del w_lib, x_lib
+    nbytes = rql.bytes_read + x.numel() * x.element_size() + M * rql.d_out * 4
+    flops = 2.0 * M * d_in * rql.d_out
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (F32_FLOP_PER_S if v1 else BF16_FLOP_PER_S) * 1e3
+    rec = dict(name=name, fmt=fmt, body="v1" if v1 else qmv4.body_of(rql), M=M, d_in=d_in,
+               d_out=rql.d_out, max_abs_err=err, tol=tol,
+               ms=ms, call_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, plane_bytes=rql.bytes_read, flops=flops)
+    log(f"  {fmt:>7} {name:>24} M={M:<5} err {err:.3e} (tol {tol:.2e})  kernel {ms:.4f} ms "
+        f"(call {wall_ms:.4f})  plain {plain_ms:.3f} ms  library {library_ms:.4f} ms  bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def phase_format_kernels(params, rng, device):
+    """7a: the v1 kernel and the three v4 bodies (f32 and bf16 scales)
+    against their plain versions at every Llama-3-8B projection shape (Q4_K)
+    and the unpadded Q6_K lm_head, at M = 8, 128 and 1024; Q2_K / Q3_K /
+    Q5_K and ragged d_out at small shapes."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+
+    check_format_conversions(rng, device)
+    l0 = params["layers"][0]
+    shapes = [("qkv 4096->6144 Q4_K", l0["qkv_proj"]), ("o 4096->4096 Q4_K", l0["o_proj"]),
+              ("gateup 4096->28672 Q4_K", l0["gateup_proj"]),
+              ("down 14336->4096 Q4_K", l0["down_proj"]),
+              ("lm_head 4096->128256 Q6_K", unpad(params["lm_head"], V))]
+    small = [("Q2_K 1024->768", 768, 1024, T.Q2_K, 8), ("Q3_K 1024->768", 768, 1024, T.Q3_K, 8),
+             ("Q5_K 1024->768", 768, 1024, T.Q5_K, 8),
+             ("ragged Q4_K 2048->1000", 1000, 2048, T.Q4_K, 5),
+             ("ragged Q6_K 512->333", 333, 512, T.Q6_K, 3)]
+    small = [(name, synthetic_rql(rng, d_out, d_in, qt, device), M)
+             for name, d_out, d_in, qt, M in small]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
+    recs = []
+    for fmt in FORMATS:
+        for name, v2 in shapes:
+            rql = as_format(v2, fmt)
+            for M in FORMAT_MS:
+                x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
+                recs.append(format_case(name, fmt, x, rql, flush))
+            del rql
+        for name, v2, M in small:
+            x = torch.randn(M, v2.d_in_local, device=device)
+            recs.append(format_case(name, fmt, x, as_format(v2, fmt), flush))
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_format_consistency(fparams, cfg, rng, device):
+    """7b: 2 layers at full width, one 128-token prefill and 4 decode steps
+    in each format through its kernel and through its plain version, held
+    to phase 4's 3e-3 of max|logit|; the logit differences between the
+    formats' kernel runs are printed (they round differently by design)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 128)), device=device)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4,)), device=device)
+    pairs = {"v2": (qmatmul.dequant_matmul_v2g, None),
+             "v1": (qmatmul.dequant_matmul_v1, qmatmul.dequant_matmul_v1_reference),
+             "v4": (qmv4.dequant_matmul_v4, qmv4.dequant_matmul_v4_reference)}
+    kernel_logits = {}
+    for fmt, (fn, ref) in pairs.items():
+        lk = two_layer_logits(fparams[fmt], cfg, prompt, feed, fn, device)
+        kernel_logits[fmt] = lk
+        if ref is None:
+            continue
+        lp = two_layer_logits(fparams[fmt], cfg, prompt, feed, ref, device)
+        scale = lp.abs().max().item()
+        err = (lk - lp).abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        log(f"{fmt} consistency (2 layers, prefill + 4 decode): max|dlogit| kernel vs plain "
+            f"{err:.3e}, tol {3e-3 * scale:.3e} (3e-3 of max|logit| {scale:.3e}); argmax "
+            f"agreement {agree:.2f}")
+        if not (torch.isfinite(lk).all() and err <= 3e-3 * scale):
+            raise RuntimeError(f"{fmt}: kernel and plain logits disagree")
+    diffs = {f"{a} vs {b}": (kernel_logits[a] - kernel_logits[b]).abs().max().item()
+             for a, b in (("v1", "v2"), ("v4", "v2"), ("v1", "v4"))}
+    log("between formats (kernels): " + ", ".join(f"max|dlogit| {k} {v:.3e}"
+                                                  for k, v in diffs.items()))
+    return diffs
+
+
+def phase_format_ppl(fparams, cfg, device):
+    """7d: compute_perplexity(serving=True) on the 32-layer model in v2, v1
+    and v4: PPL_SEQS seeded synthetic sequences of PPL_LEN tokens, every
+    projection and the lm_head through the format's kernel at M = PPL_LEN."""
+    import torch
+
+    from gptq_gguf_tpu_torch.evals import ppl
+    from gptq_gguf_tpu_torch.utils.data import get_data
+
+    data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
+    out = {}
+    for fmt, kernel in (("v2", "v2g"), ("v1", "v1"), ("v4", "v4")):
+        ppl.compute_perplexity(fparams[fmt], cfg, data[:1], serving=True)  # warm
+        reset_matmul_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        value = ppl.compute_perplexity(fparams[fmt], cfg, data, serving=True)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t) / len(data)
+        counts = matmul_counts()
+        want = len(data) * (4 * cfg.num_hidden_layers + 1)
+        if counts[kernel] != want or any(counts[k] for k in MATMUL_KERNELS if k != kernel):
+            raise RuntimeError(f"ppl {fmt}: launches {counts}, want {want} of {kernel}")
+        if not np.isfinite(value):
+            raise RuntimeError(f"ppl {fmt}: {value}")
+        out[fmt] = dict(ppl=value, nll=float(np.log(value)), s_per_seq=secs,
+                        launches=counts[kernel])
+        log(f"ppl ({fmt}, serving path, {len(data)} x {PPL_LEN} tokens): {value:.4f} "
+            f"({np.log(value):.6f} nats/token), {secs:.3f} s per sequence, {counts[kernel]} "
+            f"{kernel} launches")
+    spread = max(r["nll"] for r in out.values()) - min(r["nll"] for r in out.values())
+    log(f"ppl across formats: nats/token spread {spread:.3e} (bound 0.05)")
+    if not spread < 0.05:
+        raise RuntimeError("the formats' perplexities disagree")
+    return out
+
+
+def phase_gptq_formats(ckpt: Path, save: Path, arts, device):
+    """7e: the 2-layer GPTQ artifacts served through
+    quantize_params_for_serving in v1, v2 and v4: each packed weight
+    dequantizes bit-equal to its artifact; a few greedy tokens each."""
+    import torch
+
+    from gptq_gguf_tpu_torch.models import loader
+    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel
+
+    cfg = loader.load_config(ckpt, dtype=torch.bfloat16)
+    dense = loader.load_params(ckpt, cfg)
+    prompt = np.arange(1, 17, dtype=np.int64)
+    out = {}
+    fmt0 = qmatmul.RUNTIME_FORMAT
+    for fmt in ("v1", "v2", "v4"):
+        qmatmul.RUNTIME_FORMAT = fmt
+        try:
+            qp = qmodel.quantize_params_for_serving(dense, cfg, save, device=device)
+        finally:
+            qmatmul.RUNTIME_FORMAT = fmt0
+        for name, art in arts.items():
+            li, key = int(name.split(".")[2]), name.split(".")[-1]
+            w = qp["layers"][li][key]
+            if not torch.equal(qmodel._dequant_any(w), art.dequantize(device)):
+                raise RuntimeError(f"{fmt} {name}: dequantization differs from the artifact's")
+        qp = qmodel.fuse_params_for_serving(qp, cfg)
+        toks = engine.generate(qp, cfg, [prompt], max_new_tokens=6, max_len=64)[0]
+        if len(toks) != 6 or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise RuntimeError(f"{fmt}: greedy tokens {toks}")
+        out[fmt] = toks
+        log(f"GPTQ artifacts served in {fmt} ({type(w).__name__}): {len(arts)} weights "
+            f"dequantize bit-equal to their artifacts; greedy tokens {toks}")
+        del qp
+        torch.cuda.empty_cache()
+    return out
+
+
+def format_summary(name, source, replaces, body, fmt, shapes, recs, launches):
+    """The summary entry of one v1 / v4 kernel body: one B=8 decode step
+    (the four projections of every layer and / or the lm_head, at the M=8
+    times of 7a in ``fmt``); its error is the largest of all its 7a cases."""
+    per = {r["name"].split()[0]: r for r in recs if r["fmt"] == fmt and r["M"] == 8}
+
+    def step(key):
+        return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
+
+    t_bytes = step("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = step("flops") / (F32_FLOP_PER_S if fmt == "v1" else BF16_FLOP_PER_S) * 1e3
+    calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
+    return {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs if r["body"] == body),
+            "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": step("library_ms"),
+            "per": f"one B=8 decode step ({fmt}): {calls} calls", "bytes": step("bytes")}
+
+
 def paged_summary(name, source_line, krec, launches):
     """The summary entry of one paged kernel: one B=8 decode step at the
     first steady fill (300), one call per layer at the times of phase 6a."""
@@ -1193,7 +1611,7 @@ def paged_summary(name, source_line, krec, launches):
 
 
 def run(device) -> dict:
-    """All six phases on ``device``; returns the kernel summary."""
+    """All seven phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
@@ -1206,7 +1624,9 @@ def run(device) -> dict:
     log(f"weights: {N_LAYERS} layers + lm_head packed in {time.time() - t:.1f} s")
     recs = phase_kernels(params, rng, device)
     log("== phase 3: full-width serving")
-    launches, serve = phase_serving(params, cfg, rng)
+    requests = serve_requests(rng, cfg, 12, *SERVE_MIX)
+    counts, serve = phase_serving(params, cfg, requests)
+    launches = counts["v2g"]
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
     log("== phase 6: paged serving at full width")
@@ -1217,7 +1637,32 @@ def run(device) -> dict:
     paged_rec = dict(runs=paged_runs, steady=phase_paged_steady(paged_eng, cfg, device),
                      http=phase_paged_http(paged_eng, cfg, rng))
     log(f"phase 6 took {time.time() - t6:.1f} s")
-    del params, paged_eng
+    del paged_eng
+    torch.cuda.empty_cache()
+
+    log("== phase 7: v1 and v4 formats at full width")
+    t7 = time.time()
+    frecs = phase_format_kernels(params, rng, device)
+    fparams = {"v2": params, **{f: format_params(params, f) for f in ("v1", "v4", "v4 i8")}}
+    cross = phase_format_consistency(fparams, cfg, rng, device)
+    fserve = {}
+    # v2 once more after the others: the host-bound step drifts within a
+    # call, so each format is read between two v2 runs
+    for fmt, kernel in (("v1", "v1"), ("v4", "v4"), ("v4 i8", "v4"), ("v2", "v2g")):
+        fcounts, rec = phase_serving(fparams[fmt], cfg, requests, kernel, fmt)
+        if kernel == "v4":
+            n = rec["forwards"]
+            body = "v4_pb2_i8" if fmt == "v4 i8" else "v4_pb2"
+            if fcounts[body] != 4 * N_LAYERS * n or fcounts["v4_pb1"] != n:
+                raise RuntimeError(f"{fmt} serving: body launches {fcounts}, {n} forwards")
+        log(f"serving ({fmt}) beside v2 in this call: {rec['serve_decode_ms_per_step']:.2f} vs "
+            f"{serve['serve_decode_ms_per_step']:.2f} ms per decode step, "
+            f"{rec['generated_tok_s']:.1f} vs {serve['generated_tok_s']:.1f} generated tok/s; "
+            f"steady B=8 {rec['decode_ms_per_step']:.2f} vs {serve['decode_ms_per_step']:.2f} ms")
+        fserve[fmt] = dict(rec, counts=fcounts)
+    fppl = phase_format_ppl(fparams, cfg, device)
+    log(f"phase 7 took {time.time() - t7:.1f} s")
+    del params, fparams
     torch.cuda.empty_cache()
 
     log("== phase 5: GPTQ at full width")
@@ -1227,6 +1672,8 @@ def run(device) -> dict:
         gptq_rec["whole_o_solve"] = phase_gptq_whole_solve(solves, device)
         del solves
         phase_gptq_to_serving(arts, device)
+        gptq_formats = phase_gptq_formats(Path(tmp) / "ckpt", Path(tmp) / "layers", arts,
+                                          device)
 
     # the kernel's numbers for one decode step at B=8: the four projections
     # of every layer plus the lm_head, at the M=8 shapes measured above
@@ -1279,8 +1726,13 @@ def run(device) -> dict:
     }, paged_summary("paged_flash_decode", 70, precs["paged_flash_decode"],
                      paged_runs["bf16"]["launches"]),
         paged_summary("paged_flash_decode_q4", 160, precs["paged_flash_decode_q4"],
-                      paged_runs["int4"]["launches"])],
+                      paged_runs["int4"]["launches"])] + [
+        format_summary(name, source, replaces, body, fmt, shapes, frecs,
+                       fserve[fmt]["counts"]["v1" if body == "v1" else f"v4_{body}"])
+        for name, source, replaces, body, fmt, shapes in V1_V4_BODIES],
         "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
+        "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
+                        gptq_greedy=gptq_formats),
         "seconds": time.time() - t_start}
 
 

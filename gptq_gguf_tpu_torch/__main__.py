@@ -1,7 +1,9 @@
-"""Command line of the port: ``python -m gptq_gguf_tpu_torch {quantize,serve} ...``.
+"""Command line of the port: ``python -m gptq_gguf_tpu_torch {quantize,serve,ppl} ...``.
 
 ``quantize`` runs the GPTQ calibration walk over an HF llama checkpoint and
-writes one K-quant artifact per linear (``cli/quantize.py``). ``serve``
+writes one K-quant artifact per linear (``cli/quantize.py``). ``ppl``
+scores a GGUF (dense, or through the serving kernels) or an HF checkpoint
+(``cli/tools.py``). ``serve``
 loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
 either greedily decodes one prompt (token ids or text) or, with
 ``--http``, serves HTTP requests; ``--paged`` takes the paged-KV engine
@@ -109,13 +111,16 @@ def run_serve(args) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m gptq_gguf_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    from .cli import quantize
+    from .cli import quantize, tools
 
     quantize.build_parser(sub.add_parser("quantize", help="GPTQ K-quant calibration walk"))
     build_serve(sub.add_parser("serve", help="greedy decoding from a K-quant GGUF"))
+    tools.build_ppl(sub.add_parser("ppl", help="perplexity of a GGUF or an HF checkpoint"))
     args = ap.parse_args(argv)
     if args.cmd == "quantize":
         quantize.run(args)
+    elif args.cmd == "ppl":
+        tools.run_ppl(args)
     else:
         run_serve(args)
     return 0

@@ -7,8 +7,8 @@ import argparse
 from ..models.llama import _DTYPES
 
 
-def add_model_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--model_name_or_path", type=str, required=True,
+def add_model_args(p: argparse.ArgumentParser, required: bool = True) -> None:
+    p.add_argument("--model_name_or_path", type=str, required=required,
                    help="HF checkpoint directory (config.json + safetensors)")
     p.add_argument("--tokenizer_name", type=str, default=None,
                    help="for text datasets, which the port does not read yet")

@@ -399,6 +399,18 @@ def head_forward(params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return torch.matmul(h.float(), w.float().T)
 
 
+def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Full forward pass of dense params: (B, S) ids -> logits (B, S, V) f32."""
+    B, S = input_ids.shape
+    positions = torch.arange(S, device=input_ids.device).expand(B, S)
+    cos, sin = rope_cos_sin_all(cfg, positions)
+    mask = causal_mask(B, S, device=input_ids.device)
+    x = embed_forward(params, input_ids, cfg)
+    for li, layer in enumerate(params["layers"]):
+        x = block_forward(layer, x, cos, sin, mask, cfg, li)
+    return head_forward(params, x, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Quantizable-layer accounting: the HF module names, so artifact
 # directories match the JAX package's

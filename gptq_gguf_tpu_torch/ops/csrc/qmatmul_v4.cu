@@ -1,0 +1,410 @@
+// Fused K-quant dequant + matmul over the v4 runtime format, for Hopper
+// (sm_90a). Built by gptq_gguf_tpu_torch/ops/cuda_build.py into a shared
+// library with a plain C interface, bound with ctypes by
+// gptq_gguf_tpu_torch/ops/qmv4.py::dequant_matmul_v4.
+//
+// Replaces the three Pallas bodies behind gptq_gguf_tpu/ops/qmv4.py::
+// _main_dot_v4, plus the offset correction dequant_matmul_v4 runs after it:
+//   _kernel_v4_pb2     4-bit codes, layout "i32": lo = b & 0xF (row k),
+//                      hi = b >> 4 (row k + 128)
+//   _kernel_v4_pb2_i8  4-bit codes, layout "i8": lo = b & 0x0F,
+//                      hi = int8(b & 0xF0) = 16 * (stored nibble as int4); the
+//                      x16 and the -8 bias are folded into the stored planes
+//   _kernel_v4_pb1     5/6-bit codes, one byte per code: q = byte ("i32") or
+//                      int8(byte) ("i8"; the same value, the codes are < 128)
+//
+// Computes, for x (M, d_in) f32 or bf16 and one v4-packed weight:
+//   y (M, d_out) f32 = sum_k bf16(x_k) * bf16(q_k * bf16(s_g))  -  xsum @ offc
+//   s     = the (n_groups, d_out) scale plane, f32 or bf16, rounded to bf16
+//           even when stored in f32 (the JAX kernels' astype(mxu_dtype))
+//   q * bf16(s) is exact in f32 and rounded to bf16 once (a bf16 multiply)
+//   xsum  = f32 group sums of the UN-rounded x; offc (n_groups, d_out) f32,
+//           absent (null) when the type has neither a min nor a shift
+// The products of two bf16 values are exact in f32, so the kernel and its
+// plain version differ only in the order of the f32 sums.
+//
+// What bounds it: bytes at decode. Q4_K reads 0.75 bytes per weight with
+// f32 scales (0.6875 with bf16 scales), Q6_K 1.5 (1.375); each byte feeds
+// at most 2 * M multiply-adds at M <= 8. At prefill it is bound by the
+// multiply-adds, done here on the CUDA cores in f32 (tensor cores, which
+// take bf16 products with f32 sums, are later work).
+//
+// Design (the structure of qmatmul_v2g.cu; only the per-weight
+// dequantization differs): VEC = 4 adjacent output columns per thread, one
+// 32-bit word of codes per weight row; x staged in shared memory a 256-row
+// supergroup at a time for MT rows (group sums of the raw x taken there,
+// then rounded to bf16 in place); codes to floats by the 2^23 magic-number
+// trick and pairs of weights rounded to bf16 by one packed conversion; at
+// decode 4 warps split each supergroup's rows, and the K axis is split over
+// supergroups with a second kernel reducing the partials in a fixed order.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kQK = 256;       // rows per supergroup
+constexpr int kHalf = 128;     // nibble split: byte k holds rows k and k+128
+constexpr int kThreads = 128;  // threads per block
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// exact float of a small unsigned integer without the int-to-float unit
+__device__ __forceinline__ float small_u2f(uint32_t q) {
+  return __uint_as_float(0x4B000000u | q) - 8388608.f;
+}
+
+// round two f32 to bf16 (nearest even) in one packed conversion
+__device__ __forceinline__ void bf16_round2(float& a, float& b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  a = __low2float(p);
+  b = __high2float(p);
+}
+
+template <int VEC>
+__device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
+  if constexpr (VEC == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  else return __ldg(p);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// VEC bf16 values as floats (8-byte load for VEC 4)
+template <int VEC>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xFFFF0000u);
+  } else {
+    v[0] = __bfloat162float(p[0]);
+  }
+}
+
+// the MT staged x values of one row k (k-major tile), by 16-byte loads
+template <int MT>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[MT]) {
+  if constexpr (MT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < MT / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) v[i] = p[i];
+  }
+}
+
+// the code value of the low nibble of byte c of a word
+__device__ __forceinline__ float lo_code(uint32_t w, int c) {
+  return small_u2f((w >> (8 * c)) & 0xFu);
+}
+
+// the code value of the high nibble of byte c: the nibble itself ("i32"),
+// or int8(byte & 0xF0) = 16 * (the nibble read as a signed 4-bit value)
+template <bool I8>
+__device__ __forceinline__ float hi_code(uint32_t w, int c) {
+  const uint32_t n = (w >> (8 * c + 4)) & 0xFu;
+  if constexpr (I8) return (small_u2f(n ^ 8u) - 8.f) * 16.f;  // exact
+  else return small_u2f(n);
+}
+
+// one byte per code: the byte ("i32") or int8(byte) ("i8")
+template <bool I8>
+__device__ __forceinline__ float byte_code(uint32_t w, int c) {
+  const uint32_t b = (w >> (8 * c)) & 0xFFu;
+  if constexpr (I8) return small_u2f(b ^ 0x80u) - 128.f;  // exact
+  else return small_u2f(b);
+}
+
+template <int MT>
+struct Slices {
+  static constexpr int KS = MT <= 8 ? 4 : 1;
+};
+
+template <int PB, int GS, bool I8, int MT, int VEC>
+__global__ void __launch_bounds__(kThreads) v4_kernel(
+    const void* __restrict__ x,       // (M, d_in) f32 or bf16
+    int x_bf16,
+    const uint8_t* __restrict__ qs,   // (d_in / PB, d_out)
+    const void* __restrict__ scale,   // (d_in / GS, d_out) f32 or bf16
+    int scale_bf16,
+    const float* __restrict__ offc,   // (d_in / GS, d_out) or null
+    float* __restrict__ out,          // (gridDim.z, M, d_out)
+    int M, int d_in, int d_out, int sg_per_split) {
+  constexpr int KS = Slices<MT>::KS;
+  constexpr int COLT = kThreads / KS;  // column threads per slice
+  constexpr int GPSG = kQK / GS;       // groups per supergroup
+  constexpr int GPS = GPSG / KS;       // groups per slice (PB == 1)
+  constexpr int PPS = GPSG / 2 / KS;   // low/high group pairs per slice (PB == 2)
+  static_assert(PB == 1 ? GPS * KS == GPSG : PPS * KS * 2 == GPSG, "slices");
+  __shared__ __align__(16) float xs[kQK * MT];   // k-major: xs[k * MT + m]
+  __shared__ float xg[GPSG * MT];                // xsum: xg[g * MT + m]
+  __shared__ __align__(16) float red[(KS - 1) * MT * COLT * VEC + 1];
+
+  const int tx = threadIdx.x % COLT;
+  const int slice = threadIdx.x / COLT;
+  const int n0 = (blockIdx.x * COLT + tx) * VEC;
+  const int m0 = blockIdx.y * MT;
+  const int n_sg = d_in / kQK;
+  const int sg_begin = blockIdx.z * sg_per_split;
+  const int sg_end = min(n_sg, sg_begin + sg_per_split);
+  const bool live = n0 < d_out;
+  const size_t ldo = static_cast<size_t>(d_out);
+  const float* xf = static_cast<const float*>(x);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const float* scale_f = static_cast<const float*>(scale);
+  const __nv_bfloat16* scale_b = static_cast<const __nv_bfloat16*>(scale);
+
+  float acc[MT][VEC];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) acc[m][c] = 0.f;
+
+  for (int sg = sg_begin; sg < sg_end; ++sg) {
+    __syncthreads();  // the previous supergroup's tile is fully consumed
+    // stage the raw x (thread t writes xs[t]: no bank conflicts)
+    for (int t = threadIdx.x; t < MT * kQK; t += kThreads) {
+      const int m = t % MT, k = t / MT, row = m0 + m;
+      const size_t i = static_cast<size_t>(row) * d_in + static_cast<size_t>(sg) * kQK + k;
+      float v = 0.f;
+      if (row < M) v = x_bf16 ? __bfloat162float(xb[i]) : xf[i];
+      xs[t] = v;
+    }
+    __syncthreads();
+    // group sums of the raw x, then the tile rounded to bf16 in place
+    // (each value belongs to one (row, group) task)
+    for (int t = threadIdx.x; t < MT * GPSG; t += kThreads) {
+      const int m = t % MT, g = t / MT;
+      float s = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < GS; ++j) {
+        float* p = xs + (g * GS + j) * MT + m;
+        s += *p;
+        *p = bf16_round(*p);
+      }
+      xg[t] = s;
+    }
+    __syncthreads();
+    if (!live) continue;
+
+    // one group: its bf16 scale, and its offset term folded into acc
+    auto group_scale = [&](int g, float (&s)[VEC]) {
+      const size_t gi = static_cast<size_t>(sg * GPSG + g) * ldo + n0;
+      if (scale_bf16) {
+        load_bf16<VEC>(scale_b + gi, s);
+      } else {
+        load_f32<VEC>(scale_f + gi, s);
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) s[c] = bf16_round(s[c]);
+      }
+      if (offc != nullptr) {
+        float o[VEC];
+        load_f32<VEC>(offc + gi, o);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) acc[m][c] = fmaf(-xg[g * MT + m], o[c], acc[m][c]);
+      }
+    };
+
+    if (PB == 2) {
+      const uint8_t* qrow = qs + static_cast<size_t>(sg) * kHalf * ldo + n0;
+#pragma unroll 1
+      for (int p = 0; p < PPS; ++p) {
+        const int g = slice * PPS + p, g_hi = g + GPSG / 2;
+        float s_lo[VEC], s_hi[VEC];
+        group_scale(g, s_lo);
+        group_scale(g_hi, s_hi);
+#pragma unroll 8
+        for (int j = 0; j < GS; ++j) {
+          const int k = g * GS + j;
+          const uint32_t w = load_bytes<VEC>(qrow + static_cast<size_t>(k) * ldo);
+          float w_lo[VEC], w_hi[VEC];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) {
+            w_lo[c] = lo_code(w, c) * s_lo[c];
+            w_hi[c] = hi_code<I8>(w, c) * s_hi[c];
+            bf16_round2(w_lo[c], w_hi[c]);
+          }
+          float xa[MT], xb2[MT];
+          load_x<MT>(xs + k * MT, xa);
+          load_x<MT>(xs + (k + kHalf) * MT, xb2);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int c = 0; c < VEC; ++c)
+              acc[m][c] = fmaf(xa[m], w_lo[c], fmaf(xb2[m], w_hi[c], acc[m][c]));
+        }
+      }
+    } else {
+      const uint8_t* qrow = qs + static_cast<size_t>(sg) * kQK * ldo + n0;
+#pragma unroll 1
+      for (int p = 0; p < GPS; ++p) {
+        const int g = slice * GPS + p;
+        float s[VEC];
+        group_scale(g, s);
+#pragma unroll 8
+        for (int j = 0; j < GS; j += 2) {
+          const int k = g * GS + j;
+          const uint32_t w0 = load_bytes<VEC>(qrow + static_cast<size_t>(k) * ldo);
+          const uint32_t w1 = load_bytes<VEC>(qrow + static_cast<size_t>(k + 1) * ldo);
+          float a[VEC], b[VEC];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) {
+            a[c] = byte_code<I8>(w0, c) * s[c];
+            b[c] = byte_code<I8>(w1, c) * s[c];
+            bf16_round2(a[c], b[c]);
+          }
+          float xa[MT], xb2[MT];
+          load_x<MT>(xs + k * MT, xa);
+          load_x<MT>(xs + (k + 1) * MT, xb2);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int c = 0; c < VEC; ++c)
+              acc[m][c] = fmaf(xa[m], a[c], fmaf(xb2[m], b[c], acc[m][c]));
+        }
+      }
+    }
+  }
+
+  if (KS > 1) {  // slices 1..KS-1 hand their sums to slice 0
+    if (slice > 0 && live) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          red[((slice - 1) * MT + m) * COLT * VEC + tx * VEC + c] = acc[m][c];
+    }
+    __syncthreads();
+    if (slice > 0) return;
+    for (int s = 1; s < KS; ++s)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          acc[m][c] += red[((s - 1) * MT + m) * COLT * VEC + tx * VEC + c];
+  }
+  if (!live) return;
+  float* o = out + static_cast<size_t>(blockIdx.z) * M * ldo;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int row = m0 + m;
+    if (row >= M) break;
+#pragma unroll
+    for (int c = 0; c < VEC; ++c)
+      if (n0 + c < d_out) o[static_cast<size_t>(row) * ldo + n0 + c] = acc[m][c];
+  }
+}
+
+// out[i] = sum over z of part[z][i], always in the order z = 0, 1, ...
+__global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int splits,
+                                     size_t count) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += part[static_cast<size_t>(z) * count + i];
+  out[i] = s;
+}
+
+struct Args {
+  const void* x;
+  int x_bf16;
+  const uint8_t* qs;
+  const void* scale;
+  int scale_bf16;
+  const float* offc;
+  float* dst;
+  int M, d_in, d_out, sg_per_split, splits;
+  cudaStream_t stream;
+};
+
+template <int PB, int GS, bool I8, int MT, int VEC>
+void launch(const Args& a) {
+  constexpr int cols = kThreads / Slices<MT>::KS * VEC;
+  const dim3 grid((a.d_out + cols - 1) / cols, (a.M + MT - 1) / MT, a.splits);
+  v4_kernel<PB, GS, I8, MT, VEC><<<grid, kThreads, 0, a.stream>>>(
+      a.x, a.x_bf16, a.qs, a.scale, a.scale_bf16, a.offc, a.dst, a.M, a.d_in,
+      a.d_out, a.sg_per_split);
+}
+
+// row tiles: MT in {1, 2, 4, 8, 16, 32} for VEC 4, {1, 8, 32} for VEC 1
+template <int PB, int GS, bool I8>
+bool launch_tile(const Args& a, int mt, int vec) {
+  if (vec == 4) {
+    switch (mt) {
+      case 1: launch<PB, GS, I8, 1, 4>(a); return true;
+      case 2: launch<PB, GS, I8, 2, 4>(a); return true;
+      case 4: launch<PB, GS, I8, 4, 4>(a); return true;
+      case 8: launch<PB, GS, I8, 8, 4>(a); return true;
+      case 16: launch<PB, GS, I8, 16, 4>(a); return true;
+      case 32: launch<PB, GS, I8, 32, 4>(a); return true;
+      default: return false;
+    }
+  }
+  if (vec == 1) {
+    switch (mt) {
+      case 1: launch<PB, GS, I8, 1, 1>(a); return true;
+      case 8: launch<PB, GS, I8, 8, 1>(a); return true;
+      case 32: launch<PB, GS, I8, 32, 1>(a); return true;
+      default: return false;
+    }
+  }
+  return false;
+}
+
+template <bool I8>
+bool launch_format(const Args& a, int per_byte, int group_size, int mt, int vec) {
+  if (per_byte == 2 && group_size == 32) return launch_tile<2, 32, I8>(a, mt, vec);  // Q4_K
+  if (per_byte == 2 && group_size == 16) return launch_tile<2, 16, I8>(a, mt, vec);  // Q2/Q3_K
+  if (per_byte == 1 && group_size == 32) return launch_tile<1, 32, I8>(a, mt, vec);  // Q5_K
+  if (per_byte == 1 && group_size == 16) return launch_tile<1, 16, I8>(a, mt, vec);  // Q6_K
+  return false;
+}
+
+}  // namespace
+
+// Returns 0 on success, else a cudaError_t value (cudaGetLastError() after
+// the launches, or cudaErrorInvalidValue for a format or tile this file
+// does not instantiate). x is bf16 when x_bf16 != 0, else f32; the scale
+// plane bf16 when scale_bf16 != 0, else f32; offc may be null; layout_i8
+// selects the "i8" code layout. partials is (splits, M, d_out) f32 scratch
+// when splits > 1, ignored otherwise. vec 4 needs d_out % 4 == 0 and
+// 16-byte-aligned planes. Every pointer is a device pointer of contiguous
+// data.
+extern "C" int gg_v4_matmul(const void* x, int x_bf16, const uint8_t* qs,
+                            const void* scale, int scale_bf16, const float* offc,
+                            float* partials, float* out, int M, int d_in,
+                            int d_out, int per_byte, int group_size,
+                            int layout_i8, int mt, int vec, int sg_per_split,
+                            int splits, void* stream) {
+  Args a{x, x_bf16, qs, scale, scale_bf16, offc, splits > 1 ? partials : out,
+         M, d_in, d_out, sg_per_split, splits, static_cast<cudaStream_t>(stream)};
+  const bool ok = layout_i8 ? launch_format<true>(a, per_byte, group_size, mt, vec)
+                            : launch_format<false>(a, per_byte, group_size, mt, vec);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 1) {
+    const size_t count = static_cast<size_t>(M) * d_out;
+    const int threads = 256;
+    const unsigned blocks = static_cast<unsigned>((count + threads - 1) / threads);
+    reduce_splits_kernel<<<blocks, threads, 0, a.stream>>>(partials, out, splits, count);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

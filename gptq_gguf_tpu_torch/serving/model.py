@@ -1,12 +1,18 @@
-"""Quantized serving model: KV-cached dense Llama over v2-packed weights.
+"""Quantized serving model: KV-cached dense Llama over runtime-packed weights.
 
 Port of the dense-Llama path of ``gptq_gguf_tpu/serving/model.py``. Every
-projection and the lm_head go through ``ops.qmatmul.dequant_matmul`` (the
-v2g CUDA kernel on the card). The KV cache is a preallocated per-layer
-(B, n_kv, max_len + 1, hd) buffer updated in place: row ``max_len`` is a
-drop row that absorbs writes past the end of the cache (the JAX package
-drops them with ``.at[...].set(mode="drop")``), so retired slots can keep
-decoding inside a block without a bounds check on the host.
+projection and the lm_head go through ``ops.qmatmul.dequant_matmul``, which
+routes each packed weight to its format's CUDA kernel on the card (v1, v2g
+or v4). The KV cache is a preallocated per-layer (B, n_kv, max_len + 1, hd)
+buffer updated in place: row ``max_len`` is a drop row that absorbs writes
+past the end of the cache (the JAX package drops them with
+``.at[...].set(mode="drop")``), so retired slots can keep decoding inside a
+block without a bounds check on the host.
+
+A model is built from a .gguf file (``load_gguf_for_serving``, packed in
+``qmatmul.RUNTIME_FORMAT`` or, with ``dense=True``, dequantized to dense
+arrays) or from dense params plus a calibration artifacts tree
+(``quantize_params_for_serving``).
 """
 
 from __future__ import annotations
@@ -24,14 +30,26 @@ from ..formats.ggml import KQUANT_SPECS, K_QUANT_TYPES
 from ..mapper.shards import open_gguf
 from ..models import llama
 from ..models.llama import LlamaConfig
-from ..ops import qmatmul
+from ..ops import qmatmul, qmv4
 from ..ops.kquant import SuperGroupParams
-from ..ops.qmatmul import RuntimeQuantLinearV2
+from ..ops.qmatmul import RuntimeQuantLinear, RuntimeQuantLinearV2
+from ..ops.qmv4 import RuntimeQuantLinearV4
+
+_QUANT_TYPES = (RuntimeQuantLinear, RuntimeQuantLinearV2, RuntimeQuantLinearV4)
+
+
+def _dequant_any(w) -> torch.Tensor:
+    """(d_out, d_in) f32 of a packed weight of any format."""
+    if isinstance(w, RuntimeQuantLinearV4):
+        return qmv4.dequantize_runtime_v4(w)
+    if isinstance(w, RuntimeQuantLinearV2):
+        return qmatmul.dequantize_runtime_v2(w)
+    return qmatmul.dequantize_runtime(w)
 
 
 def _q_linear(x: torch.Tensor, w) -> torch.Tensor:
-    """Apply a packed quantized weight (the v2g kernel) or a dense matrix."""
-    if isinstance(w, RuntimeQuantLinearV2):
+    """Apply a packed quantized weight (its format's kernel) or a dense matrix."""
+    if isinstance(w, _QUANT_TYPES):
         shape = x.shape[:-1]
         y = qmatmul.dequant_matmul(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*shape, w.d_out).to(x.dtype)
@@ -114,6 +132,7 @@ def forward_cached(
     cache: KVCache,
     n_valid: Optional[torch.Tensor] = None,
     fill_max: Optional[int] = None,
+    all_logits: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run S new tokens through the model with the KV cache.
 
@@ -129,7 +148,12 @@ def forward_cached(
     fill_max: host-side max(cache.lengths), which fixes how many KV chunks
     a decode step reads on a long cache; without it the step reads the
     lengths back once (never once per layer).
+
+    all_logits=True returns the logits of every fed position, (B, S, vocab)
+    f32: the lm_head runs once over all B * S rows (perplexity scoring).
     """
+    if all_logits and n_valid is not None:
+        raise ValueError("all_logits scores every position; n_valid does not apply")
     B, S = input_ids.shape
     hd = cfg.head_dim_
     lengths = cache.lengths
@@ -182,7 +206,10 @@ def forward_cached(
             up = _q_linear(h, layer["up_proj"])
         x = x + _q_linear(llama._mlp_act(gate, up, cfg), layer["down_proj"])
 
-    if n_valid is None:
+    if all_logits:
+        last = x
+        advance = S
+    elif n_valid is None:
         last = x[:, -1, :]
         advance = S
     else:
@@ -193,10 +220,12 @@ def forward_cached(
 
 
 def _head_logits(params: Dict[str, Any], cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
-    """(B, vocab) f32 logits of the normed final hidden states."""
+    """(..., vocab) f32 logits of the normed final hidden states (..., H);
+    a packed head runs once over all leading positions."""
     head = params.get("lm_head", params["embed_tokens"])
-    if isinstance(head, RuntimeQuantLinearV2):
-        logits = qmatmul.dequant_matmul(h, head)
+    if isinstance(head, _QUANT_TYPES):
+        logits = qmatmul.dequant_matmul(h.reshape(-1, h.shape[-1]), head)
+        logits = logits.reshape(*h.shape[:-1], head.d_out)
         if logits.shape[-1] > cfg.vocab_size:
             logits = logits[..., :cfg.vocab_size]  # drop pad_dout_v2 rows
         return logits
@@ -208,19 +237,27 @@ def _head_logits(params: Dict[str, Any], cfg: LlamaConfig, h: torch.Tensor) -> t
 # ---------------------------------------------------------------------------
 
 
+def _fuse(parts) -> Optional[Any]:
+    """One packed weight of the parts concatenated along d_out (v2 or v4),
+    or None: v1 weights, mixed formats or layouts (a Q4_K_M layer's Q4_K
+    q/k with a Q6_K v) stay apart, as in the JAX package."""
+    fused = qmatmul.fuse_rql_v2(parts)
+    return fused if fused is not None else qmv4.fuse_rql_v4(parts)
+
+
 def fuse_layer_projections(layer: Dict[str, Any], cfg: Optional[LlamaConfig] = None) -> Dict[str, Any]:
     """Fuse q/k/v and gate/up packed weights into single kernel launches
-    (exact: concatenation along output columns). No-op when the parts are
-    not uniformly v2-packed with one layout."""
+    (exact: concatenation along output columns). No-op when the parts do
+    not share a fusable format and layout."""
     out = dict(layer)
     if "q_proj" in out and "qkv_proj" not in out:
-        fused = qmatmul.fuse_rql_v2([out["q_proj"], out["k_proj"], out["v_proj"]])
+        fused = _fuse([out["q_proj"], out["k_proj"], out["v_proj"]])
         if fused is not None:
             out["qkv_proj"] = fused
             for k in ("q_proj", "k_proj", "v_proj"):
                 del out[k]
     if "gate_proj" in out and "gateup_proj" not in out:
-        fused = qmatmul.fuse_rql_v2([out["gate_proj"], out["up_proj"]])
+        fused = _fuse([out["gate_proj"], out["up_proj"]])
         if fused is not None:
             out["gateup_proj"] = fused
             del out["gate_proj"]
@@ -240,20 +277,32 @@ def _to_tensor(a, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-_RQL_PLANES = ("qs", "d_sg", "dmin_sg", "sc_q", "mn_q")
-_RQL_INTS = ("d_in", "group_size", "per_byte", "shift", "d_rep")
+# (a plane only that format has, class, plane names, int / str fields) of
+# each packed format
+_PACKED_DICTS = (
+    ("d_sg", RuntimeQuantLinearV2, ("qs", "d_sg", "dmin_sg", "sc_q", "mn_q"),
+     ("d_in", "group_size", "per_byte", "shift", "d_rep")),
+    ("scale_t", RuntimeQuantLinear, ("qs", "scale_t", "offset_t"),
+     ("d_in", "group_size", "per_byte")),
+    ("offc", RuntimeQuantLinearV4, ("qs", "scale", "offc"),
+     ("d_in", "group_size", "per_byte", "layout")),
+)
 
 
 def params_from_numpy(tree, cfg: LlamaConfig, device="cuda"):
     """Serving params of the JAX package, given as numpy, as the port's
-    params. Each ``RuntimeQuantLinearV2`` arrives as a dict of its numpy
-    planes (None where absent) plus its ints; arrays keep their dtype."""
+    params. Each packed weight (v1, v2 or v4) arrives as a dict of its
+    numpy planes (None where absent) plus its ints (and the v4 layout);
+    arrays keep their dtype (a bf16 v4 scale may be an ml_dtypes array)."""
     dev = resolve_device(device)
 
     def conv(v):
         if isinstance(v, dict) and "qs" in v:
-            planes = [None if v[k] is None else _to_tensor(v[k], dev) for k in _RQL_PLANES]
-            return RuntimeQuantLinearV2(*planes, *(int(v[k]) for k in _RQL_INTS))
+            for key, cls, planes, fields in _PACKED_DICTS:
+                if key in v:
+                    return cls(*(None if v[k] is None else _to_tensor(v[k], dev)
+                                 for k in planes), *(v[k] for k in fields))
+            raise ValueError(f"packed weight of unknown format: {sorted(v)}")
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}
         if isinstance(v, (list, tuple)):
@@ -266,6 +315,38 @@ def params_from_numpy(tree, cfg: LlamaConfig, device="cuda"):
         raise ValueError(f"embed_tokens {tuple(emb.shape)} does not match the config")
     if len(out["layers"]) != cfg.num_hidden_layers:
         raise ValueError("layer count does not match the config")
+    return out
+
+
+def quantize_params_for_serving(params: Dict[str, Any], cfg: LlamaConfig,
+                                artifacts_dir: Union[str, Path],
+                                device="cuda") -> Dict[str, Any]:
+    """Serving params from dense Llama params and a calibration artifacts
+    tree: each block linear with an artifact is packed in
+    ``qmatmul.RUNTIME_FORMAT`` (``pack_runtime_auto``) on ``device``; every
+    other tensor (norms, embeddings, lm_head, linears without an artifact)
+    stays dense and moves there. Blocks other than the dense Llama block
+    (MLA projections, expert stacks) raise NotImplementedError."""
+    from ..quant import artifacts as art_mod
+
+    dev = resolve_device(device)
+    available = art_mod.list_layers(artifacts_dir)
+    out = {k: v.to(dev) for k, v in params.items() if k != "layers"}
+    layers = []
+    for li, layer in enumerate(params["layers"]):
+        llama.check_dense_layer(layer)
+        new_layer = {}
+        for key, w in layer.items():
+            mod = "self_attn" if key[0] in "qkvo" else "mlp"
+            name = f"model.layers.{li}.{mod}.{key}"  # a linear's artifact name
+            if name in available:
+                art = art_mod.load_layer(artifacts_dir, name)
+                new_layer[key] = qmatmul.pack_runtime_auto(art.qweight, art.params(),
+                                                           art.q_type, device=dev)
+            else:
+                new_layer[key] = w.to(dev)
+        layers.append(new_layer)
+    out["layers"] = layers
     return out
 
 
@@ -340,19 +421,25 @@ _NAME_MAP = {
 
 
 def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
-                          device="cuda") -> Tuple[Dict[str, Any], LlamaConfig]:
+                          device="cuda", dense: bool = False
+                          ) -> Tuple[Dict[str, Any], LlamaConfig]:
     """Build a serving model directly from a llama-arch .gguf (one file or a
     shard set). K-quant tensors are unpacked bit-exactly to codes and
-    scales and repacked into the v2 runtime format on ``device``; other
-    tensors load as dense arrays. Raises on tensor names it does not
-    understand: a silently dropped tensor means silently wrong logits."""
+    scales and repacked on ``device`` in ``qmatmul.RUNTIME_FORMAT``
+    (``pack_runtime_auto``); other tensors load as dense arrays. Raises on
+    tensor names it does not understand: a silently dropped tensor means
+    silently wrong logits.
+
+    dense=True dequantizes every tensor to a dense array instead: the params
+    run through ``models.llama.forward`` (full-sequence logits), which is
+    how ``ppl --gguf-path dense`` scores a GGUF."""
     dev = resolve_device(device)
     r = open_gguf(gguf_path)
     arch = r.get("general.architecture", "llama")
     cfg = _config_from_gguf(r, arch, dtype)
     n_head, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
 
-    def dense(name: str, inv, dt):
+    def dense_tensor(name: str, inv, dt):
         w = r.tensor_float(name)
         if inv is not None:
             w = w[inv]
@@ -364,35 +451,36 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
         if ".attn_q." in name or ".attn_k." in name:  # undo llama.cpp's rope permute
             heads = n_head if ".attn_q." in name else n_kv
             inv = np.argsort(_gqa_permute_rows(info.shape[0], heads))
-        if info.ggml_type not in K_QUANT_TYPES or info.shape[-1] % 256 != 0:
-            return dense(name, inv, dtype)
+        if dense or info.ggml_type not in K_QUANT_TYPES or info.shape[-1] % 256 != 0:
+            return dense_tensor(name, inv, dtype)
         q, ss, sc, sz, zq = convert.unpack_layer(
             np.asarray(r.tensor_bytes(name)), info.ggml_type, info.shape)
         if inv is not None:
             q, ss, sc, sz, zq = q[inv], ss[inv], sc[inv], sz[inv], zq[inv]
         q = q.astype(np.int8 if KQUANT_SPECS[info.ggml_type].signed else np.uint8)
-        return qmatmul.pack_runtime_v2(q, SuperGroupParams(ss, sz, sc, zq),
-                                       info.ggml_type, device=dev)
+        return qmatmul.pack_runtime_auto(q, SuperGroupParams(ss, sz, sc, zq),
+                                         info.ggml_type, device=dev)
 
     params: Dict[str, Any] = {}
     layers: List[Dict[str, Any]] = [dict() for _ in range(cfg.num_hidden_layers)]
     for name in r.tensor_order:
         if name == "token_embd.weight":
-            params["embed_tokens"] = dense(name, None, dtype)  # gathered: keep dense
+            params["embed_tokens"] = dense_tensor(name, None, dtype)  # gathered: keep dense
         elif name == "output.weight":
             head = load_weight(name)
             if isinstance(head, RuntimeQuantLinearV2):
                 head = qmatmul.pad_dout_v2(head)  # logits are sliced back
             params["lm_head"] = head
         elif name == "output_norm.weight":
-            params["norm"] = dense(name, None, torch.float32)
+            params["norm"] = dense_tensor(name, None, torch.float32)
         elif name == "rope_freqs.weight":
             continue  # folded into cfg.rope_scaling
         elif name.startswith("blk.") and name.endswith(".weight") \
                 and name.split(".")[2] in _NAME_MAP:
             li, comp = int(name.split(".")[1]), name.split(".")[2]
             key = _NAME_MAP[comp]
-            layers[li][key] = (dense(name, None, torch.float32) if key.endswith("layernorm")
+            layers[li][key] = (dense_tensor(name, None, torch.float32)
+                               if key.endswith("layernorm")
                                else load_weight(name))
         else:
             raise NotImplementedError(

@@ -26,7 +26,8 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert f"{PKG}.ops.qmatmul" in mods and f"{PKG}.serving.engine" in mods
     assert f"{PKG}.ops.gptq" in mods and f"{PKG}.quant.calibrate" in mods
-    for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer"):
+    for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer",
+              "ops.qmv4", "evals.ppl", "cli.tools"):
         assert f"{PKG}.{m}" in mods
     code = (
         "import importlib, importlib.util, sys\n"
@@ -88,6 +89,19 @@ def test_entry_points_default_to_cuda(no_cuda):
         lambda: paged.init_paged_cache(cfg, 1, 64),
         lambda: engine.PagedContinuousBatchingEngine(cpu_params, cfg, max_len=64),
         lambda: main(["serve", "--http", "--paged", "--gguf-file", str(REPO / "missing.gguf")]),
+    ]
+    # the v1 / v4 formats, serving from artifacts and perplexity
+    from gptq_gguf_tpu_torch.ops import qmv4
+
+    calls += [
+        lambda: qmatmul.pack_runtime(np.zeros((4, 256), np.uint8),
+                                     SuperGroupParams(z, z, zi, zi), T.Q4_K),
+        lambda: qmv4.pack_runtime_v4(np.zeros((4, 256), np.uint8),
+                                     SuperGroupParams(z, z, zi, zi), T.Q4_K),
+        lambda: qmatmul.pack_runtime_auto(np.zeros((4, 256), np.uint8),
+                                          SuperGroupParams(z, z, zi, zi), T.Q4_K, fmt="v4"),
+        lambda: qmodel.quantize_params_for_serving({"layers": []}, cfg, REPO / "missing"),
+        lambda: main(["ppl", "--gguf-file", str(REPO / "missing.gguf")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,6 +1,6 @@
-"""The CUDA kernels (v2g dequant-matmul, GPTQ column-block solve, paged
-flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
-versions, on the card.
+"""The CUDA kernels (v2g, v1 and v4 dequant-matmul, GPTQ column-block solve,
+paged flash-decode over bf16 / f32 and int4 pools) against their plain
+PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor the JAX package, so on
@@ -9,9 +9,10 @@ a card host it runs without them:
     python -m pytest tests/test_torch_kernel_cuda.py --noconftest -q
 
 Tolerances: v2g and its plain version compute the same bf16 products and
-differ only in the order of the f32 sums: atol 1e-4 of max|y|. The GPTQ
-solve repeats its plain version's IEEE f32 operations in the same order:
-codes and errors equal bit for bit. The paged decode kernels and their
+differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
+(f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
+sum of |terms| of one output. The GPTQ solve repeats its plain version's
+IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries): atol 1e-4 of max|out|."""
 
@@ -21,7 +22,7 @@ import torch
 
 from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS, GGMLQuantizationType as T
 from gptq_gguf_tpu_torch.models.llama import LlamaConfig
-from gptq_gguf_tpu_torch.ops import gptq, paged_attention as pa, qmatmul
+from gptq_gguf_tpu_torch.ops import gptq, paged_attention as pa, qmatmul, qmv4
 from gptq_gguf_tpu_torch.ops.kquant import SuperGroupParams
 from gptq_gguf_tpu_torch.serving import model as qmodel
 
@@ -35,8 +36,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rql(qtype, d_out, d_in, seed, device):
-    """Random codes and scales (weights of std ~ 1/sqrt(d_in))."""
+def _rql(qtype, d_out, d_in, seed, device, pack=qmatmul.pack_runtime_v2):
+    """Random codes and scales (weights of std ~ 1/sqrt(d_in)), packed by
+    ``pack`` (any format's packer)."""
     rng = np.random.default_rng(seed)
     spec = KQUANT_SPECS[qtype]
     n_sg, ng = d_in // 256, d_in // spec.group_size
@@ -49,7 +51,7 @@ def _rql(qtype, d_out, d_in, seed, device):
     else:
         sc = rng.integers(0, spec.scale_maxq + 1, (d_out, ng))
         zq = rng.integers(0, spec.scale_maxq + 1, (d_out, ng))
-    return qmatmul.pack_runtime_v2(q, SuperGroupParams(ss, ss, sc, zq), qtype, device=device)
+    return pack(q, SuperGroupParams(ss, ss, sc, zq), qtype, device=device)
 
 
 def _check(x, rql):
@@ -148,6 +150,156 @@ def test_forward_cached_on_card_matches_cpu(cuda):
         if dev.type == "cuda":
             assert qmatmul.dequant_matmul_v2g.launches - n0 == 3 * (4 * 2 + 1)
     want = out["cpu"]
+    np.testing.assert_allclose(out["cuda"].numpy(), want.numpy(), rtol=0,
+                               atol=2e-2 * want.abs().max().item())
+
+
+def _v4_packer(scale_dtype, layout):
+    return lambda q, p, t, device: qmv4.pack_runtime_v4(q, p, t, scale_dtype=scale_dtype,
+                                                        layout=layout, device=device)
+
+
+# the v1 and v4 packers, and per format its kernel wrapper and plain version
+PACKERS = {"v1": qmatmul.pack_runtime,
+           "v4": _v4_packer(torch.float32, "i32"),
+           "v4 bf16": _v4_packer(torch.bfloat16, "i32"),
+           "v4 i8": _v4_packer(torch.float32, "i8"),
+           "v4 i8 bf16": _v4_packer(torch.bfloat16, "i8")}
+
+
+def _fns(rql):
+    if isinstance(rql, qmatmul.RuntimeQuantLinear):
+        return qmatmul.dequant_matmul_v1, qmatmul.dequant_matmul_v1_reference
+    return qmv4.dequant_matmul_v4, qmv4.dequant_matmul_v4_reference
+
+
+def _terms(x, rql):
+    """max over outputs of the sum of |terms| both versions add up."""
+    if isinstance(rql, qmatmul.RuntimeQuantLinear):
+        return (x.float().abs() @ qmatmul.dequantize_runtime(rql).T.abs()).max().item()
+    ng = rql.scale.shape[0]
+    s = rql.scale.to(torch.bfloat16).float()
+    w = (qmv4._codes_v4(rql).reshape(ng, rql.group_size, rql.d_out) * s[:, None, :])
+    mag = x.to(torch.bfloat16).float().abs() @ w.reshape(rql.d_in_local, rql.d_out).abs()
+    if rql.offc is not None:
+        mag = mag + qmv4._group_sums(x, rql.group_size).abs() @ rql.offc.abs()
+    return mag.max().item()
+
+
+@pytest.fixture
+def f32_exact(monkeypatch):
+    """The plain v1 version is an f32 product: TF32 off."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", list(PACKERS))
+@pytest.mark.parametrize("qtype", ALL_K)
+@pytest.mark.parametrize("M,d_out,d_in,dtype", [
+    (1, 768, 1024, torch.float32),    # one row, K split across supergroups
+    (8, 768, 1024, torch.bfloat16),   # decode tile, four warps per supergroup
+    (128, 768, 1024, torch.bfloat16),
+    (300, 512, 1024, torch.float32),  # prefill rows, ragged last 32-row tile
+    (5, 333, 512, torch.bfloat16),    # ragged d_out: one column per thread
+    (40, 333, 512, torch.float32),    # both: 32-row tiles of one column per thread
+])
+def test_v1_v4_kernels_match_plain(cuda, f32_exact, fmt, qtype, M, d_out, d_in, dtype):
+    """The v1 kernel (f32) and the v4 kernel (bf16 products, f32 sums)
+    against their plain versions: the same products, f32 sums in another
+    order: within 1e-4 of the largest sum of |terms| of one output."""
+    rql = _rql(qtype, d_out, d_in, seed=M + 3 * int(qtype), device=cuda, pack=PACKERS[fmt])
+    fn, ref = _fns(rql)
+    x = torch.randn(M, d_in, generator=torch.Generator().manual_seed(M)).to(cuda, dtype)
+    n0 = fn.launches
+    got = qmatmul.dequant_matmul(x, rql)
+    want = ref(x, rql)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-4 * _terms(x, rql))
+
+
+@pytest.mark.cuda
+def test_v4_kernel_without_offsets(cuda):
+    """A v4 weight without an offc plane (a type with neither a min nor a
+    shift): the kernel skips the correction as its plain version does."""
+    v4 = _rql(T.Q4_K, 512, 1024, 4, cuda, pack=PACKERS["v4 bf16"])
+    bare = qmv4.RuntimeQuantLinearV4(v4.qs, v4.scale, None, v4.d_in, v4.group_size,
+                                     v4.per_byte)
+    x = torch.randn(8, 1024, generator=torch.Generator().manual_seed(4)).to(cuda)
+    got = qmatmul.dequant_matmul(x, bare)
+    want = qmv4.dequant_matmul_v4_reference(x, bare)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-4 * _terms(x, bare))
+
+
+@pytest.mark.cuda
+def test_v1_v4_wrappers_refuse_wrong_planes(cuda):
+    v1 = _rql(T.Q4_K, 256, 512, 2, cuda, pack=qmatmul.pack_runtime)
+    bad = qmatmul.RuntimeQuantLinear(v1.qs, v1.scale_t.cpu(), v1.offset_t, v1.d_in,
+                                     v1.group_size, v1.per_byte)
+    with pytest.raises(ValueError, match="scale_t"):
+        qmatmul.dequant_matmul(torch.randn(2, 512, device=cuda), bad)
+    v4 = _rql(T.Q6_K, 256, 512, 3, cuda, pack=PACKERS["v4"])
+    with pytest.raises(ValueError, match="d_in"):
+        qmatmul.dequant_matmul(torch.randn(2, 256, device=cuda), v4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["v1", "v4"])
+def test_forward_cached_formats_on_card_match_cpu(cuda, f32_exact, fmt):
+    """A tiny random model in the v1 or v4 format: prefill + 2 decode steps
+    on the card (kernels) and on the CPU (plain versions), logits within
+    2e-2 of max|logit| (bf16 activations turn f32 sum-order differences
+    into rare one-ulp flips); v4 fuses q/k/v and gate/up (4 launches per
+    layer plus the lm_head), v1 does not fuse (7 per layer plus the head)."""
+    cfg = LlamaConfig(vocab_size=500, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    pack = PACKERS[fmt]
+
+    def params(dev):
+        layers = []
+        for li in range(2):
+            s = 10 * li
+            layers.append(qmodel.fuse_layer_projections({
+                "input_layernorm": torch.ones(512, device=dev),
+                "post_attention_layernorm": torch.ones(512, device=dev),
+                "q_proj": _rql(T.Q4_K, 512, 512, s + 1, dev, pack),
+                "k_proj": _rql(T.Q4_K, 256, 512, s + 2, dev, pack),
+                "v_proj": _rql(T.Q4_K, 256, 512, s + 3, dev, pack),
+                "o_proj": _rql(T.Q4_K, 512, 512, s + 4, dev, pack),
+                "gate_proj": _rql(T.Q4_K, 1024, 512, s + 5, dev, pack),
+                "up_proj": _rql(T.Q4_K, 1024, 512, s + 6, dev, pack),
+                "down_proj": _rql(T.Q6_K, 512, 1024, s + 7, dev, pack),
+            }))
+        # an unpadded head: d_out 500 is not a multiple of the column tile
+        return {"embed_tokens": emb.to(dev), "norm": torch.ones(512, device=dev),
+                "lm_head": _rql(T.Q6_K, 500, 512, 99, dev, pack), "layers": layers}
+
+    emb = (torch.randn(500, 512, generator=gen) * 0.5).to(torch.bfloat16)
+    ids = torch.randint(0, 500, (2, 9), generator=gen)
+    fn = qmatmul.dequant_matmul_v1 if fmt == "v1" else qmv4.dequant_matmul_v4
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = params(dev)
+        cache = qmodel.init_cache(cfg, 2, 64, device=dev)
+        n0, v2g0 = fn.launches, qmatmul.dequant_matmul_v2g.launches
+        rows, step = [], ids.to(dev)
+        for _ in range(3):
+            logits, cache = qmodel.forward_cached(p, cfg, step, cache)
+            rows.append(logits.cpu())
+            step = ids[:, :1].to(dev)
+        out[dev.type] = torch.stack(rows)
+        if dev.type == "cuda":
+            per_layer = 7 if fmt == "v1" else 4
+            assert fn.launches - n0 == 3 * (per_layer * 2 + 1)
+            assert qmatmul.dequant_matmul_v2g.launches == v2g0
+    want = out["cpu"]
+    assert want.shape == (3, 2, 500)
     np.testing.assert_allclose(out["cuda"].numpy(), want.numpy(), rtol=0,
                                atol=2e-2 * want.abs().max().item())
 

@@ -145,6 +145,105 @@ def test_launch_plan(M, d_out, n_sg, vec, want):
     assert qmatmul._launch_plan(M, d_out, n_sg, n_sm=132, vec=vec) == want
 
 
+def _v1_pair(qtype, d_out=512, d_in=512, seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(d_out, d_in)).astype(np.float32) * 0.1
+    q, p = kquant.quantize_rtn(jnp.asarray(w), qtype)
+    q = np.asarray(q)
+    params = SuperGroupParams(*(np.asarray(a) for a in p))
+    return (jq.pack_runtime(q, p, qtype),
+            qmatmul.pack_runtime(q, params, ggml.GGMLQuantizationType(int(qtype)),
+                                 device="cpu"))
+
+
+def _assert_same_v1(jr, tr):
+    for name in ("qs", "scale_t", "offset_t"):
+        a, b = np.asarray(getattr(jr, name)), getattr(tr, name).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    for k in ("d_in", "group_size", "per_byte"):
+        assert getattr(tr, k) == getattr(jr, k), k
+    assert tr.packed_bits_per_weight == pytest.approx(jr.packed_bits_per_weight, rel=1e-12)
+
+
+@pytest.mark.parametrize("qtype", ALL_K)
+def test_pack_v1_planes_byte_equal_and_dequant_bit_equal(qtype):
+    jr, tr = _v1_pair(qtype, seed=60 + int(qtype))
+    _assert_same_v1(jr, tr)
+    got = qmatmul.dequantize_runtime(tr).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.asarray(jq.dequantize_runtime(jr)))
+
+
+@pytest.mark.parametrize("qtype", ALL_K)
+@pytest.mark.parametrize("M", [1, 8, 33])
+def test_plain_v1_matches_jax_interpret(qtype, M):
+    """JAX's v1 Pallas kernel in interpret mode against the port's plain
+    version: both are f32 products and f32 sums of the same weights, so
+    they differ only in the order of the sums: within 1e-4 of the largest
+    sum of |terms| of one output."""
+    jr, tr = _v1_pair(qtype, d_in=1024, seed=70 + int(qtype))
+    x = np.random.default_rng(M).normal(size=(M, 1024)).astype(np.float32)
+    want = np.asarray(jq.dequant_matmul_pallas(jnp.asarray(x), jr, tile_out=256,
+                                               tile_in=512, interpret=True))
+    xt = torch.from_numpy(x)
+    got = qmatmul.dequant_matmul_v1_reference(xt, tr).numpy()
+    mag = (xt.abs() @ qmatmul.dequantize_runtime(tr).T.abs()).max().item()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * mag)
+    # the CPU dispatch takes the plain version; JAX's CPU dispatch runs XLA
+    np.testing.assert_array_equal(qmatmul.dequant_matmul(xt, tr).numpy(), got)
+    np.testing.assert_allclose(np.asarray(jq.dequant_matmul(jnp.asarray(x), jr)), got,
+                               rtol=0, atol=1e-4 * mag)
+
+
+@pytest.mark.parametrize("fmt", ["v1", "v2", "v4"])
+def test_pack_runtime_auto_formats(fmt, monkeypatch):
+    """fmt= picks the format; without it both packages read their
+    RUNTIME_FORMAT constant ("v2" by default). v4 packs f32 scales, i32."""
+    from gptq_gguf_tpu.ops import qmv4 as jv4
+    from gptq_gguf_tpu_torch.ops import qmv4
+    from tests.test_torch_qmv4 import assert_same_v4
+
+    assert qmatmul.RUNTIME_FORMAT == jq.RUNTIME_FORMAT == "v2"
+    rng = np.random.default_rng(80)
+    w = rng.normal(size=(256, 512)).astype(np.float32) * 0.1
+    q, p = kquant.quantize_rtn(jnp.asarray(w), T.Q4_K)
+    q = np.asarray(q)
+    tp = SuperGroupParams(*(np.asarray(a) for a in p))
+    tq = ggml.GGMLQuantizationType.Q4_K
+    monkeypatch.setattr(qmatmul, "RUNTIME_FORMAT", fmt)
+    monkeypatch.setattr(jq, "RUNTIME_FORMAT", fmt)
+    for jr, tr in ((jq.pack_runtime_auto(q, p, T.Q4_K),
+                    qmatmul.pack_runtime_auto(q, tp, tq, device="cpu")),
+                   (jq.pack_runtime_auto(q, p, T.Q4_K, fmt=fmt),
+                    qmatmul.pack_runtime_auto(q, tp, tq, fmt=fmt, device="cpu"))):
+        if fmt == "v1":
+            assert type(tr) is qmatmul.RuntimeQuantLinear
+            _assert_same_v1(jr, tr)
+        elif fmt == "v2":
+            assert type(tr) is qmatmul.RuntimeQuantLinearV2
+            _assert_same_planes(jr, tr)
+        else:
+            assert type(tr) is qmv4.RuntimeQuantLinearV4 and tr.layout == "i32"
+            assert tr.scale.dtype == torch.float32 and isinstance(jr, jv4.RuntimeQuantLinearV4)
+            assert_same_v4(jr, tr)
+
+
+def test_dispatch_refuses_other_weights():
+    with pytest.raises(TypeError, match="not a packed weight"):
+        qmatmul.dequant_matmul(torch.zeros(2, 256), torch.zeros(256, 256))
+
+
+def test_wrapper_checks_v1_planes():
+    _, tr = _v1_pair(T.Q4_K, seed=5)
+    x = torch.zeros(2, 512)
+    qmatmul._check_planes(x, tr)
+    bad = qmatmul.RuntimeQuantLinear(tr.qs, tr.scale_t.double(), tr.offset_t, tr.d_in,
+                                     tr.group_size, tr.per_byte)
+    with pytest.raises(ValueError, match="scale_t"):
+        qmatmul._check_planes(x, bad)
+
+
 def test_wrapper_checks_planes():
     _, tr = _layer(T.Q4_K, seed=4)
     x = torch.zeros(2, 512)

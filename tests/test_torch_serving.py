@@ -2,12 +2,15 @@
 
 A tiny HF llama (hidden 512, 4 heads of 128, 2 KV heads, intermediate
 1024, 2 layers, vocab 256: every d_out is a multiple of 256, so JAX's
-dispatch takes its v2g kernel) is packed to a GGUF and converted with
+dispatch takes its Pallas kernels) is packed to a GGUF and converted with
 llama-quantize's Q4_K_M recipe by the JAX package, then loaded by both
-loaders. JAX runs its Pallas kernel in interpret mode
-(FORCE_PALLAS_INTERPRET), the port its plain v2g version: both round
-weights and activations to bf16 the same way, so greedy token streams
-agree exactly."""
+loaders, in the default v2 format and (``RUNTIME_FORMAT`` set in both
+packages) in v1 and v4. JAX runs its Pallas kernels in interpret mode
+(FORCE_PALLAS_INTERPRET), the port its kernels' plain versions: both do
+the same arithmetic (v2 and v4 round weights and activations to bf16 the
+same way, v1 is f32 throughout), so greedy token streams agree up to
+near-ties. The same holds for serving params built from dense weights and
+GPTQ artifacts (``quantize_params_for_serving``) in all three formats."""
 
 import numpy as np
 import pytest
@@ -15,15 +18,23 @@ import torch
 
 import jax.numpy as jnp
 
+from gptq_gguf_tpu.formats.ggml import GGMLQuantizationType as T
 from gptq_gguf_tpu.ops import qmatmul as jq
 from gptq_gguf_tpu.serving import engine as jengine, model as jmodel
 from gptq_gguf_tpu_torch import __main__ as cli
 from gptq_gguf_tpu_torch.models import llama
+from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 from gptq_gguf_tpu_torch.ops.qmatmul import RuntimeQuantLinearV2
 from gptq_gguf_tpu_torch.serving import engine, model as qmodel
 
 PLANES = ("qs", "d_sg", "dmin_sg", "sc_q", "mn_q")
 INTS = ("d_in", "group_size", "per_byte", "shift", "d_rep")
+# (planes, other fields) of each packed format; the classes of the two
+# packages share their names
+FIELDS = {"RuntimeQuantLinearV2": (PLANES, INTS),
+          "RuntimeQuantLinear": (("qs", "scale_t", "offset_t"), ("d_in", "group_size", "per_byte")),
+          "RuntimeQuantLinearV4": (("qs", "scale", "offc"),
+                                   ("d_in", "group_size", "per_byte", "layout"))}
 # logits of the two packages agree to this fraction of max|logit| (see
 # test_forward_cached_logits); a greedy step whose top-2 gap is below that
 # may legitimately flip, and the streams are compared up to it
@@ -65,10 +76,11 @@ def loaded(gguf):
 
 def _numpy_tree(v):
     """JAX serving params -> the numpy tree params_from_numpy takes."""
-    if isinstance(v, jq.RuntimeQuantLinearV2):
+    if type(v).__name__ in FIELDS:
+        planes, fields = FIELDS[type(v).__name__]
         out = {k: None if getattr(v, k) is None else np.asarray(getattr(v, k))
-               for k in PLANES}
-        out.update({k: getattr(v, k) for k in INTS})
+               for k in planes}
+        out.update({k: getattr(v, k) for k in fields})
         return out
     if isinstance(v, dict):
         return {k: _numpy_tree(x) for k, x in v.items()}
@@ -77,17 +89,26 @@ def _numpy_tree(v):
     return np.asarray(v)
 
 
+def _bits(a):
+    """Exact numpy view of a numpy array or a tensor (bf16 as its bits)."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16).numpy() if a.dtype == torch.bfloat16 else a.numpy()
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
 def _assert_tree_equal(a, b, path="params"):
     """a: port params; b: port params or the numpy tree of JAX params."""
-    if isinstance(a, RuntimeQuantLinearV2):
-        for k in PLANES:
+    if type(a).__name__ in FIELDS:
+        planes, fields = FIELDS[type(a).__name__]
+        assert isinstance(b, dict) or type(b) is type(a), path
+        for k in planes:
             x, y = getattr(a, k), b[k] if isinstance(b, dict) else getattr(b, k)
             assert (x is None) == (y is None), f"{path}.{k}"
             if x is not None:
-                y = y.numpy() if isinstance(y, torch.Tensor) else y
-                assert x.numpy().dtype == y.dtype, f"{path}.{k}"
-                np.testing.assert_array_equal(x.numpy(), y, err_msg=f"{path}.{k}")
-        for k in INTS:
+                x, y = _bits(x), _bits(y)
+                assert x.dtype == y.dtype, f"{path}.{k}"
+                np.testing.assert_array_equal(x, y, err_msg=f"{path}.{k}")
+        for k in fields:
             assert getattr(a, k) == (b[k] if isinstance(b, dict) else getattr(b, k))
     elif isinstance(a, dict):
         assert sorted(a) == sorted(b), path
@@ -124,6 +145,10 @@ def test_forward_cached_logits(loaded, monkeypatch):
     jp = jmodel.fuse_params_for_serving(jp, jcfg)
     tp = qmodel.fuse_params_for_serving(tp, tcfg)
     assert "gateup_proj" in tp["layers"][0]
+    _check_forward_logits(jp, jcfg, tp, tcfg)
+
+
+def _check_forward_logits(jp, jcfg, tp, tcfg):
     rng = np.random.default_rng(3)
     ids = rng.integers(0, 256, size=(2, 12))
     jc = jmodel.init_cache(jcfg, 2, 64)
@@ -155,6 +180,10 @@ def _first_flip_is_a_tie(params, cfg, prompt, out, t):
 def test_engine_token_streams_match_jax(loaded, monkeypatch, max_len):
     monkeypatch.setattr(jq, "FORCE_PALLAS_INTERPRET", True)
     jp, jcfg, tp, tcfg = loaded
+    _check_engine_streams(jp, jcfg, tp, tcfg, max_len)
+
+
+def _check_engine_streams(jp, jcfg, tp, tcfg, max_len):
     jp = jmodel.fuse_params_for_serving(jp, jcfg)
     tp = qmodel.fuse_params_for_serving(tp, tcfg)
     rng = np.random.default_rng(max_len)
@@ -230,3 +259,127 @@ def test_cancel_frees_the_slot(loaded):
     assert int(eng.cache.lengths[0]) == 0 and eng.slot_req[0] is None
     done = eng.run_until_done()
     assert [r.uid for r in done] == [b] and len(done[0].output) == 4
+
+
+@pytest.fixture(scope="module", params=["v1", "v4"])
+def loaded_fmt(request, gguf):
+    """The GGUF loaded by both packages with RUNTIME_FORMAT set to v1 / v4."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jq, "RUNTIME_FORMAT", request.param)
+        mp.setattr(qmatmul, "RUNTIME_FORMAT", request.param)
+        jp, jcfg = jmodel.load_gguf_for_serving(gguf, dtype=jnp.float32)
+        tp, tcfg = qmodel.load_gguf_for_serving(gguf, dtype=torch.float32, device="cpu")
+    return request.param, jp, jcfg, tp, tcfg
+
+
+def test_loaders_agree_in_format(loaded_fmt):
+    """Planes byte-equal in v1 / v4, the lm_head unpadded (only v2 pads),
+    the JAX params carried across, and fusion as in the JAX package: v4
+    parts of one type fuse, a Q4_K_M layer's mixed q/k/v stay apart, v1
+    never fuses."""
+    fmt, jp, jcfg, tp, tcfg = loaded_fmt
+    cls = qmatmul.RuntimeQuantLinear if fmt == "v1" else qmv4.RuntimeQuantLinearV4
+    assert type(tp["lm_head"]) is cls and tp["lm_head"].d_out == tcfg.vocab_size == 256
+    assert all(type(v) is cls for layer in tp["layers"] for k, v in layer.items()
+               if k.endswith("_proj"))
+    _assert_tree_equal(tp, _numpy_tree(jp))
+    _assert_tree_equal(qmodel.params_from_numpy(_numpy_tree(jp), tcfg, device="cpu"), tp)
+    jf = jmodel.fuse_params_for_serving(jp, jcfg)
+    tf = qmodel.fuse_params_for_serving(tp, tcfg)
+    _assert_tree_equal(tf, _numpy_tree(jf))
+    fused = [k for layer in tf["layers"] for k in layer if k in ("qkv_proj", "gateup_proj")]
+    assert (fused == []) == (fmt == "v1")
+
+
+def test_forward_cached_logits_in_format(loaded_fmt, monkeypatch):
+    """test_forward_cached_logits in v1 / v4: JAX's v1 or v4 Pallas
+    kernels in interpret mode against the port's plain versions."""
+    monkeypatch.setattr(jq, "FORCE_PALLAS_INTERPRET", True)
+    _, jp, jcfg, tp, tcfg = loaded_fmt
+    _check_forward_logits(jmodel.fuse_params_for_serving(jp, jcfg), jcfg,
+                          qmodel.fuse_params_for_serving(tp, tcfg), tcfg)
+
+
+def test_engine_token_streams_match_jax_in_format(loaded_fmt, monkeypatch):
+    monkeypatch.setattr(jq, "FORCE_PALLAS_INTERPRET", True)
+    _, jp, jcfg, tp, tcfg = loaded_fmt
+    _check_engine_streams(jp, jcfg, tp, tcfg, 128)
+
+
+def test_load_gguf_dense(gguf, loaded):
+    """dense=True: every tensor a dense array, the K-quant ones equal to
+    the packed weights' dequantization, as in the JAX package."""
+    jd, _ = jmodel.load_gguf_for_serving(gguf, dtype=jnp.float32, dense=True)
+    td, tcfg = qmodel.load_gguf_for_serving(gguf, dtype=torch.float32, device="cpu",
+                                            dense=True)
+    _assert_tree_equal(td, _numpy_tree(jd))
+    tp = loaded[2]
+    for key in ("q_proj", "down_proj"):
+        np.testing.assert_array_equal(td["layers"][1][key].numpy(),
+                                      qmatmul.dequantize_runtime_v2(tp["layers"][1][key]).numpy())
+    np.testing.assert_array_equal(td["lm_head"].numpy(),
+                                  qmatmul.dequantize_runtime_v2(tp["lm_head"])[:256].numpy())
+
+
+@pytest.fixture(scope="module")
+def artifacts_dir(gguf, tmp_path_factory):
+    """RTN artifacts of the tiny checkpoint's block linears (Q4_K, Q6_K for
+    down_proj), written by the JAX package."""
+    from gptq_gguf_tpu.models import loader as jloader
+    from gptq_gguf_tpu.ops import kquant as jk
+    from gptq_gguf_tpu.quant import artifacts as jart
+
+    d = gguf.parent / "m"
+    cfg = jloader.load_config(d)
+    params = jloader.load_params(d, cfg)
+    out = tmp_path_factory.mktemp("torch_serving_arts")
+    for li, layer in enumerate(params["layers"]):
+        for key in llama.BLOCK_LINEAR_KEYS:
+            qt = T.Q6_K if key == "down_proj" else T.Q4_K
+            q, p = jk.quantize_rtn(layer[key], qt)
+            mod = "self_attn" if key[0] in "qkvo" else "mlp"
+            jart.save_layer(out, f"model.layers.{li}.{mod}.{key}",
+                            jart.LayerArtifact.from_result(qt, q, p))
+    return d, out
+
+
+@pytest.mark.parametrize("fmt", ["v1", "v2", "v4"])
+def test_quantize_params_for_serving_matches_jax(artifacts_dir, fmt, monkeypatch):
+    """One artifacts dir read by both packages: packed planes byte-equal,
+    dense tensors equal; a prefill's logits within LOGIT_TOL of max|logit|
+    (JAX's kernels in interpret mode, the port's plain versions)."""
+    from gptq_gguf_tpu.models import loader as jloader
+    from gptq_gguf_tpu_torch.models import loader
+
+    d, arts = artifacts_dir
+    monkeypatch.setattr(jq, "RUNTIME_FORMAT", fmt)
+    monkeypatch.setattr(qmatmul, "RUNTIME_FORMAT", fmt)
+    jcfg = jloader.load_config(d)
+    jp = jmodel.quantize_params_for_serving(jloader.load_params(d, jcfg), jcfg, arts)
+    tcfg = loader.load_config(d)
+    tp = qmodel.quantize_params_for_serving(loader.load_params(d, tcfg), tcfg, arts,
+                                            device="cpu")
+    assert type(tp["layers"][0]["down_proj"]).__name__ == {
+        "v1": "RuntimeQuantLinear", "v2": "RuntimeQuantLinearV2",
+        "v4": "RuntimeQuantLinearV4"}[fmt]
+    _assert_tree_equal(tp, _numpy_tree(jp))
+    monkeypatch.setattr(jq, "FORCE_PALLAS_INTERPRET", True)
+    ids = np.random.default_rng(4).integers(0, 256, size=(1, 10))
+    jl, _ = jmodel.forward_cached(jp, jcfg, jnp.asarray(ids),
+                                  jmodel.init_cache(jcfg, 1, 32, dtype=jnp.float32))
+    tl, _ = qmodel.forward_cached(tp, tcfg, torch.from_numpy(ids),
+                                  qmodel.init_cache(tcfg, 1, 32, dtype=torch.float32,
+                                                    device="cpu"))
+    want = np.asarray(jl)
+    np.testing.assert_allclose(tl.numpy(), want, rtol=0, atol=LOGIT_TOL * np.abs(want).max())
+
+
+def test_quantize_params_for_serving_refuses_other_blocks(artifacts_dir):
+    d, arts = artifacts_dir
+    cfg = llama.LlamaConfig(vocab_size=256, hidden_size=512, intermediate_size=1024,
+                            num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=2)
+    params = {"embed_tokens": torch.zeros(256, 512), "norm": torch.ones(512),
+              "layers": [{"input_layernorm": torch.ones(512),
+                          "experts_gate": torch.zeros(4, 1024, 512)}]}
+    with pytest.raises(NotImplementedError, match="experts_gate"):
+        qmodel.quantize_params_for_serving(params, cfg, arts, device="cpu")

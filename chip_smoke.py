@@ -55,7 +55,21 @@ checkout of the repository. Phases, each raising on failure:
    sequences of 512 tokens, within 0.05 nats/token of each other); (e)
    after phase 5, its GPTQ artifacts served through
    quantize_params_for_serving in v1, v2 and v4 (dequantization bit-equal
-   to the artifacts', greedy tokens).
+   to the artifacts', greedy tokens);
+8. the v2 kernel variants at full width (after phase 7, on phase 3's v2
+   weights): (a) the per-weight kernels v2 (bf16 and f32 operands), v3,
+   v2f, v2h, v2s (Q4_K) and the group-dot kernels v2m / v2t (Q4_K) and
+   v2p (the padded Q6_K lm_head) against their plain versions at every 8B
+   projection shape, M = 8 and 128, plus Q2_K / Q3_K / Q5_K and ragged
+   d_out with every per-weight variant's f32 mode among them; each case
+   within 1e-5 of its largest sum of |terms|, a limit a planted control
+   (another variant's rounding) must fail; (b) 2-layer logits through
+   each variant's kernels against its plain versions, and the differences
+   between variants; (c) phase 3's 12 requests served under
+   PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
+   v2f, v2h and v2s, in turns between two v2g runs, each with its exact
+   launches per forward; (d) perplexity through the serving path under
+   v2m and v2, within 0.05 nats/token of v2g's (phase 7d).
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -189,7 +203,8 @@ def phase_device_and_build():
         out = cuda_build.build(name)
         return out, time.time() - t0
 
-    names = ("qmatmul_v2g", "gptq_solve", "paged_decode", "qmatmul_v1", "qmatmul_v4")
+    names = ("qmatmul_v2g", "gptq_solve", "paged_decode", "qmatmul_v1", "qmatmul_v4",
+             "qmatmul_v2", "qmatmul_v2m", "qmatmul_v3")
     with ThreadPoolExecutor(len(names)) as ex:  # one nvcc per source, all at once
         builds = dict(zip(names, ex.map(timed_build, names)))
     for name, (nvcc_log, secs) in builds.items():
@@ -335,14 +350,15 @@ def phase_kernels(params, rng, device):
     return recs
 
 
-MATMUL_KERNELS = ("v2g", "v1", "v4")  # the dequant-matmul wrappers, by format
+# the dequant-matmul wrappers: one per format, and the v2 format's variants
+MATMUL_KERNELS = ("v2g", "v1", "v4", "v2", "v3", "v2f", "v2h", "v2s", "v2m", "v2t", "v2p")
 
 
 def matmul_wrappers():
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
-    return {"v2g": qmatmul.dequant_matmul_v2g, "v1": qmatmul.dequant_matmul_v1,
-            "v4": qmv4.dequant_matmul_v4}
+    return {"v1": qmatmul.dequant_matmul_v1, "v4": qmv4.dequant_matmul_v4,
+            **{v: getattr(qmatmul, name) for v, name in qmatmul.V2_WRAPPERS.items()}}
 
 
 def reset_matmul_counts() -> None:
@@ -361,11 +377,12 @@ def matmul_counts() -> dict:
     return out
 
 
-def phase_serving(params, cfg, requests, kernel="v2g", label="v2"):
+def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=None):
     """ContinuousBatchingEngine(num_slots=8, max_len=2048) on ``requests``
     with ``params`` in one runtime format: budgets, token ranges, and every
     packed matmul through ``kernel``'s wrapper (4 per layer + the lm_head
-    per forward) and no other's; then a steady B=8 decode block."""
+    per forward; or the launches per forward ``per_forward`` names, by
+    wrapper) and no other's; then a steady B=8 decode block."""
     import torch
 
     from gptq_gguf_tpu_torch.serving import engine, model as qmodel
@@ -411,15 +428,16 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2"):
                                f"budget {budgets[r.uid]}, {r.finish_reason}")
         if not all(0 <= t < cfg.vocab_size for t in r.output):
             raise RuntimeError(f"request {r.uid}: token id out of range")
-    per_fwd = 4 * cfg.num_hidden_layers + 1
-    if launches == 0 or launches != per_fwd * n_fwd[0]:
-        raise RuntimeError(f"kernel launches {launches} != {per_fwd} x {n_fwd[0]} forwards")
-    if any(counts[k] for k in MATMUL_KERNELS if k != kernel):
-        raise RuntimeError(f"{label} serving launched other formats' kernels: {counts}")
+    per_forward = per_forward or {kernel: 4 * cfg.num_hidden_layers + 1}
+    want = {k: per_forward.get(k, 0) * n_fwd[0] for k in MATMUL_KERNELS}
+    if launches == 0 or any(counts[k] != want[k] for k in MATMUL_KERNELS):
+        raise RuntimeError(f"{label} serving: kernel launches {counts}, want "
+                           f"{per_forward} x {n_fwd[0]} forwards")
     gen_tokens = sum(len(r.output) for r in done)
     log(f"serving ({label}): depth {cfg.num_hidden_layers}, 12 requests, {gen_tokens} tokens in "
-        f"{wall:.2f} s; {n_fwd[0]} forwards, {launches} kernel launches "
-        f"({per_fwd} per forward), prefix hits {eng.prefix_hits}")
+        f"{wall:.2f} s; {n_fwd[0]} forwards, kernel launches "
+        f"{ {k: counts[k] for k in per_forward} } ({per_forward} per forward), "
+        f"prefix hits {eng.prefix_hits}")
     log(f"serving decode: {decode['steps']} block steps in {decode['s']:.3f} s "
         f"= {decode['s'] / max(decode['steps'], 1) * 1e3:.2f} ms/step, "
         f"{(gen_tokens - 12) / decode['s']:.1f} generated tok/s")
@@ -1575,6 +1593,341 @@ def phase_gptq_formats(ckpt: Path, save: Path, arts, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the v2 kernel variants at full width
+# ---------------------------------------------------------------------------
+
+# one summary entry per TPU kernel body: (name, source, its line in the JAX
+# qmatmul.py, variant, the shapes of one B=8 decode step it runs, the 8c
+# run whose launches it reports)
+STEP = ("qkv", "o", "gateup", "down", "lm_head")
+V2_VARIANT_KERNELS = (
+    ("qmatmul_v2", "qmatmul_v2.cu", 377, "v2", STEP, "v2"),
+    ("qmatmul_v3", "qmatmul_v3.cu", 429, "v3", STEP, "v3"),
+    ("qmatmul_v2f", "qmatmul_v2.cu", 496, "v2f", STEP, "v2f"),
+    ("qmatmul_v2h", "qmatmul_v3.cu", 551, "v2h", STEP, "v2h"),
+    ("qmatmul_v2s", "qmatmul_v2g.cu", 660, "v2s", ("qkv", "o", "gateup", "down"), "v2s"),
+    ("qmatmul_v2m", "qmatmul_v2m.cu", 729, "v2m", ("qkv", "o", "gateup", "down"), "v2m"),
+    ("qmatmul_v2t", "qmatmul_v2m.cu", 789, "v2t", ("qkv", "o", "gateup", "down"), "v2t"),
+    ("qmatmul_v2p", "qmatmul_v2m.cu", 844, "v2p", ("lm_head",), "v2m"),
+)
+
+
+def variant_runs(n_layers: int):
+    """8c: (PALLAS_V2_VARIANT, PALLAS_V2_VARIANT_GS16, launches per forward
+    by wrapper): Q4_K projections 4 per layer, the Q6_K lm_head once."""
+    return (("v2", "", {"v2": 4 * n_layers + 1}),
+            ("v2m", "", {"v2m": 4 * n_layers, "v2p": 1}),  # v2m at gs 16 is v2p
+            ("v2t", "", {"v2t": 4 * n_layers, "v2g": 1}),  # v2t at gs 16 is v2g
+            ("v2g", "v2p", {"v2g": 4 * n_layers, "v2p": 1}),
+            ("v3", "", {"v3": 4 * n_layers + 1}),
+            ("v2f", "", {"v2f": 4 * n_layers + 1}),
+            ("v2h", "", {"v2h": 4 * n_layers + 1}),
+            ("v2s", "", {"v2s": 4 * n_layers, "v2g": 1}))  # v2s on byte codes is v2g
+
+
+def variant_fns():
+    """variant -> (kernel wrapper, plain version), both (x, rql, mxu_dtype)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def plain(v):
+        if v in qmatmul.PER_WEIGHT_VARIANTS:
+            return lambda x, rql, dt: qmatmul.dequant_matmul_v2w_reference(x, rql, dt, v)
+        return qmatmul.dequant_matmul_v2m_reference
+
+    return {v: (getattr(qmatmul, name), plain(v)) for v, name in qmatmul.V2_WRAPPERS.items()}
+
+
+def control_of(variant: str, mxu: str):
+    """8a's planted control for a case: the plain version of a variant that
+    rounds otherwise (variant, mxu), which the case's limit must reject:
+    with f32 operands the same variant in bf16; in bf16 the group-dot
+    variants against v2g (bf16(scale * q)), v2g / v2s / v3 against the
+    group-dot plain version (the unrounded scale * q), v2 / v2f / v2h
+    against v2g (the offset out of the rounded weight)."""
+    if mxu == "f32":
+        return variant, "bf16"
+    if variant in ("v2m", "v2t", "v2p", "v2", "v2f", "v2h"):
+        return "v2g", "bf16"
+    return "v2m", "bf16"
+
+
+def mxu_dtype(mxu: str):
+    import torch
+
+    return torch.bfloat16 if mxu == "bf16" else torch.float32
+
+
+def variant_terms(x, rql, variant: str, mxu: str) -> float:
+    """max over outputs of the sum of |terms| a v2 variant adds up: the x
+    as the kernel rounds it against its weights as it builds them (the
+    group-dot kernels: the unrounded scale * q), plus |xsum| against
+    |off2| for the variants that subtract that term."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    dt = mxu_dtype(mxu)
+    if variant in qmatmul.PER_WEIGHT_VARIANTS:
+        w, corrects = qmatmul._v2_operand(rql, variant, dt)
+    else:
+        w, corrects = qmatmul._v2_operand(rql, "v2g", torch.float32)
+    mag = qmatmul._mxu_round(x.float(), dt).abs() @ w.abs()
+    del w
+    if corrects:
+        _, off2 = qmatmul._folded_planes_v2(rql)
+        mag += x.float().reshape(x.shape[0], -1, rql.group_size).sum(-1).abs() @ off2.abs()
+    return mag.max().item()
+
+
+def variant_case(name, variant, mxu, x, rql, flush):
+    """One v2 variant kernel against its plain version on the same inputs,
+    then timed: kernel, call, plain, library (torch.matmul on the
+    dequantized weight, bf16; f32 with TF32 off for f32 operands) and the
+    bound (bytes at 3.35 TB/s; operations at 989 TFLOP/s bf16 or 67 f32)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    M, d_in = x.shape
+    fns = variant_fns()
+    fn, ref = fns[variant]
+    dt = mxu_dtype(mxu)
+    y_k = fn(x, rql, dt)
+    y_p = ref(x, rql, dt)
+    c_var, c_mxu = control_of(variant, mxu)
+    y_c = fns[c_var][1](x, rql, mxu_dtype(c_mxu))
+    torch.cuda.synchronize()
+    if not torch.isfinite(y_k).all():
+        raise RuntimeError(f"{variant} {name}: kernel output is not finite")
+    # tolerance: the same products (bf16 operands, raw codes or f32), f32
+    # sums in another order: 1e-5 of the largest sum of |terms| of an output
+    # (reordering f32 sums costs ~1e-7 * sqrt(d_in) of it); a planted
+    # control, another variant's rounding, must fail it
+    err = (y_k - y_p).abs().max().item()
+    err_c = (y_k - y_c).abs().max().item()
+    tol = 1e-5 * max(variant_terms(x, rql, variant, mxu), 1e-30)
+    del y_k, y_p, y_c
+    if not err <= tol:
+        raise RuntimeError(f"{variant} {mxu} {name} M={M}: kernel vs plain max|err| "
+                           f"{err:.3e} > {tol:.3e}")
+    if not err_c > tol:
+        raise RuntimeError(f"{variant} {mxu} {name} M={M}: the limit {tol:.3e} does not reject "
+                           f"the control ({c_var} {c_mxu}: {err_c:.3e})")
+    w_lib = qmatmul.dequantize_runtime_v2(rql).T.contiguous().to(dt)
+    x_lib = x.to(dt)
+    ms = cuda_ms(lambda: fn(x, rql, dt), 20, flush)
+    wall_ms = call_ms(lambda: fn(x, rql, dt), 20)
+    plain_ms = cuda_ms(lambda: ref(x, rql, dt), 3, flush)
+    library_ms = cuda_ms(lambda: torch.matmul(x_lib, w_lib), 20, flush)
+    del w_lib, x_lib
+    nbytes = rql.bytes_read + x.numel() * x.element_size() + M * rql.d_out * 4
+    flops = 2.0 * M * d_in * rql.d_out
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOP_PER_S if mxu == "bf16" else F32_FLOP_PER_S) * 1e3
+    rec = dict(name=name, variant=variant, mxu=mxu, M=M, d_in=d_in, d_out=rql.d_out,
+               max_abs_err=err, tol=tol, control=f"{c_var} {c_mxu}", control_err=err_c,
+               ms=ms, call_ms=wall_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
+    log(f"  {variant:>3} {mxu} {name:>24} M={M:<4} err {err:.3e} (tol {tol:.2e}, control "
+        f"{c_var} {c_mxu} {err_c:.2e})  kernel "
+        f"{ms:.4f} ms (call {wall_ms:.4f})  plain {plain_ms:.3f} ms  library {library_ms:.4f} "
+        f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def phase_variant_kernels(params, rng, device):
+    """8a: at every 8B projection shape (Q4_K) and the padded Q6_K
+    lm_head, M = 8 and 128, each variant that runs there (v2 also with f32
+    operands); Q2_K / Q3_K / Q5_K and ragged d_out at small shapes, with
+    the f32 operand mode of every per-weight variant among them."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+
+    l0 = params["layers"][0]
+    q4 = ("v2 bf16", "v2 f32", "v3 bf16", "v2f bf16", "v2h bf16", "v2s bf16", "v2m bf16",
+          "v2t bf16")
+    q6 = ("v2 bf16", "v2 f32", "v3 bf16", "v2f bf16", "v2h bf16", "v2p bf16")
+    shapes = [("qkv 4096->6144 Q4_K", l0["qkv_proj"], q4), ("o 4096->4096 Q4_K", l0["o_proj"], q4),
+              ("gateup 4096->28672 Q4_K", l0["gateup_proj"], q4),
+              ("down 14336->4096 Q4_K", l0["down_proj"], q4),
+              ("lm_head 4096->128512 Q6_K", params["lm_head"], q6)]
+    small = [("Q2_K 1024->768", 768, 1024, T.Q2_K, 8,
+              ("v2 bf16", "v3 f32", "v2h bf16", "v2s f32", "v2p bf16")),
+             ("Q3_K 1024->768", 768, 1024, T.Q3_K, 8,
+              ("v2 bf16", "v3 bf16", "v2f f32", "v2s bf16", "v2p bf16")),
+             ("Q5_K 1024->768", 768, 1024, T.Q5_K, 8,
+              ("v2 bf16", "v2f bf16", "v2h f32", "v2m bf16", "v2t bf16")),
+             ("ragged Q4_K 2048->1000", 1000, 2048, T.Q4_K, 5,
+              ("v2 f32", "v2g f32", "v2h bf16", "v2s bf16", "v2m bf16", "v2t bf16")),
+             ("ragged Q6_K 512->333 f32x", 333, 512, T.Q6_K, 3,
+              ("v2 f32", "v3 bf16", "v2f f32", "v2p bf16"))]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
+    recs = []
+    for M in (8, 128):
+        for name, rql, runs in shapes:
+            x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
+            for run in runs:
+                recs.append(variant_case(name, *run.split(), x, rql, flush))
+            torch.cuda.empty_cache()
+    for name, d_out, d_in, qt, M, runs in small:
+        rql = synthetic_rql(rng, d_out, d_in, qt, device)
+        x = torch.randn(M, d_in, device=device)
+        if "f32x" not in name:
+            x = x.to(torch.bfloat16)
+        for run in runs:
+            recs.append(variant_case(name, *run.split(), x, rql, flush))
+    return recs
+
+
+def knobs(variant: str, gs16: str):
+    """Set PALLAS_V2_VARIANT and _GS16; returns the previous pair."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    old = qmatmul.PALLAS_V2_VARIANT, qmatmul.PALLAS_V2_VARIANT_GS16
+    qmatmul.PALLAS_V2_VARIANT, qmatmul.PALLAS_V2_VARIANT_GS16 = variant, gs16
+    return old
+
+
+def phase_variant_consistency(params, cfg, rng, device):
+    """8b: 2 layers at full width, one 128-token prefill and 4 decode steps
+    under each knob setting of 8c, through the effective variants' kernels
+    and through their plain versions, held to phase 4's 3e-3 of
+    max|logit|; the differences of each setting's kernel logits from
+    v2g's are printed (the variants round differently by design)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 128)), device=device)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4,)), device=device)
+    fns = variant_fns()
+
+    def through(plain: bool):
+        def mm(x, rql):
+            v = qmatmul.effective_v2_variant_for(rql)
+            return fns[v][1 if plain else 0](x, rql, torch.bfloat16)
+        return mm
+
+    out = {}
+    base = two_layer_logits(params, cfg, prompt, feed, qmatmul.dequant_matmul_v2g, device)
+    for variant, gs16, _ in variant_runs(2):
+        label = variant + (f" (gs16 {gs16})" if gs16 else "")
+        old = knobs(variant, gs16)
+        try:
+            lk = two_layer_logits(params, cfg, prompt, feed, through(False), device)
+            lp = two_layer_logits(params, cfg, prompt, feed, through(True), device)
+        finally:
+            knobs(*old)
+        scale = lp.abs().max().item()
+        err = (lk - lp).abs().max().item()
+        d_g = (lk - base).abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        log(f"{label} consistency (2 layers, prefill + 4 decode): max|dlogit| kernel vs plain "
+            f"{err:.3e}, tol {3e-3 * scale:.3e} (3e-3 of max|logit| {scale:.3e}); argmax "
+            f"agreement {agree:.2f}; vs v2g's kernels {d_g:.3e}")
+        if not (torch.isfinite(lk).all() and err <= 3e-3 * scale):
+            raise RuntimeError(f"{label}: kernel and plain logits disagree")
+        out[label] = dict(kernel_vs_plain=err, tol=3e-3 * scale, vs_v2g=d_g)
+    return out
+
+
+def phase_variant_serving(params, cfg, requests):
+    """8c: phase 3's 12 requests under each knob setting, in turns between
+    two v2g runs (the host-bound step drifts within a call), each with its
+    exact launches per forward."""
+    runs = [("v2g", "", None)] + list(variant_runs(cfg.num_hidden_layers)) + [("v2g", "", None)]
+    out = {}
+    for i, (variant, gs16, per_forward) in enumerate(runs):
+        label = variant + (f"+{gs16}" if gs16 else "")
+        if variant == "v2g" and not gs16:
+            label += " (before)" if i == 0 else " (after)"
+        old = knobs(variant, gs16)
+        try:
+            counts, rec = phase_serving(params, cfg, requests, variant, label, per_forward)
+        finally:
+            knobs(*old)
+        out[label] = dict(rec, counts=counts)
+    ref = [out["v2g (before)"], out["v2g (after)"]]
+    for label, rec in out.items():
+        log(f"serving ({label}) in turns: {rec['serve_decode_ms_per_step']:.2f} ms per decode "
+            f"step (v2g {ref[0]['serve_decode_ms_per_step']:.2f} before, "
+            f"{ref[1]['serve_decode_ms_per_step']:.2f} after), steady B=8 "
+            f"{rec['decode_ms_per_step']:.2f} ms (v2g {ref[0]['decode_ms_per_step']:.2f} / "
+            f"{ref[1]['decode_ms_per_step']:.2f})")
+    return out
+
+
+def phase_variant_ppl(params, cfg, v2g):
+    """8d: compute_perplexity(serving=True) on the 32-layer model under v2m
+    and v2 (phase 7d's data); each within 0.05 nats/token of v2g's (7d)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.evals import ppl
+    from gptq_gguf_tpu_torch.utils.data import get_data
+
+    data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
+    L = cfg.num_hidden_layers
+    out = {}
+    for variant, want in (("v2m", {"v2m": 4 * L, "v2p": 1}), ("v2", {"v2": 4 * L + 1})):
+        old = knobs(variant, "")
+        try:
+            ppl.compute_perplexity(params, cfg, data[:1], serving=True)  # warm
+            reset_matmul_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value = ppl.compute_perplexity(params, cfg, data, serving=True)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t) / len(data)
+        finally:
+            knobs(*old)
+        counts = matmul_counts()
+        if any(counts[k] != want.get(k, 0) * len(data) for k in MATMUL_KERNELS):
+            raise RuntimeError(f"ppl {variant}: launches {counts}, want {want} per sequence")
+        nll = float(np.log(value))
+        out[variant] = dict(ppl=value, nll=nll, s_per_seq=secs, vs_v2g=nll - v2g["nll"],
+                            launches={k: counts[k] for k in want})
+        log(f"ppl ({variant}, serving path, {len(data)} x {PPL_LEN} tokens): {value:.4f} "
+            f"({nll:.6f} nats/token, v2g {v2g['nll']:.6f}: {nll - v2g['nll']:+.3e}), "
+            f"{secs:.3f} s per sequence (v2g {v2g['s_per_seq']:.3f}), launches "
+            f"{out[variant]['launches']}")
+        if not (np.isfinite(value) and abs(nll - v2g["nll"]) < 0.05):
+            raise RuntimeError(f"ppl {variant}: {nll} nats/token against v2g's {v2g['nll']}")
+    return out
+
+
+def variant_summary(name, source, replaces, variant, shapes, recs, launches):
+    """The summary entry of one v2 variant kernel: one B=8 decode step (its
+    calls among the four projections of every layer and the lm_head, at
+    8a's M=8 times with bf16 operands, the dispatch's); its error is the
+    largest of all its 8a cases. v2's entry adds its f32 operand mode."""
+    def entry(mxu):
+        per = {r["name"].split()[0]: r for r in recs
+               if r["variant"] == variant and r["mxu"] == mxu and r["M"] == 8}
+
+        def step(key):
+            return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
+
+        t_bytes = step("bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = step("flops") / (BF16_FLOP_PER_S if mxu == "bf16" else F32_FLOP_PER_S) * 1e3
+        return {"ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": step("library_ms"), "bytes": step("bytes")}
+
+    calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
+    out = {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max(r["max_abs_err"] for r in recs if r["variant"] == variant),
+           **entry("bf16"), "per": f"one B=8 decode step (bf16 operands): {calls} calls"}
+    if all(any(r["variant"] == variant and r["mxu"] == "f32" and r["M"] == 8
+                   and r["name"].split()[0] == k for r in recs) for k in shapes):
+        out["f32"] = entry("f32")
+    return out
+
+
 def format_summary(name, source, replaces, body, fmt, shapes, recs, launches):
     """The summary entry of one v1 / v4 kernel body: one B=8 decode step
     (the four projections of every layer and / or the lm_head, at the M=8
@@ -1611,7 +1964,7 @@ def paged_summary(name, source_line, krec, launches):
 
 
 def run(device) -> dict:
-    """All seven phases on ``device``; returns the kernel summary."""
+    """All eight phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
@@ -1662,7 +2015,17 @@ def run(device) -> dict:
         fserve[fmt] = dict(rec, counts=fcounts)
     fppl = phase_format_ppl(fparams, cfg, device)
     log(f"phase 7 took {time.time() - t7:.1f} s")
-    del params, fparams
+    del fparams
+    torch.cuda.empty_cache()
+
+    log("== phase 8: the v2 kernel variants at full width")
+    t8 = time.time()
+    vrecs = phase_variant_kernels(params, rng, device)
+    vcross = phase_variant_consistency(params, cfg, rng, device)
+    vserve = phase_variant_serving(params, cfg, requests)
+    vppl = phase_variant_ppl(params, cfg, fppl["v2"])
+    log(f"phase 8 took {time.time() - t8:.1f} s")
+    del params
     torch.cuda.empty_cache()
 
     log("== phase 5: GPTQ at full width")
@@ -1729,10 +2092,14 @@ def run(device) -> dict:
                       paged_runs["int4"]["launches"])] + [
         format_summary(name, source, replaces, body, fmt, shapes, frecs,
                        fserve[fmt]["counts"]["v1" if body == "v1" else f"v4_{body}"])
-        for name, source, replaces, body, fmt, shapes in V1_V4_BODIES],
+        for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
+        variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
+                        vrecs, vserve[run]["counts"][variant])
+        for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS],
         "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),
+        "variants": dict(serving=vserve, ppl=vppl, logits=vcross),
         "seconds": time.time() - t_start}
 
 

@@ -22,7 +22,7 @@
 // byte feeds at most 2 * M multiply-adds at M <= 8. At prefill (M in the
 // hundreds) it is bound by f32 operations on the CUDA cores (67 TFLOP/s).
 //
-// Design (the structure of qmatmul_v2g.cu; only the per-weight
+// Design (the structure of qmatmul_v2_weight.cuh; only the per-weight
 // dequantization differs):
 //   * each thread owns VEC = 4 adjacent output columns and reads one 32-bit
 //     word per weight row, so a warp reads 128 contiguous bytes per row
@@ -36,58 +36,9 @@
 //     second kernel reduces those partials in a fixed order (no float
 //     atomics): results are reproducible run to run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmatmul_common.cuh"
 
 namespace {
-
-constexpr int kQK = 256;       // rows per supergroup
-constexpr int kHalf = 128;     // nibble split: byte k holds rows k and k+128
-constexpr int kThreads = 128;  // threads per block
-
-// exact float of a small unsigned integer without the int-to-float unit
-__device__ __forceinline__ float small_u2f(uint32_t q) {
-  return __uint_as_float(0x4B000000u | q) - 8388608.f;
-}
-
-template <int VEC>
-__device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
-  if constexpr (VEC == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  else return __ldg(p);
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_f32(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
-// the MT staged x values of one row k (k-major tile), by 16-byte loads
-template <int MT>
-__device__ __forceinline__ void load_x(const float* p, float (&v)[MT]) {
-  if constexpr (MT % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < MT / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < MT; ++i) v[i] = p[i];
-  }
-}
-
-// MT rows x (kThreads / KS * VEC) columns per block; KS warp-slices split
-// each supergroup's rows when MT is small (decode), 1 otherwise.
-template <int MT>
-struct Slices {
-  static constexpr int KS = MT <= 8 ? 4 : 1;
-};
 
 template <int PB, int GS, int MT, int VEC>
 __global__ void __launch_bounds__(kThreads) v1_kernel(
@@ -235,17 +186,6 @@ __global__ void __launch_bounds__(kThreads) v1_kernel(
   }
 }
 
-// out[i] = sum over z of part[z][i], always in the order z = 0, 1, ...
-__global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                     float* __restrict__ out, int splits,
-                                     size_t count) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[static_cast<size_t>(z) * count + i];
-  out[i] = s;
-}
-
 struct Args {
   const void* x;
   int x_bf16;
@@ -311,12 +251,5 @@ extern "C" int gg_v1_matmul(const void* x, int x_bf16, const uint8_t* qs,
   else if (per_byte == 2 && group_size == 16) ok = launch_tile<2, 16>(a, mt, vec);  // Q2_K, Q3_K
   else if (per_byte == 1 && group_size == 32) ok = launch_tile<1, 32>(a, mt, vec);  // Q5_K
   else if (per_byte == 1 && group_size == 16) ok = launch_tile<1, 16>(a, mt, vec);  // Q6_K
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  if (splits > 1) {
-    const size_t count = static_cast<size_t>(M) * d_out;
-    const int threads = 256;
-    const unsigned blocks = static_cast<unsigned>((count + threads - 1) / threads);
-    reduce_splits_kernel<<<blocks, threads, 0, a.stream>>>(partials, out, splits, count);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return finish_launch(ok, partials, out, splits, static_cast<size_t>(M) * d_out, a.stream);
 }

@@ -29,7 +29,7 @@
 // multiply-adds, done here on the CUDA cores in f32 (tensor cores, which
 // take bf16 products with f32 sums, are later work).
 //
-// Design (the structure of qmatmul_v2g.cu; only the per-weight
+// Design (the structure of qmatmul_v2_weight.cuh; only the per-weight
 // dequantization differs): VEC = 4 adjacent output columns per thread, one
 // 32-bit word of codes per weight row; x staged in shared memory a 256-row
 // supergroup at a time for MT rows (group sums of the raw x taken there,
@@ -38,47 +38,9 @@
 // decode 4 warps split each supergroup's rows, and the K axis is split over
 // supergroups with a second kernel reducing the partials in a fixed order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmatmul_common.cuh"
 
 namespace {
-
-constexpr int kQK = 256;       // rows per supergroup
-constexpr int kHalf = 128;     // nibble split: byte k holds rows k and k+128
-constexpr int kThreads = 128;  // threads per block
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// exact float of a small unsigned integer without the int-to-float unit
-__device__ __forceinline__ float small_u2f(uint32_t q) {
-  return __uint_as_float(0x4B000000u | q) - 8388608.f;
-}
-
-// round two f32 to bf16 (nearest even) in one packed conversion
-__device__ __forceinline__ void bf16_round2(float& a, float& b) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
-  a = __low2float(p);
-  b = __high2float(p);
-}
-
-template <int VEC>
-__device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
-  if constexpr (VEC == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  else return __ldg(p);
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_f32(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
 
 // VEC bf16 values as floats (8-byte load for VEC 4)
 template <int VEC>
@@ -91,21 +53,6 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float (&v)[VEC
     v[3] = __uint_as_float(t.y & 0xFFFF0000u);
   } else {
     v[0] = __bfloat162float(p[0]);
-  }
-}
-
-// the MT staged x values of one row k (k-major tile), by 16-byte loads
-template <int MT>
-__device__ __forceinline__ void load_x(const float* p, float (&v)[MT]) {
-  if constexpr (MT % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < MT / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i] = t.x; v[4 * i + 1] = t.y; v[4 * i + 2] = t.z; v[4 * i + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < MT; ++i) v[i] = p[i];
   }
 }
 
@@ -130,11 +77,6 @@ __device__ __forceinline__ float byte_code(uint32_t w, int c) {
   if constexpr (I8) return small_u2f(b ^ 0x80u) - 128.f;  // exact
   else return small_u2f(b);
 }
-
-template <int MT>
-struct Slices {
-  static constexpr int KS = MT <= 8 ? 4 : 1;
-};
 
 template <int PB, int GS, bool I8, int MT, int VEC>
 __global__ void __launch_bounds__(kThreads) v4_kernel(
@@ -313,17 +255,6 @@ __global__ void __launch_bounds__(kThreads) v4_kernel(
   }
 }
 
-// out[i] = sum over z of part[z][i], always in the order z = 0, 1, ...
-__global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                     float* __restrict__ out, int splits,
-                                     size_t count) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[static_cast<size_t>(z) * count + i];
-  out[i] = s;
-}
-
 struct Args {
   const void* x;
   int x_bf16;
@@ -399,12 +330,5 @@ extern "C" int gg_v4_matmul(const void* x, int x_bf16, const uint8_t* qs,
          M, d_in, d_out, sg_per_split, splits, static_cast<cudaStream_t>(stream)};
   const bool ok = layout_i8 ? launch_format<true>(a, per_byte, group_size, mt, vec)
                             : launch_format<false>(a, per_byte, group_size, mt, vec);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  if (splits > 1) {
-    const size_t count = static_cast<size_t>(M) * d_out;
-    const int threads = 256;
-    const unsigned blocks = static_cast<unsigned>((count + threads - 1) / threads);
-    reduce_splits_kernel<<<blocks, threads, 0, a.stream>>>(partials, out, splits, count);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return finish_launch(ok, partials, out, splits, static_cast<size_t>(M) * d_out, a.stream);
 }

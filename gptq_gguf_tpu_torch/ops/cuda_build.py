@@ -2,7 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``ops/csrc/_build/lib<name>-<hash>.so`` (a directory git ignores),
-keyed on a hash of the source and the flags, at first use. Nothing here
+keyed on a hash of the source, the shared headers (``ops/csrc/*.cuh``) and
+the flags, at first use. Nothing here
 runs at import time: a CPU-only host has no nvcc.
 """
 
@@ -34,8 +35,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 

@@ -19,19 +19,33 @@ instead of 16. Every layout is byte-identical to the JAX package's
   times (a TPU tiling rule the layout keeps so packed weights compare equal
   across the two packages); ``sc_q`` / ``mn_q`` (n_groups, d_out) quantized
   group scales (int8 for the signed types, else uint8) and mins (None for
-  the signed types). Kernel: ``csrc/qmatmul_v2g.cu``.
+  the signed types).
+
+A v2 weight runs one of the JAX package's kernel variants, picked by
+``PALLAS_V2_VARIANT`` / ``PALLAS_V2_VARIANT_GS16`` (env
+``GG_PALLAS_V2_VARIANT`` / ``GG_PALLAS_V2_VARIANT_GS16``, the JAX names)
+through ``_effective_v2_variant``. All nine have a kernel: the per-weight
+builds ``v2g`` (the default) and ``v2s`` (``csrc/qmatmul_v2g.cu``), ``v2``
+and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
+(``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``;
+and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
+(``csrc/qmatmul_v2m.cu``). The variants differ only in where the scale
+and offset arithmetic happens, not in the format, so the packers and
+loaders are the same for all of them.
 
 ``dequant_matmul`` routes by the weight's class. A CUDA tensor launches that
 format's kernel (or raises); a CPU tensor runs the kernel's plain PyTorch
 version. The kernels take every shape with d_in % 256 == 0 and any d_out or
 M, so there is no other path. ``pack_runtime_auto`` packs in the format
-``RUNTIME_FORMAT`` names, as the JAX package does.
+``RUNTIME_FORMAT`` names, as the JAX package does. ``q8_matmul`` is the
+JAX package's Q8 integer-dot reference (plain PyTorch; no kernel there).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -296,28 +310,114 @@ def dequantize_runtime_v2(rql: RuntimeQuantLinearV2) -> torch.Tensor:
     ).T
 
 
-def dequant_matmul_v2g_reference(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tensor:
-    """Plain PyTorch version of the v2g kernel, on any device:
+def _mxu_round(t: torch.Tensor, mxu_dtype) -> torch.Tensor:
+    """t (f32) as the kernels' operand type sees it: rounded to bf16 (to
+    nearest even, as JAX's astype) or kept in f32."""
+    if mxu_dtype == torch.bfloat16:
+        return t.to(torch.bfloat16).float()
+    if mxu_dtype == torch.float32:
+        return t
+    raise ValueError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
 
-        y (M, d_out) f32 = bf16(x) @ bf16(scale * q) - xsum @ off2
 
-    with q the raw unsigned code and xsum the f32 group sums of the
-    un-rounded x (the JAX kernel's arithmetic; only the sum order of the
-    f32 accumulation can differ)."""
-    x32 = x.float()
-    M, d_in = x32.shape
-    gs = rql.group_size
-    xsum = x32.reshape(M, d_in // gs, gs).sum(dim=-1)
+def _v2_operand(rql: RuntimeQuantLinearV2, variant: str, mxu_dtype):
+    """(W^T (d_in, d_out) f32 as ``variant``'s kernel feeds it to the
+    products, each value representable in ``mxu_dtype``; whether the
+    variant subtracts xsum @ off2), with T the rounding to ``mxu_dtype``:
+
+        v2g, v2s  T(scale * q)                       xsum term
+        v3        T(T(q) * T(scale))                 xsum term
+        v2        T(scale * (q - shift) - off)       (dequantize_runtime_v2)
+        v2f       T(scale * q - off2)                (the same f32 value)
+        v2h       T(T(T(scale) * T(q)) - T(off2))    each step rounded
+
+    q is the raw unsigned code. Every product is exact in f32, so these are
+    the JAX bodies' weights bit for bit."""
+    def t(v):
+        return _mxu_round(v, mxu_dtype)
+
+    if variant == "v2":
+        return t(dequantize_runtime_v2(rql).T), False
     scale, off2 = _folded_planes_v2(rql)  # (ng, d_out)
-    ng = scale.shape[0]
-    q = _unpack_codes(rql.qs, rql.per_byte, d_in).float()
-    w = (scale[:, None, :] * q.reshape(ng, gs, rql.d_out)).reshape(d_in, rql.d_out)
-    y = x32.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
-    if off2 is not None:
-        y = y - xsum @ off2
+    ng, gs, d_out = scale.shape[0], rql.group_size, rql.d_out
+    q = _unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).float().reshape(ng, gs, d_out)
+    s, o2 = scale[:, None, :], off2[:, None, :]
+    if variant in ("v2g", "v2s"):
+        w, corrects = t(s * q), True
+    elif variant == "v3":
+        w, corrects = t(q * t(s)), True
+    elif variant == "v2f":
+        w, corrects = t(s * q - o2), False
+    elif variant == "v2h":
+        w, corrects = t(t(t(s) * q) - t(o2)), False
+    else:
+        raise ValueError(f"not a per-weight v2 variant: {variant!r}")
+    return w.reshape(ng * gs, d_out), corrects
+
+
+def dequant_matmul_v2w_reference(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                                 mxu_dtype=torch.bfloat16, variant: str = "v2g") -> torch.Tensor:
+    """Plain PyTorch version of the per-weight kernel variants, on any
+    device:
+
+        y (M, d_out) f32 = T(x) @ w  [ - xsum @ off2 ]
+
+    with w and the xsum term as ``_v2_operand`` gives them for ``variant``
+    and xsum the f32 group sums of the un-rounded x (the JAX bodies'
+    arithmetic; only the sum order of the f32 accumulation can differ: v2s
+    is v2g's function with the nibble halves summed apart). In f32, v2's is
+    the counterpart of JAX's ``dequant_matmul_xla_v2``."""
+    x32 = x.float()
+    w, corrects = _v2_operand(rql, variant, mxu_dtype)
+    y = _mxu_round(x32, mxu_dtype) @ w
+    if corrects:
+        M, d_in = x32.shape
+        _, off2 = _folded_planes_v2(rql)
+        y = y - x32.reshape(M, d_in // rql.group_size, rql.group_size).sum(dim=-1) @ off2
     return y
 
 
+def dequant_matmul_v2g_reference(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                                 mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the v2g kernel: T(x) @ T(scale * q) - xsum @ off2."""
+    return dequant_matmul_v2w_reference(x, rql, mxu_dtype, "v2g")
+
+
+def dequant_matmul_v2_reference(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                                mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the v2 kernel: T(x) @ T(w), w the bit-exact f32
+    weight of ``dequantize_runtime_v2``; no xsum term."""
+    return dequant_matmul_v2w_reference(x, rql, mxu_dtype, "v2")
+
+
+def dequant_matmul_v2m_reference(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                                 mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the group-dot kernels v2m, v2t and v2p (one
+    function, three schedules):
+
+        y (M, d_out) f32 = sum_g scale_g * (T(x_g) @ q_g)  -  xsum @ off2
+
+    q_g the raw unsigned codes of group g (< 64, exact in bf16), each
+    group's dot summed in f32 and then multiplied by its scale; xsum the
+    f32 group sums of the un-rounded x. The per-group partial sums are
+    taken a few groups at a time (at most 256 MiB of them)."""
+    x32 = x.float()
+    M, d_in = x32.shape
+    gs, d_out = rql.group_size, rql.d_out
+    ng = d_in // gs
+    xsum = x32.reshape(M, ng, gs).sum(dim=-1)
+    scale, off2 = _folded_planes_v2(rql)  # (ng, d_out)
+    xg = _mxu_round(x32, mxu_dtype).reshape(M, ng, gs).transpose(0, 1)  # (ng, M, gs)
+    q = _unpack_codes(rql.qs, rql.per_byte, d_in).reshape(ng, gs, d_out)
+    y = torch.zeros((M, d_out), dtype=torch.float32, device=x.device)
+    step = max(1, (1 << 26) // (M * d_out))
+    for g0 in range(0, ng, step):
+        g1 = min(ng, g0 + step)
+        parts = torch.bmm(xg[g0:g1], q[g0:g1].float())  # (groups, M, d_out)
+        y += (parts * scale[g0:g1, None, :]).sum(dim=0)
+    if off2 is not None:
+        y = y - xsum @ off2
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -367,13 +467,15 @@ def _check_planes(x: torch.Tensor, rql) -> None:
             raise ValueError(f"plane {name} has {t.shape[0]} rows; d_in needs {rows}")
 
 
-def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4):
+def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4, mt_max: int = 32):
     """(rows per block, supergroups per split, splits). Blocks cover 128
     columns at MT <= 8 (four warps split each supergroup) and 512 beyond,
     a quarter of that with vec 1; the K axis is split over supergroups only
-    as far as needed to put ~4 blocks on every SM."""
+    as far as needed to put ~4 blocks on every SM. ``mt_max`` 8 keeps a
+    kernel on its decode tiles at any M (the group-dot kernels hold a
+    group's partial sums beside the accumulator)."""
     mt = 1
-    while mt < min(M, 32):
+    while mt < min(M, mt_max):
         mt *= 2
     if vec == 1:
         mt = 1 if mt == 1 else 8 if mt <= 8 else 32
@@ -385,12 +487,13 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4):
     return mt, per, -(-n_sg // per)
 
 
-def launch_setup(x: torch.Tensor, rql):
+def launch_setup(x: torch.Tensor, rql, mt_max: int = 32):
     """The shared front of the dequant-matmul kernel wrappers for a CUDA x:
     x as a contiguous f32 or bf16 tensor, the planes validated (and their
-    alignment read) on the first call with each weight, the launch plan,
-    the output and the split-K scratch. Returns (x, vec, mt, per, splits,
-    out, part); vec 4 needs d_out % 4 == 0 and 16-byte-aligned planes."""
+    alignment read) on the first call with each weight, the launch plan
+    (rows per block up to ``mt_max``), the output and the split-K scratch.
+    Returns (x, vec, mt, per, splits, out, part); vec 4 needs
+    d_out % 4 == 0 and 16-byte-aligned planes."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -405,42 +508,112 @@ def launch_setup(x: torch.Tensor, rql):
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     M, d_in = x.shape
     mt, per, splits = _launch_plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index),
-                                   rql._vec)
+                                   rql._vec, mt_max)
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, M, rql.d_out), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     return x, rql._vec, mt, per, splits, out, part
 
 
-_V2G_ARGS = ((ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 7
-             + (ctypes.c_int,) * 12 + (ctypes.c_void_p,))
+# every v2 entry point: the build (csrc/qmatmul_v2_weight.cuh) or the body
+# (csrc/qmatmul_v2m.cu), x, x_bf16, mxu_bf16, the five planes, partials,
+# out, 12 ints, the stream
+_V2_ARGS = ((ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
+            + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 12 + (ctypes.c_void_p,))
 
 
-def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tensor:
-    """y (M, d_out) f32 = x @ dequant(W)^T through the v2g kernel.
-
-    A CUDA ``x`` (f32 or bf16) launches ``csrc/qmatmul_v2g.cu`` on the
-    current stream and counts one launch; a CPU ``x`` runs the plain
-    version. The kernel library is built on first use. The planes are
-    validated, and their alignment read, on the first call with each
-    weight; later calls check only x."""
-    if x.device.type == "cpu":
-        return dequant_matmul_v2g_reference(x, rql)
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql)
+def _launch_v2(lib: str, code: int, x: torch.Tensor, rql: RuntimeQuantLinearV2, mxu_dtype,
+               mt_max: int) -> torch.Tensor:
+    """Launch build or body ``code`` of ``csrc/<lib>.cu`` on x's current
+    stream (the library is built on first use)."""
+    if mxu_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max)
     M, d_in = x.shape
-    rc = c_function("qmatmul_v2g", "gg_v2g_matmul", _V2G_ARGS)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.d_sg),
-        _ptr(rql.dmin_sg), _ptr(rql.sc_q), _ptr(rql.mn_q), _ptr(part), out.data_ptr(),
-        M, d_in, rql.d_out, rql.per_byte, rql.group_size, int(rql.has_min), rql.shift,
-        rql.d_rep, mt, vec, per, splits,
+    rc = c_function(lib, f"gg_{lib.split('_', 1)[1]}_matmul", _V2_ARGS)(
+        code, x.data_ptr(), int(x.dtype == torch.bfloat16), int(mxu_dtype == torch.bfloat16),
+        _ptr(rql.qs), _ptr(rql.d_sg), _ptr(rql.dmin_sg), _ptr(rql.sc_q), _ptr(rql.mn_q),
+        _ptr(part), out.data_ptr(), M, d_in, rql.d_out, rql.per_byte, rql.group_size,
+        int(rql.has_min), rql.shift, rql.d_rep, mt, vec, per, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"qmatmul_v2g launch failed: CUDA error {rc}")
-    dequant_matmul_v2g.launches += 1
+        raise RuntimeError(f"{lib} launch failed: CUDA error {rc}")
     return out
 
 
-dequant_matmul_v2g.launches = 0
+# the per-weight variants (csrc/qmatmul_v2_weight.cuh), which build every
+# weight before the products: variant -> (its source in csrc/, its build
+# in that source)
+_PER_WEIGHT = {"v2g": ("qmatmul_v2g", 0), "v2": ("qmatmul_v2", 1), "v3": ("qmatmul_v3", 2),
+               "v2f": ("qmatmul_v2", 3), "v2h": ("qmatmul_v3", 4), "v2s": ("qmatmul_v2g", 5)}
+PER_WEIGHT_VARIANTS = tuple(_PER_WEIGHT)
+
+
+def _per_weight(fn, variant: str, x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                mxu_dtype) -> torch.Tensor:
+    """The shared body of the per-weight wrappers: the plain version for a
+    CPU x, else one launch of the variant's kernel, counted on ``fn``. Rows
+    per block: up to 32 with bf16 operands, 8 with f32 ones and for v2s."""
+    if variant == "v2s" and rql.per_byte != 2:
+        raise ValueError("the v2s kernel takes 4-bit codes only "
+                         "(dequant_matmul_v2 resolves the variant that fits)")
+    if x.device.type == "cpu":
+        return dequant_matmul_v2w_reference(x, rql, mxu_dtype, variant)
+    lib, build = _PER_WEIGHT[variant]
+    wide = mxu_dtype == torch.bfloat16 and variant != "v2s"
+    out = _launch_v2(lib, build, x, rql, mxu_dtype, 32 if wide else 8)
+    fn.launches += 1
+    return out
+
+
+def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y (M, d_out) f32 = T(x) @ T(scale * q) - xsum @ off2 through the v2g
+    kernel (``csrc/qmatmul_v2g.cu``), T the rounding to ``mxu_dtype`` (bf16,
+    the dispatch's, or f32).
+
+    A CUDA ``x`` (f32 or bf16) launches the kernel on the current stream
+    and counts one launch; a CPU ``x`` runs the plain version. The kernel
+    library is built on first use. The planes are validated, and their
+    alignment read, on the first call with each weight; later calls check
+    only x. Every v2 variant wrapper below has this contract."""
+    return _per_weight(dequant_matmul_v2g, "v2g", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v2_exact(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                            mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = T(x) @ T(scale * (q - shift) - off) through the v2 kernel
+    (``csrc/qmatmul_v2.cu``): the bit-exact f32 weight, then rounded."""
+    return _per_weight(dequant_matmul_v2_exact, "v2", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v3(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                      mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = T(x) @ T(T(q) * T(scale)) - xsum @ off2 through the v3 kernel
+    (``csrc/qmatmul_v3.cu``): the scale rounded before the product."""
+    return _per_weight(dequant_matmul_v3, "v3", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v2f(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = T(x) @ T(scale * q - off2) through the v2f kernel
+    (``csrc/qmatmul_v2.cu``): the shift folded into the group offset."""
+    return _per_weight(dequant_matmul_v2f, "v2f", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v2h(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = T(x) @ T(T(T(scale) * T(q)) - T(off2)) through the v2h kernel
+    (``csrc/qmatmul_v3.cu``): v2f's affine in the operand type."""
+    return _per_weight(dequant_matmul_v2h, "v2h", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v2s(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """v2g's function through the v2s kernel (``csrc/qmatmul_v2g.cu``; 4-bit
+    codes only): the low- and high-nibble halves summed apart."""
+    return _per_weight(dequant_matmul_v2s, "v2s", x, rql, mxu_dtype)
+
 
 _V1_ARGS = ((ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 5
             + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
@@ -467,15 +640,133 @@ def dequant_matmul_v1(x: torch.Tensor, rql: RuntimeQuantLinear) -> torch.Tensor:
 
 dequant_matmul_v1.launches = 0
 
+_GROUP_DOT = {"v2m": (0, 32), "v2t": (1, 32), "v2p": (2, 16)}  # body, group size
+
+
+def _group_dot(fn, variant: str, x: torch.Tensor, rql: RuntimeQuantLinearV2,
+               mxu_dtype) -> torch.Tensor:
+    """The shared body of the v2m / v2t / v2p wrappers (8-row tiles: a
+    unit's partial sums live beside the accumulator)."""
+    body, gs = _GROUP_DOT[variant]
+    if rql.group_size != gs:
+        raise ValueError(f"the {variant} kernel takes group size {gs}, not {rql.group_size} "
+                         "(dequant_matmul_v2 resolves the variant that fits)")
+    if x.device.type == "cpu":
+        return dequant_matmul_v2m_reference(x, rql, mxu_dtype)
+    out = _launch_v2("qmatmul_v2m", body, x, rql, mxu_dtype, 8)
+    fn.launches += 1
+    return out
+
+
+def dequant_matmul_v2m(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = sum_g scale_g * (T(x_g) @ q_g) - xsum @ off2 through the v2m
+    kernel (``csrc/qmatmul_v2m.cu``; gs 32: Q4_K, Q5_K): each group's raw
+    codes dotted with x, the scale applied to the partial sum at once."""
+    return _group_dot(dequant_matmul_v2m, "v2m", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v2t(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """v2m's function through the v2t kernel (gs 32): a supergroup's
+    per-group partial sums first, then their scale-weighted reduction."""
+    return _group_dot(dequant_matmul_v2t, "v2t", x, rql, mxu_dtype)
+
+
+def dequant_matmul_v2p(x: torch.Tensor, rql: RuntimeQuantLinearV2,
+                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """v2m's function at gs 16 (Q2_K, Q3_K, Q6_K) through the v2p kernel:
+    two adjacent groups' partial sums scaled and added together, then
+    added to the accumulator (JAX's pair-group dot)."""
+    return _group_dot(dequant_matmul_v2p, "v2p", x, rql, mxu_dtype)
+
+
+for _fn in (dequant_matmul_v2g, dequant_matmul_v2_exact, dequant_matmul_v3, dequant_matmul_v2f,
+            dequant_matmul_v2h, dequant_matmul_v2s, dequant_matmul_v2m, dequant_matmul_v2t,
+            dequant_matmul_v2p):
+    _fn.launches = 0
+
+# The kernel variant a v2 weight runs, as in the JAX package (same names,
+# same environment variables, default v2g; the gs=16 knob, empty by
+# default, overrides it for Q2_K / Q3_K / Q6_K weights, the Q6_K lm_head
+# included). dequant_matmul reads both at every call.
+PALLAS_V2_VARIANT = os.environ.get("GG_PALLAS_V2_VARIANT", "v2g")
+PALLAS_V2_VARIANT_GS16 = os.environ.get("GG_PALLAS_V2_VARIANT_GS16", "")
+# variant -> the name of its wrapper in this module (looked up at each call,
+# so a test may replace a wrapper)
+V2_WRAPPERS = {"v2": "dequant_matmul_v2_exact", "v3": "dequant_matmul_v3",
+               "v2f": "dequant_matmul_v2f", "v2h": "dequant_matmul_v2h",
+               "v2g": "dequant_matmul_v2g", "v2s": "dequant_matmul_v2s",
+               "v2m": "dequant_matmul_v2m", "v2t": "dequant_matmul_v2t",
+               "v2p": "dequant_matmul_v2p"}
+V2_VARIANTS = tuple(V2_WRAPPERS)
+
+
+def _effective_v2_variant(variant: str, *, gs: int, per_byte: int) -> str:
+    """The variant that runs for a requested one, by JAX's table: v2s on
+    byte-wide codes -> v2g; v2p at gs != 16 -> v2m; v2m at gs 16 -> v2p;
+    v2t at gs 16 -> v2g.
+
+    JAX's further rules send v2m / v2t / v2p to v2g when the group-gathered
+    x would not tile on 8 TPU sublanes (``((tile_in // gs) * B) % 8`` or
+    ``tile_in % 32``). They never fire here: every port kernel needs
+    d_in % 256 == 0, so JAX's tile_in is a multiple of 256 and
+    tile_in / 32 and tile_in / gs are multiples of 8 at any B."""
+    if variant not in V2_VARIANTS:
+        raise ValueError(f"unknown v2 kernel variant {variant!r}; one of {V2_VARIANTS}")
+    if variant == "v2s" and per_byte != 2:
+        return "v2g"
+    if variant == "v2p" and gs != 16:
+        return "v2m"
+    if variant in ("v2m", "v2t") and gs == 16:
+        return "v2p" if variant == "v2m" else "v2g"
+    return variant
+
+
+def _requested_v2_variant(rql: RuntimeQuantLinearV2) -> str:
+    if rql.group_size == 16 and PALLAS_V2_VARIANT_GS16:
+        return PALLAS_V2_VARIANT_GS16
+    return PALLAS_V2_VARIANT
+
+
+def effective_v2_variant_for(rql: RuntimeQuantLinearV2, B: int = 8,
+                             variant: Optional[str] = None) -> str:
+    """The kernel a dispatch of ``rql`` runs (``variant`` None: the knobs'
+    current choice). ``B`` is kept from the JAX signature: the port's
+    kernels take every row count, so it changes nothing."""
+    del B
+    return _effective_v2_variant(variant or _requested_v2_variant(rql),
+                                 gs=rql.group_size, per_byte=rql.per_byte)
+
+
+def dequant_matmul_v2(x: torch.Tensor, rql: RuntimeQuantLinearV2, *,
+                      variant: str = "v2", mxu_dtype=torch.bfloat16) -> torch.Tensor:
+    """y (M, d_out) f32 = x @ dequant(W)^T through the effective kernel of
+    ``variant`` (the counterpart of JAX's ``dequant_matmul_pallas_v2``
+    without its TPU tile arguments). ``mxu_dtype`` is the operand type of
+    the products: bf16 (the dispatch's) or f32 (JAX's bit-matched test
+    mode). A CPU x runs the variant's plain version. An unknown name raises
+    ValueError: nothing falls back to another kernel."""
+    v = _effective_v2_variant(variant, gs=rql.group_size, per_byte=rql.per_byte)
+    return globals()[V2_WRAPPERS[v]](x, rql, mxu_dtype)
+
 
 def dequant_matmul(x: torch.Tensor, rql) -> torch.Tensor:
     """y (M, d_out) f32 = x @ dequant(W)^T, routed by the weight's format:
-    v1 -> the v1 kernel, v2 -> v2g, v4 -> the v4 kernel (each takes its
-    plain version for a CPU x)."""
+    v1 -> the v1 kernel, v2 -> the kernel variant the knobs pick
+    (``PALLAS_V2_VARIANT`` / ``_GS16``, v2g by default), v4 -> the v4
+    kernel (each takes its plain version for a CPU x).
+
+    The knobs are module attributes read at every call, so setting one
+    takes effect at once, in this process. The JAX package bakes the
+    variant into its jitted step when that is first traced (its
+    ``scripts/engine_ab.py`` runs each variant in a fresh process)."""
     from . import qmv4
 
     if isinstance(rql, RuntimeQuantLinearV2):
-        return dequant_matmul_v2g(x, rql)
+        if PALLAS_V2_VARIANT == "v2g" and not PALLAS_V2_VARIANT_GS16:
+            return dequant_matmul_v2g(x, rql, torch.bfloat16)  # the default: nothing to resolve
+        return dequant_matmul_v2(x, rql, variant=_requested_v2_variant(rql))
     if isinstance(rql, RuntimeQuantLinear):
         return dequant_matmul_v1(x, rql)
     if isinstance(rql, qmv4.RuntimeQuantLinearV4):
@@ -544,3 +835,44 @@ def pack_runtime_auto(qweight, params: SuperGroupParams, qtype: GGMLQuantization
     if fmt == "v2":
         return pack_runtime_v2(qweight, params, qtype, device=device)
     return pack_runtime(qweight, params, qtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Q8 activation-quantized path (llama.cpp vec_dot_q4_K_q8_K semantics)
+# ---------------------------------------------------------------------------
+
+
+def quantize_activations_q8(x: torch.Tensor, sg: int = QK_K):
+    """Symmetric int8 per-supergroup activation quantization: (q (B, d_in)
+    int8, d (B, n_sg) f32) with q = round(x / d) (half to even), d =
+    amax / 127, the Q8_K scheme llama.cpp quantizes activations with
+    before its integer dot kernels."""
+    B, d_in = x.shape
+    xr = x.reshape(B, d_in // sg, sg).float()
+    d = xr.abs().amax(dim=-1) / 127.0
+    inv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
+                      torch.zeros_like(d))
+    q = torch.clamp(torch.round(xr * inv[:, :, None]), -127, 127).to(torch.int8)
+    return q.reshape(B, d_in), d
+
+
+def q8_matmul(x: torch.Tensor, rql: RuntimeQuantLinearV2) -> torch.Tensor:
+    """Integer-dot reference (JAX's ``q8_matmul_xla``): x quantized to Q8
+    per supergroup, integer group dots, then the two-level scale fixups,
+    sumf = d * d8 * sum(sc * idot) - dmin * d8 * sum(mn * bsum). The group
+    dots are taken in f32, where they are exact: every product and partial
+    sum is an integer below 2^24 (|x8| <= 127, |code| <= 32, 32 per group),
+    and TF32 keeps those operands whole too."""
+    B, d_in = x.shape
+    gs = rql.group_size
+    ng = d_in // gs
+    xq, d_x = quantize_activations_q8(x)
+    codes = _unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).float() - rql.shift
+    xg = xq.reshape(B, ng, gs).float()
+    idot = torch.bmm(xg.transpose(0, 1), codes.reshape(ng, gs, rql.d_out))  # (ng, B, d_out)
+    scale, off = _group_scales_v2(rql)
+    dx_g = d_x.repeat_interleave(QK_K // gs, dim=1)  # (B, ng)
+    main = torch.einsum("gbt,gt,bg->bt", idot, scale, dx_g)
+    if rql.has_min:
+        main = main - (xg.sum(dim=2) * dx_g) @ off
+    return main

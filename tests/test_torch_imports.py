@@ -3,6 +3,7 @@ entry points default to the card and raise without one, and chip_smoke.py
 refuses to run without a card or outside a checkout."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -29,6 +30,14 @@ def test_port_imports_no_jax():
     for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer",
               "ops.qmv4", "evals.ppl", "cli.tools"):
         assert f"{PKG}.{m}" in mods
+    # the kernel sources ops.qmatmul binds (the v2 variants among them) and
+    # every header a source includes
+    csrc = REPO / PKG / "ops" / "csrc"
+    for src in ("qmatmul_v2g", "qmatmul_v2", "qmatmul_v3", "qmatmul_v2m", "qmatmul_v1"):
+        assert (csrc / f"{src}.cu").is_file(), src
+    for src in csrc.glob("*.cu*"):
+        for header in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (csrc / header).is_file(), (src.name, header)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

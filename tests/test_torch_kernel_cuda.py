@@ -1,6 +1,7 @@
-"""The CUDA kernels (v2g, v1 and v4 dequant-matmul, GPTQ column-block solve,
-paged flash-decode over bf16 / f32 and int4 pools) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
+v3 / v2f / v2h / v2s / v2m / v2t / v2p, GPTQ column-block solve, paged
+flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
+versions, on the card.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode) and
 skips without one. The file imports neither JAX nor the JAX package, so on
@@ -11,7 +12,8 @@ a card host it runs without them:
 Tolerances: v2g and its plain version compute the same bf16 products and
 differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
-sum of |terms| of one output. The GPTQ solve repeats its plain version's
+sum of |terms| of one output, and so do the v2 variant kernels in either
+operand type. The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries): atol 1e-4 of max|out|."""
@@ -426,3 +428,169 @@ def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
         pa.paged_flash_decode(q, k, v, table.long(), lengths, **kw)
     with pytest.raises(ValueError, match="pools must be bf16 or f32"):
         pa.paged_flash_decode(q, k.half(), v.half(), table, lengths, **kw)
+
+
+# the v2 kernel variants: (variant, wrapper, plain version) and the types
+# each runs on itself (v2s on 4-bit codes, v2m / v2t at group size 32, v2p
+# at 16)
+def _per_weight(variant):
+    return (getattr(qmatmul, qmatmul.V2_WRAPPERS[variant]),
+            lambda x, rql, mxu: qmatmul.dequant_matmul_v2w_reference(x, rql, mxu, variant))
+
+
+V2_VARIANTS = {**{v: (*_per_weight(v), ALL_K) for v in ("v2g", "v2", "v3", "v2f", "v2h")},
+               "v2s": (*_per_weight("v2s"), [T.Q2_K, T.Q3_K, T.Q4_K]),
+               "v2m": (qmatmul.dequant_matmul_v2m, qmatmul.dequant_matmul_v2m_reference,
+                       [T.Q4_K, T.Q5_K]),
+               "v2t": (qmatmul.dequant_matmul_v2t, qmatmul.dequant_matmul_v2m_reference,
+                       [T.Q4_K, T.Q5_K]),
+               "v2p": (qmatmul.dequant_matmul_v2p, qmatmul.dequant_matmul_v2m_reference,
+                       [T.Q2_K, T.Q3_K, T.Q6_K])}
+MXU = {"bf16": torch.bfloat16, "f32": torch.float32}
+# every v2 kernel wrapper, by the variant it runs
+V2_WRAPPERS = {v: getattr(qmatmul, name) for v, name in qmatmul.V2_WRAPPERS.items()}
+
+
+def _v2_terms(x, rql, mxu_dtype):
+    """max over outputs of the sum of |terms| a v2 variant adds up: the
+    rounded x against |scale * (q - shift)| (v2's per-weight offset adds
+    |off|), and for the group-dot kernels |xsum| against |off2|."""
+    gs, d_in = rql.group_size, rql.d_in_local
+    scale, off = qmatmul._group_scales_v2(rql)
+    _, off2 = qmatmul._folded_planes_v2(rql)
+    q = qmatmul._unpack_codes(rql.qs, rql.per_byte, d_in).float().reshape(-1, gs, rql.d_out)
+    w = (scale[:, None, :] * q).abs() + off[:, None, :].abs()
+    xr = qmatmul._mxu_round(x.float(), mxu_dtype).abs()
+    mag = xr @ w.reshape(d_in, rql.d_out)
+    if off2 is not None:
+        mag = mag + x.float().reshape(x.shape[0], -1, gs).sum(-1).abs() @ off2.abs()
+    return mag.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", list(MXU))
+@pytest.mark.parametrize("M,d_out,d_in,dtype", [
+    (1, 768, 1024, torch.float32),    # one row, K split across supergroups
+    (8, 768, 1024, torch.bfloat16),   # decode tile, four warps per supergroup
+    (33, 512, 1024, torch.float32),   # ragged last row tile
+    (128, 768, 1024, torch.bfloat16),
+    (300, 512, 1024, torch.float32),  # prefill rows
+    (5, 333, 512, torch.bfloat16),    # ragged d_out: one column per thread
+])
+@pytest.mark.parametrize("variant,qtype", [(v, q) for v, (_, _, qs) in V2_VARIANTS.items()
+                                           for q in qs], ids=lambda a: getattr(a, "name", a))
+def test_v2_variant_kernels_match_plain(cuda, f32_exact, variant, qtype, M, d_out, d_in, dtype,
+                                        mxu):
+    """Each v2 variant kernel against its plain version: the same products
+    (bf16 operands, raw codes or f32), f32 sums in another order: within
+    1e-4 of the largest sum of |terms| of one output."""
+    fn, ref, _ = V2_VARIANTS[variant]
+    rql = _rql(qtype, d_out, d_in, seed=M + 5 * int(qtype), device=cuda)
+    x = torch.randn(M, d_in, generator=torch.Generator().manual_seed(M)).to(cuda, dtype)
+    n0 = fn.launches
+    got = fn(x, rql, MXU[mxu])
+    want = ref(x, rql, MXU[mxu])
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-4 * _v2_terms(x, rql, MXU[mxu]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob,gs16,want", [
+    ("v2", "", {"v2": 2}), ("v2m", "", {"v2m": 1, "v2p": 1}), ("v2t", "", {"v2t": 1, "v2g": 1}),
+    ("v2g", "v2p", {"v2g": 1, "v2p": 1}), ("v2p", "", {"v2m": 1, "v2p": 1}),
+    ("v3", "", {"v3": 2}), ("v2f", "v2h", {"v2f": 1, "v2h": 1}), ("v2s", "", {"v2s": 1, "v2g": 1})])
+def test_dispatch_launches_the_effective_variant(cuda, monkeypatch, knob, gs16, want):
+    """dequant_matmul on a Q4_K and a Q6_K weight under each knob setting
+    launches exactly the effective variants' kernels."""
+    monkeypatch.setattr(qmatmul, "PALLAS_V2_VARIANT", knob)
+    monkeypatch.setattr(qmatmul, "PALLAS_V2_VARIANT_GS16", gs16)
+    n0 = {k: f.launches for k, f in V2_WRAPPERS.items()}
+    x = torch.randn(8, 512, device=cuda, dtype=torch.bfloat16)
+    for qtype in (T.Q4_K, T.Q6_K):
+        qmatmul.dequant_matmul(x, _rql(qtype, 256, 512, seed=int(qtype), device=cuda))
+    torch.cuda.synchronize()
+    assert {k: f.launches - n0[k] for k, f in V2_WRAPPERS.items() if f.launches != n0[k]} == want
+
+
+@pytest.mark.cuda
+def test_v2_variant_wrappers_refuse(cuda):
+    """Wrong planes raise, and so does a kernel given a format it does not
+    take (v2s on byte codes, v2p at group size 32)."""
+    rql = _rql(T.Q4_K, 256, 512, seed=2, device=cuda)
+    bad = qmatmul.RuntimeQuantLinearV2(rql.qs, rql.d_sg, rql.dmin_sg, rql.sc_q.cpu(),
+                                       rql.mn_q, rql.d_in, rql.group_size, rql.per_byte,
+                                       rql.shift, rql.d_rep)
+    x = torch.randn(2, 512, device=cuda)
+    for fn in V2_WRAPPERS.values():
+        if fn is qmatmul.dequant_matmul_v2p:
+            continue
+        with pytest.raises(ValueError, match="sc_q"):
+            fn(x, bad)
+        with pytest.raises(ValueError, match="d_in"):
+            fn(torch.randn(2, 256, device=cuda), rql)
+    with pytest.raises(ValueError, match="group size"):
+        qmatmul.dequant_matmul_v2p(x, rql)
+    with pytest.raises(ValueError, match="4-bit codes only"):
+        qmatmul.dequant_matmul_v2s(x, _rql(T.Q6_K, 256, 512, seed=3, device=cuda))
+    with pytest.raises(ValueError, match="mxu_dtype"):
+        qmatmul.dequant_matmul_v2(x, rql, variant="v2g", mxu_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["v2", "v2m", "v2t", "v3", "v2f", "v2h", "v2s"])
+def test_forward_cached_variants_on_card_match_cpu(cuda, monkeypatch, variant):
+    """test_forward_cached_on_card_matches_cpu under PALLAS_V2_VARIANT: the
+    kernels on the card against the plain versions on the CPU (logits
+    within 2e-2 of max|logit|), and the launches per forward of the
+    effective variants (Q4_K layers and the Q6_K down / lm_head)."""
+    monkeypatch.setattr(qmatmul, "PALLAS_V2_VARIANT", variant)
+    cfg = LlamaConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(2)
+
+    def params(dev):
+        layers = []
+        for li in range(2):
+            s = 10 * li
+            layers.append(qmodel.fuse_layer_projections({
+                "input_layernorm": torch.ones(512, device=dev),
+                "post_attention_layernorm": torch.ones(512, device=dev),
+                "q_proj": _rql(T.Q4_K, 512, 512, s + 1, dev),
+                "k_proj": _rql(T.Q4_K, 256, 512, s + 2, dev),
+                "v_proj": _rql(T.Q4_K, 256, 512, s + 3, dev),
+                "o_proj": _rql(T.Q4_K, 512, 512, s + 4, dev),
+                "gate_proj": _rql(T.Q4_K, 1024, 512, s + 5, dev),
+                "up_proj": _rql(T.Q4_K, 1024, 512, s + 6, dev),
+                "down_proj": _rql(T.Q6_K, 512, 1024, s + 7, dev),
+            }))
+        return {"embed_tokens": emb.to(dev), "norm": torch.ones(512, device=dev),
+                "lm_head": _rql(T.Q6_K, 512, 512, 99, dev), "layers": layers}
+
+    emb = (torch.randn(512, 512, generator=gen) * 0.5).to(torch.bfloat16)
+    ids = torch.randint(0, 512, (2, 9), generator=gen)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = params(dev)
+        cache = qmodel.init_cache(cfg, 2, 64, device=dev)
+        n0 = {k: f.launches for k, f in V2_WRAPPERS.items()}
+        rows, step = [], ids.to(dev)
+        for _ in range(3):
+            logits, cache = qmodel.forward_cached(p, cfg, step, cache)
+            rows.append(logits.cpu())
+            step = ids[:, :1].to(dev)
+        out[dev.type] = torch.stack(rows)
+        if dev.type == "cuda":
+            # per forward: 3 Q4_K projections per layer, the Q6_K down of
+            # each layer and the Q6_K head
+            q6 = {"v2m": "v2p", "v2t": "v2g", "v2s": "v2g"}.get(variant, variant)
+            want = {variant: 3 * 3 * 2}
+            want[q6] = want.get(q6, 0) + 3 * 3
+            got = {k: f.launches - n0[k] for k, f in V2_WRAPPERS.items() if f.launches != n0[k]}
+            assert got == want
+    want = out["cpu"]
+    np.testing.assert_allclose(out["cuda"].numpy(), want.numpy(), rtol=0,
+                               atol=2e-2 * want.abs().max().item())

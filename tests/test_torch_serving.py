@@ -148,6 +148,40 @@ def test_forward_cached_logits(loaded, monkeypatch):
     _check_forward_logits(jp, jcfg, tp, tcfg)
 
 
+@pytest.mark.parametrize("variant,runs", [("v2m", {"v2m", "v2p"}), ("v2", {"v2"}),
+                                          ("v2h", {"v2h"}), ("v2s", {"v2s", "v2g"})],
+                         ids=["v2m", "v2", "v2h", "v2s"])
+def test_forward_cached_logits_under_variant(loaded, monkeypatch, variant, runs):
+    """test_forward_cached_logits with PALLAS_V2_VARIANT set in both
+    packages: JAX's v2m bodies (v2p on the Q6_K weights), v2 body, v2h
+    body or v2s body (v2g on the Q6_K weights) in interpret mode against
+    the port's plain versions of the same variants. JAX's eager forward_cached passes the variant to its jitted
+    dequant_matmul_pallas_v2 as a static argument, so every call picks up
+    the knob (its engine's jitted step would keep the variant of its first
+    trace)."""
+    monkeypatch.setattr(jq, "FORCE_PALLAS_INTERPRET", True)
+    seen = {"jax": set(), "port": set()}
+    pallas_v2 = jq.dequant_matmul_pallas_v2
+
+    def jax_spy(x, rql, **kw):
+        seen["jax"].add(jq._effective_v2_variant(kw["variant"], gs=rql.group_size,
+                                                 per_byte=rql.per_byte,
+                                                 tile_in=kw["tile_in"], B=x.shape[0]))
+        return pallas_v2(x, rql, **kw)
+
+    monkeypatch.setattr(jq, "dequant_matmul_pallas_v2", jax_spy)
+    for v, name in qmatmul.V2_WRAPPERS.items():
+        fn = getattr(qmatmul, name)
+        monkeypatch.setattr(qmatmul, name, lambda x, rql, mxu=torch.bfloat16, _v=v, _fn=fn:
+                            seen["port"].add(_v) or _fn(x, rql, mxu))
+    for mod in (jq, qmatmul):
+        monkeypatch.setattr(mod, "PALLAS_V2_VARIANT", variant)
+    jp, jcfg, tp, tcfg = loaded
+    _check_forward_logits(jmodel.fuse_params_for_serving(jp, jcfg), jcfg,
+                          qmodel.fuse_params_for_serving(tp, tcfg), tcfg)
+    assert seen["jax"] == seen["port"] == runs
+
+
 def _check_forward_logits(jp, jcfg, tp, tcfg):
     rng = np.random.default_rng(3)
     ids = rng.integers(0, 256, size=(2, 12))

@@ -1,0 +1,247 @@
+"""The port's v2 kernel variants against the JAX package.
+
+The variant dispatch (``PALLAS_V2_VARIANT`` / ``_GS16`` through
+``_effective_v2_variant``) must pick what JAX picks; the plain versions of
+the per-weight kernels (v2g, v2, v3, v2f, v2h, v2s) and of the group-dot
+kernels (v2m, v2t, v2p) are held to JAX's Pallas bodies in interpret mode;
+the Q8 path to JAX's XLA reference. Layers are quantized by the JAX package from seeded
+numpy inputs and packed by both packages (``test_torch_qmatmul._layer``).
+The kernels themselves are checked on the card by
+tests/test_torch_kernel_cuda.py."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gptq_gguf_tpu.formats.ggml import GGMLQuantizationType as T
+from gptq_gguf_tpu.ops import qmatmul as jq
+from gptq_gguf_tpu_torch.formats import ggml
+from gptq_gguf_tpu_torch.ops import qmatmul
+from tests.test_torch_qmatmul import ALL_K, _layer
+
+MXU = {"bf16": (torch.bfloat16, jnp.bfloat16), "f32": (torch.float32, jnp.float32)}
+NIBBLE_K = [T.Q2_K, T.Q3_K, T.Q4_K]
+
+
+def per_weight_plain(variant):
+    return lambda x, rql, mxu=torch.bfloat16: qmatmul.dequant_matmul_v2w_reference(
+        x, rql, mxu, variant)
+
+
+# each variant, its plain version, and the types it runs on itself (v2g's
+# are held to JAX in test_torch_qmatmul.py; the held cases of v3, v2f, v2h
+# and v2s are in test_torch_v2_weight_variants.py, which shares this file's
+# layers)
+PLAIN = {"v2": (qmatmul.dequant_matmul_v2_reference, ALL_K),
+         "v3": (per_weight_plain("v3"), ALL_K), "v2f": (per_weight_plain("v2f"), ALL_K),
+         "v2h": (per_weight_plain("v2h"), ALL_K), "v2s": (per_weight_plain("v2s"), NIBBLE_K),
+         "v2m": (qmatmul.dequant_matmul_v2m_reference, [T.Q4_K, T.Q5_K]),
+         "v2t": (qmatmul.dequant_matmul_v2m_reference, [T.Q4_K, T.Q5_K]),
+         "v2p": (qmatmul.dequant_matmul_v2m_reference, [T.Q2_K, T.Q3_K, T.Q6_K])}
+HERE = ("v2", "v2m", "v2t", "v2p")
+WRAPPERS = qmatmul.V2_WRAPPERS
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(qtype):
+    """(JAX weight, port weight) of one seeded 512 x 512 layer."""
+    return _layer(qtype, seed=40 + int(qtype))
+
+
+def _spec(qtype):
+    return ggml.KQUANT_SPECS[ggml.GGMLQuantizationType(int(qtype))]
+
+
+@pytest.mark.parametrize("variant", qmatmul.V2_VARIANTS)
+def test_effective_variant_matches_jax(variant):
+    """JAX's table at every tile_in / B the TPU could take: its sublane
+    rules never fire when tile_in is a multiple of 256."""
+    assert qmatmul.V2_VARIANTS == tuple(jq._V2_KERNELS)
+    for qtype in ALL_K:
+        spec = _spec(qtype)
+        per_byte = 2 if spec.bits <= 4 else 1
+        got = qmatmul._effective_v2_variant(variant, gs=spec.group_size, per_byte=per_byte)
+        for tile_in in (256, 1024, 8192):
+            for B in (1, 3, 8, 33):
+                assert got == jq._effective_v2_variant(
+                    variant, gs=spec.group_size, per_byte=per_byte, tile_in=tile_in,
+                    B=B), (qtype.name, tile_in, B)
+
+
+@pytest.mark.parametrize("knob,gs16", [("v2g", ""), ("v2", ""), ("v2m", ""), ("v2t", ""),
+                                       ("v2p", ""), ("v2g", "v2p"), ("v2m", "v2"),
+                                       ("v2s", ""), ("v3", "v2h"), ("v2f", "")])
+def test_effective_variant_for_follows_the_knobs(knob, gs16, monkeypatch):
+    for mod in (qmatmul, jq):
+        monkeypatch.setattr(mod, "PALLAS_V2_VARIANT", knob)
+        monkeypatch.setattr(mod, "PALLAS_V2_VARIANT_GS16", gs16)
+    for qtype in ALL_K:
+        jr, tr = _pair(qtype)
+        for B in (1, 8):
+            assert qmatmul.effective_v2_variant_for(tr, B) == jq.effective_v2_variant_for(
+                jr, B), qtype.name
+        assert qmatmul.effective_v2_variant_for(tr, variant="v2t") == \
+            jq.effective_v2_variant_for(jr, variant="v2t")
+
+
+@pytest.mark.parametrize("mxu", list(MXU))
+@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("variant,qtype", [(v, q) for v in HERE for q in PLAIN[v][1]],
+                         ids=lambda a: getattr(a, "name", a))
+def test_plain_matches_jax_interpret(variant, qtype, M, mxu):
+    check_plain_against_jax(variant, qtype, M, mxu)
+
+
+def check_plain_against_jax(variant, qtype, M, mxu):
+    """Tolerance: the plain version and JAX's body of the same variant form
+    the same products (bf16 x bf16 or raw codes, exact in f32; or the same
+    f32 operands) and differ only in the order of the f32 sums: rtol 1e-5,
+    atol 1e-4 of max|y|."""
+    jr, tr = _pair(qtype)
+    tdt, jdt = MXU[mxu]
+    x = np.random.default_rng(M + 100 * int(qtype)).normal(size=(M, 512)).astype(np.float32)
+    want = np.asarray(jq.dequant_matmul_pallas_v2(jnp.asarray(x), jr, interpret=True,
+                                                  variant=variant, mxu_dtype=jdt))
+    plain = PLAIN[variant][0]
+    got = plain(torch.from_numpy(x), tr, tdt).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4 * np.abs(want).max())
+    # the wrapper and the dispatch take the plain version for a CPU x
+    wrapper = getattr(qmatmul, WRAPPERS[variant])
+    np.testing.assert_array_equal(wrapper(torch.from_numpy(x), tr, tdt).numpy(), got)
+    np.testing.assert_array_equal(
+        qmatmul.dequant_matmul_v2(torch.from_numpy(x), tr, variant=variant,
+                                  mxu_dtype=tdt).numpy(), got)
+
+
+@pytest.mark.parametrize("qtype", ALL_K)
+def test_v2_weight_bit_equal_to_dequantize(qtype):
+    """The v2 kernel builds each weight as d * sc, then * (q - shift), then
+    - off (JAX's order). Every product is exact in f32 (at most 24
+    significant bits), so that f32 weight equals dequantize_runtime_v2 bit
+    for bit, and so does the same value with the subtraction fused (one
+    rounding of the exact s * q - off, as an FMA gives). The plain version
+    reproduces it: x = I returns W^T exactly, in f32 and rounded to bf16."""
+    jr, tr = _pair(qtype)
+    spec = _spec(qtype)
+    gs, d_out = tr.group_size, tr.d_out
+    q = qmatmul._unpack_codes(tr.qs, tr.per_byte, 512).numpy().astype(np.float32)
+    d = np.repeat(tr.d_sg[::tr.d_rep].numpy(), 256 // gs, axis=0)
+    s = d * tr.sc_q.numpy().astype(np.float32)  # (ng, d_out)
+    o = (np.repeat(tr.dmin_sg[::tr.d_rep].numpy(), 256 // gs, axis=0)
+         * tr.mn_q.numpy().astype(np.float32) if tr.has_min else np.zeros_like(s))
+    qv = (q - np.float32(tr.shift)).reshape(-1, gs, d_out)
+    prod = s[:, None, :] * qv
+    assert np.array_equal(prod.astype(np.float64), s[:, None, :].astype(np.float64) * qv)
+    two_roundings = (prod - o[:, None, :]).reshape(512, d_out)
+    fused = (s[:, None, :].astype(np.float64) * qv - o[:, None, :]).astype(np.float32)
+    want = np.asarray(jq.dequantize_runtime_v2(jr)).T
+    np.testing.assert_array_equal(two_roundings, want)
+    np.testing.assert_array_equal(fused.reshape(512, d_out), want)
+    np.testing.assert_array_equal(qmatmul.dequantize_runtime_v2(tr).numpy().T, want)
+    eye = torch.eye(512)
+    np.testing.assert_array_equal(
+        qmatmul.dequant_matmul_v2_reference(eye, tr, torch.float32).numpy(), want)
+    np.testing.assert_array_equal(
+        qmatmul.dequant_matmul_v2_reference(eye, tr).numpy(),
+        torch.from_numpy(want.copy()).to(torch.bfloat16).float().numpy())
+    assert spec.signed == (not tr.has_min)
+
+
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K])
+def test_v2_f32_matches_exact_xla(qtype):
+    """In f32 the v2 plain version is JAX's dequant_matmul_xla_v2: the same
+    f32 weights and products, sums in another order."""
+    jr, tr = _pair(qtype)
+    x = np.random.default_rng(9).normal(size=(8, 512)).astype(np.float32)
+    want = np.asarray(jq.dequant_matmul_xla_v2(jnp.asarray(x), jr))
+    got = qmatmul.dequant_matmul_v2_reference(torch.from_numpy(x), tr, torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("knob,gs16", [("v2g", ""), ("v2", ""), ("v2m", ""), ("v2t", ""),
+                                       ("v2p", ""), ("v2g", "v2p"), ("v2s", ""), ("v3", ""),
+                                       ("v2f", "v2h")])
+def test_cpu_dispatch_runs_the_effective_variant(knob, gs16, monkeypatch):
+    """dequant_matmul reads the knobs at every call and runs the effective
+    variant's wrapper, which takes its plain version for a CPU x."""
+    calls = []
+    for v, name in WRAPPERS.items():
+        fn = getattr(qmatmul, name)
+        monkeypatch.setattr(qmatmul, name,
+                            lambda x, rql, mxu=torch.bfloat16, _v=v, _fn=fn:
+                            calls.append(_v) or _fn(x, rql, mxu))
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 512)).astype(np.float32))
+    monkeypatch.setattr(qmatmul, "PALLAS_V2_VARIANT", knob)
+    monkeypatch.setattr(qmatmul, "PALLAS_V2_VARIANT_GS16", gs16)
+    for qtype in (T.Q4_K, T.Q5_K, T.Q3_K, T.Q6_K):
+        jr, tr = _pair(qtype)
+        want_v = jq.effective_v2_variant_for(jr, B=3, variant=(
+            gs16 if tr.group_size == 16 and gs16 else knob))
+        calls.clear()
+        got = qmatmul.dequant_matmul(x, tr)
+        assert calls == [want_v], qtype.name
+        plain = (qmatmul.dequant_matmul_v2g_reference if want_v == "v2g"
+                 else PLAIN[want_v][0])
+        np.testing.assert_array_equal(got.numpy(), plain(x, tr).numpy())
+
+
+def test_unported_and_unknown_variants_raise():
+    """Every JAX variant is ported, so only an unknown name, an operand
+    type other than bf16 / f32, or a wrapper called on a format its kernel
+    does not take raises; nothing falls back to another kernel."""
+    _, q4 = _pair(T.Q4_K)
+    _, q6 = _pair(T.Q6_K)
+    x = torch.zeros(2, 512)
+    for v in qmatmul.V2_VARIANTS:
+        assert qmatmul.dequant_matmul_v2(x, q4, variant=v).shape == (2, 512)
+    # v2s on byte codes resolves to v2g, as in JAX
+    np.testing.assert_array_equal(qmatmul.dequant_matmul_v2(x, q6, variant="v2s").numpy(),
+                                  qmatmul.dequant_matmul_v2g_reference(x, q6).numpy())
+    with pytest.raises(ValueError, match="unknown v2 kernel variant"):
+        qmatmul.dequant_matmul_v2(x, q4, variant="v9")
+    with pytest.raises(ValueError, match="mxu_dtype"):
+        qmatmul.dequant_matmul_v2(x, q4, variant="v2", mxu_dtype=torch.float16)
+    for wrapper, rql in ((qmatmul.dequant_matmul_v2m, q6), (qmatmul.dequant_matmul_v2t, q6),
+                         (qmatmul.dequant_matmul_v2p, q4)):
+        with pytest.raises(ValueError, match="group size"):
+            wrapper(x, rql)
+    with pytest.raises(ValueError, match="4-bit codes only"):
+        qmatmul.dequant_matmul_v2s(x, q6)
+
+
+@pytest.mark.parametrize("M,d_out,n_sg,vec,want", [
+    (8, 4096, 16, 4, (8, 1, 16)),
+    (128, 4096, 16, 4, (8, 8, 2)),    # prefill rows stay on 8-row tiles
+    (128, 28672, 16, 4, (8, 16, 1)),
+    (300, 1000, 8, 1, (8, 8, 1)),
+    (1, 333, 2, 1, (1, 1, 2)),
+])
+def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
+    assert qmatmul._launch_plan(M, d_out, n_sg, n_sm=132, vec=vec, mt_max=8) == want
+
+
+def test_quantize_activations_q8_bit_equal():
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(5, 1024)).astype(np.float32) * rng.uniform(0.01, 10, (5, 1))
+    x[2, 256:512] = 0.0  # a zero supergroup: d = 0, codes 0
+    x[3, 7] = 1e4       # an outlier sets one supergroup's scale
+    jq8, jd = jq.quantize_activations_q8(jnp.asarray(x))
+    tq8, td = qmatmul.quantize_activations_q8(torch.from_numpy(x))
+    assert tq8.dtype == torch.int8 and td.dtype == torch.float32
+    np.testing.assert_array_equal(tq8.numpy(), np.asarray(jq8))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("qtype", ALL_K)
+def test_q8_matmul_matches_jax(qtype):
+    """Exact integer group dots on both sides; the scale fixups are f32
+    products and sums in another order: within 1e-5 relative."""
+    jr, tr = _pair(qtype)
+    x = np.random.default_rng(12).normal(size=(4, 512)).astype(np.float32)
+    want = np.asarray(jq.q8_matmul_xla(jnp.asarray(x), jr))
+    got = qmatmul.q8_matmul(torch.from_numpy(x), tr).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Time the v2-format dequant-matmul kernels on the card, for one or more
+checkouts of the repository, each in a process of its own.
+
+    python3 tools/time_v2_kernels.py [--variant v2g] [--reps 50] [ROOT ...]
+                                     (default: this checkout)
+
+Roots run in the order given (pass A B B A to compare two trees within one
+run). Each root times its wrapper of ``--variant`` (``dequant_matmul_v2g``
+by default; the variant must exist in every root given) at M = 8 bf16 rows
+over the weights one Llama-3-8B decode step reads: the fused q/k/v (6144
+x 4096), o (4096 x 4096), fused gate/up (28672 x 4096) and down (4096 x
+14336) at Q4_K, 32 layers each, and the padded Q6_K lm_head (128512 x
+4096). The planes are random bytes of the v2 layout made on the card from
+a seed (the same in every root; their values do not change the work).
+Device time per call from CUDA events around each call, the L2 cache
+flushed outside them, mean of REPS calls queued behind a device sleep (so
+host time between the calls is not counted). Prints one JSON line per root:
+ms per call by shape and ms per B=8 step. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+SEED = 7
+M = 8
+# name, d_out, d_in, per_byte, group size, has_min, shift, calls per step
+SHAPES = (("qkv", 6144, 4096, 2, 32, True, 0, 32), ("o", 4096, 4096, 2, 32, True, 0, 32),
+          ("gateup", 28672, 4096, 2, 32, True, 0, 32), ("down", 4096, 14336, 2, 32, True, 0, 32),
+          ("lm_head", 128512, 4096, 1, 16, False, 32, 1))
+
+
+def planes(gen, d_out, d_in, per_byte, gs, has_min, dev):
+    """Random v2 planes: codes, f16-valued super-scales (each row twice, as
+    the packer lays them out), 6-bit group scales and mins."""
+    import torch
+
+    n_sg, ng = d_in // 256, d_in // gs
+
+    def u8(rows, hi):
+        return torch.randint(0, hi, (rows, d_out), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    def super_scale():
+        s = (torch.rand((n_sg, d_out), generator=gen, device=dev) * 1e-3).half().float()
+        return s.repeat_interleave(2, dim=0).contiguous()
+
+    qs = u8(d_in // per_byte, 256 if per_byte == 2 else 64)
+    if has_min:
+        return qs, super_scale(), super_scale(), u8(ng, 64), u8(ng, 64)
+    sc = (torch.randint(-31, 32, (ng, d_out), generator=gen, device=dev,
+                        dtype=torch.int32)).to(torch.int8)
+    return qs, super_scale(), None, sc, None
+
+
+def one_root(root: str, variant: str, reps: int) -> None:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    names = getattr(qmatmul, "V2_WRAPPERS", {"v2g": "dequant_matmul_v2g"})
+    fn = getattr(qmatmul, names[variant])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, d_out, d_in, per_byte, gs, has_min, shift, calls in SHAPES:
+        rql = qmatmul.RuntimeQuantLinearV2(*planes(gen, d_out, d_in, per_byte, gs, has_min, dev),
+                                           d_in, gs, per_byte, shift, 2)
+        x = (torch.randn((M, d_in), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        for _ in range(3):  # the library's first load and launch stay out
+            fn(x, rql)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # the card waits while the host queues every call
+        events = []
+        for _ in range(reps):
+            flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(x, rql)
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        out[name] = sum(a.elapsed_time(b) for a, b in events) / reps
+        out[f"{name}_per_step"] = out[name] * calls
+        del rql, x
+    step = sum(out[f"{s[0]}_per_step"] for s in SHAPES)
+    print(json.dumps({"root": root, "variant": variant, "ms_per_call": {
+        s[0]: out[s[0]] for s in SHAPES}, "ms_per_step": step}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*", default=["."])
+    ap.add_argument("--variant", default="v2g")
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        one_root(args.one, args.variant, args.reps)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_v2_kernels: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    for root in args.roots:
+        rc = subprocess.run([sys.executable, __file__, "--one", root, "--variant", args.variant,
+                             "--reps", str(args.reps)]).returncode
+        if rc != 0:
+            print(f"time_v2_kernels: root {root} failed ({rc})", file=sys.stderr)
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,13 +12,20 @@ checkout of the repository. Phases, each raising on failure:
 2. kernel against its plain PyTorch version on the card, at every
    projection shape of Llama-3-8B (Q4_K, Q6_K lm_head) at M = 8 and 128,
    plus Q2_K / Q3_K / Q5_K and a ragged d_out: error, kernel / plain /
-   library ms, and the bound at the card's published rates;
+   library ms, and the bound at the card's published rates; then v2g's
+   tensor-core prefill tiles (csrc/qmatmul_v2_mma.cuh) at the same shapes
+   at the threshold M (qmatmul.MMA_MIN_ROWS) and M = 1024, each within
+   1e-5 of its largest sum of |terms| with a planted control that must
+   fail that limit, timed beside the 8-row CUDA-core tile and bf16
+   torch.matmul;
 3. full-width serving: Llama-3-8B widths, synthetic v2 weights from a seed,
    ContinuousBatchingEngine(num_slots=8, max_len=2048) serving 12 requests;
-   checks budgets, token ranges and the kernel's launch count, and prints
-   decode tok/s and ms/step (plus a steady B=8 block);
+   checks budgets, token ranges and the kernel's launch count (every
+   prefill projection on the tensor-core tiles, no decode step), and
+   prints decode tok/s and ms/step (plus a steady B=8 block);
 4. consistency: 2 layers at full width, one prefill plus 4 decode steps
-   through the kernel and through the plain version, logits compared;
+   through the kernel and through the plain version, logits compared (the
+   prefill's 8 projections on the tensor-core tiles);
 5. GPTQ at full width: the column-block solve kernel against its plain
    version at every Llama-3-8B solve shape (bit-equal); the ``quantize``
    command line on a seeded 2-layer Llama-3-8B-width bf16 checkpoint with
@@ -52,7 +59,9 @@ checkout of the repository. Phases, each raising on failure:
    served in v1, v4 and v4 i8 (129 launches of that format's kernel per
    forward, none of another's) beside phase 3's v2 numbers; (d) perplexity
    through the serving path on the 32-layer model in v2, v1 and v4 (2
-   sequences of 512 tokens, within 0.05 nats/token of each other); (e)
+   sequences of 512 tokens, within 0.05 nats/token of each other; v2's
+   every call on the tensor-core tiles, and within 1e-3 nats/token of the
+   same model through the plain version); (e)
    after phase 5, its GPTQ artifacts served through
    quantize_params_for_serving in v1, v2 and v4 (dequantization bit-equal
    to the artifacts', greedy tokens);
@@ -63,13 +72,15 @@ checkout of the repository. Phases, each raising on failure:
    projection shape, M = 8 and 128, plus Q2_K / Q3_K / Q5_K and ragged
    d_out with every per-weight variant's f32 mode among them; each case
    within 1e-5 of its largest sum of |terms|, a limit a planted control
-   (another variant's rounding) must fail; (b) 2-layer logits through
+   (another variant's rounding) must fail; the tensor-core tiles of v2,
+   v3, v2f and v2h as phase 2 holds v2g's; (b) 2-layer logits through
    each variant's kernels against its plain versions, and the differences
    between variants; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward; (d) perplexity through the serving path under
-   v2m and v2, within 0.05 nats/token of v2g's (phase 7d).
+   v2m and v2, within 0.05 nats/token of v2g's (phase 7d); v2's every call
+   on the tensor-core tiles, v2m's none.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -318,17 +329,22 @@ def build_8b(rng, device):
     return params, cfg
 
 
+def step_shapes(params):
+    """(name, weight) of the five matmuls of one forward: layer 0's fused
+    projections and the padded Q6_K lm_head."""
+    l0 = params["layers"][0]
+    return [("qkv 4096->6144 Q4_K", l0["qkv_proj"]), ("o 4096->4096 Q4_K", l0["o_proj"]),
+            ("gateup 4096->28672 Q4_K", l0["gateup_proj"]),
+            ("down 14336->4096 Q4_K", l0["down_proj"]),
+            ("lm_head 4096->128512 Q6_K", params["lm_head"])]
+
+
 def phase_kernels(params, rng, device):
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
 
-    l0 = params["layers"][0]
-    cases = [("qkv 4096->6144 Q4_K", l0["qkv_proj"]),
-             ("o 4096->4096 Q4_K", l0["o_proj"]),
-             ("gateup 4096->28672 Q4_K", l0["gateup_proj"]),
-             ("down 14336->4096 Q4_K", l0["down_proj"]),
-             ("lm_head 4096->128512 Q6_K", params["lm_head"])]
+    cases = step_shapes(params)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
     recs = []
@@ -350,6 +366,73 @@ def phase_kernels(params, rng, device):
     return recs
 
 
+def phase_mma_kernels(params, variants, device):
+    """The tensor-core tiles of ``variants`` (bf16 operands) against their
+    plain versions at every Llama-3-8B projection shape and the padded Q6_K
+    lm_head, at the threshold M and at M = 1024 (variant_case: within 1e-5
+    of the largest sum of |terms|, with a planted control that must fail
+    that limit); beside each, the 8-row CUDA-core tile at the same M (still
+    built: f32 operands and v2s run it) on the same inputs."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
+    recs = []
+    for M in (qmatmul.MMA_MIN_ROWS, 1024):
+        for name, rql in step_shapes(params):
+            x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
+            for v in variants:
+                fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[v])
+                m0 = fn.mma_launches
+                rec = variant_case(name, v, "bf16", x, rql, flush)
+                if fn.mma_launches == m0:
+                    raise RuntimeError(f"{v} {name} M={M}: not on the tensor-core tiles")
+                lib, build = qmatmul._PER_WEIGHT[v]
+                rec["core8_ms"] = cuda_ms(lambda: qmatmul._launch_v2(
+                    lib, build, x, rql, torch.bfloat16, 8), 3, flush)
+                rec["tflop_s"] = rec["flops"] / rec["ms"] / 1e9
+                log(f"  {v:>3} {name:>24} M={M:<4} tensor-core {rec['ms']:.4f} ms "
+                    f"({rec['tflop_s']:.1f} TFLOP/s), 8-row CUDA-core tile "
+                    f"{rec['core8_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                recs.append(rec)
+            del x
+            torch.cuda.empty_cache()
+    return recs
+
+
+def mma_summary(recs, launches):
+    """The summary entry of the tensor-core tiles: one Llama-3-8B forward
+    at M = 1024 (4 x 32 projections and the lm_head, bf16 operands) under
+    v2g, from phase 2's records; each variant's forward and the threshold
+    M beside it. Its error is the largest of every tensor-core case."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def forward(variant, M):
+        per = {r["name"].split()[0]: r for r in recs if r["variant"] == variant and r["M"] == M}
+
+        def total(key):
+            return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in STEP)
+
+        t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = total("flops") / BF16_FLOP_PER_S * 1e3
+        return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": total("library_ms"), "core8_ms": total("core8_ms")}
+
+    return {"name": "qmatmul_v2_mma", "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2_mma.cuh",
+            "replaces": "gptq_gguf_tpu/ops/qmatmul.py:605", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs), **forward("v2g", 1024),
+            "per": f"one Llama-3-8B forward at M = 1024 (v2g, bf16 operands): "
+                   f"{4 * N_LAYERS + 1} calls",
+            "at_min_rows": {"M": qmatmul.MMA_MIN_ROWS, **forward("v2g", qmatmul.MMA_MIN_ROWS)},
+            "variants": {v: {M: forward(v, M) for M in (qmatmul.MMA_MIN_ROWS, 1024)}
+                         for v in qmatmul.MMA_VARIANTS if v != "v2g"}}
+
+
 # the dequant-matmul wrappers: one per format, and the v2 format's variants
 MATMUL_KERNELS = ("v2g", "v1", "v4", "v2", "v3", "v2f", "v2h", "v2s", "v2m", "v2t", "v2p")
 
@@ -362,12 +445,23 @@ def matmul_wrappers():
 
 
 def reset_matmul_counts() -> None:
-    """Every dequant-matmul wrapper's launch count to 0 (and the v4
-    wrapper's count per JAX body)."""
+    """Every dequant-matmul wrapper's launch count to 0 (its tensor-core
+    count too, and the v4 wrapper's count per JAX body)."""
     fns = matmul_wrappers()
     for fn in fns.values():
         fn.launches = 0
+        if hasattr(fn, "mma_launches"):
+            fn.mma_launches = 0
     fns["v4"].body_launches = dict.fromkeys(fns["v4"].body_launches, 0)
+
+
+def mma_counts() -> dict:
+    """variant -> tensor-core launches of its wrapper (the per-weight builds
+    but v2s: csrc/qmatmul_v2_mma.cuh)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    return {v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
+            for v in qmatmul.MMA_VARIANTS}
 
 
 def matmul_counts() -> dict:
@@ -382,17 +476,23 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     with ``params`` in one runtime format: budgets, token ranges, and every
     packed matmul through ``kernel``'s wrapper (4 per layer + the lm_head
     per forward; or the launches per forward ``per_forward`` names, by
-    wrapper) and no other's; then a steady B=8 decode block."""
+    wrapper) and no other's; every projection of a prefill (16 rows or
+    more) on the tensor-core tiles when ``kernel`` has them, and nothing of
+    a decode step (8 rows) or a head (each sequence's last row); then a
+    steady B=8 decode block."""
     import torch
 
+    from gptq_gguf_tpu_torch.ops import qmatmul
     from gptq_gguf_tpu_torch.serving import engine, model as qmodel
 
     n_fwd = [0]
+    rows = []
     decode = {"s": 0.0, "steps": 0}
     fwd0, scan0 = qmodel.forward_cached, engine._decode_steps_scan
 
     def counting_forward(*a, **kw):
         n_fwd[0] += 1
+        rows.append(a[2].numel())
         return fwd0(*a, **kw)
 
     def timed_scan(*a, **kw):
@@ -417,6 +517,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     finally:
         qmodel.forward_cached, engine._decode_steps_scan = fwd0, scan0
     counts = matmul_counts()
+    mma = mma_counts()
     launches = counts[kernel]
     by_uid = {r.uid: r for r in done}
     if len(done) != 12 or set(by_uid) != uids:
@@ -433,6 +534,17 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     if launches == 0 or any(counts[k] != want[k] for k in MATMUL_KERNELS):
         raise RuntimeError(f"{label} serving: kernel launches {counts}, want "
                            f"{per_forward} x {n_fwd[0]} forwards")
+    n_prefill = sum(r >= qmatmul.MMA_MIN_ROWS for r in rows)
+    want_mma = {k: 4 * cfg.num_hidden_layers * n_prefill if k == kernel else 0 for k in mma}
+    if mma != want_mma:
+        raise RuntimeError(f"{label} serving: tensor-core launches {mma}, want {want_mma} "
+                           f"({n_prefill} forwards of {qmatmul.MMA_MIN_ROWS} rows or more)")
+    if kernel in mma:
+        log(f"serving ({label}): {mma[kernel]} tensor-core launches = 4 x "
+            f"{cfg.num_hidden_layers} per prefill forward x {n_prefill} (rows "
+            f"{min((r for r in rows if r >= qmatmul.MMA_MIN_ROWS), default=0)}-{max(rows)}); none in "
+            f"the {len(rows) - n_prefill} forwards of "
+            f"{max((r for r in rows if r < qmatmul.MMA_MIN_ROWS), default=0)} rows or fewer")
     gen_tokens = sum(len(r.output) for r in done)
     log(f"serving ({label}): depth {cfg.num_hidden_layers}, 12 requests, {gen_tokens} tokens in "
         f"{wall:.2f} s; {n_fwd[0]} forwards, kernel launches "
@@ -457,6 +569,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     return counts, dict(wall_s=wall, decode_ms_per_step=dt * 1e3, decode_tok_s=8 / dt,
                         serve_decode_ms_per_step=decode["s"] / max(decode["steps"], 1) * 1e3,
                         generated_tok_s=(gen_tokens - 12) / decode["s"], launches=launches,
+                        mma_launches=mma.get(kernel, 0), prefill_forwards=n_prefill,
                         forwards=n_fwd[0])
 
 
@@ -499,7 +612,13 @@ def phase_consistency(params, cfg, rng, device):
         return x.float() @ qmatmul.dequantize_runtime_v2(rql).T
 
     feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4,)), device=device)
+    reset_matmul_counts()
     lk = run(qmatmul.dequant_matmul_v2g)
+    n_mma = mma_counts()["v2g"]
+    log(f"consistency: {n_mma} tensor-core launches (the 128-row prefill's 4 x 2 "
+        f"projections; its 1-row head and the 4 decode steps on the decode tiles)")
+    if n_mma != 4 * 2:
+        raise RuntimeError(f"consistency: {n_mma} tensor-core launches, want 8")
     lp = run(qmatmul.dequant_matmul_v2g_reference)
     lc = run(exact_f32)
     # tolerance: kernel and plain differ in f32 sum order only; bf16
@@ -1525,6 +1644,7 @@ def phase_format_ppl(fparams, cfg, device):
     import torch
 
     from gptq_gguf_tpu_torch.evals import ppl
+    from gptq_gguf_tpu_torch.ops import qmatmul
     from gptq_gguf_tpu_torch.utils.data import get_data
 
     data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
@@ -1537,17 +1657,35 @@ def phase_format_ppl(fparams, cfg, device):
         value = ppl.compute_perplexity(fparams[fmt], cfg, data, serving=True)
         torch.cuda.synchronize()
         secs = (time.perf_counter() - t) / len(data)
-        counts = matmul_counts()
+        counts, mma = matmul_counts(), mma_counts()
         want = len(data) * (4 * cfg.num_hidden_layers + 1)
         if counts[kernel] != want or any(counts[k] for k in MATMUL_KERNELS if k != kernel):
             raise RuntimeError(f"ppl {fmt}: launches {counts}, want {want} of {kernel}")
+        # every projection and the all-position head at M = PPL_LEN on the
+        # tensor-core tiles (v2 only)
+        if mma != {k: want if k == kernel else 0 for k in mma}:
+            raise RuntimeError(f"ppl {fmt}: tensor-core launches {mma}, want {want} of {kernel}")
         if not np.isfinite(value):
             raise RuntimeError(f"ppl {fmt}: {value}")
         out[fmt] = dict(ppl=value, nll=float(np.log(value)), s_per_seq=secs,
-                        launches=counts[kernel])
+                        launches=counts[kernel], mma_launches=mma.get(kernel, 0))
         log(f"ppl ({fmt}, serving path, {len(data)} x {PPL_LEN} tokens): {value:.4f} "
             f"({np.log(value):.6f} nats/token), {secs:.3f} s per sequence, {counts[kernel]} "
-            f"{kernel} launches")
+            f"{kernel} launches ({mma.get(kernel, 0)} on the tensor cores)")
+        if fmt == "v2":  # the same function through the plain version
+            fn0 = qmatmul.dequant_matmul
+            qmatmul.dequant_matmul = qmatmul.dequant_matmul_v2g_reference
+            try:
+                plain = float(np.log(ppl.compute_perplexity(fparams[fmt], cfg, data,
+                                                            serving=True)))
+            finally:
+                qmatmul.dequant_matmul = fn0
+            d = out[fmt]["nll"] - plain
+            out[fmt]["plain_nll"] = plain
+            log(f"ppl (v2): kernels {out[fmt]['nll']:.6f} vs plain version {plain:.6f} "
+                f"nats/token: {d:+.3e} (bound 1e-3)")
+            if not abs(d) < 1e-3:
+                raise RuntimeError(f"ppl v2: kernels {out[fmt]['nll']} vs plain {plain}")
     spread = max(r["nll"] for r in out.values()) - min(r["nll"] for r in out.values())
     log(f"ppl across formats: nats/token spread {spread:.3e} (bound 0.05)")
     if not spread < 0.05:
@@ -1747,14 +1885,11 @@ def phase_variant_kernels(params, rng, device):
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
 
-    l0 = params["layers"][0]
     q4 = ("v2 bf16", "v2 f32", "v3 bf16", "v2f bf16", "v2h bf16", "v2s bf16", "v2m bf16",
           "v2t bf16")
     q6 = ("v2 bf16", "v2 f32", "v3 bf16", "v2f bf16", "v2h bf16", "v2p bf16")
-    shapes = [("qkv 4096->6144 Q4_K", l0["qkv_proj"], q4), ("o 4096->4096 Q4_K", l0["o_proj"], q4),
-              ("gateup 4096->28672 Q4_K", l0["gateup_proj"], q4),
-              ("down 14336->4096 Q4_K", l0["down_proj"], q4),
-              ("lm_head 4096->128512 Q6_K", params["lm_head"], q6)]
+    shapes = [(name, rql, q6 if name.startswith("lm_head") else q4)
+              for name, rql in step_shapes(params)]
     small = [("Q2_K 1024->768", 768, 1024, T.Q2_K, 8,
               ("v2 bf16", "v3 f32", "v2h bf16", "v2s f32", "v2p bf16")),
              ("Q3_K 1024->768", 768, 1024, T.Q3_K, 8,
@@ -1818,17 +1953,24 @@ def phase_variant_consistency(params, cfg, rng, device):
         label = variant + (f" (gs16 {gs16})" if gs16 else "")
         old = knobs(variant, gs16)
         try:
+            reset_matmul_counts()
             lk = two_layer_logits(params, cfg, prompt, feed, through(False), device)
+            mma = mma_counts()
             lp = two_layer_logits(params, cfg, prompt, feed, through(True), device)
         finally:
             knobs(*old)
+        # the 128-row prefill's 4 x 2 projections on the tensor-core tiles
+        # when the variant has them; the 1-row head and decode steps not
+        if mma != {k: 8 if k == variant else 0 for k in mma}:
+            raise RuntimeError(f"{label}: tensor-core launches {mma}")
         scale = lp.abs().max().item()
         err = (lk - lp).abs().max().item()
         d_g = (lk - base).abs().max().item()
         agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
         log(f"{label} consistency (2 layers, prefill + 4 decode): max|dlogit| kernel vs plain "
             f"{err:.3e}, tol {3e-3 * scale:.3e} (3e-3 of max|logit| {scale:.3e}); argmax "
-            f"agreement {agree:.2f}; vs v2g's kernels {d_g:.3e}")
+            f"agreement {agree:.2f}; vs v2g's kernels {d_g:.3e}; tensor-core launches "
+            f"{mma.get(variant, 0)}")
         if not (torch.isfinite(lk).all() and err <= 3e-3 * scale):
             raise RuntimeError(f"{label}: kernel and plain logits disagree")
         out[label] = dict(kernel_vs_plain=err, tol=3e-3 * scale, vs_v2g=d_g)
@@ -1884,12 +2026,15 @@ def phase_variant_ppl(params, cfg, v2g):
             secs = (time.perf_counter() - t) / len(data)
         finally:
             knobs(*old)
-        counts = matmul_counts()
+        counts, mma = matmul_counts(), mma_counts()
         if any(counts[k] != want.get(k, 0) * len(data) for k in MATMUL_KERNELS):
             raise RuntimeError(f"ppl {variant}: launches {counts}, want {want} per sequence")
+        if any(mma[k] != (want.get(k, 0) * len(data)) for k in mma):  # v2: every call
+            raise RuntimeError(f"ppl {variant}: tensor-core launches {mma}")
         nll = float(np.log(value))
         out[variant] = dict(ppl=value, nll=nll, s_per_seq=secs, vs_v2g=nll - v2g["nll"],
-                            launches={k: counts[k] for k in want})
+                            launches={k: counts[k] for k in want},
+                            mma_launches={k: mma[k] for k in want if k in mma})
         log(f"ppl ({variant}, serving path, {len(data)} x {PPL_LEN} tokens): {value:.4f} "
             f"({nll:.6f} nats/token, v2g {v2g['nll']:.6f}: {nll - v2g['nll']:+.3e}), "
             f"{secs:.3f} s per sequence (v2g {v2g['s_per_seq']:.3f}), launches "
@@ -1976,10 +2121,11 @@ def run(device) -> dict:
     params, cfg = build_8b(rng, device)
     log(f"weights: {N_LAYERS} layers + lm_head packed in {time.time() - t:.1f} s")
     recs = phase_kernels(params, rng, device)
+    mrecs = phase_mma_kernels(params, ("v2g",), device)
     log("== phase 3: full-width serving")
     requests = serve_requests(rng, cfg, 12, *SERVE_MIX)
     counts, serve = phase_serving(params, cfg, requests)
-    launches = counts["v2g"]
+    launches = counts["v2g"] - serve["mma_launches"]  # the decode tiles' own
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
     log("== phase 6: paged serving at full width")
@@ -2021,6 +2167,7 @@ def run(device) -> dict:
     log("== phase 8: the v2 kernel variants at full width")
     t8 = time.time()
     vrecs = phase_variant_kernels(params, rng, device)
+    mrecs += phase_mma_kernels(params, ("v2", "v3", "v2f", "v2h"), device)
     vcross = phase_variant_consistency(params, cfg, rng, device)
     vserve = phase_variant_serving(params, cfg, requests)
     vppl = phase_variant_ppl(params, cfg, fppl["v2"])
@@ -2094,8 +2241,10 @@ def run(device) -> dict:
                        fserve[fmt]["counts"]["v1" if body == "v1" else f"v4_{body}"])
         for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
-                        vrecs, vserve[run]["counts"][variant])
-        for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS],
+                        vrecs, vserve[run]["counts"][variant]
+                        - (vserve[run]["mma_launches"] if variant == run else 0))
+        for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [
+        mma_summary(mrecs, serve["mma_launches"])],
         "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),

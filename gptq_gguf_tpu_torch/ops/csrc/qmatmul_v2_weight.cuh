@@ -40,7 +40,7 @@
 // (planes, x, y): d_sg / dmin_sg hold each supergroup's row d_rep = 2 times
 // (a TPU tiling rule) and only row d_rep * sg is read.
 //
-// Design (CUDA cores, f32 accumulation; wgmma / TMA are later work):
+// Design (CUDA cores, f32 accumulation; the decode kernel):
 //   * each thread owns VEC = 4 adjacent output columns and reads one 32-bit
 //     word per weight row, so a warp reads 128 contiguous bytes per row
 //     (VEC = 1 for a d_out that is not a multiple of 4);
@@ -57,8 +57,10 @@
 //     K axis over supergroups (gridDim.z) and a second kernel reduces those
 //     partials in a fixed order (no float atomics): token streams stay
 //     reproducible run to run;
-//   * rows per block: up to 32 with bf16 operands; 8 with f32 operands (a
-//     test mode) and for v2s (its second accumulator);
+//   * rows per block: up to 8. With bf16 operands every build but v2s
+//     runs M >= 9 rows on the tensor-core tiles of qmatmul_v2_mma.cuh;
+//     f32 operands (a test mode), v2s (its second accumulator) and vec 1
+//     weights stay here at any M, in 8-row tiles;
 //   * tiles of 8 rows or fewer are declared for 4 blocks per SM, which lets
 //     the compiler keep up to 128 registers a thread: left alone it kept 72
 //     at the 8-row decode tile and ran the Llama-3-8B gate/up and down
@@ -290,33 +292,31 @@ void launch(const V2Args& a) {
   v2_weight_kernel<BUILD, BF16, PB, GS, HAS_MIN, MT, VEC><<<grid, kThreads, 0, a.stream>>>(a);
 }
 
-// row tiles: MT in {1, 2, 4, 8} (and 16, 32 when WIDE) for VEC 4, {1, 8}
-// (and 32) for VEC 1
+// the tensor-core tiles of qmatmul_v2_mma.cuh (bf16 operands, bm rows per
+// block: 32, 64 or 128), defined there
+template <int BUILD, int PB, int GS, bool HAS_MIN>
+bool launch_mma(const V2Args& a, int bm);
+
+// row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
+// cores; mt of 32, 64 or 128 (VEC 4, bf16 operands, every build but v2s) the
+// tensor-core tiles with mt rows per block
 template <int BUILD, bool BF16, int PB, int GS, bool HAS_MIN>
 bool launch_tile(const V2Args& a, int mt, int vec) {
-  constexpr bool WIDE = BF16 && BUILD != kV2s;
   if (vec == 4) {
     switch (mt) {
       case 1: launch<BUILD, BF16, PB, GS, HAS_MIN, 1, 4>(a); return true;
       case 2: launch<BUILD, BF16, PB, GS, HAS_MIN, 2, 4>(a); return true;
       case 4: launch<BUILD, BF16, PB, GS, HAS_MIN, 4, 4>(a); return true;
       case 8: launch<BUILD, BF16, PB, GS, HAS_MIN, 8, 4>(a); return true;
-      case 16:
-        if constexpr (WIDE) { launch<BUILD, BF16, PB, GS, HAS_MIN, 16, 4>(a); return true; }
+      default:
+        if constexpr (BF16 && BUILD != kV2s) return launch_mma<BUILD, PB, GS, HAS_MIN>(a, mt);
         return false;
-      case 32:
-        if constexpr (WIDE) { launch<BUILD, BF16, PB, GS, HAS_MIN, 32, 4>(a); return true; }
-        return false;
-      default: return false;
     }
   }
   if (vec == 1) {
     switch (mt) {
       case 1: launch<BUILD, BF16, PB, GS, HAS_MIN, 1, 1>(a); return true;
       case 8: launch<BUILD, BF16, PB, GS, HAS_MIN, 8, 1>(a); return true;
-      case 32:
-        if constexpr (WIDE) { launch<BUILD, BF16, PB, GS, HAS_MIN, 32, 1>(a); return true; }
-        return false;
       default: return false;
     }
   }
@@ -364,9 +364,10 @@ bool dispatch_build(const V2Args& a, int build, int mxu_bf16, int per_byte, int 
 // build, format or tile the source does not instantiate). build is a Build
 // value; x is bf16 when x_bf16 != 0, else f32; the operands are rounded to
 // bf16 when mxu_bf16 != 0, else kept in f32. partials is (splits, M, d_out)
-// f32 scratch when splits > 1, ignored otherwise. vec 4 needs
-// d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
-// pointer of contiguous data.
+// f32 scratch when splits > 1, ignored otherwise. mt is the rows per block:
+// 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the tensor cores (vec 4 and
+// bf16 operands only). vec 4 needs d_out % 4 == 0 and 16-byte-aligned
+// planes. Every pointer is a device pointer of contiguous data.
 #define GG_V2_WEIGHT_ENTRY(NAME, ...)                                                      \
   extern "C" int NAME(int build, const void* x, int x_bf16, int mxu_bf16,                 \
                       const uint8_t* qs, const float* d_sg, const float* dmin_sg,         \

@@ -1,6 +1,7 @@
 // The v2g and v2s kernel variants: builds kV2g and kV2s of the per-weight
 // dequant-matmul kernel in qmatmul_v2_weight.cuh (what each computes, and
-// why it is exact, is written there). Built by
+// why it is exact, is written there), and v2g's tensor-core prefill tiles
+// (qmatmul_v2_mma.cuh). Built by
 // gptq_gguf_tpu_torch/ops/cuda_build.py into a shared library with a plain
 // C interface, bound with ctypes by
 // gptq_gguf_tpu_torch/ops/qmatmul.py::dequant_matmul_v2g / _v2s.
@@ -11,5 +12,6 @@
 // v2g's weights with the nibble halves dotted apart).
 
 #include "qmatmul_v2_weight.cuh"
+#include "qmatmul_v2_mma.cuh"
 
 GG_V2_WEIGHT_ENTRY(gg_v2g_matmul, kV2g, kV2s)

@@ -27,7 +27,9 @@ A v2 weight runs one of the JAX package's kernel variants, picked by
 through ``_effective_v2_variant``. All nine have a kernel: the per-weight
 builds ``v2g`` (the default) and ``v2s`` (``csrc/qmatmul_v2g.cu``), ``v2``
 and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
-(``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``;
+(``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``
+(CUDA cores) and, except v2s, of ``csrc/qmatmul_v2_mma.cuh`` (tensor cores,
+bf16 operands at ``MMA_MIN_ROWS`` rows or more: prefill and perplexity);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
 (``csrc/qmatmul_v2m.cu``). The variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
@@ -487,13 +489,43 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4, mt_max:
     return mt, per, -(-n_sg // per)
 
 
-def launch_setup(x: torch.Tensor, rql, mt_max: int = 32):
+# rows from which a bf16-operand call of a per-weight build (every one but
+# v2s) runs the tensor-core tiles of csrc/qmatmul_v2_mma.cuh instead of the
+# CUDA-core decode tiles (both timed at M = 9, 16, 32 and 64: PERF.md)
+MMA_MIN_ROWS = 9
+
+
+def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int):
+    """(rows per block, supergroups per split, splits) of the tensor-core
+    tiles: 32, 64 or 128 rows by 128 columns, the K axis split over
+    supergroups only as far as needed to give every SM a block."""
+    bm = 32 if M <= 32 else 64 if M <= 64 else 128
+    base = -(-M // bm) * -(-d_out // 128)
+    splits = 1 if base >= n_sm else min(n_sg, -(-n_sm // base))
+    per = -(-n_sg // splits)
+    return bm, per, -(-n_sg // per)
+
+
+def _plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int, mt_max: int = 32,
+          mma: bool = False):
+    """The launch plan (rows per block, supergroups per split, splits):
+    the tensor-core tiles when ``mma`` allows them and the weight takes
+    them (vec 4, M >= MMA_MIN_ROWS), else the CUDA-core tiles of up to
+    ``mt_max`` rows."""
+    if mma and vec == 4 and M >= MMA_MIN_ROWS:
+        return _mma_plan(M, d_out, n_sg, n_sm)
+    return _launch_plan(M, d_out, n_sg, n_sm, vec, mt_max)
+
+
+def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False):
     """The shared front of the dequant-matmul kernel wrappers for a CUDA x:
     x as a contiguous f32 or bf16 tensor, the planes validated (and their
     alignment read) on the first call with each weight, the launch plan
-    (rows per block up to ``mt_max``), the output and the split-K scratch.
+    (``_plan``: rows per block up to ``mt_max``, or the tensor-core tiles
+    where ``mma`` allows them), the output and the split-K scratch.
     Returns (x, vec, mt, per, splits, out, part); vec 4 needs
-    d_out % 4 == 0 and 16-byte-aligned planes."""
+    d_out % 4 == 0 and 16-byte-aligned planes, the tensor-core tiles a
+    16-byte-aligned x too (copied when it is not)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -507,8 +539,10 @@ def launch_setup(x: torch.Tensor, rql, mt_max: int = 32):
     elif x.dim() != 2 or x.shape[1] != rql.d_in_local:
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     M, d_in = x.shape
-    mt, per, splits = _launch_plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index),
-                                   rql._vec, mt_max)
+    mt, per, splits = _plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index), rql._vec,
+                            mt_max, mma)
+    if mt > 8 and x.data_ptr() % 16:  # the tensor-core tiles: 16-byte copies of x
+        x = x.clone()
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, M, rql.d_out), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
@@ -523,12 +557,13 @@ _V2_ARGS = ((ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
 
 
 def _launch_v2(lib: str, code: int, x: torch.Tensor, rql: RuntimeQuantLinearV2, mxu_dtype,
-               mt_max: int) -> torch.Tensor:
+               mt_max: int, mma: bool = False):
     """Launch build or body ``code`` of ``csrc/<lib>.cu`` on x's current
-    stream (the library is built on first use)."""
+    stream (the library is built on first use). Returns (y, rows per
+    block); more than 8 rows ran the tensor-core tiles."""
     if mxu_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max)
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma)
     M, d_in = x.shape
     rc = c_function(lib, f"gg_{lib.split('_', 1)[1]}_matmul", _V2_ARGS)(
         code, x.data_ptr(), int(x.dtype == torch.bfloat16), int(mxu_dtype == torch.bfloat16),
@@ -538,7 +573,7 @@ def _launch_v2(lib: str, code: int, x: torch.Tensor, rql: RuntimeQuantLinearV2, 
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{lib} launch failed: CUDA error {rc}")
-    return out
+    return out, mt
 
 
 # the per-weight variants (csrc/qmatmul_v2_weight.cuh), which build every
@@ -549,20 +584,29 @@ _PER_WEIGHT = {"v2g": ("qmatmul_v2g", 0), "v2": ("qmatmul_v2", 1), "v3": ("qmatm
 PER_WEIGHT_VARIANTS = tuple(_PER_WEIGHT)
 
 
+def _per_weight_route(variant: str, mxu_dtype) -> tuple:
+    """(mt_max, mma) of a per-weight variant's launch plan: CUDA-core tiles
+    of up to 8 rows; the tensor-core tiles from MMA_MIN_ROWS rows with bf16
+    operands for the MMA_VARIANTS (not v2s, whose nibble halves are summed
+    apart; f32 operands would need TF32, which rounds them)."""
+    return 8, mxu_dtype == torch.bfloat16 and variant in MMA_VARIANTS
+
+
 def _per_weight(fn, variant: str, x: torch.Tensor, rql: RuntimeQuantLinearV2,
                 mxu_dtype) -> torch.Tensor:
     """The shared body of the per-weight wrappers: the plain version for a
-    CPU x, else one launch of the variant's kernel, counted on ``fn``. Rows
-    per block: up to 32 with bf16 operands, 8 with f32 ones and for v2s."""
+    CPU x, else one launch of the variant's kernel, counted on ``fn``
+    (``launches``; ``mma_launches`` too when it ran the tensor-core tiles)."""
     if variant == "v2s" and rql.per_byte != 2:
         raise ValueError("the v2s kernel takes 4-bit codes only "
                          "(dequant_matmul_v2 resolves the variant that fits)")
     if x.device.type == "cpu":
         return dequant_matmul_v2w_reference(x, rql, mxu_dtype, variant)
     lib, build = _PER_WEIGHT[variant]
-    wide = mxu_dtype == torch.bfloat16 and variant != "v2s"
-    out = _launch_v2(lib, build, x, rql, mxu_dtype, 32 if wide else 8)
+    out, mt = _launch_v2(lib, build, x, rql, mxu_dtype, *_per_weight_route(variant, mxu_dtype))
     fn.launches += 1
+    if mt > 8:  # 32, 64 or 128 rows: the tensor-core tiles
+        fn.mma_launches += 1
     return out
 
 
@@ -573,8 +617,9 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     the dispatch's, or f32).
 
     A CUDA ``x`` (f32 or bf16) launches the kernel on the current stream
-    and counts one launch; a CPU ``x`` runs the plain version. The kernel
-    library is built on first use. The planes are validated, and their
+    and counts one launch (from ``MMA_MIN_ROWS`` rows with bf16 operands
+    the tensor-core tiles, also counted in ``mma_launches``); a CPU ``x``
+    runs the plain version. The kernel library is built on first use. The planes are validated, and their
     alignment read, on the first call with each weight; later calls check
     only x. Every v2 variant wrapper below has this contract."""
     return _per_weight(dequant_matmul_v2g, "v2g", x, rql, mxu_dtype)
@@ -653,7 +698,7 @@ def _group_dot(fn, variant: str, x: torch.Tensor, rql: RuntimeQuantLinearV2,
                          "(dequant_matmul_v2 resolves the variant that fits)")
     if x.device.type == "cpu":
         return dequant_matmul_v2m_reference(x, rql, mxu_dtype)
-    out = _launch_v2("qmatmul_v2m", body, x, rql, mxu_dtype, 8)
+    out, _ = _launch_v2("qmatmul_v2m", body, x, rql, mxu_dtype, 8)
     fn.launches += 1
     return out
 
@@ -700,6 +745,11 @@ V2_WRAPPERS = {"v2": "dequant_matmul_v2_exact", "v3": "dequant_matmul_v3",
                "v2m": "dequant_matmul_v2m", "v2t": "dequant_matmul_v2t",
                "v2p": "dequant_matmul_v2p"}
 V2_VARIANTS = tuple(V2_WRAPPERS)
+# the per-weight variants whose wrappers run the tensor-core tiles at
+# prefill, each counting those launches in ``mma_launches``
+MMA_VARIANTS = ("v2g", "v2", "v3", "v2f", "v2h")
+for _v in MMA_VARIANTS:
+    globals()[V2_WRAPPERS[_v]].mma_launches = 0
 
 
 def _effective_v2_variant(variant: str, *, gs: int, per_byte: int) -> str:

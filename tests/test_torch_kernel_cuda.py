@@ -1,5 +1,6 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
-v3 / v2f / v2h / v2s / v2m / v2t / v2p, GPTQ column-block solve, paged
+v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
+the per-weight variants, GPTQ column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
 
@@ -73,7 +74,7 @@ def _check(x, rql):
     (1, 512, 512, torch.float32),     # one row, K split across supergroups
     (3, 768, 1024, torch.bfloat16),
     (8, 4096, 512, torch.bfloat16),   # decode tile, four warps per supergroup
-    (40, 768, 512, torch.float32),    # 32-row prefill tiles, ragged last tile
+    (40, 768, 512, torch.float32),    # tensor-core tile of 64 rows, ragged
     (5, 1000, 1024, torch.bfloat16),  # d_out % 4 == 0, 1000 columns
     (6, 333, 512, torch.float32),     # ragged d_out: one column per thread
 ])
@@ -143,6 +144,7 @@ def test_forward_cached_on_card_matches_cpu(cuda):
         p = params(dev)
         cache = qmodel.init_cache(cfg, 2, 1024, device=dev)  # the chunked decode path
         n0 = qmatmul.dequant_matmul_v2g.launches
+        m0 = qmatmul.dequant_matmul_v2g.mma_launches
         rows, step = [], ids.to(dev)
         for _ in range(3):
             logits, cache = qmodel.forward_cached(p, cfg, step, cache)
@@ -151,6 +153,9 @@ def test_forward_cached_on_card_matches_cpu(cuda):
         out[dev.type] = torch.stack(rows)
         if dev.type == "cuda":
             assert qmatmul.dequant_matmul_v2g.launches - n0 == 3 * (4 * 2 + 1)
+            # the 18-row prefill's projections on the tensor cores; its
+            # lm_head (each sequence's last row) and the 2-row steps not
+            assert qmatmul.dequant_matmul_v2g.mma_launches - m0 == 4 * 2
     want = out["cpu"]
     np.testing.assert_allclose(out["cuda"].numpy(), want.numpy(), rtol=0,
                                atol=2e-2 * want.abs().max().item())
@@ -495,6 +500,77 @@ def test_v2_variant_kernels_match_plain(cuda, f32_exact, variant, qtype, M, d_ou
     assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
                                atol=1e-4 * _v2_terms(x, rql, MXU[mxu]))
+
+
+# the tensor-core tiles (csrc/qmatmul_v2_mma.cuh): M one below and at the
+# threshold, a ragged row tile (300), 128 and 1024 rows; d_out 768, a ragged
+# 1000 (d_out % 16 != 0: 4-byte copies) and a one-column-per-thread 333 (the
+# CUDA-core tiles at any M); x in f32 (rounded while staged) and bf16;
+# K split over supergroups or not (2048 columns at 1024 rows)
+MMA_CASES = [
+    (qmatmul.MMA_MIN_ROWS - 1, 768, 1024, torch.bfloat16),
+    (qmatmul.MMA_MIN_ROWS, 768, 1024, torch.float32),
+    (qmatmul.MMA_MIN_ROWS, 1000, 1024, torch.bfloat16),
+    (128, 768, 1024, torch.bfloat16),
+    (128, 1000, 512, torch.float32),
+    (300, 768, 512, torch.float32),
+    (300, 1000, 1024, torch.bfloat16),
+    (1024, 768, 1024, torch.bfloat16),
+    (1024, 1000, 512, torch.float32),
+    (1024, 2048, 256, torch.bfloat16),
+    (40, 333, 512, torch.bfloat16),
+    (300, 333, 512, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,dtype", MMA_CASES)
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+@pytest.mark.parametrize("variant", qmatmul.MMA_VARIANTS)
+def test_mma_tiles_match_plain(cuda, f32_exact, variant, qtype, M, d_out, d_in, dtype):
+    """The per-weight builds with bf16 operands at prefill rows against their
+    plain versions, within 1e-4 of the largest sum of |terms| of an output
+    (the same products, f32 sums in another order); from MMA_MIN_ROWS rows
+    a vec-4 weight counts one tensor-core launch and no decode-tile one."""
+    fn, ref, _ = V2_VARIANTS[variant]
+    rql = _rql(qtype, d_out, d_in, seed=M + 3 * d_out + int(qtype), device=cuda)
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_out)) * 0.5
+         ).to(cuda, dtype)
+    n0, m0 = fn.launches, fn.mma_launches
+    got = fn(x, rql, torch.bfloat16)
+    want = ref(x, rql, torch.bfloat16)
+    torch.cuda.synchronize()
+    mma = M >= qmatmul.MMA_MIN_ROWS and d_out % 4 == 0
+    assert (fn.launches - n0, fn.mma_launches - m0) == (1, int(mma))
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-4 * _v2_terms(x, rql, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_mma_tiles_take_a_misaligned_x_and_leave_f32_and_v2s_alone(cuda):
+    """An x whose data is not 16-byte aligned is copied before the
+    tensor-core tiles read it; f32 operands and v2s stay on the CUDA-core
+    tiles at prefill rows."""
+    rql = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
+    buf = torch.randn(64 * 512 + 1, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(64, 512)
+    assert x.data_ptr() % 16
+    m0 = qmatmul.dequant_matmul_v2g.mma_launches
+    got = qmatmul.dequant_matmul_v2g(x, rql)
+    want = qmatmul.dequant_matmul_v2g_reference(x, rql)
+    torch.cuda.synchronize()
+    assert qmatmul.dequant_matmul_v2g.mma_launches == m0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-4 * _v2_terms(x, rql, torch.bfloat16))
+    counts = {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS}
+    n_s = qmatmul.dequant_matmul_v2s.launches
+    for v in qmatmul.MMA_VARIANTS:
+        V2_WRAPPERS[v](x, rql, torch.float32)
+    qmatmul.dequant_matmul_v2s(x, rql, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS} == counts
+    assert qmatmul.dequant_matmul_v2s.launches == n_s + 1
 
 
 @pytest.mark.cuda

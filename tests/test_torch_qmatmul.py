@@ -145,6 +145,44 @@ def test_launch_plan(M, d_out, n_sg, vec, want):
     assert qmatmul._launch_plan(M, d_out, n_sg, n_sm=132, vec=vec) == want
 
 
+@pytest.mark.parametrize("M,d_out,n_sg,vec,want", [
+    (8, 4096, 16, 4, (8, 1, 16)),     # decode, one row below the threshold: as before
+    (9, 4096, 16, 4, (32, 4, 4)),     # at the threshold: 32-row tensor-core tiles
+    (32, 4096, 16, 4, (32, 4, 4)),
+    (33, 4096, 16, 4, (64, 4, 4)),
+    (128, 6144, 16, 4, (128, 6, 3)),  # the Llama-3-8B shapes at M = 128
+    (128, 4096, 16, 4, (128, 4, 4)),
+    (128, 28672, 16, 4, (128, 16, 1)),
+    (128, 4096, 56, 4, (128, 12, 5)),
+    (128, 128512, 16, 4, (128, 16, 1)),
+    (1024, 6144, 16, 4, (128, 16, 1)),  # ... and at M = 1024: no split
+    (1024, 4096, 16, 4, (128, 16, 1)),
+    (1024, 4096, 56, 4, (128, 56, 1)),
+    (300, 1000, 8, 1, (8, 8, 1)),     # one column per thread: CUDA-core tiles at any M
+])
+def test_v2g_plan(M, d_out, n_sg, vec, want):
+    """The default variant with bf16 operands: the tensor-core tiles from
+    MMA_MIN_ROWS rows for vec-4 weights, the decode tiles otherwise."""
+    assert qmatmul.MMA_MIN_ROWS == 9
+    route = qmatmul._per_weight_route("v2g", torch.bfloat16)
+    assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
+
+
+@pytest.mark.parametrize("M,d_out,n_sg,want", [
+    (8, 4096, 16, (8, 1, 16)), (128, 4096, 16, (32, 1, 16)), (1024, 28672, 16, (32, 16, 1)),
+    (1024, 128256, 16, (32, 16, 1))])
+def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
+    """The v1 and v4 wrappers call launch_setup(x, rql): its defaults keep
+    their CUDA-core tiles of up to 32 rows at every M."""
+    import inspect
+
+    defaults = {k: p.default for k, p in inspect.signature(qmatmul.launch_setup).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+    assert defaults == {"mt_max": 32, "mma": False}
+    got = qmatmul._plan(M, d_out, n_sg, 132, 4, **defaults)
+    assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
+
+
 def _v1_pair(qtype, d_out=512, d_in=512, seed=0):
     rng = np.random.default_rng(seed)
     w = rng.normal(size=(d_out, d_in)).astype(np.float32) * 0.1

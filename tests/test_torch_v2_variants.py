@@ -224,6 +224,26 @@ def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
     assert qmatmul._launch_plan(M, d_out, n_sg, n_sm=132, vec=vec, mt_max=8) == want
 
 
+@pytest.mark.parametrize("variant", qmatmul.PER_WEIGHT_VARIANTS)
+@pytest.mark.parametrize("mxu", ["bf16", "f32"])
+@pytest.mark.parametrize("M,d_out,n_sg,vec,mma_want,core_want", [
+    (8, 4096, 16, 4, (8, 1, 16), (8, 1, 16)),         # below the threshold
+    (9, 4096, 16, 4, (32, 4, 4), (8, 2, 8)),          # at it
+    (128, 28672, 16, 4, (128, 16, 1), (8, 16, 1)),    # gate/up, a prefill chunk
+    (1024, 128512, 16, 4, (128, 16, 1), (8, 16, 1)),  # the lm_head, a perplexity batch
+    (1024, 333, 2, 1, (8, 2, 1), (8, 2, 1)),          # one column per thread
+])
+def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
+    """Every per-weight build but v2s takes the tensor-core tiles with bf16
+    operands from MMA_MIN_ROWS rows; f32 operands, v2s and vec-1 weights
+    keep the 8-row CUDA-core tiles at any M."""
+    dt = torch.bfloat16 if mxu == "bf16" else torch.float32
+    route = qmatmul._per_weight_route(variant, dt)
+    want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want
+    assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
+    assert (variant in qmatmul.MMA_VARIANTS) == (variant != "v2s")
+
+
 def test_quantize_activations_q8_bit_equal():
     rng = np.random.default_rng(11)
     x = rng.normal(size=(5, 1024)).astype(np.float32) * rng.uniform(0.01, 10, (5, 1))

@@ -2,21 +2,27 @@
 """Time the v2-format dequant-matmul kernels on the card, for one or more
 checkouts of the repository, each in a process of its own.
 
-    python3 tools/time_v2_kernels.py [--variant v2g] [--reps 50] [ROOT ...]
-                                     (default: this checkout)
+    python3 tools/time_v2_kernels.py [--variant v2g] [--m 8] [--reps 50]
+                                     [ROOT ...]   (default: this checkout)
 
 Roots run in the order given (pass A B B A to compare two trees within one
 run). Each root times its wrapper of ``--variant`` (``dequant_matmul_v2g``
-by default; the variant must exist in every root given) at M = 8 bf16 rows
-over the weights one Llama-3-8B decode step reads: the fused q/k/v (6144
-x 4096), o (4096 x 4096), fused gate/up (28672 x 4096) and down (4096 x
-14336) at Q4_K, 32 layers each, and the padded Q6_K lm_head (128512 x
-4096). The planes are random bytes of the v2 layout made on the card from
-a seed (the same in every root; their values do not change the work).
-Device time per call from CUDA events around each call, the L2 cache
-flushed outside them, mean of REPS calls queued behind a device sleep (so
-host time between the calls is not counted). Prints one JSON line per root:
-ms per call by shape and ms per B=8 step. Needs one CUDA card.
+by default; the variant must exist in every root given) at M bf16 rows
+(``--m``, default 8, the B=8 decode step; a comma list such as 9,16,32,64
+times each in turn) over the weights one Llama-3-8B forward reads: the
+fused q/k/v (6144 x 4096), o (4096 x 4096), fused gate/up (28672 x 4096)
+and down (4096 x 14336) at Q4_K, 32 layers each, and the padded Q6_K
+lm_head (128512 x 4096). The planes are random bytes of the v2 layout made
+on the card from a seed (the same in every root; their values do not
+change the work). Device time per call from CUDA events around each call,
+the L2 cache flushed outside them, mean of REPS calls queued behind a
+device sleep (so host time between the calls is not counted). Beside each
+shape: bf16 ``torch.matmul`` of the same x on the dequantized weight (the
+library yardstick, timed the same way) and the bound, the larger of the
+bytes (planes once, x, y) over 3.35 TB/s and the operations over 989
+TFLOP/s bf16. Prints one JSON line per root and M: ms per call by shape
+and ms per forward (4 x 32 projections + the lm_head; at M = 8 the B=8
+decode step). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import sys
 from pathlib import Path
 
 SEED = 7
-M = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 # name, d_out, d_in, per_byte, group size, has_min, shift, calls per step
 SHAPES = (("qkv", 6144, 4096, 2, 32, True, 0, 32), ("o", 4096, 4096, 2, 32, True, 0, 32),
           ("gateup", 28672, 4096, 2, 32, True, 0, 32), ("down", 4096, 14336, 2, 32, True, 0, 32),
@@ -58,7 +65,7 @@ def planes(gen, d_out, d_in, per_byte, gs, has_min, dev):
     return qs, super_scale(), None, sc, None
 
 
-def one_root(root: str, variant: str, reps: int) -> None:
+def one_root(root: str, variant: str, reps: int, ms: list) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -67,16 +74,11 @@ def one_root(root: str, variant: str, reps: int) -> None:
     names = getattr(qmatmul, "V2_WRAPPERS", {"v2g": "dequant_matmul_v2g"})
     fn = getattr(qmatmul, names[variant])
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    out = {}
-    for name, d_out, d_in, per_byte, gs, has_min, shift, calls in SHAPES:
-        rql = qmatmul.RuntimeQuantLinearV2(*planes(gen, d_out, d_in, per_byte, gs, has_min, dev),
-                                           d_in, gs, per_byte, shift, 2)
-        x = (torch.randn((M, d_in), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+
+    def device_ms(call):
         for _ in range(3):  # the library's first load and launch stay out
-            fn(x, rql)
+            call()
         torch.cuda.synchronize()
         torch.cuda._sleep(50_000_000)  # the card waits while the host queues every call
         events = []
@@ -84,27 +86,50 @@ def one_root(root: str, variant: str, reps: int) -> None:
             flush.zero_()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            fn(x, rql)
+            call()
             b.record()
             events.append((a, b))
         torch.cuda.synchronize()
-        out[name] = sum(a.elapsed_time(b) for a, b in events) / reps
-        out[f"{name}_per_step"] = out[name] * calls
-        del rql, x
-    step = sum(out[f"{s[0]}_per_step"] for s in SHAPES)
-    print(json.dumps({"root": root, "variant": variant, "ms_per_call": {
-        s[0]: out[s[0]] for s in SHAPES}, "ms_per_step": step}), flush=True)
+        return sum(a.elapsed_time(b) for a, b in events) / reps
+
+    for M in ms:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        out, lib, bound = {}, {}, {}
+        for name, d_out, d_in, per_byte, gs, has_min, shift, calls in SHAPES:
+            rql = qmatmul.RuntimeQuantLinearV2(
+                *planes(gen, d_out, d_in, per_byte, gs, has_min, dev), d_in, gs, per_byte,
+                shift, 2)
+            x = (torch.randn((M, d_in), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            out[name] = device_ms(lambda: fn(x, rql))
+            w = qmatmul.dequantize_runtime_v2(rql).T.contiguous().to(torch.bfloat16)
+            lib[name] = device_ms(lambda: torch.matmul(x, w))
+            nbytes = rql.bytes_read + x.numel() * 2 + M * d_out * 4
+            bound[name] = max(nbytes / HBM_BYTES_PER_S, 2.0 * M * d_in * d_out
+                              / BF16_FLOP_PER_S) * 1e3
+            del rql, x, w
+            torch.cuda.empty_cache()
+
+        def forward(per_call):
+            return sum(per_call[s[0]] * s[7] for s in SHAPES)
+
+        print(json.dumps({"root": root, "variant": variant, "M": M,
+                          "ms_per_call": out, "library_ms_per_call": lib,
+                          "bound_ms_per_call": bound, "ms_per_forward": forward(out),
+                          "library_ms_per_forward": forward(lib),
+                          "bound_ms_per_forward": forward(bound)}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", default=["."])
     ap.add_argument("--variant", default="v2g")
+    ap.add_argument("--m", default="8", help="rows of x, or a comma list of row counts")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        one_root(args.one, args.variant, args.reps)
+        one_root(args.one, args.variant, args.reps, [int(m) for m in args.m.split(",")])
         return 0
     import torch
 
@@ -116,7 +141,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
     for root in args.roots:
         rc = subprocess.run([sys.executable, __file__, "--one", root, "--variant", args.variant,
-                             "--reps", str(args.reps)]).returncode
+                             "--m", args.m, "--reps", str(args.reps)]).returncode
         if rc != 0:
             print(f"time_v2_kernels: root {root} failed ({rc})", file=sys.stderr)
             return rc

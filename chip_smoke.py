@@ -54,14 +54,18 @@ checkout of the repository. Phases, each raising on failure:
    to the package's packers first): (a) the v1 kernel and the v4 kernel's
    three bodies (f32 and bf16 scales, i32 and i8 layouts) against their
    plain versions at every 8B projection shape and the unpadded Q6_K
-   lm_head at M = 8, 128, 1024, plus Q2_K / Q3_K / Q5_K and ragged d_out;
-   (b) 2-layer logits kernel vs plain per format; (c) phase 3's 12 requests
-   served in v1, v4 and v4 i8 (129 launches of that format's kernel per
-   forward, none of another's) beside phase 3's v2 numbers; (d) perplexity
-   through the serving path on the 32-layer model in v2, v1 and v4 (2
-   sequences of 512 tokens, within 0.05 nats/token of each other; v2's
-   every call on the tensor-core tiles, and within 1e-3 nats/token of the
-   same model through the plain version); (e)
+   lm_head at M = 8, the threshold M, 128, 1024 (v4 from the threshold on
+   its tensor-core tiles, within 1e-5 of the largest sum of |terms| with a
+   planted control, unrounded weights, that must fail that limit), plus
+   Q2_K / Q3_K / Q5_K and ragged d_out; (b) 2-layer logits kernel vs plain
+   per format; (c) phase 3's 12 requests served in v1, v4 and v4 i8 (129
+   launches of that format's kernel per forward, none of another's; v4's
+   every prefill projection on the tensor-core tiles, no decode step)
+   beside phase 3's v2 numbers; (d) perplexity through the serving path on
+   the 32-layer model in v2, v1 and v4 (2 sequences of 512 tokens, within
+   0.05 nats/token of each other; v2's and v4's every call on the
+   tensor-core tiles, each within 1e-3 nats/token of the same model
+   through the plain version); (e)
    after phase 5, its GPTQ artifacts served through
    quantize_params_for_serving in v1, v2 and v4 (dequantization bit-equal
    to the artifacts', greedy tokens);
@@ -446,28 +450,31 @@ def matmul_wrappers():
 
 def reset_matmul_counts() -> None:
     """Every dequant-matmul wrapper's launch count to 0 (its tensor-core
-    count too, and the v4 wrapper's count per JAX body)."""
+    count too, and the v4 wrapper's counts per JAX body)."""
     fns = matmul_wrappers()
     for fn in fns.values():
         fn.launches = 0
         if hasattr(fn, "mma_launches"):
             fn.mma_launches = 0
     fns["v4"].body_launches = dict.fromkeys(fns["v4"].body_launches, 0)
+    fns["v4"].body_mma_launches = dict.fromkeys(fns["v4"].body_mma_launches, 0)
 
 
 def mma_counts() -> dict:
-    """variant -> tensor-core launches of its wrapper (the per-weight builds
-    but v2s: csrc/qmatmul_v2_mma.cuh)."""
-    from gptq_gguf_tpu_torch.ops import qmatmul
+    """kernel -> tensor-core launches of its wrapper (the per-weight v2
+    builds but v2s, and v4: csrc/qmatmul_mma.cuh)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
-    return {v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
-            for v in qmatmul.MMA_VARIANTS}
+    return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
+               for v in qmatmul.MMA_VARIANTS},
+            "v4": qmv4.dequant_matmul_v4.mma_launches}
 
 
 def matmul_counts() -> dict:
     fns = matmul_wrappers()
     out = {k: fn.launches for k, fn in fns.items()}
     out.update({f"v4_{b}": n for b, n in fns["v4"].body_launches.items()})
+    out.update({f"v4_{b}_mma": n for b, n in fns["v4"].body_mma_launches.items()})
     return out
 
 
@@ -1512,11 +1519,31 @@ def format_terms(x, rql) -> float:
     return mag.max().item()
 
 
+def v4_unrounded(x, rql):
+    """7a's planted control for a v4 case on the tensor-core tiles: the
+    plain version with each weight q * bf16(s) left unrounded (f32), which
+    the case's limit must reject."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmv4
+
+    ng = rql.scale.shape[0]
+    s = rql.scale.to(torch.bfloat16).float()
+    w = qmv4._codes_v4(rql).reshape(ng, rql.group_size, rql.d_out) * s[:, None, :]
+    y = x.to(torch.bfloat16).float() @ w.reshape(rql.d_in_local, rql.d_out)
+    del w
+    if rql.offc is not None:
+        y -= qmv4._group_sums(x, rql.group_size) @ rql.offc
+    return y
+
+
 def format_case(name, fmt, x, rql, flush):
     """A v1 / v4 kernel against its plain version on the same inputs, then
     timed: kernel, call, plain, library (torch.matmul on the dequantized
     weight: f32 with TF32 off for v1, bf16 for v4) and the bound (bytes at
-    3.35 TB/s, operations at f32 67 TFLOP/s for v1, bf16 989 for v4)."""
+    3.35 TB/s, operations at f32 67 TFLOP/s for v1, bf16 989 for v4). A v4
+    call from MMA_MIN_ROWS rows on a vec-4 weight must run the tensor-core
+    tiles, held to 1e-5 with a planted control (v4_unrounded)."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
@@ -1525,18 +1552,29 @@ def format_case(name, fmt, x, rql, flush):
     v1 = isinstance(rql, qmatmul.RuntimeQuantLinear)
     fn, ref = ((qmatmul.dequant_matmul_v1, qmatmul.dequant_matmul_v1_reference) if v1
                else (qmv4.dequant_matmul_v4, qmv4.dequant_matmul_v4_reference))
+    m0 = getattr(fn, "mma_launches", 0)
     y_k = fn(x, rql)
+    mma = getattr(fn, "mma_launches", 0) > m0
+    if mma != (not v1 and M >= qmatmul.MMA_MIN_ROWS and rql.d_out % 4 == 0):
+        raise RuntimeError(f"{fmt} {name} M={M}: tensor-core tiles {mma}")
     y_p = ref(x, rql)
+    y_c = v4_unrounded(x, rql) if mma else None
     torch.cuda.synchronize()
     if not torch.isfinite(y_k).all():
         raise RuntimeError(f"{fmt} {name}: kernel output is not finite")
     # tolerance: the same products (f32 for v1, bf16 x bf16 for v4), f32
-    # sums in another order: 1e-4 of the largest sum of |terms| of an output
+    # sums in another order: 1e-4 of the largest sum of |terms| of an output;
+    # 1e-5 on the tensor-core tiles (reordering f32 sums costs ~1e-7 *
+    # sqrt(d_in) of it), a limit the unrounded weights must fail
     err = (y_k - y_p).abs().max().item()
-    tol = 1e-4 * max(format_terms(x, rql), 1e-30)
-    del y_k, y_p
+    tol = (1e-5 if mma else 1e-4) * max(format_terms(x, rql), 1e-30)
+    err_c = (y_k - y_c).abs().max().item() if mma else None
+    del y_k, y_p, y_c
     if not err <= tol:
         raise RuntimeError(f"{fmt} {name} M={M}: kernel vs plain max|err| {err:.3e} > {tol:.3e}")
+    if mma and not err_c > tol:
+        raise RuntimeError(f"{fmt} {name} M={M}: the limit {tol:.3e} does not reject the "
+                           f"unrounded weights ({err_c:.3e})")
     if v1:
         w_lib, x_lib = qmatmul.dequantize_runtime(rql).T.contiguous(), x.float()
     else:
@@ -1553,12 +1591,13 @@ def format_case(name, fmt, x, rql, flush):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (F32_FLOP_PER_S if v1 else BF16_FLOP_PER_S) * 1e3
     rec = dict(name=name, fmt=fmt, body="v1" if v1 else qmv4.body_of(rql), M=M, d_in=d_in,
-               d_out=rql.d_out, max_abs_err=err, tol=tol,
+               d_out=rql.d_out, max_abs_err=err, tol=tol, mma=mma, control_err=err_c,
                ms=ms, call_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, plane_bytes=rql.bytes_read, flops=flops)
-    log(f"  {fmt:>7} {name:>24} M={M:<5} err {err:.3e} (tol {tol:.2e})  kernel {ms:.4f} ms "
+    control = f", control {err_c:.2e}, tensor cores" if mma else ""
+    log(f"  {fmt:>7} {name:>24} M={M:<5} err {err:.3e} (tol {tol:.2e}{control})  kernel {ms:.4f} ms "
         f"(call {wall_ms:.4f})  plain {plain_ms:.3f} ms  library {library_ms:.4f} ms  bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
@@ -1567,11 +1606,13 @@ def format_case(name, fmt, x, rql, flush):
 def phase_format_kernels(params, rng, device):
     """7a: the v1 kernel and the three v4 bodies (f32 and bf16 scales)
     against their plain versions at every Llama-3-8B projection shape (Q4_K)
-    and the unpadded Q6_K lm_head, at M = 8, 128 and 1024; Q2_K / Q3_K /
-    Q5_K and ragged d_out at small shapes."""
+    and the unpadded Q6_K lm_head, at M = 8, the threshold (MMA_MIN_ROWS),
+    128 and 1024 (v4 from the threshold on its tensor-core tiles); Q2_K /
+    Q3_K / Q5_K and ragged d_out at small shapes."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import qmatmul
 
     check_format_conversions(rng, device)
     l0 = params["layers"][0]
@@ -1590,7 +1631,7 @@ def phase_format_kernels(params, rng, device):
     for fmt in FORMATS:
         for name, v2 in shapes:
             rql = as_format(v2, fmt)
-            for M in FORMAT_MS:
+            for M in sorted({*FORMAT_MS, qmatmul.MMA_MIN_ROWS}):
                 x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
                 recs.append(format_case(name, fmt, x, rql, flush))
             del rql
@@ -1640,11 +1681,13 @@ def phase_format_consistency(fparams, cfg, rng, device):
 def phase_format_ppl(fparams, cfg, device):
     """7d: compute_perplexity(serving=True) on the 32-layer model in v2, v1
     and v4: PPL_SEQS seeded synthetic sequences of PPL_LEN tokens, every
-    projection and the lm_head through the format's kernel at M = PPL_LEN."""
+    projection and the lm_head through the format's kernel at M = PPL_LEN
+    (v2's and v4's on the tensor-core tiles, each within 1e-3 nats/token of
+    the same model through the plain version)."""
     import torch
 
     from gptq_gguf_tpu_torch.evals import ppl
-    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
     from gptq_gguf_tpu_torch.utils.data import get_data
 
     data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
@@ -1662,19 +1705,21 @@ def phase_format_ppl(fparams, cfg, device):
         if counts[kernel] != want or any(counts[k] for k in MATMUL_KERNELS if k != kernel):
             raise RuntimeError(f"ppl {fmt}: launches {counts}, want {want} of {kernel}")
         # every projection and the all-position head at M = PPL_LEN on the
-        # tensor-core tiles (v2 only)
+        # tensor-core tiles (v2 and v4)
         if mma != {k: want if k == kernel else 0 for k in mma}:
             raise RuntimeError(f"ppl {fmt}: tensor-core launches {mma}, want {want} of {kernel}")
         if not np.isfinite(value):
             raise RuntimeError(f"ppl {fmt}: {value}")
         out[fmt] = dict(ppl=value, nll=float(np.log(value)), s_per_seq=secs,
-                        launches=counts[kernel], mma_launches=mma.get(kernel, 0))
+                        launches=counts[kernel], mma_launches=mma.get(kernel, 0), counts=counts)
         log(f"ppl ({fmt}, serving path, {len(data)} x {PPL_LEN} tokens): {value:.4f} "
             f"({np.log(value):.6f} nats/token), {secs:.3f} s per sequence, {counts[kernel]} "
             f"{kernel} launches ({mma.get(kernel, 0)} on the tensor cores)")
-        if fmt == "v2":  # the same function through the plain version
+        plain_fn = {"v2": qmatmul.dequant_matmul_v2g_reference,
+                    "v4": qmv4.dequant_matmul_v4_reference}.get(fmt)
+        if plain_fn is not None:  # the same function through the plain version
             fn0 = qmatmul.dequant_matmul
-            qmatmul.dequant_matmul = qmatmul.dequant_matmul_v2g_reference
+            qmatmul.dequant_matmul = plain_fn
             try:
                 plain = float(np.log(ppl.compute_perplexity(fparams[fmt], cfg, data,
                                                             serving=True)))
@@ -1682,10 +1727,10 @@ def phase_format_ppl(fparams, cfg, device):
                 qmatmul.dequant_matmul = fn0
             d = out[fmt]["nll"] - plain
             out[fmt]["plain_nll"] = plain
-            log(f"ppl (v2): kernels {out[fmt]['nll']:.6f} vs plain version {plain:.6f} "
+            log(f"ppl ({fmt}): kernels {out[fmt]['nll']:.6f} vs plain version {plain:.6f} "
                 f"nats/token: {d:+.3e} (bound 1e-3)")
             if not abs(d) < 1e-3:
-                raise RuntimeError(f"ppl v2: kernels {out[fmt]['nll']} vs plain {plain}")
+                raise RuntimeError(f"ppl {fmt}: kernels {out[fmt]['nll']} vs plain {plain}")
     spread = max(r["nll"] for r in out.values()) - min(r["nll"] for r in out.values())
     log(f"ppl across formats: nats/token spread {spread:.3e} (bound 0.05)")
     if not spread < 0.05:
@@ -2073,25 +2118,33 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches):
     return out
 
 
-def format_summary(name, source, replaces, body, fmt, shapes, recs, launches):
+def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mma_launches):
     """The summary entry of one v1 / v4 kernel body: one B=8 decode step
     (the four projections of every layer and / or the lm_head, at the M=8
-    times of 7a in ``fmt``); its error is the largest of all its 7a cases."""
-    per = {r["name"].split()[0]: r for r in recs if r["fmt"] == fmt and r["M"] == 8}
+    times of 7a in ``fmt``), and beside it the same calls at M = 1024 (one
+    8B forward's share: v4's on the tensor-core tiles) with their
+    tensor-core launches in 7c / 7d; its error is the largest of all its
+    7a cases."""
+    def at(M):
+        per = {r["name"].split()[0]: r for r in recs if r["fmt"] == fmt and r["M"] == M}
 
-    def step(key):
-        return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
+        def total(key):
+            return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
 
-    t_bytes = step("bytes") / HBM_BYTES_PER_S * 1e3
-    t_ops = step("flops") / (F32_FLOP_PER_S if fmt == "v1" else BF16_FLOP_PER_S) * 1e3
+        t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = total("flops") / (F32_FLOP_PER_S if fmt == "v1" else BF16_FLOP_PER_S) * 1e3
+        return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": total("library_ms"), "bytes": total("bytes")}
+
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
     return {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": launches, "mma_launches": mma_launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["body"] == body),
-            "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": step("library_ms"),
-            "per": f"one B=8 decode step ({fmt}): {calls} calls", "bytes": step("bytes")}
+            **at(8), "per": f"one B=8 decode step ({fmt}): {calls} calls",
+            "at_1024": {**at(1024), "per": f"one Llama-3-8B forward at M = 1024 ({fmt}): "
+                                           f"{calls} calls"}}
 
 
 def paged_summary(name, source_line, krec, launches):
@@ -2238,7 +2291,10 @@ def run(device) -> dict:
         paged_summary("paged_flash_decode_q4", 160, precs["paged_flash_decode_q4"],
                       paged_runs["int4"]["launches"])] + [
         format_summary(name, source, replaces, body, fmt, shapes, frecs,
-                       fserve[fmt]["counts"]["v1" if body == "v1" else f"v4_{body}"])
+                       fserve[fmt]["counts"]["v1" if body == "v1" else f"v4_{body}"],
+                       {"serving": fserve[fmt]["counts"].get(f"v4_{body}_mma", 0),
+                        "ppl": fppl[fmt]["counts"].get(f"v4_{body}_mma", 0) if fmt in fppl
+                        else None})
         for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
                         vrecs, vserve[run]["counts"][variant]

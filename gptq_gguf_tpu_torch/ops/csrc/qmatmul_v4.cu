@@ -20,25 +20,38 @@
 //   q * bf16(s) is exact in f32 and rounded to bf16 once (a bf16 multiply)
 //   xsum  = f32 group sums of the UN-rounded x; offc (n_groups, d_out) f32,
 //           absent (null) when the type has neither a min nor a shift
-// The products of two bf16 values are exact in f32, so the kernel and its
-// plain version differ only in the order of the f32 sums.
+// The products of two bf16 values are exact in f32, so both paths below and
+// the plain version differ only in the order of the f32 sums; both paths
+// build each weight with the same lo_code / hi_code / byte_code helpers and
+// the same rounding, so their bf16 weights are equal bit for bit.
 //
-// What bounds it: bytes at decode. Q4_K reads 0.75 bytes per weight with
-// f32 scales (0.6875 with bf16 scales), Q6_K 1.5 (1.375); each byte feeds
-// at most 2 * M multiply-adds at M <= 8. At prefill it is bound by the
-// multiply-adds, done here on the CUDA cores in f32 (tensor cores, which
-// take bf16 products with f32 sums, are later work).
-//
-// Design (the structure of qmatmul_v2_weight.cuh; only the per-weight
-// dequantization differs): VEC = 4 adjacent output columns per thread, one
-// 32-bit word of codes per weight row; x staged in shared memory a 256-row
-// supergroup at a time for MT rows (group sums of the raw x taken there,
-// then rounded to bf16 in place); codes to floats by the 2^23 magic-number
-// trick and pairs of weights rounded to bf16 by one packed conversion; at
-// decode 4 warps split each supergroup's rows, and the K axis is split over
-// supergroups with a second kernel reducing the partials in a fixed order.
+// Two paths, chosen by the wrapper's launch plan (qmatmul._plan):
+//   * M <= 8 (decode), and weights given one column per thread at any M
+//     (vec 1: d_out % 4 != 0 or planes not 16-byte aligned): v4_kernel, f32
+//     FMAs on the CUDA cores. Bound by bytes: Q4_K reads 0.75 bytes per
+//     weight with f32 scales (0.6875 with bf16 scales), Q6_K 1.5 (1.375);
+//     each byte feeds at most 2 * M multiply-adds. The structure of
+//     qmatmul_v2_weight.cuh: VEC = 4 adjacent output columns per thread, one
+//     32-bit word of codes per weight row; x staged in shared memory a
+//     256-row supergroup at a time for MT rows (group sums of the raw x
+//     taken there, then rounded to bf16 in place); codes to floats by the
+//     2^23 magic-number trick and pairs of weights rounded to bf16 by one
+//     packed conversion; 4 warps split each supergroup's rows, and the K
+//     axis is split over supergroups with a second kernel reducing the
+//     partials in a fixed order.
+//   * M >= 9 on vec-4 weights (prefill, perplexity), f32 or bf16 x:
+//     V4Mma, this format's policy for the tensor-core mainloop of
+//     qmatmul_mma.cuh (mma.sync bf16 -> f32, 32 / 64 / 128-row tiles; what
+//     bounds it and its design are written there). Per 64-row step it
+//     stages the code bytes (32 rows of nibble pairs, or 64 byte rows), the
+//     step's 64 / GS scale rows and offc rows; each thread turns 4 columns
+//     of 8 weight rows into bf16(code * bf16(s)), and the mainloop
+//     subtracts xsum @ offc from the accumulators, reading the offc rows
+//     where they were staged. f32 x is rounded to bf16 as it is staged (v4's
+//     products are bf16 whatever x is), its group sums taken first.
 
 #include "qmatmul_common.cuh"
+#include "qmatmul_mma.cuh"
 
 namespace {
 
@@ -267,6 +280,113 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The v4 format's policy for the tensor-core mainloop (qmatmul_mma.cuh):
+// per 64-row step the code bytes, the step's scale rows (f32 or bf16) and
+// offc rows (f32); each weight bf16(code * bf16(s)), as v4_kernel builds it
+template <int PB_, int GS_, bool I8>
+struct V4Mma {
+  using Args = ::Args;
+  static constexpr int PB = PB_;
+  static constexpr int GS = GS_;
+  static constexpr int GPK = kMmaKT / GS;  // groups per step
+  static constexpr int GPSG = kQK / GS;    // groups per supergroup
+  static constexpr int CODE_ROWS = kMmaKT / PB;
+  // plane offsets in a stage: codes, scale [GPK][kMmaBN] (room for f32),
+  // offc [GPK][kMmaBN] f32
+  static constexpr int SC_OFF = CODE_ROWS * kMmaBN;
+  static constexpr int OFF_OFF = SC_OFF + GPK * kMmaBN * 4;
+  static constexpr int PLANE_BYTES = OFF_OFF + GPK * kMmaBN * 4;
+  static constexpr int O2_BYTES = 0;  // the offc rows are read where they were staged
+  static constexpr bool XSUM = true;  // subtracts xsum @ offc where a weight has offc
+
+  __device__ __forceinline__ static bool has_off(const Args& a) { return a.offc != nullptr; }
+
+  template <int P>
+  __device__ __forceinline__ static const float* offsets(const char* st, const float*) {
+    return reinterpret_cast<const float*>(st + (P + OFF_OFF));
+  }
+
+  // the step's planes into the stage st (from its byte P)
+  template <int P>
+  __device__ __forceinline__ static void issue(const Args& a, char* st, int sg, int q, int n0,
+                                               int cols_left, bool w16) {
+    char* p = st + P;
+    const size_t ldo = static_cast<size_t>(a.d_out);
+    const uint8_t* qsrc = a.qs + (static_cast<size_t>(sg) * (kQK / PB) + CODE_ROWS * q) * ldo + n0;
+    stage_rows(p, CODE_ROWS, cols_left, w16, [&](int r) { return qsrc + r * ldo; });
+    // row lg of a per-group plane of esize-byte elements
+    auto group_row = [&](const void* plane, int esize) {
+      return [=](int lg) {
+        const size_t g = sg * GPSG + k_in_sg<PB>(lg * GS, q) / GS;
+        return static_cast<const uint8_t*>(plane) + (g * ldo + n0) * esize;
+      };
+    };
+    // f32 rows start 16-byte aligned (d_out % 4 == 0), bf16 ones when d_out % 8 == 0
+    if (a.scale_bf16)
+      stage_rows<2 * kMmaBN>(p + SC_OFF, GPK, 2 * cols_left, a.d_out % 8 == 0,
+                             group_row(a.scale, 2));
+    else
+      stage_rows<4 * kMmaBN>(p + SC_OFF, GPK, 4 * cols_left, true, group_row(a.scale, 4));
+    if (a.offc != nullptr)
+      stage_rows<4 * kMmaBN>(p + OFF_OFF, GPK, 4 * cols_left, true, group_row(a.offc, 4));
+  }
+
+  // the step's weights into the bf16 tile (store_w4 rounds them)
+  template <int P>
+  __device__ __forceinline__ static void build(const Args& a, const char* st, __nv_bfloat16* ws,
+                                               float*) {
+    const char* p = st + P;
+    const int n = 4 * (threadIdx.x % 32);  // 4 columns per thread
+    const int slice = threadIdx.x / 32;     // 8 row slices
+    // group lg's scales of the thread's columns, rounded to bf16
+    auto scale = [&](int lg, float (&s)[4]) {
+      if (a.scale_bf16) {
+        const uint2 t = *reinterpret_cast<const uint2*>(p + SC_OFF + (lg * kMmaBN + n) * 2);
+        s[0] = __uint_as_float(t.x << 16);
+        s[1] = __uint_as_float(t.x & 0xFFFF0000u);
+        s[2] = __uint_as_float(t.y << 16);
+        s[3] = __uint_as_float(t.y & 0xFFFF0000u);
+      } else {
+        const float4 t = *reinterpret_cast<const float4*>(p + SC_OFF + (lg * kMmaBN + n) * 4);
+        s[0] = bf16_round(t.x);
+        s[1] = bf16_round(t.y);
+        s[2] = bf16_round(t.z);
+        s[3] = bf16_round(t.w);
+      }
+    };
+    if constexpr (PB == 2) {  // 32 code rows: 4 per slice, one group each half
+      float s_lo[4], s_hi[4];
+      scale(4 * slice / GS, s_lo);
+      scale((32 + 4 * slice) / GS, s_hi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * slice + i;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(p + r * kMmaBN + n);
+        float lo[4], hi[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          lo[c] = lo_code(w, c) * s_lo[c];
+          hi[c] = hi_code<I8>(w, c) * s_hi[c];
+        }
+        store_w4(ws, r, n, lo);
+        store_w4(ws, 32 + r, n, hi);
+      }
+    } else {  // 64 code rows: 8 per slice, one group
+      float s[4];
+      scale(8 * slice / GS, s);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * slice + i;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(p + r * kMmaBN + n);
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = byte_code<I8>(w, c) * s[c];
+        store_w4(ws, r, n, v);
+      }
+    }
+  }
+};
+
 template <int PB, int GS, bool I8, int MT, int VEC>
 void launch(const Args& a) {
   constexpr int cols = kThreads / Slices<MT>::KS * VEC;
@@ -276,7 +396,9 @@ void launch(const Args& a) {
       a.d_out, a.sg_per_split);
 }
 
-// row tiles: MT in {1, 2, 4, 8, 16, 32} for VEC 4, {1, 8, 32} for VEC 1
+// row tiles: MT in {1, 2, 4, 8} for VEC 4 and {1, 8, 32} for VEC 1 on the
+// CUDA cores; mt of 32, 64 or 128 with VEC 4 the tensor-core tiles with mt
+// rows per block
 template <int PB, int GS, bool I8>
 bool launch_tile(const Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -285,9 +407,7 @@ bool launch_tile(const Args& a, int mt, int vec) {
       case 2: launch<PB, GS, I8, 2, 4>(a); return true;
       case 4: launch<PB, GS, I8, 4, 4>(a); return true;
       case 8: launch<PB, GS, I8, 8, 4>(a); return true;
-      case 16: launch<PB, GS, I8, 16, 4>(a); return true;
-      case 32: launch<PB, GS, I8, 32, 4>(a); return true;
-      default: return false;
+      default: return launch_mma_tiles<V4Mma<PB, GS, I8>>(a, mt);
     }
   }
   if (vec == 1) {
@@ -317,9 +437,11 @@ bool launch_format(const Args& a, int per_byte, int group_size, int mt, int vec)
 // does not instantiate). x is bf16 when x_bf16 != 0, else f32; the scale
 // plane bf16 when scale_bf16 != 0, else f32; offc may be null; layout_i8
 // selects the "i8" code layout. partials is (splits, M, d_out) f32 scratch
-// when splits > 1, ignored otherwise. vec 4 needs d_out % 4 == 0 and
-// 16-byte-aligned planes. Every pointer is a device pointer of contiguous
-// data.
+// when splits > 1, ignored otherwise. mt is the rows per block: 1, 2, 4, 8
+// on the CUDA cores (and 32 with vec 1); 32, 64, 128 on the tensor cores
+// (vec 4 only, which also needs a 16-byte-aligned x). vec 4 needs
+// d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
+// pointer of contiguous data.
 extern "C" int gg_v4_matmul(const void* x, int x_bf16, const uint8_t* qs,
                             const void* scale, int scale_bf16, const float* offc,
                             float* partials, float* out, int M, int d_in,

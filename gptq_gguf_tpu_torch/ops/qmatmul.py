@@ -28,8 +28,9 @@ through ``_effective_v2_variant``. All nine have a kernel: the per-weight
 builds ``v2g`` (the default) and ``v2s`` (``csrc/qmatmul_v2g.cu``), ``v2``
 and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``
-(CUDA cores) and, except v2s, of ``csrc/qmatmul_v2_mma.cuh`` (tensor cores,
-bf16 operands at ``MMA_MIN_ROWS`` rows or more: prefill and perplexity);
+(CUDA cores) and, except v2s, of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy
+for the tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
+``MMA_MIN_ROWS`` rows or more, prefill and perplexity);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
 (``csrc/qmatmul_v2m.cu``). The variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
@@ -489,9 +490,11 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4, mt_max:
     return mt, per, -(-n_sg // per)
 
 
-# rows from which a bf16-operand call of a per-weight build (every one but
-# v2s) runs the tensor-core tiles of csrc/qmatmul_v2_mma.cuh instead of the
-# CUDA-core decode tiles (both timed at M = 9, 16, 32 and 64: PERF.md)
+# rows from which a bf16-operand call of a per-weight v2 build (every one but
+# v2s), and every v4 call (qmv4.dequant_matmul_v4), runs the tensor-core
+# tiles of csrc/qmatmul_mma.cuh instead of the CUDA-core decode tiles on a
+# vec-4 weight (both timed at M = 9, 16, 32 and 64 for v2g and for v4,
+# tools/time_v2_kernels.py: PERF.md)
 MMA_MIN_ROWS = 9
 
 

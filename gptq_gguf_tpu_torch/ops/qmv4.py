@@ -21,7 +21,8 @@ signed value of (byte & 0xF0) is 16 * (hi - 8); the x16 lives in the
 hi-group scales (s / 16) and the -8 in ``offc`` (offc_hi -= 8 * s).
 
 ``dequant_matmul_v4`` launches the hand-written kernel
-(``csrc/qmatmul_v4.cu``) for a CUDA tensor and runs its plain PyTorch
+(``csrc/qmatmul_v4.cu``: CUDA-core tiles at decode, tensor-core tiles from
+``qmatmul.MMA_MIN_ROWS`` rows) for a CUDA tensor and runs its plain PyTorch
 version, ``dequant_matmul_v4_reference``, for a CPU tensor. The JAX
 package's ``_split_planes`` and ``select_tiles_v4`` are TPU layout rules
 (x re-ordered into nibble planes for Mosaic's sublane tiling, tiles that
@@ -223,11 +224,14 @@ _V4_ARGS = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ct
 def dequant_matmul_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> torch.Tensor:
     """y (M, d_out) f32 = x @ dequant(W)^T through the v4 kernel
     (``csrc/qmatmul_v4.cu``; the offset correction runs inside it, one
-    launch); a CPU ``x`` runs the plain version. The planes are validated
-    on the first call with each weight; later calls check only x."""
+    launch); a CPU ``x`` runs the plain version. From ``MMA_MIN_ROWS``
+    rows a vec-4 weight (f32 or bf16 x) runs the tensor-core tiles, also
+    counted in ``mma_launches``; fewer rows, and vec-1 weights at any M,
+    the CUDA-core tiles. The planes are validated on the first call with
+    each weight; later calls check only x."""
     if x.device.type == "cpu":
         return dequant_matmul_v4_reference(x, rql)
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql)
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mma=True)
     M, d_in = x.shape
     rc = c_function("qmatmul_v4", "gg_v4_matmul", _V4_ARGS)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.scale),
@@ -236,8 +240,12 @@ def dequant_matmul_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> torch.Tenso
         mt, vec, per, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_v4 launch failed: CUDA error {rc}")
+    body = body_of(rql)
     dequant_matmul_v4.launches += 1
-    dequant_matmul_v4.body_launches[body_of(rql)] += 1
+    dequant_matmul_v4.body_launches[body] += 1
+    if vec == 4 and mt > 8:  # 32, 64 or 128 rows: the tensor-core tiles
+        dequant_matmul_v4.mma_launches += 1
+        dequant_matmul_v4.body_mma_launches[body] += 1
     return out
 
 
@@ -249,9 +257,12 @@ def body_of(rql: RuntimeQuantLinearV4) -> str:
     return "pb2_i8" if rql.layout == "i8" else "pb2"
 
 
-# launches of the kernel, in all and per JAX body it stands for
+# launches of the kernel, in all and per JAX body it stands for; and of its
+# tensor-core tiles, in all and per body
 dequant_matmul_v4.launches = 0
 dequant_matmul_v4.body_launches = {"pb2": 0, "pb2_i8": 0, "pb1": 0}
+dequant_matmul_v4.mma_launches = 0
+dequant_matmul_v4.body_mma_launches = {"pb2": 0, "pb2_i8": 0, "pb1": 0}
 
 
 def fuse_rql_v4(parts: Sequence) -> Optional[RuntimeQuantLinearV4]:

@@ -1,6 +1,6 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
-the per-weight variants, GPTQ column-block solve, paged
+the per-weight variants and of v4, GPTQ column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
 
@@ -13,8 +13,8 @@ a card host it runs without them:
 Tolerances: v2g and its plain version compute the same bf16 products and
 differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
-sum of |terms| of one output, and so do the v2 variant kernels in either
-operand type. The GPTQ solve repeats its plain version's
+sum of |terms| of one output (1e-5 on v4's tensor-core tiles), and so do
+the v2 variant kernels in either operand type. The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries): atol 1e-4 of max|out|."""
@@ -240,6 +240,70 @@ def test_v4_kernel_without_offsets(cuda):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
                                atol=1e-4 * _terms(x, bare))
+
+
+# the v4 tensor-core tiles: at the threshold, a ragged 33, 128 with K split
+# over supergroups, a ragged last 128-row tile (300) and 1024 rows unsplit;
+# d_out 768, 1000 (code rows not 16-byte aligned: 4-byte copies) and 996
+# (bf16 scale rows not 16-byte aligned either); 333 (one column per thread)
+# stays on the CUDA-core tiles at any M
+V4_MMA_CASES = [(qmatmul.MMA_MIN_ROWS, 768, 1024), (33, 768, 1024), (128, 768, 2048),
+                (300, 768, 512), (1024, 2048, 256), (40, 1000, 512), (40, 996, 512),
+                (40, 333, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("M,d_out,d_in", V4_MMA_CASES)
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+@pytest.mark.parametrize("fmt", ["v4", "v4 bf16", "v4 i8", "v4 i8 bf16"])
+def test_v4_mma_tiles_match_plain(cuda, fmt, qtype, M, d_out, d_in, dtype):
+    """The v4 kernel's three bodies (4-bit codes in both layouts, 5/6-bit
+    codes), f32 and bf16 scales, f32 and bf16 x, at prefill rows against
+    the plain version: the same bf16 products, f32 sums in another order,
+    within 1e-5 of the largest sum of |terms| of an output (reordering f32
+    sums costs ~1e-7 * sqrt(d_in) of it). A vec-4 weight counts one
+    tensor-core launch, a vec-1 weight none."""
+    rql = _rql(qtype, d_out, d_in, seed=M + 7 * d_out + int(qtype), device=cuda,
+               pack=PACKERS[fmt])
+    fn = qmv4.dequant_matmul_v4
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_out)) * 0.5
+         ).to(cuda, dtype)
+    n0, m0 = fn.launches, fn.mma_launches
+    body0 = dict(fn.body_launches)
+    got = qmatmul.dequant_matmul(x, rql)
+    want = qmv4.dequant_matmul_v4_reference(x, rql)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.mma_launches - m0) == (1, int(d_out % 4 == 0))
+    assert fn.body_launches[qmv4.body_of(rql)] == body0[qmv4.body_of(rql)] + 1
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-5 * _terms(x, rql))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K], ids=lambda q: q.name)
+def test_v4_mma_tiles_without_offsets_and_misaligned_x(cuda, qtype):
+    """A v4 weight without an offc plane skips the xsum term on the
+    tensor-core tiles too, and an x whose data is not 16-byte aligned is
+    copied before those tiles read it; both within 1e-5 of the largest sum
+    of |terms|, both counted on the tensor-core tiles."""
+    v4 = _rql(qtype, 512, 1024, 5, cuda, pack=PACKERS["v4"])
+    bare = qmv4.RuntimeQuantLinearV4(v4.qs, v4.scale, None, v4.d_in, v4.group_size,
+                                     v4.per_byte)
+    buf = torch.randn(64 * 1024 + 1, generator=torch.Generator().manual_seed(6)).to(cuda)
+    bbuf = buf.to(torch.bfloat16)
+    xs = (buf[:-1].view(64, 1024), buf[1:].view(64, 1024), bbuf[1:].view(64, 1024))
+    assert [x.data_ptr() % 16 != 0 for x in xs] == [False, True, True]
+    for x in xs:
+        for w in (v4, bare):
+            m0 = qmv4.dequant_matmul_v4.mma_launches
+            got = qmv4.dequant_matmul_v4(x, w)
+            want = qmv4.dequant_matmul_v4_reference(x, w)
+            torch.cuda.synchronize()
+            assert qmv4.dequant_matmul_v4.mma_launches == m0 + 1
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                       atol=1e-5 * _terms(x, w))
 
 
 @pytest.mark.cuda

@@ -172,8 +172,9 @@ def test_v2g_plan(M, d_out, n_sg, vec, want):
     (8, 4096, 16, (8, 1, 16)), (128, 4096, 16, (32, 1, 16)), (1024, 28672, 16, (32, 16, 1)),
     (1024, 128256, 16, (32, 16, 1))])
 def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
-    """The v1 and v4 wrappers call launch_setup(x, rql): its defaults keep
-    their CUDA-core tiles of up to 32 rows at every M."""
+    """The v1 wrapper calls launch_setup(x, rql): its defaults keep v1's
+    CUDA-core tiles of up to 32 rows at every M (v4's plan:
+    test_v4_plan)."""
     import inspect
 
     defaults = {k: p.default for k, p in inspect.signature(qmatmul.launch_setup).parameters.items()
@@ -181,6 +182,48 @@ def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
     assert defaults == {"mt_max": 32, "mma": False}
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, **defaults)
     assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
+
+
+@pytest.mark.parametrize("M,d_out,n_sg,vec,want", [
+    (1, 4096, 16, 4, (1, 1, 16)),       # decode: the CUDA-core tiles
+    (8, 4096, 16, 4, (8, 1, 16)),
+    (9, 4096, 16, 4, (32, 4, 4)),       # from MMA_MIN_ROWS: the tensor-core tiles
+    (128, 28672, 16, 4, (128, 16, 1)),
+    (512, 128256, 16, 4, (128, 16, 1)),  # a perplexity batch on the unpadded head
+    (1024, 4096, 56, 4, (128, 56, 1)),
+    (9, 333, 2, 1, (32, 1, 2)),         # vec 1: the CUDA-core tiles of up to 32 rows
+    (300, 1000, 8, 1, (32, 2, 4)),
+])
+def test_v4_plan(M, d_out, n_sg, vec, want):
+    """The v4 wrapper calls launch_setup(x, rql, mma=True): _mma_plan for
+    vec-4 weights from MMA_MIN_ROWS rows, _launch_plan (up to 32 rows)
+    below that and for vec-1 weights at any M."""
+    got = qmatmul._plan(M, d_out, n_sg, 132, vec, mma=True)
+    if vec == 4 and M >= qmatmul.MMA_MIN_ROWS:
+        assert got == qmatmul._mma_plan(M, d_out, n_sg, 132) == want
+    else:
+        assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, vec) == want
+
+
+@pytest.mark.parametrize("fmt,want", [("v1", {}), ("v4", {"mma": True})])
+def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
+    """A tensor off the CPU (here one on the meta device) goes to
+    launch_setup: v1 with its defaults, v4 asking for the tensor-core
+    tiles."""
+    from gptq_gguf_tpu_torch.ops import qmv4
+
+    mod, fn = ((qmatmul, qmatmul.dequant_matmul_v1) if fmt == "v1"
+               else (qmv4, qmv4.dequant_matmul_v4))
+    seen = []
+
+    def setup(x, rql, *args, **kwargs):
+        seen.append((args, kwargs))
+        raise LookupError("stop before the launch")
+
+    monkeypatch.setattr(mod, "launch_setup", setup)
+    with pytest.raises(LookupError, match="stop"):
+        fn(torch.empty(9, 256, device="meta"), None)
+    assert seen == [((), want)]
 
 
 def _v1_pair(qtype, d_out=512, d_in=512, seed=0):

@@ -77,14 +77,17 @@ checkout of the repository. Phases, each raising on failure:
    d_out with every per-weight variant's f32 mode among them; each case
    within 1e-5 of its largest sum of |terms|, a limit a planted control
    (another variant's rounding) must fail; the tensor-core tiles of v2,
-   v3, v2f and v2h as phase 2 holds v2g's; (b) 2-layer logits through
+   v3, v2f and v2h as phase 2 holds v2g's, and those of v2m (Q4_K shapes)
+   and v2p (the head; csrc/qmatmul_v2m_mma.cuh) likewise, with small
+   Q2_K / Q3_K / Q5_K and ragged cases at 9 rows or more; (b) 2-layer logits through
    each variant's kernels against its plain versions, and the differences
    between variants; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward; (d) perplexity through the serving path under
-   v2m and v2, within 0.05 nats/token of v2g's (phase 7d); v2's every call
-   on the tensor-core tiles, v2m's none.
+   v2m and v2, within 0.05 nats/token of v2g's (phase 7d); every call on
+   the tensor-core tiles (under v2m: v2m's, and v2p's on the head), v2m
+   within 1e-3 nats/token of the same model through its plain version.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -370,15 +373,54 @@ def phase_kernels(params, rng, device):
     return recs
 
 
-def phase_mma_kernels(params, variants, device):
-    """The tensor-core tiles of ``variants`` (bf16 operands) against their
-    plain versions at every Llama-3-8B projection shape and the padded Q6_K
-    lm_head, at the threshold M and at M = 1024 (variant_case: within 1e-5
-    of the largest sum of |terms|, with a planted control that must fail
-    that limit); beside each, the 8-row CUDA-core tile at the same M (still
-    built: f32 operands and v2s run it) on the same inputs."""
+def mma_case(name, v, x, rql, flush):
+    """variant_case for variant ``v``'s tensor-core tiles (bf16 operands):
+    its wrapper must count them (a vec-1 weight, d_out % 4 != 0, must
+    not); beside it, the 8-row CUDA-core tile on the same inputs (still
+    built: f32 operands, v2s and v2t run it)."""
     import torch
 
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    M = x.shape[0]
+    fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[v])
+    m0 = fn.mma_launches
+    rec = variant_case(name, v, "bf16", x, rql, flush)
+    if (fn.mma_launches > m0) != (rql.d_out % 4 == 0):
+        raise RuntimeError(f"{v} {name} M={M}: tensor-core launches {fn.mma_launches - m0}")
+    lib, code = qmatmul._PER_WEIGHT.get(v) or ("qmatmul_v2m", qmatmul._GROUP_DOT[v][0])
+    rec["core8_ms"] = cuda_ms(lambda: qmatmul._launch_v2(
+        lib, code, x, rql, torch.bfloat16, 8), 3, flush)
+    rec["tflop_s"] = rec["flops"] / rec["ms"] / 1e9
+    tiles = "tensor-core" if rql.d_out % 4 == 0 else "vec-1 CUDA-core"
+    log(f"  {v:>3} {name:>24} M={M:<4} {tiles} {rec['ms']:.4f} ms "
+        f"({rec['tflop_s']:.1f} TFLOP/s), 8-row CUDA-core tile "
+        f"{rec['core8_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+# 8a's group-dot cases at prefill rows beyond the 8B shapes: name, d_out,
+# d_in, type, M, variant (f32x: x in f32, rounded to bf16 as it is staged;
+# 333 columns: vec 1, the CUDA-core tiles at any M)
+GROUP_DOT_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 9, "v2p"),
+                   ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 130, "v2p"),
+                   ("Q5_K 1024->768", 768, 1024, "Q5_K", 64, "v2m"),
+                   ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 40, "v2m"),
+                   ("ragged Q6_K 512->333", 333, 512, "Q6_K", 9, "v2p"))
+
+
+def phase_mma_kernels(params, variants, device, rng=None, small=()):
+    """The tensor-core tiles of ``variants`` (bf16 operands; each shape runs
+    the variant's effective kernel, as the dispatch does: v2m the v2p
+    tiles on the gs-16 lm_head) against their plain versions at every
+    Llama-3-8B projection shape and the padded Q6_K lm_head, at the
+    threshold M and at M = 1024 (mma_case: within 1e-5 of the largest sum
+    of |terms|, with a planted control that must fail that limit); then
+    the ``small`` cases (GROUP_DOT_SMALL's layout, weights from ``rng``)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
     from gptq_gguf_tpu_torch.ops import qmatmul
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
@@ -387,23 +429,35 @@ def phase_mma_kernels(params, variants, device):
         for name, rql in step_shapes(params):
             x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
             for v in variants:
-                fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[v])
-                m0 = fn.mma_launches
-                rec = variant_case(name, v, "bf16", x, rql, flush)
-                if fn.mma_launches == m0:
-                    raise RuntimeError(f"{v} {name} M={M}: not on the tensor-core tiles")
-                lib, build = qmatmul._PER_WEIGHT[v]
-                rec["core8_ms"] = cuda_ms(lambda: qmatmul._launch_v2(
-                    lib, build, x, rql, torch.bfloat16, 8), 3, flush)
-                rec["tflop_s"] = rec["flops"] / rec["ms"] / 1e9
-                log(f"  {v:>3} {name:>24} M={M:<4} tensor-core {rec['ms']:.4f} ms "
-                    f"({rec['tflop_s']:.1f} TFLOP/s), 8-row CUDA-core tile "
-                    f"{rec['core8_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
-                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-                recs.append(rec)
+                recs.append(mma_case(name, qmatmul.effective_v2_variant_for(rql, variant=v), x,
+                                     rql, flush))
             del x
             torch.cuda.empty_cache()
+    for name, d_out, d_in, qt, M, v in small:
+        rql = synthetic_rql(rng, d_out, d_in, T[qt], device)
+        x = torch.randn(M, d_in, device=device)
+        if "f32x" not in name:
+            x = x.to(torch.bfloat16)
+        recs.append(mma_case(name, v, x, rql, flush))
     return recs
+
+
+def mma_forward(recs, variant, M, shapes):
+    """One Llama-3-8B forward's share of ``shapes`` (each projection 32
+    times, the lm_head once) at M rows, from ``variant``'s tensor-core
+    records: kernel, plain, library and 8-row CUDA-core tile ms, and the
+    bound."""
+    per = {r["name"].split()[0]: r for r in recs if r["variant"] == variant and r["M"] == M}
+
+    def total(key):
+        return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
+
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = total("flops") / BF16_FLOP_PER_S * 1e3
+    return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": total("library_ms"), "core8_ms": total("core8_ms")}
 
 
 def mma_summary(recs, launches):
@@ -414,17 +468,7 @@ def mma_summary(recs, launches):
     from gptq_gguf_tpu_torch.ops import qmatmul
 
     def forward(variant, M):
-        per = {r["name"].split()[0]: r for r in recs if r["variant"] == variant and r["M"] == M}
-
-        def total(key):
-            return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in STEP)
-
-        t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = total("flops") / BF16_FLOP_PER_S * 1e3
-        return {"ms": total("ms"), "plain_ms": total("plain_ms"),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": total("library_ms"), "core8_ms": total("core8_ms")}
+        return mma_forward(recs, variant, M, STEP)
 
     return {"name": "qmatmul_v2_mma", "route": "cuda",
             "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2_mma.cuh",
@@ -462,11 +506,12 @@ def reset_matmul_counts() -> None:
 
 def mma_counts() -> dict:
     """kernel -> tensor-core launches of its wrapper (the per-weight v2
-    builds but v2s, and v4: csrc/qmatmul_mma.cuh)."""
+    builds but v2s, the group-dot v2m and v2p, and v4:
+    csrc/qmatmul_mma.cuh)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
-               for v in qmatmul.MMA_VARIANTS},
+               for v in qmatmul.MMA_VARIANTS + qmatmul.MMA_GROUP_DOT},
             "v4": qmv4.dequant_matmul_v4.mma_launches}
 
 
@@ -2005,7 +2050,8 @@ def phase_variant_consistency(params, cfg, rng, device):
         finally:
             knobs(*old)
         # the 128-row prefill's 4 x 2 projections on the tensor-core tiles
-        # when the variant has them; the 1-row head and decode steps not
+        # when the variant has them (v2m too; not v2t), the 1-row head
+        # (v2p under v2m) and the decode steps not
         if mma != {k: 8 if k == variant else 0 for k in mma}:
             raise RuntimeError(f"{label}: tensor-core launches {mma}")
         scale = lp.abs().max().item()
@@ -2050,10 +2096,14 @@ def phase_variant_serving(params, cfg, requests):
 
 def phase_variant_ppl(params, cfg, v2g):
     """8d: compute_perplexity(serving=True) on the 32-layer model under v2m
-    and v2 (phase 7d's data); each within 0.05 nats/token of v2g's (7d)."""
+    and v2 (phase 7d's data); each within 0.05 nats/token of v2g's (7d),
+    every call on the tensor-core tiles (under v2m: v2m's, and v2p's on
+    the all-position head), and v2m within 1e-3 nats/token of the same
+    model through its plain version."""
     import torch
 
     from gptq_gguf_tpu_torch.evals import ppl
+    from gptq_gguf_tpu_torch.ops import qmatmul
     from gptq_gguf_tpu_torch.utils.data import get_data
 
     data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
@@ -2074,7 +2124,7 @@ def phase_variant_ppl(params, cfg, v2g):
         counts, mma = matmul_counts(), mma_counts()
         if any(counts[k] != want.get(k, 0) * len(data) for k in MATMUL_KERNELS):
             raise RuntimeError(f"ppl {variant}: launches {counts}, want {want} per sequence")
-        if any(mma[k] != (want.get(k, 0) * len(data)) for k in mma):  # v2: every call
+        if any(mma[k] != (want.get(k, 0) * len(data)) for k in mma):  # every call
             raise RuntimeError(f"ppl {variant}: tensor-core launches {mma}")
         nll = float(np.log(value))
         out[variant] = dict(ppl=value, nll=nll, s_per_seq=secs, vs_v2g=nll - v2g["nll"],
@@ -2086,6 +2136,18 @@ def phase_variant_ppl(params, cfg, v2g):
             f"{out[variant]['launches']}")
         if not (np.isfinite(value) and abs(nll - v2g["nll"]) < 0.05):
             raise RuntimeError(f"ppl {variant}: {nll} nats/token against v2g's {v2g['nll']}")
+        if variant == "v2m":  # the same function through the plain version
+            fn0 = qmatmul.dequant_matmul
+            qmatmul.dequant_matmul = qmatmul.dequant_matmul_v2m_reference
+            try:
+                plain = float(np.log(ppl.compute_perplexity(params, cfg, data, serving=True)))
+            finally:
+                qmatmul.dequant_matmul = fn0
+            out[variant]["plain_nll"] = plain
+            log(f"ppl ({variant}): kernels {nll:.6f} vs plain version {plain:.6f} nats/token: "
+                f"{nll - plain:+.3e} (bound 1e-3)")
+            if not abs(nll - plain) < 1e-3:
+                raise RuntimeError(f"ppl {variant}: kernels {nll} vs plain {plain}")
     return out
 
 
@@ -2116,6 +2178,30 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches):
                    and r["name"].split()[0] == k for r in recs) for k in shapes):
         out["f32"] = entry("f32")
     return out
+
+
+# the group-dot tensor-core tiles (csrc/qmatmul_v2m_mma.cuh): summary name,
+# the JAX body's line, variant, its shapes in one forward under v2m
+GROUP_DOT_MMA_KERNELS = (("qmatmul_v2m_mma", 729, "v2m", ("qkv", "o", "gateup", "down")),
+                         ("qmatmul_v2p_mma", 844, "v2p", ("lm_head",)))
+
+
+def group_dot_mma_summary(name, line, variant, shapes, recs, launches):
+    """The summary entry of v2m's or v2p's tensor-core tiles: their share
+    of one Llama-3-8B forward at M = 1024 under v2m (8a's times), the
+    threshold M beside it; launches from 8d's perplexity run (v2p's: the
+    all-position head; a serving head sees one row per sequence)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
+    return {"name": name, "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2m_mma.cuh",
+            "replaces": f"gptq_gguf_tpu/ops/qmatmul.py:{line}", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs if r["variant"] == variant),
+            **mma_forward(recs, variant, 1024, shapes),
+            "per": f"one Llama-3-8B forward at M = 1024 (bf16 operands): {calls} calls",
+            "at_min_rows": {"M": qmatmul.MMA_MIN_ROWS,
+                            **mma_forward(recs, variant, qmatmul.MMA_MIN_ROWS, shapes)}}
 
 
 def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mma_launches):
@@ -2221,6 +2307,7 @@ def run(device) -> dict:
     t8 = time.time()
     vrecs = phase_variant_kernels(params, rng, device)
     mrecs += phase_mma_kernels(params, ("v2", "v3", "v2f", "v2h"), device)
+    gdrecs = phase_mma_kernels(params, ("v2m",), device, rng, GROUP_DOT_SMALL)
     vcross = phase_variant_consistency(params, cfg, rng, device)
     vserve = phase_variant_serving(params, cfg, requests)
     vppl = phase_variant_ppl(params, cfg, fppl["v2"])
@@ -2300,7 +2387,10 @@ def run(device) -> dict:
                         vrecs, vserve[run]["counts"][variant]
                         - (vserve[run]["mma_launches"] if variant == run else 0))
         for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [
-        mma_summary(mrecs, serve["mma_launches"])],
+        mma_summary(mrecs, serve["mma_launches"])] + [
+        group_dot_mma_summary(name, line, variant, shapes, gdrecs,
+                              vppl["v2m"]["mma_launches"][variant])
+        for name, line, variant, shapes in GROUP_DOT_MMA_KERNELS],
         "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),

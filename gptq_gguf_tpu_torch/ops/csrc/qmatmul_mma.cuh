@@ -1,18 +1,23 @@
 // Tensor-core prefill mainloop of the dequant-matmul kernels, for Hopper
 // (sm_90a): one kernel body, mma_kernel<F, BM>, for every runtime format
-// whose weights are built per weight before the product. The format F is a
-// policy type that stages a step's planes and dequantizes them; everything
-// else is here. Instantiated with:
+// and v2 kernel variant with a prefill tile. The format F is a policy type
+// that stages a step's planes and turns them into the bf16 B operand;
+// everything else is here. Instantiated with:
 //   V2Mma<BUILD, PB, GS, HAS_MIN> (qmatmul_v2_mma.cuh): the per-weight v2
 //       builds v2g / v2 / v3 / v2f / v2h (qmatmul_v2g.cu, qmatmul_v2.cu,
 //       qmatmul_v3.cu);
-//   V4Mma<PB, GS, I8> (qmatmul_v4.cu): the v4 bodies pb2, pb2_i8, pb1.
+//   V4Mma<PB, GS, I8> (qmatmul_v4.cu): the v4 bodies pb2, pb2_i8, pb1;
+//   GroupDotMma<PB, GS, HAS_MIN> (qmatmul_v2m_mma.cuh): the group-dot
+//       variants v2m (gs 32) and v2p (gs 16) (qmatmul_v2m.cu).
 // Each computes, from M >= 9 rows (qmatmul.MMA_MIN_ROWS):
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off ]   (f32 sums)
 // with w the format's bf16 weight from the same helpers its CUDA-core
 // decode kernel uses (so bit for bit the decode kernel's, and the JAX
 // bodies'), off the format's per-group offset row, and xsum the f32 group
-// sums of the un-rounded x. Only the order of the f32 sums differs.
+// sums of the un-rounded x. Only the order of the f32 sums differs. A
+// group-dot policy (F::GROUP_DOT) builds the raw codes instead, and the
+// products of each GS-row group go into a partial sum that is scaled into
+// the accumulator:  y = sum_g scale_g * (bf16(x_g) @ q_g) - xsum @ off.
 //
 // What bounds it: operations from M ~ 300 up (Llama-3-8B gate/up at M =
 // 1024: 240 GFLOP against 66 MB of planes and x), bytes below. The CUDA-core
@@ -33,9 +38,10 @@
 //     registers and rounded to bf16 as it is stored, its group sums taken on
 //     the way;
 //   * two blocks per SM (__launch_bounds__(256, 2): at most 116 KB of shared
-//     memory each, at most 128 registers a thread; the 128-row v2 tiles
-//     spill 84-200 bytes of stores, 152-436 of loads): while one block
-//     dequantizes, the other's warps keep the tensor cores busy. On an H100
+//     memory each, at most 128 registers a thread; the 128-row v2 and
+//     group-dot tiles spill 84-216 bytes of stores, 152-560 of loads):
+//     while one block dequantizes, the other's warps keep the tensor cores
+//     busy. On an H100
 //     (700 W) this ran one Llama-3-8B v2g forward at M = 1024 in 109 ms
 //     against 131 ms at one block per SM; 16 warps of 32 x 32 in one
 //     512-thread block took 146 ms, and a double-buffered weight tile with
@@ -46,10 +52,16 @@
 //     (weights); rows padded by 16 bytes so an ldmatrix's 8 rows hit
 //     distinct banks;
 //   * xsum @ off (formats that fold the offset out of the weight: v2g, v3,
-//     v4 with an offc plane) is subtracted from the accumulator fragments in
-//     f32 on the CUDA cores after each step's products: K / gs FMAs per
-//     output, 1/32 (gs 32) or 1/16 (gs 16) of the main work, at a fifteenth
-//     of the tensor cores' rate;
+//     v4 with an offc plane, the group-dot variants) is subtracted from the
+//     accumulator fragments in f32 on the CUDA cores after each step's
+//     products: K / gs FMAs per output, 1/32 (gs 32) or 1/16 (gs 16) of the
+//     main work, at a fifteenth of the tensor cores' rate;
+//   * group dot (F::GROUP_DOT): per group of the step, its GS / 16 k16
+//     slices of mma.sync go into a fresh partial fragment (the first with a
+//     zero C operand), which one FMA per output adds to the accumulator
+//     times the group's f32 scale: as many CUDA-core FMAs again as the xsum
+//     term. The partial covers one m16 row tile at a time, so it costs 16
+//     registers at any BM;
 //   * split-K over supergroups into the partial buffer, reduced in a fixed
 //     order (finish_launch): no float atomics, reproducible run to run;
 //   * ragged M rows are zero-filled and not stored; columns past d_out are
@@ -61,10 +73,12 @@
 // sg_per_split, splits, stream), PB (codes per byte), GS (group size),
 // PLANE_BYTES (its planes in one stage), O2_BYTES (its scratch after the
 // weight tile), XSUM (whether it may subtract xsum @ off: the code is not
-// emitted otherwise), has_off(a) (whether this weight does), and, for its
-// planes at byte P of a stage st, issue<P>(a, st, sg, q, n0, cols_left,
-// w16), build<P>(a, st, ws, o2s) and offsets<P>(st, o2s) (the step's
-// [GS-group][128] f32 offset rows).
+// emitted otherwise), GROUP_DOT (whether its B operand is raw codes whose
+// group partials are scaled: the code is not emitted otherwise), has_off(a)
+// (whether this weight does), and, for its planes at byte P of a stage st,
+// issue<P>(a, st, sg, q, n0, cols_left, w16), build<P>(a, st, ws, o2s),
+// offsets<P>(st, o2s) (the step's [GS-group][128] f32 offset rows) and, for
+// a group-dot policy, scales<P>(st, o2s) (its f32 scale rows, alike).
 
 #pragma once
 
@@ -142,6 +156,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a (16x16, row) * b (16x8, col), bf16 operands, f32 result (zero C)
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
@@ -293,25 +317,72 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_kernel(typename F::Args a)
   auto product = [&](int t) {
     const char* st = smem + (t % kMmaStages) * T::STAGE;
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + T::X_OFF);
+    if constexpr (F::GROUP_DOT) {  // each group's partial, then acc += partial * scale
+      constexpr int KG = GS / 16;  // k16 slices per group
+      const float* sc = F::template scales<T::P_OFF>(st, o2s);
 #pragma unroll
-    for (int ks = 0; ks < kMmaKT / 16; ++ks) {
-      uint32_t af[MI][4], bf[NI][2];
+      for (int lg = 0; lg < GPK; ++lg) {
+        uint32_t bf[KG][NI][2];
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4(af[mi], xs + (wm * WM + mi * 16 + lane % 16) * kAStride + ks * 16 + (lane / 16) * 8);
+        for (int kg = 0; kg < KG; ++kg)
 #pragma unroll
-      for (int np = 0; np < NI / 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, ws + (ks * 16 + lane % 16) * kBStride + wn * 32 + np * 16 + (lane / 16) * 8);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
+          for (int np = 0; np < NI / 2; ++np) {
+            uint32_t r[4];
+            ldsm_x4_trans(r, ws + ((lg * KG + kg) * 16 + lane % 16) * kBStride + wn * 32 + np * 16 +
+                                 (lane / 16) * 8);
+            bf[kg][2 * np][0] = r[0];
+            bf[kg][2 * np][1] = r[1];
+            bf[kg][2 * np + 1][0] = r[2];
+            bf[kg][2 * np + 1][1] = r[3];
+          }
+        float2 s[NI];
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          s[ni] = *reinterpret_cast<const float2*>(sc + lg * kMmaBN + wn * 32 + ni * 8 + 2 * (lane % 4));
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          float p[NI][4];
+#pragma unroll
+          for (int kg = 0; kg < KG; ++kg) {
+            uint32_t af[4];
+            ldsm_x4(af, xs + (wm * WM + mi * 16 + lane % 16) * kAStride + (lg * KG + kg) * 16 +
+                            (lane / 16) * 8);
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) {
+              if (kg == 0) mma_bf16_first(p[ni], af, bf[kg][ni][0], bf[kg][ni][1]);
+              else mma_bf16(p[ni], af, bf[kg][ni][0], bf[kg][ni][1]);
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            acc[mi][ni][0] = fmaf(p[ni][0], s[ni].x, acc[mi][ni][0]);
+            acc[mi][ni][1] = fmaf(p[ni][1], s[ni].y, acc[mi][ni][1]);
+            acc[mi][ni][2] = fmaf(p[ni][2], s[ni].x, acc[mi][ni][2]);
+            acc[mi][ni][3] = fmaf(p[ni][3], s[ni].y, acc[mi][ni][3]);
+          }
+        }
       }
+    } else {
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
+      for (int ks = 0; ks < kMmaKT / 16; ++ks) {
+        uint32_t af[MI][4], bf[NI][2];
 #pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+        for (int mi = 0; mi < MI; ++mi)
+          ldsm_x4(af[mi], xs + (wm * WM + mi * 16 + lane % 16) * kAStride + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < NI / 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, ws + (ks * 16 + lane % 16) * kBStride + wn * 32 + np * 16 + (lane / 16) * 8);
+          bf[2 * np][0] = r[0];
+          bf[2 * np][1] = r[1];
+          bf[2 * np + 1][0] = r[2];
+          bf[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+      }
     }
     if constexpr (F::XSUM) {
       if (F::has_off(a)) {

@@ -38,6 +38,7 @@ struct V2Mma {
   static constexpr int GPSG = kQK / GS;    // groups per supergroup
   static constexpr int CODE_ROWS = kMmaKT / PB;
   static constexpr bool XSUM = corrects(BUILD);
+  static constexpr bool GROUP_DOT = false;
   // plane offsets in a stage
   static constexpr int SC_OFF = CODE_ROWS * kMmaBN;
   static constexpr int MN_OFF = SC_OFF + GPK * kMmaBN;

@@ -36,20 +36,24 @@
 // use __fmul_rn / __fadd_rn, so each step rounds as the JAX body's does.
 //
 // What bounds it: bytes at decode, the same planes as v2g (4,773,330,944 B
-// per Llama-3-8B B=8 step with x and y).
+// per Llama-3-8B B=8 step with x and y); operations at prefill.
 //
-// Design (CUDA cores, f32 accumulation): VEC = 4 adjacent output columns
-// per thread and one 32-bit word of codes per weight row, as v2g; x staged
-// in shared memory a 256-row supergroup at a time for MT <= 8 rows (the
-// group sums of the raw x taken there, then the tile rounded in place);
-// the block's 4 warps split each supergroup into units of 32 weight-byte
-// rows (for nibble codes a unit holds a group, or a group pair, of the
-// low nibbles and its mirror 128 rows up). MT stays at 8 or less at every
-// M: a unit's partial sums live beside the accumulator (v2p at 4-bit
-// holds four sets). The K axis is split over supergroups with a second
-// kernel reducing the partials in a fixed order (no float atomics).
+// Design (CUDA cores, f32 accumulation; the decode bodies): VEC = 4
+// adjacent output columns per thread and one 32-bit word of codes per
+// weight row, as v2g; x staged in shared memory a 256-row supergroup at a
+// time for MT <= 8 rows (the group sums of the raw x taken there, then the
+// tile rounded in place); the block's 4 warps split each supergroup into
+// units of 32 weight-byte rows (for nibble codes a unit holds a group, or
+// a group pair, of the low nibbles and its mirror 128 rows up). MT stays at
+// 8 or less: a unit's partial sums live beside the accumulator (v2p at
+// 4-bit holds four sets). With bf16 operands v2m and v2p run M >= 9 rows on
+// the tensor-core tiles of qmatmul_v2m_mma.cuh; v2t, f32 operands (a test
+// mode) and vec-1 weights stay here at any M, in 8-row tiles. The K axis
+// is split over supergroups with a second kernel reducing the partials in
+// a fixed order (no float atomics).
 
 #include "qmatmul_common.cuh"
+#include "qmatmul_v2m_mma.cuh"
 
 namespace {
 
@@ -425,7 +429,7 @@ __global__ void __launch_bounds__(kThreads) v2t_kernel(V2Args a) {
 enum Body { kV2m = 0, kV2t = 1, kV2p = 2 };
 
 template <int BODY, bool BF16, int PB, bool HAS_MIN, int MT, int VEC>
-void launch(const V2Args& a) {
+void launch_body(const V2Args& a) {
   const dim3 grid((a.d_out + kColT * VEC - 1) / (kColT * VEC), (a.M + MT - 1) / MT, a.splits);
   if constexpr (BODY == kV2m)
     v2m_kernel<BF16, PB, HAS_MIN, MT, VEC><<<grid, kThreads, 0, a.stream>>>(a);
@@ -435,22 +439,27 @@ void launch(const V2Args& a) {
     v2p_kernel<BF16, PB, HAS_MIN, MT, VEC><<<grid, kThreads, 0, a.stream>>>(a);
 }
 
-// row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1
+// row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
+// cores; mt of 32, 64 or 128 (VEC 4, bf16 operands, v2m and v2p) the
+// tensor-core tiles with mt rows per block
 template <int BODY, bool BF16, int PB, bool HAS_MIN>
-bool launch_tile(const V2Args& a, int mt, int vec) {
+bool launch_body_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
     switch (mt) {
-      case 1: launch<BODY, BF16, PB, HAS_MIN, 1, 4>(a); return true;
-      case 2: launch<BODY, BF16, PB, HAS_MIN, 2, 4>(a); return true;
-      case 4: launch<BODY, BF16, PB, HAS_MIN, 4, 4>(a); return true;
-      case 8: launch<BODY, BF16, PB, HAS_MIN, 8, 4>(a); return true;
-      default: return false;
+      case 1: launch_body<BODY, BF16, PB, HAS_MIN, 1, 4>(a); return true;
+      case 2: launch_body<BODY, BF16, PB, HAS_MIN, 2, 4>(a); return true;
+      case 4: launch_body<BODY, BF16, PB, HAS_MIN, 4, 4>(a); return true;
+      case 8: launch_body<BODY, BF16, PB, HAS_MIN, 8, 4>(a); return true;
+      default:
+        if constexpr (BF16 && BODY != kV2t)
+          return launch_mma_tiles<GroupDotMma<PB, BODY == kV2p ? 16 : 32, HAS_MIN>>(a, mt);
+        return false;
     }
   }
   if (vec == 1) {
     switch (mt) {
-      case 1: launch<BODY, BF16, PB, HAS_MIN, 1, 1>(a); return true;
-      case 8: launch<BODY, BF16, PB, HAS_MIN, 8, 1>(a); return true;
+      case 1: launch_body<BODY, BF16, PB, HAS_MIN, 1, 1>(a); return true;
+      case 8: launch_body<BODY, BF16, PB, HAS_MIN, 8, 1>(a); return true;
       default: return false;
     }
   }
@@ -458,22 +467,24 @@ bool launch_tile(const V2Args& a, int mt, int vec) {
 }
 
 template <bool BF16>
-bool launch_format(const V2Args& a, int body, int per_byte, int group_size, int has_min,
-                   int mt, int vec) {
+bool launch_body_format(const V2Args& a, int body, int per_byte, int group_size, int has_min,
+                        int mt, int vec) {
   if (body == kV2m || body == kV2t) {
     if (group_size != 32 || !has_min) return false;
     if (per_byte == 2)  // Q4_K
-      return body == kV2m ? launch_tile<kV2m, BF16, 2, true>(a, mt, vec)
-                          : launch_tile<kV2t, BF16, 2, true>(a, mt, vec);
+      return body == kV2m ? launch_body_tile<kV2m, BF16, 2, true>(a, mt, vec)
+                          : launch_body_tile<kV2t, BF16, 2, true>(a, mt, vec);
     if (per_byte == 1)  // Q5_K
-      return body == kV2m ? launch_tile<kV2m, BF16, 1, true>(a, mt, vec)
-                          : launch_tile<kV2t, BF16, 1, true>(a, mt, vec);
+      return body == kV2m ? launch_body_tile<kV2m, BF16, 1, true>(a, mt, vec)
+                          : launch_body_tile<kV2t, BF16, 1, true>(a, mt, vec);
     return false;
   }
   if (body != kV2p || group_size != 16) return false;
-  if (per_byte == 2 && has_min) return launch_tile<kV2p, BF16, 2, true>(a, mt, vec);  // Q2_K
-  if (per_byte == 2 && !has_min) return launch_tile<kV2p, BF16, 2, false>(a, mt, vec);  // Q3_K
-  if (per_byte == 1 && !has_min) return launch_tile<kV2p, BF16, 1, false>(a, mt, vec);  // Q6_K
+  if (per_byte == 2 && has_min) return launch_body_tile<kV2p, BF16, 2, true>(a, mt, vec);  // Q2_K
+  if (per_byte == 2 && !has_min)  // Q3_K
+    return launch_body_tile<kV2p, BF16, 2, false>(a, mt, vec);
+  if (per_byte == 1 && !has_min)  // Q6_K
+    return launch_body_tile<kV2p, BF16, 1, false>(a, mt, vec);
   return false;
 }
 
@@ -484,9 +495,12 @@ bool launch_format(const V2Args& a, int body, int per_byte, int group_size, int 
 // file does not instantiate). body: 0 v2m, 1 v2t, 2 v2p. x is bf16 when
 // x_bf16 != 0, else f32; the staged x is rounded to bf16 when
 // mxu_bf16 != 0 (the codes are exact in either type). partials is
-// (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. vec 4
-// needs d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a
-// device pointer of contiguous data.
+// (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. mt is
+// the rows per block: 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the
+// tensor cores (v2m and v2p, vec 4 and bf16 operands only). vec 4 needs
+// d_out % 4 == 0 and 16-byte-aligned planes (the tensor-core tiles a
+// 16-byte-aligned x too). Every pointer is a device pointer of contiguous
+// data.
 extern "C" int gg_v2m_matmul(int body, const void* x, int x_bf16, int mxu_bf16,
                              const uint8_t* qs, const float* d_sg, const float* dmin_sg,
                              const uint8_t* sc_q, const uint8_t* mn_q,
@@ -498,7 +512,7 @@ extern "C" int gg_v2m_matmul(int body, const void* x, int x_bf16, int mxu_bf16,
                  M, d_in, d_out, d_rep, static_cast<float>(shift), sg_per_split,
                  splits, static_cast<cudaStream_t>(stream)};
   const bool ok = mxu_bf16
-      ? launch_format<true>(a, body, per_byte, group_size, has_min, mt, vec)
-      : launch_format<false>(a, body, per_byte, group_size, has_min, mt, vec);
+      ? launch_body_format<true>(a, body, per_byte, group_size, has_min, mt, vec)
+      : launch_body_format<false>(a, body, per_byte, group_size, has_min, mt, vec);
   return finish_launch(ok, partials, out, splits, static_cast<size_t>(M) * d_out, a.stream);
 }

@@ -1,0 +1,88 @@
+// Tensor-core prefill tiles of the group-dot v2 kernels v2m and v2p, for
+// Hopper (sm_90a): their policy for the shared mainloop of qmatmul_mma.cuh.
+// The same function as the CUDA-core bodies of qmatmul_v2m.cu, for bf16
+// operands at M >= 9 rows (every call past the decode tiles;
+// qmatmul.MMA_MIN_ROWS) on vec-4 weights:
+//   y (M, d_out) f32 = sum_g scale_g * (bf16(x_g) @ q_g)  -  xsum @ off2
+// with q_g group g's raw unsigned codes (< 64, exact in bf16), scale_g and
+// off2 as _folded_planes_v2 forms them in f32, and xsum the f32 group sums
+// of the un-rounded x.
+//
+// Replaces, at those shapes: gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2m :729
+// (gs 32: Q4_K, Q5_K) and _kernel_v2p :844 (gs 16: Q2_K, Q3_K, Q6_K, the
+// lm_head among them). v2t (queued for its own tiles), f32 operands (TF32
+// would round x), M <= 8 and vec-1 weights stay on the CUDA-core bodies.
+//
+// Per 64-row step it stages v2g's planes (V2Mma<kV2g>::issue: the code
+// bytes, the step's sc_q / mn_q rows, the supergroup's d_sg / dmin_sg row);
+// each thread turns 4 columns of 8 code rows into bf16 codes, with no scale
+// (nibble codes in V2Mma's row map: a step holds two gs-32 groups, or two
+// gs-16 pairs, of low nibbles and their high-nibble mirrors), and the block
+// writes the step's f32 scale rows (d_sg * sc) and off2 rows into its
+// scratch. The mainloop (F::GROUP_DOT) runs each group's products into a
+// partial sum and adds partial * scale to the accumulator. v2p's JAX body
+// adds a pair of gs-16 partials, s_e p_e + s_o p_o, before the accumulator;
+// here each partial goes in by its own FMA: the same terms, another order
+// of the f32 sums, as everywhere in these tiles.
+
+#pragma once
+
+#include "qmatmul_v2_mma.cuh"
+
+namespace {
+
+template <int PB_, int GS_, bool HAS_MIN>
+struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN> {  // v2g's planes, off2 and xsum term
+  using V2 = V2Mma<kV2g, PB_, GS_, HAS_MIN>;
+  static constexpr bool GROUP_DOT = true;
+  static constexpr int O2_BYTES = 2 * V2::GPK * kMmaBN * 4;  // off2, then scale: [GPK][kMmaBN] f32
+
+  template <int P>
+  __device__ __forceinline__ static const float* scales(const char*, const float* o2s) {
+    return o2s + V2::GPK * kMmaBN;
+  }
+
+  // the step's raw codes into the bf16 tile, its off2 and scale rows into o2s
+  template <int P>
+  __device__ __forceinline__ static void build(const V2Args& a, const char* st, __nv_bfloat16* ws,
+                                               float* o2s) {
+    const int n = 4 * (threadIdx.x % 32);  // 4 columns per thread
+    const int slice = threadIdx.x / 32;     // 8 row slices
+    if constexpr (PB_ == 2) {  // 32 code rows: 4 per slice, low nibbles k, high k + 32
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * slice + i;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * kMmaBN + n);
+        float lo[4], hi[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          lo[c] = small_u2f((w >> (8 * c)) & 0xFu);
+          hi[c] = small_u2f((w >> (8 * c + 4)) & 0xFu);
+        }
+        store_w4(ws, r, n, lo);
+        store_w4(ws, 32 + r, n, hi);
+      }
+    } else {  // 64 code rows: 8 per slice
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * slice + i;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * kMmaBN + n);
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = small_u2f((w >> (8 * c)) & 0xFFu);
+        store_w4(ws, r, n, v);
+      }
+    }
+    const float* dsg = reinterpret_cast<const float*>(st + (P + V2::D_OFF));
+    const float* dmn = reinterpret_cast<const float*>(st + (P + V2::DMIN_OFF));
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(st);
+    for (int i = threadIdx.x; i < V2::GPK * kMmaBN; i += kMmaThreads) {  // [lg][col]
+      const int col = i % kMmaBN;
+      const float s = dsg[col] * scale_code<!HAS_MIN>(b[P + V2::SC_OFF + i], 0);
+      o2s[i] = HAS_MIN ? dmn[col] * static_cast<float>(b[P + V2::MN_OFF + i]) : s * a.shift;
+      o2s[V2::GPK * kMmaBN + i] = s;
+    }
+  }
+};
+
+}  // namespace

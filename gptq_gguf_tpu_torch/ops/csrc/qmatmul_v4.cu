@@ -298,6 +298,7 @@ struct V4Mma {
   static constexpr int PLANE_BYTES = OFF_OFF + GPK * kMmaBN * 4;
   static constexpr int O2_BYTES = 0;  // the offc rows are read where they were staged
   static constexpr bool XSUM = true;  // subtracts xsum @ offc where a weight has offc
+  static constexpr bool GROUP_DOT = false;
 
   __device__ __forceinline__ static bool has_off(const Args& a) { return a.offc != nullptr; }
 

@@ -32,7 +32,10 @@ and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 for the tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
 ``MMA_MIN_ROWS`` rows or more, prefill and perplexity);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
-(``csrc/qmatmul_v2m.cu``). The variants differ only in where the scale
+(``csrc/qmatmul_v2m.cu``; v2m and v2p also through
+``csrc/qmatmul_v2m_mma.cuh``, their policy for the same mainloop: the raw
+codes as the B operand, each group's partial product scaled in f32). The
+variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
 loaders are the same for all of them.
 
@@ -491,18 +494,19 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4, mt_max:
 
 
 # rows from which a bf16-operand call of a per-weight v2 build (every one but
-# v2s), and every v4 call (qmv4.dequant_matmul_v4), runs the tensor-core
-# tiles of csrc/qmatmul_mma.cuh instead of the CUDA-core decode tiles on a
-# vec-4 weight (both timed at M = 9, 16, 32 and 64 for v2g and for v4,
-# tools/time_v2_kernels.py: PERF.md)
+# v2s) or of v2m / v2p, and every v4 call (qmv4.dequant_matmul_v4), runs the
+# tensor-core tiles of csrc/qmatmul_mma.cuh instead of the CUDA-core decode
+# tiles on a vec-4 weight (timed at M = 9, 16, 32 and 64 for v2g, v4, v2m
+# and v2p, tools/time_v2_kernels.py: PERF.md)
 MMA_MIN_ROWS = 9
 
 
-def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int):
+def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     """(rows per block, supergroups per split, splits) of the tensor-core
-    tiles: 32, 64 or 128 rows by 128 columns, the K axis split over
-    supergroups only as far as needed to give every SM a block."""
-    bm = 32 if M <= 32 else 64 if M <= 64 else 128
+    tiles: 32, 64 or 128 rows (at most ``bm_max``) by 128 columns, the K
+    axis split over supergroups only as far as needed to give every SM a
+    block."""
+    bm = min(bm_max, 32 if M <= 32 else 64 if M <= 64 else 128)
     base = -(-M // bm) * -(-d_out // 128)
     splits = 1 if base >= n_sm else min(n_sg, -(-n_sm // base))
     per = -(-n_sg // splits)
@@ -587,30 +591,37 @@ _PER_WEIGHT = {"v2g": ("qmatmul_v2g", 0), "v2": ("qmatmul_v2", 1), "v3": ("qmatm
 PER_WEIGHT_VARIANTS = tuple(_PER_WEIGHT)
 
 
-def _per_weight_route(variant: str, mxu_dtype) -> tuple:
-    """(mt_max, mma) of a per-weight variant's launch plan: CUDA-core tiles
-    of up to 8 rows; the tensor-core tiles from MMA_MIN_ROWS rows with bf16
-    operands for the MMA_VARIANTS (not v2s, whose nibble halves are summed
-    apart; f32 operands would need TF32, which rounds them)."""
-    return 8, mxu_dtype == torch.bfloat16 and variant in MMA_VARIANTS
+def _v2_route(variant: str, mxu_dtype) -> tuple:
+    """(mt_max, mma) of a v2 variant's launch plan: CUDA-core tiles of up
+    to 8 rows; the tensor-core tiles from MMA_MIN_ROWS rows with bf16
+    operands for the MMA_VARIANTS and MMA_GROUP_DOT (not v2s, whose nibble
+    halves are summed apart, nor v2t, whose tiles are still to come; f32
+    operands would need TF32, which rounds them)."""
+    return 8, mxu_dtype == torch.bfloat16 and variant in MMA_VARIANTS + MMA_GROUP_DOT
+
+
+def _launch_variant(fn, variant: str, lib: str, code: int, x: torch.Tensor,
+                    rql: RuntimeQuantLinearV2, mxu_dtype) -> torch.Tensor:
+    """One launch of a v2 variant's kernel (build or body ``code`` of
+    ``csrc/<lib>.cu``), counted on its wrapper ``fn`` (``launches``;
+    ``mma_launches`` too when it ran the tensor-core tiles)."""
+    out, mt = _launch_v2(lib, code, x, rql, mxu_dtype, *_v2_route(variant, mxu_dtype))
+    fn.launches += 1
+    if mt > 8:  # 32, 64 or 128 rows: the tensor-core tiles
+        fn.mma_launches += 1
+    return out
 
 
 def _per_weight(fn, variant: str, x: torch.Tensor, rql: RuntimeQuantLinearV2,
                 mxu_dtype) -> torch.Tensor:
     """The shared body of the per-weight wrappers: the plain version for a
-    CPU x, else one launch of the variant's kernel, counted on ``fn``
-    (``launches``; ``mma_launches`` too when it ran the tensor-core tiles)."""
+    CPU x, else one launch of the variant's kernel, counted on ``fn``."""
     if variant == "v2s" and rql.per_byte != 2:
         raise ValueError("the v2s kernel takes 4-bit codes only "
                          "(dequant_matmul_v2 resolves the variant that fits)")
     if x.device.type == "cpu":
         return dequant_matmul_v2w_reference(x, rql, mxu_dtype, variant)
-    lib, build = _PER_WEIGHT[variant]
-    out, mt = _launch_v2(lib, build, x, rql, mxu_dtype, *_per_weight_route(variant, mxu_dtype))
-    fn.launches += 1
-    if mt > 8:  # 32, 64 or 128 rows: the tensor-core tiles
-        fn.mma_launches += 1
-    return out
+    return _launch_variant(fn, variant, *_PER_WEIGHT[variant], x, rql, mxu_dtype)
 
 
 def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
@@ -693,31 +704,32 @@ _GROUP_DOT = {"v2m": (0, 32), "v2t": (1, 32), "v2p": (2, 16)}  # body, group siz
 
 def _group_dot(fn, variant: str, x: torch.Tensor, rql: RuntimeQuantLinearV2,
                mxu_dtype) -> torch.Tensor:
-    """The shared body of the v2m / v2t / v2p wrappers (8-row tiles: a
-    unit's partial sums live beside the accumulator)."""
+    """The shared body of the v2m / v2t / v2p wrappers: the plain version
+    for a CPU x, else one launch of the variant's body, counted on ``fn``."""
     body, gs = _GROUP_DOT[variant]
     if rql.group_size != gs:
         raise ValueError(f"the {variant} kernel takes group size {gs}, not {rql.group_size} "
                          "(dequant_matmul_v2 resolves the variant that fits)")
     if x.device.type == "cpu":
         return dequant_matmul_v2m_reference(x, rql, mxu_dtype)
-    out, _ = _launch_v2("qmatmul_v2m", body, x, rql, mxu_dtype, 8)
-    fn.launches += 1
-    return out
+    return _launch_variant(fn, variant, "qmatmul_v2m", body, x, rql, mxu_dtype)
 
 
 def dequant_matmul_v2m(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """y = sum_g scale_g * (T(x_g) @ q_g) - xsum @ off2 through the v2m
     kernel (``csrc/qmatmul_v2m.cu``; gs 32: Q4_K, Q5_K): each group's raw
-    codes dotted with x, the scale applied to the partial sum at once."""
+    codes dotted with x, the scale applied to the partial sum at once (from
+    ``MMA_MIN_ROWS`` rows with bf16 operands on the tensor-core tiles of
+    ``csrc/qmatmul_v2m_mma.cuh``, also counted in ``mma_launches``)."""
     return _group_dot(dequant_matmul_v2m, "v2m", x, rql, mxu_dtype)
 
 
 def dequant_matmul_v2t(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """v2m's function through the v2t kernel (gs 32): a supergroup's
-    per-group partial sums first, then their scale-weighted reduction."""
+    per-group partial sums first, then their scale-weighted reduction (on
+    the 8-row CUDA-core tiles at every M)."""
     return _group_dot(dequant_matmul_v2t, "v2t", x, rql, mxu_dtype)
 
 
@@ -725,7 +737,9 @@ def dequant_matmul_v2p(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """v2m's function at gs 16 (Q2_K, Q3_K, Q6_K) through the v2p kernel:
     two adjacent groups' partial sums scaled and added together, then
-    added to the accumulator (JAX's pair-group dot)."""
+    added to the accumulator (JAX's pair-group dot); from ``MMA_MIN_ROWS``
+    rows with bf16 operands v2m's tensor-core tiles at gs 16, each partial
+    scaled into the accumulator by its own FMA."""
     return _group_dot(dequant_matmul_v2p, "v2p", x, rql, mxu_dtype)
 
 
@@ -749,9 +763,11 @@ V2_WRAPPERS = {"v2": "dequant_matmul_v2_exact", "v3": "dequant_matmul_v3",
                "v2p": "dequant_matmul_v2p"}
 V2_VARIANTS = tuple(V2_WRAPPERS)
 # the per-weight variants whose wrappers run the tensor-core tiles at
-# prefill, each counting those launches in ``mma_launches``
+# prefill, and the group-dot ones (v2t not yet), each counting those
+# launches in ``mma_launches``
 MMA_VARIANTS = ("v2g", "v2", "v3", "v2f", "v2h")
-for _v in MMA_VARIANTS:
+MMA_GROUP_DOT = ("v2m", "v2p")
+for _v in MMA_VARIANTS + MMA_GROUP_DOT:
     globals()[V2_WRAPPERS[_v]].mma_launches = 0
 
 

@@ -1,6 +1,6 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
-the per-weight variants and of v4, GPTQ column-block solve, paged
+the per-weight variants, of v2m / v2p and of v4, GPTQ column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
 
@@ -14,7 +14,8 @@ Tolerances: v2g and its plain version compute the same bf16 products and
 differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
 sum of |terms| of one output (1e-5 on v4's tensor-core tiles), and so do
-the v2 variant kernels in either operand type. The GPTQ solve repeats its plain version's
+the v2 variant kernels in either operand type (1e-5 on the group-dot
+tensor-core tiles). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries): atol 1e-4 of max|out|."""
@@ -635,6 +636,78 @@ def test_mma_tiles_take_a_misaligned_x_and_leave_f32_and_v2s_alone(cuda):
     torch.cuda.synchronize()
     assert {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS} == counts
     assert qmatmul.dequant_matmul_v2s.launches == n_s + 1
+
+
+# the group-dot tensor-core tiles (csrc/qmatmul_v2m_mma.cuh): M at the
+# threshold (K split over supergroups), 64 and 130 (every row tile), 1024;
+# a ragged d_out (1000: 4-byte copies) and a one-column-per-thread 333 (the
+# CUDA-core tiles at any M); x in f32 (rounded while staged) and bf16
+GROUP_DOT_MMA_CASES = [
+    (qmatmul.MMA_MIN_ROWS, 768, 1024, torch.bfloat16),
+    (qmatmul.MMA_MIN_ROWS, 1000, 2048, torch.float32),
+    (64, 768, 2048, torch.bfloat16),
+    (130, 1000, 1024, torch.bfloat16),
+    (130, 768, 512, torch.float32),
+    (1024, 2048, 512, torch.bfloat16),
+    (40, 333, 512, torch.bfloat16),
+]
+GROUP_DOT_TYPES = [("v2m", T.Q4_K), ("v2m", T.Q5_K), ("v2p", T.Q2_K), ("v2p", T.Q3_K),
+                   ("v2p", T.Q6_K)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,dtype", GROUP_DOT_MMA_CASES)
+@pytest.mark.parametrize("variant,qtype", GROUP_DOT_TYPES, ids=lambda a: getattr(a, "name", a))
+def test_group_dot_mma_tiles_match_plain(cuda, f32_exact, variant, qtype, M, d_out, d_in, dtype):
+    """v2m and v2p with bf16 operands at prefill rows against their plain
+    version, within 1e-5 of the largest sum of |terms| of an output (the
+    same products of raw codes, partials scaled in f32, the sums in another
+    order); from MMA_MIN_ROWS rows a vec-4 weight counts one tensor-core
+    launch."""
+    fn, ref, _ = V2_VARIANTS[variant]
+    rql = _rql(qtype, d_out, d_in, seed=M + 7 * d_out + int(qtype), device=cuda)
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, dtype)
+    n0, m0 = fn.launches, fn.mma_launches
+    got = fn(x, rql, torch.bfloat16)
+    want = ref(x, rql, torch.bfloat16)
+    torch.cuda.synchronize()
+    mma = M >= qmatmul.MMA_MIN_ROWS and d_out % 4 == 0
+    assert (fn.launches - n0, fn.mma_launches - m0) == (1, int(mma))
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-5 * _v2_terms(x, rql, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_group_dot_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(cuda):
+    """v2m / v2p copy an x that is not 16-byte aligned before the
+    tensor-core tiles read it; f32 operands, v2t and vec-1 weights stay on
+    the CUDA-core tiles at prefill rows (mma_launches unchanged)."""
+    q4 = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
+    q6 = _rql(T.Q6_K, 512, 512, seed=6, device=cuda)
+    buf = torch.randn(64 * 512 + 1, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(64, 512)
+    assert x.data_ptr() % 16
+    pairs = ((qmatmul.dequant_matmul_v2m, q4), (qmatmul.dequant_matmul_v2p, q6))
+    for fn, rql in pairs:
+        m0 = fn.mma_launches
+        got = fn(x, rql)
+        want = qmatmul.dequant_matmul_v2m_reference(x, rql)
+        torch.cuda.synchronize()
+        assert fn.mma_launches == m0 + 1
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                   atol=1e-5 * _v2_terms(x, rql, torch.bfloat16))
+    counts = [fn.mma_launches for fn, _ in pairs]
+    n_t = qmatmul.dequant_matmul_v2t.launches
+    for fn, rql in pairs:
+        fn(x, rql, torch.float32)
+    qmatmul.dequant_matmul_v2t(x, q4)
+    qmatmul.dequant_matmul_v2m(x, _rql(T.Q4_K, 333, 512, seed=8, device=cuda))
+    qmatmul.dequant_matmul_v2p(x, _rql(T.Q6_K, 333, 512, seed=9, device=cuda))
+    torch.cuda.synchronize()
+    assert [fn.mma_launches for fn, _ in pairs] == counts
+    assert qmatmul.dequant_matmul_v2t.launches == n_t + 1
 
 
 @pytest.mark.cuda

@@ -164,7 +164,7 @@ def test_v2g_plan(M, d_out, n_sg, vec, want):
     """The default variant with bf16 operands: the tensor-core tiles from
     MMA_MIN_ROWS rows for vec-4 weights, the decode tiles otherwise."""
     assert qmatmul.MMA_MIN_ROWS == 9
-    route = qmatmul._per_weight_route("v2g", torch.bfloat16)
+    route = qmatmul._v2_route("v2g", torch.bfloat16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
 
 

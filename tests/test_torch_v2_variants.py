@@ -96,6 +96,16 @@ def test_plain_matches_jax_interpret(variant, qtype, M, mxu):
     check_plain_against_jax(variant, qtype, M, mxu)
 
 
+@pytest.mark.parametrize("variant,qtype", [(v, q) for v in qmatmul.MMA_GROUP_DOT
+                                           for q in PLAIN[v][1]],
+                         ids=lambda a: getattr(a, "name", a))
+def test_plain_matches_jax_interpret_at_prefill_rows(variant, qtype):
+    """v2m / v2p at 130 rows with bf16 operands, a shape their tensor-core
+    tiles serve on the card: the plain version they are held to there
+    against JAX's body."""
+    check_plain_against_jax(variant, qtype, 130, "bf16")
+
+
 def check_plain_against_jax(variant, qtype, M, mxu):
     """Tolerance: the plain version and JAX's body of the same variant form
     the same products (bf16 x bf16 or raw codes, exact in f32; or the same
@@ -238,10 +248,45 @@ def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want
     operands from MMA_MIN_ROWS rows; f32 operands, v2s and vec-1 weights
     keep the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
-    route = qmatmul._per_weight_route(variant, dt)
+    route = qmatmul._v2_route(variant, dt)
     want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
     assert (variant in qmatmul.MMA_VARIANTS) == (variant != "v2s")
+
+
+@pytest.mark.parametrize("variant", ["v2m", "v2t", "v2p"])
+@pytest.mark.parametrize("mxu", ["bf16", "f32"])
+@pytest.mark.parametrize("M,d_out,n_sg,vec,mma_want,core_want", [
+    (8, 4096, 16, 4, (8, 1, 16), (8, 1, 16)),         # below the threshold
+    (9, 4096, 16, 4, (32, 4, 4), (8, 2, 8)),          # at it
+    (64, 4096, 56, 4, (64, 12, 5), (8, 19, 3)),       # down, a short prompt
+    (128, 28672, 16, 4, (128, 16, 1), (8, 16, 1)),    # gate/up, a prefill chunk
+    (1024, 128512, 16, 4, (128, 16, 1), (8, 16, 1)),  # the lm_head, a perplexity batch
+    (1024, 333, 2, 1, (8, 2, 1), (8, 2, 1)),          # one column per thread
+])
+def test_group_dot_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
+    """v2m and v2p take the tensor-core tiles with bf16 operands from
+    MMA_MIN_ROWS rows; f32 operands, v2t and vec-1 weights keep the 8-row
+    CUDA-core tiles at any M."""
+    dt = torch.bfloat16 if mxu == "bf16" else torch.float32
+    want = mma_want if mxu == "bf16" and variant != "v2t" else core_want
+    assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, dt)) == want
+    assert qmatmul.MMA_GROUP_DOT == ("v2m", "v2p")
+
+
+def test_group_dot_tensor_core_counts_stay_on_the_cpu():
+    """The v2m / v2p wrappers count tensor-core launches (v2t has no such
+    tiles); a CPU x at prefill rows runs the plain version and counts
+    nothing."""
+    _, q4 = _pair(T.Q4_K)
+    _, q6 = _pair(T.Q6_K)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(130, 512)).astype(np.float32))
+    assert not hasattr(qmatmul.dequant_matmul_v2t, "mma_launches")
+    for fn, rql in ((qmatmul.dequant_matmul_v2m, q4), (qmatmul.dequant_matmul_v2p, q6)):
+        n0, m0 = fn.launches, fn.mma_launches
+        np.testing.assert_array_equal(fn(x, rql).numpy(),
+                                      qmatmul.dequant_matmul_v2m_reference(x, rql).numpy())
+        assert (fn.launches, fn.mma_launches) == (n0, m0) == (0, 0)
 
 
 def test_quantize_activations_q8_bit_equal():

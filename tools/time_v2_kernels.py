@@ -3,12 +3,14 @@
 more checkouts of the repository, each in a process of its own.
 
     python3 tools/time_v2_kernels.py [--variant v2g | --format v4|v4-i8|v4-bf16]
-                                     [--m 8] [--reps 50] [ROOT ...]
-                                     (default: this checkout)
+                                     [--m 8] [--reps 50] [--bm 32|64|128]
+                                     [ROOT ...]   (default: this checkout)
 
 Roots run in the order given (pass A B B A to compare two trees within one
-run). Each root times its wrapper of ``--variant`` (``dequant_matmul_v2g``
-by default; the variant must exist in every root given), or with
+run). Each root times ``qmatmul.dequant_matmul_v2(x, w, variant=...)`` for
+``--variant`` (v2g by default), so each shape runs that variant's effective
+kernel, as the dispatch would (v2m runs v2p on the gs-16 lm_head, v2t and
+v2s run v2g there), and the record names the kernel per shape; or with
 ``--format`` the v4 kernel (``qmv4.dequant_matmul_v4``: f32 scales and the
 "i32" layout, the "i8" layout, or bf16 scales), at M bf16 rows (``--m``,
 default 8, the B=8 decode step; a comma list such as 9,16,32,64 times each
@@ -24,11 +26,13 @@ shape: bf16 ``torch.matmul`` of the same x on the dequantized weight (the
 library yardstick, timed the same way), the bound, the larger of the bytes
 (planes once, x, y) over 3.35 TB/s and the operations over 989 TFLOP/s
 bf16, and for v4 the same weight without its offc plane (the share of the
-xsum @ offc term). Prints, per root, the ptxas report (registers, spill
-store and load bytes per kernel) of the kernel library it built, then one
-JSON line per M: ms per call by shape and ms per forward (4 x 32
-projections + the lm_head; at M = 8 the B=8 decode step). Needs one CUDA
-card.
+xsum @ offc term). ``--bm`` caps the rows per block of the tensor-core
+tiles (``qmatmul._mma_plan``'s ``bm_max``, in the roots that have it), to
+time the tile sizes against each other. Prints, per root, the ptxas report
+(registers, spill store and load bytes per kernel) of each kernel library
+it built, then one JSON line per M: ms per call by shape and ms per forward
+(4 x 32 projections + the lm_head; at M = 8 the B=8 decode step). Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -105,8 +109,10 @@ def ptxas_report(nvcc_log: str) -> dict:
             for n, (_, r) in zip(names, found)}
 
 
-def one_root(root: str, variant: str, fmt: str, reps: int, ms: list) -> None:
+def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from gptq_gguf_tpu_torch.ops import cuda_build, qmatmul
@@ -115,16 +121,27 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list) -> None:
     if fmt:
         from gptq_gguf_tpu_torch.ops import qmv4
 
-        lib = "qmatmul_v4"
         scale_dtype, layout = FORMATS[fmt]
         fn = qmv4.dequant_matmul_v4
+        kernels = dict.fromkeys((s[0] for s in SHAPES), fmt)
+        libs = ["qmatmul_v4"]
     else:
-        names = getattr(qmatmul, "V2_WRAPPERS", {"v2g": "dequant_matmul_v2g"})
-        lib = getattr(qmatmul, "_PER_WEIGHT", {}).get(variant, ("qmatmul_v2m",))[0]
-        fn = getattr(qmatmul, names[variant])
-    nvcc_log = cuda_build.build(lib)
-    print(json.dumps({"root": root, "library": lib, "ptxas": ptxas_report(nvcc_log or "")
-                      if nvcc_log else "cached"}), flush=True)
+        def fn(x, rql):
+            return qmatmul.dequant_matmul_v2(x, rql, variant=variant)
+
+        # shape -> the kernel that runs there, and the libraries those need
+        kernels = {s[0]: qmatmul._effective_v2_variant(variant, gs=s[4], per_byte=s[3])
+                   for s in SHAPES}
+        libs = sorted({qmatmul._PER_WEIGHT.get(k, ("qmatmul_v2m",))[0]
+                       for k in kernels.values()})
+    if bm:
+        plan = qmatmul._mma_plan
+        qmatmul._mma_plan = lambda M, d_out, n_sg, n_sm: plan(M, d_out, n_sg, n_sm, bm_max=bm)
+    with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, all at once
+        logs = list(ex.map(cuda_build.build, libs))
+    for lib, nvcc_log in zip(libs, logs):
+        print(json.dumps({"root": root, "library": lib, "ptxas": ptxas_report(nvcc_log)
+                          if nvcc_log else "cached"}), flush=True)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def device_ms(call):
@@ -176,6 +193,7 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list) -> None:
             return sum(per_call[s[0]] * s[7] for s in SHAPES)
 
         rec = {"root": root, "variant": None if fmt else variant, "format": fmt, "M": M,
+               "bm_max": bm or None, "kernel_per_call": kernels,
                "ms_per_call": out, "library_ms_per_call": lib_ms,
                "bound_ms_per_call": bound, "ms_per_forward": forward(out),
                "library_ms_per_forward": forward(lib_ms), "bound_ms_per_forward": forward(bound)}
@@ -192,11 +210,13 @@ def main() -> int:
                     help="time the v4 kernel in this format instead of a v2 variant")
     ap.add_argument("--m", default="8", help="rows of x, or a comma list of row counts")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--bm", type=int, default=0, choices=[0, 32, 64, 128],
+                    help="cap the tensor-core tiles' rows per block (0: the plan's own)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         one_root(args.one, args.variant, args.format, args.reps,
-                 [int(m) for m in args.m.split(",")])
+                 [int(m) for m in args.m.split(",")], args.bm)
         return 0
     import torch
 
@@ -209,7 +229,7 @@ def main() -> int:
     for root in args.roots:
         rc = subprocess.run([sys.executable, __file__, "--one", root, "--variant", args.variant,
                              "--format", args.format, "--m", args.m,
-                             "--reps", str(args.reps)]).returncode
+                             "--reps", str(args.reps), "--bm", str(args.bm)]).returncode
         if rc != 0:
             print(f"time_v2_kernels: root {root} failed ({rc})", file=sys.stderr)
             return rc

@@ -77,17 +77,19 @@ checkout of the repository. Phases, each raising on failure:
    d_out with every per-weight variant's f32 mode among them; each case
    within 1e-5 of its largest sum of |terms|, a limit a planted control
    (another variant's rounding) must fail; the tensor-core tiles of v2,
-   v3, v2f and v2h as phase 2 holds v2g's, and those of v2m (Q4_K shapes)
-   and v2p (the head; csrc/qmatmul_v2m_mma.cuh) likewise, with small
-   Q2_K / Q3_K / Q5_K and ragged cases at 9 rows or more; (b) 2-layer logits through
+   v3, v2f, v2h and v2s as phase 2 holds v2g's, and those of v2m and v2t
+   (Q4_K shapes) and v2p (the head; csrc/qmatmul_v2m_mma.cuh) likewise,
+   with small Q2_K / Q3_K / Q5_K and ragged cases at 9 rows or more (v2s:
+   Q2_K, Q3_K, ragged Q4_K); (b) 2-layer logits through
    each variant's kernels against its plain versions, and the differences
    between variants; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward; (d) perplexity through the serving path under
-   v2m and v2, within 0.05 nats/token of v2g's (phase 7d); every call on
-   the tensor-core tiles (under v2m: v2m's, and v2p's on the head), v2m
-   within 1e-3 nats/token of the same model through its plain version.
+   v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
+   call on the tensor-core tiles (under v2m: v2m's, and v2p's on the head;
+   under v2t and v2s: theirs, and v2g's on the head), v2m, v2t and v2s
+   within 1e-3 nats/token of the same model through their plain versions.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -377,7 +379,7 @@ def mma_case(name, v, x, rql, flush):
     """variant_case for variant ``v``'s tensor-core tiles (bf16 operands):
     its wrapper must count them (a vec-1 weight, d_out % 4 != 0, must
     not); beside it, the 8-row CUDA-core tile on the same inputs (still
-    built: f32 operands, v2s and v2t run it)."""
+    built: decode steps and f32 operands run it)."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
@@ -407,13 +409,20 @@ GROUP_DOT_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 9, "v2p"),
                    ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 130, "v2p"),
                    ("Q5_K 1024->768", 768, 1024, "Q5_K", 64, "v2m"),
                    ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 40, "v2m"),
-                   ("ragged Q6_K 512->333", 333, 512, "Q6_K", 9, "v2p"))
+                   ("ragged Q6_K 512->333", 333, 512, "Q6_K", 9, "v2p"),
+                   ("Q5_K 1024->768 f32x", 768, 1024, "Q5_K", 130, "v2t"),
+                   ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 9, "v2t"))
+# ... and v2s's (4-bit codes)
+V2S_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 130, "v2s"),
+             ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 9, "v2s"),
+             ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 40, "v2s"))
 
 
 def phase_mma_kernels(params, variants, device, rng=None, small=()):
     """The tensor-core tiles of ``variants`` (bf16 operands; each shape runs
     the variant's effective kernel, as the dispatch does: v2m the v2p
-    tiles on the gs-16 lm_head) against their plain versions at every
+    tiles on the gs-16 lm_head; v2t and v2s would run v2g's there, which
+    phase 2 holds already) against their plain versions at every
     Llama-3-8B projection shape and the padded Q6_K lm_head, at the
     threshold M and at M = 1024 (mma_case: within 1e-5 of the largest sum
     of |terms|, with a planted control that must fail that limit); then
@@ -429,8 +438,9 @@ def phase_mma_kernels(params, variants, device, rng=None, small=()):
         for name, rql in step_shapes(params):
             x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
             for v in variants:
-                recs.append(mma_case(name, qmatmul.effective_v2_variant_for(rql, variant=v), x,
-                                     rql, flush))
+                v_eff = qmatmul.effective_v2_variant_for(rql, variant=v)
+                if v_eff == v or v_eff not in qmatmul.MMA_VARIANTS:
+                    recs.append(mma_case(name, v_eff, x, rql, flush))
             del x
             torch.cuda.empty_cache()
     for name, d_out, d_in, qt, M, v in small:
@@ -478,7 +488,7 @@ def mma_summary(recs, launches):
                    f"{4 * N_LAYERS + 1} calls",
             "at_min_rows": {"M": qmatmul.MMA_MIN_ROWS, **forward("v2g", qmatmul.MMA_MIN_ROWS)},
             "variants": {v: {M: forward(v, M) for M in (qmatmul.MMA_MIN_ROWS, 1024)}
-                         for v in qmatmul.MMA_VARIANTS if v != "v2g"}}
+                         for v in ("v2", "v3", "v2f", "v2h")}}
 
 
 # the dequant-matmul wrappers: one per format, and the v2 format's variants
@@ -505,9 +515,8 @@ def reset_matmul_counts() -> None:
 
 
 def mma_counts() -> dict:
-    """kernel -> tensor-core launches of its wrapper (the per-weight v2
-    builds but v2s, the group-dot v2m and v2p, and v4:
-    csrc/qmatmul_mma.cuh)."""
+    """kernel -> tensor-core launches of its wrapper (every v2 variant,
+    and v4: csrc/qmatmul_mma.cuh)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
@@ -1829,14 +1838,15 @@ def phase_gptq_formats(ckpt: Path, save: Path, arts, device):
 # qmatmul.py, variant, the shapes of one B=8 decode step it runs, the 8c
 # run whose launches it reports)
 STEP = ("qkv", "o", "gateup", "down", "lm_head")
+Q4_SHAPES = STEP[:4]  # the Q4_K projections (the head is Q6_K)
 V2_VARIANT_KERNELS = (
     ("qmatmul_v2", "qmatmul_v2.cu", 377, "v2", STEP, "v2"),
     ("qmatmul_v3", "qmatmul_v3.cu", 429, "v3", STEP, "v3"),
     ("qmatmul_v2f", "qmatmul_v2.cu", 496, "v2f", STEP, "v2f"),
     ("qmatmul_v2h", "qmatmul_v3.cu", 551, "v2h", STEP, "v2h"),
-    ("qmatmul_v2s", "qmatmul_v2g.cu", 660, "v2s", ("qkv", "o", "gateup", "down"), "v2s"),
-    ("qmatmul_v2m", "qmatmul_v2m.cu", 729, "v2m", ("qkv", "o", "gateup", "down"), "v2m"),
-    ("qmatmul_v2t", "qmatmul_v2m.cu", 789, "v2t", ("qkv", "o", "gateup", "down"), "v2t"),
+    ("qmatmul_v2s", "qmatmul_v2g.cu", 660, "v2s", Q4_SHAPES, "v2s"),
+    ("qmatmul_v2m", "qmatmul_v2m.cu", 729, "v2m", Q4_SHAPES, "v2m"),
+    ("qmatmul_v2t", "qmatmul_v2m.cu", 789, "v2t", Q4_SHAPES, "v2t"),
     ("qmatmul_v2p", "qmatmul_v2m.cu", 844, "v2p", ("lm_head",), "v2m"),
 )
 
@@ -2049,9 +2059,9 @@ def phase_variant_consistency(params, cfg, rng, device):
             lp = two_layer_logits(params, cfg, prompt, feed, through(True), device)
         finally:
             knobs(*old)
-        # the 128-row prefill's 4 x 2 projections on the tensor-core tiles
-        # when the variant has them (v2m too; not v2t), the 1-row head
-        # (v2p under v2m) and the decode steps not
+        # the 128-row prefill's 4 x 2 projections on the variant's
+        # tensor-core tiles, the 1-row head (v2p under v2m, v2g under v2t
+        # and v2s) and the decode steps not
         if mma != {k: 8 if k == variant else 0 for k in mma}:
             raise RuntimeError(f"{label}: tensor-core launches {mma}")
         scale = lp.abs().max().item()
@@ -2095,11 +2105,12 @@ def phase_variant_serving(params, cfg, requests):
 
 
 def phase_variant_ppl(params, cfg, v2g):
-    """8d: compute_perplexity(serving=True) on the 32-layer model under v2m
-    and v2 (phase 7d's data); each within 0.05 nats/token of v2g's (7d),
-    every call on the tensor-core tiles (under v2m: v2m's, and v2p's on
-    the all-position head), and v2m within 1e-3 nats/token of the same
-    model through its plain version."""
+    """8d: compute_perplexity(serving=True) on the 32-layer model under v2m,
+    v2, v2t and v2s (phase 7d's data); each within 0.05 nats/token of
+    v2g's (7d), every call on the tensor-core tiles (under v2m: v2m's, and
+    v2p's on the all-position head; under v2t and v2s: theirs, and v2g's
+    on the head), and v2m, v2t and v2s within 1e-3 nats/token of the same
+    model through their plain versions."""
     import torch
 
     from gptq_gguf_tpu_torch.evals import ppl
@@ -2108,8 +2119,10 @@ def phase_variant_ppl(params, cfg, v2g):
 
     data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
     L = cfg.num_hidden_layers
+    fns = variant_fns()
     out = {}
-    for variant, want in (("v2m", {"v2m": 4 * L, "v2p": 1}), ("v2", {"v2": 4 * L + 1})):
+    for variant, want in (("v2m", {"v2m": 4 * L, "v2p": 1}), ("v2", {"v2": 4 * L + 1}),
+                          ("v2t", {"v2t": 4 * L, "v2g": 1}), ("v2s", {"v2s": 4 * L, "v2g": 1})):
         old = knobs(variant, "")
         try:
             ppl.compute_perplexity(params, cfg, data[:1], serving=True)  # warm
@@ -2136,9 +2149,10 @@ def phase_variant_ppl(params, cfg, v2g):
             f"{out[variant]['launches']}")
         if not (np.isfinite(value) and abs(nll - v2g["nll"]) < 0.05):
             raise RuntimeError(f"ppl {variant}: {nll} nats/token against v2g's {v2g['nll']}")
-        if variant == "v2m":  # the same function through the plain version
+        if variant != "v2":  # the same functions through the plain versions
             fn0 = qmatmul.dequant_matmul
-            qmatmul.dequant_matmul = qmatmul.dequant_matmul_v2m_reference
+            qmatmul.dequant_matmul = lambda x, rql: fns[qmatmul.effective_v2_variant_for(
+                rql, variant=variant)][1](x, rql, torch.bfloat16)
             try:
                 plain = float(np.log(ppl.compute_perplexity(params, cfg, data, serving=True)))
             finally:
@@ -2151,11 +2165,13 @@ def phase_variant_ppl(params, cfg, v2g):
     return out
 
 
-def variant_summary(name, source, replaces, variant, shapes, recs, launches):
+def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma_launches):
     """The summary entry of one v2 variant kernel: one B=8 decode step (its
     calls among the four projections of every layer and the lm_head, at
     8a's M=8 times with bf16 operands, the dispatch's); its error is the
-    largest of all its 8a cases. v2's entry adds its f32 operand mode."""
+    largest of all its 8a cases. v2's entry adds its f32 operand mode.
+    ``launches`` counts the decode tiles' launches of 8c's run,
+    ``mma_launches`` its tensor-core tiles' (every prefill projection)."""
     def entry(mxu):
         per = {r["name"].split()[0]: r for r in recs
                if r["variant"] == variant and r["mxu"] == mxu and r["M"] == 8}
@@ -2171,7 +2187,7 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches):
 
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
     out = {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
-           "replaces": replaces, "launches": launches,
+           "replaces": replaces, "launches": launches, "mma_launches": mma_launches,
            "max_abs_err": max(r["max_abs_err"] for r in recs if r["variant"] == variant),
            **entry("bf16"), "per": f"one B=8 decode step (bf16 operands): {calls} calls"}
     if all(any(r["variant"] == variant and r["mxu"] == "f32" and r["M"] == 8
@@ -2180,22 +2196,27 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches):
     return out
 
 
-# the group-dot tensor-core tiles (csrc/qmatmul_v2m_mma.cuh): summary name,
-# the JAX body's line, variant, its shapes in one forward under v2m
-GROUP_DOT_MMA_KERNELS = (("qmatmul_v2m_mma", 729, "v2m", ("qkv", "o", "gateup", "down")),
-                         ("qmatmul_v2p_mma", 844, "v2p", ("lm_head",)))
+# the tensor-core tiles of the variants 8d scores with (phase 2's v2g and
+# 8a's v2 / v3 / v2f / v2h are in mma_summary): summary name, source, the
+# JAX body's line, variant, its shapes in one forward, the 8d run whose
+# launches it reports
+VARIANT_MMA_KERNELS = (
+    ("qmatmul_v2m_mma", "qmatmul_v2m_mma.cuh", 729, "v2m", Q4_SHAPES, "v2m"),
+    ("qmatmul_v2p_mma", "qmatmul_v2m_mma.cuh", 844, "v2p", ("lm_head",), "v2m"),
+    ("qmatmul_v2t_mma", "qmatmul_v2m_mma.cuh", 789, "v2t", Q4_SHAPES, "v2t"),
+    ("qmatmul_v2s_mma", "qmatmul_v2_mma.cuh", 660, "v2s", Q4_SHAPES, "v2s"))
 
 
-def group_dot_mma_summary(name, line, variant, shapes, recs, launches):
-    """The summary entry of v2m's or v2p's tensor-core tiles: their share
-    of one Llama-3-8B forward at M = 1024 under v2m (8a's times), the
-    threshold M beside it; launches from 8d's perplexity run (v2p's: the
-    all-position head; a serving head sees one row per sequence)."""
+def variant_mma_summary(name, source, line, variant, shapes, recs, launches):
+    """The summary entry of one variant's tensor-core tiles: their share
+    of one Llama-3-8B forward at M = 1024 (8a's times), the threshold M
+    beside it; launches from 8d's perplexity run under that variant (v2p's
+    under v2m: the all-position head; a serving head sees one row per
+    sequence)."""
     from gptq_gguf_tpu_torch.ops import qmatmul
 
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
-    return {"name": name, "route": "cuda",
-            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2m_mma.cuh",
+    return {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
             "replaces": f"gptq_gguf_tpu/ops/qmatmul.py:{line}", "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["variant"] == variant),
             **mma_forward(recs, variant, 1024, shapes),
@@ -2306,8 +2327,9 @@ def run(device) -> dict:
     log("== phase 8: the v2 kernel variants at full width")
     t8 = time.time()
     vrecs = phase_variant_kernels(params, rng, device)
-    mrecs += phase_mma_kernels(params, ("v2", "v3", "v2f", "v2h"), device)
-    gdrecs = phase_mma_kernels(params, ("v2m",), device, rng, GROUP_DOT_SMALL)
+    mrecs += phase_mma_kernels(params, ("v2", "v3", "v2f", "v2h", "v2s"), device, rng,
+                               V2S_SMALL)
+    gdrecs = phase_mma_kernels(params, ("v2m", "v2t"), device, rng, GROUP_DOT_SMALL)
     vcross = phase_variant_consistency(params, cfg, rng, device)
     vserve = phase_variant_serving(params, cfg, requests)
     vppl = phase_variant_ppl(params, cfg, fppl["v2"])
@@ -2385,12 +2407,13 @@ def run(device) -> dict:
         for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
                         vrecs, vserve[run]["counts"][variant]
-                        - (vserve[run]["mma_launches"] if variant == run else 0))
+                        - (vserve[run]["mma_launches"] if variant == run else 0),
+                        vserve[run]["mma_launches"] if variant == run else 0)
         for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [
         mma_summary(mrecs, serve["mma_launches"])] + [
-        group_dot_mma_summary(name, line, variant, shapes, gdrecs,
-                              vppl["v2m"]["mma_launches"][variant])
-        for name, line, variant, shapes in GROUP_DOT_MMA_KERNELS],
+        variant_mma_summary(name, source, line, variant, shapes, mrecs + gdrecs,
+                            vppl[run]["mma_launches"][variant])
+        for name, source, line, variant, shapes, run in VARIANT_MMA_KERNELS],
         "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),

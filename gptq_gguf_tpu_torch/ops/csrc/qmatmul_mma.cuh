@@ -6,9 +6,12 @@
 //   V2Mma<BUILD, PB, GS, HAS_MIN> (qmatmul_v2_mma.cuh): the per-weight v2
 //       builds v2g / v2 / v3 / v2f / v2h (qmatmul_v2g.cu, qmatmul_v2.cu,
 //       qmatmul_v3.cu);
+//   V2Mma<kV2s, 2, GS, HAS_MIN> (the same file): v2s, v2g's weights with
+//       the low- and high-nibble halves summed apart (qmatmul_v2g.cu);
 //   V4Mma<PB, GS, I8> (qmatmul_v4.cu): the v4 bodies pb2, pb2_i8, pb1;
 //   GroupDotMma<PB, GS, HAS_MIN> (qmatmul_v2m_mma.cuh): the group-dot
-//       variants v2m (gs 32) and v2p (gs 16) (qmatmul_v2m.cu).
+//       variants v2m (gs 32) and v2p (gs 16), and GroupSumMma<PB, HAS_MIN>
+//       there: v2t (gs 32) (qmatmul_v2m.cu).
 // Each computes, from M >= 9 rows (qmatmul.MMA_MIN_ROWS):
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off ]   (f32 sums)
 // with w the format's bf16 weight from the same helpers its CUDA-core
@@ -18,6 +21,12 @@
 // group-dot policy (F::GROUP_DOT) builds the raw codes instead, and the
 // products of each GS-row group go into a partial sum that is scaled into
 // the accumulator:  y = sum_g scale_g * (bf16(x_g) @ q_g) - xsum @ off.
+// A group-sum policy (F::GROUP_SUM, with GROUP_DOT) sums a step's scaled
+// partials first and adds that sum to the accumulator once (JAX's v2t:
+// sum(parts * scale) before the output). A split-halves policy
+// (F::SPLIT_HALVES; 4-bit codes) sums a step's high-nibble products on
+// their own before they meet the low-nibble ones in the accumulator (JAX's
+// v2s: x_lo @ w_lo + x_hi @ w_hi, the halves meeting once per K tile).
 //
 // What bounds it: operations from M ~ 300 up (Llama-3-8B gate/up at M =
 // 1024: 240 GFLOP against 66 MB of planes and x), bytes below. The CUDA-core
@@ -62,6 +71,18 @@
 //     times the group's f32 scale: as many CUDA-core FMAs again as the xsum
 //     term. The partial covers one m16 row tile at a time, so it costs 16
 //     registers at any BM;
+//   * group sum (F::GROUP_SUM): the same partials, the loop turned round
+//     (row tiles outside, the step's groups inside), so one step sum per
+//     m16 row tile (16 registers) takes each group's scaled partial before
+//     one add into the accumulator; every group's B fragments stay in
+//     registers across the row tiles (GPK x 16);
+//   * split halves (F::SPLIT_HALVES): k16 slices 0-1 of a step (the low
+//     nibbles) go into the accumulators, 2-3 (the high nibbles) into a
+//     fresh partial per m16 row tile (16 registers, their B fragments
+//     held across the row tiles), added once. A second accumulator set
+//     for the whole K range (the decode kernel's acc_hi) took 64 more
+//     registers at BM = 128 and ran 2.6x slower (H100,
+//     tools/time_v2_kernels.py: PERF.md);
 //   * split-K over supergroups into the partial buffer, reduced in a fixed
 //     order (finish_launch): no float atomics, reproducible run to run;
 //   * ragged M rows are zero-filled and not stored; columns past d_out are
@@ -74,7 +95,10 @@
 // PLANE_BYTES (its planes in one stage), O2_BYTES (its scratch after the
 // weight tile), XSUM (whether it may subtract xsum @ off: the code is not
 // emitted otherwise), GROUP_DOT (whether its B operand is raw codes whose
-// group partials are scaled: the code is not emitted otherwise), has_off(a)
+// group partials are scaled: the code is not emitted otherwise), GROUP_SUM
+// (whether a step's scaled partials are summed before the accumulator),
+// SPLIT_HALVES (whether a step's high-nibble products are summed apart;
+// neither flag's code is emitted otherwise), has_off(a)
 // (whether this weight does), and, for its planes at byte P of a stage st,
 // issue<P>(a, st, sg, q, n0, cols_left, w16), build<P>(a, st, ws, o2s),
 // offsets<P>(st, o2s) (the step's [GS-group][128] f32 offset rows) and, for
@@ -312,12 +336,65 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_kernel(typename F::Args a)
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  static_assert(!F::SPLIT_HALVES || (PB == 2 && !F::GROUP_DOT), "split halves: 4-bit weights");
+  static_assert(!F::GROUP_SUM || F::GROUP_DOT, "a group sum is a group dot");
 
   // step t's products (and its xsum term) into the accumulators
   auto product = [&](int t) {
     const char* st = smem + (t % kMmaStages) * T::STAGE;
     const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + T::X_OFF);
-    if constexpr (F::GROUP_DOT) {  // each group's partial, then acc += partial * scale
+    if constexpr (F::GROUP_SUM) {  // per row tile: sum_g partial_g * scale_g, then one add
+      constexpr int KG = GS / 16;  // k16 slices per group
+      const float* sc = F::template scales<T::P_OFF>(st, o2s);
+      uint32_t bf[GPK][KG][NI][2];
+#pragma unroll
+      for (int lg = 0; lg < GPK; ++lg)
+#pragma unroll
+        for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+          for (int np = 0; np < NI / 2; ++np) {
+            uint32_t r[4];
+            ldsm_x4_trans(r, ws + ((lg * KG + kg) * 16 + lane % 16) * kBStride + wn * 32 + np * 16 +
+                                 (lane / 16) * 8);
+            bf[lg][kg][2 * np][0] = r[0];
+            bf[lg][kg][2 * np][1] = r[1];
+            bf[lg][kg][2 * np + 1][0] = r[2];
+            bf[lg][kg][2 * np + 1][1] = r[3];
+          }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        float sum[NI][4];
+#pragma unroll
+        for (int lg = 0; lg < GPK; ++lg) {
+          float p[NI][4];
+#pragma unroll
+          for (int kg = 0; kg < KG; ++kg) {
+            uint32_t af[4];
+            ldsm_x4(af, xs + (wm * WM + mi * 16 + lane % 16) * kAStride + (lg * KG + kg) * 16 +
+                            (lane / 16) * 8);
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) {
+              if (kg == 0) mma_bf16_first(p[ni], af, bf[lg][kg][ni][0], bf[lg][kg][ni][1]);
+              else mma_bf16(p[ni], af, bf[lg][kg][ni][0], bf[lg][kg][ni][1]);
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            const float2 s =
+                *reinterpret_cast<const float2*>(sc + lg * kMmaBN + wn * 32 + ni * 8 + 2 * (lane % 4));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float se = e % 2 ? s.y : s.x;
+              sum[ni][e] = lg == 0 ? p[ni][e] * se : fmaf(p[ni][e], se, sum[ni][e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += sum[ni][e];
+      }
+    } else if constexpr (F::GROUP_DOT) {  // each group's partial, then acc += partial * scale
       constexpr int KG = GS / 16;  // k16 slices per group
       const float* sc = F::template scales<T::P_OFF>(st, o2s);
 #pragma unroll
@@ -361,6 +438,57 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_kernel(typename F::Args a)
             acc[mi][ni][3] = fmaf(p[ni][3], s[ni].y, acc[mi][ni][3]);
           }
         }
+      }
+    } else if constexpr (F::SPLIT_HALVES) {  // the low half into acc, the high half apart
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {  // the low nibbles into the accumulators
+        uint32_t af[MI][4], bf[NI][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          ldsm_x4(af[mi], xs + (wm * WM + mi * 16 + lane % 16) * kAStride + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < NI / 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, ws + (ks * 16 + lane % 16) * kBStride + wn * 32 + np * 16 + (lane / 16) * 8);
+          bf[2 * np][0] = r[0];
+          bf[2 * np][1] = r[1];
+          bf[2 * np + 1][0] = r[2];
+          bf[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+      }
+      uint32_t bh[2][NI][2];  // the high nibbles: the step's partial per row tile
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int np = 0; np < NI / 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, ws + ((2 + k) * 16 + lane % 16) * kBStride + wn * 32 + np * 16 + (lane / 16) * 8);
+          bh[k][2 * np][0] = r[0];
+          bh[k][2 * np][1] = r[1];
+          bh[k][2 * np + 1][0] = r[2];
+          bh[k][2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        float p[NI][4];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          uint32_t af[4];
+          ldsm_x4(af, xs + (wm * WM + mi * 16 + lane % 16) * kAStride + (2 + k) * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            if (k == 0) mma_bf16_first(p[ni], af, bh[k][ni][0], bh[k][ni][1]);
+            else mma_bf16(p[ni], af, bh[k][ni][0], bh[k][ni][1]);
+          }
+        }
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += p[ni][e];
       }
     } else {
 #pragma unroll

@@ -10,17 +10,20 @@
 //
 // Replaces, at M >= 9 with bf16 operands: gptq_gguf_tpu/ops/qmatmul.py::
 // _kernel_v2g :605 (the default variant), _kernel_v2 :377, _kernel_v3 :429,
-// _kernel_v2f :496 and _kernel_v2h :551. Instantiated by qmatmul_v2g.cu
-// (v2g), qmatmul_v2.cu (v2, v2f) and qmatmul_v3.cu (v3, v2h). v2s (its
-// nibble halves summed apart), f32 operands (TF32 would change the
-// products), M <= 8 (the decode tiles) and weights the wrapper gives one
-// column per thread (vec 1: d_out % 4 != 0 or planes not 16-byte aligned;
-// no Llama-3-8B weight is one) stay on the CUDA-core kernel.
+// _kernel_v2f :496, _kernel_v2h :551 and _kernel_v2s :660. Instantiated by
+// qmatmul_v2g.cu (v2g, v2s), qmatmul_v2.cu (v2, v2f) and qmatmul_v3.cu (v3,
+// v2h). v2s builds v2g's weights and sums each step's high-nibble products
+// apart before they meet the low-nibble ones (the mainloop's
+// F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). f32
+// operands (TF32 would change the products), M <= 8 (the decode tiles) and
+// weights the wrapper gives one column per thread (vec 1: d_out % 4 != 0
+// or planes not 16-byte aligned; no Llama-3-8B weight is one) stay on the
+// CUDA-core kernel.
 //
 // Per 64-row step it stages the code bytes, the step's sc_q / mn_q rows and
 // the supergroup's d_sg / dmin_sg row; each thread builds 4 columns of 8
-// weight rows (one group's constants), and for v2g / v3 the step's off2
-// rows into the block's scratch for the xsum term.
+// weight rows (one group's constants), and for v2g / v2s / v3 the step's
+// off2 rows into the block's scratch for the xsum term.
 
 #pragma once
 
@@ -39,6 +42,8 @@ struct V2Mma {
   static constexpr int CODE_ROWS = kMmaKT / PB;
   static constexpr bool XSUM = corrects(BUILD);
   static constexpr bool GROUP_DOT = false;
+  static constexpr bool GROUP_SUM = false;
+  static constexpr bool SPLIT_HALVES = BUILD == kV2s;
   // plane offsets in a stage
   static constexpr int SC_OFF = CODE_ROWS * kMmaBN;
   static constexpr int MN_OFF = SC_OFF + GPK * kMmaBN;

@@ -57,10 +57,9 @@
 //     K axis over supergroups (gridDim.z) and a second kernel reduces those
 //     partials in a fixed order (no float atomics): token streams stay
 //     reproducible run to run;
-//   * rows per block: up to 8. With bf16 operands every build but v2s
-//     runs M >= 9 rows on the tensor-core tiles of qmatmul_v2_mma.cuh;
-//     f32 operands (a test mode), v2s (its second accumulator) and vec 1
-//     weights stay here at any M, in 8-row tiles;
+//   * rows per block: up to 8. With bf16 operands every build runs M >= 9
+//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh; f32 operands (a
+//     test mode) and vec 1 weights stay here at any M, in 8-row tiles;
 //   * tiles of 8 rows or fewer are declared for 4 blocks per SM, which lets
 //     the compiler keep up to 128 registers a thread: left alone it kept 72
 //     at the 8-row decode tile and ran the Llama-3-8B gate/up and down
@@ -298,8 +297,8 @@ template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_mma(const V2Args& a, int bm);
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
-// cores; mt of 32, 64 or 128 (VEC 4, bf16 operands, every build but v2s) the
-// tensor-core tiles with mt rows per block
+// cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
+// with mt rows per block
 template <int BUILD, bool BF16, int PB, int GS, bool HAS_MIN>
 bool launch_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -309,7 +308,7 @@ bool launch_tile(const V2Args& a, int mt, int vec) {
       case 4: launch<BUILD, BF16, PB, GS, HAS_MIN, 4, 4>(a); return true;
       case 8: launch<BUILD, BF16, PB, GS, HAS_MIN, 8, 4>(a); return true;
       default:
-        if constexpr (BF16 && BUILD != kV2s) return launch_mma<BUILD, PB, GS, HAS_MIN>(a, mt);
+        if constexpr (BF16) return launch_mma<BUILD, PB, GS, HAS_MIN>(a, mt);
         return false;
     }
   }

@@ -46,9 +46,10 @@
 // units of 32 weight-byte rows (for nibble codes a unit holds a group, or
 // a group pair, of the low nibbles and its mirror 128 rows up). MT stays at
 // 8 or less: a unit's partial sums live beside the accumulator (v2p at
-// 4-bit holds four sets). With bf16 operands v2m and v2p run M >= 9 rows on
-// the tensor-core tiles of qmatmul_v2m_mma.cuh; v2t, f32 operands (a test
-// mode) and vec-1 weights stay here at any M, in 8-row tiles. The K axis
+// 4-bit holds four sets). With bf16 operands all three run M >= 9 rows on
+// the tensor-core tiles of qmatmul_v2m_mma.cuh (v2t with JAX's order: a
+// step's scaled partials summed before the accumulator); f32 operands (a
+// test mode) and vec-1 weights stay here at any M, in 8-row tiles. The K axis
 // is split over supergroups with a second kernel reducing the partials in
 // a fixed order (no float atomics).
 
@@ -439,9 +440,17 @@ void launch_body(const V2Args& a) {
     v2p_kernel<BF16, PB, HAS_MIN, MT, VEC><<<grid, kThreads, 0, a.stream>>>(a);
 }
 
+// the tensor-core tiles of one body (bf16 operands), bm rows per block
+// (32, 64 or 128); false for another bm
+template <int BODY, int PB, bool HAS_MIN>
+bool launch_body_mma(const V2Args& a, int bm) {
+  if constexpr (BODY == kV2t) return launch_mma_tiles<GroupSumMma<PB, HAS_MIN>>(a, bm);
+  else return launch_mma_tiles<GroupDotMma<PB, BODY == kV2p ? 16 : 32, HAS_MIN>>(a, bm);
+}
+
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
-// cores; mt of 32, 64 or 128 (VEC 4, bf16 operands, v2m and v2p) the
-// tensor-core tiles with mt rows per block
+// cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
+// with mt rows per block
 template <int BODY, bool BF16, int PB, bool HAS_MIN>
 bool launch_body_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -451,8 +460,7 @@ bool launch_body_tile(const V2Args& a, int mt, int vec) {
       case 4: launch_body<BODY, BF16, PB, HAS_MIN, 4, 4>(a); return true;
       case 8: launch_body<BODY, BF16, PB, HAS_MIN, 8, 4>(a); return true;
       default:
-        if constexpr (BF16 && BODY != kV2t)
-          return launch_mma_tiles<GroupDotMma<PB, BODY == kV2p ? 16 : 32, HAS_MIN>>(a, mt);
+        if constexpr (BF16) return launch_body_mma<BODY, PB, HAS_MIN>(a, mt);
         return false;
     }
   }
@@ -497,7 +505,7 @@ bool launch_body_format(const V2Args& a, int body, int per_byte, int group_size,
 // mxu_bf16 != 0 (the codes are exact in either type). partials is
 // (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. mt is
 // the rows per block: 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the
-// tensor cores (v2m and v2p, vec 4 and bf16 operands only). vec 4 needs
+// tensor cores (vec 4 and bf16 operands only). vec 4 needs
 // d_out % 4 == 0 and 16-byte-aligned planes (the tensor-core tiles a
 // 16-byte-aligned x too). Every pointer is a device pointer of contiguous
 // data.

@@ -1,5 +1,6 @@
-// Tensor-core prefill tiles of the group-dot v2 kernels v2m and v2p, for
-// Hopper (sm_90a): their policy for the shared mainloop of qmatmul_mma.cuh.
+// Tensor-core prefill tiles of the group-dot v2 kernels v2m, v2t and v2p,
+// for Hopper (sm_90a): their policies for the shared mainloop of
+// qmatmul_mma.cuh.
 // The same function as the CUDA-core bodies of qmatmul_v2m.cu, for bf16
 // operands at M >= 9 rows (every call past the decode tiles;
 // qmatmul.MMA_MIN_ROWS) on vec-4 weights:
@@ -9,9 +10,10 @@
 // of the un-rounded x.
 //
 // Replaces, at those shapes: gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2m :729
-// (gs 32: Q4_K, Q5_K) and _kernel_v2p :844 (gs 16: Q2_K, Q3_K, Q6_K, the
-// lm_head among them). v2t (queued for its own tiles), f32 operands (TF32
-// would round x), M <= 8 and vec-1 weights stay on the CUDA-core bodies.
+// (gs 32: Q4_K, Q5_K), _kernel_v2t :789 (gs 32, GroupSumMma) and
+// _kernel_v2p :844 (gs 16: Q2_K, Q3_K, Q6_K, the lm_head among them). f32
+// operands (TF32 would round x), M <= 8 and vec-1 weights stay on the
+// CUDA-core bodies.
 //
 // Per 64-row step it stages v2g's planes (V2Mma<kV2g>::issue: the code
 // bytes, the step's sc_q / mn_q rows, the supergroup's d_sg / dmin_sg row);
@@ -23,7 +25,10 @@
 // partial sum and adds partial * scale to the accumulator. v2p's JAX body
 // adds a pair of gs-16 partials, s_e p_e + s_o p_o, before the accumulator;
 // here each partial goes in by its own FMA: the same terms, another order
-// of the f32 sums, as everywhere in these tiles.
+// of the f32 sums, as everywhere in these tiles. v2t's JAX body sums its
+// scaled partials, sum(parts * scale), before the output: GroupSumMma
+// (F::GROUP_SUM) sums a step's two groups' scaled partials first and adds
+// that sum to the accumulator once.
 
 #pragma once
 
@@ -83,6 +88,13 @@ struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN> {  // v2g's planes, off2 and
       o2s[V2::GPK * kMmaBN + i] = s;
     }
   }
+};
+
+// v2t: v2m's planes and codes at gs 32, each step's scaled partials summed
+// before the accumulator
+template <int PB_, bool HAS_MIN>
+struct GroupSumMma : GroupDotMma<PB_, 32, HAS_MIN> {
+  static constexpr bool GROUP_SUM = true;
 };
 
 }  // namespace

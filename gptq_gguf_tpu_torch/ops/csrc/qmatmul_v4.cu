@@ -299,6 +299,8 @@ struct V4Mma {
   static constexpr int O2_BYTES = 0;  // the offc rows are read where they were staged
   static constexpr bool XSUM = true;  // subtracts xsum @ offc where a weight has offc
   static constexpr bool GROUP_DOT = false;
+  static constexpr bool GROUP_SUM = false;
+  static constexpr bool SPLIT_HALVES = false;
 
   __device__ __forceinline__ static bool has_off(const Args& a) { return a.offc != nullptr; }
 

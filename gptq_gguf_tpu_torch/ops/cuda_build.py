@@ -46,7 +46,7 @@ def build(name: str) -> Optional[str]:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns
     nvcc's output (with the ptxas report: registers, spills) when it
     built, None when the library was there; raises with nvcc's output if
-    the build fails."""
+    the build fails. The output is also kept beside the library (``.log``)."""
     out = library_path(name)
     if out.exists():
         return None
@@ -56,6 +56,7 @@ def build(name: str) -> Optional[str]:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return proc.stdout
 

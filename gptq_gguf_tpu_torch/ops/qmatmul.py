@@ -28,13 +28,13 @@ through ``_effective_v2_variant``. All nine have a kernel: the per-weight
 builds ``v2g`` (the default) and ``v2s`` (``csrc/qmatmul_v2g.cu``), ``v2``
 and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``
-(CUDA cores) and, except v2s, of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy
-for the tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
+(CUDA cores) and of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy for the
+tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
 ``MMA_MIN_ROWS`` rows or more, prefill and perplexity);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
-(``csrc/qmatmul_v2m.cu``; v2m and v2p also through
-``csrc/qmatmul_v2m_mma.cuh``, their policy for the same mainloop: the raw
-codes as the B operand, each group's partial product scaled in f32). The
+(``csrc/qmatmul_v2m.cu``, and ``csrc/qmatmul_v2m_mma.cuh``, their policies
+for the same mainloop: the raw codes as the B operand, each group's
+partial product scaled in f32). The
 variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
 loaders are the same for all of them.
@@ -493,11 +493,11 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4, mt_max:
     return mt, per, -(-n_sg // per)
 
 
-# rows from which a bf16-operand call of a per-weight v2 build (every one but
-# v2s) or of v2m / v2p, and every v4 call (qmv4.dequant_matmul_v4), runs the
-# tensor-core tiles of csrc/qmatmul_mma.cuh instead of the CUDA-core decode
-# tiles on a vec-4 weight (timed at M = 9, 16, 32 and 64 for v2g, v4, v2m
-# and v2p, tools/time_v2_kernels.py: PERF.md)
+# rows from which a bf16-operand call of any v2 variant, and every v4 call
+# (qmv4.dequant_matmul_v4), runs the tensor-core tiles of
+# csrc/qmatmul_mma.cuh instead of the CUDA-core decode tiles on a vec-4
+# weight (timed at M = 9, 16, 32 and 64 for v2g, v4, v2m, v2p, v2t and v2s,
+# tools/time_v2_kernels.py: PERF.md)
 MMA_MIN_ROWS = 9
 
 
@@ -514,22 +514,24 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
 
 
 def _plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int, mt_max: int = 32,
-          mma: bool = False):
+          mma: bool = False, bm_max: int = 128):
     """The launch plan (rows per block, supergroups per split, splits):
-    the tensor-core tiles when ``mma`` allows them and the weight takes
-    them (vec 4, M >= MMA_MIN_ROWS), else the CUDA-core tiles of up to
-    ``mt_max`` rows."""
+    the tensor-core tiles of up to ``bm_max`` rows when ``mma`` allows them
+    and the weight takes them (vec 4, M >= MMA_MIN_ROWS), else the
+    CUDA-core tiles of up to ``mt_max`` rows."""
     if mma and vec == 4 and M >= MMA_MIN_ROWS:
-        return _mma_plan(M, d_out, n_sg, n_sm)
+        return _mma_plan(M, d_out, n_sg, n_sm, bm_max)
     return _launch_plan(M, d_out, n_sg, n_sm, vec, mt_max)
 
 
-def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False):
+def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False,
+                 bm_max: int = 128):
     """The shared front of the dequant-matmul kernel wrappers for a CUDA x:
     x as a contiguous f32 or bf16 tensor, the planes validated (and their
     alignment read) on the first call with each weight, the launch plan
     (``_plan``: rows per block up to ``mt_max``, or the tensor-core tiles
-    where ``mma`` allows them), the output and the split-K scratch.
+    of up to ``bm_max`` where ``mma`` allows them), the output and the
+    split-K scratch.
     Returns (x, vec, mt, per, splits, out, part); vec 4 needs
     d_out % 4 == 0 and 16-byte-aligned planes, the tensor-core tiles a
     16-byte-aligned x too (copied when it is not)."""
@@ -547,7 +549,7 @@ def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False):
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     M, d_in = x.shape
     mt, per, splits = _plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index), rql._vec,
-                            mt_max, mma)
+                            mt_max, mma, bm_max)
     if mt > 8 and x.data_ptr() % 16:  # the tensor-core tiles: 16-byte copies of x
         x = x.clone()
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)
@@ -564,13 +566,13 @@ _V2_ARGS = ((ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
 
 
 def _launch_v2(lib: str, code: int, x: torch.Tensor, rql: RuntimeQuantLinearV2, mxu_dtype,
-               mt_max: int, mma: bool = False):
+               mt_max: int, mma: bool = False, bm_max: int = 128):
     """Launch build or body ``code`` of ``csrc/<lib>.cu`` on x's current
     stream (the library is built on first use). Returns (y, rows per
     block); more than 8 rows ran the tensor-core tiles."""
     if mxu_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma)
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma, bm_max)
     M, d_in = x.shape
     rc = c_function(lib, f"gg_{lib.split('_', 1)[1]}_matmul", _V2_ARGS)(
         code, x.data_ptr(), int(x.dtype == torch.bfloat16), int(mxu_dtype == torch.bfloat16),
@@ -591,13 +593,19 @@ _PER_WEIGHT = {"v2g": ("qmatmul_v2g", 0), "v2": ("qmatmul_v2", 1), "v3": ("qmatm
 PER_WEIGHT_VARIANTS = tuple(_PER_WEIGHT)
 
 
+# the largest row tile of a variant's tensor-core tiles where it is not 128:
+# v2t's step sums spill 620-628 bytes at 128 rows and ran one Llama-3-8B
+# forward's projections at M = 1024 in 164 ms against 155 at 64
+# (tools/time_v2_kernels.py --bm, PERF.md)
+MMA_BM_MAX = {"v2t": 64}
+
+
 def _v2_route(variant: str, mxu_dtype) -> tuple:
-    """(mt_max, mma) of a v2 variant's launch plan: CUDA-core tiles of up
-    to 8 rows; the tensor-core tiles from MMA_MIN_ROWS rows with bf16
-    operands for the MMA_VARIANTS and MMA_GROUP_DOT (not v2s, whose nibble
-    halves are summed apart, nor v2t, whose tiles are still to come; f32
-    operands would need TF32, which rounds them)."""
-    return 8, mxu_dtype == torch.bfloat16 and variant in MMA_VARIANTS + MMA_GROUP_DOT
+    """(mt_max, mma, bm_max) of a v2 variant's launch plan: CUDA-core
+    tiles of up to 8 rows; from MMA_MIN_ROWS rows with bf16 operands the
+    tensor-core tiles of up to bm_max rows (f32 operands would need TF32,
+    which rounds them)."""
+    return 8, mxu_dtype == torch.bfloat16, MMA_BM_MAX.get(variant, 128)
 
 
 def _launch_variant(fn, variant: str, lib: str, code: int, x: torch.Tensor,
@@ -670,7 +678,10 @@ def dequant_matmul_v2h(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 def dequant_matmul_v2s(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """v2g's function through the v2s kernel (``csrc/qmatmul_v2g.cu``; 4-bit
-    codes only): the low- and high-nibble halves summed apart."""
+    codes only): the low- and high-nibble halves summed apart (from
+    ``MMA_MIN_ROWS`` rows with bf16 operands on the tensor-core tiles, each
+    64-row step's high-nibble products summed before they meet the low
+    ones)."""
     return _per_weight(dequant_matmul_v2s, "v2s", x, rql, mxu_dtype)
 
 
@@ -728,8 +739,10 @@ def dequant_matmul_v2m(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 def dequant_matmul_v2t(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """v2m's function through the v2t kernel (gs 32): a supergroup's
-    per-group partial sums first, then their scale-weighted reduction (on
-    the 8-row CUDA-core tiles at every M)."""
+    per-group partial sums first, then their scale-weighted reduction; from
+    ``MMA_MIN_ROWS`` rows with bf16 operands on the tensor-core tiles of
+    ``csrc/qmatmul_v2m_mma.cuh``, which sum each 64-row step's scaled
+    partials before the accumulator."""
     return _group_dot(dequant_matmul_v2t, "v2t", x, rql, mxu_dtype)
 
 
@@ -762,11 +775,10 @@ V2_WRAPPERS = {"v2": "dequant_matmul_v2_exact", "v3": "dequant_matmul_v3",
                "v2m": "dequant_matmul_v2m", "v2t": "dequant_matmul_v2t",
                "v2p": "dequant_matmul_v2p"}
 V2_VARIANTS = tuple(V2_WRAPPERS)
-# the per-weight variants whose wrappers run the tensor-core tiles at
-# prefill, and the group-dot ones (v2t not yet), each counting those
-# launches in ``mma_launches``
-MMA_VARIANTS = ("v2g", "v2", "v3", "v2f", "v2h")
-MMA_GROUP_DOT = ("v2m", "v2p")
+# the per-weight and the group-dot variants; every wrapper runs the
+# tensor-core tiles at prefill and counts those launches in ``mma_launches``
+MMA_VARIANTS = PER_WEIGHT_VARIANTS
+MMA_GROUP_DOT = tuple(_GROUP_DOT)
 for _v in MMA_VARIANTS + MMA_GROUP_DOT:
     globals()[V2_WRAPPERS[_v]].mma_launches = 0
 

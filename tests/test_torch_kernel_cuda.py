@@ -1,6 +1,6 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
-the per-weight variants, of v2m / v2p and of v4, GPTQ column-block solve, paged
+every v2 variant and of v4, GPTQ column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
 
@@ -15,7 +15,7 @@ differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
 sum of |terms| of one output (1e-5 on v4's tensor-core tiles), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-tensor-core tiles). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries): atol 1e-4 of max|out|."""
@@ -590,8 +590,9 @@ MMA_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,d_out,d_in,dtype", MMA_CASES)
-@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
-@pytest.mark.parametrize("variant", qmatmul.MMA_VARIANTS)
+@pytest.mark.parametrize("variant,qtype", [(v, q) for v in qmatmul.MMA_VARIANTS
+                                           for q in V2_VARIANTS[v][2]],
+                         ids=lambda a: getattr(a, "name", a))
 def test_mma_tiles_match_plain(cuda, f32_exact, variant, qtype, M, d_out, d_in, dtype):
     """The per-weight builds with bf16 operands at prefill rows against their
     plain versions, within 1e-4 of the largest sum of |terms| of an output
@@ -613,26 +614,27 @@ def test_mma_tiles_match_plain(cuda, f32_exact, variant, qtype, M, d_out, d_in, 
 
 
 @pytest.mark.cuda
-def test_mma_tiles_take_a_misaligned_x_and_leave_f32_and_v2s_alone(cuda):
+def test_mma_tiles_take_a_misaligned_x_and_leave_f32_alone(cuda):
     """An x whose data is not 16-byte aligned is copied before the
-    tensor-core tiles read it; f32 operands and v2s stay on the CUDA-core
-    tiles at prefill rows."""
+    tensor-core tiles of v2g and v2s read it; f32 operands stay on the
+    CUDA-core tiles at prefill rows, for every per-weight variant."""
     rql = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
     buf = torch.randn(64 * 512 + 1, device=cuda).to(torch.bfloat16)
     x = buf[1:].view(64, 512)
     assert x.data_ptr() % 16
-    m0 = qmatmul.dequant_matmul_v2g.mma_launches
-    got = qmatmul.dequant_matmul_v2g(x, rql)
-    want = qmatmul.dequant_matmul_v2g_reference(x, rql)
-    torch.cuda.synchronize()
-    assert qmatmul.dequant_matmul_v2g.mma_launches == m0 + 1
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
-                               atol=1e-4 * _v2_terms(x, rql, torch.bfloat16))
+    for v in ("v2g", "v2s"):
+        fn, ref, _ = V2_VARIANTS[v]
+        m0 = fn.mma_launches
+        got = fn(x, rql, torch.bfloat16)
+        want = ref(x, rql, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert fn.mma_launches == m0 + 1
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                   atol=1e-5 * _v2_terms(x, rql, torch.bfloat16))
     counts = {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS}
     n_s = qmatmul.dequant_matmul_v2s.launches
     for v in qmatmul.MMA_VARIANTS:
         V2_WRAPPERS[v](x, rql, torch.float32)
-    qmatmul.dequant_matmul_v2s(x, rql, torch.bfloat16)
     torch.cuda.synchronize()
     assert {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS} == counts
     assert qmatmul.dequant_matmul_v2s.launches == n_s + 1
@@ -651,19 +653,35 @@ GROUP_DOT_MMA_CASES = [
     (1024, 2048, 512, torch.bfloat16),
     (40, 333, 512, torch.bfloat16),
 ]
-GROUP_DOT_TYPES = [("v2m", T.Q4_K), ("v2m", T.Q5_K), ("v2p", T.Q2_K), ("v2p", T.Q3_K),
-                   ("v2p", T.Q6_K)]
+GROUP_DOT_TYPES = [("v2m", T.Q4_K), ("v2m", T.Q5_K), ("v2t", T.Q4_K), ("v2t", T.Q5_K),
+                   ("v2p", T.Q2_K), ("v2p", T.Q3_K), ("v2p", T.Q6_K)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,d_out,d_in,dtype", GROUP_DOT_MMA_CASES)
 @pytest.mark.parametrize("variant,qtype", GROUP_DOT_TYPES, ids=lambda a: getattr(a, "name", a))
 def test_group_dot_mma_tiles_match_plain(cuda, f32_exact, variant, qtype, M, d_out, d_in, dtype):
-    """v2m and v2p with bf16 operands at prefill rows against their plain
-    version, within 1e-5 of the largest sum of |terms| of an output (the
-    same products of raw codes, partials scaled in f32, the sums in another
-    order); from MMA_MIN_ROWS rows a vec-4 weight counts one tensor-core
-    launch."""
+    """v2m, v2t and v2p with bf16 operands at prefill rows against their
+    plain version, within 1e-5 of the largest sum of |terms| of an output
+    (the same products of raw codes, partials scaled in f32, the sums in
+    another order); from MMA_MIN_ROWS rows a vec-4 weight counts one
+    tensor-core launch."""
+    check_tile_1e5(cuda, variant, qtype, M, d_out, d_in, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,dtype", GROUP_DOT_MMA_CASES)
+@pytest.mark.parametrize("qtype", V2_VARIANTS["v2s"][2], ids=lambda q: q.name)
+def test_v2s_mma_tiles_match_plain(cuda, f32_exact, qtype, M, d_out, d_in, dtype):
+    """v2s with bf16 operands at prefill rows (its two half-depth sums)
+    against its plain version, held as the group-dot tiles are."""
+    check_tile_1e5(cuda, "v2s", qtype, M, d_out, d_in, dtype)
+
+
+def check_tile_1e5(cuda, variant, qtype, M, d_out, d_in, dtype):
+    """One call of ``variant``'s wrapper against its plain version, within
+    1e-5 of the largest sum of |terms| of an output, counting one launch
+    and, from MMA_MIN_ROWS rows on a vec-4 weight, one tensor-core launch."""
     fn, ref, _ = V2_VARIANTS[variant]
     rql = _rql(qtype, d_out, d_in, seed=M + 7 * d_out + int(qtype), device=cuda)
     x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
@@ -680,16 +698,17 @@ def test_group_dot_mma_tiles_match_plain(cuda, f32_exact, variant, qtype, M, d_o
 
 
 @pytest.mark.cuda
-def test_group_dot_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(cuda):
-    """v2m / v2p copy an x that is not 16-byte aligned before the
-    tensor-core tiles read it; f32 operands, v2t and vec-1 weights stay on
-    the CUDA-core tiles at prefill rows (mma_launches unchanged)."""
+def test_group_dot_mma_tiles_take_a_misaligned_x_and_leave_f32_and_vec1_alone(cuda):
+    """v2m / v2t / v2p copy an x that is not 16-byte aligned before the
+    tensor-core tiles read it; f32 operands and vec-1 weights stay on the
+    CUDA-core tiles at prefill rows (mma_launches unchanged)."""
     q4 = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
     q6 = _rql(T.Q6_K, 512, 512, seed=6, device=cuda)
     buf = torch.randn(64 * 512 + 1, device=cuda).to(torch.bfloat16)
     x = buf[1:].view(64, 512)
     assert x.data_ptr() % 16
-    pairs = ((qmatmul.dequant_matmul_v2m, q4), (qmatmul.dequant_matmul_v2p, q6))
+    pairs = ((qmatmul.dequant_matmul_v2m, q4), (qmatmul.dequant_matmul_v2t, q4),
+             (qmatmul.dequant_matmul_v2p, q6))
     for fn, rql in pairs:
         m0 = fn.mma_launches
         got = fn(x, rql)
@@ -702,12 +721,12 @@ def test_group_dot_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(cuda):
     n_t = qmatmul.dequant_matmul_v2t.launches
     for fn, rql in pairs:
         fn(x, rql, torch.float32)
-    qmatmul.dequant_matmul_v2t(x, q4)
     qmatmul.dequant_matmul_v2m(x, _rql(T.Q4_K, 333, 512, seed=8, device=cuda))
+    qmatmul.dequant_matmul_v2t(x, _rql(T.Q5_K, 333, 512, seed=10, device=cuda))
     qmatmul.dequant_matmul_v2p(x, _rql(T.Q6_K, 333, 512, seed=9, device=cuda))
     torch.cuda.synchronize()
     assert [fn.mma_launches for fn, _ in pairs] == counts
-    assert qmatmul.dequant_matmul_v2t.launches == n_t + 1
+    assert qmatmul.dequant_matmul_v2t.launches == n_t + 2
 
 
 @pytest.mark.cuda

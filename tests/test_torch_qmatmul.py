@@ -179,7 +179,7 @@ def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
 
     defaults = {k: p.default for k, p in inspect.signature(qmatmul.launch_setup).parameters.items()
                 if p.default is not inspect.Parameter.empty}
-    assert defaults == {"mt_max": 32, "mma": False}
+    assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128}
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, **defaults)
     assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
 

@@ -100,9 +100,9 @@ def test_plain_matches_jax_interpret(variant, qtype, M, mxu):
                                            for q in PLAIN[v][1]],
                          ids=lambda a: getattr(a, "name", a))
 def test_plain_matches_jax_interpret_at_prefill_rows(variant, qtype):
-    """v2m / v2p at 130 rows with bf16 operands, a shape their tensor-core
-    tiles serve on the card: the plain version they are held to there
-    against JAX's body."""
+    """v2m / v2t / v2p at 130 rows with bf16 operands, a shape their
+    tensor-core tiles serve on the card: the plain version they are held to
+    there against JAX's body."""
     check_plain_against_jax(variant, qtype, 130, "bf16")
 
 
@@ -244,14 +244,14 @@ def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
     (1024, 333, 2, 1, (8, 2, 1), (8, 2, 1)),          # one column per thread
 ])
 def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
-    """Every per-weight build but v2s takes the tensor-core tiles with bf16
-    operands from MMA_MIN_ROWS rows; f32 operands, v2s and vec-1 weights
-    keep the 8-row CUDA-core tiles at any M."""
+    """Every per-weight build, v2s among them, takes the tensor-core tiles
+    with bf16 operands from MMA_MIN_ROWS rows; f32 operands and vec-1
+    weights keep the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     route = qmatmul._v2_route(variant, dt)
     want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
-    assert (variant in qmatmul.MMA_VARIANTS) == (variant != "v2s")
+    assert variant in qmatmul.MMA_VARIANTS
 
 
 @pytest.mark.parametrize("variant", ["v2m", "v2t", "v2p"])
@@ -265,24 +265,25 @@ def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want
     (1024, 333, 2, 1, (8, 2, 1), (8, 2, 1)),          # one column per thread
 ])
 def test_group_dot_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
-    """v2m and v2p take the tensor-core tiles with bf16 operands from
-    MMA_MIN_ROWS rows; f32 operands, v2t and vec-1 weights keep the 8-row
-    CUDA-core tiles at any M."""
+    """v2m, v2t and v2p take the tensor-core tiles with bf16 operands from
+    MMA_MIN_ROWS rows (v2t's of at most 64 rows); f32 operands and vec-1
+    weights keep the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
-    want = mma_want if mxu == "bf16" and variant != "v2t" else core_want
+    want = mma_want if mxu == "bf16" else core_want
+    if variant == "v2t" and mxu == "bf16":  # its tiles stop at 64 rows (MMA_BM_MAX)
+        want = {(128, 28672): (64, 16, 1), (1024, 128512): (64, 16, 1)}.get((M, d_out), want)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, dt)) == want
-    assert qmatmul.MMA_GROUP_DOT == ("v2m", "v2p")
+    assert qmatmul.MMA_GROUP_DOT == ("v2m", "v2t", "v2p")
 
 
 def test_group_dot_tensor_core_counts_stay_on_the_cpu():
-    """The v2m / v2p wrappers count tensor-core launches (v2t has no such
-    tiles); a CPU x at prefill rows runs the plain version and counts
-    nothing."""
+    """The v2m / v2t / v2p wrappers count tensor-core launches; a CPU x at
+    prefill rows runs the plain version and counts nothing."""
     _, q4 = _pair(T.Q4_K)
     _, q6 = _pair(T.Q6_K)
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(130, 512)).astype(np.float32))
-    assert not hasattr(qmatmul.dequant_matmul_v2t, "mma_launches")
-    for fn, rql in ((qmatmul.dequant_matmul_v2m, q4), (qmatmul.dequant_matmul_v2p, q6)):
+    for fn, rql in ((qmatmul.dequant_matmul_v2m, q4), (qmatmul.dequant_matmul_v2t, q4),
+                    (qmatmul.dequant_matmul_v2p, q6)):
         n0, m0 = fn.launches, fn.mma_launches
         np.testing.assert_array_equal(fn(x, rql).numpy(),
                                       qmatmul.dequant_matmul_v2m_reference(x, rql).numpy())

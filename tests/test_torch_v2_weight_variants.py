@@ -27,6 +27,14 @@ def test_per_weight_plain_matches_jax_interpret(variant, qtype, M, mxu):
     check_plain_against_jax(variant, qtype, M, mxu)
 
 
+@pytest.mark.parametrize("qtype", PLAIN["v2s"][1], ids=lambda q: q.name)
+def test_v2s_plain_matches_jax_interpret_at_prefill_rows(qtype):
+    """v2s at 130 rows with bf16 operands, a shape its tensor-core tiles
+    serve on the card: the plain version they are held to there against
+    JAX's body (rtol 1e-5, atol 1e-4 of max|y|)."""
+    check_plain_against_jax("v2s", qtype, 130, "bf16")
+
+
 @pytest.mark.parametrize("mxu", list(MXU))
 @pytest.mark.parametrize("variant", ["v3", "v2f", "v2h"])
 def test_per_weight_build_bit_equal_to_jax(variant, mxu):

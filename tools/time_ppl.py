@@ -13,10 +13,11 @@ each runtime format of ``--formats`` (v2 as built; v1, v4, "v4 i8", "v4
 bf16" as chip_smoke's phase 7 converts them) and times
 ``compute_perplexity(..., serving=True)`` over SEQS synthetic sequences of
 LEN tokens after one warm-up sequence: every projection and the lm_head at
-M = LEN rows. Host clock around synchronised calls. Prints the card's name
-and power limit, then one JSON line per root and format: seconds per
-sequence, nats per token, and the dequant-matmul launches of the timed run.
-Needs one CUDA card.
+M = LEN rows; v2 runs the kernel variant that ``GG_PALLAS_V2_VARIANT``
+names (v2g by default). Host clock around synchronised calls. Prints the
+card's name and power limit, then one JSON line per root and format:
+seconds per sequence, nats per token, and the dequant-matmul launches of
+the timed run. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ def one_root(root: str, formats: list, seqs: int, length: int) -> None:
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
     from gptq_gguf_tpu_torch.utils.data import get_data
 
-    wrappers = {"v2g": qmatmul.dequant_matmul_v2g, "v1": qmatmul.dequant_matmul_v1,
-                "v4": qmv4.dequant_matmul_v4}
+    wrappers = {"v1": qmatmul.dequant_matmul_v1, "v4": qmv4.dequant_matmul_v4,
+                **{v: getattr(qmatmul, name) for v, name in qmatmul.V2_WRAPPERS.items()}}
 
     def counts():  # launches, and tensor-core launches where a wrapper counts them
         out = {k: fn.launches for k, fn in wrappers.items()}

@@ -26,13 +26,15 @@ shape: bf16 ``torch.matmul`` of the same x on the dequantized weight (the
 library yardstick, timed the same way), the bound, the larger of the bytes
 (planes once, x, y) over 3.35 TB/s and the operations over 989 TFLOP/s
 bf16, and for v4 the same weight without its offc plane (the share of the
-xsum @ offc term). ``--bm`` caps the rows per block of the tensor-core
-tiles (``qmatmul._mma_plan``'s ``bm_max``, in the roots that have it), to
-time the tile sizes against each other. Prints, per root, the ptxas report
+xsum @ offc term). ``--bm`` sets the largest rows per block of the
+tensor-core tiles (``qmatmul._mma_plan``'s ``bm_max``, in the roots that
+have it; over a variant's own cap, ``qmatmul.MMA_BM_MAX``), to time the
+tile sizes against each other. Prints, per root, the ptxas report
 (registers, spill store and load bytes per kernel) of each kernel library
-it built, then one JSON line per M: ms per call by shape and ms per forward
-(4 x 32 projections + the lm_head; at M = 8 the B=8 decode step). Needs
-one CUDA card.
+it uses (from nvcc's output kept beside a library built earlier), then one
+JSON line per M: ms per call by shape and ms per forward (4 x 32
+projections + the lm_head; at M = 8 the B=8 decode step). Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -136,10 +138,12 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
                        for k in kernels.values()})
     if bm:
         plan = qmatmul._mma_plan
-        qmatmul._mma_plan = lambda M, d_out, n_sg, n_sm: plan(M, d_out, n_sg, n_sm, bm_max=bm)
+        qmatmul._mma_plan = lambda M, d_out, n_sg, n_sm, *_: plan(M, d_out, n_sg, n_sm, bm_max=bm)
     with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, all at once
         logs = list(ex.map(cuda_build.build, libs))
     for lib, nvcc_log in zip(libs, logs):
+        saved = cuda_build.library_path(lib).with_suffix(".log")  # a build's kept output
+        nvcc_log = nvcc_log or (saved.read_text() if saved.exists() else None)
         print(json.dumps({"root": root, "library": lib, "ptxas": ptxas_report(nvcc_log)
                           if nvcc_log else "cached"}), flush=True)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

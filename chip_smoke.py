@@ -1108,14 +1108,57 @@ def paged_cost(lengths, q4: bool, window: int = 0):
     return nbytes, 4.0 * HD * N_HEAD * positions
 
 
-def phase_paged_kernels(rng, device):
-    """Both paged decode kernels against their plain versions at the 8B
-    attention shape, at mixed lengths with -1 past the live pages (plain,
-    window 48, sinks, softcap 30), then timed at a uniform fill."""
+def paged_times(fn, ref, kp, vp, q, fills, q4: bool, rng, flush, reps: int = 50):
+    """Kernel (``fn``), plain (``ref``) and library ms per call over
+    len(fills) slots at those lengths, with the call's bytes and operations
+    and its bound. The library yardstick is one SDPA call over the live
+    K / V already gathered contiguous (int4 dequantized first) in bf16,
+    masked past each slot's length where the lengths differ; the port never
+    calls it."""
     import torch
     import torch.nn.functional as F
 
     from gptq_gguf_tpu_torch.models.llama import dequant_kv_q4
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+
+    device = q.device
+    B = len(fills)
+    ln = torch.as_tensor(fills, dtype=torch.int32, device=device)
+    tb = paged_table(rng, fills, device)
+    qq = q[:B].contiguous()
+    args = (qq, kp, vp, tb, ln)
+    scale = HD ** -0.5
+    ms = cuda_ms(lambda: fn(*args, scale=scale), reps, flush)
+    plain_ms = cuda_ms(lambda: ref(*args, scale=scale), 5, flush)
+    L = max(fills) + 1
+    if q4:
+        hd2, ng = HD // 2, HD // 32
+        codes = pa._gather_slot_kv(kp, tb)[:, :, :L]
+        scl = pa._gather_slot_scales_t(vp, tb)[:, :, :L]
+        k_l = dequant_kv_q4(codes[..., :hd2], scl[..., :ng]).to(torch.bfloat16)
+        v_l = dequant_kv_q4(codes[..., hd2:], scl[..., ng:]).to(torch.bfloat16)
+    else:
+        k_l = pa._gather_slot_kv(kp, tb)[:, :, :L].contiguous()
+        v_l = pa._gather_slot_kv(vp, tb)[:, :, :L].contiguous()
+    q_l = qq.reshape(B, N_HEAD, 1, HD).to(torch.bfloat16)
+    mask = None
+    if len(set(fills)) > 1:
+        mask = (torch.arange(L, device=device)[None, :] <= ln[:, None].long())[:, None, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q_l, k_l, v_l, attn_mask=mask, scale=scale, enable_gqa=True), reps, flush)
+    nbytes, ops = paged_cost(fills, q4)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    return dict(fill=fills[0] if mask is None else "mixed", ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bytes=nbytes, ops=ops, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+
+
+def phase_paged_kernels(rng, device):
+    """Both paged decode kernels against their plain versions at the 8B
+    attention shape, at mixed lengths with -1 past the live pages (plain,
+    window 48, sinks, softcap 30), then timed at the uniform STEADY_FILLS."""
+    import torch
+
     from gptq_gguf_tpu_torch.ops import paged_attention as pa
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
@@ -1149,37 +1192,8 @@ def phase_paged_kernels(rng, device):
                 raise RuntimeError(f"{name} {label}: kernel vs plain {err:.3e} > {tol:.3e}")
             errs.append(err)
 
-        def timed(fill):
-            """Kernel, plain and library ms at a uniform fill of B = 8 slots."""
-            fills = [fill] * 8
-            ln = torch.full((8,), fill, dtype=torch.int32, device=device)
-            tb = paged_table(rng, fills, device)
-            qq = q[:8].contiguous()
-            args = (qq, kp, vp, tb, ln)
-            ms = cuda_ms(lambda: fn(*args, scale=scale), 50, flush_buf.zero_)
-            plain_ms = cuda_ms(lambda: ref(*args, scale=scale), 5, flush_buf.zero_)
-            # yardstick: one SDPA call over the live K / V, already gathered
-            # contiguous (int4 dequantized first) in bf16; the port never calls it
-            L = fill + 1
-            if q4:
-                hd2, ng = HD // 2, HD // 32
-                codes = pa._gather_slot_kv(kp, tb)[:, :, :L]
-                scl = pa._gather_slot_scales_t(vp, tb)[:, :, :L]
-                k_l = dequant_kv_q4(codes[..., :hd2], scl[..., :ng]).to(torch.bfloat16)
-                v_l = dequant_kv_q4(codes[..., hd2:], scl[..., ng:]).to(torch.bfloat16)
-            else:
-                k_l = pa._gather_slot_kv(kp, tb)[:, :, :L].contiguous()
-                v_l = pa._gather_slot_kv(vp, tb)[:, :, :L].contiguous()
-            q_l = qq.reshape(8, N_HEAD, 1, HD).to(torch.bfloat16)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q_l, k_l, v_l, scale=scale, enable_gqa=True), 50, flush_buf.zero_)
-            nbytes, ops = paged_cost(fills, q4)
-            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
-            return dict(fill=fill, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                        bytes=nbytes, ops=ops, bound_ms=max(t_b, t_o),
-                        bound_by="bytes" if t_b >= t_o else "operations")
-
-        steady = {fill: timed(fill) for fill in STEADY_FILLS}
+        steady = {fill: paged_times(fn, ref, kp, vp, q, [fill] * 8, q4, rng, flush_buf.zero_)
+                  for fill in STEADY_FILLS}
         for r in steady.values():
             log(f"  {name:>22} B=8 fill {r['fill']}: kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.3f} ms  library {r['library_ms']:.4f} ms  bound "
@@ -2256,16 +2270,21 @@ def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mm
 
 def paged_summary(name, source_line, krec, launches):
     """The summary entry of one paged kernel: one B=8 decode step at the
-    first steady fill (300), one call per layer at the times of phase 6a."""
-    r = krec["steady"][STEADY_FILLS[0]]
+    first steady fill (300), one call per layer at the times of phase 6a;
+    the same at the second (1900) under "at_1900"."""
     n = N_LAYERS
+
+    def at(fill):
+        r = krec["steady"][fill]
+        return {"ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n, "bound_ms": r["bound_ms"] * n,
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"] * n,
+                "ms_per_call": r["ms"], "per": f"one B=8 decode step at fill {fill}: {n} calls"}
+
     return {"name": name, "route": "cuda",
             "source": "gptq_gguf_tpu_torch/ops/csrc/paged_decode.cu",
             "replaces": f"gptq_gguf_tpu/ops/paged_attention.py:{source_line}",
-            "launches": launches, "max_abs_err": krec["max_abs_err"],
-            "ms": r["ms"] * n, "plain_ms": r["plain_ms"] * n, "bound_ms": r["bound_ms"] * n,
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"] * n,
-            "per": f"one B=8 decode step at fill {STEADY_FILLS[0]}: {n} calls"}
+            "launches": launches, "max_abs_err": krec["max_abs_err"], **at(STEADY_FILLS[0]),
+            f"at_{STEADY_FILLS[1]}": at(STEADY_FILLS[1])}
 
 
 def run(device) -> dict:

@@ -18,7 +18,8 @@ the v2 variant kernels in either operand type (1e-5 on the group-dot
 and v2s tensor-core tiles). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
-tanh from other libraries): atol 1e-4 of max|out|."""
+tanh from other libraries; the bf16 / int4 kernels' tensor-core products
+carry q in three bf16 parts and P in two): atol 1e-4 of max|out|."""
 
 import numpy as np
 import pytest
@@ -437,12 +438,14 @@ def test_gptq_quantize_matrix_kernel_equals_plain_on_card(cuda, qtype, kw, monke
         assert torch.equal(a, b)
 
 
-def _paged_inputs(B, nKV, G, hd, page, pps, mode, seed, device):
+def _paged_inputs(B, nKV, G, hd, page, pps, mode, seed, device, lengths=None):
     """q, the pools (bf16 / f32, or combined int4), a scrambled table with
-    -1 past each slot's live pages, and lengths from 0 to the table's end."""
+    -1 past each slot's live pages, and lengths from 0 to the table's end
+    (or ``lengths``)."""
     gen = torch.Generator().manual_seed(seed)
     n_pages = B * pps
-    lengths = torch.linspace(0, pps * page - 1, B).to(torch.int32)
+    lengths = (torch.linspace(0, pps * page - 1, B).to(torch.int32) if lengths is None
+               else torch.tensor(lengths, dtype=torch.int32))
     table = torch.full((B, pps), -1, dtype=torch.int32)
     order = torch.randperm(n_pages, generator=gen).to(torch.int32)
     for b in range(B):
@@ -460,16 +463,44 @@ def _paged_inputs(B, nKV, G, hd, page, pps, mode, seed, device):
     return [t.to(device) for t in (q, k, v, table, lengths)]
 
 
+def _fixed_splits(monkeypatch, n_split):
+    """Make the wrapper split every slot's pages into n_split ranges of
+    ceil(pps / n_split) pages (in place of its own plan)."""
+    def plan(B, nKV, pps, page, n_sm):
+        per = -(-pps // n_split)
+        return -(-pps // per), per
+
+    monkeypatch.setattr(pa, "_split_plan", plan)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["bf16", "f32", "q4"])
 @pytest.mark.parametrize("B,nKV,G,hd,page,pps,kw", [
     (8, 8, 4, 128, 64, 32, {}),                                  # Llama-3-8B decode
     (3, 2, 8, 64, 16, 9, {"window": 20}),                         # window page skip
-    (2, 1, 16, 256, 40, 5, {"softcap": 30.0, "sinks": True}),    # ragged 32-chunks
+    (2, 1, 16, 256, 40, 5, {"softcap": 30.0, "sinks": True}),    # ragged chunks
     (5, 4, 1, 192, 256, 3, {"sinks": True, "window": 300}),
+    # every M row of the tensor-core tile a head; one head and a softcap at hd 64
+    (2, 1, 16, 128, 64, 3, {"sinks": True}),
+    (4, 3, 1, 64, 32, 4, {"softcap": 30.0}),
+    # split edges: pps 7 in splits of 3 pages (the last of 1)
+    (4, 2, 4, 128, 64, 7, {"n_split": 3}),
+    # lengths ending exactly on a split's last position (splits of 32 positions)
+    (3, 2, 4, 128, 16, 8, {"n_split": 4, "lengths": [31, 63, 95]}),
+    # every split but the first empty
+    (3, 2, 4, 128, 16, 8, {"n_split": 4, "lengths": [0, 5, 31], "sinks": True}),
+    # a window across split edges (splits of 2 pages of 16)
+    (3, 2, 8, 64, 16, 9, {"n_split": 5, "window": 40, "lengths": [30, 70, 143]}),
+    # fill 2047 on a full 32-page table, the wrapper's own plan
+    (8, 8, 4, 128, 64, 32, {"lengths": [2047] * 8}),
 ])
-def test_paged_decode_kernel_matches_plain(cuda, mode, B, nKV, G, hd, page, pps, kw):
-    q, k, v, table, lengths = _paged_inputs(B, nKV, G, hd, page, pps, mode, B * hd + page, cuda)
+def test_paged_decode_kernel_matches_plain(cuda, monkeypatch, mode, B, nKV, G, hd, page, pps,
+                                           kw):
+    q, k, v, table, lengths = _paged_inputs(B, nKV, G, hd, page, pps, mode, B * hd + page, cuda,
+                                            kw.get("lengths"))
+    if "n_split" in kw:
+        _fixed_splits(monkeypatch, kw["n_split"])
+    kw = {k_: a for k_, a in kw.items() if k_ not in ("n_split", "lengths")}
     kw = dict(kw, scale=hd ** -0.5)
     if kw.pop("sinks", False):
         kw["sinks"] = torch.randn(nKV * G, generator=torch.Generator().manual_seed(1)).to(cuda)
@@ -478,11 +509,30 @@ def test_paged_decode_kernel_matches_plain(cuda, mode, B, nKV, G, hd, page, pps,
     n0 = fn.launches
     got = fn(q, k, v, table, lengths, **kw)
     want = ref(q, k, v, table, lengths, **kw)
+    again = fn(q, k, v, table, lengths, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == n0 + 1
+    assert fn.launches == n0 + 2
     assert got.shape == want.shape == q.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
+    assert torch.equal(got, again)  # partials joined in a fixed order: bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "q4"])
+def test_paged_decode_kernel_reads_no_device_tensor(cuda, mode):
+    """The wrapper plans its grid from shapes: no call synchronises with the
+    card (no .item(), .cpu() or .tolist() of lengths or table)."""
+    q, k, v, table, lengths = _paged_inputs(8, 8, 4, 128, 64, 32, mode, 5, cuda)
+    fn = pa.paged_flash_decode_q4 if mode == "q4" else pa.paged_flash_decode
+    fn(q, k, v, table, lengths, scale=0.1)  # first call: build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(q, k, v, table, lengths, scale=0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

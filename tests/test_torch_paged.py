@@ -12,6 +12,9 @@ On the CPU the kernels' wrappers run their plain versions; the kernels
 themselves are held to those on the card (tests/test_torch_kernel_cuda.py,
 chip_smoke.py)."""
 
+import functools
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,9 +165,10 @@ def _decode_inputs(rng, lengths, q4, page=32, pps=6, nkv=2, G=4, hd=128):
     return q, kp, vp, table, np.asarray(lengths, np.int32)
 
 
-@pytest.mark.parametrize("q4", [False, True], ids=["bf16_kernel", "q4_kernel"])
-@pytest.mark.parametrize("case", sorted(DECODE_CASES))
-def test_decode_twins_match_jax_kernels(case, q4):
+@functools.lru_cache(maxsize=None)
+def _decode_case(case, q4):
+    """A DECODE_CASES case's inputs (numpy, from a seed), its keyword
+    arguments and the JAX kernel's output in interpret mode."""
     c = DECODE_CASES[case]
     rng = np.random.default_rng(len(case) + 10 * q4)
     q, kp, vp, table, lengths = _decode_inputs(rng, c["lengths"], q4)
@@ -172,17 +176,84 @@ def test_decode_twins_match_jax_kernels(case, q4):
         if c.get("sinks") else None
     kw = dict(scale=1.0 / np.sqrt(q.shape[-1]), window=c.get("window", 0),
               softcap=c.get("softcap", 0.0))
-    jfn, tfn = ((jpa.paged_flash_decode_q4, pa.paged_flash_decode_q4) if q4
-                else (jpa.paged_flash_decode, pa.paged_flash_decode))
+    jfn = jpa.paged_flash_decode_q4 if q4 else jpa.paged_flash_decode
     want = jfn(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
                jnp.asarray(lengths), interpret=True,
                sinks=None if sinks is None else jnp.asarray(sinks), **kw)
+    return (q, kp, vp, table, lengths), sinks, kw, np.asarray(want)
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["bf16_kernel", "q4_kernel"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_twins_match_jax_kernels(case, q4):
+    (q, kp, vp, table, lengths), sinks, kw, want = _decode_case(case, q4)
+    tfn = pa.paged_flash_decode_q4 if q4 else pa.paged_flash_decode
     n0 = tfn.launches
     got = tfn(_t(q), _t(kp), _t(vp), _t(table), _t(lengths),
               sinks=None if sinks is None else _t(sinks), **kw)
     assert tfn.launches == n0  # a CPU tensor runs the plain version
     assert got.dtype == torch.float32 and got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5, atol=3e-5)
+
+
+# 6 pages of 32 per slot: 1 split; 2 and 3 (every split past the first
+# empty for the softcap case's length-0 slot; at 3 the edges 64 and 128
+# fall inside window_sinks' windows (22, 70] and (102, 150]); 6, one page
+# each
+@pytest.mark.parametrize("n_split", [1, 2, 3, 6])
+@pytest.mark.parametrize("q4", [False, True], ids=["bf16_kernel", "q4_kernel"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_split_twins_match_jax_kernels(case, q4, n_split):
+    """The kernel's two passes (partials per page range, joined in split
+    order with the sinks) in plain PyTorch against JAX's kernels."""
+    (q, kp, vp, table, lengths), sinks, kw, want = _decode_case(case, q4)
+    fn = pa.paged_flash_decode_q4_split_reference if q4 else pa.paged_flash_decode_split_reference
+    args = [_t(a) for a in (q, kp, vp, table, lengths)]
+    got = fn(*args, n_split=n_split, sinks=None if sinks is None else _t(sinks), **kw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+    if n_split > 1:  # the first pass really leaves empty splits where the case says
+        kp_t, vp_t, table_t = args[1:4]
+        k_all, v_all = (pa._gather_q4(kp_t, vp_t, table_t, q.shape[-1]) if q4 else
+                        (pa._gather_slot_kv(kp_t, table_t), pa._gather_slot_kv(vp_t, table_t)))
+        per = -(-table.shape[1] // n_split)
+        m, l, acc = pa._split_partials(args[0], k_all, v_all, args[4], kw["scale"],
+                                       kw["window"], kw["softcap"], kp.shape[2], per, n_split)
+        empty = (l == 0).all(-1)  # (B, nKV, n_split)
+        assert bool((m[empty] == -1e30).all()) and bool((acc[empty] == 0).all())
+        own = lengths // (per * kp.shape[2])  # the split holding each slot's query
+        assert not any(bool(empty[b, :, own[b]].any()) for b in range(len(lengths)))
+        if case == "softcap":
+            assert bool(empty[2, :, 1:].all())  # the length-0 slot reads page 0 only
+        if case == "window_sinks" and n_split >= 3:  # a window straddles a split edge
+            assert bool(((~empty).sum(-1) > 1).any())
+
+
+@pytest.mark.parametrize("B,nKV,pps,page,n_sm", [
+    (8, 8, 32, 64, 132),   # Llama-3-8B at B = 8, a full 2048-position table
+    (1, 1, 4, 64, 132), (8, 8, 30, 16, 132), (2, 1, 5, 40, 132), (64, 8, 32, 64, 132),
+    (3, 2, 9, 16, 132), (1, 1, 1, 256, 132), (5, 4, 3, 256, 114), (1, 1, 512, 1, 132),
+    (1, 1, 2048, 16, 132),  # 32768 positions: MAX_SPLITS bounds the grid
+])
+def test_split_plan_covers_every_page(B, nKV, pps, page, n_sm):
+    """The host's split plan: ints in, ints out (no device tensor to
+    read); every page of [0, pps) in exactly one split, none past pps, no
+    split under MIN_SPLIT_POSITIONS positions unless the table is smaller,
+    at most MAX_SPLITS splits, and enough blocks for SPLIT_BLOCKS_PER_SM
+    per SM where pages allow."""
+    assert list(inspect.signature(pa._split_plan).parameters) == ["B", "nKV", "pps", "page",
+                                                                 "n_sm"]
+    n_split, per = pa._split_plan(B, nKV, pps, page, n_sm)
+    assert isinstance(n_split, int) and isinstance(per, int) and n_split >= 1 and per >= 1
+    pages = [p for s in range(n_split) for p in range(s * per, min((s + 1) * per, pps))]
+    assert pages == list(range(pps))
+    assert (n_split - 1) * per < pps <= n_split * per
+    assert per * page >= min(pa.MIN_SPLIT_POSITIONS, pps * page)
+    assert n_split <= pa.MAX_SPLITS
+    want = pa.SPLIT_BLOCKS_PER_SM * n_sm
+    min_per = max(1, -(-pa.MIN_SPLIT_POSITIONS // page), -(-pps // pa.MAX_SPLITS))
+    if per > min_per:  # pages were not the limit: the plan asked for enough blocks
+        assert B * nKV * -(-pps // (per - 1)) > want >= B * nKV * (n_split - 1)
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int4"], ids=["f32_pools", "int4_pools"])

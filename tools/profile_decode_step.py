@@ -15,7 +15,8 @@ reports:
   unprofiled step, and 1 - busy / window of the profiled one (the window
   runs from the first to the last device activity; the profiler slows
   the host);
-- the kernels with the most device time, with launches per step.
+- the kernels with the most device time, with launches per step, and the
+  paged attention kernels' sum (paged engine).
 Needs one CUDA card; fails if the profiler records no device activity.
 """
 
@@ -124,6 +125,12 @@ def main() -> int:
                   flush=True)
             for k, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
                 print(f"    {ms:8.3f} ms  x{n:5.0f}  {k[:110]}", flush=True)
+            paged = {k: v for k, v in kernels.items() if "::paged_" in k}
+            if paged:
+                print(f"    paged attention: {sum(ms for ms, _ in paged.values()):.3f} ms per "
+                      f"step in {sum(n for _, n in paged.values()):.0f} launches "
+                      f"({', '.join(sorted({k.split('<')[0].split('::')[-1] for k in paged}))})",
+                      flush=True)
             torch.cuda.empty_cache()
     return 0
 

@@ -10,22 +10,32 @@ checkout of the repository. Phases, each raising on failure:
    built from gptq_gguf_tpu_torch/ops/csrc/ (one nvcc per source, all at
    once) and their build times printed;
 2. kernel against its plain PyTorch version on the card, at every
-   projection shape of Llama-3-8B (Q4_K, Q6_K lm_head) at M = 8 and 128,
-   plus Q2_K / Q3_K / Q5_K and a ragged d_out: error, kernel / plain /
+   projection shape of Llama-3-8B (Q4_K, Q6_K lm_head) at M = 8 (v2g's
+   CUDA-core tile, the decode tile's threshold raised for these cases)
+   and 128, plus Q2_K / Q3_K / Q5_K and a ragged d_out (the CUDA-core
+   tile too): error, kernel / plain /
    library ms, and the bound at the card's published rates; then v2g's
    tensor-core prefill tiles (csrc/qmatmul_v2_mma.cuh) at the same shapes
    at the threshold M (qmatmul.MMA_MIN_ROWS) and M = 1024, each within
    1e-5 of its largest sum of |terms| with a planted control that must
    fail that limit, timed beside the 8-row CUDA-core tile and bf16
-   torch.matmul;
+   torch.matmul; then v2g's tensor-core decode tile
+   (csrc/qmatmul_decode_mma.cuh) at the same shapes at M = 1, 2, 4 and 8,
+   plus Q2_K / Q3_K / Q5_K and a ragged d_out at M = 5, held the same way
+   (the control: the unrounded weights), beside the CUDA-core tile of the
+   same rows, held to the same limit and timed, with a per-step sum at
+   M = 8;
 3. full-width serving: Llama-3-8B widths, synthetic v2 weights from a seed,
    ContinuousBatchingEngine(num_slots=8, max_len=2048) serving 12 requests;
    checks budgets, token ranges and the kernel's launch count (every
-   prefill projection on the tensor-core tiles, no decode step), and
-   prints decode tok/s and ms/step (plus a steady B=8 block);
+   prefill projection on the tensor-core tiles; every call of a B=8
+   decode step on the tensor-core decode tile, the 1-row prefill heads
+   on the CUDA-core tile: qmatmul.DECODE_MMA_MIN_ROWS), and prints decode
+   tok/s and ms/step (plus a steady B=8 block);
 4. consistency: 2 layers at full width, one prefill plus 4 decode steps
    through the kernel and through the plain version, logits compared (the
-   prefill's 8 projections on the tensor-core tiles);
+   prefill's 8 projections on the tensor-core tiles; the one-row head and
+   decode steps as routed, and again on the decode tile);
 5. GPTQ at full width: the column-block solve kernel against its plain
    version at every Llama-3-8B solve shape (bit-equal); the ``quantize``
    command line on a seeded 2-layer Llama-3-8B-width bf16 checkpoint with
@@ -349,9 +359,27 @@ def step_shapes(params):
 
 
 def phase_kernels(params, rng, device):
+    """v2g's CUDA-core tile (kernel_case) at the five 8B shapes at M = 8 and
+    at the small cases, with the decode tile's threshold raised for them
+    (the route runs that tile at one row and with f32 operands; the
+    decode tile is held in phase_decode_mma_kernels), and its prefill tiles
+    at M = 128."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def core_case(name, x, rql):
+        fn = qmatmul.dequant_matmul_v2g
+        min_rows, qmatmul.DECODE_MMA_MIN_ROWS = qmatmul.DECODE_MMA_MIN_ROWS, qmatmul.MMA_MIN_ROWS
+        d0, m0 = fn.decode_mma_launches, fn.mma_launches
+        try:
+            rec = kernel_case(name, x, rql, flush)
+        finally:
+            qmatmul.DECODE_MMA_MIN_ROWS = min_rows
+        if (fn.decode_mma_launches, fn.mma_launches) != (d0, m0):
+            raise RuntimeError(f"{name} M={x.shape[0]}: not on the CUDA-core tile")
+        return rec
 
     cases = step_shapes(params)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
@@ -360,7 +388,7 @@ def phase_kernels(params, rng, device):
     for M in (8, 128):
         for name, rql in cases:
             x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
-            recs.append(kernel_case(name, x, rql, flush))
+            recs.append(core_case(name, x, rql) if M <= 8 else kernel_case(name, x, rql, flush))
     small = [("Q2_K 1024->768", 768, 1024, T.Q2_K, 8),
              ("Q3_K 1024->768", 768, 1024, T.Q3_K, 8),
              ("Q5_K 1024->768", 768, 1024, T.Q5_K, 8),
@@ -371,7 +399,7 @@ def phase_kernels(params, rng, device):
         x = torch.randn(M, d_in, device=device)
         if "f32x" not in name:
             x = x.to(torch.bfloat16)
-        recs.append(kernel_case(name, x, rql, flush))
+        recs.append(core_case(name, x, rql))
     return recs
 
 
@@ -452,6 +480,122 @@ def phase_mma_kernels(params, variants, device, rng=None, small=()):
     return recs
 
 
+# the decode tile's cases beyond the 8B shapes: name, d_out, d_in, type, M
+# (f32x: x in f32, rounded to bf16 as it is staged; 1000 columns: d_out %
+# 16 != 0, 4-byte copies)
+DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5),
+                ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 5),
+                ("Q5_K 1024->768", 768, 1024, "Q5_K", 5),
+                ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 5))
+DECODE_MS = (1, 2, 4, 8)  # rows of the decode tile's 8B cases
+
+
+def decode_case(name, x, rql, flush):
+    """variant_case for v2g's tensor-core decode tile (bf16 operands, M <=
+    8; at fewer rows than DECODE_MMA_MIN_ROWS, where the route takes the
+    CUDA-core tile, with that threshold lowered for the case): within 1e-5
+    of the largest sum of |terms| of an output, a limit its planted
+    control (the group-dot plain version: the unrounded scale * q) must
+    fail; every launch of the case counted on ``decode_mma_launches`` and
+    none on ``mma_launches``; beside it, the CUDA-core tile of the same
+    rows on the same inputs (qmatmul's internal route with the tensor-core
+    tiles ruled out), held to the same limit and timed."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    fn = qmatmul.dequant_matmul_v2g
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    min_rows = qmatmul.DECODE_MMA_MIN_ROWS  # below it the route's is the CUDA-core tile
+    qmatmul.DECODE_MMA_MIN_ROWS = min(min_rows, x.shape[0])
+    try:
+        rec = variant_case(name, "v2g", "bf16", x, rql, flush)
+    finally:
+        qmatmul.DECODE_MMA_MIN_ROWS = min_rows
+    n = fn.launches - n0
+    if fn.decode_mma_launches - d0 != n or fn.mma_launches != m0 or n == 0:
+        raise RuntimeError(f"decode tile {name} M={x.shape[0]}: {n} launches, "
+                           f"{fn.decode_mma_launches - d0} on the decode tile, "
+                           f"{fn.mma_launches - m0} on the prefill tiles")
+    def core():
+        return qmatmul._launch_v2("qmatmul_v2g", qmatmul._PER_WEIGHT["v2g"][1], x, rql,
+                                  torch.bfloat16, 8)
+
+    y_c, mt = core()
+    y_p = qmatmul.dequant_matmul_v2g_reference(x, rql)
+    torch.cuda.synchronize()
+    rec["core_err"] = (y_c - y_p).abs().max().item()
+    if mt > 8 or not rec["core_err"] <= rec["tol"]:
+        raise RuntimeError(f"CUDA-core tile {name} M={x.shape[0]} (tile {mt}): max|err| "
+                           f"{rec['core_err']:.3e} > tol {rec['tol']:.3e}")
+    del y_c, y_p
+    rec["core_ms"] = cuda_ms(core, 20, flush)
+    log(f"  decode tile {name:>24} M={x.shape[0]}: {rec['ms']:.4f} ms, CUDA-core tile "
+        f"{rec['core_ms']:.4f} ms (err {rec['core_err']:.2e}), library {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); control {rec['control_err']:.2e} "
+        f"> tol {rec['tol']:.2e}")
+    return rec
+
+
+def phase_decode_mma_kernels(params, device, rng):
+    """v2g's tensor-core decode tile at every Llama-3-8B projection shape
+    and the padded Q6_K lm_head at M = 1, 2, 4 and 8 (decode_case), then
+    DECODE_SMALL; prints one B=8 step's sum (4 x 32 projections + the
+    head at M = 8)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
+    recs = []
+    for M in DECODE_MS:
+        for name, rql in step_shapes(params):
+            x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
+            recs.append(decode_case(name, x, rql, flush))
+            del x
+            torch.cuda.empty_cache()
+    for name, d_out, d_in, qt, M in DECODE_SMALL:
+        rql = synthetic_rql(rng, d_out, d_in, T[qt], device)
+        x = torch.randn(M, d_in, device=device)
+        if "f32x" not in name:
+            x = x.to(torch.bfloat16)
+        recs.append(decode_case(name, x, rql, flush))
+    step = decode_step(recs, 8)
+    log(f"decode tile, one B=8 step (4 x {N_LAYERS} projections + lm_head): "
+        f"{step['ms']:.3f} ms, CUDA-core tile {step['core_ms']:.3f} ms, library "
+        f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms ({step['bound_by']})")
+    return recs
+
+
+def decode_step(recs, M):
+    """One Llama-3-8B forward's 129 calls (each projection 32 times, the
+    lm_head once) at M rows from the decode tile's records: kernel,
+    plain, library and CUDA-core tile ms, and the bound."""
+    per = {r["name"].split()[0]: r for r in recs if r["M"] == M and r["name"].split()[0] in STEP}
+
+    def total(key):
+        return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in STEP)
+
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = total("flops") / BF16_FLOP_PER_S * 1e3
+    return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": total("library_ms"), "core_ms": total("core_ms")}
+
+
+def decode_summary(recs, launches):
+    """The summary entry of v2g's tensor-core decode tile: one B=8 decode
+    step (M = 8, 129 calls) from phase 2's records, M = 1, 2 and 4 beside
+    it; ``launches`` from phase 3's run (every call of its B=8 decode
+    steps); its error the largest of all its cases."""
+    return {"name": "qmatmul_v2g_decode_mma", "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_decode_mma.cuh",
+            "replaces": "gptq_gguf_tpu/ops/qmatmul.py:605", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs), **decode_step(recs, 8),
+            "per": f"one B=8 decode step (v2g, bf16 operands): {4 * N_LAYERS + 1} calls",
+            "at_m": {M: decode_step(recs, M) for M in DECODE_MS if M != 8}}
+
+
 def mma_forward(recs, variant, M, shapes):
     """One Llama-3-8B forward's share of ``shapes`` (each projection 32
     times, the lm_head once) at M rows, from ``variant``'s tensor-core
@@ -504,12 +648,14 @@ def matmul_wrappers():
 
 def reset_matmul_counts() -> None:
     """Every dequant-matmul wrapper's launch count to 0 (its tensor-core
-    count too, and the v4 wrapper's counts per JAX body)."""
+    counts too, and the v4 wrapper's counts per JAX body)."""
     fns = matmul_wrappers()
     for fn in fns.values():
         fn.launches = 0
         if hasattr(fn, "mma_launches"):
             fn.mma_launches = 0
+        if hasattr(fn, "decode_mma_launches"):
+            fn.decode_mma_launches = 0
     fns["v4"].body_launches = dict.fromkeys(fns["v4"].body_launches, 0)
     fns["v4"].body_mma_launches = dict.fromkeys(fns["v4"].body_mma_launches, 0)
 
@@ -522,6 +668,34 @@ def mma_counts() -> dict:
     return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
                for v in qmatmul.MMA_VARIANTS + qmatmul.MMA_GROUP_DOT},
             "v4": qmv4.dequant_matmul_v4.mma_launches}
+
+
+def decode_counts() -> dict:
+    """kernel -> launches of its tensor-core decode tile
+    (csrc/qmatmul_decode_mma.cuh: v2g)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    return {"v2g": qmatmul.dequant_matmul_v2g.decode_mma_launches}
+
+
+def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
+    """The decode-tile launches a run of forwards with token ``shapes``
+    (B, S) should count: every call of v2g's kernel with
+    bf16 operands at DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 rows, the
+    projections at B * S rows and the head at B (``per_forward`` names
+    each kernel's calls per forward: 4 per layer, the head, or both)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def on_tile(rows):
+        return qmatmul.DECODE_MMA_MIN_ROWS <= rows < qmatmul.MMA_MIN_ROWS
+
+    out = {}
+    for v in ("v2g",):
+        n = per_forward.get(v, 0)
+        proj, head = n >= 4 * n_layers, n in (1, 4 * n_layers + 1)
+        out[v] = sum(4 * n_layers * (proj and on_tile(b * s)) + (head and on_tile(b))
+                     for b, s in shapes)
+    return out
 
 
 def matmul_counts() -> dict:
@@ -547,13 +721,14 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     from gptq_gguf_tpu_torch.serving import engine, model as qmodel
 
     n_fwd = [0]
-    rows = []
+    rows, shapes = [], []
     decode = {"s": 0.0, "steps": 0}
     fwd0, scan0 = qmodel.forward_cached, engine._decode_steps_scan
 
     def counting_forward(*a, **kw):
         n_fwd[0] += 1
         rows.append(a[2].numel())
+        shapes.append(tuple(a[2].shape))
         return fwd0(*a, **kw)
 
     def timed_scan(*a, **kw):
@@ -579,6 +754,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
         qmodel.forward_cached, engine._decode_steps_scan = fwd0, scan0
     counts = matmul_counts()
     mma = mma_counts()
+    dmma = decode_counts()
     launches = counts[kernel]
     by_uid = {r.uid: r for r in done}
     if len(done) != 12 or set(by_uid) != uids:
@@ -600,6 +776,12 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     if mma != want_mma:
         raise RuntimeError(f"{label} serving: tensor-core launches {mma}, want {want_mma} "
                            f"({n_prefill} forwards of {qmatmul.MMA_MIN_ROWS} rows or more)")
+    want_dmma = want_decode(per_forward, shapes, cfg.num_hidden_layers)
+    if dmma != want_dmma:
+        raise RuntimeError(f"{label} serving: decode-tile launches {dmma}, want {want_dmma}")
+    if any(dmma.values()):
+        log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every v2g call "
+            f"of {qmatmul.DECODE_MMA_MIN_ROWS}-{qmatmul.MMA_MIN_ROWS - 1} rows")
     if kernel in mma:
         log(f"serving ({label}): {mma[kernel]} tensor-core launches = 4 x "
             f"{cfg.num_hidden_layers} per prefill forward x {n_prefill} (rows "
@@ -630,8 +812,8 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     return counts, dict(wall_s=wall, decode_ms_per_step=dt * 1e3, decode_tok_s=8 / dt,
                         serve_decode_ms_per_step=decode["s"] / max(decode["steps"], 1) * 1e3,
                         generated_tok_s=(gen_tokens - 12) / decode["s"], launches=launches,
-                        mma_launches=mma.get(kernel, 0), prefill_forwards=n_prefill,
-                        forwards=n_fwd[0])
+                        mma_launches=mma.get(kernel, 0), decode_mma_launches=dmma,
+                        prefill_forwards=n_prefill, forwards=n_fwd[0])
 
 
 def two_layer_logits(params, cfg, prompt, feed, mm, device):
@@ -673,13 +855,28 @@ def phase_consistency(params, cfg, rng, device):
         return x.float() @ qmatmul.dequantize_runtime_v2(rql).T
 
     feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4,)), device=device)
+    shapes = [(1, 128)] + [(1, 1)] * 4
     reset_matmul_counts()
     lk = run(qmatmul.dequant_matmul_v2g)
-    n_mma = mma_counts()["v2g"]
+    n_mma, dmma = mma_counts()["v2g"], decode_counts()
+    want_dmma = want_decode({"v2g": 4 * 2 + 1}, shapes, 2)
     log(f"consistency: {n_mma} tensor-core launches (the 128-row prefill's 4 x 2 "
-        f"projections; its 1-row head and the 4 decode steps on the decode tiles)")
+        f"projections), decode tile {dmma} (its 1-row head and the 4 decode steps: "
+        f"the decode tile from {qmatmul.DECODE_MMA_MIN_ROWS} rows)")
     if n_mma != 4 * 2:
         raise RuntimeError(f"consistency: {n_mma} tensor-core launches, want 8")
+    if dmma != want_dmma:
+        raise RuntimeError(f"consistency: decode-tile launches {dmma}, want {want_dmma}")
+    # the same with every one-row call on the decode tile too
+    min_rows, qmatmul.DECODE_MMA_MIN_ROWS = qmatmul.DECODE_MMA_MIN_ROWS, 1
+    try:
+        reset_matmul_counts()
+        ld = run(qmatmul.dequant_matmul_v2g)
+        dmma1, want1 = decode_counts(), want_decode({"v2g": 4 * 2 + 1}, shapes, 2)
+    finally:
+        qmatmul.DECODE_MMA_MIN_ROWS = min_rows
+    if dmma1 != want1:
+        raise RuntimeError(f"consistency: decode-tile launches {dmma1} from one row, want {want1}")
     lp = run(qmatmul.dequant_matmul_v2g_reference)
     lc = run(exact_f32)
     # tolerance: kernel and plain differ in f32 sum order only; bf16
@@ -688,13 +885,16 @@ def phase_consistency(params, cfg, rng, device):
     # which drops the bf16 rounding of the matmul's inputs.
     scale = lp.abs().max().item()
     err = (lk - lp).abs().max().item()
+    err_d = (ld - lp).abs().max().item()
     err_c = (lc - lp).abs().max().item()
     tol = 3e-3 * scale
     agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    log(f"consistency (2 layers, prefill + 4 decode): max|dlogit| kernel {err:.3e}, "
+    log(f"consistency (2 layers, prefill + 4 decode): max|dlogit| kernel {err:.3e} "
+        f"(one-row calls on the decode tile: {err_d:.3e}, {dmma1} launches), "
         f"exact-f32 control {err_c:.3e}, tol {tol:.3e} (3e-3 of max|logit| "
         f"{scale:.3e}); argmax agreement {agree:.2f}")
-    if not (torch.isfinite(lk).all() and err <= tol):
+    if not (torch.isfinite(lk).all() and err <= tol and torch.isfinite(ld).all()
+            and err_d <= tol):
         raise RuntimeError("kernel and plain logits disagree")
     if not err_c > tol:
         raise RuntimeError("the limit does not tell the exact-f32 control from the plain version")
@@ -1776,6 +1976,8 @@ def phase_format_ppl(fparams, cfg, device):
         # tensor-core tiles (v2 and v4)
         if mma != {k: want if k == kernel else 0 for k in mma}:
             raise RuntimeError(f"ppl {fmt}: tensor-core launches {mma}, want {want} of {kernel}")
+        if any(decode_counts().values()):
+            raise RuntimeError(f"ppl {fmt}: decode-tile launches {decode_counts()}")
         if not np.isfinite(value):
             raise RuntimeError(f"ppl {fmt}: {value}")
         out[fmt] = dict(ppl=value, nll=float(np.log(value)), s_per_seq=secs,
@@ -2063,21 +2265,25 @@ def phase_variant_consistency(params, cfg, rng, device):
 
     out = {}
     base = two_layer_logits(params, cfg, prompt, feed, qmatmul.dequant_matmul_v2g, device)
-    for variant, gs16, _ in variant_runs(2):
+    for variant, gs16, per_forward in variant_runs(2):
         label = variant + (f" (gs16 {gs16})" if gs16 else "")
         old = knobs(variant, gs16)
         try:
             reset_matmul_counts()
             lk = two_layer_logits(params, cfg, prompt, feed, through(False), device)
-            mma = mma_counts()
+            mma, dmma = mma_counts(), decode_counts()
             lp = two_layer_logits(params, cfg, prompt, feed, through(True), device)
         finally:
             knobs(*old)
         # the 128-row prefill's 4 x 2 projections on the variant's
         # tensor-core tiles, the 1-row head (v2p under v2m, v2g under v2t
-        # and v2s) and the decode steps not
+        # and v2s) and the decode steps not; v2g's calls among those on
+        # its decode tile
         if mma != {k: 8 if k == variant else 0 for k in mma}:
             raise RuntimeError(f"{label}: tensor-core launches {mma}")
+        want_dmma = want_decode(per_forward, [(1, 128)] + [(1, 1)] * 4, 2)
+        if dmma != want_dmma:
+            raise RuntimeError(f"{label}: decode-tile launches {dmma}, want {want_dmma}")
         scale = lp.abs().max().item()
         err = (lk - lp).abs().max().item()
         d_g = (lk - base).abs().max().item()
@@ -2153,6 +2359,8 @@ def phase_variant_ppl(params, cfg, v2g):
             raise RuntimeError(f"ppl {variant}: launches {counts}, want {want} per sequence")
         if any(mma[k] != (want.get(k, 0) * len(data)) for k in mma):  # every call
             raise RuntimeError(f"ppl {variant}: tensor-core launches {mma}")
+        if any(decode_counts().values()):
+            raise RuntimeError(f"ppl {variant}: decode-tile launches {decode_counts()}")
         nll = float(np.log(value))
         out[variant] = dict(ppl=value, nll=nll, s_per_seq=secs, vs_v2g=nll - v2g["nll"],
                             launches={k: counts[k] for k in want},
@@ -2301,10 +2509,14 @@ def run(device) -> dict:
     log(f"weights: {N_LAYERS} layers + lm_head packed in {time.time() - t:.1f} s")
     recs = phase_kernels(params, rng, device)
     mrecs = phase_mma_kernels(params, ("v2g",), device)
+    drecs = phase_decode_mma_kernels(params, device, rng)
     log("== phase 3: full-width serving")
     requests = serve_requests(rng, cfg, 12, *SERVE_MIX)
     counts, serve = phase_serving(params, cfg, requests)
-    launches = counts["v2g"] - serve["mma_launches"]  # the decode tiles' own
+    # the CUDA-core tiles' own: the one-row heads of the prefills
+    launches = counts["v2g"] - serve["mma_launches"] - serve["decode_mma_launches"]["v2g"]
+    if launches == 0:
+        raise RuntimeError("serving: no launch of v2g's CUDA-core tile")
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
     log("== phase 6: paged serving at full width")
@@ -2402,7 +2614,8 @@ def run(device) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": per_step("library_ms"),
-        "per": f"one B=8 decode step: {4 * cfg.num_hidden_layers + 1} calls",
+        "per": f"one B=8 decode step on the CUDA-core tile (the route runs it at one "
+               f"row and with f32 operands): {4 * cfg.num_hidden_layers + 1} calls",
     }, {
         "name": "gptq_solve", "route": "cuda",
         "source": "gptq_gguf_tpu_torch/ops/csrc/gptq_solve.cu",
@@ -2429,7 +2642,8 @@ def run(device) -> dict:
                         - (vserve[run]["mma_launches"] if variant == run else 0),
                         vserve[run]["mma_launches"] if variant == run else 0)
         for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [
-        mma_summary(mrecs, serve["mma_launches"])] + [
+        mma_summary(mrecs, serve["mma_launches"]),
+        decode_summary(drecs, serve["decode_mma_launches"]["v2g"])] + [
         variant_mma_summary(name, source, line, variant, shapes, mrecs + gdrecs,
                             vppl[run]["mma_launches"][variant])
         for name, source, line, variant, shapes, run in VARIANT_MMA_KERNELS],

@@ -24,6 +24,12 @@ __device__ __forceinline__ float small_u2f(uint32_t q) {
   return __uint_as_float(0x4B000000u | q) - 8388608.f;
 }
 
+// 2^23 + byte c of m as a float, by one byte permute (small_u2f less its
+// subtraction)
+__device__ __forceinline__ float byte_magic(uint32_t m, int c) {
+  return __uint_as_float(__byte_perm(m, 0x4B000000u, 0x7650u | c));
+}
+
 // round two f32 to bf16 (nearest even) in one packed conversion
 __device__ __forceinline__ void bf16_round2(float& a, float& b) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);

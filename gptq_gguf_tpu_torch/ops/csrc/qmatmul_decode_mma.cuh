@@ -1,0 +1,257 @@
+// Tensor-core decode mainloop of the dequant-matmul kernels, for Hopper
+// (sm_90a): decode_mma_kernel<F>, 1 to 8 rows of x, generic over a format
+// policy F of the prefill mainloop of qmatmul_mma.cuh (Args, PB, GS,
+// PLANE_BYTES, XSUM, has_off, issue<P>) that also provides rows<P> (a
+// step's f32 scale and offset rows), frags<P> (A fragments in registers,
+// from the same weight helpers as its build<P>) and decode_slice.
+// Instantiated with V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch>
+// (qmatmul_v2_mma.cuh, built by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K,
+// Q5_K and Q6_K weights, bf16 operands.
+//
+// Replaces, at M = 2-8 with bf16 operands (qmatmul.DECODE_MMA_MIN_ROWS up
+// to qmatmul.MMA_MIN_ROWS - 1; it takes every M of 1-8):
+// gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g
+// :605, the default variant, which carries every projection and the
+// lm_head of a decode step (129 calls per Llama-3-8B step at B = 8):
+//   y (M, d_out) f32 = bf16(x) @ bf16(scale * q) - xsum @ off2   (f32 sums)
+// with the weights from the same group_affine / weight helpers as the
+// CUDA-core decode tiles of qmatmul_v2_weight.cuh and the prefill tiles, so
+// bit for bit theirs and the JAX body's; only the order of the f32 sums
+// differs.
+//
+// What bounds it: bytes. One Llama-3-8B B=8 step reads 4,773,330,944 B
+// (planes, x, y): 1.425 ms at 3.35 TB/s, against 1.2e11 flop, which the
+// tensor cores take in 0.12 ms. The CUDA-core tiles it replaces ran every
+// weight through M f32 FMAs beside its dequantization (9.09 ms per step:
+// issue- and latency-bound, 16% of the memory rate) and kept one 32-bit
+// load per thread in flight per weight row.
+//
+// Design:
+//   * roles swapped on mma.sync.m16n8k16 (bf16 -> f32): the weight is A
+//     (16 output columns x 16 k), x is B (its <= 8 rows fill n8 exactly;
+//     k contiguous, by ldmatrix.x4); rows past M are zero-filled and not
+//     stored, columns past d_out are not stored;
+//   * a block is 8 warps on 128 columns (the prefill loop's 64-row steps,
+//     a quarter supergroup, and its staged planes: F::issue, stage_x); warp
+//     w owns 32 columns (w % 4) and half the step's code rows (w / 4); the
+//     two halves' sums meet once, at the end, in a fixed order;
+//   * the A fragments are built in registers straight from the staged codes
+//     (F::frags), no weight tile and no second barrier: a thread's 4
+//     columns are rows g, g + 8 of two m16 tiles, its k slots 2t, 2t + 1,
+//     2t + 8, 2t + 9 four code rows, so one 32-bit shared load gives a row's
+//     4 columns (with 4-bit codes, the low nibbles for one slice and the
+//     high ones for another); a byte permute makes each code a float
+//     (byte_u2f), one multiply by the group scale and one packed
+//     conversion per two weights make the bf16 pair. Staged code rows are
+//     padded by 16 bytes (kDecodePitch), so the four k-slot lanes load from
+//     distinct banks;
+//   * a step's f32 scale and off2 rows ([GPK][128], F::rows) and its x
+//     group sums are made one step ahead, into one of two buffers, so one
+//     barrier per step orders everything;
+//   * bytes in flight: a cp.async ring of up to kDecodeStages stages
+//     (16-byte .cg copies of the codes, the step's sc_q / mn_q rows, the
+//     supergroup's d_sg / dmin_sg row and x); four blocks per SM (64
+//     registers a thread; shared memory caps the ring at 6 stages for
+//     Q4_K (7,360 B a stage, 4,608 of them device-memory planes), 5 for
+//     Q2_K / Q3_K, 4 for Q5_K, 3 for Q6_K). Q4_K keeps up to 4 steps =
+//     18 KB of planes in flight per block, 74 KB per SM, over the ~30 KB
+//     that 3.35 TB/s at ~1 us of latency needs (Little's law);
+//   * split-K: the wrapper splits the supergroups so that the grid holds
+//     at most qmatmul.DECODE_MMA_BLOCKS_PER_SM blocks per SM
+//     (qmatmul._decode_mma_plan); a split's partials go to the scratch
+//     buffer and reduce_splits_kernel adds them in a fixed order
+//     (finish_launch): no float atomics, two calls bit-equal;
+//   * xsum @ off2 is subtracted in f32 on the CUDA cores from the C
+//     fragments after each step's products (the first K half's warps, GPK
+//     FMAs per fragment value): a thread's C fragment holds its columns
+//     c0 + 2i, c0 + 2i + 1 and x rows 2t, 2t + 1;
+//   * an f32 x with bf16 operands is rounded as it is staged and its group
+//     sums are taken on the way (stage_x); a bf16 x's from the staged tile
+//     (sum_x).
+// ptxas (sm_90a, -O3): 64 registers in every instance, no spills but 4
+// bytes of spill stores and 4 of loads in the Q3_K one
+// (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
+
+#pragma once
+
+#include "qmatmul_mma.cuh"
+
+namespace {
+
+constexpr int kDecodeRows = 8;  // x rows per block: the n8 of mma.sync
+// blocks per SM the tile is declared for (64 registers a thread) and its
+// deepest ring (3, 4 or 6 stages moved no timed step by more than 1.5%)
+constexpr int kDecodeBlocks = 4;
+constexpr int kDecodeStages = 6;
+// bytes between staged code rows: 16 past a row of 128 columns, so the four
+// lanes of a fragment's k slots (rows 2 apart) load from distinct banks
+constexpr int kDecodePitch = kMmaBN + 16;
+// shared memory of one block: the SM's 228 KB over the blocks, less the
+// 1 KB the card reserves for each
+constexpr int kDecodeSmem = 233472 / kDecodeBlocks - 1024;
+
+// shared-memory layout of one block: S stages as the prefill loop's
+// (x tile, the format's planes, xsum), two buffers of a step's f32 group
+// rows (scales, then offsets: [GPK][kMmaBN] each), and the second K
+// half's sums [4 column groups][32 lanes][8]
+template <class F, int S>
+struct DecodeTile {
+  using M = MmaTile<F, kDecodeRows, S>;
+  static constexpr int GPK = M::GPK;
+  static constexpr int STAGE = M::STAGE;
+  static constexpr int ROWS = 2 * GPK * kMmaBN;  // floats of one buffer
+  static constexpr int R_OFF = S * STAGE;
+  static constexpr int RED_OFF = R_OFF + 2 * ROWS * 4;
+  static constexpr int BYTES = RED_OFF + 4 * 32 * 8 * 4;
+  static_assert(STAGE % 16 == 0 && R_OFF % 16 == 0 && RED_OFF % 16 == 0, "alignment");
+};
+
+// F's ring depth: kDecodeStages, or as many stages as fit in kDecodeSmem
+template <class F>
+__host__ __device__ constexpr int decode_stages() {
+  using T1 = DecodeTile<F, 1>;
+  constexpr int fit = (kDecodeSmem - (T1::BYTES - T1::STAGE)) / T1::STAGE;
+  return fit < kDecodeStages ? fit : kDecodeStages;
+}
+
+// PROBE is 0 in every kernel of a path; 1 and 2 are the timing probes of
+// qmatmul_v2g_probe.cu (wrong results): 1 takes raw code words as A, no
+// dequantization, 2 also stages no planes
+template <class F, int PROBE = 0>
+__global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
+    decode_mma_kernel(typename F::Args a) {
+  constexpr int S = decode_stages<F>();
+  using T = DecodeTile<F, S>;
+  constexpr int GPK = T::GPK;
+  constexpr int QUARTERS = kQK / kMmaKT;
+  static_assert(S >= 3, "a ring of at least three stages (group rows one step ahead)");
+  static_assert(!F::GROUP_DOT && !F::SPLIT_HALVES, "per-weight builds summed whole only");
+  extern __shared__ __align__(16) char smem[];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cw = warp % 4, kh = warp / 4;          // column group, K half
+  const int c0 = 32 * cw + 4 * (lane / 4), t4 = lane % 4;
+  const int n0 = blockIdx.x * kMmaBN;
+  const int n_sg = a.d_in / kQK;
+  const int sg_begin = blockIdx.z * a.sg_per_split;
+  const int steps = (min(n_sg, sg_begin + a.sg_per_split) - sg_begin) * QUARTERS;
+  const size_t ldo = static_cast<size_t>(a.d_out);
+  const int cols_left = a.d_out - n0;
+  const bool w16 = a.d_out % 16 == 0;
+  auto stage = [&](int t) { return smem + (t % S) * T::STAGE; };
+  auto rows_of = [&](int t) {
+    return reinterpret_cast<float*>(smem + T::R_OFF) + (t % 2) * T::ROWS;
+  };
+
+  // step t's x tile and raw planes into its stage
+  auto issue = [&](int t) {
+    char* st = stage(t);
+    const int sg = sg_begin + t / QUARTERS, q = t % QUARTERS;
+    stage_x<F, kDecodeRows>(a, reinterpret_cast<__nv_bfloat16*>(st + T::M::X_OFF),
+                            reinterpret_cast<float*>(st + T::M::G_OFF), 0, sg, q);
+    if constexpr (PROBE != 2) F::template issue<T::M::P_OFF>(a, st, sg, q, n0, cols_left, w16);
+  };
+
+  // step t's f32 group rows (one step ahead of its products) and, for a
+  // bf16 x, its group sums
+  auto prepare = [&](int t) {
+    char* st = stage(t);
+    float* r = rows_of(t);
+    F::template rows<T::M::P_OFF>(a, st, r, r + GPK * kMmaBN);
+    sum_x<F, kDecodeRows, T::M::X_OFF, T::M::G_OFF>(a, st);
+  };
+
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+
+  // step t's products of this warp's 32 columns and K half
+  auto product = [&](int t) {
+    const char* st = stage(t);
+    const float* r = rows_of(t);
+    uint32_t af[2][2][4];
+    if constexpr (PROBE != 0) {  // four raw code words as A
+      const char* q = st + T::M::P_OFF + c0 + (16 * kh + 2 * t4) * kDecodePitch;
+      const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(q),
+                             *reinterpret_cast<const uint32_t*>(q + kDecodePitch),
+                             *reinterpret_cast<const uint32_t*>(q + 8 * kDecodePitch),
+                             *reinterpret_cast<const uint32_t*>(q + 9 * kDecodePitch)};
+#pragma unroll
+      for (int e = 0; e < 16; ++e) af[e / 8][e / 4 % 2][e % 4] = w[e % 4] + e / 4;
+    } else {
+      F::template frags<T::M::P_OFF>(a, st, r, r + GPK * kMmaBN, c0, kh, t4, af);
+    }
+    uint32_t bx[4];  // x rows 0-7 at the two slices' k: b0, b1 of slice 0, then of slice 1
+    ldsm_x4(bx, reinterpret_cast<const __nv_bfloat16*>(st + T::M::X_OFF) + (lane % 8) * kAStride +
+                    16 * F::decode_slice(kh, lane / 16) + 8 * ((lane / 8) % 2));
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mma_bf16(acc[i], af[j][i], bx[2 * j], bx[2 * j + 1]);
+    if constexpr (F::XSUM) {
+      if (F::has_off(a) && kh == 0) {  // the step's every group, once per column
+        const float* xg = reinterpret_cast<const float*>(st + T::M::G_OFF);
+#pragma unroll
+        for (int lg = 0; lg < GPK; ++lg) {
+          const float x0 = xg[2 * t4 * GPK + lg], x1 = xg[(2 * t4 + 1) * GPK + lg];
+          const float4 o = *reinterpret_cast<const float4*>(r + (GPK + lg) * kMmaBN + c0);
+          const float oc[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            acc[i][0] = fmaf(-x0, oc[2 * i], acc[i][0]);
+            acc[i][1] = fmaf(-x1, oc[2 * i], acc[i][1]);
+            acc[i][2] = fmaf(-x0, oc[2 * i + 1], acc[i][2]);
+            acc[i][3] = fmaf(-x1, oc[2 * i + 1], acc[i][3]);
+          }
+        }
+      }
+    }
+  };
+
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < steps) issue(t);
+    cp_async_commit();
+  }
+  cp_async_wait<S - 2>();  // step 0's copies (this thread's) have landed
+  __syncthreads();
+  prepare(0);
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<S - 3>();  // step t + 1's copies (this thread's) have landed
+    __syncthreads();         // ... everyone's; step t's rows are ready; step t - 1 is consumed
+    if (t + S - 1 < steps) issue(t + S - 1);
+    cp_async_commit();
+    if (t + 1 < steps) prepare(t + 1);
+    product(t);
+  }
+
+  // the second K half's sums meet the first's in a fixed order
+  float* red = reinterpret_cast<float*>(smem + T::RED_OFF) + (cw * 32 + lane) * 8;
+  if (kh == 1) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[e] = acc[e / 4][e % 4];
+  }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e / 4][e % 4] += red[e];
+  // tile i's A rows g, g + 8 are columns c0 + 2i, c0 + 2i + 1; its C
+  // columns the x rows 2 t4, 2 t4 + 1
+  float* o = a.dst + static_cast<size_t>(blockIdx.z) * a.M * ldo;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * t4 + e % 2, n = n0 + c0 + 2 * i + e / 2;
+      if (m < a.M && n < a.d_out) o[static_cast<size_t>(m) * ldo + n] = acc[i][e];
+    }
+}
+
+// format F's decode tile over all of x's rows (M <= 8)
+template <class F, int PROBE = 0>
+void launch_decode_mma_tile(const typename F::Args& a) {
+  constexpr int bytes = DecodeTile<F, decode_stages<F>()>::BYTES;
+  auto kernel = decode_mma_kernel<F, PROBE>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const dim3 grid((a.d_out + kMmaBN - 1) / kMmaBN, 1, a.splits);
+  kernel<<<grid, kMmaThreads, bytes, a.stream>>>(a);
+}
+
+}  // namespace

@@ -12,6 +12,8 @@
 //   GroupDotMma<PB, GS, HAS_MIN> (qmatmul_v2m_mma.cuh): the group-dot
 //       variants v2m (gs 32) and v2p (gs 16), and GroupSumMma<PB, HAS_MIN>
 //       there: v2t (gs 32) (qmatmul_v2m.cu).
+// (v2g's decode tile, qmatmul_decode_mma.cuh, stages its steps with the
+// same policy issue and stage_x / sum_x below.)
 // Each computes, from M >= 9 rows (qmatmul.MMA_MIN_ROWS):
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off ]   (f32 sums)
 // with w the format's bf16 weight from the same helpers its CUDA-core
@@ -117,17 +119,17 @@ constexpr int kMmaStages = 3;         // cp.async ring depth
 constexpr int kAStride = kMmaKT + 8;  // bf16 per staged x row (144 B)
 constexpr int kBStride = kMmaBN + 8;  // bf16 per weight-tile row (272 B)
 
-// shared-memory layout of one block: kMmaStages stages (x tile, the
-// format's planes, xsum), then the bf16 weight tile and the format's
-// scratch (every offset a multiple of 16 bytes)
-template <class F, int BM>
+// shared-memory layout of one block: STAGES stages (x tile, the format's
+// planes, xsum), then the bf16 weight tile and the format's scratch (every
+// offset a multiple of 16 bytes)
+template <class F, int BM, int STAGES = kMmaStages>
 struct MmaTile {
   static constexpr int GPK = kMmaKT / F::GS;  // groups per step
   static constexpr int X_OFF = 0;
   static constexpr int P_OFF = X_OFF + BM * kAStride * 2;  // the format's planes
   static constexpr int G_OFF = P_OFF + F::PLANE_BYTES;     // xsum [BM][GPK] f32
   static constexpr int STAGE = G_OFF + BM * GPK * 4;
-  static constexpr int W_OFF = kMmaStages * STAGE;              // [kMmaKT][kBStride] bf16
+  static constexpr int W_OFF = STAGES * STAGE;                  // [kMmaKT][kBStride] bf16
   static constexpr int O2_OFF = W_OFF + kMmaKT * kBStride * 2;  // the format's scratch
   static constexpr int BYTES = O2_OFF + F::O2_BYTES;
   static_assert(F::PLANE_BYTES % 16 == 0 && STAGE % 16 == 0 && W_OFF % 16 == 0 &&
@@ -212,9 +214,10 @@ __device__ __forceinline__ int k_in_sg(int kk, int q) {
 }
 
 // rows x ROW_BYTES bytes of a plane into shared memory (row r from
-// row_src(r)), zero from byte bytes_left of a row on: 16-byte copies when
-// every row start is 16-byte aligned (w16), 4-byte ones otherwise
-template <int ROW_BYTES = kMmaBN, class RowSrc>
+// row_src(r), to byte r * PITCH), zero from byte bytes_left of a row on:
+// 16-byte copies when every row start is 16-byte aligned (w16), 4-byte ones
+// otherwise
+template <int ROW_BYTES = kMmaBN, int PITCH = ROW_BYTES, class RowSrc>
 __device__ __forceinline__ void stage_rows(char* dst, int rows, int bytes_left, bool w16,
                                            RowSrc row_src) {
   if (w16) {
@@ -223,7 +226,7 @@ __device__ __forceinline__ void stage_rows(char* dst, int rows, int bytes_left, 
       const int r = i / C, j = i % C;
       const uint8_t* src = row_src(r);
       const bool in = 16 * j < bytes_left;
-      cp_async16(dst + r * ROW_BYTES + 16 * j, in ? src + 16 * j : src, in);
+      cp_async16(dst + r * PITCH + 16 * j, in ? src + 16 * j : src, in);
     }
   } else {
     constexpr int C = ROW_BYTES / 4;
@@ -231,7 +234,82 @@ __device__ __forceinline__ void stage_rows(char* dst, int rows, int bytes_left, 
       const int r = i / C, j = i % C;
       const uint8_t* src = row_src(r);
       const bool in = 4 * j < bytes_left;
-      cp_async4(dst + r * ROW_BYTES + 4 * j, in ? src + 4 * j : src, in);
+      cp_async4(dst + r * PITCH + 4 * j, in ? src + 4 * j : src, in);
+    }
+  }
+}
+
+// rows m0.. of step (sg, q)'s x tile into xs (bf16 [BM][kAStride], rows
+// past M zero-filled): a bf16 x by 16-byte cp.async copies; an f32 x
+// loaded through registers, rounded to bf16 as it is stored and (formats
+// with the xsum term) its group sums taken on the way into xg ([BM][GPK])
+template <class F, int BM>
+__device__ __forceinline__ void stage_x(const typename F::Args& a, __nv_bfloat16* xs, float* xg,
+                                        int m0, int sg, int q) {
+  constexpr int GS = F::GS;
+  constexpr int GPK = kMmaKT / GS;
+  static_assert(BM * 8 % 32 == 0, "whole warps stage x (the group sums shuffle)");
+  const float* xf = static_cast<const float*>(a.x);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x);
+  for (int i = threadIdx.x; i < BM * 8; i += kMmaThreads) {
+    const int r = i / 8, c = i % 8, row = m0 + r;
+    const bool in = row < a.M;
+    const size_t src = static_cast<size_t>(in ? row : 0) * a.d_in +
+                       static_cast<size_t>(sg) * kQK + k_in_sg<F::PB>(8 * c, q);
+    __nv_bfloat16* dst = xs + r * kAStride + 8 * c;
+    if (a.x_bf16) {
+      cp_async16(dst, xb + src, in);
+    } else {
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (in) {
+        const float4 lo = __ldg(reinterpret_cast<const float4*>(xf + src));
+        const float4 hi = __ldg(reinterpret_cast<const float4*>(xf + src + 4));
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                                                  bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+      if constexpr (F::XSUM) {
+        if (F::has_off(a)) {  // a group's GS / 8 chunks lie in adjacent lanes
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s += v[j];
+#pragma unroll
+          for (int o = 1; o < GS / 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+          if (c % (GS / 8) == 0) xg[r * GPK + 8 * c / GS] = s;
+        }
+      }
+    }
+  }
+}
+
+// the group sums of the bf16 x tile staged at byte X_OFF of st (its own
+// values) into the f32 [BM][GPK] at byte G_OFF, for the xsum term (an f32 x
+// has them from stage_x). The tile's addresses are formed inside the
+// branch: formed before it, they moved ptxas's registers and spills in 22
+// prefill instances of v2g, v3 and v2m (PERF.md).
+template <class F, int BM, int X_OFF, int G_OFF>
+__device__ __forceinline__ void sum_x(const typename F::Args& a, char* st) {
+  constexpr int GS = F::GS;
+  constexpr int GPK = kMmaKT / GS;
+  if constexpr (F::XSUM) {
+    if (F::has_off(a) && a.x_bf16) {
+      const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + X_OFF);
+      float* xg = reinterpret_cast<float*>(st + G_OFF);
+      for (int i = threadIdx.x; i < BM * GPK; i += kMmaThreads) {
+        const int r = i / GPK, lg = i % GPK;
+        const uint4* p = reinterpret_cast<const uint4*>(xs + r * kAStride + lg * GS);
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < GS / 8; ++j) {
+          const uint4 u = p[j];
+          s += __uint_as_float(u.x << 16) + __uint_as_float(u.x & 0xFFFF0000u);
+          s += __uint_as_float(u.y << 16) + __uint_as_float(u.y & 0xFFFF0000u);
+          s += __uint_as_float(u.z << 16) + __uint_as_float(u.z & 0xFFFF0000u);
+          s += __uint_as_float(u.w << 16) + __uint_as_float(u.w & 0xFFFF0000u);
+        }
+        xg[i] = s;
+      }
     }
   }
 }
@@ -258,8 +336,6 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_kernel(typename F::Args a)
   const size_t ldo = static_cast<size_t>(a.d_out);
   const int cols_left = a.d_out - n0;
   const bool w16 = a.d_out % 16 == 0;
-  const float* xf = static_cast<const float*>(a.x);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x);
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + T::W_OFF);
   float* o2s = reinterpret_cast<float*>(smem + T::O2_OFF);
 
@@ -267,38 +343,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_kernel(typename F::Args a)
   auto issue = [&](int t) {
     char* st = smem + (t % kMmaStages) * T::STAGE;
     const int sg = sg_begin + t / QUARTERS, q = t % QUARTERS;
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + T::X_OFF);
-    float* xg = reinterpret_cast<float*>(st + T::G_OFF);
-    for (int i = threadIdx.x; i < BM * 8; i += kMmaThreads) {  // BM * 8 % 256 == 0
-      const int r = i / 8, c = i % 8, row = m0 + r;
-      const bool in = row < a.M;
-      const size_t src = static_cast<size_t>(in ? row : 0) * a.d_in +
-                         static_cast<size_t>(sg) * kQK + k_in_sg<PB>(8 * c, q);
-      __nv_bfloat16* dst = xs + r * kAStride + 8 * c;
-      if (a.x_bf16) {
-        cp_async16(dst, xb + src, in);
-      } else {
-        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (in) {
-          const float4 lo = __ldg(reinterpret_cast<const float4*>(xf + src));
-          const float4 hi = __ldg(reinterpret_cast<const float4*>(xf + src + 4));
-          v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-          v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-        }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
-                                                    bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
-        if constexpr (F::XSUM) {
-          if (F::has_off(a)) {  // a group's GS / 8 chunks lie in adjacent lanes
-            float s = 0.f;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s += v[j];
-#pragma unroll
-            for (int o = 1; o < GS / 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-            if (c % (GS / 8) == 0) xg[r * GPK + 8 * c / GS] = s;
-          }
-        }
-      }
-    }
+    stage_x<F, BM>(a, reinterpret_cast<__nv_bfloat16*>(st + T::X_OFF),
+                   reinterpret_cast<float*>(st + T::G_OFF), m0, sg, q);
     F::template issue<T::P_OFF>(a, st, sg, q, n0, cols_left, w16);
   };
 
@@ -307,26 +353,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_kernel(typename F::Args a)
   auto build = [&](int t) {
     char* st = smem + (t % kMmaStages) * T::STAGE;
     F::template build<T::P_OFF>(a, st, ws, o2s);
-    if constexpr (F::XSUM) {
-      if (F::has_off(a) && a.x_bf16) {  // group sums of the staged bf16 x (its own values)
-        const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st + T::X_OFF);
-        float* xg = reinterpret_cast<float*>(st + T::G_OFF);
-        for (int i = threadIdx.x; i < BM * GPK; i += kMmaThreads) {
-          const int r = i / GPK, lg = i % GPK;
-          const uint4* p = reinterpret_cast<const uint4*>(xs + r * kAStride + lg * GS);
-          float s = 0.f;
-#pragma unroll
-          for (int j = 0; j < GS / 8; ++j) {
-            const uint4 u = p[j];
-            s += __uint_as_float(u.x << 16) + __uint_as_float(u.x & 0xFFFF0000u);
-            s += __uint_as_float(u.y << 16) + __uint_as_float(u.y & 0xFFFF0000u);
-            s += __uint_as_float(u.z << 16) + __uint_as_float(u.z & 0xFFFF0000u);
-            s += __uint_as_float(u.w << 16) + __uint_as_float(u.w & 0xFFFF0000u);
-          }
-          xg[i] = s;
-        }
-      }
-    }
+    sum_x<F, BM, T::X_OFF, T::G_OFF>(a, st);
   };
 
   float acc[MI][NI][4];

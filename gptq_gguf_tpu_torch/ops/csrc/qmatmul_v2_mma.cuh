@@ -1,8 +1,9 @@
-// Tensor-core prefill tiles of the per-weight v2 dequant-matmul kernels, for
-// Hopper (sm_90a): the v2 format's policy for the shared mainloop of
-// qmatmul_mma.cuh. The same function as the CUDA-core template in
-// qmatmul_v2_weight.cuh, for bf16 operands at M >= 9 rows (every call past
-// the decode tiles; qmatmul.MMA_MIN_ROWS):
+// Tensor-core tiles of the per-weight v2 dequant-matmul kernels, for Hopper
+// (sm_90a): the v2 format's policy for the shared prefill mainloop of
+// qmatmul_mma.cuh and the decode mainloop of qmatmul_decode_mma.cuh. The
+// same function as the CUDA-core template in qmatmul_v2_weight.cuh, for
+// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for v2g, at
+// M = 2-8 on the decode tile:
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off2 ]   (f32 sums)
 // with w the build's bf16 weight from the same group_affine / weight
 // functions (so bit for bit the decode kernel's, and the JAX bodies'), and
@@ -14,25 +15,32 @@
 // qmatmul_v2g.cu (v2g, v2s), qmatmul_v2.cu (v2, v2f) and qmatmul_v3.cu (v3,
 // v2h). v2s builds v2g's weights and sums each step's high-nibble products
 // apart before they meet the low-nibble ones (the mainloop's
-// F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). f32
-// operands (TF32 would change the products), M <= 8 (the decode tiles) and
-// weights the wrapper gives one column per thread (vec 1: d_out % 4 != 0
-// or planes not 16-byte aligned; no Llama-3-8B weight is one) stay on the
-// CUDA-core kernel.
+// F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). The
+// decode tile replaces _kernel_v2g :605 at M = 2-8 (launch_decode_mma);
+// the other builds' decode steps, f32 operands (TF32 would change the
+// products) and weights the wrapper gives one column per thread (vec 1:
+// d_out % 4 != 0 or planes not 16-byte aligned; no Llama-3-8B weight is
+// one) stay on the CUDA-core kernel.
 //
 // Per 64-row step it stages the code bytes, the step's sc_q / mn_q rows and
-// the supergroup's d_sg / dmin_sg row; each thread builds 4 columns of 8
-// weight rows (one group's constants), and for v2g / v2s / v3 the step's
-// off2 rows into the block's scratch for the xsum term.
+// the supergroup's d_sg / dmin_sg row (issue). For the prefill tiles each
+// thread builds 4 columns of 8 weight rows (one group's constants) into the
+// bf16 k-major tile, and for v2g / v2s / v3 the step's off2 rows into the
+// block's scratch for the xsum term (build); for the decode tile the step's
+// f32 scale and off2 rows go to shared memory (rows) and each thread
+// builds its A fragments from them in registers (frags).
 
 #pragma once
 
+#include "qmatmul_decode_mma.cuh"
 #include "qmatmul_mma.cuh"
 #include "qmatmul_v2_weight.cuh"
 
 namespace {
 
-template <int BUILD, int PB_, int GS_, bool HAS_MIN>
+// PITCH: bytes from one staged code row to the next (the decode tile pads
+// them; qmatmul_decode_mma.cuh)
+template <int BUILD, int PB_, int GS_, bool HAS_MIN, int PITCH = kMmaBN>
 struct V2Mma {
   using Args = V2Args;
   static constexpr int PB = PB_;
@@ -45,7 +53,7 @@ struct V2Mma {
   static constexpr bool GROUP_SUM = false;
   static constexpr bool SPLIT_HALVES = BUILD == kV2s;
   // plane offsets in a stage
-  static constexpr int SC_OFF = CODE_ROWS * kMmaBN;
+  static constexpr int SC_OFF = CODE_ROWS * PITCH;
   static constexpr int MN_OFF = SC_OFF + GPK * kMmaBN;
   static constexpr int D_OFF = MN_OFF + GPK * kMmaBN;
   static constexpr int DMIN_OFF = D_OFF + kMmaBN * 4;
@@ -65,7 +73,8 @@ struct V2Mma {
                                                int cols_left, bool w16) {
     const size_t ldo = static_cast<size_t>(a.d_out);
     const uint8_t* qsrc = a.qs + (static_cast<size_t>(sg) * (kQK / PB) + CODE_ROWS * q) * ldo + n0;
-    stage_rows(st + P, CODE_ROWS, cols_left, w16, [&](int r) { return qsrc + r * ldo; });
+    stage_rows<kMmaBN, PITCH>(st + P, CODE_ROWS, cols_left, w16,
+                              [&](int r) { return qsrc + r * ldo; });
     auto group_row = [&](const uint8_t* plane) {
       return [=](int lg) {
         const int g = sg * GPSG + k_in_sg<PB>(lg * GS, q) / GS;
@@ -116,7 +125,7 @@ struct V2Mma {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = 4 * slice + i;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * kMmaBN + n);
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * PITCH + n);
         float lo[4], hi[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -132,19 +141,85 @@ struct V2Mma {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int r = 8 * slice + i;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * kMmaBN + n);
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * PITCH + n);
         float v[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) v[c] = weight<BUILD, true, HAS_MIN>(f[c], (w >> (8 * c)) & 0xFFu);
         store_w4(ws, r, n, v);
       }
     }
-    if constexpr (XSUM) {
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(st);
-      for (int i = threadIdx.x; i < GPK * kMmaBN; i += kMmaThreads) {  // [lg][col]
-        const int col = i % kMmaBN;
-        o2s[i] = HAS_MIN ? dmn[col] * static_cast<float>(b[P + MN_OFF + i])
-                         : dsg[col] * scale_code<true>(b[P + SC_OFF + i], 0) * a.shift;
+    if constexpr (XSUM) rows<P, false, true>(a, st, nullptr, o2s);
+  }
+
+  // the step's f32 group rows [GPK][kMmaBN]: the scales into sc (SC) and
+  // the offsets off2 into o2 (O2), as build forms them
+  template <int P, bool SC = true, bool O2 = true>
+  __device__ __forceinline__ static void rows(const Args& a, const char* st, float* sc, float* o2) {
+    const float* dsg = reinterpret_cast<const float*>(st + (P + D_OFF));
+    const float* dmn = reinterpret_cast<const float*>(st + (P + DMIN_OFF));
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(st);
+    for (int i = threadIdx.x; i < GPK * kMmaBN; i += kMmaThreads) {  // [lg][col]
+      const int col = i % kMmaBN;
+      if constexpr (SC) sc[i] = dsg[col] * scale_code<!HAS_MIN>(b[P + SC_OFF + i], 0);
+      if constexpr (O2)
+        o2[i] = HAS_MIN ? dmn[col] * static_cast<float>(b[P + MN_OFF + i])
+                        : dsg[col] * scale_code<true>(b[P + SC_OFF + i], 0) * a.shift;
+    }
+  }
+
+  // the decode tile's k16 slice j (0, 1) of K half kh (0, 1): 4-bit codes
+  // take the low nibbles of code rows 16 kh.. (slice kh) and their high
+  // nibbles (slice 2 + kh), byte codes the rows 32 kh.. (slices 2 kh, 2 kh + 1)
+  __device__ __forceinline__ static int decode_slice(int kh, int j) {
+    return PB == 2 ? kh + 2 * j : 2 * kh + j;
+  }
+
+  // the decode tile's bf16 A fragments (qmatmul_decode_mma.cuh): two m16
+  // tiles by the two k16 slices of K half kh, built from the staged codes
+  // straight into registers. The thread's columns c0..c0 + 3 are rows g,
+  // g + 8 of tile 0 and of tile 1; its k slots 2t, 2t + 1, 2t + 8, 2t + 9
+  // of a slice are code rows r0, r0 + 1, r0 + 8, r0 + 9, so one 32-bit
+  // load gives a row's 4 columns (and, with 4-bit codes, both slices).
+  // sc / o2 are the step's group rows (rows<P>), the weights those of
+  // group_affine / weight as in build.
+  template <int P>
+  __device__ __forceinline__ static void frags(const Args& a, const char* st, const float* sc,
+                                               const float* o2, int c0, int kh, int t,
+                                               uint32_t (&af)[2][2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int sl = decode_slice(kh, j);
+      const int lg = 16 * sl / GS;
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
+      const float4 o4 = *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0);
+      const Affine f[4] = {group_affine<BUILD, true, HAS_MIN>(s4.x, o4.x, a.shift),
+                           group_affine<BUILD, true, HAS_MIN>(s4.y, o4.y, a.shift),
+                           group_affine<BUILD, true, HAS_MIN>(s4.z, o4.z, a.shift),
+                           group_affine<BUILD, true, HAS_MIN>(s4.w, o4.w, a.shift)};
+      const int r0 = (PB == 2 ? 16 * kh : 16 * sl) + 2 * t;
+      const char* q = st + P + c0;
+      const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(q + r0 * PITCH),
+                             *reinterpret_cast<const uint32_t*>(q + (r0 + 1) * PITCH),
+                             *reinterpret_cast<const uint32_t*>(q + (r0 + 8) * PITCH),
+                             *reinterpret_cast<const uint32_t*>(q + (r0 + 9) * PITCH)};
+      uint32_t m[4];  // the codes as bytes (4-bit: slice 1 the high nibbles)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) m[k] = PB == 2 ? (w[k] >> (4 * j)) & 0x0F0F0F0Fu : w[k];
+      // v2g / v2s: s * q = fma(s, 2^23 + q, -s 2^23), exact (s * q has at
+      // most 24 significant bits and the FMA rounds once), one operation
+      const float nb[4] = {-f[0].s * 8388608.f, -f[1].s * 8388608.f, -f[2].s * 8388608.f,
+                           -f[3].s * 8388608.f};
+      auto wt = [&](int c, int k) {
+        const float mq = byte_magic(m[k], c);
+        if constexpr (BUILD == kV2g || BUILD == kV2s) return fmaf(f[c].s, mq, nb[c]);
+        else return weight_q<BUILD, true, HAS_MIN>(f[c], mq - 8388608.f);
+      };
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        af[j][i][0] = bf16x2_bits(wt(2 * i, 0), wt(2 * i, 1));
+        af[j][i][1] = bf16x2_bits(wt(2 * i + 1, 0), wt(2 * i + 1, 1));
+        af[j][i][2] = bf16x2_bits(wt(2 * i, 2), wt(2 * i, 3));
+        af[j][i][3] = bf16x2_bits(wt(2 * i + 1, 2), wt(2 * i + 1, 3));
       }
     }
   }
@@ -155,6 +230,14 @@ struct V2Mma {
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_mma(const V2Args& a, int bm) {
   return launch_mma_tiles<V2Mma<BUILD, PB, GS, HAS_MIN>>(a, bm);
+}
+
+// v2g's tensor-core decode tile (qmatmul_decode_mma.cuh), M <= 8 rows
+// (declared in qmatmul_v2_weight.cuh)
+template <int PB, int GS, bool HAS_MIN>
+bool launch_decode_mma(const V2Args& a) {
+  launch_decode_mma_tile<V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch>>(a);
+  return true;
 }
 
 }  // namespace

@@ -58,8 +58,11 @@
 //     partials in a fixed order (no float atomics): token streams stay
 //     reproducible run to run;
 //   * rows per block: up to 8. With bf16 operands every build runs M >= 9
-//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh; f32 operands (a
-//     test mode) and vec 1 weights stay here at any M, in 8-row tiles;
+//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh, and v2g also
+//     M = 2-8 on its tensor-core decode tile (qmatmul_decode_mma.cuh, tile
+//     code kDecodeMmaTile); f32 operands (a test mode) and vec 1 weights
+//     stay here at any M, in 8-row tiles, and so do the other builds'
+//     decode steps and v2g's calls of one row;
 //   * tiles of 8 rows or fewer are declared for 4 blocks per SM, which lets
 //     the compiler keep up to 128 registers a thread: left alone it kept 72
 //     at the 8-row decode tile and ran the Llama-3-8B gate/up and down
@@ -94,14 +97,20 @@ __device__ __forceinline__ Affine group_affine(float scale, float off2, float sh
   else return {scale, 0.f};  // v2g, v2s
 }
 
-// the f32 weight of code q before the final rounding to the operand type
+// the f32 weight of a code, given as its exact float q, before the final
+// rounding to the operand type
 template <int BUILD, bool BF16, bool HAS_MIN>
-__device__ __forceinline__ float weight(const Affine& a, uint32_t code) {
-  const float q = small_u2f(code);
+__device__ __forceinline__ float weight_q(const Affine& a, float q) {
   if constexpr (BUILD == kV2) return HAS_MIN ? a.s * q - a.o : a.s * (q - a.o);
   else if constexpr (BUILD == kV2f) return a.s * q - a.o;
   else if constexpr (BUILD == kV2h) return (BF16 ? bf16_round(a.s * q) : a.s * q) - a.o;
   else return a.s * q;  // v2g, v2s, v3 (its scale already rounded)
+}
+
+// the f32 weight of code q before the final rounding to the operand type
+template <int BUILD, bool BF16, bool HAS_MIN>
+__device__ __forceinline__ float weight(const Affine& a, uint32_t code) {
+  return weight_q<BUILD, BF16, HAS_MIN>(a, small_u2f(code));
 }
 
 template <int BUILD, bool BF16, int PB, int GS, bool HAS_MIN, int MT, int VEC>
@@ -296,9 +305,17 @@ void launch(const V2Args& a) {
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_mma(const V2Args& a, int bm);
 
+// the tile code of v2g's tensor-core decode tile (qmatmul_decode_mma.cuh:
+// M <= 8, bf16 operands), which no row tile uses; launched by
+// launch_decode_mma, defined in qmatmul_v2_mma.cuh
+constexpr int kDecodeMmaTile = 16;
+template <int PB, int GS, bool HAS_MIN>
+bool launch_decode_mma(const V2Args& a);
+
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
 // cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
-// with mt rows per block
+// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2g) the
+// tensor-core decode tile
 template <int BUILD, bool BF16, int PB, int GS, bool HAS_MIN>
 bool launch_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -307,6 +324,9 @@ bool launch_tile(const V2Args& a, int mt, int vec) {
       case 2: launch<BUILD, BF16, PB, GS, HAS_MIN, 2, 4>(a); return true;
       case 4: launch<BUILD, BF16, PB, GS, HAS_MIN, 4, 4>(a); return true;
       case 8: launch<BUILD, BF16, PB, GS, HAS_MIN, 8, 4>(a); return true;
+      case kDecodeMmaTile:
+        if constexpr (BF16 && BUILD == kV2g) return launch_decode_mma<PB, GS, HAS_MIN>(a);
+        return false;
       default:
         if constexpr (BF16) return launch_mma<BUILD, PB, GS, HAS_MIN>(a, mt);
         return false;
@@ -365,7 +385,8 @@ bool dispatch_build(const V2Args& a, int build, int mxu_bf16, int per_byte, int 
 // bf16 when mxu_bf16 != 0, else kept in f32. partials is (splits, M, d_out)
 // f32 scratch when splits > 1, ignored otherwise. mt is the rows per block:
 // 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the tensor cores (vec 4 and
-// bf16 operands only). vec 4 needs d_out % 4 == 0 and 16-byte-aligned
+// bf16 operands only); kDecodeMmaTile (16) v2g's tensor-core decode tile
+// over all M <= 8 rows (vec 4, bf16 operands). vec 4 needs d_out % 4 == 0 and 16-byte-aligned
 // planes. Every pointer is a device pointer of contiguous data.
 #define GG_V2_WEIGHT_ENTRY(NAME, ...)                                                      \
   extern "C" int NAME(int build, const void* x, int x_bf16, int mxu_bf16,                 \

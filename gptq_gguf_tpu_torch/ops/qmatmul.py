@@ -30,7 +30,10 @@ and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``
 (CUDA cores) and of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy for the
 tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
-``MMA_MIN_ROWS`` rows or more, prefill and perplexity);
+``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for v2g only,
+of the tensor-core decode mainloop of ``csrc/qmatmul_decode_mma.cuh``:
+bf16 operands at ``DECODE_MMA_MIN_ROWS`` to 8 rows, every B=8 decode
+step);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
 (``csrc/qmatmul_v2m.cu``, and ``csrc/qmatmul_v2m_mma.cuh``, their policies
 for the same mainloop: the raw codes as the B operand, each group's
@@ -495,8 +498,8 @@ def _launch_plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int = 4, mt_max:
 
 # rows from which a bf16-operand call of any v2 variant, and every v4 call
 # (qmv4.dequant_matmul_v4), runs the tensor-core tiles of
-# csrc/qmatmul_mma.cuh instead of the CUDA-core decode tiles on a vec-4
-# weight (timed at M = 9, 16, 32 and 64 for v2g, v4, v2m, v2p, v2t and v2s,
+# csrc/qmatmul_mma.cuh instead of the decode tiles on a vec-4 weight
+# (timed at M = 9, 16, 32 and 64 for v2g, v4, v2m, v2p, v2t and v2s,
 # tools/time_v2_kernels.py: PERF.md)
 MMA_MIN_ROWS = 9
 
@@ -513,28 +516,61 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     return bm, per, -(-n_sg // per)
 
 
+# the tile code of v2g's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh:
+# all of x's 1-8 rows as the n8 of mma.sync), which neither a CUDA-core
+# tile (1, 2, 4, 8 rows) nor a prefill tile (32, 64, 128) uses
+DECODE_MMA_TILE = 16
+# the fewest rows it takes (v2g's bf16-operand calls on a vec-4 weight, up
+# to MMA_MIN_ROWS - 1 rows): the 129 calls of one Llama-3-8B step ran at
+# M = 1 on the CUDA-core tile in 5.37-5.39 ms against the decode tile's
+# 5.76-5.81, at M = 2 in 6.02-6.03 against 5.78, at M = 3 (its 4-row
+# tile) in 7.03-7.06 against 5.79-5.83 (tools/time_v2_kernels.py --m
+# 1,2,3 --core --decode-min-rows 1, H100: PERF.md)
+DECODE_MMA_MIN_ROWS = 2
+# blocks per SM the decode tile's split-K plan fills: two waves of the four
+# resident blocks (csrc/qmatmul_decode_mma.cuh; timed against 4 and 12 with
+# tools/time_v2_kernels.py --decode-blocks: PERF.md)
+DECODE_MMA_BLOCKS_PER_SM = 8
+
+
+def _decode_mma_plan(d_out: int, n_sg: int, n_sm: int):
+    """(DECODE_MMA_TILE, supergroups per split, splits) of the tensor-core
+    decode tile: 128 columns a block, the K axis split over supergroups
+    into as many splits as keep the grid at DECODE_MMA_BLOCKS_PER_SM
+    blocks per SM or fewer."""
+    base = -(-d_out // 128)
+    splits = max(1, min(n_sg, DECODE_MMA_BLOCKS_PER_SM * n_sm // base))
+    per = -(-n_sg // splits)
+    return DECODE_MMA_TILE, per, -(-n_sg // per)
+
+
 def _plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int, mt_max: int = 32,
-          mma: bool = False, bm_max: int = 128):
-    """The launch plan (rows per block, supergroups per split, splits):
-    the tensor-core tiles of up to ``bm_max`` rows when ``mma`` allows them
-    and the weight takes them (vec 4, M >= MMA_MIN_ROWS), else the
+          mma: bool = False, bm_max: int = 128, decode_mma: bool = False):
+    """The launch plan (rows per block or tile code, supergroups per
+    split, splits): the tensor-core tiles of up to ``bm_max`` rows when
+    ``mma`` allows them and the weight takes them (vec 4, M >=
+    MMA_MIN_ROWS); the tensor-core decode tile when ``decode_mma`` allows
+    it (vec 4, DECODE_MMA_MIN_ROWS <= M < MMA_MIN_ROWS); else the
     CUDA-core tiles of up to ``mt_max`` rows."""
     if mma and vec == 4 and M >= MMA_MIN_ROWS:
         return _mma_plan(M, d_out, n_sg, n_sm, bm_max)
+    if decode_mma and vec == 4 and DECODE_MMA_MIN_ROWS <= M < MMA_MIN_ROWS:
+        return _decode_mma_plan(d_out, n_sg, n_sm)
     return _launch_plan(M, d_out, n_sg, n_sm, vec, mt_max)
 
 
 def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False,
-                 bm_max: int = 128):
+                 bm_max: int = 128, decode_mma: bool = False):
     """The shared front of the dequant-matmul kernel wrappers for a CUDA x:
     x as a contiguous f32 or bf16 tensor, the planes validated (and their
     alignment read) on the first call with each weight, the launch plan
     (``_plan``: rows per block up to ``mt_max``, or the tensor-core tiles
-    of up to ``bm_max`` where ``mma`` allows them), the output and the
-    split-K scratch.
+    of up to ``bm_max`` where ``mma`` allows them, or the tensor-core
+    decode tile where ``decode_mma`` does), the output and the split-K
+    scratch.
     Returns (x, vec, mt, per, splits, out, part); vec 4 needs
-    d_out % 4 == 0 and 16-byte-aligned planes, the tensor-core tiles a
-    16-byte-aligned x too (copied when it is not)."""
+    d_out % 4 == 0 and 16-byte-aligned planes, the tensor-core tiles
+    (mt > 8) a 16-byte-aligned x too (copied when it is not)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -549,7 +585,7 @@ def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False,
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     M, d_in = x.shape
     mt, per, splits = _plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index), rql._vec,
-                            mt_max, mma, bm_max)
+                            mt_max, mma, bm_max, decode_mma)
     if mt > 8 and x.data_ptr() % 16:  # the tensor-core tiles: 16-byte copies of x
         x = x.clone()
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)
@@ -566,13 +602,14 @@ _V2_ARGS = ((ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
 
 
 def _launch_v2(lib: str, code: int, x: torch.Tensor, rql: RuntimeQuantLinearV2, mxu_dtype,
-               mt_max: int, mma: bool = False, bm_max: int = 128):
+               mt_max: int, mma: bool = False, bm_max: int = 128, decode_mma: bool = False):
     """Launch build or body ``code`` of ``csrc/<lib>.cu`` on x's current
     stream (the library is built on first use). Returns (y, rows per
-    block); more than 8 rows ran the tensor-core tiles."""
+    block or tile code): DECODE_MMA_TILE ran the tensor-core decode tile,
+    32 rows or more the tensor-core prefill tiles."""
     if mxu_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma, bm_max)
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma, bm_max, decode_mma)
     M, d_in = x.shape
     rc = c_function(lib, f"gg_{lib.split('_', 1)[1]}_matmul", _V2_ARGS)(
         code, x.data_ptr(), int(x.dtype == torch.bfloat16), int(mxu_dtype == torch.bfloat16),
@@ -601,21 +638,26 @@ MMA_BM_MAX = {"v2t": 64}
 
 
 def _v2_route(variant: str, mxu_dtype) -> tuple:
-    """(mt_max, mma, bm_max) of a v2 variant's launch plan: CUDA-core
-    tiles of up to 8 rows; from MMA_MIN_ROWS rows with bf16 operands the
-    tensor-core tiles of up to bm_max rows (f32 operands would need TF32,
-    which rounds them)."""
-    return 8, mxu_dtype == torch.bfloat16, MMA_BM_MAX.get(variant, 128)
+    """(mt_max, mma, bm_max, decode_mma) of a v2 variant's launch plan:
+    CUDA-core tiles of up to 8 rows; from MMA_MIN_ROWS rows with bf16
+    operands the tensor-core tiles of up to bm_max rows (f32 operands
+    would need TF32, which rounds them); below that, for v2g with bf16
+    operands, the tensor-core decode tile."""
+    bf16 = mxu_dtype == torch.bfloat16
+    return 8, bf16, MMA_BM_MAX.get(variant, 128), bf16 and variant == "v2g"
 
 
 def _launch_variant(fn, variant: str, lib: str, code: int, x: torch.Tensor,
                     rql: RuntimeQuantLinearV2, mxu_dtype) -> torch.Tensor:
     """One launch of a v2 variant's kernel (build or body ``code`` of
-    ``csrc/<lib>.cu``), counted on its wrapper ``fn`` (``launches``;
-    ``mma_launches`` too when it ran the tensor-core tiles)."""
+    ``csrc/<lib>.cu``), counted on its wrapper ``fn`` (``launches``; also
+    ``decode_mma_launches`` when it ran the tensor-core decode tile, or
+    ``mma_launches`` when it ran the tensor-core prefill tiles)."""
     out, mt = _launch_v2(lib, code, x, rql, mxu_dtype, *_v2_route(variant, mxu_dtype))
     fn.launches += 1
-    if mt > 8:  # 32, 64 or 128 rows: the tensor-core tiles
+    if mt == DECODE_MMA_TILE:
+        fn.decode_mma_launches += 1
+    elif mt > 8:  # 32, 64 or 128 rows: the tensor-core prefill tiles
         fn.mma_launches += 1
     return out
 
@@ -639,8 +681,10 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     the dispatch's, or f32).
 
     A CUDA ``x`` (f32 or bf16) launches the kernel on the current stream
-    and counts one launch (from ``MMA_MIN_ROWS`` rows with bf16 operands
-    the tensor-core tiles, also counted in ``mma_launches``); a CPU ``x``
+    and counts one launch (with bf16 operands: from ``MMA_MIN_ROWS`` rows
+    the tensor-core tiles, also counted in ``mma_launches``; v2g below
+    that its tensor-core decode tile, also counted in
+    ``decode_mma_launches``); a CPU ``x``
     runs the plain version. The kernel library is built on first use. The planes are validated, and their
     alignment read, on the first call with each weight; later calls check
     only x. Every v2 variant wrapper below has this contract."""
@@ -781,6 +825,7 @@ MMA_VARIANTS = PER_WEIGHT_VARIANTS
 MMA_GROUP_DOT = tuple(_GROUP_DOT)
 for _v in MMA_VARIANTS + MMA_GROUP_DOT:
     globals()[V2_WRAPPERS[_v]].mma_launches = 0
+dequant_matmul_v2g.decode_mma_launches = 0
 
 
 def _effective_v2_variant(variant: str, *, gs: int, per_byte: int) -> str:

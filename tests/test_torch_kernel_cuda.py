@@ -1,6 +1,7 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
-every v2 variant and of v4, GPTQ column-block solve, paged
+every v2 variant and of v4, v2g's tensor-core decode tile, GPTQ
+column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
 
@@ -15,7 +16,7 @@ differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
 sum of |terms| of one output (1e-5 on v4's tensor-core tiles), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-and v2s tensor-core tiles). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles and on v2g's decode tile). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
@@ -777,6 +778,116 @@ def test_group_dot_mma_tiles_take_a_misaligned_x_and_leave_f32_and_vec1_alone(cu
     torch.cuda.synchronize()
     assert [fn.mma_launches for fn, _ in pairs] == counts
     assert qmatmul.dequant_matmul_v2t.launches == n_t + 2
+
+
+# v2g's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh): every M of
+# 1-8, d_out 768, a ragged 1000 (d_out % 16 != 0: 4-byte copies) and 4096;
+# x in f32 (rounded while staged) and bf16; the K axis split over
+# supergroups as the plan does (blocks 4: splits > 1 at these widths) or
+# not at all (blocks 0: one split)
+DECODE_MMA_CASES = [
+    (1, 768, 1024, torch.bfloat16, 4),
+    (1, 4096, 512, torch.float32, 0),
+    (2, 768, 2048, torch.bfloat16, 4),
+    (3, 1000, 1024, torch.float32, 4),
+    (4, 768, 512, torch.bfloat16, 0),
+    (5, 1000, 2048, torch.bfloat16, 4),
+    (6, 768, 1024, torch.float32, 0),
+    (7, 4096, 1024, torch.bfloat16, 4),
+    (8, 768, 2048, torch.bfloat16, 4),
+    (8, 1000, 512, torch.float32, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,dtype,blocks", DECODE_MMA_CASES)
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d_out, d_in, dtype,
+                                       blocks):
+    """v2g with bf16 operands at 1-8 rows on its tensor-core decode tile
+    (one row too, which the route leaves to the CUDA-core tile:
+    DECODE_MMA_MIN_ROWS lowered here) against its plain version, within
+    1e-5 of the largest sum of |terms| of an output (the same bf16
+    products, f32 sums in another order): one launch, counted on
+    ``decode_mma_launches`` and not on ``mma_launches``; a second call is
+    bit-equal (split-K partials reduced in a fixed order)."""
+    monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
+    monkeypatch.setattr(qmatmul, "DECODE_MMA_MIN_ROWS", 1)
+    fn = qmatmul.dequant_matmul_v2g
+    rql = _rql(qtype, d_out, d_in, seed=M + 11 * d_out + int(qtype), device=cuda)
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, dtype)
+    splits = qmatmul._plan(M, d_out, d_in // 256, qmatmul._sm_count(cuda.index or 0), 4,
+                           *qmatmul._v2_route("v2g", torch.bfloat16))[2]
+    assert (splits == 1) == (blocks == 0)
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    got = fn(x, rql)
+    want = qmatmul.dequant_matmul_v2g_reference(x, rql)
+    again = fn(x, rql)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (2, 2, 0)
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-5 * _v2_terms(x, rql, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
+    """The decode tile copies an x that is not 16-byte aligned before it
+    reads it; f32 operands, vec-1 weights, fewer rows than
+    DECODE_MMA_MIN_ROWS and every other variant stay on the CUDA-core
+    tiles at M <= 8 (v2g's decode_mma_launches unchanged, and no variant's
+    mma_launches moves)."""
+    fn = qmatmul.dequant_matmul_v2g
+    rql = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
+    buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(8, 512)
+    assert x.data_ptr() % 16
+    d0 = fn.decode_mma_launches
+    got = fn(x, rql)
+    want = qmatmul.dequant_matmul_v2g_reference(x, rql)
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-5 * _v2_terms(x, rql, torch.bfloat16))
+    q6 = _rql(T.Q6_K, 512, 512, seed=6, device=cuda)
+    mma = {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS + qmatmul.MMA_GROUP_DOT}
+    n0 = {v: f.launches for v, f in V2_WRAPPERS.items()}
+    fn(x, rql, torch.float32)
+    fn(x[:qmatmul.DECODE_MMA_MIN_ROWS - 1], rql)  # below the decode tile's rows
+    fn(x, _rql(T.Q4_K, 333, 512, seed=8, device=cuda))
+    for v in ("v2", "v3", "v2f", "v2h", "v2s", "v2m", "v2t"):
+        V2_WRAPPERS[v](x, rql)
+    qmatmul.dequant_matmul_v2p(x, q6)
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 1
+    assert {v: V2_WRAPPERS[v].mma_launches for v in mma} == mma
+    assert {v: f.launches - n0[v] for v, f in V2_WRAPPERS.items()} == {
+        "v2g": 3, **{v: 1 for v in V2_WRAPPERS if v != "v2g"}}
+
+
+@pytest.mark.cuda
+def test_decode_mma_tile_failures_raise(cuda, monkeypatch):
+    """No fallback: a decode-tile launch the source does not instantiate
+    (v2's build given the decode tile's code, as the route would give it)
+    raises, and so does a build failure of the library, which counts
+    nothing."""
+    rql = _rql(T.Q4_K, 512, 512, seed=5, device=cuda)
+    x = torch.randn(8, 512, device=cuda).to(torch.bfloat16)
+    lib, code = qmatmul._PER_WEIGHT["v2"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qmatmul._launch_v2(lib, code, x, rql, torch.bfloat16,
+                           *qmatmul._v2_route("v2g", torch.bfloat16))
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(qmatmul, "c_function", lambda lib, *a: broken(lib))
+    n0 = qmatmul.dequant_matmul_v2g.decode_mma_launches
+    with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v2g"):
+        qmatmul.dequant_matmul_v2g(x, rql)
+    assert qmatmul.dequant_matmul_v2g.decode_mma_launches == n0
 
 
 @pytest.mark.cuda

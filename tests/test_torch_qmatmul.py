@@ -146,7 +146,7 @@ def test_launch_plan(M, d_out, n_sg, vec, want):
 
 
 @pytest.mark.parametrize("M,d_out,n_sg,vec,want", [
-    (8, 4096, 16, 4, (8, 1, 16)),     # decode, one row below the threshold: as before
+    (8, 4096, 16, 4, (16, 1, 16)),    # decode, one row below the threshold: the decode tile
     (9, 4096, 16, 4, (32, 4, 4)),     # at the threshold: 32-row tensor-core tiles
     (32, 4096, 16, 4, (32, 4, 4)),
     (33, 4096, 16, 4, (64, 4, 4)),
@@ -162,10 +162,94 @@ def test_launch_plan(M, d_out, n_sg, vec, want):
 ])
 def test_v2g_plan(M, d_out, n_sg, vec, want):
     """The default variant with bf16 operands: the tensor-core tiles from
-    MMA_MIN_ROWS rows for vec-4 weights, the decode tiles otherwise."""
+    MMA_MIN_ROWS rows for vec-4 weights, the tensor-core decode tile
+    below, the CUDA-core tiles for vec-1 weights."""
     assert qmatmul.MMA_MIN_ROWS == 9
     route = qmatmul._v2_route("v2g", torch.bfloat16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
+
+
+# the Llama-3-8B shapes of one decode step: (d_out, supergroups of d_in)
+STEP_8B = {"qkv": (6144, 16), "o": (4096, 16), "gateup": (28672, 16), "down": (4096, 56),
+           "lm_head": (128512, 16)}
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("shape,want", [
+    ("qkv", (16, 1, 16)),      # 48 column blocks -> every supergroup its own split
+    ("o", (16, 1, 16)),        # 32 column blocks: the same
+    ("gateup", (16, 4, 4)),    # 224 column blocks -> 4 splits (896 blocks)
+    ("down", (16, 2, 28)),     # 32 column blocks, 56 supergroups -> 28 splits
+    ("lm_head", (16, 16, 1)),  # 1004 column blocks: no split
+])
+def test_decode_mma_plan(shape, want, M):
+    """The tensor-core decode tile's plan at the 8B decode shapes: one
+    tile code for every M of 1-8, the K axis split over supergroups into
+    as many splits as keep the grid at DECODE_MMA_BLOCKS_PER_SM (8) blocks
+    or fewer on each of 132 SMs."""
+    assert qmatmul.DECODE_MMA_BLOCKS_PER_SM == 8
+    d_out, n_sg = STEP_8B[shape]
+    assert qmatmul.DECODE_MMA_TILE not in (1, 2, 4, 8, 32, 64, 128)
+    assert qmatmul._decode_mma_plan(d_out, n_sg, 132) == want
+    route = qmatmul._v2_route("v2g", torch.bfloat16)
+    got = qmatmul._plan(M, d_out, n_sg, 132, 4, *route)
+    if M >= qmatmul.DECODE_MMA_MIN_ROWS:
+        assert got == want
+    else:  # the CUDA-core tile (timed faster at one row)
+        assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
+def test_v2g_bf16_decode_takes_the_decode_tile(M):
+    """v2g with bf16 operands on a vec-4 weight: every M from
+    DECODE_MMA_MIN_ROWS (2) to MMA_MIN_ROWS - 1 takes the decode tile, one
+    row the CUDA-core tile."""
+    assert qmatmul.DECODE_MMA_MIN_ROWS == 2
+    route = qmatmul._v2_route("v2g", torch.bfloat16)
+    assert route[3] is True
+    got = qmatmul._plan(M, 768, 4, 132, 4, *route)
+    if M >= qmatmul.DECODE_MMA_MIN_ROWS:
+        assert got == qmatmul._decode_mma_plan(768, 4, 132)
+    else:
+        assert got == qmatmul._launch_plan(M, 768, 4, 132, 4, 8)
+
+
+@pytest.mark.parametrize("variant,mxu,vec", [
+    ("v2g", torch.float32, 4),   # f32 operands (the test mode)
+    ("v2g", torch.bfloat16, 1),  # a vec-1 weight
+    *[(v, torch.bfloat16, 4) for v in ("v2", "v3", "v2f", "v2h", "v2s", "v2m", "v2t", "v2p")],
+], ids=lambda a: str(a).replace("torch.", ""))
+@pytest.mark.parametrize("M", [1, 8])
+def test_decode_keeps_the_cuda_core_tiles_elsewhere(variant, mxu, vec, M):
+    """f32 operands, vec-1 weights and every other variant keep
+    _launch_plan's CUDA-core tiles at M <= 8."""
+    route = qmatmul._v2_route(variant, mxu)
+    assert route[3] is (variant == "v2g" and mxu == torch.bfloat16)
+    for d_out, n_sg in STEP_8B.values():
+        assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == \
+            qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
+
+
+@pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
+                                        (32, "mma_launches")])
+def test_v2g_wrapper_counts_each_tile(mt, counted, monkeypatch):
+    """A launch counts once on ``launches`` and, by the tile that ran, on
+    ``decode_mma_launches`` or ``mma_launches`` (here the launch is a
+    stand-in on the meta device that reports the tile)."""
+    fn = qmatmul.dequant_matmul_v2g
+    routes = []
+
+    def launch(lib, code, x, rql, mxu_dtype, *route):
+        routes.append((lib, code, route))
+        return torch.empty(x.shape[0], 8, device="meta"), mt
+
+    monkeypatch.setattr(qmatmul, "_launch_v2", launch)
+    before = {k: getattr(fn, k) for k in ("launches", "decode_mma_launches", "mma_launches")}
+    fn(torch.empty(8, 256, device="meta"), None)
+    assert routes == [("qmatmul_v2g", 0, qmatmul._v2_route("v2g", torch.bfloat16))]
+    after = {k: getattr(fn, k) - v for k, v in before.items()}
+    assert after == {"launches": 1, "decode_mma_launches": int(counted == "decode_mma_launches"),
+                     "mma_launches": int(counted == "mma_launches")}
 
 
 @pytest.mark.parametrize("M,d_out,n_sg,want", [
@@ -179,7 +263,7 @@ def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
 
     defaults = {k: p.default for k, p in inspect.signature(qmatmul.launch_setup).parameters.items()
                 if p.default is not inspect.Parameter.empty}
-    assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128}
+    assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128, "decode_mma": False}
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, **defaults)
     assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
 

@@ -16,7 +16,11 @@ reports:
   runs from the first to the last device activity; the profiler slows
   the host);
 - the kernels with the most device time, with launches per step, and the
-  paged attention kernels' sum (paged engine).
+  sums per family: the paged attention kernels (paged engine), v2g's
+  tensor-core decode tile (``decode_mma_kernel``), the CUDA-core decode
+  tiles (``v2_weight_kernel``) and the split-K reduction; beside them
+  the decode tile's launches per step as the wrapper counts them
+  (``dequant_matmul_v2g.decode_mma_launches``, in a tree that has it).
 Needs one CUDA card; fails if the profiler records no device activity.
 """
 
@@ -83,6 +87,28 @@ def profile(fn, steps: int):
                                                by_name.items()}
 
 
+# kernel families summed per step: label, a piece of the kernel's name
+FAMILIES = (("v2g tensor-core decode tile", "decode_mma_kernel"),
+            ("CUDA-core decode tiles (v2)", "v2_weight_kernel"),
+            ("split-K reduction", "reduce_splits_kernel"))
+
+
+def decode_launches(fn):
+    """v2g's tensor-core decode-tile launches in one step (None in a tree
+    without that tile)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    v2g = qmatmul.dequant_matmul_v2g
+    if not hasattr(v2g, "decode_mma_launches"):
+        return None
+    n0 = v2g.decode_mma_launches
+    fn()
+    torch.cuda.synchronize()
+    return v2g.decode_mma_launches - n0
+
+
 def host_ms(fn, steps: int) -> float:
     import torch
 
@@ -131,6 +157,13 @@ def main() -> int:
                       f"step in {sum(n for _, n in paged.values()):.0f} launches "
                       f"({', '.join(sorted({k.split('<')[0].split('::')[-1] for k in paged}))})",
                       flush=True)
+            for label, key in FAMILIES:
+                fam = [v for k, v in kernels.items() if key in k]
+                if fam:
+                    print(f"    {label}: {sum(ms for ms, _ in fam):.3f} ms per step in "
+                          f"{sum(n for _, n in fam):.0f} launches", flush=True)
+            print(f"    v2g decode-tile launches per step (wrapper count): "
+                  f"{decode_launches(fn)}", flush=True)
             torch.cuda.empty_cache()
     return 0
 

@@ -4,6 +4,7 @@ more checkouts of the repository, each in a process of its own.
 
     python3 tools/time_v2_kernels.py [--variant v2g | --format v4|v4-i8|v4-bf16]
                                      [--m 8] [--reps 50] [--bm 32|64|128]
+                                     [--core] [--decode-blocks N] [--flush read]
                                      [ROOT ...]   (default: this checkout)
 
 Roots run in the order given (pass A B B A to compare two trees within one
@@ -29,12 +30,27 @@ bf16, and for v4 the same weight without its offc plane (the share of the
 xsum @ offc term). ``--bm`` sets the largest rows per block of the
 tensor-core tiles (``qmatmul._mma_plan``'s ``bm_max``, in the roots that
 have it; over a variant's own cap, ``qmatmul.MMA_BM_MAX``), to time the
-tile sizes against each other. Prints, per root, the ptxas report
-(registers, spill store and load bytes per kernel) of each kernel library
-it uses (from nvcc's output kept beside a library built earlier), then one
-JSON line per M: ms per call by shape and ms per forward (4 x 32
-projections + the lm_head; at M = 8 the B=8 decode step). Needs one CUDA
-card.
+tile sizes against each other. Each record names the tile each shape ran
+(``tile_per_call``: "decode_mma", v2g's tensor-core decode tile; "mma",
+the tensor-core prefill tiles; "cuda_core"), read from the wrapper's
+counters in the roots that have them. ``--core`` also times, at M <= 8,
+the variant's CUDA-core tile on the same inputs (``qmatmul._launch_v2``
+with the tensor-core tiles ruled out: ``core_ms_per_call``);
+``--decode-blocks`` sets the decode tile's split-K target
+(``qmatmul.DECODE_MMA_BLOCKS_PER_SM``), ``--decode-min-rows`` the fewest
+rows the route gives the decode tile (``qmatmul.DECODE_MMA_MIN_ROWS``), to
+time the tile at rows the route leaves to the CUDA-core tile. ``--probe``
+also times, at the decode tile's rows of v2g, the decode tile's timing probes on the same inputs
+(``ops/csrc/qmatmul_v2g_probe.cu``, wrong results by design: probe 1
+without the dequantization, probe 2 without it and the planes' copies;
+``probe_ms_per_call``), in the roots that have them. ``--flush read``
+evicts the L2 by reading 64 MB instead of writing them (a write leaves
+dirty lines that each call then writes back while it reads). Prints, per
+root, the ptxas report (registers, spill store and load bytes per kernel)
+of each kernel library it uses and of those ``--libs`` names (from nvcc's
+output kept beside a library built earlier), then one JSON line per M: ms
+per call by shape and ms per forward (4 x 32 projections + the lm_head;
+at M = 8 the B=8 decode step). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 SEED = 7
@@ -111,7 +128,18 @@ def ptxas_report(nvcc_log: str) -> dict:
             for n, (_, r) in zip(names, found)}
 
 
-def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) -> None:
+def tile_of(fn, call) -> str:
+    """The tile one ``call`` of wrapper ``fn`` ran, from its counters."""
+    before = [getattr(fn, k, 0) for k in ("decode_mma_launches", "mma_launches")]
+    call()
+    after = [getattr(fn, k, 0) for k in ("decode_mma_launches", "mma_launches")]
+    return ("decode_mma" if after[0] > before[0] else "mma" if after[1] > before[1]
+            else "cuda_core")
+
+
+def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, core: bool,
+             decode_blocks: int, flush_mode: str, probe: bool, extra_libs: list,
+             decode_min_rows: int) -> None:
     sys.path.insert(0, str(Path(root).resolve()))
     from concurrent.futures import ThreadPoolExecutor
 
@@ -139,6 +167,15 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
     if bm:
         plan = qmatmul._mma_plan
         qmatmul._mma_plan = lambda M, d_out, n_sg, n_sm, *_: plan(M, d_out, n_sg, n_sm, bm_max=bm)
+    if decode_blocks:
+        qmatmul.DECODE_MMA_BLOCKS_PER_SM = decode_blocks
+    if decode_min_rows:
+        qmatmul.DECODE_MMA_MIN_ROWS = decode_min_rows
+    probe = (probe and variant == "v2g" and not fmt
+             and (cuda_build.CSRC / "qmatmul_v2g_probe.cu").is_file())
+    if probe:
+        libs.append("qmatmul_v2g_probe")
+    libs += [lib for lib in extra_libs if lib not in libs]
     with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, all at once
         logs = list(ex.map(cuda_build.build, libs))
     for lib, nvcc_log in zip(libs, logs):
@@ -147,6 +184,12 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
         print(json.dumps({"root": root, "library": lib, "ptxas": ptxas_report(nvcc_log)
                           if nvcc_log else "cached"}), flush=True)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    warm = torch.ones((4096, 4096), device=dev, dtype=torch.bfloat16)
+    t_end = time.perf_counter() + 1.0
+    while time.perf_counter() < t_end:  # a second of work first: the first shape ran slow
+        warm @ warm
+        torch.cuda.synchronize()
+    del warm
 
     def device_ms(call):
         for _ in range(3):  # the library's first load and launch stay out
@@ -155,7 +198,10 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
         torch.cuda._sleep(50_000_000)  # the card waits while the host queues every call
         events = []
         for _ in range(reps):
-            flush.zero_()
+            if flush_mode == "read":
+                flush.amax()
+            else:
+                flush.zero_()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             call()
@@ -167,7 +213,8 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
     for M in ms:
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
-        out, lib_ms, bound, bare = {}, {}, {}, {}
+        out, lib_ms, bound, bare, tiles, core_ms = {}, {}, {}, {}, {}, {}
+        probe_ms = {1: {}, 2: {}}
         for name, d_out, d_in, per_byte, gs, has_min, shift, calls in SHAPES:
             if fmt:
                 d_out = V4_HEAD if name == "lm_head" else d_out
@@ -182,7 +229,19 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
                 w = qmatmul.dequantize_runtime_v2(rql)
             w = w.T.contiguous().to(torch.bfloat16)
             x = (torch.randn((M, d_in), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            wrapper = (qmv4.dequant_matmul_v4 if fmt else
+                       getattr(qmatmul, qmatmul.V2_WRAPPERS[kernels[name]]))
+            tiles[name] = tile_of(wrapper, lambda: fn(x, rql))
             out[name] = device_ms(lambda: fn(x, rql))
+            if core and M <= 8 and not fmt and kernels[name] in qmatmul._PER_WEIGHT:
+                lib, code = qmatmul._PER_WEIGHT[kernels[name]]
+                core_ms[name] = device_ms(lambda: qmatmul._launch_v2(
+                    lib, code, x, rql, torch.bfloat16, 8))
+            if probe and qmatmul.DECODE_MMA_MIN_ROWS <= M <= 8:
+                for level, per_call in probe_ms.items():
+                    per_call[name] = device_ms(lambda: qmatmul._launch_v2(
+                        "qmatmul_v2g_probe", level, x, rql, torch.bfloat16,
+                        *qmatmul._v2_route("v2g", torch.bfloat16)))
             if fmt:
                 bare[name] = device_ms(lambda: fn(x, no_off))
                 del no_off
@@ -197,12 +256,21 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int) ->
             return sum(per_call[s[0]] * s[7] for s in SHAPES)
 
         rec = {"root": root, "variant": None if fmt else variant, "format": fmt, "M": M,
-               "bm_max": bm or None, "kernel_per_call": kernels,
+               "bm_max": bm or None, "flush": flush_mode, "kernel_per_call": kernels,
+               "tile_per_call": tiles,
                "ms_per_call": out, "library_ms_per_call": lib_ms,
                "bound_ms_per_call": bound, "ms_per_forward": forward(out),
                "library_ms_per_forward": forward(lib_ms), "bound_ms_per_forward": forward(bound)}
         if fmt:
             rec.update(no_offc_ms_per_call=bare, no_offc_ms_per_forward=forward(bare))
+        if core_ms:
+            rec.update(core_ms_per_call=core_ms, decode_blocks=decode_blocks or None,
+                       decode_min_rows=decode_min_rows or None)
+            if len(core_ms) == len(SHAPES):
+                rec["core_ms_per_forward"] = forward(core_ms)
+        if probe_ms[1]:
+            rec.update(probe_ms_per_call=probe_ms,
+                       probe_ms_per_forward={k: forward(v) for k, v in probe_ms.items()})
         print(json.dumps(rec), flush=True)
 
 
@@ -216,11 +284,25 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--bm", type=int, default=0, choices=[0, 32, 64, 128],
                     help="cap the tensor-core tiles' rows per block (0: the plan's own)")
+    ap.add_argument("--core", action="store_true",
+                    help="at M <= 8 also time the variant's CUDA-core tile")
+    ap.add_argument("--decode-blocks", type=int, default=0,
+                    help="the decode tile's split-K target in blocks per SM (0: the plan's)")
+    ap.add_argument("--decode-min-rows", type=int, default=0,
+                    help="the fewest rows routed to the decode tile (0: the route's own)")
+    ap.add_argument("--probe", action="store_true",
+                    help="at the decode tile's rows of v2g also time its timing probes")
+    ap.add_argument("--libs", default="",
+                    help="comma list of further kernel libraries to build and report ptxas for")
+    ap.add_argument("--flush", default="write", choices=["write", "read"],
+                    help="evict the L2 between calls by writing or by reading 64 MB")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         one_root(args.one, args.variant, args.format, args.reps,
-                 [int(m) for m in args.m.split(",")], args.bm)
+                 [int(m) for m in args.m.split(",")], args.bm, args.core, args.decode_blocks,
+                 args.flush, args.probe, [x for x in args.libs.split(",") if x],
+                 args.decode_min_rows)
         return 0
     import torch
 
@@ -233,7 +315,10 @@ def main() -> int:
     for root in args.roots:
         rc = subprocess.run([sys.executable, __file__, "--one", root, "--variant", args.variant,
                              "--format", args.format, "--m", args.m,
-                             "--reps", str(args.reps), "--bm", str(args.bm)]).returncode
+                             "--reps", str(args.reps), "--bm", str(args.bm),
+                             "--decode-blocks", str(args.decode_blocks), "--flush", args.flush,
+                             "--libs", args.libs, "--decode-min-rows", str(args.decode_min_rows)]
+                            + ["--core"] * args.core + ["--probe"] * args.probe).returncode
         if rc != 0:
             print(f"time_v2_kernels: root {root} failed ({rc})", file=sys.stderr)
             return rc

@@ -64,13 +64,17 @@ checkout of the repository. Phases, each raising on failure:
    to the package's packers first): (a) the v1 kernel and the v4 kernel's
    three bodies (f32 and bf16 scales, i32 and i8 layouts) against their
    plain versions at every 8B projection shape and the unpadded Q6_K
-   lm_head at M = 8, the threshold M, 128, 1024 (v4 from the threshold on
-   its tensor-core tiles, within 1e-5 of the largest sum of |terms| with a
-   planted control, unrounded weights, that must fail that limit), plus
-   Q2_K / Q3_K / Q5_K and ragged d_out; (b) 2-layer logits kernel vs plain
-   per format; (c) phase 3's 12 requests served in v1, v4 and v4 i8 (129
-   launches of that format's kernel per forward, none of another's; v4's
-   every prefill projection on the tensor-core tiles, no decode step)
+   lm_head at M = 8, the threshold M, 128, 1024, v4 also at M = 2 and 4
+   (v4 from the threshold on its tensor-core tiles and from
+   qmatmul.DECODE_MMA_MIN_ROWS to 8 rows on its tensor-core decode tile,
+   csrc/qmatmul_decode_mma.cuh, each within 1e-5 of the largest sum of
+   |terms| with a planted control, unrounded weights, that must fail that
+   limit; beside each decode-tile case the CUDA-core tile of the same rows,
+   held to the same limit and timed), plus Q2_K / Q3_K / Q5_K and ragged
+   d_out; (b) 2-layer logits kernel vs plain per format; (c) phase 3's 12
+   requests served in v1, v4 and v4 i8 (129 launches of that format's
+   kernel per forward, none of another's; v4's every prefill projection on
+   the tensor-core tiles, every call of a decode step on its decode tile)
    beside phase 3's v2 numbers; (d) perplexity through the serving path on
    the 32-layer model in v2, v1 and v4 (2 sequences of 512 tokens, within
    0.05 nats/token of each other; v2's and v4's every call on the
@@ -656,8 +660,8 @@ def reset_matmul_counts() -> None:
             fn.mma_launches = 0
         if hasattr(fn, "decode_mma_launches"):
             fn.decode_mma_launches = 0
-    fns["v4"].body_launches = dict.fromkeys(fns["v4"].body_launches, 0)
-    fns["v4"].body_mma_launches = dict.fromkeys(fns["v4"].body_mma_launches, 0)
+    for key in ("body_launches", "body_mma_launches", "body_decode_mma_launches"):
+        setattr(fns["v4"], key, dict.fromkeys(getattr(fns["v4"], key), 0))
 
 
 def mma_counts() -> dict:
@@ -672,28 +676,28 @@ def mma_counts() -> dict:
 
 def decode_counts() -> dict:
     """kernel -> launches of its tensor-core decode tile
-    (csrc/qmatmul_decode_mma.cuh: v2g)."""
-    from gptq_gguf_tpu_torch.ops import qmatmul
+    (csrc/qmatmul_decode_mma.cuh: v2g and v4)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
-    return {"v2g": qmatmul.dequant_matmul_v2g.decode_mma_launches}
+    return {"v2g": qmatmul.dequant_matmul_v2g.decode_mma_launches,
+            "v4": qmv4.dequant_matmul_v4.decode_mma_launches}
 
 
 def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
     """The decode-tile launches a run of forwards with token ``shapes``
-    (B, S) should count: every call of v2g's kernel with
-    bf16 operands at DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 rows, the
+    (B, S) should count: every call of v2g's kernel with bf16 operands at
+    qmatmul.DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 rows, and of v4's
+    (vec-4 weights: every 8B one) from qmv4.DECODE_MMA_MIN_ROWS, the
     projections at B * S rows and the head at B (``per_forward`` names
     each kernel's calls per forward: 4 per layer, the head, or both)."""
-    from gptq_gguf_tpu_torch.ops import qmatmul
-
-    def on_tile(rows):
-        return qmatmul.DECODE_MMA_MIN_ROWS <= rows < qmatmul.MMA_MIN_ROWS
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     out = {}
-    for v in ("v2g",):
+    for v, lo in (("v2g", qmatmul.DECODE_MMA_MIN_ROWS), ("v4", qmv4.DECODE_MMA_MIN_ROWS)):
+        on_tile = range(lo, qmatmul.MMA_MIN_ROWS)
         n = per_forward.get(v, 0)
         proj, head = n >= 4 * n_layers, n in (1, 4 * n_layers + 1)
-        out[v] = sum(4 * n_layers * (proj and on_tile(b * s)) + (head and on_tile(b))
+        out[v] = sum(4 * n_layers * (proj and b * s in on_tile) + (head and b in on_tile)
                      for b, s in shapes)
     return out
 
@@ -703,6 +707,8 @@ def matmul_counts() -> dict:
     out = {k: fn.launches for k, fn in fns.items()}
     out.update({f"v4_{b}": n for b, n in fns["v4"].body_launches.items()})
     out.update({f"v4_{b}_mma": n for b, n in fns["v4"].body_mma_launches.items()})
+    out.update({f"v4_{b}_decode_mma": n
+                for b, n in fns["v4"].body_decode_mma_launches.items()})
     return out
 
 
@@ -713,11 +719,12 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     per forward; or the launches per forward ``per_forward`` names, by
     wrapper) and no other's; every projection of a prefill (16 rows or
     more) on the tensor-core tiles when ``kernel`` has them, and nothing of
-    a decode step (8 rows) or a head (each sequence's last row); then a
-    steady B=8 decode block."""
+    a decode step (8 rows) or a head (each sequence's last row); every
+    call of a decode step on the tensor-core decode tile (v2g, v4:
+    want_decode); then a steady B=8 decode block."""
     import torch
 
-    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
     from gptq_gguf_tpu_torch.serving import engine, model as qmodel
 
     n_fwd = [0]
@@ -780,8 +787,9 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     if dmma != want_dmma:
         raise RuntimeError(f"{label} serving: decode-tile launches {dmma}, want {want_dmma}")
     if any(dmma.values()):
-        log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every v2g call "
-            f"of {qmatmul.DECODE_MMA_MIN_ROWS}-{qmatmul.MMA_MIN_ROWS - 1} rows")
+        lo = qmv4.DECODE_MMA_MIN_ROWS if kernel == "v4" else qmatmul.DECODE_MMA_MIN_ROWS
+        log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every {kernel} call "
+            f"of {lo}-{qmatmul.MMA_MIN_ROWS - 1} rows")
     if kernel in mma:
         log(f"serving ({label}): {mma[kernel]} tensor-core launches = 4 x "
             f"{cfg.num_hidden_layers} per prefill forward x {n_prefill} (rows "
@@ -1657,6 +1665,7 @@ def phase_paged_http(eng, cfg, rng):
 
 FORMATS = ("v1", "v4", "v4 i8", "v4 bf16")  # 7a: every kernel body, both scale dtypes
 FORMAT_MS = (8, 128, 1024)  # decode, a prefill chunk, a perplexity batch (B * S rows)
+FORMAT_DECODE_MS = (1, 2, 4)  # v4's further decode rows (its tensor-core decode tile)
 PPL_SEQS, PPL_LEN = 2, 512  # 7d: seeded synthetic sequences scored per format
 # one summary entry per TPU kernel body: (name, source, replaces, body, the
 # format whose 7a times and 7c serving launches it reports, the shapes of
@@ -1810,8 +1819,12 @@ def format_case(name, fmt, x, rql, flush):
     timed: kernel, call, plain, library (torch.matmul on the dequantized
     weight: f32 with TF32 off for v1, bf16 for v4) and the bound (bytes at
     3.35 TB/s, operations at f32 67 TFLOP/s for v1, bf16 989 for v4). A v4
-    call from MMA_MIN_ROWS rows on a vec-4 weight must run the tensor-core
-    tiles, held to 1e-5 with a planted control (v4_unrounded)."""
+    call on a vec-4 weight must run the tensor-core tiles from MMA_MIN_ROWS
+    rows and the tensor-core decode tile from qmv4.DECODE_MMA_MIN_ROWS (1)
+    to 8 rows, counted on that tile alone, held to 1e-5 with a planted control
+    (v4_unrounded); beside a decode-tile case, the CUDA-core tile of the
+    same rows (qmv4._launch_v4 with the tensor-core tiles ruled out), held
+    to the same limit and timed."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
@@ -1820,13 +1833,19 @@ def format_case(name, fmt, x, rql, flush):
     v1 = isinstance(rql, qmatmul.RuntimeQuantLinear)
     fn, ref = ((qmatmul.dequant_matmul_v1, qmatmul.dequant_matmul_v1_reference) if v1
                else (qmv4.dequant_matmul_v4, qmv4.dequant_matmul_v4_reference))
-    m0 = getattr(fn, "mma_launches", 0)
+    vec4 = not v1 and rql.d_out % 4 == 0
+    want_mma = vec4 and M >= qmatmul.MMA_MIN_ROWS
+    want_decode = vec4 and qmv4.DECODE_MMA_MIN_ROWS <= M < qmatmul.MMA_MIN_ROWS
+    m0, d0 = getattr(fn, "mma_launches", 0), getattr(fn, "decode_mma_launches", 0)
     y_k = fn(x, rql)
-    mma = getattr(fn, "mma_launches", 0) > m0
-    if mma != (not v1 and M >= qmatmul.MMA_MIN_ROWS and rql.d_out % 4 == 0):
-        raise RuntimeError(f"{fmt} {name} M={M}: tensor-core tiles {mma}")
+    mma = getattr(fn, "mma_launches", 0) - m0
+    decode = getattr(fn, "decode_mma_launches", 0) - d0
+    if (mma, decode) != (int(want_mma), int(want_decode)):
+        raise RuntimeError(f"{fmt} {name} M={M}: tensor-core launches {mma}, decode-tile "
+                           f"launches {decode}; want {int(want_mma)}, {int(want_decode)}")
+    tiled = want_mma or want_decode
     y_p = ref(x, rql)
-    y_c = v4_unrounded(x, rql) if mma else None
+    y_c = v4_unrounded(x, rql) if tiled else None
     torch.cuda.synchronize()
     if not torch.isfinite(y_k).all():
         raise RuntimeError(f"{fmt} {name}: kernel output is not finite")
@@ -1835,14 +1854,28 @@ def format_case(name, fmt, x, rql, flush):
     # 1e-5 on the tensor-core tiles (reordering f32 sums costs ~1e-7 *
     # sqrt(d_in) of it), a limit the unrounded weights must fail
     err = (y_k - y_p).abs().max().item()
-    tol = (1e-5 if mma else 1e-4) * max(format_terms(x, rql), 1e-30)
-    err_c = (y_k - y_c).abs().max().item() if mma else None
-    del y_k, y_p, y_c
+    tol = (1e-5 if tiled else 1e-4) * max(format_terms(x, rql), 1e-30)
+    err_c = (y_k - y_c).abs().max().item() if tiled else None
+    del y_k, y_c
     if not err <= tol:
         raise RuntimeError(f"{fmt} {name} M={M}: kernel vs plain max|err| {err:.3e} > {tol:.3e}")
-    if mma and not err_c > tol:
+    if tiled and not err_c > tol:
         raise RuntimeError(f"{fmt} {name} M={M}: the limit {tol:.3e} does not reject the "
                            f"unrounded weights ({err_c:.3e})")
+    core_err = core_ms = None
+    if want_decode:
+        def core():
+            return qmv4._launch_v4(x, rql, mma=False, decode_mma=False)
+
+        y_core, tile = core()
+        torch.cuda.synchronize()
+        core_err = (y_core - y_p).abs().max().item()
+        del y_core
+        if tile != "cuda_core" or not core_err <= tol:
+            raise RuntimeError(f"{fmt} CUDA-core tile {name} M={M} ({tile}): max|err| "
+                               f"{core_err:.3e} > tol {tol:.3e}")
+        core_ms = cuda_ms(core, 20, flush)
+    del y_p
     if v1:
         w_lib, x_lib = qmatmul.dequantize_runtime(rql).T.contiguous(), x.float()
     else:
@@ -1858,14 +1891,18 @@ def format_case(name, fmt, x, rql, flush):
     flops = 2.0 * M * d_in * rql.d_out
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (F32_FLOP_PER_S if v1 else BF16_FLOP_PER_S) * 1e3
+    tile = "decode_mma" if want_decode else "mma" if want_mma else "cuda_core"
     rec = dict(name=name, fmt=fmt, body="v1" if v1 else qmv4.body_of(rql), M=M, d_in=d_in,
-               d_out=rql.d_out, max_abs_err=err, tol=tol, mma=mma, control_err=err_c,
+               d_out=rql.d_out, max_abs_err=err, tol=tol, tile=tile, mma=bool(want_mma),
+               control_err=err_c, core_err=core_err, core_ms=core_ms,
                ms=ms, call_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, plane_bytes=rql.bytes_read, flops=flops)
-    control = f", control {err_c:.2e}, tensor cores" if mma else ""
-    log(f"  {fmt:>7} {name:>24} M={M:<5} err {err:.3e} (tol {tol:.2e}{control})  kernel {ms:.4f} ms "
+    extra = f", control {err_c:.2e}, {tile}" if tiled else ""
+    if want_decode:
+        extra += f"; CUDA-core tile {core_ms:.4f} ms (err {core_err:.2e})"
+    log(f"  {fmt:>7} {name:>24} M={M:<5} err {err:.3e} (tol {tol:.2e}{extra})  kernel {ms:.4f} ms "
         f"(call {wall_ms:.4f})  plain {plain_ms:.3f} ms  library {library_ms:.4f} ms  bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
@@ -1875,8 +1912,10 @@ def phase_format_kernels(params, rng, device):
     """7a: the v1 kernel and the three v4 bodies (f32 and bf16 scales)
     against their plain versions at every Llama-3-8B projection shape (Q4_K)
     and the unpadded Q6_K lm_head, at M = 8, the threshold (MMA_MIN_ROWS),
-    128 and 1024 (v4 from the threshold on its tensor-core tiles); Q2_K /
-    Q3_K / Q5_K and ragged d_out at small shapes."""
+    128 and 1024, v4 also at M = 1, 2 and 4 (v4 from the threshold on its
+    tensor-core tiles, from qmv4.DECODE_MMA_MIN_ROWS to 8 rows on its
+    tensor-core decode tile, the CUDA-core tile beside it); Q2_K / Q3_K /
+    Q5_K and ragged d_out at small shapes."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
@@ -1899,7 +1938,8 @@ def phase_format_kernels(params, rng, device):
     for fmt in FORMATS:
         for name, v2 in shapes:
             rql = as_format(v2, fmt)
-            for M in sorted({*FORMAT_MS, qmatmul.MMA_MIN_ROWS}):
+            decode_ms = FORMAT_DECODE_MS if fmt.startswith("v4") else ()
+            for M in sorted({*FORMAT_MS, *decode_ms, qmatmul.MMA_MIN_ROWS}):
                 x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
                 recs.append(format_case(name, fmt, x, rql, flush))
             del rql
@@ -2447,33 +2487,65 @@ def variant_mma_summary(name, source, line, variant, shapes, recs, launches):
                             **mma_forward(recs, variant, qmatmul.MMA_MIN_ROWS, shapes)}}
 
 
+def format_step(recs, fmt, shapes, M, ms_key="ms"):
+    """One Llama-3-8B forward's share of ``shapes`` (each projection 32
+    times, the lm_head once) at M rows from 7a's records in ``fmt``: the
+    kernel's ms (``ms_key``: "ms" the route's tile, "core_ms" the
+    CUDA-core tile beside a decode-tile case), plain and library ms, and
+    the bound."""
+    per = {r["name"].split()[0]: r for r in recs if r["fmt"] == fmt and r["M"] == M}
+
+    def total(key):
+        return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
+
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = total("flops") / (F32_FLOP_PER_S if fmt == "v1" else BF16_FLOP_PER_S) * 1e3
+    return {"ms": total(ms_key), "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": total("library_ms"), "bytes": total("bytes")}
+
+
 def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mma_launches):
     """The summary entry of one v1 / v4 kernel body: one B=8 decode step
     (the four projections of every layer and / or the lm_head, at the M=8
-    times of 7a in ``fmt``), and beside it the same calls at M = 1024 (one
-    8B forward's share: v4's on the tensor-core tiles) with their
-    tensor-core launches in 7c / 7d; its error is the largest of all its
-    7a cases."""
-    def at(M):
-        per = {r["name"].split()[0]: r for r in recs if r["fmt"] == fmt and r["M"] == M}
-
-        def total(key):
-            return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
-
-        t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = total("flops") / (F32_FLOP_PER_S if fmt == "v1" else BF16_FLOP_PER_S) * 1e3
-        return {"ms": total("ms"), "plain_ms": total("plain_ms"),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": total("library_ms"), "bytes": total("bytes")}
-
+    times of 7a in ``fmt``) on its CUDA-core tile (v4's route takes its
+    decode tile there: qmatmul_v4_decode_mma_*), and beside it the same
+    calls at M = 1024 (one 8B forward's share: v4's on the tensor-core
+    tiles); ``launches`` the body's in 7c, every tile, and its tensor-core
+    launches in 7c / 7d; its error is the largest of all its 7a cases."""
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
+    step = format_step(recs, fmt, shapes, 8, "ms" if fmt == "v1" else "core_ms")
     return {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches, "mma_launches": mma_launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["body"] == body),
-            **at(8), "per": f"one B=8 decode step ({fmt}): {calls} calls",
-            "at_1024": {**at(1024), "per": f"one Llama-3-8B forward at M = 1024 ({fmt}): "
-                                           f"{calls} calls"}}
+            **step, "tile": "cuda_core",
+            "per": f"one B=8 decode step ({fmt}) on the CUDA-core tile: {calls} calls",
+            "at_1024": {**format_step(recs, fmt, shapes, 1024), "tile": "mma" if body != "v1"
+                        else "cuda_core",
+                        "per": f"one Llama-3-8B forward at M = 1024 ({fmt}): {calls} calls"}}
+
+
+def format_decode_summary(body, fmt, shapes, recs, launches):
+    """The summary entry of v4's tensor-core decode tile for one body: one
+    B=8 decode step at M = 8 from 7a's records in ``fmt`` (the CUDA-core
+    tile's beside it), M = 2 and 4 under "at_m"; ``launches`` the body's
+    decode-tile launches in 7c; its error the largest of its decode-tile
+    cases."""
+    line = {"pb2": 264, "pb2_i8": 305, "pb1": 346}[body]
+    calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
+    return {"name": f"qmatmul_v4_decode_mma_{body}", "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v4.cu",
+            "replaces": f"gptq_gguf_tpu/ops/qmv4.py:{line}", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs
+                               if r["body"] == body and r["tile"] == "decode_mma"),
+            **format_step(recs, fmt, shapes, 8), "tile": "decode_mma",
+            "core_ms": format_step(recs, fmt, shapes, 8, "core_ms")["ms"],
+            "per": f"one B=8 decode step ({fmt}) on the tensor-core decode tile "
+                   f"(csrc/qmatmul_decode_mma.cuh): {calls} calls",
+            "at_m": {M: {**format_step(recs, fmt, shapes, M),
+                         "core_ms": format_step(recs, fmt, shapes, M, "core_ms")["ms"]}
+                     for M in FORMAT_DECODE_MS}}
 
 
 def paged_summary(name, source_line, krec, launches):
@@ -2545,6 +2617,12 @@ def run(device) -> dict:
             body = "v4_pb2_i8" if fmt == "v4 i8" else "v4_pb2"
             if fcounts[body] != 4 * N_LAYERS * n or fcounts["v4_pb1"] != n:
                 raise RuntimeError(f"{fmt} serving: body launches {fcounts}, {n} forwards")
+            # phase_serving held the decode tile's total to every call of
+            # 2-8 rows; both bodies among them
+            decode = rec["decode_mma_launches"]["v4"]
+            if (fcounts[f"{body}_decode_mma"] + fcounts["v4_pb1_decode_mma"] != decode
+                    or not fcounts[f"{body}_decode_mma"] or not fcounts["v4_pb1_decode_mma"]):
+                raise RuntimeError(f"{fmt} serving: decode-tile launches {fcounts}")
         log(f"serving ({fmt}) beside v2 in this call: {rec['serve_decode_ms_per_step']:.2f} vs "
             f"{serve['serve_decode_ms_per_step']:.2f} ms per decode step, "
             f"{rec['generated_tok_s']:.1f} vs {serve['generated_tok_s']:.1f} generated tok/s; "
@@ -2637,6 +2715,9 @@ def run(device) -> dict:
                         "ppl": fppl[fmt]["counts"].get(f"v4_{body}_mma", 0) if fmt in fppl
                         else None})
         for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
+        format_decode_summary(body, fmt, shapes, frecs,
+                              fserve[fmt]["counts"][f"v4_{body}_decode_mma"])
+        for _, _, _, body, fmt, shapes in V1_V4_BODIES if body != "v1"] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
                         vrecs, vserve[run]["counts"][variant]
                         - (vserve[run]["mma_launches"] if variant == run else 0),

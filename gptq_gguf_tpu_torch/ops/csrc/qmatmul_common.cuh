@@ -14,6 +14,9 @@ namespace {
 constexpr int kQK = 256;       // rows per supergroup
 constexpr int kHalf = 128;     // nibble split: byte k holds rows k and k+128
 constexpr int kThreads = 128;  // threads per block
+// the tile code of the tensor-core decode tile (qmatmul_decode_mma.cuh: M
+// <= 8; qmatmul.DECODE_MMA_TILE), which no row tile uses
+constexpr int kDecodeMmaTile = 16;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

@@ -1,28 +1,34 @@
 // Tensor-core decode mainloop of the dequant-matmul kernels, for Hopper
 // (sm_90a): decode_mma_kernel<F>, 1 to 8 rows of x, generic over a format
 // policy F of the prefill mainloop of qmatmul_mma.cuh (Args, PB, GS,
-// PLANE_BYTES, XSUM, has_off, issue<P>) that also provides rows<P> (a
-// step's f32 scale and offset rows), frags<P> (A fragments in registers,
-// from the same weight helpers as its build<P>) and decode_slice.
-// Instantiated with V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch>
-// (qmatmul_v2_mma.cuh, built by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K,
-// Q5_K and Q6_K weights, bf16 operands.
+// PLANE_BYTES, XSUM, has_off, issue<P>, offsets<P>) that also provides
+// rows<P> (a step's f32 group rows) and frags<P> (A fragments in
+// registers, from the same weight helpers as its build<P>, laid out by
+// decode_frags below). Instantiated with:
+//   V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch> (qmatmul_v2_mma.cuh, built
+//       by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K, Q5_K and Q6_K weights, bf16
+//       operands;
+//   V4Mma<PB, GS, I8, kDecodePitch> (qmatmul_v4.cu): the v4 bodies pb2,
+//       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x.
 //
-// Replaces, at M = 2-8 with bf16 operands (qmatmul.DECODE_MMA_MIN_ROWS up
-// to qmatmul.MMA_MIN_ROWS - 1; it takes every M of 1-8):
-// gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g
-// :605, the default variant, which carries every projection and the
-// lm_head of a decode step (129 calls per Llama-3-8B step at B = 8):
-//   y (M, d_out) f32 = bf16(x) @ bf16(scale * q) - xsum @ off2   (f32 sums)
-// with the weights from the same group_affine / weight helpers as the
-// CUDA-core decode tiles of qmatmul_v2_weight.cuh and the prefill tiles, so
-// bit for bit theirs and the JAX body's; only the order of the f32 sums
-// differs.
+// Replaces (it takes every M of 1-8), at M = 2-8 (qmatmul.
+// DECODE_MMA_MIN_ROWS up to qmatmul.MMA_MIN_ROWS - 1):
+// gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g :605 (bf16 operands), the
+// default variant, which carries every projection and the lm_head of a
+// decode step (129 calls per Llama-3-8B step at B = 8); at M = 1-8
+// (qmv4.DECODE_MMA_MIN_ROWS up): gptq_gguf_tpu/ops/qmv4.py::_kernel_v4_pb2
+// :264, _kernel_v4_pb2_i8 :305 and _kernel_v4_pb1 :346 (128 Q4_K calls and
+// the Q6_K head of a v4 step):
+//   y (M, d_out) f32 = bf16(x) @ w - xsum @ off   (f32 sums)
+// with w the format's bf16 weight from the same helpers as its CUDA-core
+// decode tiles and its prefill tiles, so bit for bit theirs and the JAX
+// bodies'; only the order of the f32 sums differs.
 //
-// What bounds it: bytes. One Llama-3-8B B=8 step reads 4,773,330,944 B
-// (planes, x, y): 1.425 ms at 3.35 TB/s, against 1.2e11 flop, which the
-// tensor cores take in 0.12 ms. The CUDA-core tiles it replaces ran every
-// weight through M f32 FMAs beside its dequantization (9.09 ms per step:
+// What bounds it: bytes. One Llama-3-8B B=8 step reads 4,773,330,944 B in
+// v2 (planes, x, y; 1.425 ms at 3.35 TB/s) and 6,084,337,664 B in v4 with
+// f32 scales (1.816 ms), against 1.2e11 flop, which the tensor cores take
+// in 0.12 ms. The CUDA-core tiles it replaces ran every weight through M
+// f32 FMAs beside its dequantization (9.09 ms per step in v2, 10.55 in v4:
 // issue- and latency-bound, 16% of the memory rate) and kept one 32-bit
 // load per thread in flight per weight row.
 //
@@ -41,19 +47,25 @@
 //     2t + 8, 2t + 9 four code rows, so one 32-bit shared load gives a row's
 //     4 columns (with 4-bit codes, the low nibbles for one slice and the
 //     high ones for another); a byte permute makes each code a float
-//     (byte_u2f), one multiply by the group scale and one packed
-//     conversion per two weights make the bf16 pair. Staged code rows are
+//     (byte_magic), one FMA with the group scale and one packed
+//     conversion per two weights make the bf16 pair (decode_frags lays the
+//     fragments out; the policy gives each weight). Staged code rows are
 //     padded by 16 bytes (kDecodePitch), so the four k-slot lanes load from
 //     distinct banks;
-//   * a step's f32 scale and off2 rows ([GPK][128], F::rows) and its x
+//   * a step's f32 group rows ([GPK][128], F::rows: v2's scale and off2
+//     rows from its byte codes, v4's scales rounded to bf16) and its x
 //     group sums are made one step ahead, into one of two buffers, so one
-//     barrier per step orders everything;
+//     barrier per step orders everything; v4's f32 offc rows are read
+//     where they were staged (F::offsets);
 //   * bytes in flight: a cp.async ring of up to kDecodeStages stages
 //     (16-byte .cg copies of the codes, the step's sc_q / mn_q rows, the
-//     supergroup's d_sg / dmin_sg row and x); four blocks per SM (64
-//     registers a thread; shared memory caps the ring at 6 stages for
-//     Q4_K (7,360 B a stage, 4,608 of them device-memory planes), 5 for
-//     Q2_K / Q3_K, 4 for Q5_K, 3 for Q6_K). Q4_K keeps up to 4 steps =
+//     supergroup's d_sg / dmin_sg row and x; v4: the codes, the step's
+//     scale and offc rows and x); four blocks per SM (64 registers a
+//     thread; shared memory caps the ring at 6 stages for v2's Q4_K
+//     (7,360 B a stage, 4,608 of them device-memory planes), 5 for Q2_K /
+//     Q3_K, 4 for Q5_K, 3 for Q6_K; for v4, 6 for Q4_K (7,872 B), 4 for
+//     Q2_K / Q3_K (9,984 B), 3 for Q5_K (12,480 B) and Q6_K (14,592 B)).
+//     Q4_K keeps up to 4 steps =
 //     18 KB of planes in flight per block, 74 KB per SM, over the ~30 KB
 //     that 3.35 TB/s at ~1 us of latency needs (Little's law);
 //   * split-K: the wrapper splits the supergroups so that the grid holds
@@ -61,14 +73,14 @@
 //     (qmatmul._decode_mma_plan); a split's partials go to the scratch
 //     buffer and reduce_splits_kernel adds them in a fixed order
 //     (finish_launch): no float atomics, two calls bit-equal;
-//   * xsum @ off2 is subtracted in f32 on the CUDA cores from the C
+//   * xsum @ off is subtracted in f32 on the CUDA cores from the C
 //     fragments after each step's products (the first K half's warps, GPK
 //     FMAs per fragment value): a thread's C fragment holds its columns
 //     c0 + 2i, c0 + 2i + 1 and x rows 2t, 2t + 1;
 //   * an f32 x with bf16 operands is rounded as it is staged and its group
 //     sums are taken on the way (stage_x); a bf16 x's from the staged tile
 //     (sum_x).
-// ptxas (sm_90a, -O3): 64 registers in every instance, no spills but 4
+// ptxas (sm_90a, -O3): 64 registers in every v2g instance, no spills but 4
 // bytes of spill stores and 4 of loads in the Q3_K one
 // (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
 
@@ -105,6 +117,51 @@ struct DecodeTile {
   static constexpr int BYTES = RED_OFF + 4 * 32 * 8 * 4;
   static_assert(STAGE % 16 == 0 && R_OFF % 16 == 0 && RED_OFF % 16 == 0, "alignment");
 };
+
+// the decode tile's k16 slice j (0, 1) of K half kh (0, 1): 4-bit codes
+// take the low nibbles of code rows 16 kh.. (slice kh) and their high
+// nibbles (slice 2 + kh), byte codes the rows 32 kh.. (slices 2 kh, 2 kh + 1)
+template <int PB>
+__device__ __forceinline__ int decode_slice(int kh, int j) {
+  return PB == 2 ? kh + 2 * j : 2 * kh + j;
+}
+
+// The decode tile's bf16 A fragments: two m16 tiles by the two k16 slices
+// j of K half kh, built from the staged codes straight into registers. The
+// thread's columns c0..c0 + 3 are rows g, g + 8 of tile 0 and of tile 1;
+// its k slots 2t, 2t + 1, 2t + 8, 2t + 9 of a slice are code rows r0,
+// r0 + 1, r0 + 8, r0 + 9, so one 32-bit load gives a row's 4 columns (and,
+// with 4-bit codes, both slices: slice 1 the high nibbles). q is the
+// thread's first column in the step's first staged code row, PITCH bytes
+// a row. The policy gives the weights: slice(j, sl) once per slice (its
+// group rows into the policy's registers) returns a mask the slice's code
+// bytes are XOR-ed with, and wt(j, c, mq) the f32 weight of column c0 + c
+// from mq = 2^23 + that code byte (byte_magic), before the bf16 rounding.
+template <int PB, int PITCH, class Slice, class Weight>
+__device__ __forceinline__ void decode_frags(const char* q, int kh, int t, Slice slice,
+                                             Weight wt, uint32_t (&af)[2][2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int sl = decode_slice<PB>(kh, j);
+    const uint32_t flip = slice(j, sl);
+    const int r0 = (PB == 2 ? 16 * kh : 16 * sl) + 2 * t;
+    const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(q + r0 * PITCH),
+                           *reinterpret_cast<const uint32_t*>(q + (r0 + 1) * PITCH),
+                           *reinterpret_cast<const uint32_t*>(q + (r0 + 8) * PITCH),
+                           *reinterpret_cast<const uint32_t*>(q + (r0 + 9) * PITCH)};
+    uint32_t m[4];  // the codes as bytes (4-bit: slice 1 the high nibbles)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = (PB == 2 ? (w[k] >> (4 * j)) & 0x0F0F0F0Fu : w[k]) ^ flip;
+    auto v = [&](int c, int k) { return wt(j, c, byte_magic(m[k], c)); };
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      af[j][i][0] = bf16x2_bits(v(2 * i, 0), v(2 * i, 1));
+      af[j][i][1] = bf16x2_bits(v(2 * i + 1, 0), v(2 * i + 1, 1));
+      af[j][i][2] = bf16x2_bits(v(2 * i, 2), v(2 * i, 3));
+      af[j][i][3] = bf16x2_bits(v(2 * i + 1, 2), v(2 * i + 1, 3));
+    }
+  }
+}
 
 // F's ring depth: kDecodeStages, or as many stages as fit in kDecodeSmem
 template <class F>
@@ -181,7 +238,7 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
     }
     uint32_t bx[4];  // x rows 0-7 at the two slices' k: b0, b1 of slice 0, then of slice 1
     ldsm_x4(bx, reinterpret_cast<const __nv_bfloat16*>(st + T::M::X_OFF) + (lane % 8) * kAStride +
-                    16 * F::decode_slice(kh, lane / 16) + 8 * ((lane / 8) % 2));
+                    16 * decode_slice<F::PB>(kh, lane / 16) + 8 * ((lane / 8) % 2));
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -189,10 +246,11 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
     if constexpr (F::XSUM) {
       if (F::has_off(a) && kh == 0) {  // the step's every group, once per column
         const float* xg = reinterpret_cast<const float*>(st + T::M::G_OFF);
+        const float* off = F::template offsets<T::M::P_OFF>(st, r + GPK * kMmaBN);
 #pragma unroll
         for (int lg = 0; lg < GPK; ++lg) {
           const float x0 = xg[2 * t4 * GPK + lg], x1 = xg[(2 * t4 + 1) * GPK + lg];
-          const float4 o = *reinterpret_cast<const float4*>(r + (GPK + lg) * kMmaBN + c0);
+          const float4 o = *reinterpret_cast<const float4*>(off + lg * kMmaBN + c0);
           const float oc[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
           for (int i = 0; i < 2; ++i) {

@@ -167,61 +167,35 @@ struct V2Mma {
     }
   }
 
-  // the decode tile's k16 slice j (0, 1) of K half kh (0, 1): 4-bit codes
-  // take the low nibbles of code rows 16 kh.. (slice kh) and their high
-  // nibbles (slice 2 + kh), byte codes the rows 32 kh.. (slices 2 kh, 2 kh + 1)
-  __device__ __forceinline__ static int decode_slice(int kh, int j) {
-    return PB == 2 ? kh + 2 * j : 2 * kh + j;
-  }
-
-  // the decode tile's bf16 A fragments (qmatmul_decode_mma.cuh): two m16
-  // tiles by the two k16 slices of K half kh, built from the staged codes
-  // straight into registers. The thread's columns c0..c0 + 3 are rows g,
-  // g + 8 of tile 0 and of tile 1; its k slots 2t, 2t + 1, 2t + 8, 2t + 9
-  // of a slice are code rows r0, r0 + 1, r0 + 8, r0 + 9, so one 32-bit
-  // load gives a row's 4 columns (and, with 4-bit codes, both slices).
-  // sc / o2 are the step's group rows (rows<P>), the weights those of
-  // group_affine / weight as in build.
+  // the decode tile's bf16 A fragments (decode_frags in
+  // qmatmul_decode_mma.cuh) of K half kh from the staged codes; sc / o2
+  // are the step's group rows (rows<P>), the weights those of group_affine
+  // / weight as in build
   template <int P>
   __device__ __forceinline__ static void frags(const Args& a, const char* st, const float* sc,
                                                const float* o2, int c0, int kh, int t,
                                                uint32_t (&af)[2][2][4]) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int sl = decode_slice(kh, j);
+    Affine f[4];
+    float nb[4];
+    auto slice = [&](int, int sl) {
       const int lg = 16 * sl / GS;
       const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
       const float4 o4 = *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0);
-      const Affine f[4] = {group_affine<BUILD, true, HAS_MIN>(s4.x, o4.x, a.shift),
-                           group_affine<BUILD, true, HAS_MIN>(s4.y, o4.y, a.shift),
-                           group_affine<BUILD, true, HAS_MIN>(s4.z, o4.z, a.shift),
-                           group_affine<BUILD, true, HAS_MIN>(s4.w, o4.w, a.shift)};
-      const int r0 = (PB == 2 ? 16 * kh : 16 * sl) + 2 * t;
-      const char* q = st + P + c0;
-      const uint32_t w[4] = {*reinterpret_cast<const uint32_t*>(q + r0 * PITCH),
-                             *reinterpret_cast<const uint32_t*>(q + (r0 + 1) * PITCH),
-                             *reinterpret_cast<const uint32_t*>(q + (r0 + 8) * PITCH),
-                             *reinterpret_cast<const uint32_t*>(q + (r0 + 9) * PITCH)};
-      uint32_t m[4];  // the codes as bytes (4-bit: slice 1 the high nibbles)
+      f[0] = group_affine<BUILD, true, HAS_MIN>(s4.x, o4.x, a.shift);
+      f[1] = group_affine<BUILD, true, HAS_MIN>(s4.y, o4.y, a.shift);
+      f[2] = group_affine<BUILD, true, HAS_MIN>(s4.z, o4.z, a.shift);
+      f[3] = group_affine<BUILD, true, HAS_MIN>(s4.w, o4.w, a.shift);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) m[k] = PB == 2 ? (w[k] >> (4 * j)) & 0x0F0F0F0Fu : w[k];
-      // v2g / v2s: s * q = fma(s, 2^23 + q, -s 2^23), exact (s * q has at
-      // most 24 significant bits and the FMA rounds once), one operation
-      const float nb[4] = {-f[0].s * 8388608.f, -f[1].s * 8388608.f, -f[2].s * 8388608.f,
-                           -f[3].s * 8388608.f};
-      auto wt = [&](int c, int k) {
-        const float mq = byte_magic(m[k], c);
-        if constexpr (BUILD == kV2g || BUILD == kV2s) return fmaf(f[c].s, mq, nb[c]);
-        else return weight_q<BUILD, true, HAS_MIN>(f[c], mq - 8388608.f);
-      };
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        af[j][i][0] = bf16x2_bits(wt(2 * i, 0), wt(2 * i, 1));
-        af[j][i][1] = bf16x2_bits(wt(2 * i + 1, 0), wt(2 * i + 1, 1));
-        af[j][i][2] = bf16x2_bits(wt(2 * i, 2), wt(2 * i, 3));
-        af[j][i][3] = bf16x2_bits(wt(2 * i + 1, 2), wt(2 * i + 1, 3));
-      }
-    }
+      for (int c = 0; c < 4; ++c) nb[c] = -f[c].s * 8388608.f;
+      return 0u;
+    };
+    // v2g / v2s: s * q = fma(s, 2^23 + q, -s 2^23), exact (s * q has at
+    // most 24 significant bits and the FMA rounds once), one operation
+    auto wt = [&](int, int c, float mq) {
+      if constexpr (BUILD == kV2g || BUILD == kV2s) return fmaf(f[c].s, mq, nb[c]);
+      else return weight_q<BUILD, true, HAS_MIN>(f[c], mq - 8388608.f);
+    };
+    decode_frags<PB, PITCH>(st + P + c0, kh, t, slice, wt, af);
   }
 };
 

@@ -305,10 +305,8 @@ void launch(const V2Args& a) {
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_mma(const V2Args& a, int bm);
 
-// the tile code of v2g's tensor-core decode tile (qmatmul_decode_mma.cuh:
-// M <= 8, bf16 operands), which no row tile uses; launched by
-// launch_decode_mma, defined in qmatmul_v2_mma.cuh
-constexpr int kDecodeMmaTile = 16;
+// v2g's tensor-core decode tile (tile code kDecodeMmaTile), defined in
+// qmatmul_v2_mma.cuh
 template <int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a);
 

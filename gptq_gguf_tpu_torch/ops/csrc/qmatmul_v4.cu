@@ -25,10 +25,23 @@
 // build each weight with the same lo_code / hi_code / byte_code helpers and
 // the same rounding, so their bf16 weights are equal bit for bit.
 //
-// Two paths, chosen by the wrapper's launch plan (qmatmul._plan):
-//   * M <= 8 (decode), and weights given one column per thread at any M
-//     (vec 1: d_out % 4 != 0 or planes not 16-byte aligned): v4_kernel, f32
-//     FMAs on the CUDA cores. Bound by bytes: Q4_K reads 0.75 bytes per
+// Three paths, chosen by the wrapper's launch plan (qmatmul._plan):
+//   * M = 1-8 on vec-4 weights (decode; qmv4.DECODE_MMA_MIN_ROWS to
+//     qmatmul.MMA_MIN_ROWS - 1), f32 or bf16 x: V4Mma again, for the
+//     tensor-core decode mainloop of qmatmul_decode_mma.cuh (the weight as
+//     mma.sync's A operand, x's rows its n8; what bounds it and its design
+//     are written there). Per 64-row step rows<P> writes the step's scales
+//     rounded to bf16 as f32 rows, frags<P> builds each thread's A
+//     fragments from the staged codes in registers, one FMA a weight:
+//     bf16(q * s) = bf16(fma(s, 2^23 + q, -s 2^23)), exact before the
+//     rounding; the "i8" high nibble as (2^23 + (n ^ 8) - (2^23 + 8)) *
+//     16 s, both factors exact, since -16 s (2^23 + 8) is not. The offc
+//     rows are read where they were staged;
+//   * weights given one column per thread at any M (vec 1: d_out % 4 != 0
+//     or planes not 16-byte aligned), and vec-4 weights at M <= 8 where a
+//     caller rules the tensor-core tiles out (qmv4._launch_v4, to time and
+//     check this tile beside the decode tile): v4_kernel, f32 FMAs on the
+//     CUDA cores. Bound by bytes: Q4_K reads 0.75 bytes per
 //     weight with f32 scales (0.6875 with bf16 scales), Q6_K 1.5 (1.375);
 //     each byte feeds at most 2 * M multiply-adds. The structure of
 //     qmatmul_v2_weight.cuh: VEC = 4 adjacent output columns per thread, one
@@ -51,6 +64,7 @@
 //     products are bf16 whatever x is), its group sums taken first.
 
 #include "qmatmul_common.cuh"
+#include "qmatmul_decode_mma.cuh"
 #include "qmatmul_mma.cuh"
 
 namespace {
@@ -280,10 +294,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The v4 format's policy for the tensor-core mainloop (qmatmul_mma.cuh):
-// per 64-row step the code bytes, the step's scale rows (f32 or bf16) and
-// offc rows (f32); each weight bf16(code * bf16(s)), as v4_kernel builds it
-template <int PB_, int GS_, bool I8>
+// The v4 format's policy for the tensor-core mainloops (qmatmul_mma.cuh,
+// and qmatmul_decode_mma.cuh with PITCH kDecodePitch): per 64-row step the
+// code bytes (PITCH bytes from one staged row to the next), the step's
+// scale rows (f32 or bf16) and offc rows (f32); each weight bf16(code *
+// bf16(s)), as v4_kernel builds it
+template <int PB_, int GS_, bool I8, int PITCH = kMmaBN>
 struct V4Mma {
   using Args = ::Args;
   static constexpr int PB = PB_;
@@ -293,7 +309,7 @@ struct V4Mma {
   static constexpr int CODE_ROWS = kMmaKT / PB;
   // plane offsets in a stage: codes, scale [GPK][kMmaBN] (room for f32),
   // offc [GPK][kMmaBN] f32
-  static constexpr int SC_OFF = CODE_ROWS * kMmaBN;
+  static constexpr int SC_OFF = CODE_ROWS * PITCH;
   static constexpr int OFF_OFF = SC_OFF + GPK * kMmaBN * 4;
   static constexpr int PLANE_BYTES = OFF_OFF + GPK * kMmaBN * 4;
   static constexpr int O2_BYTES = 0;  // the offc rows are read where they were staged
@@ -316,7 +332,7 @@ struct V4Mma {
     char* p = st + P;
     const size_t ldo = static_cast<size_t>(a.d_out);
     const uint8_t* qsrc = a.qs + (static_cast<size_t>(sg) * (kQK / PB) + CODE_ROWS * q) * ldo + n0;
-    stage_rows(p, CODE_ROWS, cols_left, w16, [&](int r) { return qsrc + r * ldo; });
+    stage_rows<kMmaBN, PITCH>(p, CODE_ROWS, cols_left, w16, [&](int r) { return qsrc + r * ldo; });
     // row lg of a per-group plane of esize-byte elements
     auto group_row = [&](const void* plane, int esize) {
       return [=](int lg) {
@@ -364,7 +380,7 @@ struct V4Mma {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = 4 * slice + i;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(p + r * kMmaBN + n);
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(p + r * PITCH + n);
         float lo[4], hi[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -380,13 +396,55 @@ struct V4Mma {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int r = 8 * slice + i;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(p + r * kMmaBN + n);
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(p + r * PITCH + n);
         float v[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) v[c] = byte_code<I8>(w, c) * s[c];
         store_w4(ws, r, n, v);
       }
     }
+  }
+
+  // the decode tile's f32 scale rows [GPK][kMmaBN], rounded to bf16 as
+  // build rounds them (the offc rows stay where they were staged: offsets)
+  template <int P>
+  __device__ __forceinline__ static void rows(const Args& a, const char* st, float* sc, float*) {
+    const char* p = st + P + SC_OFF;
+    for (int i = threadIdx.x; i < GPK * kMmaBN; i += kMmaThreads)
+      sc[i] = a.scale_bf16
+                  ? __uint_as_float(static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(p)[i]) << 16)
+                  : bf16_round(reinterpret_cast<const float*>(p)[i]);
+  }
+
+  // the decode tile's bf16 A fragments (decode_frags in
+  // qmatmul_decode_mma.cuh) of K half kh from the staged codes and the
+  // step's scale rows sc (rows<P>): bf16(q * s) for "i32" nibbles and for
+  // bytes (both layouts: 5/6-bit codes are < 128, so int8(byte) = byte),
+  // as fma(s, 2^23 + q, -s 2^23), exact (q * s has at most 14 significant
+  // bits and the FMA rounds once); the "i8" high nibble n, 16 ((n ^ 8) -
+  // 8) * s (hi_code<true>), as ((2^23 + (n ^ 8)) - (2^23 + 8)) * 16 s, an
+  // exact difference times an exact product (-16 s (2^23 + 8) would need
+  // more than f32's 24 bits)
+  template <int P>
+  __device__ __forceinline__ static void frags(const Args&, const char* st, const float* sc,
+                                               const float*, int c0, int kh, int t,
+                                               uint32_t (&af)[2][2][4]) {
+    float s[4], nb[4];
+    auto signed_hi = [](int j) { return I8 && PB == 2 && j == 1; };
+    auto slice = [&](int j, int sl) {
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + 16 * sl / GS * kMmaBN + c0);
+      s[0] = s4.x;
+      s[1] = s4.y;
+      s[2] = s4.z;
+      s[3] = s4.w;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) nb[c] = signed_hi(j) ? 16.f * s[c] : -s[c] * 8388608.f;
+      return signed_hi(j) ? 0x08080808u : 0u;
+    };
+    auto wt = [&](int j, int c, float mq) {
+      return signed_hi(j) ? (mq - 8388616.f) * nb[c] : fmaf(s[c], mq, nb[c]);
+    };
+    decode_frags<PB, PITCH>(st + P + c0, kh, t, slice, wt, af);
   }
 };
 
@@ -400,8 +458,8 @@ void launch(const Args& a) {
 }
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4 and {1, 8, 32} for VEC 1 on the
-// CUDA cores; mt of 32, 64 or 128 with VEC 4 the tensor-core tiles with mt
-// rows per block
+// CUDA cores; with VEC 4, mt of 32, 64 or 128 the tensor-core tiles with mt
+// rows per block, and kDecodeMmaTile the tensor-core decode tile (M <= 8)
 template <int PB, int GS, bool I8>
 bool launch_tile(const Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -410,6 +468,9 @@ bool launch_tile(const Args& a, int mt, int vec) {
       case 2: launch<PB, GS, I8, 2, 4>(a); return true;
       case 4: launch<PB, GS, I8, 4, 4>(a); return true;
       case 8: launch<PB, GS, I8, 8, 4>(a); return true;
+      case kDecodeMmaTile:
+        launch_decode_mma_tile<V4Mma<PB, GS, I8, kDecodePitch>>(a);
+        return true;
       default: return launch_mma_tiles<V4Mma<PB, GS, I8>>(a, mt);
     }
   }
@@ -441,8 +502,9 @@ bool launch_format(const Args& a, int per_byte, int group_size, int mt, int vec)
 // plane bf16 when scale_bf16 != 0, else f32; offc may be null; layout_i8
 // selects the "i8" code layout. partials is (splits, M, d_out) f32 scratch
 // when splits > 1, ignored otherwise. mt is the rows per block: 1, 2, 4, 8
-// on the CUDA cores (and 32 with vec 1); 32, 64, 128 on the tensor cores
-// (vec 4 only, which also needs a 16-byte-aligned x). vec 4 needs
+// on the CUDA cores (and 32 with vec 1); 32, 64, 128 on the tensor cores,
+// or 16 for their decode tile (M <= 8) (vec 4 only, which also needs a
+// 16-byte-aligned x). vec 4 needs
 // d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
 // pointer of contiguous data.
 extern "C" int gg_v4_matmul(const void* x, int x_bf16, const uint8_t* qs,

@@ -516,12 +516,14 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     return bm, per, -(-n_sg // per)
 
 
-# the tile code of v2g's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh:
-# all of x's 1-8 rows as the n8 of mma.sync), which neither a CUDA-core
-# tile (1, 2, 4, 8 rows) nor a prefill tile (32, 64, 128) uses
+# the tile code of the tensor-core decode tile of v2g and v4
+# (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
+# mma.sync), which neither a CUDA-core tile (1, 2, 4, 8 rows) nor a
+# prefill tile (32, 64, 128) uses
 DECODE_MMA_TILE = 16
-# the fewest rows it takes (v2g's bf16-operand calls on a vec-4 weight, up
-# to MMA_MIN_ROWS - 1 rows): the 129 calls of one Llama-3-8B step ran at
+# the fewest rows it takes by default (v2g's bf16-operand calls on a vec-4
+# weight, up to MMA_MIN_ROWS - 1 rows; v4 has its own,
+# qmv4.DECODE_MMA_MIN_ROWS): the 129 calls of one Llama-3-8B step ran at
 # M = 1 on the CUDA-core tile in 5.37-5.39 ms against the decode tile's
 # 5.76-5.81, at M = 2 in 6.02-6.03 against 5.78, at M = 3 (its 4-row
 # tile) in 7.03-7.06 against 5.79-5.83 (tools/time_v2_kernels.py --m
@@ -545,29 +547,33 @@ def _decode_mma_plan(d_out: int, n_sg: int, n_sm: int):
 
 
 def _plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int, mt_max: int = 32,
-          mma: bool = False, bm_max: int = 128, decode_mma: bool = False):
+          mma: bool = False, bm_max: int = 128, decode_mma: bool = False,
+          decode_min_rows: Optional[int] = None):
     """The launch plan (rows per block or tile code, supergroups per
     split, splits): the tensor-core tiles of up to ``bm_max`` rows when
     ``mma`` allows them and the weight takes them (vec 4, M >=
     MMA_MIN_ROWS); the tensor-core decode tile when ``decode_mma`` allows
-    it (vec 4, DECODE_MMA_MIN_ROWS <= M < MMA_MIN_ROWS); else the
-    CUDA-core tiles of up to ``mt_max`` rows."""
+    it (vec 4, from ``decode_min_rows``, by default DECODE_MMA_MIN_ROWS,
+    to MMA_MIN_ROWS - 1 rows); else the CUDA-core tiles of up to
+    ``mt_max`` rows."""
     if mma and vec == 4 and M >= MMA_MIN_ROWS:
         return _mma_plan(M, d_out, n_sg, n_sm, bm_max)
-    if decode_mma and vec == 4 and DECODE_MMA_MIN_ROWS <= M < MMA_MIN_ROWS:
+    lo = DECODE_MMA_MIN_ROWS if decode_min_rows is None else decode_min_rows
+    if decode_mma and vec == 4 and lo <= M < MMA_MIN_ROWS:
         return _decode_mma_plan(d_out, n_sg, n_sm)
     return _launch_plan(M, d_out, n_sg, n_sm, vec, mt_max)
 
 
 def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False,
-                 bm_max: int = 128, decode_mma: bool = False):
+                 bm_max: int = 128, decode_mma: bool = False,
+                 decode_min_rows: Optional[int] = None):
     """The shared front of the dequant-matmul kernel wrappers for a CUDA x:
     x as a contiguous f32 or bf16 tensor, the planes validated (and their
     alignment read) on the first call with each weight, the launch plan
     (``_plan``: rows per block up to ``mt_max``, or the tensor-core tiles
     of up to ``bm_max`` where ``mma`` allows them, or the tensor-core
-    decode tile where ``decode_mma`` does), the output and the split-K
-    scratch.
+    decode tile from ``decode_min_rows`` rows where ``decode_mma`` does),
+    the output and the split-K scratch.
     Returns (x, vec, mt, per, splits, out, part); vec 4 needs
     d_out % 4 == 0 and 16-byte-aligned planes, the tensor-core tiles
     (mt > 8) a 16-byte-aligned x too (copied when it is not)."""
@@ -585,7 +591,7 @@ def launch_setup(x: torch.Tensor, rql, mt_max: int = 32, mma: bool = False,
         raise ValueError(f"x {tuple(x.shape)} does not match d_in {rql.d_in_local}")
     M, d_in = x.shape
     mt, per, splits = _plan(M, rql.d_out, d_in // QK_K, _sm_count(x.device.index), rql._vec,
-                            mt_max, mma, bm_max, decode_mma)
+                            mt_max, mma, bm_max, decode_mma, decode_min_rows)
     if mt > 8 and x.data_ptr() % 16:  # the tensor-core tiles: 16-byte copies of x
         x = x.clone()
     out = torch.empty((M, rql.d_out), dtype=torch.float32, device=x.device)

@@ -21,8 +21,10 @@ signed value of (byte & 0xF0) is 16 * (hi - 8); the x16 lives in the
 hi-group scales (s / 16) and the -8 in ``offc`` (offc_hi -= 8 * s).
 
 ``dequant_matmul_v4`` launches the hand-written kernel
-(``csrc/qmatmul_v4.cu``: CUDA-core tiles at decode, tensor-core tiles from
-``qmatmul.MMA_MIN_ROWS`` rows) for a CUDA tensor and runs its plain PyTorch
+(``csrc/qmatmul_v4.cu``: the tensor-core decode tile of
+``csrc/qmatmul_decode_mma.cuh`` from ``DECODE_MMA_MIN_ROWS`` (1) to 8
+rows, tensor-core tiles from ``qmatmul.MMA_MIN_ROWS`` rows, CUDA-core tiles
+for vec-1 weights) for a CUDA tensor and runs its plain PyTorch
 version, ``dequant_matmul_v4_reference``, for a CPU tensor. The JAX
 package's ``_split_planes`` and ``select_tiles_v4`` are TPU layout rules
 (x re-ordered into nibble planes for Mosaic's sublane tiling, tiles that
@@ -41,8 +43,8 @@ import torch
 from .. import resolve_device
 from ..formats.ggml import KQUANT_SPECS, QK_K, GGMLQuantizationType
 from .kquant import SuperGroupParams
-from .qmatmul import (_HALF, _folded_planes_v2, _nibble_pack, _pack_codes, _ptr, _to_device,
-                      c_function, launch_setup)
+from .qmatmul import (_HALF, DECODE_MMA_TILE, _folded_planes_v2, _nibble_pack, _pack_codes,
+                      _ptr, _to_device, c_function, launch_setup)
 
 _SCALE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -217,21 +219,28 @@ def dequant_matmul_v4_reference(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> t
     return y
 
 
+# the fewest rows of a vec-4 weight's call on the tensor-core decode tile
+# (up to qmatmul.MMA_MIN_ROWS - 1): the 129 calls of one Llama-3-8B step
+# with f32 scales ran at M = 1 on the CUDA-core tile in 9.34-9.36 ms against
+# the decode tile's 5.76-5.77, at M = 2 in 6.57-6.59 against 5.73-5.77, at
+# M = 3 (its 4-row tile) in 10.51 against 5.77-5.79
+# (tools/time_v2_kernels.py --format v4 --m 1,2,3 --core --decode-min-rows
+# 1, H100: PERF.md); v2g's default, qmatmul.DECODE_MMA_MIN_ROWS, is 2
+DECODE_MMA_MIN_ROWS = 1
+
 _V4_ARGS = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
             + (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,))
 
 
-def dequant_matmul_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> torch.Tensor:
-    """y (M, d_out) f32 = x @ dequant(W)^T through the v4 kernel
-    (``csrc/qmatmul_v4.cu``; the offset correction runs inside it, one
-    launch); a CPU ``x`` runs the plain version. From ``MMA_MIN_ROWS``
-    rows a vec-4 weight (f32 or bf16 x) runs the tensor-core tiles, also
-    counted in ``mma_launches``; fewer rows, and vec-1 weights at any M,
-    the CUDA-core tiles. The planes are validated on the first call with
-    each weight; later calls check only x."""
-    if x.device.type == "cpu":
-        return dequant_matmul_v4_reference(x, rql)
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mma=True)
+def _launch_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4, mma: bool = True,
+               decode_mma: bool = True):
+    """One launch of ``csrc/qmatmul_v4.cu`` on x's current stream (the
+    library is built on first use), the tensor-core tiles allowed where
+    ``mma`` and ``decode_mma`` allow them (``qmatmul._plan``; the decode
+    tile from DECODE_MMA_MIN_ROWS rows). Returns (y, the tile that ran:
+    "decode_mma", "mma" or "cuda_core")."""
+    x, vec, mt, per, splits, out, part = launch_setup(
+        x, rql, mma=mma, decode_mma=decode_mma, decode_min_rows=DECODE_MMA_MIN_ROWS)
     M, d_in = x.shape
     rc = c_function("qmatmul_v4", "gg_v4_matmul", _V4_ARGS)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.scale),
@@ -240,10 +249,31 @@ def dequant_matmul_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> torch.Tenso
         mt, vec, per, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_v4 launch failed: CUDA error {rc}")
+    # 32, 64 or 128 rows of a vec-4 weight: the tensor-core prefill tiles
+    tile = ("decode_mma" if mt == DECODE_MMA_TILE else
+            "mma" if vec == 4 and mt > 8 else "cuda_core")
+    return out, tile
+
+
+def dequant_matmul_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> torch.Tensor:
+    """y (M, d_out) f32 = x @ dequant(W)^T through the v4 kernel
+    (``csrc/qmatmul_v4.cu``; the offset correction runs inside it, one
+    launch); a CPU ``x`` runs the plain version. A vec-4 weight (f32 or
+    bf16 x) runs the tensor-core decode tile from ``DECODE_MMA_MIN_ROWS``
+    (1) to 8 rows (also counted in ``decode_mma_launches``) and the
+    tensor-core tiles from ``MMA_MIN_ROWS`` rows (``mma_launches``);
+    vec-1 weights the CUDA-core tiles at any M. The planes are validated
+    on the first call with each weight; later calls check only x."""
+    if x.device.type == "cpu":
+        return dequant_matmul_v4_reference(x, rql)
+    out, tile = _launch_v4(x, rql)
     body = body_of(rql)
     dequant_matmul_v4.launches += 1
     dequant_matmul_v4.body_launches[body] += 1
-    if vec == 4 and mt > 8:  # 32, 64 or 128 rows: the tensor-core tiles
+    if tile == "decode_mma":
+        dequant_matmul_v4.decode_mma_launches += 1
+        dequant_matmul_v4.body_decode_mma_launches[body] += 1
+    elif tile == "mma":
         dequant_matmul_v4.mma_launches += 1
         dequant_matmul_v4.body_mma_launches[body] += 1
     return out
@@ -258,11 +288,14 @@ def body_of(rql: RuntimeQuantLinearV4) -> str:
 
 
 # launches of the kernel, in all and per JAX body it stands for; and of its
-# tensor-core tiles, in all and per body
+# tensor-core prefill tiles and its tensor-core decode tile, in all and per
+# body
 dequant_matmul_v4.launches = 0
 dequant_matmul_v4.body_launches = {"pb2": 0, "pb2_i8": 0, "pb1": 0}
 dequant_matmul_v4.mma_launches = 0
 dequant_matmul_v4.body_mma_launches = {"pb2": 0, "pb2_i8": 0, "pb1": 0}
+dequant_matmul_v4.decode_mma_launches = 0
+dequant_matmul_v4.body_decode_mma_launches = {"pb2": 0, "pb2_i8": 0, "pb1": 0}
 
 
 def fuse_rql_v4(parts: Sequence) -> Optional[RuntimeQuantLinearV4]:

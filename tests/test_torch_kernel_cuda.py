@@ -1,6 +1,6 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
-every v2 variant and of v4, v2g's tensor-core decode tile, GPTQ
+every v2 variant and of v4, the tensor-core decode tiles of v2g and v4, GPTQ
 column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
@@ -16,7 +16,7 @@ differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
 sum of |terms| of one output (1e-5 on v4's tensor-core tiles), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-and v2s tensor-core tiles and on v2g's decode tile). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles and on the decode tiles of v2g and v4). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
@@ -888,6 +888,178 @@ def test_decode_mma_tile_failures_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v2g"):
         qmatmul.dequant_matmul_v2g(x, rql)
     assert qmatmul.dequant_matmul_v2g.decode_mma_launches == n0
+
+
+# v4's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh with V4Mma):
+# M = 1, 2, 5, 8; d_out 768, 1000 (code rows not 16-byte aligned: 4-byte
+# copies) and 996 (bf16 scale rows not 16-byte aligned either); x in f32
+# (rounded while staged) and bf16; the K axis split as the plan does
+# (blocks 4) or not at all (blocks 0)
+V4_DECODE_CASES = [
+    (1, 768, 1024, torch.float32, 4),
+    (2, 768, 1024, torch.bfloat16, 4),
+    (2, 1000, 512, torch.float32, 0),
+    (5, 1000, 2048, torch.float32, 4),
+    (5, 996, 1024, torch.bfloat16, 4),
+    (8, 996, 512, torch.bfloat16, 0),
+    (8, 768, 2048, torch.float32, 4),
+]
+
+
+def _v4_unrounded(x, rql):
+    """The planted control of the v4 tiles (chip_smoke.v4_unrounded): the
+    plain version with each weight q * bf16(s) left unrounded (f32)."""
+    ng = rql.scale.shape[0]
+    s = rql.scale.to(torch.bfloat16).float()
+    w = qmv4._codes_v4(rql).reshape(ng, rql.group_size, rql.d_out) * s[:, None, :]
+    y = x.to(torch.bfloat16).float() @ w.reshape(rql.d_in_local, rql.d_out)
+    if rql.offc is not None:
+        y -= qmv4._group_sums(x, rql.group_size) @ rql.offc
+    return y
+
+
+def _v4_counts():
+    fn = qmv4.dequant_matmul_v4
+    return (fn.launches, fn.decode_mma_launches, fn.mma_launches,
+            dict(fn.body_decode_mma_launches))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,dtype,blocks", V4_DECODE_CASES)
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+@pytest.mark.parametrize("fmt", ["v4", "v4 bf16", "v4 i8", "v4 i8 bf16"])
+def test_v4_decode_mma_tile_matches_plain(cuda, monkeypatch, fmt, qtype, M, d_out, d_in, dtype,
+                                          blocks):
+    """The v4 kernel's three bodies (4-bit codes in both layouts, 5/6-bit
+    codes), f32 and bf16 scales, f32 and bf16 x, at decode rows on the
+    tensor-core decode tile against the plain version: the same bf16
+    products, f32 sums in another order, within 1e-5 of the largest sum of
+    |terms| of an output, a limit the unrounded weights (the planted
+    control) fail. Each call counts one launch, on ``decode_mma_launches``
+    and its body's, none on ``mma_launches``; a second call is bit-equal
+    (split-K partials reduced in a fixed order)."""
+    monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
+    rql = _rql(qtype, d_out, d_in, seed=M + 13 * d_out + int(qtype), device=cuda,
+               pack=PACKERS[fmt])
+    fn = qmv4.dequant_matmul_v4
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, dtype)
+    splits = qmatmul._plan(M, d_out, d_in // 256, qmatmul._sm_count(cuda.index or 0), 4,
+                           mma=True, decode_mma=True,
+                           decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)[2]
+    assert (splits == 1) == (blocks == 0)
+    n0, d0, m0, body0 = _v4_counts()
+    got = fn(x, rql)
+    want = qmv4.dequant_matmul_v4_reference(x, rql)
+    again = fn(x, rql)
+    control = _v4_unrounded(x, rql)
+    torch.cuda.synchronize()
+    body = qmv4.body_of(rql)
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (2, 2, 0)
+    assert fn.body_decode_mma_launches[body] == body0[body] + 2
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    tol = 1e-5 * _terms(x, rql)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=tol)
+    assert (got - control).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,qtype", [("v4", T.Q4_K), ("v4 i8", T.Q4_K), ("v4 i8 bf16", T.Q2_K),
+                                       ("v4 bf16", T.Q3_K), ("v4 i8", T.Q6_K)],
+                         ids=lambda a: getattr(a, "name", a))
+def test_v4_decode_mma_tile_weights_bit_equal(cuda, fmt, qtype):
+    """Through unit rows of x and without offc, the decode tile returns its
+    bf16 weights: every row of the weight equal to bf16(q * bf16(s)) of
+    the plain version, the "i8" high nibbles' 16 ((n ^ 8) - 8) * s
+    (hi_code<true>) among them."""
+    v4 = _rql(qtype, 512, 512, seed=21 + int(qtype), device=cuda, pack=PACKERS[fmt])
+    bare = qmv4.RuntimeQuantLinearV4(v4.qs, v4.scale, None, v4.d_in, v4.group_size,
+                                     v4.per_byte, v4.layout)
+    ng = bare.scale.shape[0]
+    s = bare.scale.to(torch.bfloat16).float()
+    w = (qmv4._codes_v4(bare).reshape(ng, bare.group_size, 512) * s[:, None, :]).to(
+        torch.bfloat16).float().reshape(512, 512)
+    eye = torch.eye(512, device=cuda, dtype=torch.bfloat16)
+    d0 = qmv4.dequant_matmul_v4.decode_mma_launches
+    got = torch.cat([qmv4.dequant_matmul_v4(eye[k:k + 8], bare) for k in range(0, 512, 8)])
+    torch.cuda.synchronize()
+    assert qmv4.dequant_matmul_v4.decode_mma_launches == d0 + 64
+    assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K], ids=lambda q: q.name)
+def test_v4_decode_mma_tile_without_offsets_and_misaligned_x(cuda, qtype):
+    """A v4 weight without an offc plane skips the xsum term on the decode
+    tile too, and an x whose data is not 16-byte aligned is copied before
+    the tile reads it; both within 1e-5 of the largest sum of |terms|,
+    both counted on the decode tile."""
+    v4 = _rql(qtype, 512, 1024, 7, cuda, pack=PACKERS["v4 i8"])
+    bare = qmv4.RuntimeQuantLinearV4(v4.qs, v4.scale, None, v4.d_in, v4.group_size,
+                                     v4.per_byte, v4.layout)
+    buf = torch.randn(6 * 1024 + 1, generator=torch.Generator().manual_seed(8)).to(cuda)
+    bbuf = buf.to(torch.bfloat16)
+    xs = (buf[:-1].view(6, 1024), buf[1:].view(6, 1024), bbuf[1:].view(6, 1024))
+    assert [x.data_ptr() % 16 != 0 for x in xs] == [False, True, True]
+    for x in xs:
+        for w in (v4, bare):
+            n0, d0, m0, _ = _v4_counts()
+            got = qmv4.dequant_matmul_v4(x, w)
+            want = qmv4.dequant_matmul_v4_reference(x, w)
+            torch.cuda.synchronize()
+            assert _v4_counts()[:3] == (n0 + 1, d0 + 1, m0)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                       atol=1e-5 * _terms(x, w))
+
+
+@pytest.mark.cuda
+def test_v4_decode_keeps_the_cuda_core_tiles_elsewhere(cuda):
+    """Vec-1 weights (d_out % 4 != 0) stay on the CUDA-core tiles at M <=
+    8, and _launch_v4 with the tensor-core tiles ruled out runs them for a
+    vec-4 weight too, each held to the plain version within 1e-4 of the
+    largest sum of |terms|."""
+    fn = qmv4.dequant_matmul_v4
+    v4 = _rql(T.Q4_K, 512, 512, 9, cuda, pack=PACKERS["v4"])
+    ragged = _rql(T.Q6_K, 333, 512, 10, cuda, pack=PACKERS["v4 i8"])
+    x = torch.randn(8, 512, generator=torch.Generator().manual_seed(10)).to(cuda, torch.bfloat16)
+    for xi, w in ((x[:1], ragged), (x, ragged), (x[:2], ragged)):
+        n0, d0, m0, _ = _v4_counts()
+        got = fn(xi, w)
+        want = qmv4.dequant_matmul_v4_reference(xi, w)
+        torch.cuda.synchronize()
+        assert _v4_counts()[:3] == (n0 + 1, d0, m0)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                   atol=1e-4 * _terms(xi, w))
+    n0 = _v4_counts()
+    got, tile = qmv4._launch_v4(x, v4, mma=False, decode_mma=False)
+    want = qmv4.dequant_matmul_v4_reference(x, v4)
+    torch.cuda.synchronize()
+    assert tile == "cuda_core" and _v4_counts() == n0  # a direct launch counts nothing
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                               atol=1e-4 * _terms(x, v4))
+
+
+@pytest.mark.cuda
+def test_v4_decode_mma_tile_failures_raise(cuda, monkeypatch):
+    """No fallback: a decode-tile launch the source does not instantiate (a
+    group size of 64, which no K-quant has) raises, and so does a build
+    failure of the library; neither counts a launch."""
+    v4 = _rql(T.Q4_K, 512, 512, seed=11, device=cuda, pack=PACKERS["v4"])
+    gs64 = qmv4.RuntimeQuantLinearV4(v4.qs, v4.scale[::2].contiguous(), v4.offc[::2].contiguous(),
+                                     v4.d_in, 64, v4.per_byte)
+    x = torch.randn(8, 512, device=cuda).to(torch.bfloat16)
+    n0 = _v4_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qmv4.dequant_matmul_v4(x, gs64)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(qmv4, "c_function", lambda lib, *a: broken(lib))
+    with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v4"):
+        qmv4.dequant_matmul_v4(x, v4)
+    assert _v4_counts() == n0
 
 
 @pytest.mark.cuda

@@ -263,7 +263,8 @@ def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
 
     defaults = {k: p.default for k, p in inspect.signature(qmatmul.launch_setup).parameters.items()
                 if p.default is not inspect.Parameter.empty}
-    assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128, "decode_mma": False}
+    assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128, "decode_mma": False,
+                        "decode_min_rows": None}
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, **defaults)
     assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
 
@@ -279,9 +280,10 @@ def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
     (300, 1000, 8, 1, (32, 2, 4)),
 ])
 def test_v4_plan(M, d_out, n_sg, vec, want):
-    """The v4 wrapper calls launch_setup(x, rql, mma=True): _mma_plan for
-    vec-4 weights from MMA_MIN_ROWS rows, _launch_plan (up to 32 rows)
-    below that and for vec-1 weights at any M."""
+    """The v4 plan with the tensor-core prefill tiles allowed (mma=True):
+    _mma_plan for vec-4 weights from MMA_MIN_ROWS rows, _launch_plan (up
+    to 32 rows) below that and for vec-1 weights at any M (the wrapper
+    also allows the decode tile: test_v4_plan_with_the_decode_tile)."""
     got = qmatmul._plan(M, d_out, n_sg, 132, vec, mma=True)
     if vec == 4 and M >= qmatmul.MMA_MIN_ROWS:
         assert got == qmatmul._mma_plan(M, d_out, n_sg, 132) == want
@@ -289,11 +291,80 @@ def test_v4_plan(M, d_out, n_sg, vec, want):
         assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, vec) == want
 
 
-@pytest.mark.parametrize("fmt,want", [("v1", {}), ("v4", {"mma": True})])
+@pytest.mark.parametrize("M,d_out,n_sg,vec", [
+    (1, 4096, 16, 4),        # from qmv4.DECODE_MMA_MIN_ROWS (1) to 8 rows: the decode tile
+    (2, 4096, 16, 4),
+    (5, 6144, 16, 4),
+    (8, 28672, 16, 4),
+    (8, 4096, 56, 4),
+    (8, 128256, 16, 4),      # the unpadded Q6_K head of a B=8 step
+    (9, 4096, 16, 4),        # from MMA_MIN_ROWS: the tensor-core prefill tiles
+    (1024, 4096, 56, 4),
+    (5, 1000, 8, 1),         # vec 1: the CUDA-core tiles at any M
+    (8, 333, 2, 1),
+    (40, 333, 2, 1),
+])
+def test_v4_plan_with_the_decode_tile(M, d_out, n_sg, vec):
+    """The v4 wrapper's plan (launch_setup(x, rql, mma=True,
+    decode_mma=True, decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)): vec-4
+    weights at 1 to 8 rows take _decode_mma_plan (v4's CUDA-core tile ran
+    one row slower: PERF.md); vec-1 weights and M >= MMA_MIN_ROWS keep the
+    plans test_v4_plan holds. v2g's threshold stays at 2 rows."""
+    from gptq_gguf_tpu_torch.ops import qmv4
+
+    assert qmv4.DECODE_MMA_MIN_ROWS == 1 and qmatmul.DECODE_MMA_MIN_ROWS == 2
+    got = qmatmul._plan(M, d_out, n_sg, 132, vec, mma=True, decode_mma=True,
+                        decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)
+    if vec == 4 and M < qmatmul.MMA_MIN_ROWS:
+        assert got == qmatmul._decode_mma_plan(d_out, n_sg, 132)
+        assert got[0] == qmatmul.DECODE_MMA_TILE
+    else:
+        assert got == qmatmul._plan(M, d_out, n_sg, 132, vec, mma=True)
+        assert got[0] != qmatmul.DECODE_MMA_TILE
+
+
+@pytest.mark.parametrize("tile,counted", [("cuda_core", None), ("decode_mma", "decode_mma"),
+                                          ("mma", "mma")])
+@pytest.mark.parametrize("per_byte,layout,body", [(2, "i32", "pb2"), (2, "i8", "pb2_i8"),
+                                                  (1, "i8", "pb1")])
+def test_v4_wrapper_counts_each_tile(tile, counted, per_byte, layout, body, monkeypatch):
+    """A v4 launch counts once on ``launches`` and its body's count and, by
+    the tile that ran, on ``decode_mma_launches`` or ``mma_launches`` and
+    that tile's count of the body (here the launch is a stand-in on the
+    meta device that reports the tile)."""
+    from types import SimpleNamespace
+
+    from gptq_gguf_tpu_torch.ops import qmv4
+
+    fn = qmv4.dequant_matmul_v4
+    asks = []
+
+    def launch(x, rql, *args, **kwargs):
+        asks.append((args, kwargs))
+        return torch.empty(x.shape[0], 8, device="meta"), tile
+
+    monkeypatch.setattr(qmv4, "_launch_v4", launch)
+    keys = ("launches", "decode_mma_launches", "mma_launches")
+    before = {k: getattr(fn, k) for k in keys}
+    bodies = {k: dict(getattr(fn, k)) for k in
+              ("body_launches", "body_decode_mma_launches", "body_mma_launches")}
+    fn(torch.empty(8, 256, device="meta"), SimpleNamespace(per_byte=per_byte, layout=layout))
+    assert asks == [((), {})]  # the wrapper's own route: every tile allowed
+    assert {k: getattr(fn, k) - v for k, v in before.items()} == {
+        "launches": 1, "decode_mma_launches": int(counted == "decode_mma"),
+        "mma_launches": int(counted == "mma")}
+    for k, was in bodies.items():
+        n = int(k == "body_launches" or k == f"body_{counted}_launches")
+        assert getattr(fn, k) == {b: c + n * (b == body) for b, c in was.items()}, k
+
+
+@pytest.mark.parametrize("fmt,want", [("v1", {}), ("v4", {"mma": True, "decode_mma": True,
+                                                           "decode_min_rows": 1})])
 def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
     """A tensor off the CPU (here one on the meta device) goes to
     launch_setup: v1 with its defaults, v4 asking for the tensor-core
-    tiles."""
+    prefill tiles and the tensor-core decode tile from one row
+    (qmv4.DECODE_MMA_MIN_ROWS)."""
     from gptq_gguf_tpu_torch.ops import qmv4
 
     mod, fn = ((qmatmul, qmatmul.dequant_matmul_v1) if fmt == "v1"

@@ -141,6 +141,21 @@ def test_plain_v4_matches_jax_interpret(qtype, layout, sdt, M):
     np.testing.assert_array_equal(qmatmul.dequant_matmul(xt, tr).numpy(), got)
 
 
+@pytest.mark.parametrize("layout,sdt", [("i32", "f32"), ("i8", "bf16")])
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K])
+def test_plain_v4_matches_jax_interpret_at_a_ragged_decode_m(qtype, layout, sdt):
+    """At a decode M the tensor-core decode tile takes (5 rows: its n8
+    padded), JAX's v4 body in interpret mode against the port's plain
+    version, both layouts, within 1e-4 of the largest sum of |terms|."""
+    jr, tr = _pair(qtype, layout, sdt, d_out=512, d_in=1024, seed=60 + int(qtype))
+    x = np.random.default_rng(5).normal(size=(5, 1024)).astype(np.float32)
+    want = np.asarray(jv4.dequant_matmul_v4(jnp.asarray(x), jr, tile_in=512, tile_out=256,
+                                            interpret=True))
+    xt = torch.from_numpy(x)
+    got = qmv4.dequant_matmul_v4_reference(xt, tr).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * term_magnitude(xt, tr))
+
+
 def test_bf16_activations_take_the_same_path():
     """bf16 x: the main dot and xsum see the same values as an f32 x of the
     bf16-rounded values."""

@@ -3,8 +3,13 @@
 paged and the contiguous engine at Llama-3-8B width.
 
     python3 tools/profile_decode_step.py [--fills 300 1900] [--steps 8]
+                                         [--format v2|v4|v4-i8] [--root DIR]
 
-Builds chip_smoke.py's 32-layer synthetic Q4_K serving weights (seed 7),
+Builds chip_smoke.py's 32-layer synthetic Q4_K serving weights (seed 7;
+with ``--format v4`` or ``v4-i8`` converted on the card to that runtime
+format by chip_smoke.format_params, f32 scales), from the checkout
+``--root`` (this one by default: pass a parent tree's directory to
+profile its package, in turns with this one),
 fills every slot of a fully provisioned cache to a uniform fill (the fill
 is reset before each step, so it stays put), and for each engine and fill
 reports:
@@ -16,11 +21,12 @@ reports:
   runs from the first to the last device activity; the profiler slows
   the host);
 - the kernels with the most device time, with launches per step, and the
-  sums per family: the paged attention kernels (paged engine), v2g's
-  tensor-core decode tile (``decode_mma_kernel``), the CUDA-core decode
-  tiles (``v2_weight_kernel``) and the split-K reduction; beside them
-  the decode tile's launches per step as the wrapper counts them
-  (``dequant_matmul_v2g.decode_mma_launches``, in a tree that has it).
+  sums per family: the paged attention kernels (paged engine), the
+  tensor-core decode tile of v2g or v4 (``decode_mma_kernel``), the
+  CUDA-core decode tiles (``v2_weight_kernel``, ``v4_kernel``) and the
+  split-K reduction; beside them the decode tile's launches per step as
+  the format's wrapper counts them (``decode_mma_launches``, in a tree
+  that has it).
 Needs one CUDA card; fails if the profiler records no device activity.
 """
 
@@ -88,25 +94,26 @@ def profile(fn, steps: int):
 
 
 # kernel families summed per step: label, a piece of the kernel's name
-FAMILIES = (("v2g tensor-core decode tile", "decode_mma_kernel"),
+FAMILIES = (("tensor-core decode tile (v2g, v4)", "decode_mma_kernel"),
             ("CUDA-core decode tiles (v2)", "v2_weight_kernel"),
+            ("CUDA-core decode tiles (v4)", "v4_kernel"),
             ("split-K reduction", "reduce_splits_kernel"))
 
 
-def decode_launches(fn):
-    """v2g's tensor-core decode-tile launches in one step (None in a tree
-    without that tile)."""
+def decode_launches(fn, fmt: str):
+    """The format's tensor-core decode-tile launches in one step (None in
+    a tree without that tile)."""
     import torch
 
-    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
-    v2g = qmatmul.dequant_matmul_v2g
-    if not hasattr(v2g, "decode_mma_launches"):
+    wrapper = qmatmul.dequant_matmul_v2g if fmt == "v2" else qmv4.dequant_matmul_v4
+    if not hasattr(wrapper, "decode_mma_launches"):
         return None
-    n0 = v2g.decode_mma_launches
+    n0 = wrapper.decode_mma_launches
     fn()
     torch.cuda.synchronize()
-    return v2g.decode_mma_launches - n0
+    return wrapper.decode_mma_launches - n0
 
 
 def host_ms(fn, steps: int) -> float:
@@ -125,13 +132,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fills", type=int, nargs="+", default=[300, 1900])
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--format", default="v2", choices=["v2", "v4", "v4-i8"],
+                    help="the runtime format of the weights (v2: v2g, the default)")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="the checkout whose package and chip_smoke.py are profiled")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("profile_decode_step: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -140,6 +151,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     params, cfg = chip_smoke.build_8b(np.random.default_rng(chip_smoke.SEED), device)
+    if args.format != "v2":
+        params = chip_smoke.format_params(params, args.format.replace("-", " "))
+        torch.cuda.empty_cache()
+    print(f"root {args.root}, format {args.format}", flush=True)
     for fill in args.fills:
         for name, fn in step_functions(params, cfg, fill, device).items():
             wall = host_ms(fn, args.steps)
@@ -162,8 +177,8 @@ def main() -> int:
                 if fam:
                     print(f"    {label}: {sum(ms for ms, _ in fam):.3f} ms per step in "
                           f"{sum(n for _, n in fam):.0f} launches", flush=True)
-            print(f"    v2g decode-tile launches per step (wrapper count): "
-                  f"{decode_launches(fn)}", flush=True)
+            print(f"    {args.format} decode-tile launches per step (wrapper count): "
+                  f"{decode_launches(fn, args.format)}", flush=True)
             torch.cuda.empty_cache()
     return 0
 

@@ -34,12 +34,16 @@ tile sizes against each other. Each record names the tile each shape ran
 (``tile_per_call``: "decode_mma", v2g's tensor-core decode tile; "mma",
 the tensor-core prefill tiles; "cuda_core"), read from the wrapper's
 counters in the roots that have them. ``--core`` also times, at M <= 8,
-the variant's CUDA-core tile on the same inputs (``qmatmul._launch_v2``
+the variant's or the format's CUDA-core tile on the same inputs
+(``qmatmul._launch_v2``, or ``qmv4._launch_v4`` in the roots that have it,
 with the tensor-core tiles ruled out: ``core_ms_per_call``);
 ``--decode-blocks`` sets the decode tile's split-K target
 (``qmatmul.DECODE_MMA_BLOCKS_PER_SM``), ``--decode-min-rows`` the fewest
-rows the route gives the decode tile (``qmatmul.DECODE_MMA_MIN_ROWS``), to
-time the tile at rows the route leaves to the CUDA-core tile. ``--probe``
+rows the route gives the decode tile (``qmatmul.DECODE_MMA_MIN_ROWS``, and
+with ``--format`` ``qmv4.DECODE_MMA_MIN_ROWS`` in the roots that have it),
+to time the tile at rows the route leaves to the CUDA-core tile, or to
+move a threshold.
+``--probe``
 also times, at the decode tile's rows of v2g, the decode tile's timing probes on the same inputs
 (``ops/csrc/qmatmul_v2g_probe.cu``, wrong results by design: probe 1
 without the dequantization, probe 2 without it and the planes' copies;
@@ -171,6 +175,8 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
         qmatmul.DECODE_MMA_BLOCKS_PER_SM = decode_blocks
     if decode_min_rows:
         qmatmul.DECODE_MMA_MIN_ROWS = decode_min_rows
+        if fmt and hasattr(qmv4, "DECODE_MMA_MIN_ROWS"):  # v4's own threshold
+            qmv4.DECODE_MMA_MIN_ROWS = decode_min_rows
     probe = (probe and variant == "v2g" and not fmt
              and (cuda_build.CSRC / "qmatmul_v2g_probe.cu").is_file())
     if probe:
@@ -233,7 +239,9 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
                        getattr(qmatmul, qmatmul.V2_WRAPPERS[kernels[name]]))
             tiles[name] = tile_of(wrapper, lambda: fn(x, rql))
             out[name] = device_ms(lambda: fn(x, rql))
-            if core and M <= 8 and not fmt and kernels[name] in qmatmul._PER_WEIGHT:
+            if core and M <= 8 and fmt and hasattr(qmv4, "_launch_v4"):
+                core_ms[name] = device_ms(lambda: qmv4._launch_v4(x, rql, False, False))
+            elif core and M <= 8 and not fmt and kernels[name] in qmatmul._PER_WEIGHT:
                 lib, code = qmatmul._PER_WEIGHT[kernels[name]]
                 core_ms[name] = device_ms(lambda: qmatmul._launch_v2(
                     lib, code, x, rql, torch.bfloat16, 8))

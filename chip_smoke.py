@@ -64,22 +64,26 @@ checkout of the repository. Phases, each raising on failure:
    to the package's packers first): (a) the v1 kernel and the v4 kernel's
    three bodies (f32 and bf16 scales, i32 and i8 layouts) against their
    plain versions at every 8B projection shape and the unpadded Q6_K
-   lm_head at M = 8, the threshold M, 128, 1024, v4 also at M = 2 and 4
-   (v4 from the threshold on its tensor-core tiles and from
-   qmatmul.DECODE_MMA_MIN_ROWS to 8 rows on its tensor-core decode tile,
+   lm_head at M = 8, the threshold M, 128, 1024 with a bf16 x, v4 also at
+   M = 1, 2 and 4 (v1 and v4 from the threshold on their tensor-core
+   tiles, csrc/qmatmul_v1_mma.cuh and the v4 policy, and v4 from
+   qmv4.DECODE_MMA_MIN_ROWS to 8 rows on its tensor-core decode tile,
    csrc/qmatmul_decode_mma.cuh, each within 1e-5 of the largest sum of
-   |terms| with a planted control, unrounded weights, that must fail that
-   limit; beside each decode-tile case the CUDA-core tile of the same rows,
-   held to the same limit and timed), plus Q2_K / Q3_K / Q5_K and ragged
-   d_out; (b) 2-layer logits kernel vs plain per format; (c) phase 3's 12
+   |terms| with a planted control that must fail that limit: v4 the
+   unrounded weights, v1 the weights rounded to bf16; beside each v1
+   tensor-core case and each decode-tile case the CUDA-core tile of the
+   same rows, held to the same limit and timed), plus Q2_K / Q3_K / Q5_K
+   and ragged d_out with an f32 x (the CUDA-core tiles) and, for v1, with
+   a bf16 x at 9-130 rows (its tiles; 333 columns: vec 1, v1_kernel);
+   (b) 2-layer logits kernel vs plain per format; (c) phase 3's 12
    requests served in v1, v4 and v4 i8 (129 launches of that format's
-   kernel per forward, none of another's; v4's every prefill projection on
-   the tensor-core tiles, every call of a decode step on its decode tile)
-   beside phase 3's v2 numbers; (d) perplexity through the serving path on
-   the 32-layer model in v2, v1 and v4 (2 sequences of 512 tokens, within
-   0.05 nats/token of each other; v2's and v4's every call on the
-   tensor-core tiles, each within 1e-3 nats/token of the same model
-   through the plain version); (e)
+   kernel per forward, none of another's; v1's and v4's every prefill
+   projection on the tensor-core tiles, v4's every call of a decode step
+   on its decode tile) beside phase 3's v2 numbers; (d) perplexity through
+   the serving path on the 32-layer model in v2, v1 and v4 (2 sequences
+   of 512 tokens, within 0.05 nats/token of each other; every call on the
+   format's tensor-core tiles, each format within 1e-3 nats/token of the
+   same model through its plain version); (e)
    after phase 5, its GPTQ artifacts served through
    quantize_params_for_serving in v1, v2 and v4 (dequantization bit-equal
    to the artifacts', greedy tokens);
@@ -94,12 +98,17 @@ checkout of the repository. Phases, each raising on failure:
    v3, v2f, v2h and v2s as phase 2 holds v2g's, and those of v2m and v2t
    (Q4_K shapes) and v2p (the head; csrc/qmatmul_v2m_mma.cuh) likewise,
    with small Q2_K / Q3_K / Q5_K and ragged cases at 9 rows or more (v2s:
-   Q2_K, Q3_K, ragged Q4_K); (b) 2-layer logits through
+   Q2_K, Q3_K, ragged Q4_K); v2p's tensor-core decode tile (the group-dot
+   form of csrc/qmatmul_decode_mma.cuh) on the head at M = 1, 2, 4 and 8
+   and small Q2_K / Q3_K / ragged Q6_K cases, held the same way (control:
+   v2g's rounding) beside the CUDA-core tile of the same rows; (b) 2-layer
+   logits through
    each variant's kernels against its plain versions, and the differences
    between variants; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
-   launches per forward; (d) perplexity through the serving path under
+   launches per forward (every head of a B=8 step under v2m on v2p's
+   decode tile); (d) perplexity through the serving path under
    v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
    call on the tensor-core tiles (under v2m: v2m's, and v2p's on the head;
    under v2t and v2s: theirs, and v2g's on the head), v2m, v2t and v2s
@@ -494,39 +503,45 @@ DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5),
 DECODE_MS = (1, 2, 4, 8)  # rows of the decode tile's 8B cases
 
 
-def decode_case(name, x, rql, flush):
-    """variant_case for v2g's tensor-core decode tile (bf16 operands, M <=
-    8; at fewer rows than DECODE_MMA_MIN_ROWS, where the route takes the
-    CUDA-core tile, with that threshold lowered for the case): within 1e-5
-    of the largest sum of |terms| of an output, a limit its planted
-    control (the group-dot plain version: the unrounded scale * q) must
-    fail; every launch of the case counted on ``decode_mma_launches`` and
-    none on ``mma_launches``; beside it, the CUDA-core tile of the same
-    rows on the same inputs (qmatmul's internal route with the tensor-core
-    tiles ruled out), held to the same limit and timed."""
+def decode_case(name, x, rql, flush, variant="v2g"):
+    """variant_case for the tensor-core decode tile of ``variant`` (v2g, or
+    v2p's group-dot form; bf16 operands, M <= 8; at fewer rows than the
+    variant's threshold, DECODE_MMA_MIN_ROWS or V2P_DECODE_MMA_MIN_ROWS,
+    where the route takes the CUDA-core tile, with that threshold lowered
+    for the case): within 1e-5 of the largest sum of |terms| of an
+    output, a limit its planted
+    control (v2g: the group-dot plain version, the unrounded scale * q;
+    v2p: v2g's plain version, bf16(scale * q)) must fail; every launch of
+    the case counted on ``decode_mma_launches`` and none on
+    ``mma_launches``; beside it, the CUDA-core tile of the same rows on the
+    same inputs (qmatmul's internal route with the tensor-core tiles ruled
+    out), held to the same limit and timed."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
 
-    fn = qmatmul.dequant_matmul_v2g
+    fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[variant])
     n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
-    min_rows = qmatmul.DECODE_MMA_MIN_ROWS  # below it the route's is the CUDA-core tile
-    qmatmul.DECODE_MMA_MIN_ROWS = min(min_rows, x.shape[0])
+    knob = "V2P_DECODE_MMA_MIN_ROWS" if variant == "v2p" else "DECODE_MMA_MIN_ROWS"
+    min_rows = getattr(qmatmul, knob)  # below it the route's is the CUDA-core tile
+    setattr(qmatmul, knob, min(min_rows, x.shape[0]))
     try:
-        rec = variant_case(name, "v2g", "bf16", x, rql, flush)
+        rec = variant_case(name, variant, "bf16", x, rql, flush)
     finally:
-        qmatmul.DECODE_MMA_MIN_ROWS = min_rows
+        setattr(qmatmul, knob, min_rows)
     n = fn.launches - n0
     if fn.decode_mma_launches - d0 != n or fn.mma_launches != m0 or n == 0:
-        raise RuntimeError(f"decode tile {name} M={x.shape[0]}: {n} launches, "
+        raise RuntimeError(f"{variant} decode tile {name} M={x.shape[0]}: {n} launches, "
                            f"{fn.decode_mma_launches - d0} on the decode tile, "
                            f"{fn.mma_launches - m0} on the prefill tiles")
+    lib, code = (qmatmul._PER_WEIGHT.get(variant)
+                 or ("qmatmul_v2m", qmatmul._GROUP_DOT[variant][0]))
+
     def core():
-        return qmatmul._launch_v2("qmatmul_v2g", qmatmul._PER_WEIGHT["v2g"][1], x, rql,
-                                  torch.bfloat16, 8)
+        return qmatmul._launch_v2(lib, code, x, rql, torch.bfloat16, 8)
 
     y_c, mt = core()
-    y_p = qmatmul.dequant_matmul_v2g_reference(x, rql)
+    y_p = variant_fns()[variant][1](x, rql, torch.bfloat16)
     torch.cuda.synchronize()
     rec["core_err"] = (y_c - y_p).abs().max().item()
     if mt > 8 or not rec["core_err"] <= rec["tol"]:
@@ -534,7 +549,7 @@ def decode_case(name, x, rql, flush):
                            f"{rec['core_err']:.3e} > tol {rec['tol']:.3e}")
     del y_c, y_p
     rec["core_ms"] = cuda_ms(core, 20, flush)
-    log(f"  decode tile {name:>24} M={x.shape[0]}: {rec['ms']:.4f} ms, CUDA-core tile "
+    log(f"  {variant} decode tile {name:>24} M={x.shape[0]}: {rec['ms']:.4f} ms, CUDA-core tile "
         f"{rec['core_ms']:.4f} ms (err {rec['core_err']:.2e}), library {rec['library_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); control {rec['control_err']:.2e} "
         f"> tol {rec['tol']:.2e}")
@@ -569,6 +584,69 @@ def phase_decode_mma_kernels(params, device, rng):
         f"{step['ms']:.3f} ms, CUDA-core tile {step['core_ms']:.3f} ms, library "
         f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms ({step['bound_by']})")
     return recs
+
+
+# 8a's v2p decode-tile cases beyond the head: name, d_out, d_in, type, M
+# (f32x: x in f32, rounded to bf16 as it is staged; 1000 columns: 4-byte
+# copies)
+V2P_DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5),
+                    ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3),
+                    ("ragged Q6_K 2048->1000", 1000, 2048, "Q6_K", 8))
+
+
+def phase_v2p_decode_kernels(params, device, rng):
+    """8a: v2p's tensor-core decode tile (the group-dot form of
+    csrc/qmatmul_decode_mma.cuh) on the padded Q6_K lm_head at M = 1, 2, 4
+    and 8 (decode_case: 1e-5 limit, v2g's rounding as the planted control,
+    the CUDA-core tile beside it), then V2P_DECODE_SMALL."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
+    head = params["lm_head"]
+    recs = []
+    for M in DECODE_MS:
+        x = (torch.randn(M, head.d_in_local, device=device) * 0.5).to(torch.bfloat16)
+        recs.append(decode_case("lm_head 4096->128512 Q6_K", x, head, flush, "v2p"))
+    for name, d_out, d_in, qt, M in V2P_DECODE_SMALL:
+        rql = synthetic_rql(rng, d_out, d_in, T[qt], device)
+        x = torch.randn(M, d_in, device=device)
+        if "f32x" not in name:
+            x = x.to(torch.bfloat16)
+        recs.append(decode_case(name, x, rql, flush, "v2p"))
+    torch.cuda.empty_cache()
+    return recs
+
+
+def v2p_on_core(vrecs, drecs):
+    """8a's records for the summary entry of v2p's CUDA-core tile
+    (``qmatmul_v2p``): the B=8 step's head at M = 8, which the route now
+    gives the decode tile, timed on the CUDA-core tile beside it
+    (decode_case's "core_ms")."""
+    head = [dict(r, ms=r["core_ms"], mxu="bf16", tile="cuda_core") for r in drecs
+            if r["M"] == 8 and r["name"].startswith("lm_head")]
+    return [r for r in vrecs if not (r["variant"] == "v2p" and r["M"] == 8
+                                     and r["name"].startswith("lm_head"))] + head
+
+
+def v2p_decode_summary(recs, launches):
+    """The summary entry of v2p's tensor-core decode tile: one B=8 decode
+    step's lm_head call under v2m (M = 8) from 8a's records, the CUDA-core
+    tile's beside it, M = 1, 2 and 4 under "at_m"; ``launches`` from 8c's
+    v2m run (every head of its B=8 decode steps); its error the largest of
+    its cases."""
+    def at(M):
+        (r,) = [r for r in recs if r["M"] == M and r["name"].startswith("lm_head")]
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "core_ms")}
+
+    return {"name": "qmatmul_v2p_decode_mma", "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2m_mma.cuh",
+            "replaces": "gptq_gguf_tpu/ops/qmatmul.py:844", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs), **at(8),
+            "per": "one B=8 decode step's lm_head call (v2m, bf16 operands): 1 call",
+            "at_m": {M: at(M) for M in DECODE_MS if M != 8}}
 
 
 def decode_step(recs, M):
@@ -665,35 +743,39 @@ def reset_matmul_counts() -> None:
 
 
 def mma_counts() -> dict:
-    """kernel -> tensor-core launches of its wrapper (every v2 variant,
-    and v4: csrc/qmatmul_mma.cuh)."""
+    """kernel -> tensor-core launches of its wrapper (every v2 variant, v1
+    with a bf16 x, and v4: csrc/qmatmul_mma.cuh)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).mma_launches
                for v in qmatmul.MMA_VARIANTS + qmatmul.MMA_GROUP_DOT},
+            "v1": qmatmul.dequant_matmul_v1.mma_launches,
             "v4": qmv4.dequant_matmul_v4.mma_launches}
 
 
 def decode_counts() -> dict:
     """kernel -> launches of its tensor-core decode tile
-    (csrc/qmatmul_decode_mma.cuh: v2g and v4)."""
+    (csrc/qmatmul_decode_mma.cuh: v2g, v2p and v4)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
-    return {"v2g": qmatmul.dequant_matmul_v2g.decode_mma_launches,
+    return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).decode_mma_launches
+               for v in qmatmul.DECODE_MMA_VARIANTS},
             "v4": qmv4.dequant_matmul_v4.decode_mma_launches}
 
 
 def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
     """The decode-tile launches a run of forwards with token ``shapes``
     (B, S) should count: every call of v2g's kernel with bf16 operands at
-    qmatmul.DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 rows, and of v4's
-    (vec-4 weights: every 8B one) from qmv4.DECODE_MMA_MIN_ROWS, the
-    projections at B * S rows and the head at B (``per_forward`` names
-    each kernel's calls per forward: 4 per layer, the head, or both)."""
+    qmatmul.DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 rows, of v2p's from
+    qmatmul.V2P_DECODE_MMA_MIN_ROWS, and of v4's (vec-4 weights: every 8B
+    one) from qmv4.DECODE_MMA_MIN_ROWS, the projections at B * S rows and
+    the head at B (``per_forward`` names each kernel's calls per forward: 4
+    per layer, the head, or both)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     out = {}
-    for v, lo in (("v2g", qmatmul.DECODE_MMA_MIN_ROWS), ("v4", qmv4.DECODE_MMA_MIN_ROWS)):
+    for v, lo in (("v2g", qmatmul.DECODE_MMA_MIN_ROWS), ("v2p", qmatmul.V2P_DECODE_MMA_MIN_ROWS),
+                  ("v4", qmv4.DECODE_MMA_MIN_ROWS)):
         on_tile = range(lo, qmatmul.MMA_MIN_ROWS)
         n = per_forward.get(v, 0)
         proj, head = n >= 4 * n_layers, n in (1, 4 * n_layers + 1)
@@ -787,9 +869,11 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     if dmma != want_dmma:
         raise RuntimeError(f"{label} serving: decode-tile launches {dmma}, want {want_dmma}")
     if any(dmma.values()):
-        lo = qmv4.DECODE_MMA_MIN_ROWS if kernel == "v4" else qmatmul.DECODE_MMA_MIN_ROWS
-        log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every {kernel} call "
-            f"of {lo}-{qmatmul.MMA_MIN_ROWS - 1} rows")
+        lo = {"v2g": qmatmul.DECODE_MMA_MIN_ROWS, "v2p": qmatmul.V2P_DECODE_MMA_MIN_ROWS,
+              "v4": qmv4.DECODE_MMA_MIN_ROWS}
+        log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every call of "
+            + ", ".join(f"{k} of {lo[k]}-{qmatmul.MMA_MIN_ROWS - 1} rows"
+                        for k, n in dmma.items() if n))
     if kernel in mma:
         log(f"serving ({label}): {mma[kernel]} tensor-core launches = 4 x "
             f"{cfg.num_hidden_layers} per prefill forward x {n_prefill} (rows "
@@ -1666,6 +1750,14 @@ def phase_paged_http(eng, cfg, rng):
 FORMATS = ("v1", "v4", "v4 i8", "v4 bf16")  # 7a: every kernel body, both scale dtypes
 FORMAT_MS = (8, 128, 1024)  # decode, a prefill chunk, a perplexity batch (B * S rows)
 FORMAT_DECODE_MS = (1, 2, 4)  # v4's further decode rows (its tensor-core decode tile)
+# 7a's v1 cases on its tensor-core tiles beyond the 8B shapes (bf16 x): name,
+# d_out, d_in, type, M (1000 columns: code rows not 16-byte aligned, 4-byte
+# copies; 333: vec 1, v1_kernel at any M)
+V1_MMA_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 9),
+                ("Q3_K 1024->768", 768, 1024, "Q3_K", 130),
+                ("Q5_K 1024->768", 768, 1024, "Q5_K", 64),
+                ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 40),
+                ("ragged Q6_K 512->333", 333, 512, "Q6_K", 9))
 PPL_SEQS, PPL_LEN = 2, 512  # 7d: seeded synthetic sequences scored per format
 # one summary entry per TPU kernel body: (name, source, replaces, body, the
 # format whose 7a times and 7c serving launches it reports, the shapes of
@@ -1796,6 +1888,32 @@ def format_terms(x, rql) -> float:
     return mag.max().item()
 
 
+def v1_group_terms(x, rql) -> float:
+    """max over outputs of the sum of |terms| v1's tensor-core tiles add
+    up: |x| against |scale_t * q|, and |xsum| against |offset_t|."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    ng, gs = rql.scale_t.shape[0], rql.group_size
+    q = qmatmul._unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).float()
+    sq = (q.reshape(ng, gs, rql.d_out) * rql.scale_t[:, None, :]).reshape(rql.d_in_local, -1)
+    del q
+    mag = x.float().abs() @ sq.abs()
+    del sq
+    xsum = x.float().reshape(x.shape[0], ng, gs).sum(-1)
+    return (mag + xsum.abs() @ rql.offset_t.abs()).max().item()
+
+
+def v1_bf16_weights(x, rql):
+    """7a's planted control for a v1 case on the tensor-core tiles: the
+    plain version with each weight rounded to bf16 (what a dequantizing
+    bf16 tile would compute), which the case's limit must reject."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    return x.float() @ qmatmul.dequantize_runtime(rql).to(torch.bfloat16).float().T
+
+
 def v4_unrounded(x, rql):
     """7a's planted control for a v4 case on the tensor-core tiles: the
     plain version with each weight q * bf16(s) left unrounded (f32), which
@@ -1818,13 +1936,17 @@ def format_case(name, fmt, x, rql, flush):
     """A v1 / v4 kernel against its plain version on the same inputs, then
     timed: kernel, call, plain, library (torch.matmul on the dequantized
     weight: f32 with TF32 off for v1, bf16 for v4) and the bound (bytes at
-    3.35 TB/s, operations at f32 67 TFLOP/s for v1, bf16 989 for v4). A v4
-    call on a vec-4 weight must run the tensor-core tiles from MMA_MIN_ROWS
-    rows and the tensor-core decode tile from qmv4.DECODE_MMA_MIN_ROWS (1)
-    to 8 rows, counted on that tile alone, held to 1e-5 with a planted control
-    (v4_unrounded); beside a decode-tile case, the CUDA-core tile of the
-    same rows (qmv4._launch_v4 with the tensor-core tiles ruled out), held
-    to the same limit and timed."""
+    3.35 TB/s, operations at bf16 989 TFLOP/s on the tensor-core tiles, f32
+    67 TFLOP/s on v1's CUDA-core tiles). A v4 call on a vec-4 weight must
+    run the tensor-core tiles from MMA_MIN_ROWS rows and the tensor-core
+    decode tile from qmv4.DECODE_MMA_MIN_ROWS (1) to 8 rows, counted on
+    that tile alone, held to 1e-5 with a planted control (v4_unrounded); a
+    v1 call with a bf16 x on a vec-4 weight the tensor-core tiles from
+    MMA_MIN_ROWS rows, held to 1e-5 of its group dot's terms with a
+    planted control (v1_bf16_weights). Beside a decode-tile case, and a v1
+    tensor-core case, the CUDA-core tile of the same rows (qmv4._launch_v4
+    with the tensor-core tiles ruled out, qmatmul._launch_v1 without
+    them), held to the same limit and timed."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
@@ -1833,9 +1955,10 @@ def format_case(name, fmt, x, rql, flush):
     v1 = isinstance(rql, qmatmul.RuntimeQuantLinear)
     fn, ref = ((qmatmul.dequant_matmul_v1, qmatmul.dequant_matmul_v1_reference) if v1
                else (qmv4.dequant_matmul_v4, qmv4.dequant_matmul_v4_reference))
-    vec4 = not v1 and rql.d_out % 4 == 0
-    want_mma = vec4 and M >= qmatmul.MMA_MIN_ROWS
-    want_decode = vec4 and qmv4.DECODE_MMA_MIN_ROWS <= M < qmatmul.MMA_MIN_ROWS
+    vec4 = rql.d_out % 4 == 0
+    want_mma = (vec4 and M >= qmatmul.MMA_MIN_ROWS
+                and (not v1 or x.dtype == torch.bfloat16))
+    want_decode = not v1 and vec4 and qmv4.DECODE_MMA_MIN_ROWS <= M < qmatmul.MMA_MIN_ROWS
     m0, d0 = getattr(fn, "mma_launches", 0), getattr(fn, "decode_mma_launches", 0)
     y_k = fn(x, rql)
     mma = getattr(fn, "mma_launches", 0) - m0
@@ -1845,26 +1968,31 @@ def format_case(name, fmt, x, rql, flush):
                            f"launches {decode}; want {int(want_mma)}, {int(want_decode)}")
     tiled = want_mma or want_decode
     y_p = ref(x, rql)
-    y_c = v4_unrounded(x, rql) if tiled else None
+    y_c = (v1_bf16_weights if v1 else v4_unrounded)(x, rql) if tiled else None
     torch.cuda.synchronize()
     if not torch.isfinite(y_k).all():
         raise RuntimeError(f"{fmt} {name}: kernel output is not finite")
-    # tolerance: the same products (f32 for v1, bf16 x bf16 for v4), f32
-    # sums in another order: 1e-4 of the largest sum of |terms| of an output;
-    # 1e-5 on the tensor-core tiles (reordering f32 sums costs ~1e-7 *
-    # sqrt(d_in) of it), a limit the unrounded weights must fail
+    # tolerance: the same products (f32 for v1, bf16 x bf16 for v4; exact
+    # bf16 x times raw codes on v1's tiles), f32 sums in another order:
+    # 1e-4 of the largest sum of |terms| of an output; 1e-5 on the
+    # tensor-core tiles (reordering f32 sums costs ~1e-7 * sqrt(d_in) of
+    # it; v1's terms those of its group dot), a limit the planted control
+    # (v4: the unrounded weights; v1: the weights rounded to bf16) must fail
     err = (y_k - y_p).abs().max().item()
-    tol = (1e-5 if tiled else 1e-4) * max(format_terms(x, rql), 1e-30)
+    terms = v1_group_terms(x, rql) if v1 and tiled else format_terms(x, rql)
+    tol = (1e-5 if tiled else 1e-4) * max(terms, 1e-30)
     err_c = (y_k - y_c).abs().max().item() if tiled else None
     del y_k, y_c
     if not err <= tol:
         raise RuntimeError(f"{fmt} {name} M={M}: kernel vs plain max|err| {err:.3e} > {tol:.3e}")
     if tiled and not err_c > tol:
         raise RuntimeError(f"{fmt} {name} M={M}: the limit {tol:.3e} does not reject the "
-                           f"unrounded weights ({err_c:.3e})")
+                           f"planted control ({err_c:.3e})")
     core_err = core_ms = None
-    if want_decode:
+    if want_decode or (v1 and want_mma):
         def core():
+            if v1:
+                return qmatmul._launch_v1(x, rql, mma=False)
             return qmv4._launch_v4(x, rql, mma=False, decode_mma=False)
 
         y_core, tile = core()
@@ -1874,7 +2002,7 @@ def format_case(name, fmt, x, rql, flush):
         if tile != "cuda_core" or not core_err <= tol:
             raise RuntimeError(f"{fmt} CUDA-core tile {name} M={M} ({tile}): max|err| "
                                f"{core_err:.3e} > tol {tol:.3e}")
-        core_ms = cuda_ms(core, 20, flush)
+        core_ms = cuda_ms(core, 20 if M <= 128 else 5, flush)
     del y_p
     if v1:
         w_lib, x_lib = qmatmul.dequantize_runtime(rql).T.contiguous(), x.float()
@@ -1889,18 +2017,21 @@ def format_case(name, fmt, x, rql, flush):
     del w_lib, x_lib
     nbytes = rql.bytes_read + x.numel() * x.element_size() + M * rql.d_out * 4
     flops = 2.0 * M * d_in * rql.d_out
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (F32_FLOP_PER_S if v1 else BF16_FLOP_PER_S) * 1e3
     tile = "decode_mma" if want_decode else "mma" if want_mma else "cuda_core"
+    rate = F32_FLOP_PER_S if v1 and tile == "cuda_core" else BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     rec = dict(name=name, fmt=fmt, body="v1" if v1 else qmv4.body_of(rql), M=M, d_in=d_in,
                d_out=rql.d_out, max_abs_err=err, tol=tol, tile=tile, mma=bool(want_mma),
                control_err=err_c, core_err=core_err, core_ms=core_ms,
                ms=ms, call_ms=wall_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_by="bytes" if t_bytes >= t_ops else "operations", op_rate=rate,
                bytes=nbytes, plane_bytes=rql.bytes_read, flops=flops)
+    if v1 and want_mma:  # the CUDA-core tile beside it is bound by f32 operations
+        rec["core_bound_ms"] = max(t_bytes, flops / F32_FLOP_PER_S * 1e3)
     extra = f", control {err_c:.2e}, {tile}" if tiled else ""
-    if want_decode:
+    if core_ms is not None:
         extra += f"; CUDA-core tile {core_ms:.4f} ms (err {core_err:.2e})"
     log(f"  {fmt:>7} {name:>24} M={M:<5} err {err:.3e} (tol {tol:.2e}{extra})  kernel {ms:.4f} ms "
         f"(call {wall_ms:.4f})  plain {plain_ms:.3f} ms  library {library_ms:.4f} ms  bound "
@@ -1912,10 +2043,11 @@ def phase_format_kernels(params, rng, device):
     """7a: the v1 kernel and the three v4 bodies (f32 and bf16 scales)
     against their plain versions at every Llama-3-8B projection shape (Q4_K)
     and the unpadded Q6_K lm_head, at M = 8, the threshold (MMA_MIN_ROWS),
-    128 and 1024, v4 also at M = 1, 2 and 4 (v4 from the threshold on its
-    tensor-core tiles, from qmv4.DECODE_MMA_MIN_ROWS to 8 rows on its
-    tensor-core decode tile, the CUDA-core tile beside it); Q2_K / Q3_K /
-    Q5_K and ragged d_out at small shapes."""
+    128 and 1024 with a bf16 x, v4 also at M = 1, 2 and 4 (v1 and v4 from
+    the threshold on their tensor-core tiles, v4 from
+    qmv4.DECODE_MMA_MIN_ROWS to 8 rows on its tensor-core decode tile, the
+    CUDA-core tile beside each); Q2_K / Q3_K / Q5_K and ragged d_out at
+    small shapes with an f32 x, and for v1 V1_MMA_SMALL with a bf16 x."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
@@ -1946,6 +2078,11 @@ def phase_format_kernels(params, rng, device):
         for name, v2, M in small:
             x = torch.randn(M, v2.d_in_local, device=device)
             recs.append(format_case(name, fmt, x, as_format(v2, fmt), flush))
+        if fmt == "v1":  # its tensor-core tiles: a bf16 x from MMA_MIN_ROWS rows
+            for name, d_out, d_in, qt, M in V1_MMA_SMALL:
+                x = torch.randn(M, d_in, device=device).to(torch.bfloat16)
+                recs.append(format_case(name, fmt, x, as_format(
+                    synthetic_rql(rng, d_out, d_in, T[qt], device), fmt), flush))
         torch.cuda.empty_cache()
     return recs
 
@@ -1989,59 +2126,90 @@ def phase_format_consistency(fparams, cfg, rng, device):
 def phase_format_ppl(fparams, cfg, device):
     """7d: compute_perplexity(serving=True) on the 32-layer model in v2, v1
     and v4: PPL_SEQS seeded synthetic sequences of PPL_LEN tokens, every
-    projection and the lm_head through the format's kernel at M = PPL_LEN
-    (v2's and v4's on the tensor-core tiles, each within 1e-3 nats/token of
-    the same model through the plain version)."""
+    projection and the lm_head through the format's kernel at M = PPL_LEN,
+    each format within 1e-3 nats/token of the same model through its plain
+    version. v2's and v4's every call runs the tensor-core tiles. v1's
+    runs them where x is bf16 (qmatmul.dequant_matmul_v1's route): at
+    PPL_LEN < 2 * FLASH_CHUNK the cache takes the short attention path,
+    whose f32 output (as in the JAX package) makes the residual stream f32
+    after the first o-projection, so only each sequence's first q/k/v call
+    has a bf16 x; "v1 long" scores v1 again at 2 * FLASH_CHUNK tokens (the
+    flash path: bf16 activations throughout), every call on the tiles. The
+    tensor-core launches are held to the calls whose x the route gives
+    them, counted by dtype in the same run."""
     import torch
 
     from gptq_gguf_tpu_torch.evals import ppl
+    from gptq_gguf_tpu_torch.models import llama
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
     from gptq_gguf_tpu_torch.utils.data import get_data
 
-    data = get_data("synthetic", PPL_SEQS * PPL_LEN, PPL_LEN, train=False, vocab_size=V)
+    n_long = 2 * llama.FLASH_CHUNK
+    data = {n: get_data("synthetic", PPL_SEQS * n, n, train=False, vocab_size=V)
+            for n in (PPL_LEN, n_long)}
+    plain_fns = {"v2": qmatmul.dequant_matmul_v2g_reference,
+                 "v1": qmatmul.dequant_matmul_v1_reference,
+                 "v4": qmv4.dequant_matmul_v4_reference}
     out = {}
-    for fmt, kernel in (("v2", "v2g"), ("v1", "v1"), ("v4", "v4")):
-        ppl.compute_perplexity(fparams[fmt], cfg, data[:1], serving=True)  # warm
+    for label, fmt, kernel, n in (("v2", "v2", "v2g", PPL_LEN), ("v1", "v1", "v1", PPL_LEN),
+                                  ("v4", "v4", "v4", PPL_LEN), ("v1 long", "v1", "v1", n_long)):
+        seqs = data[n]
+        ppl.compute_perplexity(fparams[fmt], cfg, seqs[:1], serving=True)  # warm
+        dispatch, rows = qmatmul.dequant_matmul, []
+
+        def spy(x, rql):  # each call's rows and dtype, for the route's expected tiles
+            rows.append((x.shape[0], x.dtype == torch.bfloat16, rql.d_out % 4 == 0))
+            return dispatch(x, rql)
+
+        qmatmul.dequant_matmul = spy
         reset_matmul_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        value = ppl.compute_perplexity(fparams[fmt], cfg, data, serving=True)
-        torch.cuda.synchronize()
-        secs = (time.perf_counter() - t) / len(data)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value = ppl.compute_perplexity(fparams[fmt], cfg, seqs, serving=True)
+            torch.cuda.synchronize()
+        finally:
+            qmatmul.dequant_matmul = dispatch
+        secs = (time.perf_counter() - t) / len(seqs)
         counts, mma = matmul_counts(), mma_counts()
-        want = len(data) * (4 * cfg.num_hidden_layers + 1)
+        want = len(seqs) * (4 * cfg.num_hidden_layers + 1)
         if counts[kernel] != want or any(counts[k] for k in MATMUL_KERNELS if k != kernel):
-            raise RuntimeError(f"ppl {fmt}: launches {counts}, want {want} of {kernel}")
-        # every projection and the all-position head at M = PPL_LEN on the
-        # tensor-core tiles (v2 and v4)
-        if mma != {k: want if k == kernel else 0 for k in mma}:
-            raise RuntimeError(f"ppl {fmt}: tensor-core launches {mma}, want {want} of {kernel}")
+            raise RuntimeError(f"ppl {label}: launches {counts}, want {want} of {kernel}")
+        # every projection and the all-position head at M = n on the
+        # tensor-core tiles (v2 and v4); v1's where its x is bf16
+        on_tiles = sum(m >= qmatmul.MMA_MIN_ROWS and vec4 and (bf16 or fmt != "v1")
+                       for m, bf16, vec4 in rows)
+        if len(rows) != want or mma != {k: on_tiles if k == kernel else 0 for k in mma}:
+            raise RuntimeError(f"ppl {label}: tensor-core launches {mma}, want {on_tiles} of "
+                               f"{kernel} ({len(rows)} calls)")
+        if label == "v1 long" and on_tiles != want:
+            raise RuntimeError(f"ppl {label}: {on_tiles} of {want} calls with a bf16 x")
         if any(decode_counts().values()):
-            raise RuntimeError(f"ppl {fmt}: decode-tile launches {decode_counts()}")
+            raise RuntimeError(f"ppl {label}: decode-tile launches {decode_counts()}")
         if not np.isfinite(value):
-            raise RuntimeError(f"ppl {fmt}: {value}")
-        out[fmt] = dict(ppl=value, nll=float(np.log(value)), s_per_seq=secs,
-                        launches=counts[kernel], mma_launches=mma.get(kernel, 0), counts=counts)
-        log(f"ppl ({fmt}, serving path, {len(data)} x {PPL_LEN} tokens): {value:.4f} "
+            raise RuntimeError(f"ppl {label}: {value}")
+        n_bf16 = sum(b for _, b, _ in rows)
+        out[label] = dict(ppl=value, nll=float(np.log(value)), s_per_seq=secs, tokens=n,
+                          launches=counts[kernel], mma_launches=mma.get(kernel, 0),
+                          bf16_calls=n_bf16, counts=counts)
+        log(f"ppl ({label}, serving path, {len(seqs)} x {n} tokens): {value:.4f} "
             f"({np.log(value):.6f} nats/token), {secs:.3f} s per sequence, {counts[kernel]} "
-            f"{kernel} launches ({mma.get(kernel, 0)} on the tensor cores)")
-        plain_fn = {"v2": qmatmul.dequant_matmul_v2g_reference,
-                    "v4": qmv4.dequant_matmul_v4_reference}.get(fmt)
-        if plain_fn is not None:  # the same function through the plain version
-            fn0 = qmatmul.dequant_matmul
-            qmatmul.dequant_matmul = plain_fn
-            try:
-                plain = float(np.log(ppl.compute_perplexity(fparams[fmt], cfg, data,
-                                                            serving=True)))
-            finally:
-                qmatmul.dequant_matmul = fn0
-            d = out[fmt]["nll"] - plain
-            out[fmt]["plain_nll"] = plain
-            log(f"ppl ({fmt}): kernels {out[fmt]['nll']:.6f} vs plain version {plain:.6f} "
-                f"nats/token: {d:+.3e} (bound 1e-3)")
-            if not abs(d) < 1e-3:
-                raise RuntimeError(f"ppl {fmt}: kernels {out[fmt]['nll']} vs plain {plain}")
-    spread = max(r["nll"] for r in out.values()) - min(r["nll"] for r in out.values())
+            f"{kernel} launches ({mma.get(kernel, 0)} on the tensor cores; {n_bf16} calls with "
+            f"a bf16 x)")
+        fn0 = qmatmul.dequant_matmul  # the same function through the plain version
+        qmatmul.dequant_matmul = plain_fns[fmt]
+        try:
+            plain = float(np.log(ppl.compute_perplexity(fparams[fmt], cfg, seqs, serving=True)))
+        finally:
+            qmatmul.dequant_matmul = fn0
+        d = out[label]["nll"] - plain
+        out[label]["plain_nll"] = plain
+        log(f"ppl ({label}): kernels {out[label]['nll']:.6f} vs plain version {plain:.6f} "
+            f"nats/token: {d:+.3e} (bound 1e-3)")
+        if not abs(d) < 1e-3:
+            raise RuntimeError(f"ppl {label}: kernels {out[label]['nll']} vs plain {plain}")
+    same = [r["nll"] for r in out.values() if r["tokens"] == PPL_LEN]
+    spread = max(same) - min(same)
     log(f"ppl across formats: nats/token spread {spread:.3e} (bound 0.05)")
     if not spread < 0.05:
         raise RuntimeError("the formats' perplexities disagree")
@@ -2432,8 +2600,10 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma
     calls among the four projections of every layer and the lm_head, at
     8a's M=8 times with bf16 operands, the dispatch's); its error is the
     largest of all its 8a cases. v2's entry adds its f32 operand mode.
-    ``launches`` counts the decode tiles' launches of 8c's run,
-    ``mma_launches`` its tensor-core tiles' (every prefill projection)."""
+    ``launches`` counts the CUDA-core tiles' launches of 8c's run (v2p's
+    head at M = 8 is timed on that tile: v2p_on_core; its tensor-core
+    decode tile is qmatmul_v2p_decode_mma), ``mma_launches`` its
+    tensor-core tiles' (every prefill projection)."""
     def entry(mxu):
         per = {r["name"].split()[0]: r for r in recs
                if r["variant"] == variant and r["mxu"] == mxu and r["M"] == 8}
@@ -2491,15 +2661,18 @@ def format_step(recs, fmt, shapes, M, ms_key="ms"):
     """One Llama-3-8B forward's share of ``shapes`` (each projection 32
     times, the lm_head once) at M rows from 7a's records in ``fmt``: the
     kernel's ms (``ms_key``: "ms" the route's tile, "core_ms" the
-    CUDA-core tile beside a decode-tile case), plain and library ms, and
-    the bound."""
+    CUDA-core tile beside a decode-tile case or a v1 tensor-core case),
+    plain and library ms, and the bound (each record's operations at the
+    rate of the tile it ran; f32 for v1's CUDA-core tile)."""
     per = {r["name"].split()[0]: r for r in recs if r["fmt"] == fmt and r["M"] == M}
 
     def total(key):
         return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
 
+    core = ms_key == "core_ms" and fmt == "v1"  # v1_kernel beside the tensor-core tiles
     t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
-    t_ops = total("flops") / (F32_FLOP_PER_S if fmt == "v1" else BF16_FLOP_PER_S) * 1e3
+    t_ops = sum(per[k]["flops"] / (F32_FLOP_PER_S if core else per[k]["op_rate"])
+                * (1 if k == "lm_head" else N_LAYERS) for k in shapes) * 1e3
     return {"ms": total(ms_key), "plain_ms": total("plain_ms"),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2511,9 +2684,10 @@ def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mm
     (the four projections of every layer and / or the lm_head, at the M=8
     times of 7a in ``fmt``) on its CUDA-core tile (v4's route takes its
     decode tile there: qmatmul_v4_decode_mma_*), and beside it the same
-    calls at M = 1024 (one 8B forward's share: v4's on the tensor-core
-    tiles); ``launches`` the body's in 7c, every tile, and its tensor-core
-    launches in 7c / 7d; its error is the largest of all its 7a cases."""
+    calls at M = 1024 (one 8B forward's share, on the tensor-core tiles:
+    qmatmul_v1_mma for v1); ``launches`` the body's in 7c (v4: every
+    tile; v1: its CUDA-core tile's), and its tensor-core launches in 7c /
+    7d; its error is the largest of all its 7a cases."""
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
     step = format_step(recs, fmt, shapes, 8, "ms" if fmt == "v1" else "core_ms")
     return {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
@@ -2521,9 +2695,35 @@ def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mm
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["body"] == body),
             **step, "tile": "cuda_core",
             "per": f"one B=8 decode step ({fmt}) on the CUDA-core tile: {calls} calls",
-            "at_1024": {**format_step(recs, fmt, shapes, 1024), "tile": "mma" if body != "v1"
-                        else "cuda_core",
-                        "per": f"one Llama-3-8B forward at M = 1024 ({fmt}): {calls} calls"}}
+            "at_1024": {**format_step(recs, fmt, shapes, 1024), "tile": "mma",
+                        "per": f"one Llama-3-8B forward at M = 1024 ({fmt}, bf16 x): "
+                               f"{calls} calls"}}
+
+
+def v1_mma_summary(recs, launches):
+    """The summary entry of v1's tensor-core tiles (csrc/qmatmul_v1_mma.cuh):
+    one Llama-3-8B forward at M = 1024 with a bf16 x (4 x 32 projections
+    and the unpadded head) from 7a's v1 records, v1_kernel's CUDA-core
+    tile on the same inputs as "core_ms" (its f32 bound "core_bound_ms"),
+    M = 128 and the threshold M under "at_m"; ``launches`` the tiles'
+    launches in 7c's v1 serving run (every prefill projection; 7d's under
+    "ppl_launches" and, at 1024 tokens, "ppl_long_launches"); its error
+    the largest of its tensor-core cases."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def at(M):
+        return {**format_step(recs, "v1", STEP, M),
+                "core_ms": format_step(recs, "v1", STEP, M, "core_ms")["ms"],
+                "core_bound_ms": format_step(recs, "v1", STEP, M, "core_ms")["bound_ms"]}
+
+    return {"name": "qmatmul_v1_mma", "route": "cuda",
+            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v1_mma.cuh",
+            "replaces": "gptq_gguf_tpu/ops/qmatmul.py:157", **launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs
+                               if r["body"] == "v1" and r["tile"] == "mma"),
+            **at(1024), "tile": "mma",
+            "per": f"one Llama-3-8B forward at M = 1024 (v1, bf16 x): {4 * N_LAYERS + 1} calls",
+            "at_m": {M: at(M) for M in (qmatmul.MMA_MIN_ROWS, 128)}}
 
 
 def format_decode_summary(body, fmt, shapes, recs, launches):
@@ -2636,6 +2836,7 @@ def run(device) -> dict:
     log("== phase 8: the v2 kernel variants at full width")
     t8 = time.time()
     vrecs = phase_variant_kernels(params, rng, device)
+    precs_v2p = phase_v2p_decode_kernels(params, device, rng)
     mrecs += phase_mma_kernels(params, ("v2", "v3", "v2f", "v2h", "v2s"), device, rng,
                                V2S_SMALL)
     gdrecs = phase_mma_kernels(params, ("v2m", "v2t"), device, rng, GROUP_DOT_SMALL)
@@ -2710,19 +2911,28 @@ def run(device) -> dict:
         paged_summary("paged_flash_decode_q4", 160, precs["paged_flash_decode_q4"],
                       paged_runs["int4"]["launches"])] + [
         format_summary(name, source, replaces, body, fmt, shapes, frecs,
-                       fserve[fmt]["counts"]["v1" if body == "v1" else f"v4_{body}"],
+                       fserve[fmt]["counts"][f"v4_{body}"] if body != "v1"
+                       else fserve["v1"]["counts"]["v1"] - fserve["v1"]["mma_launches"],
                        {"serving": fserve[fmt]["counts"].get(f"v4_{body}_mma", 0),
                         "ppl": fppl[fmt]["counts"].get(f"v4_{body}_mma", 0) if fmt in fppl
-                        else None})
+                        else None} if body != "v1"
+                       else {"serving": fserve["v1"]["mma_launches"],
+                             "ppl": fppl["v1"]["mma_launches"]})
         for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
+        v1_mma_summary(frecs, {"launches": fserve["v1"]["mma_launches"],
+                               "ppl_launches": fppl["v1"]["mma_launches"],
+                               "ppl_long_launches": fppl["v1 long"]["mma_launches"]})] + [
         format_decode_summary(body, fmt, shapes, frecs,
                               fserve[fmt]["counts"][f"v4_{body}_decode_mma"])
         for _, _, _, body, fmt, shapes in V1_V4_BODIES if body != "v1"] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
-                        vrecs, vserve[run]["counts"][variant]
-                        - (vserve[run]["mma_launches"] if variant == run else 0),
+                        v2p_on_core(vrecs, precs_v2p) if variant == "v2p" else vrecs,
+                        vserve[run]["counts"][variant]
+                        - (vserve[run]["mma_launches"] if variant == run else 0)
+                        - vserve[run]["decode_mma_launches"].get(variant, 0),
                         vserve[run]["mma_launches"] if variant == run else 0)
         for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [
+        v2p_decode_summary(precs_v2p, vserve["v2m"]["decode_mma_launches"]["v2p"])] + [
         mma_summary(mrecs, serve["mma_launches"]),
         decode_summary(drecs, serve["decode_mma_launches"]["v2g"])] + [
         variant_mma_summary(name, source, line, variant, shapes, mrecs + gdrecs,

@@ -9,10 +9,14 @@
 //       by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K, Q5_K and Q6_K weights, bf16
 //       operands;
 //   V4Mma<PB, GS, I8, kDecodePitch> (qmatmul_v4.cu): the v4 bodies pb2,
-//       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x.
+//       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x;
+//   GroupDotMma<PB, 16, HAS_MIN, kDecodePitch> (qmatmul_v2m_mma.cuh, built
+//       by qmatmul_v2m.cu): v2p (Q2_K, Q3_K, Q6_K, the lm_head under v2m),
+//       bf16 operands, in the group-dot form (F::GROUP_DOT) below.
 //
 // Replaces (it takes every M of 1-8), at M = 2-8 (qmatmul.
-// DECODE_MMA_MIN_ROWS up to qmatmul.MMA_MIN_ROWS - 1):
+// DECODE_MMA_MIN_ROWS up to qmatmul.MMA_MIN_ROWS - 1; for v2p from
+// qmatmul.V2P_DECODE_MMA_MIN_ROWS: _kernel_v2p :844):
 // gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g :605 (bf16 operands), the
 // default variant, which carries every projection and the lm_head of a
 // decode step (129 calls per Llama-3-8B step at B = 8); at M = 1-8
@@ -79,10 +83,20 @@
 //     c0 + 2i, c0 + 2i + 1 and x rows 2t, 2t + 1;
 //   * an f32 x with bf16 operands is rounded as it is staged and its group
 //     sums are taken on the way (stage_x); a bf16 x's from the staged tile
-//     (sum_x).
+//     (sum_x);
+//   * group dot (F::GROUP_DOT; v2p, gs 16): F::frags builds the raw codes
+//     (exact in bf16) and F::rows the step's f32 scale and off2 rows; each
+//     k16 slice of the warp's K half (at gs 16 one group) runs into a fresh
+//     C fragment, which one FMA per fragment value adds to the accumulator
+//     times the slice's group scale of that column: y = sum_g scale_g
+//     (bf16(x_g) @ q_g) - xsum @ off2, the JAX body's terms (_kernel_v2p
+//     :844) in another order of the f32 sums.
+//     The branch is compiled only for such a policy, so the other
+//     instances keep their code.
 // ptxas (sm_90a, -O3): 64 registers in every v2g instance, no spills but 4
-// bytes of spill stores and 4 of loads in the Q3_K one
-// (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
+// bytes of spill stores and 4 of loads in the Q3_K one; v2p's: 64
+// registers, 4 bytes of spill stores and 4 of loads at Q6_K, none at Q2_K
+// / Q3_K (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
 
 #pragma once
 
@@ -182,7 +196,7 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
   constexpr int GPK = T::GPK;
   constexpr int QUARTERS = kQK / kMmaKT;
   static_assert(S >= 3, "a ring of at least three stages (group rows one step ahead)");
-  static_assert(!F::GROUP_DOT && !F::SPLIT_HALVES, "per-weight builds summed whole only");
+  static_assert(!F::GROUP_SUM && !F::SPLIT_HALVES, "whole sums or group dots only");
   extern __shared__ __align__(16) char smem[];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -239,10 +253,27 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
     uint32_t bx[4];  // x rows 0-7 at the two slices' k: b0, b1 of slice 0, then of slice 1
     ldsm_x4(bx, reinterpret_cast<const __nv_bfloat16*>(st + T::M::X_OFF) + (lane % 8) * kAStride +
                     16 * decode_slice<F::PB>(kh, lane / 16) + 8 * ((lane / 8) % 2));
+    if constexpr (F::GROUP_DOT) {  // each slice's partial, then acc += partial * scale
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j) {
+        float p[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) mma_bf16(acc[i], af[j][i], bx[2 * j], bx[2 * j + 1]);
+        for (int i = 0; i < 2; ++i) mma_bf16_first(p[i], af[j][i], bx[2 * j], bx[2 * j + 1]);
+        const int lg = 16 * decode_slice<F::PB>(kh, j) / F::GS;  // the slice's group
+        const float4 s4 = *reinterpret_cast<const float4*>(r + lg * kMmaBN + c0);
+        const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+        // tile i's C values e: column c0 + 2i + e / 2
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(p[i][e], sc[2 * i + e / 2], acc[i][e]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(acc[i], af[j][i], bx[2 * j], bx[2 * j + 1]);
+    }
     if constexpr (F::XSUM) {
       if (F::has_off(a) && kh == 0) {  // the step's every group, once per column
         const float* xg = reinterpret_cast<const float*>(st + T::M::G_OFF);

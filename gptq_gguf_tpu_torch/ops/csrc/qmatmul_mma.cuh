@@ -11,8 +11,10 @@
 //   V4Mma<PB, GS, I8> (qmatmul_v4.cu): the v4 bodies pb2, pb2_i8, pb1;
 //   GroupDotMma<PB, GS, HAS_MIN> (qmatmul_v2m_mma.cuh): the group-dot
 //       variants v2m (gs 32) and v2p (gs 16), and GroupSumMma<PB, HAS_MIN>
-//       there: v2t (gs 32) (qmatmul_v2m.cu).
-// (v2g's decode tile, qmatmul_decode_mma.cuh, stages its steps with the
+//       there: v2t (gs 32) (qmatmul_v2m.cu);
+//   V1Mma<PB, GS> (qmatmul_v1_mma.cuh): v1 with a bf16 x, a group dot of
+//       raw codes with v1's f32 scale_t and offset_t rows (qmatmul_v1.cu).
+// (The decode tiles of qmatmul_decode_mma.cuh stage their steps with the
 // same policy issue and stage_x / sum_x below.)
 // Each computes, from M >= 9 rows (qmatmul.MMA_MIN_ROWS):
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off ]   (f32 sums)
@@ -203,6 +205,41 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
 __device__ __forceinline__ void store_w4(__nv_bfloat16* ws, int kk, int n, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(ws + kk * kBStride + n) =
       make_uint2(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]));
+}
+
+// a step's raw codes into the bf16 weight tile, exact (each is < 64), for
+// the group-dot policies: thread t takes 4 columns of 8 weight rows (4-bit
+// codes: 4 code rows, whose low nibbles are tile rows r and high nibbles
+// rows 32 + r); codes points at the first staged code row, PITCH bytes a row
+template <int PB, int PITCH = kMmaBN>
+__device__ __forceinline__ void build_codes(const char* codes, __nv_bfloat16* ws) {
+  const int n = 4 * (threadIdx.x % 32);  // 4 columns per thread
+  const int slice = threadIdx.x / 32;     // 8 row slices
+  if constexpr (PB == 2) {  // 32 code rows: 4 per slice, low nibbles k, high k + 32
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * slice + i;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + r * PITCH + n);
+      float lo[4], hi[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        lo[c] = small_u2f((w >> (8 * c)) & 0xFu);
+        hi[c] = small_u2f((w >> (8 * c + 4)) & 0xFu);
+      }
+      store_w4(ws, r, n, lo);
+      store_w4(ws, 32 + r, n, hi);
+    }
+  } else {  // 64 code rows: 8 per slice
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * slice + i;
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(codes + r * PITCH + n);
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[c] = small_u2f((w >> (8 * c)) & 0xFFu);
+      store_w4(ws, r, n, v);
+    }
+  }
 }
 
 // the supergroup-relative row of step-local weight row kk in quarter q:

@@ -35,8 +35,14 @@
 //     the wrapper also splits the K axis over supergroups (gridDim.z) and a
 //     second kernel reduces those partials in a fixed order (no float
 //     atomics): results are reproducible run to run.
+// With a bf16 x at M >= 9 rows on vec-4 weights (serving's prefill, whose
+// activations are bf16) the wrapper runs the tensor-core tiles of
+// qmatmul_v1_mma.cuh instead (V1Mma for the mainloop of qmatmul_mma.cuh):
+// the same function as a group dot of raw codes, exact in bf16, with f32
+// sums. An f32 x, M <= 8 and vec-1 weights stay here.
 
 #include "qmatmul_common.cuh"
+#include "qmatmul_v1_mma.cuh"
 
 namespace {
 
@@ -186,19 +192,8 @@ __global__ void __launch_bounds__(kThreads) v1_kernel(
   }
 }
 
-struct Args {
-  const void* x;
-  int x_bf16;
-  const uint8_t* qs;
-  const float* scale_t;
-  const float* offset_t;
-  float* dst;
-  int M, d_in, d_out, sg_per_split, splits;
-  cudaStream_t stream;
-};
-
 template <int PB, int GS, int MT, int VEC>
-void launch(const Args& a) {
+void launch(const V1Args& a) {
   constexpr int cols = kThreads / Slices<MT>::KS * VEC;
   const dim3 grid((a.d_out + cols - 1) / cols, (a.M + MT - 1) / MT, a.splits);
   v1_kernel<PB, GS, MT, VEC><<<grid, kThreads, 0, a.stream>>>(
@@ -208,7 +203,7 @@ void launch(const Args& a) {
 
 // row tiles: MT in {1, 2, 4, 8, 16, 32} for VEC 4, {1, 8, 32} for VEC 1
 template <int PB, int GS>
-bool launch_tile(const Args& a, int mt, int vec) {
+bool launch_tile(const V1Args& a, int mt, int vec) {
   if (vec == 4) {
     switch (mt) {
       case 1: launch<PB, GS, 1, 4>(a); return true;
@@ -231,25 +226,39 @@ bool launch_tile(const Args& a, int mt, int vec) {
   return false;
 }
 
+// tile 0: v1_kernel's row tiles (launch_tile); tile 1: the tensor-core
+// tiles of qmatmul_v1_mma.cuh, mt (32, 64 or 128) rows per block, for a
+// bf16 x on vec-4 weights only
+template <int PB, int GS>
+bool launch_format(const V1Args& a, int tile, int mt, int vec) {
+  if (tile == 0) return launch_tile<PB, GS>(a, mt, vec);
+  if (tile == 1 && vec == 4 && a.x_bf16) return launch_mma_tiles<V1Mma<PB, GS>>(a, mt);
+  return false;
+}
+
 }  // namespace
 
 // Returns 0 on success, else a cudaError_t value (cudaGetLastError() after
 // the launches, or cudaErrorInvalidValue for a format or tile this file
 // does not instantiate). x is bf16 when x_bf16 != 0, else f32. partials is
-// (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. vec 4
-// needs d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
-// pointer of contiguous data.
+// (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. tile
+// 0 runs v1_kernel with mt rows per block (1, 2, 4, 8, 16, 32 with vec 4;
+// 1, 8, 32 with vec 1); tile 1 the tensor-core tiles with mt rows per
+// block (32, 64, 128; vec 4 and a bf16 x only, which must be 16-byte
+// aligned). vec 4 needs d_out % 4 == 0 and 16-byte-aligned planes. Every
+// pointer is a device pointer of contiguous data.
 extern "C" int gg_v1_matmul(const void* x, int x_bf16, const uint8_t* qs,
                             const float* scale_t, const float* offset_t,
                             float* partials, float* out, int M, int d_in,
-                            int d_out, int per_byte, int group_size, int mt,
+                            int d_out, int per_byte, int group_size, int tile, int mt,
                             int vec, int sg_per_split, int splits, void* stream) {
-  Args a{x, x_bf16, qs, scale_t, offset_t, splits > 1 ? partials : out,
-         M, d_in, d_out, sg_per_split, splits, static_cast<cudaStream_t>(stream)};
+  const V1Args a{x, x_bf16, qs, scale_t, offset_t, splits > 1 ? partials : out,
+                 M, d_in, d_out, sg_per_split, splits, static_cast<cudaStream_t>(stream)};
   bool ok = false;
-  if (per_byte == 2 && group_size == 32) ok = launch_tile<2, 32>(a, mt, vec);       // Q4_K
-  else if (per_byte == 2 && group_size == 16) ok = launch_tile<2, 16>(a, mt, vec);  // Q2_K, Q3_K
-  else if (per_byte == 1 && group_size == 32) ok = launch_tile<1, 32>(a, mt, vec);  // Q5_K
-  else if (per_byte == 1 && group_size == 16) ok = launch_tile<1, 16>(a, mt, vec);  // Q6_K
+  if (per_byte == 2 && group_size == 32) ok = launch_format<2, 32>(a, tile, mt, vec);  // Q4_K
+  else if (per_byte == 2 && group_size == 16)  // Q2_K, Q3_K
+    ok = launch_format<2, 16>(a, tile, mt, vec);
+  else if (per_byte == 1 && group_size == 32) ok = launch_format<1, 32>(a, tile, mt, vec);  // Q5_K
+  else if (per_byte == 1 && group_size == 16) ok = launch_format<1, 16>(a, tile, mt, vec);  // Q6_K
   return finish_launch(ok, partials, out, splits, static_cast<size_t>(M) * d_out, a.stream);
 }

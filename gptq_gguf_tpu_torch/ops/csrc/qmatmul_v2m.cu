@@ -450,7 +450,8 @@ bool launch_body_mma(const V2Args& a, int bm) {
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
 // cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
-// with mt rows per block
+// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2p) the
+// tensor-core decode tile (qmatmul_decode_mma.cuh, M <= 8)
 template <int BODY, bool BF16, int PB, bool HAS_MIN>
 bool launch_body_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -459,6 +460,12 @@ bool launch_body_tile(const V2Args& a, int mt, int vec) {
       case 2: launch_body<BODY, BF16, PB, HAS_MIN, 2, 4>(a); return true;
       case 4: launch_body<BODY, BF16, PB, HAS_MIN, 4, 4>(a); return true;
       case 8: launch_body<BODY, BF16, PB, HAS_MIN, 8, 4>(a); return true;
+      case kDecodeMmaTile:
+        if constexpr (BF16 && BODY == kV2p) {
+          launch_decode_mma_tile<GroupDotMma<PB, 16, HAS_MIN, kDecodePitch>>(a);
+          return true;
+        }
+        return false;
       default:
         if constexpr (BF16) return launch_body_mma<BODY, PB, HAS_MIN>(a, mt);
         return false;

@@ -1,6 +1,8 @@
 // Tensor-core prefill tiles of the group-dot v2 kernels v2m, v2t and v2p,
 // for Hopper (sm_90a): their policies for the shared mainloop of
-// qmatmul_mma.cuh.
+// qmatmul_mma.cuh; and v2p's tensor-core decode tile (GroupDotMma's
+// frags, for the decode mainloop of qmatmul_decode_mma.cuh: bf16 operands
+// at qmatmul.V2P_DECODE_MMA_MIN_ROWS to 8 rows on vec-4 weights).
 // The same function as the CUDA-core bodies of qmatmul_v2m.cu, for bf16
 // operands at M >= 9 rows (every call past the decode tiles;
 // qmatmul.MMA_MIN_ROWS) on vec-4 weights:
@@ -12,8 +14,9 @@
 // Replaces, at those shapes: gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2m :729
 // (gs 32: Q4_K, Q5_K), _kernel_v2t :789 (gs 32, GroupSumMma) and
 // _kernel_v2p :844 (gs 16: Q2_K, Q3_K, Q6_K, the lm_head among them). f32
-// operands (TF32 would round x), M <= 8 and vec-1 weights stay on the
-// CUDA-core bodies.
+// operands (TF32 would round x), vec-1 weights and M <= 8 (v2p: below
+// its decode tile's rows; v2m, v2t: every such M) stay on the CUDA-core
+// bodies.
 //
 // Per 64-row step it stages v2g's planes (V2Mma<kV2g>::issue: the code
 // bytes, the step's sc_q / mn_q rows, the supergroup's d_sg / dmin_sg row);
@@ -36,9 +39,11 @@
 
 namespace {
 
-template <int PB_, int GS_, bool HAS_MIN>
-struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN> {  // v2g's planes, off2 and xsum term
-  using V2 = V2Mma<kV2g, PB_, GS_, HAS_MIN>;
+// PITCH: bytes from one staged code row to the next (kDecodePitch for the
+// decode tile)
+template <int PB_, int GS_, bool HAS_MIN, int PITCH = kMmaBN>
+struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN, PITCH> {  // v2g's planes, off2 and xsum term
+  using V2 = V2Mma<kV2g, PB_, GS_, HAS_MIN, PITCH>;
   static constexpr bool GROUP_DOT = true;
   static constexpr int O2_BYTES = 2 * V2::GPK * kMmaBN * 4;  // off2, then scale: [GPK][kMmaBN] f32
 
@@ -51,33 +56,7 @@ struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN> {  // v2g's planes, off2 and
   template <int P>
   __device__ __forceinline__ static void build(const V2Args& a, const char* st, __nv_bfloat16* ws,
                                                float* o2s) {
-    const int n = 4 * (threadIdx.x % 32);  // 4 columns per thread
-    const int slice = threadIdx.x / 32;     // 8 row slices
-    if constexpr (PB_ == 2) {  // 32 code rows: 4 per slice, low nibbles k, high k + 32
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 4 * slice + i;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * kMmaBN + n);
-        float lo[4], hi[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          lo[c] = small_u2f((w >> (8 * c)) & 0xFu);
-          hi[c] = small_u2f((w >> (8 * c + 4)) & 0xFu);
-        }
-        store_w4(ws, r, n, lo);
-        store_w4(ws, 32 + r, n, hi);
-      }
-    } else {  // 64 code rows: 8 per slice
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = 8 * slice + i;
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(st + P + r * kMmaBN + n);
-        float v[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = small_u2f((w >> (8 * c)) & 0xFFu);
-        store_w4(ws, r, n, v);
-      }
-    }
+    build_codes<PB_, PITCH>(st + P, ws);
     const float* dsg = reinterpret_cast<const float*>(st + (P + V2::D_OFF));
     const float* dmn = reinterpret_cast<const float*>(st + (P + V2::DMIN_OFF));
     const uint8_t* b = reinterpret_cast<const uint8_t*>(st);
@@ -87,6 +66,18 @@ struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN> {  // v2g's planes, off2 and
       o2s[i] = HAS_MIN ? dmn[col] * static_cast<float>(b[P + V2::MN_OFF + i]) : s * a.shift;
       o2s[V2::GPK * kMmaBN + i] = s;
     }
+  }
+
+  // the decode tile's bf16 A fragments (decode_frags in
+  // qmatmul_decode_mma.cuh) of K half kh: the raw codes, exact in bf16 (the
+  // step's scale and off2 rows, V2Mma::rows, are the mainloop's: F::GROUP_DOT)
+  template <int P>
+  __device__ __forceinline__ static void frags(const V2Args&, const char* st, const float*,
+                                               const float*, int c0, int kh, int t,
+                                               uint32_t (&af)[2][2][4]) {
+    auto slice = [](int, int) { return 0u; };
+    auto wt = [](int, int, float mq) { return mq - 8388608.f; };  // 2^23 + q - 2^23
+    decode_frags<PB_, PITCH>(st + P + c0, kh, t, slice, wt, af);
   }
 };
 

@@ -13,7 +13,10 @@ instead of 16. Every layout is byte-identical to the JAX package's
   unsigned: the signed types carry ``shift`` (4 for Q3_K, 32 for Q6_K).
 * v1 (``RuntimeQuantLinear``): ``scale_t`` / ``offset_t`` (n_groups, d_out)
   f32, w = scale_t * q - offset_t with the signed shift folded into
-  ``offset_t``. Kernel: ``csrc/qmatmul_v1.cu``, f32 end to end.
+  ``offset_t``. Kernel: ``csrc/qmatmul_v1.cu``, f32 end to end; with a
+  bf16 x of ``MMA_MIN_ROWS`` rows or more the tensor-core tiles of
+  ``csrc/qmatmul_v1_mma.cuh``, the same function as a group dot of raw
+  codes (exact bf16 products, f32 sums).
 * v2 (``RuntimeQuantLinearV2``): ``d_sg`` / ``dmin_sg`` (d_rep * n_sg, d_out)
   f32 super-scale / super-min, each supergroup row replicated ``d_rep`` = 2
   times (a TPU tiling rule the layout keeps so packed weights compare equal
@@ -37,7 +40,8 @@ step);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
 (``csrc/qmatmul_v2m.cu``, and ``csrc/qmatmul_v2m_mma.cuh``, their policies
 for the same mainloop: the raw codes as the B operand, each group's
-partial product scaled in f32). The
+partial product scaled in f32; v2p's also for the decode mainloop, bf16
+operands at ``V2P_DECODE_MMA_MIN_ROWS`` to 8 rows). The
 variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
 loaders are the same for all of them.
@@ -608,14 +612,16 @@ _V2_ARGS = ((ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
 
 
 def _launch_v2(lib: str, code: int, x: torch.Tensor, rql: RuntimeQuantLinearV2, mxu_dtype,
-               mt_max: int, mma: bool = False, bm_max: int = 128, decode_mma: bool = False):
+               mt_max: int, mma: bool = False, bm_max: int = 128, decode_mma: bool = False,
+               decode_min_rows: Optional[int] = None):
     """Launch build or body ``code`` of ``csrc/<lib>.cu`` on x's current
     stream (the library is built on first use). Returns (y, rows per
     block or tile code): DECODE_MMA_TILE ran the tensor-core decode tile,
     32 rows or more the tensor-core prefill tiles."""
     if mxu_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"mxu_dtype must be torch.bfloat16 or torch.float32, got {mxu_dtype}")
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma, bm_max, decode_mma)
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mt_max, mma, bm_max, decode_mma,
+                                                      decode_min_rows)
     M, d_in = x.shape
     rc = c_function(lib, f"gg_{lib.split('_', 1)[1]}_matmul", _V2_ARGS)(
         code, x.data_ptr(), int(x.dtype == torch.bfloat16), int(mxu_dtype == torch.bfloat16),
@@ -643,14 +649,31 @@ PER_WEIGHT_VARIANTS = tuple(_PER_WEIGHT)
 MMA_BM_MAX = {"v2t": 64}
 
 
+# the fewest rows of a v2p call (bf16 operands, vec-4 weight) on the
+# tensor-core decode tile, up to MMA_MIN_ROWS - 1: the group-dot form of the
+# decode mainloop (csrc/qmatmul_decode_mma.cuh, F::GROUP_DOT) with v2p's
+# policy GroupDotMma at gs 16 (v2g's is DECODE_MMA_MIN_ROWS). The padded
+# Q6_K head of Llama-3-8B ran at M = 1 on the CUDA-core tile in
+# 0.3003-0.3013 ms against the decode tile's 0.3083-0.3089, at M = 2 in
+# 0.3045-0.3073 against 0.3107-0.3129, at M = 3 (its 4-row tile) in
+# 0.6116-0.6147 against 0.3105-0.3130 (tools/time_v2_kernels.py --variant
+# v2m --m 1,2,3 --core --decode-min-rows 1, H100: PERF.md)
+V2P_DECODE_MMA_MIN_ROWS = 3
+DECODE_MMA_VARIANTS = ("v2g", "v2p")  # the variants with a tensor-core decode tile
+
+
 def _v2_route(variant: str, mxu_dtype) -> tuple:
-    """(mt_max, mma, bm_max, decode_mma) of a v2 variant's launch plan:
-    CUDA-core tiles of up to 8 rows; from MMA_MIN_ROWS rows with bf16
-    operands the tensor-core tiles of up to bm_max rows (f32 operands
-    would need TF32, which rounds them); below that, for v2g with bf16
-    operands, the tensor-core decode tile."""
+    """(mt_max, mma, bm_max, decode_mma, decode_min_rows) of a v2 variant's
+    launch plan: CUDA-core tiles of up to 8 rows; from MMA_MIN_ROWS rows
+    with bf16 operands the tensor-core tiles of up to bm_max rows (f32
+    operands would need TF32, which rounds them); below that, for v2g and
+    v2p with bf16 operands, the tensor-core decode tile from
+    decode_min_rows rows (DECODE_MMA_MIN_ROWS, V2P_DECODE_MMA_MIN_ROWS:
+    read at every call)."""
     bf16 = mxu_dtype == torch.bfloat16
-    return 8, bf16, MMA_BM_MAX.get(variant, 128), bf16 and variant == "v2g"
+    decode = bf16 and variant in DECODE_MMA_VARIANTS
+    min_rows = V2P_DECODE_MMA_MIN_ROWS if variant == "v2p" else DECODE_MMA_MIN_ROWS
+    return 8, bf16, MMA_BM_MAX.get(variant, 128), decode, min_rows if decode else None
 
 
 def _launch_variant(fn, variant: str, lib: str, code: int, x: torch.Tensor,
@@ -736,29 +759,49 @@ def dequant_matmul_v2s(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 
 
 _V1_ARGS = ((ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 5
-            + (ctypes.c_int,) * 9 + (ctypes.c_void_p,))
+            + (ctypes.c_int,) * 10 + (ctypes.c_void_p,))
+
+
+def _launch_v1(x: torch.Tensor, rql: RuntimeQuantLinear, mma: bool = True):
+    """One launch of ``csrc/qmatmul_v1.cu`` on x's current stream (the
+    library is built on first use). With ``mma``, a bf16 x of
+    ``MMA_MIN_ROWS`` rows or more on a vec-4 weight runs the tensor-core
+    tiles (``csrc/qmatmul_v1_mma.cuh``: the group dot of raw codes, exact
+    products and f32 sums); everything else runs v1_kernel's CUDA-core
+    tiles of up to 32 rows (an f32 x would have to be rounded to bf16).
+    Returns (y, the tile that ran: "mma" or "cuda_core")."""
+    mma = mma and x.dtype == torch.bfloat16
+    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mma=mma)
+    M, d_in = x.shape
+    tc = mma and vec == 4 and M >= MMA_MIN_ROWS  # _plan gave the tensor-core tiles
+    rc = c_function("qmatmul_v1", "gg_v1_matmul", _V1_ARGS)(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.scale_t),
+        _ptr(rql.offset_t), _ptr(part), out.data_ptr(),
+        M, d_in, rql.d_out, rql.per_byte, rql.group_size, int(tc), mt, vec, per, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_v1 launch failed: CUDA error {rc}")
+    return out, "mma" if tc else "cuda_core"
 
 
 def dequant_matmul_v1(x: torch.Tensor, rql: RuntimeQuantLinear) -> torch.Tensor:
     """y (M, d_out) f32 = f32(x) @ (scale_t * q - offset_t) through the v1
-    kernel (``csrc/qmatmul_v1.cu``, f32 on the CUDA cores); a CPU ``x``
-    runs the plain version. Same contract as ``dequant_matmul_v2g``."""
+    kernel (``csrc/qmatmul_v1.cu``); a CPU ``x`` runs the plain version. A
+    bf16 x of ``MMA_MIN_ROWS`` rows or more on a vec-4 weight (prefill and
+    perplexity under serving) runs the tensor-core tiles, also counted in
+    ``mma_launches``; an f32 x, 1-8 rows and vec-1 weights the f32
+    CUDA-core tiles. Same contract as ``dequant_matmul_v2g``."""
     if x.device.type == "cpu":
         return dequant_matmul_v1_reference(x, rql)
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql)
-    M, d_in = x.shape
-    rc = c_function("qmatmul_v1", "gg_v1_matmul", _V1_ARGS)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.scale_t),
-        _ptr(rql.offset_t), _ptr(part), out.data_ptr(),
-        M, d_in, rql.d_out, rql.per_byte, rql.group_size, mt, vec, per, splits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qmatmul_v1 launch failed: CUDA error {rc}")
+    out, tile = _launch_v1(x, rql)
     dequant_matmul_v1.launches += 1
+    if tile == "mma":
+        dequant_matmul_v1.mma_launches += 1
     return out
 
 
 dequant_matmul_v1.launches = 0
+dequant_matmul_v1.mma_launches = 0
 
 _GROUP_DOT = {"v2m": (0, 32), "v2t": (1, 32), "v2p": (2, 16)}  # body, group size
 
@@ -802,7 +845,10 @@ def dequant_matmul_v2p(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     two adjacent groups' partial sums scaled and added together, then
     added to the accumulator (JAX's pair-group dot); from ``MMA_MIN_ROWS``
     rows with bf16 operands v2m's tensor-core tiles at gs 16, each partial
-    scaled into the accumulator by its own FMA."""
+    scaled into the accumulator by its own FMA; with bf16 operands from
+    ``V2P_DECODE_MMA_MIN_ROWS`` to 8 rows the tensor-core decode tile in
+    the same form (``GroupDotMma`` through ``csrc/qmatmul_decode_mma.cuh``,
+    also counted in ``decode_mma_launches``)."""
     return _group_dot(dequant_matmul_v2p, "v2p", x, rql, mxu_dtype)
 
 
@@ -831,7 +877,8 @@ MMA_VARIANTS = PER_WEIGHT_VARIANTS
 MMA_GROUP_DOT = tuple(_GROUP_DOT)
 for _v in MMA_VARIANTS + MMA_GROUP_DOT:
     globals()[V2_WRAPPERS[_v]].mma_launches = 0
-dequant_matmul_v2g.decode_mma_launches = 0
+for _v in DECODE_MMA_VARIANTS:
+    globals()[V2_WRAPPERS[_v]].decode_mma_launches = 0
 
 
 def _effective_v2_variant(variant: str, *, gs: int, per_byte: int) -> str:

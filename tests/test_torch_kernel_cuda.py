@@ -1,6 +1,7 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
-every v2 variant and of v4, the tensor-core decode tiles of v2g and v4, GPTQ
+every v2 variant, of v1 and of v4, the tensor-core decode tiles of v2g,
+v2p and v4, GPTQ
 column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
@@ -14,9 +15,10 @@ a card host it runs without them:
 Tolerances: v2g and its plain version compute the same bf16 products and
 differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
-sum of |terms| of one output (1e-5 on v4's tensor-core tiles), and so do
+sum of |terms| of one output (1e-5 on v4's and v1's tensor-core tiles,
+each with a planted control that must fail it), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-and v2s tensor-core tiles and on the decode tiles of v2g and v4). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles and on the decode tiles of v2g, v2p and v4). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
@@ -836,9 +838,9 @@ def test_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d
 def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
     """The decode tile copies an x that is not 16-byte aligned before it
     reads it; f32 operands, vec-1 weights, fewer rows than
-    DECODE_MMA_MIN_ROWS and every other variant stay on the CUDA-core
-    tiles at M <= 8 (v2g's decode_mma_launches unchanged, and no variant's
-    mma_launches moves)."""
+    DECODE_MMA_MIN_ROWS and every other variant stay off v2g's decode tile
+    at M <= 8 (v2g's decode_mma_launches unchanged, and no variant's
+    mma_launches moves; v2p runs its own decode tile)."""
     fn = qmatmul.dequant_matmul_v2g
     rql = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
     buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
@@ -854,6 +856,7 @@ def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
     q6 = _rql(T.Q6_K, 512, 512, seed=6, device=cuda)
     mma = {v: V2_WRAPPERS[v].mma_launches for v in qmatmul.MMA_VARIANTS + qmatmul.MMA_GROUP_DOT}
     n0 = {v: f.launches for v, f in V2_WRAPPERS.items()}
+    p0 = qmatmul.dequant_matmul_v2p.decode_mma_launches
     fn(x, rql, torch.float32)
     fn(x[:qmatmul.DECODE_MMA_MIN_ROWS - 1], rql)  # below the decode tile's rows
     fn(x, _rql(T.Q4_K, 333, 512, seed=8, device=cuda))
@@ -862,6 +865,7 @@ def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
     qmatmul.dequant_matmul_v2p(x, q6)
     torch.cuda.synchronize()
     assert fn.decode_mma_launches == d0 + 1
+    assert qmatmul.dequant_matmul_v2p.decode_mma_launches == p0 + 1
     assert {v: V2_WRAPPERS[v].mma_launches for v in mma} == mma
     assert {v: f.launches - n0[v] for v, f in V2_WRAPPERS.items()} == {
         "v2g": 3, **{v: 1 for v in V2_WRAPPERS if v != "v2g"}}
@@ -1159,3 +1163,200 @@ def test_forward_cached_variants_on_card_match_cpu(cuda, monkeypatch, variant):
     want = out["cpu"]
     np.testing.assert_allclose(out["cuda"].numpy(), want.numpy(), rtol=0,
                                atol=2e-2 * want.abs().max().item())
+
+
+# v1's tensor-core tiles (csrc/qmatmul_v1_mma.cuh, a bf16 x at MMA_MIN_ROWS
+# rows or more on a vec-4 weight): the threshold, a ragged 33 (K split over
+# supergroups), 128 and a ragged last 128-row tile (300); d_out 768, 1000
+# (code rows not 16-byte aligned: 4-byte copies) and 4096
+V1_MMA_CASES = [(qmatmul.MMA_MIN_ROWS, 768, 1024), (33, 768, 2048), (128, 1000, 512),
+                (128, 4096, 1024), (300, 768, 512)]
+
+
+def _v1_group_terms(x, rql):
+    """max over outputs of the sum of |terms| v1's group dot adds up:
+    |x| against |scale_t * q|, and |xsum| against |offset_t|."""
+    ng, gs = rql.scale_t.shape[0], rql.group_size
+    q = qmatmul._unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).float()
+    sq = (q.reshape(ng, gs, rql.d_out) * rql.scale_t[:, None, :]).reshape(rql.d_in_local, -1)
+    xsum = x.float().reshape(x.shape[0], ng, gs).sum(-1)
+    return (x.float().abs() @ sq.abs() + xsum.abs() @ rql.offset_t.abs()).max().item()
+
+
+def _v1_bf16_weights(x, rql):
+    """The planted control of v1's tiles: the plain version with each
+    weight rounded to bf16 (what a dequantizing bf16 tile would compute),
+    which the tiles' limit must reject."""
+    w = qmatmul.dequantize_runtime(rql).to(torch.bfloat16).float()
+    return x.float() @ w.T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in", V1_MMA_CASES)
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_v1_mma_tiles_match_plain(cuda, f32_exact, qtype, M, d_out, d_in):
+    """v1 with a bf16 x at prefill rows on its tensor-core tiles against
+    its plain version (the JAX kernel's f32 function): the same exact
+    products of bf16 x values and codes, f32 sums grouped otherwise,
+    within 1e-5 of the largest sum of |terms| of an output; the weights
+    rounded to bf16 fail that limit. One launch, counted on mma_launches;
+    a second call is bit-equal."""
+    rql = _rql(qtype, d_out, d_in, seed=M + 13 * d_out + int(qtype), device=cuda,
+               pack=qmatmul.pack_runtime)
+    fn = qmatmul.dequant_matmul_v1
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, torch.bfloat16)
+    n0, m0 = fn.launches, fn.mma_launches
+    got = qmatmul.dequant_matmul(x, rql)
+    again = fn(x, rql)
+    want = qmatmul.dequant_matmul_v1_reference(x, rql)
+    control = _v1_bf16_weights(x, rql)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.mma_launches - m0) == (2, 2)
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    tol = 1e-5 * _v1_group_terms(x, rql)
+    assert (got - want).abs().max().item() <= tol
+    assert (got - control).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+def test_v1_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(cuda, f32_exact):
+    """v1's tiles copy a bf16 x that is not 16-byte aligned before they
+    read it; an f32 x at prefill rows, 1-8 rows of a bf16 x and vec-1
+    weights stay on v1_kernel (mma_launches unchanged), each within its
+    limit; _launch_v1 without mma runs v1_kernel on the tiles' inputs."""
+    fn = qmatmul.dequant_matmul_v1
+    rql = _rql(T.Q4_K, 512, 1024, seed=4, device=cuda, pack=qmatmul.pack_runtime)
+    buf = torch.randn(64 * 1024 + 1, generator=torch.Generator().manual_seed(5)).to(cuda)
+    x = buf.to(torch.bfloat16)[1:].view(64, 1024)
+    assert x.data_ptr() % 16
+    m0 = fn.mma_launches
+    got = fn(x, rql)
+    want = qmatmul.dequant_matmul_v1_reference(x, rql)
+    torch.cuda.synchronize()
+    assert fn.mma_launches == m0 + 1
+    assert (got - want).abs().max().item() <= 1e-5 * _v1_group_terms(x, rql)
+    vec1 = _rql(T.Q6_K, 333, 512, seed=6, device=cuda, pack=qmatmul.pack_runtime)
+    n0 = fn.launches
+    for xx, w in ((x.float(), rql), (x[:8], rql), (x[:40, :512], vec1)):
+        got = fn(xx, w)
+        want = qmatmul.dequant_matmul_v1_reference(xx, w)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                   atol=1e-4 * _terms(xx, w))
+    y, tile = qmatmul._launch_v1(x, rql, mma=False)
+    want = qmatmul.dequant_matmul_v1_reference(x, rql)
+    torch.cuda.synchronize()
+    assert tile == "cuda_core"
+    assert (y - want).abs().max().item() <= 1e-4 * _terms(x, rql)
+    assert (fn.launches - n0, fn.mma_launches) == (3, m0 + 1)
+
+
+@pytest.mark.cuda
+def test_v1_mma_tiles_refuse_an_f32_x(cuda, monkeypatch):
+    """No fallback: the tensor-core tile code with an f32 x (which the
+    tiles would round) is refused by the entry point, and a build failure
+    raises; neither counts a launch."""
+    rql = _rql(T.Q4_K, 512, 512, seed=7, device=cuda, pack=qmatmul.pack_runtime)
+    x = torch.randn(64, 512, device=cuda)
+    out = torch.empty(64, 512, device=cuda)
+    # tile 1 (tensor cores), 64 rows per block, vec 4, 2 supergroups in 1 split
+    rc = qmatmul.c_function("qmatmul_v1", "gg_v1_matmul", qmatmul._V1_ARGS)(
+        x.data_ptr(), 0, rql.qs.data_ptr(), rql.scale_t.data_ptr(), rql.offset_t.data_ptr(),
+        None, out.data_ptr(), 64, 512, 512, rql.per_byte, rql.group_size, 1, 64, 4, 2, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    fn = qmatmul.dequant_matmul_v1
+    n0 = (fn.launches, fn.mma_launches)
+    monkeypatch.setattr(qmatmul, "c_function", lambda lib, *a: broken(lib))
+    with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v1"):
+        fn(x.to(torch.bfloat16), rql)
+    assert (fn.launches, fn.mma_launches) == n0
+
+
+# v2p's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh with
+# GroupDotMma at gs 16): every M of 1-8; d_out 768, a ragged 1000 (4-byte
+# copies) and 4096; x in f32 (rounded while staged) and bf16; the K axis
+# split as the plan does (blocks 4) or not at all (blocks 0)
+V2P_DECODE_CASES = [
+    (1, 768, 1024, torch.bfloat16, 4),
+    (2, 1000, 512, torch.float32, 0),
+    (3, 768, 2048, torch.bfloat16, 4),
+    (4, 4096, 1024, torch.bfloat16, 4),
+    (5, 1000, 2048, torch.bfloat16, 4),
+    (6, 768, 512, torch.float32, 4),
+    (7, 768, 1024, torch.bfloat16, 0),
+    (8, 1000, 1024, torch.bfloat16, 4),
+    (8, 4096, 512, torch.float32, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,dtype,blocks", V2P_DECODE_CASES)
+@pytest.mark.parametrize("qtype", [T.Q2_K, T.Q3_K, T.Q6_K], ids=lambda q: q.name)
+def test_v2p_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d_out, d_in,
+                                           dtype, blocks):
+    """v2p with bf16 operands at 1-8 rows on the group-dot form of the
+    decode tile (every row count: V2P_DECODE_MMA_MIN_ROWS lowered here)
+    against its plain version, within 1e-5 of the largest sum of |terms| of
+    an output (exact products of raw codes, partials scaled in f32, the
+    sums in another order); v2g's rounding, bf16(scale * q), fails that
+    limit. One launch, counted on decode_mma_launches and not on
+    mma_launches; a second call is bit-equal."""
+    monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
+    monkeypatch.setattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS", 1)
+    fn = qmatmul.dequant_matmul_v2p
+    rql = _rql(qtype, d_out, d_in, seed=M + 17 * d_out + int(qtype), device=cuda)
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, dtype)
+    splits = qmatmul._plan(M, d_out, d_in // 256, qmatmul._sm_count(cuda.index or 0), 4,
+                           *qmatmul._v2_route("v2p", torch.bfloat16))[2]
+    assert (splits == 1) == (blocks == 0)
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    got = fn(x, rql)
+    again = fn(x, rql)
+    want = qmatmul.dequant_matmul_v2m_reference(x, rql)
+    control = qmatmul.dequant_matmul_v2g_reference(x, rql)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (2, 2, 0)
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    tol = 1e-5 * _v2_terms(x, rql, torch.bfloat16)
+    assert (got - want).abs().max().item() <= tol
+    assert (got - control).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+def test_v2p_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda, monkeypatch):
+    """v2p's decode tile copies an x that is not 16-byte aligned; f32
+    operands, vec-1 weights and fewer rows than V2P_DECODE_MMA_MIN_ROWS
+    stay on the CUDA-core tiles (decode_mma_launches unchanged), and v2m /
+    v2t (gs 32) keep their CUDA-core tiles at 1-8 rows."""
+    monkeypatch.setattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS", 2)
+    fn = qmatmul.dequant_matmul_v2p
+    q6 = _rql(T.Q6_K, 512, 512, seed=12, device=cuda)
+    buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(8, 512)
+    assert x.data_ptr() % 16
+    d0 = fn.decode_mma_launches
+    got = fn(x, q6)
+    want = qmatmul.dequant_matmul_v2m_reference(x, q6)
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 1
+    assert (got - want).abs().max().item() <= 1e-5 * _v2_terms(x, q6, torch.bfloat16)
+    fn(x, q6, torch.float32)
+    fn(x[:1], q6)
+    fn(x, _rql(T.Q6_K, 333, 512, seed=13, device=cuda))
+    q4 = _rql(T.Q4_K, 512, 512, seed=14, device=cuda)
+    n0 = {v: V2_WRAPPERS[v].launches for v in ("v2m", "v2t")}
+    qmatmul.dequant_matmul_v2m(x, q4)
+    qmatmul.dequant_matmul_v2t(x, q4)
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 1
+    assert {v: V2_WRAPPERS[v].launches - n0[v] for v in n0} == {"v2m": 1, "v2t": 1}
+    assert not hasattr(qmatmul.dequant_matmul_v2m, "decode_mma_launches")

@@ -221,13 +221,16 @@ def test_v2g_bf16_decode_takes_the_decode_tile(M):
 ], ids=lambda a: str(a).replace("torch.", ""))
 @pytest.mark.parametrize("M", [1, 8])
 def test_decode_keeps_the_cuda_core_tiles_elsewhere(variant, mxu, vec, M):
-    """f32 operands, vec-1 weights and every other variant keep
-    _launch_plan's CUDA-core tiles at M <= 8."""
+    """f32 operands, vec-1 weights and every other variant but v2p keep
+    _launch_plan's CUDA-core tiles at M <= 8; v2p (bf16 operands, vec 4)
+    takes its own decode tile from V2P_DECODE_MMA_MIN_ROWS rows."""
     route = qmatmul._v2_route(variant, mxu)
-    assert route[3] is (variant == "v2g" and mxu == torch.bfloat16)
+    assert route[3] is (variant in ("v2g", "v2p") and mxu == torch.bfloat16)
     for d_out, n_sg in STEP_8B.values():
-        assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == \
-            qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
+        want = qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
+        if variant == "v2p" and M >= qmatmul.V2P_DECODE_MMA_MIN_ROWS:
+            want = qmatmul._decode_mma_plan(d_out, n_sg, 132)
+        assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
 
 
 @pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
@@ -252,12 +255,15 @@ def test_v2g_wrapper_counts_each_tile(mt, counted, monkeypatch):
                      "mma_launches": int(counted == "mma_launches")}
 
 
+@pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("M,d_out,n_sg,want", [
     (8, 4096, 16, (8, 1, 16)), (128, 4096, 16, (32, 1, 16)), (1024, 28672, 16, (32, 16, 1)),
     (1024, 128256, 16, (32, 16, 1))])
-def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
-    """The v1 wrapper calls launch_setup(x, rql): its defaults keep v1's
-    CUDA-core tiles of up to 32 rows at every M (v4's plan:
+def test_v1_v4_plan_unchanged(M, d_out, n_sg, want, x_dtype):
+    """The v1 wrapper calls launch_setup(x, rql, mma=x is bf16): with an
+    f32 x the defaults keep v1's CUDA-core tiles of up to 32 rows at every
+    M; a bf16 x of MMA_MIN_ROWS rows or more takes the tensor-core tiles
+    (_mma_plan), and 1-8 rows the same CUDA-core tiles (v4's plan:
     test_v4_plan)."""
     import inspect
 
@@ -265,8 +271,12 @@ def test_v1_v4_plan_unchanged(M, d_out, n_sg, want):
                 if p.default is not inspect.Parameter.empty}
     assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128, "decode_mma": False,
                         "decode_min_rows": None}
-    got = qmatmul._plan(M, d_out, n_sg, 132, 4, **defaults)
-    assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
+    ask = {**defaults, "mma": x_dtype == "bf16"}
+    got = qmatmul._plan(M, d_out, n_sg, 132, 4, **ask)
+    if x_dtype == "bf16" and M >= qmatmul.MMA_MIN_ROWS:
+        assert got == qmatmul._mma_plan(M, d_out, n_sg, 132)
+    else:
+        assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
 
 
 @pytest.mark.parametrize("M,d_out,n_sg,vec,want", [
@@ -358,16 +368,18 @@ def test_v4_wrapper_counts_each_tile(tile, counted, per_byte, layout, body, monk
         assert getattr(fn, k) == {b: c + n * (b == body) for b, c in was.items()}, k
 
 
-@pytest.mark.parametrize("fmt,want", [("v1", {}), ("v4", {"mma": True, "decode_mma": True,
-                                                           "decode_min_rows": 1})])
+@pytest.mark.parametrize("fmt,want", [("v1", {"mma": False}), ("v1 bf16", {"mma": True}),
+                                      ("v4", {"mma": True, "decode_mma": True,
+                                              "decode_min_rows": 1})])
 def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
     """A tensor off the CPU (here one on the meta device) goes to
-    launch_setup: v1 with its defaults, v4 asking for the tensor-core
-    prefill tiles and the tensor-core decode tile from one row
-    (qmv4.DECODE_MMA_MIN_ROWS)."""
+    launch_setup: v1 asking for the tensor-core prefill tiles with a bf16
+    x only (its other defaults: the CUDA-core tiles of up to 32 rows), v4
+    for the tensor-core prefill tiles and the tensor-core decode tile from
+    one row (qmv4.DECODE_MMA_MIN_ROWS) whatever x is."""
     from gptq_gguf_tpu_torch.ops import qmv4
 
-    mod, fn = ((qmatmul, qmatmul.dequant_matmul_v1) if fmt == "v1"
+    mod, fn = ((qmatmul, qmatmul.dequant_matmul_v1) if fmt.startswith("v1")
                else (qmv4, qmv4.dequant_matmul_v4))
     seen = []
 
@@ -376,9 +388,112 @@ def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
         raise LookupError("stop before the launch")
 
     monkeypatch.setattr(mod, "launch_setup", setup)
+    dtype = torch.bfloat16 if fmt.endswith("bf16") else torch.float32
     with pytest.raises(LookupError, match="stop"):
-        fn(torch.empty(9, 256, device="meta"), None)
+        fn(torch.empty(9, 256, device="meta", dtype=dtype), None)
     assert seen == [((), want)]
+
+
+@pytest.mark.parametrize("x_dtype,M,vec,tile", [
+    ("bf16", 9, 4, "mma"),            # from MMA_MIN_ROWS: the tensor-core tiles
+    ("bf16", 1024, 4, "mma"),
+    ("bf16", 8, 4, "cuda_core"),      # 1-8 rows: v1_kernel, as before
+    ("bf16", 1, 4, "cuda_core"),
+    ("f32", 128, 4, "cuda_core"),     # an f32 x would be rounded: v1_kernel at any M
+    ("bf16", 128, 1, "cuda_core"),    # vec 1: one column per thread
+])
+def test_v1_route_and_counts(x_dtype, M, vec, tile, monkeypatch):
+    """v1's route end to end up to the C call (on the meta device, with
+    launch_setup's plan for a card of 132 SMs and a stand-in library): the
+    tile code the entry point gets (1: the tensor-core tiles), the rows
+    per block, and the counts on dequant_matmul_v1 (every launch; the
+    tensor-core ones also on mma_launches)."""
+    from types import SimpleNamespace
+
+    fn = qmatmul.dequant_matmul_v1
+    d_out, n_sg = 4096, 16
+    calls = []
+
+    def setup(x, rql, mt_max=32, mma=False, bm_max=128, decode_mma=False,
+              decode_min_rows=None):
+        mt, per, splits = qmatmul._plan(x.shape[0], d_out, n_sg, 132, vec, mt_max, mma, bm_max,
+                                        decode_mma, decode_min_rows)
+        return x, vec, mt, per, splits, torch.empty(x.shape[0], d_out, device="meta"), None
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(qmatmul, "launch_setup", setup)
+    monkeypatch.setattr(qmatmul, "c_function", lambda lib, sym, argtypes: entry)
+    monkeypatch.setattr(qmatmul, "_ptr", lambda t: None)
+    monkeypatch.setattr(qmatmul.torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    rql = SimpleNamespace(qs=None, scale_t=None, offset_t=None, d_out=d_out, per_byte=2,
+                          group_size=32)
+    x = torch.empty(M, 256 * n_sg, device="meta",
+                    dtype=torch.bfloat16 if x_dtype == "bf16" else torch.float32)
+    before = (fn.launches, fn.mma_launches)
+    for k, v in zip(("launches", "mma_launches"), before):  # restored after the test
+        monkeypatch.setattr(fn, k, v)
+    fn(x, rql)
+    (args,) = calls
+    assert len(args) == len(qmatmul._V1_ARGS)
+    tc, mt = args[12], args[13]  # after M, d_in, d_out, per_byte, group_size
+    assert (tc, args[1]) == (int(tile == "mma"), int(x_dtype == "bf16"))
+    if tile == "mma":
+        assert mt == qmatmul._mma_plan(M, d_out, n_sg, 132)[0] in (32, 64, 128)
+    else:
+        assert mt == qmatmul._launch_plan(M, d_out, n_sg, 132, vec)[0] <= 32
+    assert (fn.launches - before[0], fn.mma_launches - before[1]) == (1, int(tile == "mma"))
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
+def test_v2p_bf16_decode_takes_the_decode_tile(M):
+    """v2p with bf16 operands on a vec-4 weight: every M from
+    V2P_DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes the group-dot form of
+    the decode tile (the Q6_K head of a B=8 step under v2m), fewer rows
+    the CUDA-core tile; f32 operands, vec-1 weights, v2m and v2t keep the
+    CUDA-core tiles."""
+    route = qmatmul._v2_route("v2p", torch.bfloat16)
+    assert route[3:] == (True, qmatmul.V2P_DECODE_MMA_MIN_ROWS)
+    d_out, n_sg = STEP_8B["lm_head"]
+    got = qmatmul._plan(M, d_out, n_sg, 132, 4, *route)
+    core = qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
+    if M >= qmatmul.V2P_DECODE_MMA_MIN_ROWS:
+        assert got == qmatmul._decode_mma_plan(d_out, n_sg, 132) == (16, 16, 1)
+    else:
+        assert got == core
+    for variant, mxu, vec in (("v2p", torch.float32, 4), ("v2p", torch.bfloat16, 1),
+                              ("v2m", torch.bfloat16, 4), ("v2t", torch.bfloat16, 4)):
+        assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, mxu)) == \
+            qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
+
+
+@pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
+                                        (32, "mma_launches")])
+def test_v2p_wrapper_counts_each_tile(mt, counted, monkeypatch):
+    """A v2p launch counts once on ``launches`` and, by the tile that ran,
+    on ``decode_mma_launches`` or ``mma_launches``; it asks for v2p's own
+    route (a stand-in launch on the meta device reports the tile)."""
+    from types import SimpleNamespace
+
+    fn = qmatmul.dequant_matmul_v2p
+    routes = []
+
+    def launch(lib, code, x, rql, mxu_dtype, *route):
+        routes.append((lib, code, route))
+        return torch.empty(x.shape[0], 8, device="meta"), mt
+
+    monkeypatch.setattr(qmatmul, "_launch_v2", launch)
+    before = {k: getattr(fn, k) for k in ("launches", "decode_mma_launches", "mma_launches")}
+    for k, v in before.items():  # restored after the test: others read the counts
+        monkeypatch.setattr(fn, k, v)
+    fn(torch.empty(8, 256, device="meta"), SimpleNamespace(group_size=16))
+    assert routes == [("qmatmul_v2m", 2, qmatmul._v2_route("v2p", torch.bfloat16))]
+    after = {k: getattr(fn, k) - v for k, v in before.items()}
+    assert after == {"launches": 1, "decode_mma_launches": int(counted == "decode_mma_launches"),
+                     "mma_launches": int(counted == "mma_launches")}
 
 
 def _v1_pair(qtype, d_out=512, d_in=512, seed=0):
@@ -430,6 +545,64 @@ def test_plain_v1_matches_jax_interpret(qtype, M):
     np.testing.assert_array_equal(qmatmul.dequant_matmul(xt, tr).numpy(), got)
     np.testing.assert_allclose(np.asarray(jq.dequant_matmul(jnp.asarray(x), jr)), got,
                                rtol=0, atol=1e-4 * mag)
+
+
+def _v1_in_tile_order(x, rql):
+    """v1 as its tensor-core tiles compute it (csrc/qmatmul_v1_mma.cuh on
+    the mainloop of csrc/qmatmul_mma.cuh), in f32: for each 64-row step q
+    of a supergroup the staged code rows (4-bit codes: byte rows 32q.. of
+    the supergroup, whose low nibbles are weight rows 32q.. and high
+    nibbles 128 + 32q..; byte codes: rows 64q..), each group's exact
+    partial bf16(x_g) @ q_g times its scale_t row into the sum, then the
+    step's groups' xsum @ offset_t rows out of it."""
+    M, d_in = x.shape
+    gs, pb, d_out = rql.group_size, rql.per_byte, rql.d_out
+    xb, x32 = x.to(torch.bfloat16).float(), x.float()
+    y = torch.zeros(M, d_out)
+    for sg in range(d_in // 256):
+        for q in range(4):
+            if pb == 2:
+                b = rql.qs[sg * 128 + 32 * q: sg * 128 + 32 * q + 32].int()
+                codes = torch.cat([b & 0xF, b >> 4]).float()
+                rows = [*range(32 * q, 32 * q + 32), *range(128 + 32 * q, 160 + 32 * q)]
+            else:
+                codes = rql.qs[sg * 256 + 64 * q: sg * 256 + 64 * q + 64].float()
+                rows = list(range(64 * q, 64 * q + 64))
+            rows = torch.tensor(rows) + 256 * sg
+            groups = [(int(rows[lg * gs]) // gs, slice(lg * gs, lg * gs + gs))
+                      for lg in range(64 // gs)]
+            for g, k in groups:
+                y = y + (xb[:, rows[k]] @ codes[k]) * rql.scale_t[g]
+            for g, k in groups:
+                y = y - x32[:, rows[k]].sum(1, keepdim=True) * rql.offset_t[g]
+    return y
+
+
+@pytest.mark.parametrize("qtype", ALL_K)
+@pytest.mark.parametrize("M", [9, 33])
+def test_v1_group_dot_in_tile_order_matches_jax_interpret(qtype, M):
+    """The function v1's tensor-core tiles compute, in their order (raw
+    codes read by the tiles' row map, each group's partial scaled by
+    scale_t, xsum @ offset_t, which carries Q3_K's and Q6_K's shift),
+    against JAX's v1 Pallas kernel in interpret mode on a bf16-valued x:
+    the products are exact on both sides and only the grouping and the
+    order of the f32 sums differ, so within 1e-5 of the largest sum of
+    |terms| of an output (the limit the tiles are held to on the card); so
+    does the port's plain version."""
+    jr, tr = _v1_pair(qtype, d_in=1024, seed=70 + int(qtype))
+    xt = torch.from_numpy(np.random.default_rng(M).normal(size=(M, 1024)).astype(np.float32))
+    xt = xt.to(torch.bfloat16).float()
+    want = np.asarray(jq.dequant_matmul_pallas(jnp.asarray(xt.numpy()), jr, tile_out=256,
+                                               tile_in=512, interpret=True))
+    got = _v1_in_tile_order(xt, tr).numpy()
+    ng, gs = tr.scale_t.shape[0], tr.group_size
+    q = qmatmul._unpack_codes(tr.qs, tr.per_byte, 1024).float()
+    sq = (q.reshape(ng, gs, -1) * tr.scale_t[:, None, :]).reshape(1024, -1)
+    terms = (xt.abs() @ sq.abs() + xt.reshape(M, ng, gs).sum(-1).abs() @ tr.offset_t.abs())
+    tol = 1e-5 * terms.max().item()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    np.testing.assert_allclose(qmatmul.dequant_matmul_v1_reference(xt, tr).numpy(), got,
+                               rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("fmt", ["v1", "v2", "v4"])

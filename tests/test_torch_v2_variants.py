@@ -269,12 +269,15 @@ def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want
 ])
 def test_group_dot_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """v2m, v2t and v2p take the tensor-core tiles with bf16 operands from
-    MMA_MIN_ROWS rows (v2t's of at most 64 rows); f32 operands and vec-1
-    weights keep the 8-row CUDA-core tiles at any M."""
+    MMA_MIN_ROWS rows (v2t's of at most 64 rows), and v2p below that its
+    tensor-core decode tile; f32 operands and vec-1 weights keep the 8-row
+    CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     want = mma_want if mxu == "bf16" else core_want
     if variant == "v2t" and mxu == "bf16":  # its tiles stop at 64 rows (MMA_BM_MAX)
         want = {(128, 28672): (64, 16, 1), (1024, 128512): (64, 16, 1)}.get((M, d_out), want)
+    if (variant, mxu, M, vec) == ("v2p", "bf16", 8, 4):  # v2p's tensor-core decode tile
+        want = (qmatmul.DECODE_MMA_TILE, 1, 16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, dt)) == want
     assert qmatmul.MMA_GROUP_DOT == ("v2m", "v2t", "v2p")
 

@@ -2,7 +2,7 @@
 """Time the v2- and v4-format dequant-matmul kernels on the card, for one or
 more checkouts of the repository, each in a process of its own.
 
-    python3 tools/time_v2_kernels.py [--variant v2g | --format v4|v4-i8|v4-bf16]
+    python3 tools/time_v2_kernels.py [--variant v2g | --format v4|v4-i8|v4-bf16|v1]
                                      [--m 8] [--reps 50] [--bm 32|64|128]
                                      [--core] [--decode-blocks N] [--flush read]
                                      [ROOT ...]   (default: this checkout)
@@ -13,7 +13,11 @@ run). Each root times ``qmatmul.dequant_matmul_v2(x, w, variant=...)`` for
 kernel, as the dispatch would (v2m runs v2p on the gs-16 lm_head, v2t and
 v2s run v2g there), and the record names the kernel per shape; or with
 ``--format`` the v4 kernel (``qmv4.dequant_matmul_v4``: f32 scales and the
-"i32" layout, the "i8" layout, or bf16 scales), at M bf16 rows (``--m``,
+"i32" layout, the "i8" layout, or bf16 scales), or with ``--format v1``
+the v1 kernel (``qmatmul.dequant_matmul_v1``: f32 scale_t and offset_t;
+the library yardstick f32 ``torch.matmul`` with TF32 off, the bound in f32
+operations on the CUDA-core tile, bf16 on the tensor-core tiles), at M
+bf16 rows (``--m``,
 default 8, the B=8 decode step; a comma list such as 9,16,32,64 times each
 in turn) over the weights one Llama-3-8B forward reads: the fused q/k/v
 (6144 x 4096), o (4096 x 4096), fused gate/up (28672 x 4096) and down (4096
@@ -36,11 +40,14 @@ the tensor-core prefill tiles; "cuda_core"), read from the wrapper's
 counters in the roots that have them. ``--core`` also times, at M <= 8,
 the variant's or the format's CUDA-core tile on the same inputs
 (``qmatmul._launch_v2``, or ``qmv4._launch_v4`` in the roots that have it,
-with the tensor-core tiles ruled out: ``core_ms_per_call``);
+with the tensor-core tiles ruled out: ``core_ms_per_call``), and with
+``--format v1`` at every M v1_kernel's tile (``qmatmul._launch_v1(x, w,
+mma=False)`` in the roots that have it);
 ``--decode-blocks`` sets the decode tile's split-K target
 (``qmatmul.DECODE_MMA_BLOCKS_PER_SM``), ``--decode-min-rows`` the fewest
-rows the route gives the decode tile (``qmatmul.DECODE_MMA_MIN_ROWS``, and
-with ``--format`` ``qmv4.DECODE_MMA_MIN_ROWS`` in the roots that have it),
+rows the route gives the decode tile (``qmatmul.DECODE_MMA_MIN_ROWS``,
+``qmatmul.V2P_DECODE_MMA_MIN_ROWS`` and with ``--format``
+``qmv4.DECODE_MMA_MIN_ROWS`` in the roots that have them),
 to time the tile at rows the route leaves to the CUDA-core tile, or to
 move a threshold.
 ``--probe``
@@ -71,13 +78,15 @@ from pathlib import Path
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12     # f32 on the CUDA cores
 # name, d_out, d_in, per_byte, group size, has_min, shift, calls per step
 SHAPES = (("qkv", 6144, 4096, 2, 32, True, 0, 32), ("o", 4096, 4096, 2, 32, True, 0, 32),
           ("gateup", 28672, 4096, 2, 32, True, 0, 32), ("down", 4096, 14336, 2, 32, True, 0, 32),
           ("lm_head", 128512, 4096, 1, 16, False, 32, 1))
 V4_HEAD = 128256  # v4 keeps the vocabulary unpadded
 FORMATS = {"v4": ("float32", "i32"), "v4-i8": ("float32", "i8"),
-           "v4-bf16": ("bfloat16", "i32")}  # --format: scale dtype, code layout
+           "v4-bf16": ("bfloat16", "i32"),  # --format: scale dtype, code layout
+           "v1": ("float32", "i32")}  # v1: f32 scale_t, offset_t; the v2 code bytes
 
 
 def planes(gen, d_out, d_in, per_byte, gs, has_min, dev):
@@ -152,13 +161,15 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
     from gptq_gguf_tpu_torch.ops import cuda_build, qmatmul
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # v1's f32 yardstick stays f32
+    v1 = fmt == "v1"
     if fmt:
         from gptq_gguf_tpu_torch.ops import qmv4
 
         scale_dtype, layout = FORMATS[fmt]
-        fn = qmv4.dequant_matmul_v4
+        fn = qmatmul.dequant_matmul_v1 if v1 else qmv4.dequant_matmul_v4
         kernels = dict.fromkeys((s[0] for s in SHAPES), fmt)
-        libs = ["qmatmul_v4"]
+        libs = ["qmatmul_v1" if v1 else "qmatmul_v4"]
     else:
         def fn(x, rql):
             return qmatmul.dequant_matmul_v2(x, rql, variant=variant)
@@ -175,6 +186,8 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
         qmatmul.DECODE_MMA_BLOCKS_PER_SM = decode_blocks
     if decode_min_rows:
         qmatmul.DECODE_MMA_MIN_ROWS = decode_min_rows
+        if hasattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS"):  # v2p's own threshold
+            qmatmul.V2P_DECODE_MMA_MIN_ROWS = decode_min_rows
         if fmt and hasattr(qmv4, "DECODE_MMA_MIN_ROWS"):  # v4's own threshold
             qmv4.DECODE_MMA_MIN_ROWS = decode_min_rows
     probe = (probe and variant == "v2g" and not fmt
@@ -222,7 +235,12 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
         out, lib_ms, bound, bare, tiles, core_ms = {}, {}, {}, {}, {}, {}
         probe_ms = {1: {}, 2: {}}
         for name, d_out, d_in, per_byte, gs, has_min, shift, calls in SHAPES:
-            if fmt:
+            if v1:  # v1 keeps the vocabulary unpadded too
+                d_out = V4_HEAD if name == "lm_head" else d_out
+                qs, scale, offc = planes_v4(gen, d_out, d_in, per_byte, gs, scale_dtype, dev)
+                rql = qmatmul.RuntimeQuantLinear(qs, scale, offc, d_in, gs, per_byte)
+                w = qmatmul.dequantize_runtime(rql)
+            elif fmt:
                 d_out = V4_HEAD if name == "lm_head" else d_out
                 qs, scale, offc = planes_v4(gen, d_out, d_in, per_byte, gs, scale_dtype, dev)
                 rql = qmv4.RuntimeQuantLinearV4(qs, scale, offc, d_in, gs, per_byte, layout)
@@ -233,16 +251,21 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
                     *planes(gen, d_out, d_in, per_byte, gs, has_min, dev), d_in, gs, per_byte,
                     shift, 2)
                 w = qmatmul.dequantize_runtime_v2(rql)
-            w = w.T.contiguous().to(torch.bfloat16)
+            # the library yardstick: v1's function is f32 (TF32 off), the others bf16
+            w = w.T.contiguous().to(torch.float32 if v1 else torch.bfloat16)
             x = (torch.randn((M, d_in), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-            wrapper = (qmv4.dequant_matmul_v4 if fmt else
+            x_lib = x.float() if v1 else x
+            wrapper = (fn if v1 else qmv4.dequant_matmul_v4 if fmt else
                        getattr(qmatmul, qmatmul.V2_WRAPPERS[kernels[name]]))
             tiles[name] = tile_of(wrapper, lambda: fn(x, rql))
             out[name] = device_ms(lambda: fn(x, rql))
-            if core and M <= 8 and fmt and hasattr(qmv4, "_launch_v4"):
+            if core and v1 and hasattr(qmatmul, "_launch_v1"):  # v1_kernel at any M
+                core_ms[name] = device_ms(lambda: qmatmul._launch_v1(x, rql, mma=False))
+            elif core and M <= 8 and fmt and not v1 and hasattr(qmv4, "_launch_v4"):
                 core_ms[name] = device_ms(lambda: qmv4._launch_v4(x, rql, False, False))
-            elif core and M <= 8 and not fmt and kernels[name] in qmatmul._PER_WEIGHT:
-                lib, code = qmatmul._PER_WEIGHT[kernels[name]]
+            elif core and M <= 8 and not fmt:
+                lib, code = (qmatmul._PER_WEIGHT.get(kernels[name])
+                             or ("qmatmul_v2m", qmatmul._GROUP_DOT[kernels[name]][0]))
                 core_ms[name] = device_ms(lambda: qmatmul._launch_v2(
                     lib, code, x, rql, torch.bfloat16, 8))
             if probe and qmatmul.DECODE_MMA_MIN_ROWS <= M <= 8:
@@ -250,14 +273,14 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
                     per_call[name] = device_ms(lambda: qmatmul._launch_v2(
                         "qmatmul_v2g_probe", level, x, rql, torch.bfloat16,
                         *qmatmul._v2_route("v2g", torch.bfloat16)))
-            if fmt:
+            if fmt and not v1:
                 bare[name] = device_ms(lambda: fn(x, no_off))
                 del no_off
-            lib_ms[name] = device_ms(lambda: torch.matmul(x, w))
+            lib_ms[name] = device_ms(lambda: torch.matmul(x_lib, w))
             nbytes = rql.bytes_read + x.numel() * 2 + M * d_out * 4
-            bound[name] = max(nbytes / HBM_BYTES_PER_S, 2.0 * M * d_in * d_out
-                              / BF16_FLOP_PER_S) * 1e3
-            del rql, x, w
+            flop_s = F32_FLOP_PER_S if tiles[name] == "cuda_core" and v1 else BF16_FLOP_PER_S
+            bound[name] = max(nbytes / HBM_BYTES_PER_S, 2.0 * M * d_in * d_out / flop_s) * 1e3
+            del rql, x, x_lib, w
             torch.cuda.empty_cache()
 
         def forward(per_call):
@@ -269,7 +292,7 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
                "ms_per_call": out, "library_ms_per_call": lib_ms,
                "bound_ms_per_call": bound, "ms_per_forward": forward(out),
                "library_ms_per_forward": forward(lib_ms), "bound_ms_per_forward": forward(bound)}
-        if fmt:
+        if bare:
             rec.update(no_offc_ms_per_call=bare, no_offc_ms_per_forward=forward(bare))
         if core_ms:
             rec.update(core_ms_per_call=core_ms, decode_blocks=decode_blocks or None,
@@ -287,13 +310,13 @@ def main() -> int:
     ap.add_argument("roots", nargs="*", default=["."])
     ap.add_argument("--variant", default="v2g")
     ap.add_argument("--format", default="", choices=["", *FORMATS],
-                    help="time the v4 kernel in this format instead of a v2 variant")
+                    help="time the v4 or v1 kernel in this format instead of a v2 variant")
     ap.add_argument("--m", default="8", help="rows of x, or a comma list of row counts")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--bm", type=int, default=0, choices=[0, 32, 64, 128],
                     help="cap the tensor-core tiles' rows per block (0: the plan's own)")
     ap.add_argument("--core", action="store_true",
-                    help="at M <= 8 also time the variant's CUDA-core tile")
+                    help="at M <= 8 (v1: any M) also time the CUDA-core tile")
     ap.add_argument("--decode-blocks", type=int, default=0,
                     help="the decode tile's split-K target in blocks per SM (0: the plan's)")
     ap.add_argument("--decode-min-rows", type=int, default=0,

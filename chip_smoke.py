@@ -30,8 +30,8 @@ checkout of the repository. Phases, each raising on failure:
    checks budgets, token ranges and the kernel's launch count (every
    prefill projection on the tensor-core tiles; every call of a B=8
    decode step on the tensor-core decode tile, the 1-row prefill heads
-   on the CUDA-core tile: qmatmul.DECODE_MMA_MIN_ROWS), and prints decode
-   tok/s and ms/step (plus a steady B=8 block);
+   on the CUDA-core tile: qmatmul.DECODE_MMA_MIN_ROWS["v2g"]), and prints
+   decode tok/s and ms/step (plus a steady B=8 block);
 4. consistency: 2 layers at full width, one prefill plus 4 decode steps
    through the kernel and through the plain version, logits compared (the
    prefill's 8 projections on the tensor-core tiles; the one-row head and
@@ -101,14 +101,20 @@ checkout of the repository. Phases, each raising on failure:
    Q2_K, Q3_K, ragged Q4_K); v2p's tensor-core decode tile (the group-dot
    form of csrc/qmatmul_decode_mma.cuh) on the head at M = 1, 2, 4 and 8
    and small Q2_K / Q3_K / ragged Q6_K cases, held the same way (control:
-   v2g's rounding) beside the CUDA-core tile of the same rows; (b) 2-layer
+   v2g's rounding) beside the CUDA-core tile of the same rows; so are
+   v2h's decode tile (V2Mma<kV2h>: every 8B shape and the head; control:
+   v2f's f32 affine) and v2t's (its group-sum form: the four Q4_K
+   projection shapes; control: v2g's rounding) at M = 1, 2, 4 and 8, with
+   small Q2_K / Q3_K / Q5_K and ragged cases; (b) 2-layer
    logits through
    each variant's kernels against its plain versions, and the differences
    between variants; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward (every head of a B=8 step under v2m on v2p's
-   decode tile); (d) perplexity through the serving path under
+   decode tile, every call of one under v2h on v2h's, its projections
+   under v2t on v2t's and its head on v2g's); (d) perplexity through the
+   serving path under
    v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
    call on the tensor-core tiles (under v2m: v2m's, and v2p's on the head;
    under v2t and v2s: theirs, and v2g's on the head), v2m, v2t and v2s
@@ -384,12 +390,13 @@ def phase_kernels(params, rng, device):
 
     def core_case(name, x, rql):
         fn = qmatmul.dequant_matmul_v2g
-        min_rows, qmatmul.DECODE_MMA_MIN_ROWS = qmatmul.DECODE_MMA_MIN_ROWS, qmatmul.MMA_MIN_ROWS
+        min_rows = qmatmul.DECODE_MMA_MIN_ROWS["v2g"]
+        qmatmul.DECODE_MMA_MIN_ROWS["v2g"] = qmatmul.MMA_MIN_ROWS
         d0, m0 = fn.decode_mma_launches, fn.mma_launches
         try:
             rec = kernel_case(name, x, rql, flush)
         finally:
-            qmatmul.DECODE_MMA_MIN_ROWS = min_rows
+            qmatmul.DECODE_MMA_MIN_ROWS["v2g"] = min_rows
         if (fn.decode_mma_launches, fn.mma_launches) != (d0, m0):
             raise RuntimeError(f"{name} M={x.shape[0]}: not on the CUDA-core tile")
         return rec
@@ -503,32 +510,38 @@ DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5),
 DECODE_MS = (1, 2, 4, 8)  # rows of the decode tile's 8B cases
 
 
+# the planted control of a decode-tile case where it is not control_of's:
+# v2h's weight against v2f's f32 affine, bf16(scale * q - off2)
+DECODE_CONTROL = {"v2h": ("v2f", "bf16")}
+
+
 def decode_case(name, x, rql, flush, variant="v2g"):
-    """variant_case for the tensor-core decode tile of ``variant`` (v2g, or
-    v2p's group-dot form; bf16 operands, M <= 8; at fewer rows than the
-    variant's threshold, DECODE_MMA_MIN_ROWS or V2P_DECODE_MMA_MIN_ROWS,
-    where the route takes the CUDA-core tile, with that threshold lowered
-    for the case): within 1e-5 of the largest sum of |terms| of an
-    output, a limit its planted
+    """variant_case for the tensor-core decode tile of ``variant`` (v2g,
+    v2h, v2t's group-sum form or v2p's group-dot form; bf16 operands,
+    M <= 8; at fewer rows than the variant's threshold,
+    qmatmul.DECODE_MMA_MIN_ROWS[variant], where the route takes the
+    CUDA-core tile, with that threshold lowered for the case): within 1e-5
+    of the largest sum of |terms| of an output, a limit its planted
     control (v2g: the group-dot plain version, the unrounded scale * q;
-    v2p: v2g's plain version, bf16(scale * q)) must fail; every launch of
-    the case counted on ``decode_mma_launches`` and none on
-    ``mma_launches``; beside it, the CUDA-core tile of the same rows on the
-    same inputs (qmatmul's internal route with the tensor-core tiles ruled
-    out), held to the same limit and timed."""
+    v2t, v2p: v2g's plain version, bf16(scale * q); v2h: v2f's, the f32
+    affine rounded once) must fail; every launch of the case counted on
+    ``decode_mma_launches`` and none on ``mma_launches``; beside it, the
+    CUDA-core tile of the same rows on the same inputs (qmatmul's internal
+    route with the tensor-core tiles ruled out), held to the same limit
+    and timed."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
 
     fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[variant])
     n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
-    knob = "V2P_DECODE_MMA_MIN_ROWS" if variant == "v2p" else "DECODE_MMA_MIN_ROWS"
-    min_rows = getattr(qmatmul, knob)  # below it the route's is the CUDA-core tile
-    setattr(qmatmul, knob, min(min_rows, x.shape[0]))
+    rows = qmatmul.DECODE_MMA_MIN_ROWS
+    min_rows = rows[variant]  # below it the route's is the CUDA-core tile
+    rows[variant] = min(min_rows, x.shape[0])
     try:
-        rec = variant_case(name, variant, "bf16", x, rql, flush)
+        rec = variant_case(name, variant, "bf16", x, rql, flush, DECODE_CONTROL.get(variant))
     finally:
-        setattr(qmatmul, knob, min_rows)
+        rows[variant] = min_rows
     n = fn.launches - n0
     if fn.decode_mma_launches - d0 != n or fn.mma_launches != m0 or n == 0:
         raise RuntimeError(f"{variant} decode tile {name} M={x.shape[0]}: {n} launches, "
@@ -619,34 +632,88 @@ def phase_v2p_decode_kernels(params, device, rng):
     return recs
 
 
-def v2p_on_core(vrecs, drecs):
-    """8a's records for the summary entry of v2p's CUDA-core tile
-    (``qmatmul_v2p``): the B=8 step's head at M = 8, which the route now
-    gives the decode tile, timed on the CUDA-core tile beside it
-    (decode_case's "core_ms")."""
-    head = [dict(r, ms=r["core_ms"], mxu="bf16", tile="cuda_core") for r in drecs
-            if r["M"] == 8 and r["name"].startswith("lm_head")]
-    return [r for r in vrecs if not (r["variant"] == "v2p" and r["M"] == 8
-                                     and r["name"].startswith("lm_head"))] + head
+# 8a's v2h and v2t decode-tile cases beyond the 8B shapes: name, d_out,
+# d_in, type, M, variant (f32x: x in f32, rounded to bf16 as it is staged;
+# 1000 columns: 4-byte copies)
+V2H_V2T_DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v2h"),
+                        ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3, "v2h"),
+                        ("ragged Q5_K 2048->1000", 1000, 2048, "Q5_K", 8, "v2h"),
+                        ("Q5_K 1024->768", 768, 1024, "Q5_K", 5, "v2t"),
+                        ("ragged Q4_K 2048->1000 f32x", 1000, 2048, "Q4_K", 3, "v2t"))
 
 
-def v2p_decode_summary(recs, launches):
-    """The summary entry of v2p's tensor-core decode tile: one B=8 decode
-    step's lm_head call under v2m (M = 8) from 8a's records, the CUDA-core
-    tile's beside it, M = 1, 2 and 4 under "at_m"; ``launches`` from 8c's
-    v2m run (every head of its B=8 decode steps); its error the largest of
-    its cases."""
+def phase_v2h_v2t_decode_kernels(params, device, rng):
+    """8a: the tensor-core decode tiles of v2h (every 8B shape and the
+    padded Q6_K head) and v2t (its group-sum form, the four Q4_K
+    projection shapes) at M = 1, 2, 4 and 8 (decode_case: 1e-5 limit, the
+    planted control, the CUDA-core tile beside it), then
+    V2H_V2T_DECODE_SMALL."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device).zero_
+    recs = []
+    for M in DECODE_MS:
+        for name, rql in step_shapes(params):
+            x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
+            for variant in ("v2h",) if name.startswith("lm_head") else ("v2h", "v2t"):
+                recs.append(decode_case(name, x, rql, flush, variant))
+            del x
+            torch.cuda.empty_cache()
+    for name, d_out, d_in, qt, M, variant in V2H_V2T_DECODE_SMALL:
+        rql = synthetic_rql(rng, d_out, d_in, T[qt], device)
+        x = torch.randn(M, d_in, device=device)
+        if "f32x" not in name:
+            x = x.to(torch.bfloat16)
+        recs.append(decode_case(name, x, rql, flush, variant))
+    return recs
+
+
+def on_core(vrecs, drecs, variant):
+    """8a's records for the summary entry of ``variant``'s CUDA-core tile
+    (``qmatmul_<variant>``): its B=8 step's calls at M = 8, which the route
+    now gives the decode tile, timed on the CUDA-core tile beside it
+    (decode_case's "core_ms", from ``drecs``) in place of its M = 8 bf16
+    records in ``vrecs``."""
+    def step_shape(r):
+        return r["variant"] == variant and r["M"] == 8 and r["name"].split()[0] in STEP
+
+    core = [dict(r, ms=r["core_ms"], mxu="bf16", tile="cuda_core") for r in drecs
+            if step_shape(r)]
+    return [r for r in vrecs if not (step_shape(r) and r["mxu"] == "bf16")] + core
+
+
+def variant_decode_summary(variant, source, line, shapes, recs, launches):
+    """The summary entry of ``variant``'s tensor-core decode tile: its calls
+    of one B=8 decode step (``shapes``: each projection 32 times, the head
+    once; M = 8) from 8a's decode_case records, the CUDA-core tile's beside
+    them ("core_ms"), M = 1, 2 and 4 under "at_m"; ``launches`` from 8c's
+    run under the variant that calls it (every such call of its B=8 decode
+    steps); its error the largest of its cases."""
     def at(M):
-        (r,) = [r for r in recs if r["M"] == M and r["name"].startswith("lm_head")]
-        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                  "core_ms")}
+        per = {r["name"].split()[0]: r for r in recs if r["variant"] == variant and r["M"] == M
+               and r["name"].split()[0] in shapes}
 
-    return {"name": "qmatmul_v2p_decode_mma", "route": "cuda",
-            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2m_mma.cuh",
-            "replaces": "gptq_gguf_tpu/ops/qmatmul.py:844", "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in recs), **at(8),
-            "per": "one B=8 decode step's lm_head call (v2m, bf16 operands): 1 call",
+        def total(key):
+            return sum(per[k][key] * (1 if k == "lm_head" else N_LAYERS) for k in shapes)
+
+        t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+        t_ops = total("flops") / BF16_FLOP_PER_S * 1e3
+        return {"ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": total("library_ms"), "core_ms": total("core_ms")}
+
+    calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
+    return {"name": f"qmatmul_{variant}_decode_mma", "route": "cuda",
+            "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
+            "replaces": f"gptq_gguf_tpu/ops/qmatmul.py:{line}", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs if r["variant"] == variant),
+            **at(8), "per": f"one B=8 decode step's {variant} calls (bf16 operands): "
+                            f"{calls} call{'s' if calls > 1 else ''}",
             "at_m": {M: at(M) for M in DECODE_MS if M != 8}}
+
 
 
 def decode_step(recs, M):
@@ -765,17 +832,16 @@ def decode_counts() -> dict:
 
 def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
     """The decode-tile launches a run of forwards with token ``shapes``
-    (B, S) should count: every call of v2g's kernel with bf16 operands at
-    qmatmul.DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 rows, of v2p's from
-    qmatmul.V2P_DECODE_MMA_MIN_ROWS, and of v4's (vec-4 weights: every 8B
-    one) from qmv4.DECODE_MMA_MIN_ROWS, the projections at B * S rows and
-    the head at B (``per_forward`` names each kernel's calls per forward: 4
-    per layer, the head, or both)."""
+    (B, S) should count: every call with bf16 operands of a variant of
+    qmatmul.DECODE_MMA_MIN_ROWS (v2g, v2p, v2h, v2t) from its threshold to
+    MMA_MIN_ROWS - 1 rows, and of v4's (vec-4 weights: every 8B one) from
+    qmv4.DECODE_MMA_MIN_ROWS, the projections at B * S rows and the head at
+    B (``per_forward`` names each kernel's calls per forward: 4 per layer,
+    the head, or both)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     out = {}
-    for v, lo in (("v2g", qmatmul.DECODE_MMA_MIN_ROWS), ("v2p", qmatmul.V2P_DECODE_MMA_MIN_ROWS),
-                  ("v4", qmv4.DECODE_MMA_MIN_ROWS)):
+    for v, lo in (*qmatmul.DECODE_MMA_MIN_ROWS.items(), ("v4", qmv4.DECODE_MMA_MIN_ROWS)):
         on_tile = range(lo, qmatmul.MMA_MIN_ROWS)
         n = per_forward.get(v, 0)
         proj, head = n >= 4 * n_layers, n in (1, 4 * n_layers + 1)
@@ -869,8 +935,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     if dmma != want_dmma:
         raise RuntimeError(f"{label} serving: decode-tile launches {dmma}, want {want_dmma}")
     if any(dmma.values()):
-        lo = {"v2g": qmatmul.DECODE_MMA_MIN_ROWS, "v2p": qmatmul.V2P_DECODE_MMA_MIN_ROWS,
-              "v4": qmv4.DECODE_MMA_MIN_ROWS}
+        lo = {**qmatmul.DECODE_MMA_MIN_ROWS, "v4": qmv4.DECODE_MMA_MIN_ROWS}
         log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every call of "
             + ", ".join(f"{k} of {lo[k]}-{qmatmul.MMA_MIN_ROWS - 1} rows"
                         for k, n in dmma.items() if n))
@@ -954,19 +1019,19 @@ def phase_consistency(params, cfg, rng, device):
     want_dmma = want_decode({"v2g": 4 * 2 + 1}, shapes, 2)
     log(f"consistency: {n_mma} tensor-core launches (the 128-row prefill's 4 x 2 "
         f"projections), decode tile {dmma} (its 1-row head and the 4 decode steps: "
-        f"the decode tile from {qmatmul.DECODE_MMA_MIN_ROWS} rows)")
+        f"the decode tile from {qmatmul.DECODE_MMA_MIN_ROWS['v2g']} rows)")
     if n_mma != 4 * 2:
         raise RuntimeError(f"consistency: {n_mma} tensor-core launches, want 8")
     if dmma != want_dmma:
         raise RuntimeError(f"consistency: decode-tile launches {dmma}, want {want_dmma}")
     # the same with every one-row call on the decode tile too
-    min_rows, qmatmul.DECODE_MMA_MIN_ROWS = qmatmul.DECODE_MMA_MIN_ROWS, 1
+    min_rows, qmatmul.DECODE_MMA_MIN_ROWS["v2g"] = qmatmul.DECODE_MMA_MIN_ROWS["v2g"], 1
     try:
         reset_matmul_counts()
         ld = run(qmatmul.dequant_matmul_v2g)
         dmma1, want1 = decode_counts(), want_decode({"v2g": 4 * 2 + 1}, shapes, 2)
     finally:
-        qmatmul.DECODE_MMA_MIN_ROWS = min_rows
+        qmatmul.DECODE_MMA_MIN_ROWS["v2g"] = min_rows
     if dmma1 != want1:
         raise RuntimeError(f"consistency: decode-tile launches {dmma1} from one row, want {want1}")
     lp = run(qmatmul.dequant_matmul_v2g_reference)
@@ -2274,6 +2339,13 @@ V2_VARIANT_KERNELS = (
     ("qmatmul_v2p", "qmatmul_v2m.cu", 844, "v2p", ("lm_head",), "v2m"),
 )
 
+# the decode tiles of the v2 variants that phase 8 holds (v2g's is phase
+# 2's): variant, source, the JAX body's line, its shapes in one B=8 step,
+# the 8c run whose launches it reports
+VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m"),
+                          ("v2h", "qmatmul_v2_mma.cuh", 551, STEP, "v2h"),
+                          ("v2t", "qmatmul_v2m_mma.cuh", 789, Q4_SHAPES, "v2t"))
+
 
 def variant_runs(n_layers: int):
     """8c: (PALLAS_V2_VARIANT, PALLAS_V2_VARIANT_GS16, launches per forward
@@ -2342,11 +2414,12 @@ def variant_terms(x, rql, variant: str, mxu: str) -> float:
     return mag.max().item()
 
 
-def variant_case(name, variant, mxu, x, rql, flush):
+def variant_case(name, variant, mxu, x, rql, flush, control=None):
     """One v2 variant kernel against its plain version on the same inputs,
     then timed: kernel, call, plain, library (torch.matmul on the
     dequantized weight, bf16; f32 with TF32 off for f32 operands) and the
-    bound (bytes at 3.35 TB/s; operations at 989 TFLOP/s bf16 or 67 f32)."""
+    bound (bytes at 3.35 TB/s; operations at 989 TFLOP/s bf16 or 67 f32).
+    ``control`` (variant, mxu) replaces control_of's planted control."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
@@ -2357,7 +2430,7 @@ def variant_case(name, variant, mxu, x, rql, flush):
     dt = mxu_dtype(mxu)
     y_k = fn(x, rql, dt)
     y_p = ref(x, rql, dt)
-    c_var, c_mxu = control_of(variant, mxu)
+    c_var, c_mxu = control or control_of(variant, mxu)
     y_c = fns[c_var][1](x, rql, mxu_dtype(c_mxu))
     torch.cuda.synchronize()
     if not torch.isfinite(y_k).all():
@@ -2595,15 +2668,20 @@ def phase_variant_ppl(params, cfg, v2g):
     return out
 
 
-def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma_launches):
+def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma_launches,
+                    core_launches=None):
     """The summary entry of one v2 variant kernel: one B=8 decode step (its
     calls among the four projections of every layer and the lm_head, at
     8a's M=8 times with bf16 operands, the dispatch's); its error is the
     largest of all its 8a cases. v2's entry adds its f32 operand mode.
-    ``launches`` counts the CUDA-core tiles' launches of 8c's run (v2p's
-    head at M = 8 is timed on that tile: v2p_on_core; its tensor-core
-    decode tile is qmatmul_v2p_decode_mma), ``mma_launches`` its
-    tensor-core tiles' (every prefill projection)."""
+    ``launches`` counts the CUDA-core tiles' launches of 8c's run (the
+    calls of v2p, v2h and v2t at M = 8 are timed on that tile: on_core;
+    their tensor-core decode tiles are qmatmul_<variant>_decode_mma),
+    ``mma_launches`` its tensor-core tiles' (every prefill projection).
+    Where the route now gives every call of 8c's run to the tensor-core
+    tiles (v2h, v2t), ``launches`` counts them all, as v4's entries do, and
+    ``core_launches`` the CUDA-core tile's own (its times are that tile's:
+    "tile")."""
     def entry(mxu):
         per = {r["name"].split()[0]: r for r in recs
                if r["variant"] == variant and r["mxu"] == mxu and r["M"] == 8}
@@ -2622,10 +2700,24 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma
            "replaces": replaces, "launches": launches, "mma_launches": mma_launches,
            "max_abs_err": max(r["max_abs_err"] for r in recs if r["variant"] == variant),
            **entry("bf16"), "per": f"one B=8 decode step (bf16 operands): {calls} calls"}
+    if core_launches is not None:
+        out.update(core_launches=core_launches, tile="cuda_core")
     if all(any(r["variant"] == variant and r["mxu"] == "f32" and r["M"] == 8
                    and r["name"].split()[0] == k for r in recs) for k in shapes):
         out["f32"] = entry("f32")
     return out
+
+
+def variant_launches(rec, variant: str, run: str) -> tuple:
+    """(launches, mma_launches[, core_launches]) of ``variant``'s summary
+    entry from 8c's run ``run`` (its record ``rec``): the CUDA-core tiles'
+    launches, or for v2h and v2t, whose every call there runs a
+    tensor-core tile, all of them and the CUDA-core tiles' beside."""
+    mma = rec["mma_launches"] if variant == run else 0
+    core = rec["counts"][variant] - mma - rec["decode_mma_launches"].get(variant, 0)
+    if variant in ("v2h", "v2t"):
+        return rec["counts"][variant], mma, core
+    return core, mma
 
 
 # the tensor-core tiles of the variants 8d scores with (phase 2's v2g and
@@ -2836,7 +2928,11 @@ def run(device) -> dict:
     log("== phase 8: the v2 kernel variants at full width")
     t8 = time.time()
     vrecs = phase_variant_kernels(params, rng, device)
-    precs_v2p = phase_v2p_decode_kernels(params, device, rng)
+    vdrecs = phase_v2p_decode_kernels(params, device, rng)
+    vdrecs += phase_v2h_v2t_decode_kernels(params, device, rng)
+    vcrecs = vrecs
+    for variant, *_ in VARIANT_DECODE_KERNELS:
+        vcrecs = on_core(vcrecs, vdrecs, variant)
     mrecs += phase_mma_kernels(params, ("v2", "v3", "v2f", "v2h", "v2s"), device, rng,
                                V2S_SMALL)
     gdrecs = phase_mma_kernels(params, ("v2m", "v2t"), device, rng, GROUP_DOT_SMALL)
@@ -2926,13 +3022,11 @@ def run(device) -> dict:
                               fserve[fmt]["counts"][f"v4_{body}_decode_mma"])
         for _, _, _, body, fmt, shapes in V1_V4_BODIES if body != "v1"] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
-                        v2p_on_core(vrecs, precs_v2p) if variant == "v2p" else vrecs,
-                        vserve[run]["counts"][variant]
-                        - (vserve[run]["mma_launches"] if variant == run else 0)
-                        - vserve[run]["decode_mma_launches"].get(variant, 0),
-                        vserve[run]["mma_launches"] if variant == run else 0)
+                        vcrecs, *variant_launches(vserve[run], variant, run))
         for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [
-        v2p_decode_summary(precs_v2p, vserve["v2m"]["decode_mma_launches"]["v2p"])] + [
+        variant_decode_summary(variant, source, line, shapes, vdrecs,
+                               vserve[run]["decode_mma_launches"][variant])
+        for variant, source, line, shapes, run in VARIANT_DECODE_KERNELS] + [
         mma_summary(mrecs, serve["mma_launches"]),
         decode_summary(drecs, serve["decode_mma_launches"]["v2g"])] + [
         variant_mma_summary(name, source, line, variant, shapes, mrecs + gdrecs,

@@ -7,19 +7,23 @@
 // decode_frags below). Instantiated with:
 //   V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch> (qmatmul_v2_mma.cuh, built
 //       by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K, Q5_K and Q6_K weights, bf16
-//       operands;
+//       operands, and V2Mma<kV2h, ...> (built by qmatmul_v3.cu) for the
+//       same five: v2h's weights, no xsum term;
 //   V4Mma<PB, GS, I8, kDecodePitch> (qmatmul_v4.cu): the v4 bodies pb2,
 //       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x;
 //   GroupDotMma<PB, 16, HAS_MIN, kDecodePitch> (qmatmul_v2m_mma.cuh, built
 //       by qmatmul_v2m.cu): v2p (Q2_K, Q3_K, Q6_K, the lm_head under v2m),
-//       bf16 operands, in the group-dot form (F::GROUP_DOT) below.
+//       bf16 operands, in the group-dot form (F::GROUP_DOT) below;
+//   GroupSumMma<PB, HAS_MIN, kDecodePitch> (the same files): v2t (gs 32:
+//       Q4_K, Q5_K), bf16 operands, in the group-sum form (F::GROUP_SUM).
 //
-// Replaces (it takes every M of 1-8), at M = 2-8 (qmatmul.
-// DECODE_MMA_MIN_ROWS up to qmatmul.MMA_MIN_ROWS - 1; for v2p from
-// qmatmul.V2P_DECODE_MMA_MIN_ROWS: _kernel_v2p :844):
+// Replaces (it takes every M of 1-8), from each variant's row threshold
+// (qmatmul.DECODE_MMA_MIN_ROWS[variant]) up to qmatmul.MMA_MIN_ROWS - 1:
 // gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g :605 (bf16 operands), the
 // default variant, which carries every projection and the lm_head of a
-// decode step (129 calls per Llama-3-8B step at B = 8); at M = 1-8
+// decode step (129 calls per Llama-3-8B step at B = 8), _kernel_v2h :551
+// (its 129 calls under GG_PALLAS_V2_VARIANT=v2h), _kernel_v2t :789 (its
+// 128 projections; the head runs v2g) and _kernel_v2p :844; at M = 1-8
 // (qmv4.DECODE_MMA_MIN_ROWS up): gptq_gguf_tpu/ops/qmv4.py::_kernel_v4_pb2
 // :264, _kernel_v4_pb2_i8 :305 and _kernel_v4_pb1 :346 (128 Q4_K calls and
 // the Q6_K head of a v4 step):
@@ -53,7 +57,9 @@
 //     high ones for another); a byte permute makes each code a float
 //     (byte_magic), one FMA with the group scale and one packed
 //     conversion per two weights make the bf16 pair (decode_frags lays the
-//     fragments out; the policy gives each weight). Staged code rows are
+//     fragments out; the policy gives each weight; v2h's weight is bf16
+//     arithmetic, so its policy forms each pair in packed bf16 operations:
+//     decode_frags' PAIRS). Staged code rows are
 //     padded by 16 bytes (kDecodePitch), so the four k-slot lanes load from
 //     distinct banks;
 //   * a step's f32 group rows ([GPK][128], F::rows: v2's scale and off2
@@ -90,13 +96,22 @@
 //     C fragment, which one FMA per fragment value adds to the accumulator
 //     times the slice's group scale of that column: y = sum_g scale_g
 //     (bf16(x_g) @ q_g) - xsum @ off2, the JAX body's terms (_kernel_v2p
-//     :844) in another order of the f32 sums.
-//     The branch is compiled only for such a policy, so the other
+//     :844) in another order of the f32 sums;
+//   * group sum (F::GROUP_SUM, a group dot; v2t, gs 32): the warp's two
+//     scaled slice partials of a step go into a step sum, s = p0 s0 +
+//     p1 s1, which is added to the accumulator once: JAX's sum(parts *
+//     scale) before the output (_kernel_v2t :830) within the warp's K
+//     half, the two halves meeting at the end. At gs 32 decode_slice puts
+//     a warp's low-nibble slice in the step's group 0 and its high-nibble
+//     slice in group 1 (4-bit codes), or both byte-code slices in group
+//     kh.
+//     Each branch is compiled only for such a policy, so the other
 //     instances keep their code.
 // ptxas (sm_90a, -O3): 64 registers in every v2g instance, no spills but 4
 // bytes of spill stores and 4 of loads in the Q3_K one; v2p's: 64
 // registers, 4 bytes of spill stores and 4 of loads at Q6_K, none at Q2_K
-// / Q3_K (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
+// / Q3_K; v2h's: 64 registers (63 at Q3_K), no spills; v2t's: 64, no
+// spills (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
 
 #pragma once
 
@@ -150,8 +165,11 @@ __device__ __forceinline__ int decode_slice(int kh, int j) {
 // a row. The policy gives the weights: slice(j, sl) once per slice (its
 // group rows into the policy's registers) returns a mask the slice's code
 // bytes are XOR-ed with, and wt(j, c, mq) the f32 weight of column c0 + c
-// from mq = 2^23 + that code byte (byte_magic), before the bf16 rounding.
-template <int PB, int PITCH, class Slice, class Weight>
+// from mq = 2^23 + that code byte (byte_magic), before the bf16 rounding;
+// or, with PAIRS, wt(j, c, ma, mb) the bf16 pair of column c0 + c from
+// byte c of the code words ma (low half) and mb (high half), for a policy
+// whose weights are bf16 arithmetic.
+template <int PB, int PITCH, bool PAIRS = false, class Slice, class Weight>
 __device__ __forceinline__ void decode_frags(const char* q, int kh, int t, Slice slice,
                                              Weight wt, uint32_t (&af)[2][2][4]) {
 #pragma unroll
@@ -166,13 +184,23 @@ __device__ __forceinline__ void decode_frags(const char* q, int kh, int t, Slice
     uint32_t m[4];  // the codes as bytes (4-bit: slice 1 the high nibbles)
 #pragma unroll
     for (int k = 0; k < 4; ++k) m[k] = (PB == 2 ? (w[k] >> (4 * j)) & 0x0F0F0F0Fu : w[k]) ^ flip;
-    auto v = [&](int c, int k) { return wt(j, c, byte_magic(m[k], c)); };
+    if constexpr (PAIRS) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      af[j][i][0] = bf16x2_bits(v(2 * i, 0), v(2 * i, 1));
-      af[j][i][1] = bf16x2_bits(v(2 * i + 1, 0), v(2 * i + 1, 1));
-      af[j][i][2] = bf16x2_bits(v(2 * i, 2), v(2 * i, 3));
-      af[j][i][3] = bf16x2_bits(v(2 * i + 1, 2), v(2 * i + 1, 3));
+      for (int i = 0; i < 2; ++i) {
+        af[j][i][0] = wt(j, 2 * i, m[0], m[1]);
+        af[j][i][1] = wt(j, 2 * i + 1, m[0], m[1]);
+        af[j][i][2] = wt(j, 2 * i, m[2], m[3]);
+        af[j][i][3] = wt(j, 2 * i + 1, m[2], m[3]);
+      }
+    } else {
+      auto v = [&](int c, int k) { return wt(j, c, byte_magic(m[k], c)); };
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        af[j][i][0] = bf16x2_bits(v(2 * i, 0), v(2 * i, 1));
+        af[j][i][1] = bf16x2_bits(v(2 * i + 1, 0), v(2 * i + 1, 1));
+        af[j][i][2] = bf16x2_bits(v(2 * i, 2), v(2 * i, 3));
+        af[j][i][3] = bf16x2_bits(v(2 * i + 1, 2), v(2 * i + 1, 3));
+      }
     }
   }
 }
@@ -196,7 +224,8 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
   constexpr int GPK = T::GPK;
   constexpr int QUARTERS = kQK / kMmaKT;
   static_assert(S >= 3, "a ring of at least three stages (group rows one step ahead)");
-  static_assert(!F::GROUP_SUM && !F::SPLIT_HALVES, "whole sums or group dots only");
+  static_assert(!F::SPLIT_HALVES, "whole sums, group dots or group sums only");
+  static_assert(!F::GROUP_SUM || F::GROUP_DOT, "a group sum is a group dot");
   extern __shared__ __align__(16) char smem[];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -253,7 +282,8 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
     uint32_t bx[4];  // x rows 0-7 at the two slices' k: b0, b1 of slice 0, then of slice 1
     ldsm_x4(bx, reinterpret_cast<const __nv_bfloat16*>(st + T::M::X_OFF) + (lane % 8) * kAStride +
                     16 * decode_slice<F::PB>(kh, lane / 16) + 8 * ((lane / 8) % 2));
-    if constexpr (F::GROUP_DOT) {  // each slice's partial, then acc += partial * scale
+    if constexpr (F::GROUP_DOT) {  // each slice's partial times its group's scale
+      float sum[2][4];               // group sum: the step's scaled partials
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float p[2][4];
@@ -266,7 +296,19 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(p[i][e], sc[2 * i + e / 2], acc[i][e]);
+          for (int e = 0; e < 4; ++e) {
+            const float se = sc[2 * i + e / 2];
+            if constexpr (F::GROUP_SUM)
+              sum[i][e] = j == 0 ? p[i][e] * se : fmaf(p[i][e], se, sum[i][e]);
+            else
+              acc[i][e] = fmaf(p[i][e], se, acc[i][e]);
+          }
+      }
+      if constexpr (F::GROUP_SUM) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] += sum[i][e];
       }
     } else {
 #pragma unroll

@@ -2,8 +2,9 @@
 // (sm_90a): the v2 format's policy for the shared prefill mainloop of
 // qmatmul_mma.cuh and the decode mainloop of qmatmul_decode_mma.cuh. The
 // same function as the CUDA-core template in qmatmul_v2_weight.cuh, for
-// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for v2g, at
-// M = 2-8 on the decode tile:
+// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for v2g and
+// v2h, at their decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8) on the
+// decode tile:
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off2 ]   (f32 sums)
 // with w the build's bf16 weight from the same group_affine / weight
 // functions (so bit for bit the decode kernel's, and the JAX bodies'), and
@@ -16,8 +17,12 @@
 // v2h). v2s builds v2g's weights and sums each step's high-nibble products
 // apart before they meet the low-nibble ones (the mainloop's
 // F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). The
-// decode tile replaces _kernel_v2g :605 at M = 2-8 (launch_decode_mma);
-// the other builds' decode steps, f32 operands (TF32 would change the
+// decode tile replaces _kernel_v2g :605 and _kernel_v2h :551 at their
+// decode rows (launch_decode_mma); v2h's weight, bf16(bf16(bf16(scale) *
+// q) - bf16(off2)), comes from packed bf16 arithmetic there (frags_v2h),
+// bit for bit group_affine / weight_q's on the CUDA cores, and it has no
+// xsum term (its offset is in the weight). The
+// other builds' decode steps, f32 operands (TF32 would change the
 // products) and weights the wrapper gives one column per thread (vec 1:
 // d_out % 4 != 0 or planes not 16-byte aligned; no Llama-3-8B weight is
 // one) stay on the CUDA-core kernel.
@@ -175,6 +180,10 @@ struct V2Mma {
   __device__ __forceinline__ static void frags(const Args& a, const char* st, const float* sc,
                                                const float* o2, int c0, int kh, int t,
                                                uint32_t (&af)[2][2][4]) {
+    if constexpr (BUILD == kV2h) {
+      frags_v2h<P>(st, sc, o2, c0, kh, t, af);
+      return;
+    }
     Affine f[4];
     float nb[4];
     auto slice = [&](int, int sl) {
@@ -197,6 +206,42 @@ struct V2Mma {
     };
     decode_frags<PB, PITCH>(st + P + c0, kh, t, slice, wt, af);
   }
+
+  // v2h's A fragments in packed bf16 arithmetic: per pair of weights one
+  // byte permute and one mask make bf16(128 + q) of two codes, one bf16x2
+  // FMA s (128 + q) - 128 s gives bf16(s * q) (the exact s * q, one
+  // rounding) and one bf16x2 subtraction bf16(bf16(s * q) - o): the
+  // weights of group_affine / weight_q in f32 bit for bit, since the f32
+  // subtraction of two bf16 values is exact where their exponents differ
+  // by 16 or less and, where they differ by more, leaves the larger one's
+  // bf16 rounding unchanged either way. s = bf16(scale), o = bf16(off2)
+  template <int P>
+  __device__ __forceinline__ static void frags_v2h(const char* st, const float* sc,
+                                                   const float* o2, int c0, int kh, int t,
+                                                   uint32_t (&af)[2][2][4]) {
+    uint32_t s2[4], ns2[4], o2w[4];  // bf16x2 of s, -128 s and o
+    auto slice = [&](int, int sl) {
+      const int lg = 16 * sl / GS;
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
+      const float4 o4 = *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, ov[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float s = bf16_round(sv[c]);
+        s2[c] = bf16x2_bits(s, s);
+        ns2[c] = bf16x2_bits(-128.f * s, -128.f * s);
+        o2w[c] = bf16x2_bits(ov[c], ov[c]);
+      }
+      return 0u;
+    };
+    auto bf2 = [](const uint32_t& u) { return *reinterpret_cast<const __nv_bfloat162*>(&u); };
+    auto pair = [&](int, int c, uint32_t ma, uint32_t mb) {
+      const uint32_t m = (__byte_perm(ma, mb, c | (c + 4) << 8) & 0x00FF00FFu) | 0x43004300u;
+      const __nv_bfloat162 w = __hsub2(__hfma2(bf2(s2[c]), bf2(m), bf2(ns2[c])), bf2(o2w[c]));
+      return *reinterpret_cast<const uint32_t*>(&w);
+    };
+    decode_frags<PB, PITCH, true>(st + P + c0, kh, t, slice, pair, af);
+  }
 };
 
 // the tensor-core tiles of one v2 build, bm rows per block (32, 64 or 128);
@@ -206,11 +251,11 @@ bool launch_mma(const V2Args& a, int bm) {
   return launch_mma_tiles<V2Mma<BUILD, PB, GS, HAS_MIN>>(a, bm);
 }
 
-// v2g's tensor-core decode tile (qmatmul_decode_mma.cuh), M <= 8 rows
-// (declared in qmatmul_v2_weight.cuh)
-template <int PB, int GS, bool HAS_MIN>
+// the tensor-core decode tile (qmatmul_decode_mma.cuh) of build v2g or
+// v2h, M <= 8 rows (declared in qmatmul_v2_weight.cuh)
+template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a) {
-  launch_decode_mma_tile<V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch>>(a);
+  launch_decode_mma_tile<V2Mma<BUILD, PB, GS, HAS_MIN, kDecodePitch>>(a);
   return true;
 }
 

@@ -48,8 +48,10 @@
 // 8 or less: a unit's partial sums live beside the accumulator (v2p at
 // 4-bit holds four sets). With bf16 operands all three run M >= 9 rows on
 // the tensor-core tiles of qmatmul_v2m_mma.cuh (v2t with JAX's order: a
-// step's scaled partials summed before the accumulator); f32 operands (a
-// test mode) and vec-1 weights stay here at any M, in 8-row tiles. The K axis
+// step's scaled partials summed before the accumulator), and v2p and v2t
+// their decode rows on the tensor-core decode tile (qmatmul_decode_mma.cuh,
+// from each one's qmatmul.DECODE_MMA_MIN_ROWS); f32 operands (a test
+// mode) and vec-1 weights stay here at any M, in 8-row tiles. The K axis
 // is split over supergroups with a second kernel reducing the partials in
 // a fixed order (no float atomics).
 
@@ -450,8 +452,8 @@ bool launch_body_mma(const V2Args& a, int bm) {
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
 // cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
-// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2p) the
-// tensor-core decode tile (qmatmul_decode_mma.cuh, M <= 8)
+// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2p and
+// v2t) the tensor-core decode tile (qmatmul_decode_mma.cuh, M <= 8)
 template <int BODY, bool BF16, int PB, bool HAS_MIN>
 bool launch_body_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -463,6 +465,9 @@ bool launch_body_tile(const V2Args& a, int mt, int vec) {
       case kDecodeMmaTile:
         if constexpr (BF16 && BODY == kV2p) {
           launch_decode_mma_tile<GroupDotMma<PB, 16, HAS_MIN, kDecodePitch>>(a);
+          return true;
+        } else if constexpr (BF16 && BODY == kV2t) {
+          launch_decode_mma_tile<GroupSumMma<PB, HAS_MIN, kDecodePitch>>(a);
           return true;
         }
         return false;
@@ -512,7 +517,9 @@ bool launch_body_format(const V2Args& a, int body, int per_byte, int group_size,
 // mxu_bf16 != 0 (the codes are exact in either type). partials is
 // (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. mt is
 // the rows per block: 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the
-// tensor cores (vec 4 and bf16 operands only). vec 4 needs
+// tensor cores (vec 4 and bf16 operands only); kDecodeMmaTile (16) the
+// tensor-core decode tile of v2p or v2t over all M <= 8 rows (vec 4, bf16
+// operands). vec 4 needs
 // d_out % 4 == 0 and 16-byte-aligned planes (the tensor-core tiles a
 // 16-byte-aligned x too). Every pointer is a device pointer of contiguous
 // data.

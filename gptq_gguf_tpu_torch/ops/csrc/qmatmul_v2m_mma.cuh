@@ -1,8 +1,9 @@
 // Tensor-core prefill tiles of the group-dot v2 kernels v2m, v2t and v2p,
 // for Hopper (sm_90a): their policies for the shared mainloop of
-// qmatmul_mma.cuh; and v2p's tensor-core decode tile (GroupDotMma's
-// frags, for the decode mainloop of qmatmul_decode_mma.cuh: bf16 operands
-// at qmatmul.V2P_DECODE_MMA_MIN_ROWS to 8 rows on vec-4 weights).
+// qmatmul_mma.cuh; and the tensor-core decode tiles of v2p and v2t
+// (GroupDotMma's frags, for the decode mainloop of qmatmul_decode_mma.cuh:
+// bf16 operands from the variant's qmatmul.DECODE_MMA_MIN_ROWS to 8 rows
+// on vec-4 weights; v2t in its group-sum form).
 // The same function as the CUDA-core bodies of qmatmul_v2m.cu, for bf16
 // operands at M >= 9 rows (every call past the decode tiles;
 // qmatmul.MMA_MIN_ROWS) on vec-4 weights:
@@ -14,9 +15,9 @@
 // Replaces, at those shapes: gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2m :729
 // (gs 32: Q4_K, Q5_K), _kernel_v2t :789 (gs 32, GroupSumMma) and
 // _kernel_v2p :844 (gs 16: Q2_K, Q3_K, Q6_K, the lm_head among them). f32
-// operands (TF32 would round x), vec-1 weights and M <= 8 (v2p: below
-// its decode tile's rows; v2m, v2t: every such M) stay on the CUDA-core
-// bodies.
+// operands (TF32 would round x), vec-1 weights and M <= 8 (v2p, v2t:
+// below their decode tile's rows; v2m: every such M) stay on the
+// CUDA-core bodies.
 //
 // Per 64-row step it stages v2g's planes (V2Mma<kV2g>::issue: the code
 // bytes, the step's sc_q / mn_q rows, the supergroup's d_sg / dmin_sg row);
@@ -82,9 +83,10 @@ struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN, PITCH> {  // v2g's planes, o
 };
 
 // v2t: v2m's planes and codes at gs 32, each step's scaled partials summed
-// before the accumulator
-template <int PB_, bool HAS_MIN>
-struct GroupSumMma : GroupDotMma<PB_, 32, HAS_MIN> {
+// before the accumulator (in the decode tile, kDecodePitch: a warp's two
+// slices of a step, GroupDotMma's frags and V2Mma<kV2g>'s rows)
+template <int PB_, bool HAS_MIN, int PITCH = kMmaBN>
+struct GroupSumMma : GroupDotMma<PB_, 32, HAS_MIN, PITCH> {
   static constexpr bool GROUP_SUM = true;
 };
 

@@ -33,15 +33,15 @@ and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``
 (CUDA cores) and of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy for the
 tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
-``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for v2g only,
-of the tensor-core decode mainloop of ``csrc/qmatmul_decode_mma.cuh``:
-bf16 operands at ``DECODE_MMA_MIN_ROWS`` to 8 rows, every B=8 decode
-step);
+``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for v2g and
+v2h, of the tensor-core decode mainloop of ``csrc/qmatmul_decode_mma.cuh``:
+bf16 operands from the variant's ``DECODE_MMA_MIN_ROWS`` to 8 rows, every
+B=8 decode step);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
 (``csrc/qmatmul_v2m.cu``, and ``csrc/qmatmul_v2m_mma.cuh``, their policies
 for the same mainloop: the raw codes as the B operand, each group's
-partial product scaled in f32; v2p's also for the decode mainloop, bf16
-operands at ``V2P_DECODE_MMA_MIN_ROWS`` to 8 rows). The
+partial product scaled in f32; v2p's and v2t's also for the decode
+mainloop, bf16 operands from their ``DECODE_MMA_MIN_ROWS`` to 8 rows). The
 variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
 loaders are the same for all of them.
@@ -520,19 +520,33 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     return bm, per, -(-n_sg // per)
 
 
-# the tile code of the tensor-core decode tile of v2g and v4
-# (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
+# the tile code of the tensor-core decode tile of v2g, v2h, v2t, v2p and
+# v4 (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
 # mma.sync), which neither a CUDA-core tile (1, 2, 4, 8 rows) nor a
 # prefill tile (32, 64, 128) uses
 DECODE_MMA_TILE = 16
-# the fewest rows it takes by default (v2g's bf16-operand calls on a vec-4
-# weight, up to MMA_MIN_ROWS - 1 rows; v4 has its own,
-# qmv4.DECODE_MMA_MIN_ROWS): the 129 calls of one Llama-3-8B step ran at
-# M = 1 on the CUDA-core tile in 5.37-5.39 ms against the decode tile's
-# 5.76-5.81, at M = 2 in 6.02-6.03 against 5.78, at M = 3 (its 4-row
-# tile) in 7.03-7.06 against 5.79-5.83 (tools/time_v2_kernels.py --m
-# 1,2,3 --core --decode-min-rows 1, H100: PERF.md)
-DECODE_MMA_MIN_ROWS = 2
+# The v2 variants with a tensor-core decode tile, each with the fewest rows
+# of a bf16-operand call on a vec-4 weight it takes there (up to
+# MMA_MIN_ROWS - 1; fewer rows run the CUDA-core tiles; v4 has its own,
+# qmv4.DECODE_MMA_MIN_ROWS), read at every call. Each was timed against
+# the CUDA-core tile at M = 1, 2 and 3 (tools/time_v2_kernels.py --variant
+# V --m 1,2,3 --core --decode-min-rows 1, H100: PERF.md):
+#   v2g: the 129 calls of one Llama-3-8B step at M = 1 on the CUDA-core
+#     tile 5.37-5.39 ms against the decode tile's 5.76-5.81, at M = 2
+#     6.02-6.03 against 5.78, at M = 3 (the 4-row tile) 7.03-7.06 against
+#     5.79-5.83;
+#   v2p: the padded Q6_K head (the group-dot form of the decode mainloop)
+#     at M = 1 0.3003-0.3013 against 0.3083-0.3089, at M = 2 0.3045-0.3073
+#     against 0.3107-0.3129, at M = 3 0.6116-0.6147 against 0.3105-0.3130;
+#   v2h: the 129 calls of a step (its weights in packed bf16 arithmetic) on
+#     the decode tile at M = 1 5.61-5.62 against the CUDA-core tile's
+#     6.33-6.36, at M = 2 5.62-5.65 against 6.86-6.92;
+#   v2t: its 128 projections (the group-sum form) on the decode tile at
+#     M = 1 5.38 against the CUDA-core tile's 7.35, at M = 2 5.43 against
+#     5.31, at M = 3 5.43 against 6.39: one threshold of 1 loses 2% at two
+#     rows.
+DECODE_MMA_MIN_ROWS = {"v2g": 2, "v2p": 3, "v2h": 1, "v2t": 1}
+DECODE_MMA_VARIANTS = tuple(DECODE_MMA_MIN_ROWS)
 # blocks per SM the decode tile's split-K plan fills: two waves of the four
 # resident blocks (csrc/qmatmul_decode_mma.cuh; timed against 4 and 12 with
 # tools/time_v2_kernels.py --decode-blocks: PERF.md)
@@ -557,12 +571,13 @@ def _plan(M: int, d_out: int, n_sg: int, n_sm: int, vec: int, mt_max: int = 32,
     split, splits): the tensor-core tiles of up to ``bm_max`` rows when
     ``mma`` allows them and the weight takes them (vec 4, M >=
     MMA_MIN_ROWS); the tensor-core decode tile when ``decode_mma`` allows
-    it (vec 4, from ``decode_min_rows``, by default DECODE_MMA_MIN_ROWS,
-    to MMA_MIN_ROWS - 1 rows); else the CUDA-core tiles of up to
+    it (vec 4, from ``decode_min_rows``, by default v2g's
+    DECODE_MMA_MIN_ROWS, to MMA_MIN_ROWS - 1 rows); else the CUDA-core
+    tiles of up to
     ``mt_max`` rows."""
     if mma and vec == 4 and M >= MMA_MIN_ROWS:
         return _mma_plan(M, d_out, n_sg, n_sm, bm_max)
-    lo = DECODE_MMA_MIN_ROWS if decode_min_rows is None else decode_min_rows
+    lo = DECODE_MMA_MIN_ROWS["v2g"] if decode_min_rows is None else decode_min_rows
     if decode_mma and vec == 4 and lo <= M < MMA_MIN_ROWS:
         return _decode_mma_plan(d_out, n_sg, n_sm)
     return _launch_plan(M, d_out, n_sg, n_sm, vec, mt_max)
@@ -649,31 +664,18 @@ PER_WEIGHT_VARIANTS = tuple(_PER_WEIGHT)
 MMA_BM_MAX = {"v2t": 64}
 
 
-# the fewest rows of a v2p call (bf16 operands, vec-4 weight) on the
-# tensor-core decode tile, up to MMA_MIN_ROWS - 1: the group-dot form of the
-# decode mainloop (csrc/qmatmul_decode_mma.cuh, F::GROUP_DOT) with v2p's
-# policy GroupDotMma at gs 16 (v2g's is DECODE_MMA_MIN_ROWS). The padded
-# Q6_K head of Llama-3-8B ran at M = 1 on the CUDA-core tile in
-# 0.3003-0.3013 ms against the decode tile's 0.3083-0.3089, at M = 2 in
-# 0.3045-0.3073 against 0.3107-0.3129, at M = 3 (its 4-row tile) in
-# 0.6116-0.6147 against 0.3105-0.3130 (tools/time_v2_kernels.py --variant
-# v2m --m 1,2,3 --core --decode-min-rows 1, H100: PERF.md)
-V2P_DECODE_MMA_MIN_ROWS = 3
-DECODE_MMA_VARIANTS = ("v2g", "v2p")  # the variants with a tensor-core decode tile
-
-
 def _v2_route(variant: str, mxu_dtype) -> tuple:
     """(mt_max, mma, bm_max, decode_mma, decode_min_rows) of a v2 variant's
     launch plan: CUDA-core tiles of up to 8 rows; from MMA_MIN_ROWS rows
     with bf16 operands the tensor-core tiles of up to bm_max rows (f32
-    operands would need TF32, which rounds them); below that, for v2g and
-    v2p with bf16 operands, the tensor-core decode tile from
-    decode_min_rows rows (DECODE_MMA_MIN_ROWS, V2P_DECODE_MMA_MIN_ROWS:
-    read at every call)."""
+    operands would need TF32, which rounds them); below that, for the
+    DECODE_MMA_VARIANTS with bf16 operands, the tensor-core decode tile
+    from decode_min_rows rows (the variant's DECODE_MMA_MIN_ROWS, read at
+    every call)."""
     bf16 = mxu_dtype == torch.bfloat16
-    decode = bf16 and variant in DECODE_MMA_VARIANTS
-    min_rows = V2P_DECODE_MMA_MIN_ROWS if variant == "v2p" else DECODE_MMA_MIN_ROWS
-    return 8, bf16, MMA_BM_MAX.get(variant, 128), decode, min_rows if decode else None
+    decode = bf16 and variant in DECODE_MMA_MIN_ROWS
+    return (8, bf16, MMA_BM_MAX.get(variant, 128), decode,
+            DECODE_MMA_MIN_ROWS[variant] if decode else None)
 
 
 def _launch_variant(fn, variant: str, lib: str, code: int, x: torch.Tensor,
@@ -711,9 +713,10 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 
     A CUDA ``x`` (f32 or bf16) launches the kernel on the current stream
     and counts one launch (with bf16 operands: from ``MMA_MIN_ROWS`` rows
-    the tensor-core tiles, also counted in ``mma_launches``; v2g below
-    that its tensor-core decode tile, also counted in
-    ``decode_mma_launches``); a CPU ``x``
+    the tensor-core tiles, also counted in ``mma_launches``; v2g, v2h,
+    v2t and v2p below that, from their ``DECODE_MMA_MIN_ROWS``, their
+    tensor-core decode tile, also counted in ``decode_mma_launches``); a
+    CPU ``x``
     runs the plain version. The kernel library is built on first use. The planes are validated, and their
     alignment read, on the first call with each weight; later calls check
     only x. Every v2 variant wrapper below has this contract."""
@@ -744,7 +747,10 @@ def dequant_matmul_v2f(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 def dequant_matmul_v2h(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """y = T(x) @ T(T(T(scale) * T(q)) - T(off2)) through the v2h kernel
-    (``csrc/qmatmul_v3.cu``): v2f's affine in the operand type."""
+    (``csrc/qmatmul_v3.cu``): v2f's affine in the operand type; with bf16
+    operands from its ``DECODE_MMA_MIN_ROWS`` to 8 rows on the tensor-core
+    decode tile (``V2Mma<kV2h>`` through ``csrc/qmatmul_decode_mma.cuh``,
+    also counted in ``decode_mma_launches``)."""
     return _per_weight(dequant_matmul_v2h, "v2h", x, rql, mxu_dtype)
 
 
@@ -835,7 +841,11 @@ def dequant_matmul_v2t(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     per-group partial sums first, then their scale-weighted reduction; from
     ``MMA_MIN_ROWS`` rows with bf16 operands on the tensor-core tiles of
     ``csrc/qmatmul_v2m_mma.cuh``, which sum each 64-row step's scaled
-    partials before the accumulator."""
+    partials before the accumulator; with bf16 operands from its
+    ``DECODE_MMA_MIN_ROWS`` to 8 rows the tensor-core decode tile in the
+    same order (``GroupSumMma`` through ``csrc/qmatmul_decode_mma.cuh``:
+    each warp's two slice partials of a step scaled and summed, then added
+    once; also counted in ``decode_mma_launches``)."""
     return _group_dot(dequant_matmul_v2t, "v2t", x, rql, mxu_dtype)
 
 
@@ -846,7 +856,7 @@ def dequant_matmul_v2p(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     added to the accumulator (JAX's pair-group dot); from ``MMA_MIN_ROWS``
     rows with bf16 operands v2m's tensor-core tiles at gs 16, each partial
     scaled into the accumulator by its own FMA; with bf16 operands from
-    ``V2P_DECODE_MMA_MIN_ROWS`` to 8 rows the tensor-core decode tile in
+    its ``DECODE_MMA_MIN_ROWS`` to 8 rows the tensor-core decode tile in
     the same form (``GroupDotMma`` through ``csrc/qmatmul_decode_mma.cuh``,
     also counted in ``decode_mma_launches``)."""
     return _group_dot(dequant_matmul_v2p, "v2p", x, rql, mxu_dtype)

@@ -225,7 +225,7 @@ def dequant_matmul_v4_reference(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> t
 # the decode tile's 5.76-5.77, at M = 2 in 6.57-6.59 against 5.73-5.77, at
 # M = 3 (its 4-row tile) in 10.51 against 5.77-5.79
 # (tools/time_v2_kernels.py --format v4 --m 1,2,3 --core --decode-min-rows
-# 1, H100: PERF.md); v2g's default, qmatmul.DECODE_MMA_MIN_ROWS, is 2
+# 1, H100: PERF.md); v2g's, qmatmul.DECODE_MMA_MIN_ROWS["v2g"], is 2
 DECODE_MMA_MIN_ROWS = 1
 
 _V4_ARGS = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)

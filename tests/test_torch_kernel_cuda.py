@@ -1,7 +1,7 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
 every v2 variant, of v1 and of v4, the tensor-core decode tiles of v2g,
-v2p and v4, GPTQ
+v2h, v2t, v2p and v4, GPTQ
 column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
@@ -18,7 +18,8 @@ differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 sum of |terms| of one output (1e-5 on v4's and v1's tensor-core tiles,
 each with a planted control that must fail it), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-and v2s tensor-core tiles and on the decode tiles of v2g, v2p and v4). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles and on the decode tiles of v2g, v2h, v2t, v2p
+and v4). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
@@ -814,7 +815,7 @@ def test_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d
     ``decode_mma_launches`` and not on ``mma_launches``; a second call is
     bit-equal (split-K partials reduced in a fixed order)."""
     monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
-    monkeypatch.setattr(qmatmul, "DECODE_MMA_MIN_ROWS", 1)
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, "v2g", 1)
     fn = qmatmul.dequant_matmul_v2g
     rql = _rql(qtype, d_out, d_in, seed=M + 11 * d_out + int(qtype), device=cuda)
     x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
@@ -837,10 +838,10 @@ def test_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d
 @pytest.mark.cuda
 def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
     """The decode tile copies an x that is not 16-byte aligned before it
-    reads it; f32 operands, vec-1 weights, fewer rows than
+    reads it; f32 operands, vec-1 weights, fewer rows than v2g's
     DECODE_MMA_MIN_ROWS and every other variant stay off v2g's decode tile
     at M <= 8 (v2g's decode_mma_launches unchanged, and no variant's
-    mma_launches moves; v2p runs its own decode tile)."""
+    mma_launches moves; v2h, v2t and v2p run their own decode tiles)."""
     fn = qmatmul.dequant_matmul_v2g
     rql = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
     buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
@@ -858,7 +859,7 @@ def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
     n0 = {v: f.launches for v, f in V2_WRAPPERS.items()}
     p0 = qmatmul.dequant_matmul_v2p.decode_mma_launches
     fn(x, rql, torch.float32)
-    fn(x[:qmatmul.DECODE_MMA_MIN_ROWS - 1], rql)  # below the decode tile's rows
+    fn(x[:qmatmul.DECODE_MMA_MIN_ROWS["v2g"] - 1], rql)  # below the decode tile's rows
     fn(x, _rql(T.Q4_K, 333, 512, seed=8, device=cuda))
     for v in ("v2", "v3", "v2f", "v2h", "v2s", "v2m", "v2t"):
         V2_WRAPPERS[v](x, rql)
@@ -1302,14 +1303,14 @@ V2P_DECODE_CASES = [
 def test_v2p_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d_out, d_in,
                                            dtype, blocks):
     """v2p with bf16 operands at 1-8 rows on the group-dot form of the
-    decode tile (every row count: V2P_DECODE_MMA_MIN_ROWS lowered here)
+    decode tile (every row count: its DECODE_MMA_MIN_ROWS lowered here)
     against its plain version, within 1e-5 of the largest sum of |terms| of
     an output (exact products of raw codes, partials scaled in f32, the
     sums in another order); v2g's rounding, bf16(scale * q), fails that
     limit. One launch, counted on decode_mma_launches and not on
     mma_launches; a second call is bit-equal."""
     monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
-    monkeypatch.setattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS", 1)
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, "v2p", 1)
     fn = qmatmul.dequant_matmul_v2p
     rql = _rql(qtype, d_out, d_in, seed=M + 17 * d_out + int(qtype), device=cuda)
     x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
@@ -1334,10 +1335,11 @@ def test_v2p_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, 
 @pytest.mark.cuda
 def test_v2p_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda, monkeypatch):
     """v2p's decode tile copies an x that is not 16-byte aligned; f32
-    operands, vec-1 weights and fewer rows than V2P_DECODE_MMA_MIN_ROWS
-    stay on the CUDA-core tiles (decode_mma_launches unchanged), and v2m /
-    v2t (gs 32) keep their CUDA-core tiles at 1-8 rows."""
-    monkeypatch.setattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS", 2)
+    operands, vec-1 weights and fewer rows than its DECODE_MMA_MIN_ROWS
+    stay on the CUDA-core tiles (decode_mma_launches unchanged); at gs 32
+    v2t runs its own decode tile at 8 rows, and v2m keeps its CUDA-core
+    tiles."""
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, "v2p", 2)
     fn = qmatmul.dequant_matmul_v2p
     q6 = _rql(T.Q6_K, 512, 512, seed=12, device=cuda)
     buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
@@ -1354,9 +1356,128 @@ def test_v2p_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda
     fn(x, _rql(T.Q6_K, 333, 512, seed=13, device=cuda))
     q4 = _rql(T.Q4_K, 512, 512, seed=14, device=cuda)
     n0 = {v: V2_WRAPPERS[v].launches for v in ("v2m", "v2t")}
+    t0 = qmatmul.dequant_matmul_v2t.decode_mma_launches
     qmatmul.dequant_matmul_v2m(x, q4)
     qmatmul.dequant_matmul_v2t(x, q4)
     torch.cuda.synchronize()
     assert fn.decode_mma_launches == d0 + 1
     assert {v: V2_WRAPPERS[v].launches - n0[v] for v in n0} == {"v2m": 1, "v2t": 1}
+    assert qmatmul.dequant_matmul_v2t.decode_mma_launches == t0 + 1
     assert not hasattr(qmatmul.dequant_matmul_v2m, "decode_mma_launches")
+
+
+# the decode tiles of v2h (V2Mma<kV2h>, all five K-quants: DECODE_MMA_CASES)
+# and v2t (GroupSumMma, Q4_K / Q5_K: V2P_DECODE_CASES), each with the
+# planted control its limit must reject: v2h against v2f's f32 affine
+# (bf16(scale * q - off2), one rounding), v2t against v2g's rounding
+# (bf16(scale * q))
+V2H_V2T_DECODE = [*[("v2h", q, *c) for q in ALL_K for c in DECODE_MMA_CASES],
+                  *[("v2t", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES]]
+DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
+                      x, rql, torch.bfloat16, "v2f"),
+                  "v2t": qmatmul.dequant_matmul_v2g_reference}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,qtype,M,d_out,d_in,dtype,blocks", V2H_V2T_DECODE,
+                         ids=lambda a: getattr(a, "name", str(a)))
+def test_v2h_v2t_decode_mma_tiles_match_plain(cuda, f32_exact, monkeypatch, variant, qtype, M,
+                                             d_out, d_in, dtype, blocks):
+    """v2h and v2t with bf16 operands at 1-8 rows on their decode tiles
+    (every row count: their DECODE_MMA_MIN_ROWS lowered here) against their
+    plain versions, within 1e-5 of the largest sum of |terms| of an output
+    (v2h: its bf16 weights bit for bit, f32 sums in another order; v2t:
+    exact products of raw codes, each step's scaled slice partials summed
+    before the accumulator); the planted control fails that limit. One
+    launch, counted on decode_mma_launches and not on mma_launches; a
+    second call is bit-equal."""
+    monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, variant, 1)
+    fn, ref, _ = V2_VARIANTS[variant]
+    rql = _rql(qtype, d_out, d_in, seed=M + 19 * d_out + int(qtype), device=cuda)
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, dtype)
+    splits = qmatmul._plan(M, d_out, d_in // 256, qmatmul._sm_count(cuda.index or 0), 4,
+                           *qmatmul._v2_route(variant, torch.bfloat16))[2]
+    assert (splits == 1) == (blocks == 0)
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    got = fn(x, rql)
+    again = fn(x, rql)
+    want = ref(x, rql, torch.bfloat16)
+    control = DECODE_CONTROL[variant](x, rql)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (2, 2, 0)
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    tol = 1e-5 * _v2_terms(x, rql, torch.bfloat16)
+    assert (got - want).abs().max().item() <= tol
+    assert (got - control).abs().max().item() > tol
+
+
+def _v2h_edge_planes(device):
+    """A Q4_K weight (256 x 512) planted for v2h's two roundings: per
+    column a super-min 2^-31..2^31 times its super-scale, so bf16(s * q)
+    and bf16(off2) lie up to ~40 binades apart, and 6-bit scales, mins
+    and codes drawn at random, which give ties in both roundings
+    (test_torch_v2_weight_variants.py counts both)."""
+    rng = np.random.default_rng(33)
+    d_out = 512
+    d = (2.0 ** rng.integers(-20, -4, d_out) * rng.uniform(1, 2, d_out)).astype(np.float32)
+    dmin = (d * 2.0 ** rng.integers(-31, 32, d_out) * rng.uniform(1, 2, d_out)).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return qmatmul.RuntimeQuantLinearV2(
+        t(rng.integers(0, 256, (128, d_out)).astype(np.uint8)), t(np.stack([d, d])),
+        t(np.stack([dmin, dmin])), t(rng.integers(1, 64, (8, d_out)).astype(np.uint8)),
+        t(rng.integers(0, 64, (8, d_out)).astype(np.uint8)), 256, 32, 2, 0, 2)
+
+
+@pytest.mark.cuda
+def test_v2h_decode_mma_tile_weights_bit_equal(cuda, monkeypatch):
+    """Through unit rows of x (v2h has no xsum term) the decode tile
+    returns its bf16 weights, which it forms in packed bf16 arithmetic:
+    every one equal to the plain version's T(T(T(scale) * q) - T(off2)),
+    rounded in f32, on the planted planes (exponent gaps past 16 binades
+    and ties in both roundings) and on Q3_K and Q6_K layers."""
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, "v2h", 1)
+    fn = qmatmul.dequant_matmul_v2h
+    for rql in (_v2h_edge_planes(cuda), _rql(T.Q3_K, 512, 512, seed=23, device=cuda),
+                _rql(T.Q6_K, 512, 512, seed=24, device=cuda)):
+        d_in = rql.d_in_local
+        w = qmatmul._v2_operand(rql, "v2h", torch.bfloat16)[0]
+        eye = torch.eye(d_in, device=cuda, dtype=torch.bfloat16)
+        d0 = fn.decode_mma_launches
+        got = torch.cat([fn(eye[k:k + 8], rql) for k in range(0, d_in, 8)])
+        torch.cuda.synchronize()
+        assert fn.decode_mma_launches == d0 + d_in // 8
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,qtype", [("v2h", T.Q4_K), ("v2h", T.Q6_K), ("v2t", T.Q4_K),
+                                           ("v2t", T.Q5_K)], ids=lambda a: getattr(a, "name", a))
+def test_v2h_v2t_decode_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(
+        cuda, monkeypatch, variant, qtype):
+    """The v2h and v2t decode tiles copy an x that is not 16-byte aligned;
+    f32 operands, vec-1 weights and fewer rows than the variant's
+    DECODE_MMA_MIN_ROWS stay on the CUDA-core tiles (decode_mma_launches
+    unchanged, no mma_launches)."""
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, variant, 2)
+    fn, ref, _ = V2_VARIANTS[variant]
+    rql = _rql(qtype, 512, 512, seed=21 + int(qtype), device=cuda)
+    buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(8, 512)
+    assert x.data_ptr() % 16
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    got = fn(x, rql)
+    want = ref(x, rql, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 1
+    assert (got - want).abs().max().item() <= 1e-5 * _v2_terms(x, rql, torch.bfloat16)
+    fn(x, rql, torch.float32)
+    fn(x[:1], rql)
+    fn(x, _rql(qtype, 333, 512, seed=22 + int(qtype), device=cuda))
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (4, 1, 0)

@@ -193,7 +193,7 @@ def test_decode_mma_plan(shape, want, M):
     assert qmatmul._decode_mma_plan(d_out, n_sg, 132) == want
     route = qmatmul._v2_route("v2g", torch.bfloat16)
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, *route)
-    if M >= qmatmul.DECODE_MMA_MIN_ROWS:
+    if M >= qmatmul.DECODE_MMA_MIN_ROWS["v2g"]:
         assert got == want
     else:  # the CUDA-core tile (timed faster at one row)
         assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
@@ -201,14 +201,14 @@ def test_decode_mma_plan(shape, want, M):
 
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
 def test_v2g_bf16_decode_takes_the_decode_tile(M):
-    """v2g with bf16 operands on a vec-4 weight: every M from
+    """v2g with bf16 operands on a vec-4 weight: every M from its
     DECODE_MMA_MIN_ROWS (2) to MMA_MIN_ROWS - 1 takes the decode tile, one
     row the CUDA-core tile."""
-    assert qmatmul.DECODE_MMA_MIN_ROWS == 2
+    assert qmatmul.DECODE_MMA_MIN_ROWS["v2g"] == 2
     route = qmatmul._v2_route("v2g", torch.bfloat16)
     assert route[3] is True
     got = qmatmul._plan(M, 768, 4, 132, 4, *route)
-    if M >= qmatmul.DECODE_MMA_MIN_ROWS:
+    if M >= qmatmul.DECODE_MMA_MIN_ROWS["v2g"]:
         assert got == qmatmul._decode_mma_plan(768, 4, 132)
     else:
         assert got == qmatmul._launch_plan(M, 768, 4, 132, 4, 8)
@@ -221,14 +221,17 @@ def test_v2g_bf16_decode_takes_the_decode_tile(M):
 ], ids=lambda a: str(a).replace("torch.", ""))
 @pytest.mark.parametrize("M", [1, 8])
 def test_decode_keeps_the_cuda_core_tiles_elsewhere(variant, mxu, vec, M):
-    """f32 operands, vec-1 weights and every other variant but v2p keep
-    _launch_plan's CUDA-core tiles at M <= 8; v2p (bf16 operands, vec 4)
-    takes its own decode tile from V2P_DECODE_MMA_MIN_ROWS rows."""
+    """f32 operands, vec-1 weights and the variants without a decode tile
+    (v2, v3, v2f, v2s, v2m) keep _launch_plan's CUDA-core tiles at M <= 8;
+    v2h, v2t and v2p (bf16 operands, vec 4) take their own decode tiles
+    from their DECODE_MMA_MIN_ROWS."""
+    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t")
     route = qmatmul._v2_route(variant, mxu)
-    assert route[3] is (variant in ("v2g", "v2p") and mxu == torch.bfloat16)
+    decode = variant in qmatmul.DECODE_MMA_VARIANTS and mxu == torch.bfloat16
+    assert route[3] is decode
     for d_out, n_sg in STEP_8B.values():
         want = qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
-        if variant == "v2p" and M >= qmatmul.V2P_DECODE_MMA_MIN_ROWS:
+        if decode and vec == 4 and M >= qmatmul.DECODE_MMA_MIN_ROWS[variant]:
             want = qmatmul._decode_mma_plan(d_out, n_sg, 132)
         assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
 
@@ -322,7 +325,7 @@ def test_v4_plan_with_the_decode_tile(M, d_out, n_sg, vec):
     plans test_v4_plan holds. v2g's threshold stays at 2 rows."""
     from gptq_gguf_tpu_torch.ops import qmv4
 
-    assert qmv4.DECODE_MMA_MIN_ROWS == 1 and qmatmul.DECODE_MMA_MIN_ROWS == 2
+    assert qmv4.DECODE_MMA_MIN_ROWS == 1 and qmatmul.DECODE_MMA_MIN_ROWS["v2g"] == 2
     got = qmatmul._plan(M, d_out, n_sg, 132, vec, mma=True, decode_mma=True,
                         decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)
     if vec == 4 and M < qmatmul.MMA_MIN_ROWS:
@@ -450,24 +453,27 @@ def test_v1_route_and_counts(x_dtype, M, vec, tile, monkeypatch):
 
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
 def test_v2p_bf16_decode_takes_the_decode_tile(M):
-    """v2p with bf16 operands on a vec-4 weight: every M from
-    V2P_DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes the group-dot form of
+    """v2p with bf16 operands on a vec-4 weight: every M from its
+    DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes the group-dot form of
     the decode tile (the Q6_K head of a B=8 step under v2m), fewer rows
-    the CUDA-core tile; f32 operands, vec-1 weights, v2m and v2t keep the
-    CUDA-core tiles."""
+    the CUDA-core tile; f32 operands, vec-1 weights and v2m keep the
+    CUDA-core tiles; v2t takes its own decode tile from its threshold."""
     route = qmatmul._v2_route("v2p", torch.bfloat16)
-    assert route[3:] == (True, qmatmul.V2P_DECODE_MMA_MIN_ROWS)
+    assert route[3:] == (True, qmatmul.DECODE_MMA_MIN_ROWS["v2p"])
     d_out, n_sg = STEP_8B["lm_head"]
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, *route)
     core = qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
-    if M >= qmatmul.V2P_DECODE_MMA_MIN_ROWS:
+    if M >= qmatmul.DECODE_MMA_MIN_ROWS["v2p"]:
         assert got == qmatmul._decode_mma_plan(d_out, n_sg, 132) == (16, 16, 1)
     else:
         assert got == core
     for variant, mxu, vec in (("v2p", torch.float32, 4), ("v2p", torch.bfloat16, 1),
-                              ("v2m", torch.bfloat16, 4), ("v2t", torch.bfloat16, 4)):
+                              ("v2m", torch.bfloat16, 4)):
         assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, mxu)) == \
             qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
+    v2t = qmatmul._plan(M, d_out, n_sg, 132, 4, *qmatmul._v2_route("v2t", torch.bfloat16))
+    assert v2t == (qmatmul._decode_mma_plan(d_out, n_sg, 132)
+                   if M >= qmatmul.DECODE_MMA_MIN_ROWS["v2t"] else core)
 
 
 @pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
@@ -491,6 +497,56 @@ def test_v2p_wrapper_counts_each_tile(mt, counted, monkeypatch):
         monkeypatch.setattr(fn, k, v)
     fn(torch.empty(8, 256, device="meta"), SimpleNamespace(group_size=16))
     assert routes == [("qmatmul_v2m", 2, qmatmul._v2_route("v2p", torch.bfloat16))]
+    after = {k: getattr(fn, k) - v for k, v in before.items()}
+    assert after == {"launches": 1, "decode_mma_launches": int(counted == "decode_mma_launches"),
+                     "mma_launches": int(counted == "mma_launches")}
+
+
+@pytest.mark.parametrize("variant", ["v2h", "v2t"])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
+def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
+    """v2h and v2t with bf16 operands on a vec-4 weight: every M from the
+    variant's DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes its decode tile
+    at every 8B decode shape it runs (v2h the head too; v2t leaves the
+    gs-16 head to v2g), fewer rows the CUDA-core tiles; f32 operands and
+    vec-1 weights keep the CUDA-core tiles."""
+    lo = qmatmul.DECODE_MMA_MIN_ROWS[variant]
+    assert 1 <= lo < qmatmul.MMA_MIN_ROWS
+    route = qmatmul._v2_route(variant, torch.bfloat16)
+    assert route[3:] == (True, lo)
+    shapes = STEP_8B if variant == "v2h" else {k: v for k, v in STEP_8B.items() if k != "lm_head"}
+    for d_out, n_sg in shapes.values():
+        core = qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
+        got = qmatmul._plan(M, d_out, n_sg, 132, 4, *route)
+        assert got == (qmatmul._decode_mma_plan(d_out, n_sg, 132) if M >= lo else core)
+        for mxu, vec in ((torch.float32, 4), (torch.bfloat16, 1)):
+            assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, mxu)) == \
+                qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
+
+
+@pytest.mark.parametrize("variant,lib,code,gs", [("v2h", "qmatmul_v3", 4, 32),
+                                                 ("v2t", "qmatmul_v2m", 1, 32)])
+@pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
+                                        (32, "mma_launches")])
+def test_v2h_v2t_wrappers_count_each_tile(variant, lib, code, gs, mt, counted, monkeypatch):
+    """A v2h or v2t launch counts once on ``launches`` and, by the tile that
+    ran, on ``decode_mma_launches`` or ``mma_launches``; each asks for its
+    own route (a stand-in launch on the meta device reports the tile)."""
+    from types import SimpleNamespace
+
+    fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[variant])
+    routes = []
+
+    def launch(lib, code, x, rql, mxu_dtype, *route):
+        routes.append((lib, code, route))
+        return torch.empty(x.shape[0], 8, device="meta"), mt
+
+    monkeypatch.setattr(qmatmul, "_launch_v2", launch)
+    before = {k: getattr(fn, k) for k in ("launches", "decode_mma_launches", "mma_launches")}
+    for k, v in before.items():  # restored after the test: others read the counts
+        monkeypatch.setattr(fn, k, v)
+    fn(torch.empty(8, 256, device="meta"), SimpleNamespace(group_size=gs, per_byte=2))
+    assert routes == [(lib, code, qmatmul._v2_route(variant, torch.bfloat16))]
     after = {k: getattr(fn, k) - v for k, v in before.items()}
     assert after == {"launches": 1, "decode_mma_launches": int(counted == "decode_mma_launches"),
                      "mma_launches": int(counted == "mma_launches")}

@@ -127,6 +127,79 @@ def check_plain_against_jax(variant, qtype, M, mxu):
                                   mxu_dtype=tdt).numpy(), got)
 
 
+def _decode_slice(pb, kh, j):
+    """csrc/qmatmul_decode_mma.cuh::decode_slice: the k16 slice (of a 64-row
+    step) that K half kh's warps take as their slice j."""
+    return kh + 2 * j if pb == 2 else 2 * kh + j
+
+
+def _v2t_in_decode_order(x, rql, swap=False):
+    """v2t as its tensor-core decode tile computes it (GroupSumMma on the
+    decode mainloop of csrc/qmatmul_decode_mma.cuh), in f32: per 64-row
+    step q of a supergroup the staged code rows (4-bit codes: byte rows
+    32q.. of the supergroup, whose low nibbles are step rows 0-31 and high
+    nibbles 32-63; byte codes: rows 64q..), each K half kh's two k16 slices
+    taken by decode_slice's map, each slice's exact partial bf16(x) @ q
+    scaled by the step's group 16 * sl / 32 and the two summed into a step
+    sum added to that half once; the first half also takes the step's
+    xsum @ off2 out; the halves meet at the end. ``swap`` gives each slice
+    the step's other group (a wrong nibble-group map)."""
+    M, d_in = x.shape
+    pb, d_out = rql.per_byte, rql.d_out
+    scale, off2 = qmatmul._folded_planes_v2(rql)
+    xb, x32 = x.to(torch.bfloat16).float(), x.float()
+    half = [torch.zeros(M, d_out), torch.zeros(M, d_out)]
+    for sg in range(d_in // 256):
+        for q in range(4):
+            if pb == 2:
+                b = rql.qs[sg * 128 + 32 * q: sg * 128 + 32 * q + 32].int()
+                codes = torch.cat([b & 0xF, b >> 4]).float()
+                rows = [*range(32 * q, 32 * q + 32), *range(128 + 32 * q, 160 + 32 * q)]
+            else:
+                codes = rql.qs[sg * 256 + 64 * q: sg * 256 + 64 * q + 64].float()
+                rows = list(range(64 * q, 64 * q + 64))
+            rows = torch.tensor(rows) + 256 * sg
+            group = [int(rows[32 * lg]) // 32 for lg in range(2)]  # the step's staged groups
+            for kh in range(2):
+                s = None
+                for j in range(2):
+                    sl = _decode_slice(pb, kh, j)
+                    k = slice(16 * sl, 16 * sl + 16)
+                    g = group[(16 * sl // 32) ^ int(swap)]
+                    p = (xb[:, rows[k]] @ codes[k]) * scale[g]
+                    s = p if s is None else s + p
+                half[kh] = half[kh] + s
+            for g in group:
+                xs = x32[:, torch.arange(32 * g, 32 * g + 32)].sum(1, keepdim=True)
+                half[0] = half[0] - xs * off2[g]
+    return half[0] + half[1]
+
+
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q5_K], ids=lambda q: q.name)
+@pytest.mark.parametrize("M", [1, 8])
+def test_v2t_decode_order_matches_jax_interpret(qtype, M):
+    """The function v2t's decode tile computes, in its order (decode_slice's
+    map, each slice scaled by its group, a step sum per K half, the halves
+    added, xsum @ off2 subtracted), against JAX's _kernel_v2t in interpret
+    mode on a bf16-valued x: the products are exact on both sides and only
+    the grouping and the order of the f32 sums differ, so within 1e-5 of
+    the largest sum of |terms| of an output (the limit the tile is held to
+    on the card). The same order with the slices' groups swapped fails
+    that limit."""
+    jr, tr = _pair(qtype)
+    x = torch.from_numpy(np.random.default_rng(M + 50).normal(size=(M, 512)).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    want = np.asarray(jq.dequant_matmul_pallas_v2(jnp.asarray(x.numpy()), jr, interpret=True,
+                                                  variant="v2t", mxu_dtype=jnp.bfloat16))
+    scale, off2 = qmatmul._folded_planes_v2(tr)
+    q = qmatmul._unpack_codes(tr.qs, tr.per_byte, 512).float().reshape(16, 32, -1)
+    terms = (x.abs() @ (q * scale[:, None, :]).reshape(512, -1).abs()
+             + x.reshape(M, 16, 32).sum(-1).abs() @ off2.abs())
+    tol = 1e-5 * terms.max().item()
+    np.testing.assert_allclose(_v2t_in_decode_order(x, tr).numpy(), want, rtol=0, atol=tol)
+    assert np.abs(_v2t_in_decode_order(x, tr, swap=True).numpy() - want).max() > tol
+
+
 @pytest.mark.parametrize("qtype", ALL_K)
 def test_v2_weight_bit_equal_to_dequantize(qtype):
     """The v2 kernel builds each weight as d * sc, then * (q - shift), then
@@ -245,13 +318,13 @@ def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
 ])
 def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """Every per-weight build, v2s among them, takes the tensor-core tiles
-    with bf16 operands from MMA_MIN_ROWS rows (v2g below that its
-    tensor-core decode tile); f32 operands and vec-1 weights keep the
-    8-row CUDA-core tiles at any M."""
+    with bf16 operands from MMA_MIN_ROWS rows (v2g and v2h below that
+    their tensor-core decode tiles); f32 operands and vec-1 weights keep
+    the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     route = qmatmul._v2_route(variant, dt)
     want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want
-    if (variant, mxu, M, vec) == ("v2g", "bf16", 8, 4):  # v2g's tensor-core decode tile
+    if variant in ("v2g", "v2h") and (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
         want = (qmatmul.DECODE_MMA_TILE, 1, 16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
     assert variant in qmatmul.MMA_VARIANTS
@@ -269,14 +342,14 @@ def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want
 ])
 def test_group_dot_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """v2m, v2t and v2p take the tensor-core tiles with bf16 operands from
-    MMA_MIN_ROWS rows (v2t's of at most 64 rows), and v2p below that its
-    tensor-core decode tile; f32 operands and vec-1 weights keep the 8-row
-    CUDA-core tiles at any M."""
+    MMA_MIN_ROWS rows (v2t's of at most 64 rows), and v2p and v2t below
+    that their tensor-core decode tiles; f32 operands and vec-1 weights
+    keep the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     want = mma_want if mxu == "bf16" else core_want
     if variant == "v2t" and mxu == "bf16":  # its tiles stop at 64 rows (MMA_BM_MAX)
         want = {(128, 28672): (64, 16, 1), (1024, 128512): (64, 16, 1)}.get((M, d_out), want)
-    if (variant, mxu, M, vec) == ("v2p", "bf16", 8, 4):  # v2p's tensor-core decode tile
+    if variant in ("v2p", "v2t") and (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
         want = (qmatmul.DECODE_MMA_TILE, 1, 16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, dt)) == want
     assert qmatmul.MMA_GROUP_DOT == ("v2m", "v2t", "v2p")

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from gptq_gguf_tpu.ops import qmatmul as jq
 from gptq_gguf_tpu_torch.ops import qmatmul
+from tests.test_torch_kernel_cuda import _v2h_edge_planes
 from tests.test_torch_qmatmul import ALL_K
 from tests.test_torch_v2_variants import MXU, PLAIN, _pair, check_plain_against_jax
 
@@ -55,3 +56,41 @@ def test_per_weight_build_bit_equal_to_jax(variant, mxu):
             w, corrects = qmatmul._v2_operand(tr, "v2f", torch.float32)
             assert not corrects
             np.testing.assert_array_equal(w.numpy(), qmatmul.dequantize_runtime_v2(tr).T.numpy())
+
+
+def _round_bf16(v):
+    """float64 values rounded to nearest even at bf16's 8-bit significand
+    (as float64; no value here overflows or is subnormal in bf16)."""
+    b = v.view(np.uint64)
+    lsb = (b >> np.uint64(45)) & np.uint64(1)
+    b = (b + np.uint64((1 << 44) - 1) + lsb) & ~np.uint64((1 << 45) - 1)
+    return b.view(np.float64)
+
+
+def test_v2h_bf16_pair_arithmetic_equals_the_f32_path():
+    """v2h's decode tile forms each weight in packed bf16 arithmetic, an FMA
+    s (128 + q) - 128 s and a subtraction, each rounded once to nearest
+    even; the plain version (and JAX's body) round f32 results,
+    T(T(s * q) - o), s = T(scale), o = T(off2). On the card test's planted
+    planes, emulated exactly in float64 (the exact values need at most 49
+    significant bits there), the two are bit-equal, with ties in either
+    rounding and exponent gaps past 16 binades (where the f32 subtraction
+    itself rounds) among the weights."""
+    rql = _v2h_edge_planes("cpu")
+    scale, off2 = qmatmul._folded_planes_v2(rql)
+    q = qmatmul._unpack_codes(rql.qs, 2, 256).double().reshape(8, 32, -1).numpy()
+    s = scale.to(torch.bfloat16).double().numpy()[:, None, :]
+    o = off2.to(torch.bfloat16).double().numpy()[:, None, :]
+    exact_p = s * q
+    p = _round_bf16(exact_p)
+    exact_w = p - o
+    got = _round_bf16(exact_w).reshape(256, -1)
+    want = qmatmul._v2_operand(rql, "v2h", torch.bfloat16)[0].double().numpy()
+    np.testing.assert_array_equal(got, want)
+
+    def ties(v):
+        return int(((v.view(np.uint64) & np.uint64((1 << 45) - 1)) == np.uint64(1 << 44)).sum())
+
+    gap = np.abs(np.floor(np.log2(np.abs(p) + 1e-300)) - np.floor(np.log2(np.abs(o) + 1e-300)))
+    assert ties(exact_p) > 0 and ties(exact_w) > 0
+    assert int(((gap > 16) & (p != 0)).sum()) > 1000

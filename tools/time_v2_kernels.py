@@ -35,9 +35,10 @@ xsum @ offc term). ``--bm`` sets the largest rows per block of the
 tensor-core tiles (``qmatmul._mma_plan``'s ``bm_max``, in the roots that
 have it; over a variant's own cap, ``qmatmul.MMA_BM_MAX``), to time the
 tile sizes against each other. Each record names the tile each shape ran
-(``tile_per_call``: "decode_mma", v2g's tensor-core decode tile; "mma",
-the tensor-core prefill tiles; "cuda_core"), read from the wrapper's
-counters in the roots that have them. ``--core`` also times, at M <= 8,
+(``tile_per_call``: "decode_mma", the variant's or the format's
+tensor-core decode tile; "mma", the tensor-core prefill tiles;
+"cuda_core"), read from the wrapper's counters in the roots that have
+them. ``--core`` also times, at M <= 8,
 the variant's or the format's CUDA-core tile on the same inputs
 (``qmatmul._launch_v2``, or ``qmv4._launch_v4`` in the roots that have it,
 with the tensor-core tiles ruled out: ``core_ms_per_call``), and with
@@ -45,9 +46,10 @@ with the tensor-core tiles ruled out: ``core_ms_per_call``), and with
 mma=False)`` in the roots that have it);
 ``--decode-blocks`` sets the decode tile's split-K target
 (``qmatmul.DECODE_MMA_BLOCKS_PER_SM``), ``--decode-min-rows`` the fewest
-rows the route gives the decode tile (``qmatmul.DECODE_MMA_MIN_ROWS``,
-``qmatmul.V2P_DECODE_MMA_MIN_ROWS`` and with ``--format``
-``qmv4.DECODE_MMA_MIN_ROWS`` in the roots that have them),
+rows the route gives the decode tile (every variant's entry of the table
+``qmatmul.DECODE_MMA_MIN_ROWS``, or in older roots that constant and
+``qmatmul.V2P_DECODE_MMA_MIN_ROWS``, and with ``--format``
+``qmv4.DECODE_MMA_MIN_ROWS`` in the roots that have it),
 to time the tile at rows the route leaves to the CUDA-core tile, or to
 move a threshold.
 ``--probe``
@@ -185,9 +187,13 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
     if decode_blocks:
         qmatmul.DECODE_MMA_BLOCKS_PER_SM = decode_blocks
     if decode_min_rows:
-        qmatmul.DECODE_MMA_MIN_ROWS = decode_min_rows
-        if hasattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS"):  # v2p's own threshold
-            qmatmul.V2P_DECODE_MMA_MIN_ROWS = decode_min_rows
+        if isinstance(qmatmul.DECODE_MMA_MIN_ROWS, dict):  # one threshold per variant
+            qmatmul.DECODE_MMA_MIN_ROWS.update(dict.fromkeys(qmatmul.DECODE_MMA_MIN_ROWS,
+                                                             decode_min_rows))
+        else:  # roots with v2g's threshold and v2p's apart
+            qmatmul.DECODE_MMA_MIN_ROWS = decode_min_rows
+            if hasattr(qmatmul, "V2P_DECODE_MMA_MIN_ROWS"):
+                qmatmul.V2P_DECODE_MMA_MIN_ROWS = decode_min_rows
         if fmt and hasattr(qmv4, "DECODE_MMA_MIN_ROWS"):  # v4's own threshold
             qmv4.DECODE_MMA_MIN_ROWS = decode_min_rows
     probe = (probe and variant == "v2g" and not fmt
@@ -268,7 +274,7 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
                              or ("qmatmul_v2m", qmatmul._GROUP_DOT[kernels[name]][0]))
                 core_ms[name] = device_ms(lambda: qmatmul._launch_v2(
                     lib, code, x, rql, torch.bfloat16, 8))
-            if probe and qmatmul.DECODE_MMA_MIN_ROWS <= M <= 8:
+            if probe and qmatmul._v2_route("v2g", torch.bfloat16)[4] <= M <= 8:
                 for level, per_call in probe_ms.items():
                     per_call[name] = device_ms(lambda: qmatmul._launch_v2(
                         "qmatmul_v2g_probe", level, x, rql, torch.bfloat16,

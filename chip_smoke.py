@@ -103,17 +103,20 @@ checkout of the repository. Phases, each raising on failure:
    and small Q2_K / Q3_K / ragged Q6_K cases, held the same way (control:
    v2g's rounding) beside the CUDA-core tile of the same rows; so are
    v2h's decode tile (V2Mma<kV2h>: every 8B shape and the head; control:
-   v2f's f32 affine) and v2t's (its group-sum form: the four Q4_K
-   projection shapes; control: v2g's rounding) at M = 1, 2, 4 and 8, with
-   small Q2_K / Q3_K / Q5_K and ragged cases; (b) 2-layer
+   v2f's f32 affine), and at the four Q4_K projection shapes v2t's (its
+   group-sum form; control: v2g's rounding), v2m's (the group-dot form at
+   gs 32; control: v2g's rounding) and v2s's (V2Mma<kV2s>, split halves;
+   control: the unrounded scale * q) at M = 1, 2, 4 and 8, with small
+   Q2_K / Q3_K / Q5_K and ragged cases; (b) 2-layer
    logits through
    each variant's kernels against its plain versions, and the differences
    between variants; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
-   launches per forward (every head of a B=8 step under v2m on v2p's
-   decode tile, every call of one under v2h on v2h's, its projections
-   under v2t on v2t's and its head on v2g's); (d) perplexity through the
+   launches per forward (every call of a B=8 step on a decode tile: under
+   v2m its projections on v2m's and its head on v2p's, under v2h every
+   call on v2h's, under v2t and v2s the projections on the variant's and
+   the head on v2g's); (d) perplexity through the
    serving path under
    v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
    call on the tensor-core tiles (under v2m: v2m's, and v2p's on the head;
@@ -517,14 +520,15 @@ DECODE_CONTROL = {"v2h": ("v2f", "bf16")}
 
 def decode_case(name, x, rql, flush, variant="v2g"):
     """variant_case for the tensor-core decode tile of ``variant`` (v2g,
-    v2h, v2t's group-sum form or v2p's group-dot form; bf16 operands,
+    v2h, v2s's split halves, v2t's group-sum form or the group-dot form
+    of v2m and v2p; bf16 operands,
     M <= 8; at fewer rows than the variant's threshold,
     qmatmul.DECODE_MMA_MIN_ROWS[variant], where the route takes the
     CUDA-core tile, with that threshold lowered for the case): within 1e-5
     of the largest sum of |terms| of an output, a limit its planted
-    control (v2g: the group-dot plain version, the unrounded scale * q;
-    v2t, v2p: v2g's plain version, bf16(scale * q); v2h: v2f's, the f32
-    affine rounded once) must fail; every launch of the case counted on
+    control (v2g, v2s: the group-dot plain version, the unrounded scale *
+    q; v2t, v2m, v2p: v2g's plain version, bf16(scale * q); v2h: v2f's,
+    the f32 affine rounded once) must fail; every launch of the case counted on
     ``decode_mma_launches`` and none on ``mma_launches``; beside it, the
     CUDA-core tile of the same rows on the same inputs (qmatmul's internal
     route with the tensor-core tiles ruled out), held to the same limit
@@ -640,14 +644,24 @@ V2H_V2T_DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v2h"),
                         ("ragged Q5_K 2048->1000", 1000, 2048, "Q5_K", 8, "v2h"),
                         ("Q5_K 1024->768", 768, 1024, "Q5_K", 5, "v2t"),
                         ("ragged Q4_K 2048->1000 f32x", 1000, 2048, "Q4_K", 3, "v2t"))
+# the same for v2m and v2s, drawn from a generator of their own (SEED):
+# drawn from the phases' shared one, they moved 8b's random prompt
+V2M_V2S_DECODE_SMALL = (("Q5_K 1024->768", 768, 1024, "Q5_K", 6, "v2m"),
+                        ("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v2s"),
+                        ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3, "v2s"),
+                        ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 7, "v2s"))
+# the variants whose decode tiles 8a holds at the four Q4_K projection
+# shapes (v2h's also at the head)
+Q4_DECODE_VARIANTS = ("v2h", "v2t", "v2m", "v2s")
 
 
 def phase_v2h_v2t_decode_kernels(params, device, rng):
     """8a: the tensor-core decode tiles of v2h (every 8B shape and the
-    padded Q6_K head) and v2t (its group-sum form, the four Q4_K
-    projection shapes) at M = 1, 2, 4 and 8 (decode_case: 1e-5 limit, the
+    padded Q6_K head), v2t (its group-sum form), v2m (the group-dot form at
+    gs 32) and v2s (split halves), the last three at the four Q4_K
+    projection shapes, at M = 1, 2, 4 and 8 (decode_case: 1e-5 limit, the
     planted control, the CUDA-core tile beside it), then
-    V2H_V2T_DECODE_SMALL."""
+    V2H_V2T_DECODE_SMALL and V2M_V2S_DECODE_SMALL."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
@@ -657,16 +671,18 @@ def phase_v2h_v2t_decode_kernels(params, device, rng):
     for M in DECODE_MS:
         for name, rql in step_shapes(params):
             x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
-            for variant in ("v2h",) if name.startswith("lm_head") else ("v2h", "v2t"):
+            for variant in ("v2h",) if name.startswith("lm_head") else Q4_DECODE_VARIANTS:
                 recs.append(decode_case(name, x, rql, flush, variant))
             del x
             torch.cuda.empty_cache()
-    for name, d_out, d_in, qt, M, variant in V2H_V2T_DECODE_SMALL:
-        rql = synthetic_rql(rng, d_out, d_in, T[qt], device)
-        x = torch.randn(M, d_in, device=device)
-        if "f32x" not in name:
-            x = x.to(torch.bfloat16)
-        recs.append(decode_case(name, x, rql, flush, variant))
+    for cases, gen in ((V2H_V2T_DECODE_SMALL, rng),
+                       (V2M_V2S_DECODE_SMALL, np.random.default_rng(SEED))):
+        for name, d_out, d_in, qt, M, variant in cases:
+            rql = synthetic_rql(gen, d_out, d_in, T[qt], device)
+            x = torch.randn(M, d_in, device=device)
+            if "f32x" not in name:
+                x = x.to(torch.bfloat16)
+            recs.append(decode_case(name, x, rql, flush, variant))
     return recs
 
 
@@ -822,7 +838,8 @@ def mma_counts() -> dict:
 
 def decode_counts() -> dict:
     """kernel -> launches of its tensor-core decode tile
-    (csrc/qmatmul_decode_mma.cuh: v2g, v2p and v4)."""
+    (csrc/qmatmul_decode_mma.cuh: the v2 variants of
+    qmatmul.DECODE_MMA_VARIANTS and v4)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).decode_mma_launches
@@ -833,9 +850,9 @@ def decode_counts() -> dict:
 def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
     """The decode-tile launches a run of forwards with token ``shapes``
     (B, S) should count: every call with bf16 operands of a variant of
-    qmatmul.DECODE_MMA_MIN_ROWS (v2g, v2p, v2h, v2t) from its threshold to
-    MMA_MIN_ROWS - 1 rows, and of v4's (vec-4 weights: every 8B one) from
-    qmv4.DECODE_MMA_MIN_ROWS, the projections at B * S rows and the head at
+    qmatmul.DECODE_MMA_MIN_ROWS (v2g, v2p, v2h, v2t, v2m, v2s) from its
+    threshold to MMA_MIN_ROWS - 1 rows, and of v4's (vec-4 weights: every
+    8B one) from qmv4.DECODE_MMA_MIN_ROWS, the projections at B * S rows and the head at
     B (``per_forward`` names each kernel's calls per forward: 4 per layer,
     the head, or both)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
@@ -2344,7 +2361,9 @@ V2_VARIANT_KERNELS = (
 # the 8c run whose launches it reports
 VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m"),
                           ("v2h", "qmatmul_v2_mma.cuh", 551, STEP, "v2h"),
-                          ("v2t", "qmatmul_v2m_mma.cuh", 789, Q4_SHAPES, "v2t"))
+                          ("v2t", "qmatmul_v2m_mma.cuh", 789, Q4_SHAPES, "v2t"),
+                          ("v2m", "qmatmul_v2m_mma.cuh", 729, Q4_SHAPES, "v2m"),
+                          ("v2s", "qmatmul_v2_mma.cuh", 660, Q4_SHAPES, "v2s"))
 
 
 def variant_runs(n_layers: int):
@@ -2675,11 +2694,12 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma
     8a's M=8 times with bf16 operands, the dispatch's); its error is the
     largest of all its 8a cases. v2's entry adds its f32 operand mode.
     ``launches`` counts the CUDA-core tiles' launches of 8c's run (the
-    calls of v2p, v2h and v2t at M = 8 are timed on that tile: on_core;
-    their tensor-core decode tiles are qmatmul_<variant>_decode_mma),
-    ``mma_launches`` its tensor-core tiles' (every prefill projection).
-    Where the route now gives every call of 8c's run to the tensor-core
-    tiles (v2h, v2t), ``launches`` counts them all, as v4's entries do, and
+    calls of v2p, v2h, v2t, v2m and v2s at M = 8 are timed on that tile:
+    on_core; their tensor-core decode tiles are
+    qmatmul_<variant>_decode_mma), ``mma_launches`` its tensor-core tiles'
+    (every prefill projection). Where the route now gives every call of
+    8c's run to the tensor-core tiles (v2h, v2t, v2m, v2s), ``launches``
+    counts them all, as v4's entries do, and
     ``core_launches`` the CUDA-core tile's own (its times are that tile's:
     "tile")."""
     def entry(mxu):
@@ -2711,11 +2731,11 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma
 def variant_launches(rec, variant: str, run: str) -> tuple:
     """(launches, mma_launches[, core_launches]) of ``variant``'s summary
     entry from 8c's run ``run`` (its record ``rec``): the CUDA-core tiles'
-    launches, or for v2h and v2t, whose every call there runs a
+    launches, or for v2h, v2t, v2m and v2s, whose every call there runs a
     tensor-core tile, all of them and the CUDA-core tiles' beside."""
     mma = rec["mma_launches"] if variant == run else 0
     core = rec["counts"][variant] - mma - rec["decode_mma_launches"].get(variant, 0)
-    if variant in ("v2h", "v2t"):
+    if variant in Q4_DECODE_VARIANTS:
         return rec["counts"][variant], mma, core
     return core, mma
 

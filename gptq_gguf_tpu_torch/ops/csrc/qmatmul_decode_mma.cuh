@@ -7,13 +7,16 @@
 // decode_frags below). Instantiated with:
 //   V2Mma<kV2g, PB, GS, HAS_MIN, kDecodePitch> (qmatmul_v2_mma.cuh, built
 //       by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K, Q5_K and Q6_K weights, bf16
-//       operands, and V2Mma<kV2h, ...> (built by qmatmul_v3.cu) for the
-//       same five: v2h's weights, no xsum term;
+//       operands; V2Mma<kV2s, ...> (the same files) for the 4-bit three
+//       (Q4_K, Q2_K, Q3_K): v2g's weights in the split-halves form
+//       (F::SPLIT_HALVES) below; and V2Mma<kV2h, ...> (built by
+//       qmatmul_v3.cu) for the five: v2h's weights, no xsum term;
 //   V4Mma<PB, GS, I8, kDecodePitch> (qmatmul_v4.cu): the v4 bodies pb2,
 //       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x;
-//   GroupDotMma<PB, 16, HAS_MIN, kDecodePitch> (qmatmul_v2m_mma.cuh, built
-//       by qmatmul_v2m.cu): v2p (Q2_K, Q3_K, Q6_K, the lm_head under v2m),
-//       bf16 operands, in the group-dot form (F::GROUP_DOT) below;
+//   GroupDotMma<PB, GS, HAS_MIN, kDecodePitch> (qmatmul_v2m_mma.cuh, built
+//       by qmatmul_v2m.cu): v2m (gs 32: Q4_K, Q5_K) and v2p (gs 16: Q2_K,
+//       Q3_K, Q6_K, the lm_head under v2m), bf16 operands, in the
+//       group-dot form (F::GROUP_DOT) below;
 //   GroupSumMma<PB, HAS_MIN, kDecodePitch> (the same files): v2t (gs 32:
 //       Q4_K, Q5_K), bf16 operands, in the group-sum form (F::GROUP_SUM).
 //
@@ -22,8 +25,10 @@
 // gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g :605 (bf16 operands), the
 // default variant, which carries every projection and the lm_head of a
 // decode step (129 calls per Llama-3-8B step at B = 8), _kernel_v2h :551
-// (its 129 calls under GG_PALLAS_V2_VARIANT=v2h), _kernel_v2t :789 (its
-// 128 projections; the head runs v2g) and _kernel_v2p :844; at M = 1-8
+// (its 129 calls under GG_PALLAS_V2_VARIANT=v2h), _kernel_v2t :789 and
+// _kernel_v2s :660 (their 128 projections; the head runs v2g), _kernel_v2m
+// :729 (its 128 projections) and _kernel_v2p :844 (the head under v2m);
+// at M = 1-8
 // (qmv4.DECODE_MMA_MIN_ROWS up): gptq_gguf_tpu/ops/qmv4.py::_kernel_v4_pb2
 // :264, _kernel_v4_pb2_i8 :305 and _kernel_v4_pb1 :346 (128 Q4_K calls and
 // the Q6_K head of a v4 step):
@@ -104,14 +109,25 @@
 //     half, the two halves meeting at the end. At gs 32 decode_slice puts
 //     a warp's low-nibble slice in the step's group 0 and its high-nibble
 //     slice in group 1 (4-bit codes), or both byte-code slices in group
-//     kh.
+//     kh. v2m (gs 32) takes the plain group-dot form on the same map: each
+//     slice's partial into the accumulator by its own FMAs, JAX's
+//     sum_g scale_g p_g (_kernel_v2m :729) with each group's dot in two
+//     halves;
+//   * split halves (F::SPLIT_HALVES; v2s, 4-bit codes): a warp's slice 0 of
+//     a step (the low nibbles) goes straight into the accumulator and its
+//     slice 1 (the high nibbles, 128 rows up) into a fresh C fragment,
+//     added once after the step's products: JAX's x_lo @ w_lo + x_hi @
+//     w_hi (_kernel_v2s :660) per step and K half, one zero-C mma.sync
+//     pair and 8 adds a warp and step more than v2g.
 //     Each branch is compiled only for such a policy, so the other
 //     instances keep their code.
 // ptxas (sm_90a, -O3): 64 registers in every v2g instance, no spills but 4
 // bytes of spill stores and 4 of loads in the Q3_K one; v2p's: 64
 // registers, 4 bytes of spill stores and 4 of loads at Q6_K, none at Q2_K
-// / Q3_K; v2h's: 64 registers (63 at Q3_K), no spills; v2t's: 64, no
-// spills (printed by tools/time_v2_kernels.py and chip_smoke.py phase 1).
+// / Q3_K; v2h's: 64 registers (63 at Q3_K), no spills; v2t's and v2m's:
+// 64, no spills; v2s's: 64, 4 bytes of spill stores and 4 of loads at Q3_K
+// (as v2g's), none at Q4_K / Q2_K (printed by tools/time_v2_kernels.py,
+// tools/ptxas_diff.py and chip_smoke.py phase 1).
 
 #pragma once
 
@@ -224,7 +240,7 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
   constexpr int GPK = T::GPK;
   constexpr int QUARTERS = kQK / kMmaKT;
   static_assert(S >= 3, "a ring of at least three stages (group rows one step ahead)");
-  static_assert(!F::SPLIT_HALVES, "whole sums, group dots or group sums only");
+  static_assert(!F::SPLIT_HALVES || (F::PB == 2 && !F::GROUP_DOT), "split halves: 4-bit weights");
   static_assert(!F::GROUP_SUM || F::GROUP_DOT, "a group sum is a group dot");
   extern __shared__ __align__(16) char smem[];
 
@@ -310,6 +326,17 @@ __global__ void __launch_bounds__(kMmaThreads, kDecodeBlocks)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][e] += sum[i][e];
       }
+    } else if constexpr (F::SPLIT_HALVES) {  // the low nibbles into acc, the high ones apart
+      float p[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma_bf16(acc[i], af[0][i], bx[0], bx[1]);
+        mma_bf16_first(p[i], af[1][i], bx[2], bx[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] += p[i][e];
     } else {
 #pragma unroll
       for (int j = 0; j < 2; ++j)

@@ -2,9 +2,9 @@
 // (sm_90a): the v2 format's policy for the shared prefill mainloop of
 // qmatmul_mma.cuh and the decode mainloop of qmatmul_decode_mma.cuh. The
 // same function as the CUDA-core template in qmatmul_v2_weight.cuh, for
-// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for v2g and
-// v2h, at their decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8) on the
-// decode tile:
+// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for v2g, v2h
+// and v2s, at their decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8) on
+// the decode tile:
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off2 ]   (f32 sums)
 // with w the build's bf16 weight from the same group_affine / weight
 // functions (so bit for bit the decode kernel's, and the JAX bodies'), and
@@ -17,11 +17,14 @@
 // v2h). v2s builds v2g's weights and sums each step's high-nibble products
 // apart before they meet the low-nibble ones (the mainloop's
 // F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). The
-// decode tile replaces _kernel_v2g :605 and _kernel_v2h :551 at their
-// decode rows (launch_decode_mma); v2h's weight, bf16(bf16(bf16(scale) *
-// q) - bf16(off2)), comes from packed bf16 arithmetic there (frags_v2h),
-// bit for bit group_affine / weight_q's on the CUDA cores, and it has no
-// xsum term (its offset is in the weight). The
+// decode tile replaces _kernel_v2g :605, _kernel_v2h :551 and _kernel_v2s
+// :660 at their decode rows (launch_decode_mma); v2h's weight,
+// bf16(bf16(bf16(scale) * q) - bf16(off2)), comes from packed bf16
+// arithmetic there (frags_v2h), bit for bit group_affine / weight_q's on
+// the CUDA cores, and it has no xsum term (its offset is in the weight);
+// v2s builds v2g's fragments (the same FMA) and the decode mainloop sums
+// a warp's high-nibble slice of each step apart before it meets the
+// accumulator (F::SPLIT_HALVES there too). The
 // other builds' decode steps, f32 operands (TF32 would change the
 // products) and weights the wrapper gives one column per thread (vec 1:
 // d_out % 4 != 0 or planes not 16-byte aligned; no Llama-3-8B weight is
@@ -251,8 +254,8 @@ bool launch_mma(const V2Args& a, int bm) {
   return launch_mma_tiles<V2Mma<BUILD, PB, GS, HAS_MIN>>(a, bm);
 }
 
-// the tensor-core decode tile (qmatmul_decode_mma.cuh) of build v2g or
-// v2h, M <= 8 rows (declared in qmatmul_v2_weight.cuh)
+// the tensor-core decode tile (qmatmul_decode_mma.cuh) of build v2g, v2h
+// or v2s, M <= 8 rows (declared in qmatmul_v2_weight.cuh)
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a) {
   launch_decode_mma_tile<V2Mma<BUILD, PB, GS, HAS_MIN, kDecodePitch>>(a);

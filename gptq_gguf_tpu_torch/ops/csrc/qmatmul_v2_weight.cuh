@@ -58,9 +58,9 @@
 //     partials in a fixed order (no float atomics): token streams stay
 //     reproducible run to run;
 //   * rows per block: up to 8. With bf16 operands every build runs M >= 9
-//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh, and v2g and
-//     v2h also their decode rows (from qmatmul.DECODE_MMA_MIN_ROWS) on the
-//     tensor-core decode tile (qmatmul_decode_mma.cuh, tile code
+//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh, and v2g, v2h
+//     and v2s also their decode rows (from qmatmul.DECODE_MMA_MIN_ROWS) on
+//     the tensor-core decode tile (qmatmul_decode_mma.cuh, tile code
 //     kDecodeMmaTile); f32 operands (a test mode) and vec 1 weights stay
 //     here at any M, in 8-row tiles, and so do the other builds' decode
 //     steps and the calls below those thresholds;
@@ -306,15 +306,15 @@ void launch(const V2Args& a) {
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_mma(const V2Args& a, int bm);
 
-// the tensor-core decode tile of v2g or v2h (tile code kDecodeMmaTile),
-// defined in qmatmul_v2_mma.cuh
+// the tensor-core decode tile of v2g, v2h or v2s (tile code
+// kDecodeMmaTile), defined in qmatmul_v2_mma.cuh
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a);
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
 // cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
-// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2g and
-// v2h) the tensor-core decode tile
+// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2g, v2h
+// and v2s) the tensor-core decode tile
 template <int BUILD, bool BF16, int PB, int GS, bool HAS_MIN>
 bool launch_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -324,7 +324,7 @@ bool launch_tile(const V2Args& a, int mt, int vec) {
       case 4: launch<BUILD, BF16, PB, GS, HAS_MIN, 4, 4>(a); return true;
       case 8: launch<BUILD, BF16, PB, GS, HAS_MIN, 8, 4>(a); return true;
       case kDecodeMmaTile:
-        if constexpr (BF16 && (BUILD == kV2g || BUILD == kV2h))
+        if constexpr (BF16 && (BUILD == kV2g || BUILD == kV2h || BUILD == kV2s))
           return launch_decode_mma<BUILD, PB, GS, HAS_MIN>(a);
         return false;
       default:
@@ -386,7 +386,7 @@ bool dispatch_build(const V2Args& a, int build, int mxu_bf16, int per_byte, int 
 // f32 scratch when splits > 1, ignored otherwise. mt is the rows per block:
 // 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the tensor cores (vec 4 and
 // bf16 operands only); kDecodeMmaTile (16) the tensor-core decode tile of
-// v2g or v2h over all M <= 8 rows (vec 4, bf16 operands). vec 4 needs
+// v2g, v2h or v2s over all M <= 8 rows (vec 4, bf16 operands). vec 4 needs
 // d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
 // pointer of contiguous data.
 #define GG_V2_WEIGHT_ENTRY(NAME, ...)                                                      \

@@ -1,8 +1,9 @@
 // The v2g and v2s kernel variants: builds kV2g and kV2s of the per-weight
 // dequant-matmul kernel in qmatmul_v2_weight.cuh (what each computes, and
 // why it is exact, is written there), the tensor-core prefill tiles of
-// both (qmatmul_v2_mma.cuh) and v2g's tensor-core decode tile
-// (qmatmul_decode_mma.cuh, through the same header). Built by
+// both (qmatmul_v2_mma.cuh) and the tensor-core decode tiles of both
+// (qmatmul_decode_mma.cuh, through the same header; v2s's in the
+// split-halves form). Built by
 // gptq_gguf_tpu_torch/ops/cuda_build.py into a shared library with a plain
 // C interface, bound with ctypes by
 // gptq_gguf_tpu_torch/ops/qmatmul.py::dequant_matmul_v2g / _v2s.

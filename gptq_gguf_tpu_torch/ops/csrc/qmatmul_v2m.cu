@@ -48,9 +48,10 @@
 // 8 or less: a unit's partial sums live beside the accumulator (v2p at
 // 4-bit holds four sets). With bf16 operands all three run M >= 9 rows on
 // the tensor-core tiles of qmatmul_v2m_mma.cuh (v2t with JAX's order: a
-// step's scaled partials summed before the accumulator), and v2p and v2t
+// step's scaled partials summed before the accumulator), and all three
 // their decode rows on the tensor-core decode tile (qmatmul_decode_mma.cuh,
-// from each one's qmatmul.DECODE_MMA_MIN_ROWS); f32 operands (a test
+// from each one's qmatmul.DECODE_MMA_MIN_ROWS; v2m and v2p in the
+// group-dot form, v2t in the group-sum form); f32 operands (a test
 // mode) and vec-1 weights stay here at any M, in 8-row tiles. The K axis
 // is split over supergroups with a second kernel reducing the partials in
 // a fixed order (no float atomics).
@@ -452,8 +453,8 @@ bool launch_body_mma(const V2Args& a, int bm) {
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
 // cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
-// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, v2p and
-// v2t) the tensor-core decode tile (qmatmul_decode_mma.cuh, M <= 8)
+// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, every
+// body) the tensor-core decode tile (qmatmul_decode_mma.cuh, M <= 8)
 template <int BODY, bool BF16, int PB, bool HAS_MIN>
 bool launch_body_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -463,11 +464,11 @@ bool launch_body_tile(const V2Args& a, int mt, int vec) {
       case 4: launch_body<BODY, BF16, PB, HAS_MIN, 4, 4>(a); return true;
       case 8: launch_body<BODY, BF16, PB, HAS_MIN, 8, 4>(a); return true;
       case kDecodeMmaTile:
-        if constexpr (BF16 && BODY == kV2p) {
-          launch_decode_mma_tile<GroupDotMma<PB, 16, HAS_MIN, kDecodePitch>>(a);
-          return true;
-        } else if constexpr (BF16 && BODY == kV2t) {
+        if constexpr (BF16 && BODY == kV2t) {
           launch_decode_mma_tile<GroupSumMma<PB, HAS_MIN, kDecodePitch>>(a);
+          return true;
+        } else if constexpr (BF16) {  // v2m at gs 32, v2p at gs 16
+          launch_decode_mma_tile<GroupDotMma<PB, BODY == kV2p ? 16 : 32, HAS_MIN, kDecodePitch>>(a);
           return true;
         }
         return false;
@@ -518,8 +519,8 @@ bool launch_body_format(const V2Args& a, int body, int per_byte, int group_size,
 // (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. mt is
 // the rows per block: 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the
 // tensor cores (vec 4 and bf16 operands only); kDecodeMmaTile (16) the
-// tensor-core decode tile of v2p or v2t over all M <= 8 rows (vec 4, bf16
-// operands). vec 4 needs
+// tensor-core decode tile of v2m, v2t or v2p over all M <= 8 rows (vec 4,
+// bf16 operands). vec 4 needs
 // d_out % 4 == 0 and 16-byte-aligned planes (the tensor-core tiles a
 // 16-byte-aligned x too). Every pointer is a device pointer of contiguous
 // data.

@@ -1,9 +1,11 @@
 // Tensor-core prefill tiles of the group-dot v2 kernels v2m, v2t and v2p,
 // for Hopper (sm_90a): their policies for the shared mainloop of
-// qmatmul_mma.cuh; and the tensor-core decode tiles of v2p and v2t
+// qmatmul_mma.cuh; and the tensor-core decode tiles of all three
 // (GroupDotMma's frags, for the decode mainloop of qmatmul_decode_mma.cuh:
 // bf16 operands from the variant's qmatmul.DECODE_MMA_MIN_ROWS to 8 rows
-// on vec-4 weights; v2t in its group-sum form).
+// on vec-4 weights; v2m at gs 32 and v2p at gs 16 in the group-dot form,
+// each k16 slice's partial scaled into the accumulator by its own FMA;
+// v2t in its group-sum form).
 // The same function as the CUDA-core bodies of qmatmul_v2m.cu, for bf16
 // operands at M >= 9 rows (every call past the decode tiles;
 // qmatmul.MMA_MIN_ROWS) on vec-4 weights:
@@ -15,9 +17,8 @@
 // Replaces, at those shapes: gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2m :729
 // (gs 32: Q4_K, Q5_K), _kernel_v2t :789 (gs 32, GroupSumMma) and
 // _kernel_v2p :844 (gs 16: Q2_K, Q3_K, Q6_K, the lm_head among them). f32
-// operands (TF32 would round x), vec-1 weights and M <= 8 (v2p, v2t:
-// below their decode tile's rows; v2m: every such M) stay on the
-// CUDA-core bodies.
+// operands (TF32 would round x), vec-1 weights and M <= 8 below each
+// variant's decode-tile rows stay on the CUDA-core bodies.
 //
 // Per 64-row step it stages v2g's planes (V2Mma<kV2g>::issue: the code
 // bytes, the step's sc_q / mn_q rows, the supergroup's d_sg / dmin_sg row);
@@ -41,7 +42,12 @@
 namespace {
 
 // PITCH: bytes from one staged code row to the next (kDecodePitch for the
-// decode tile)
+// decode tile). v2m's decode tile, GroupDotMma<PB, 32, HAS_MIN,
+// kDecodePitch>, is the mainloop's group-dot form at gs 32: a warp's
+// low-nibble slice of a step is scaled by the step's group 0 and its
+// high-nibble slice by group 1 (byte codes: both by group kh), so JAX's
+// sum_g scale_g p_g with each group's dot split in two halves, another
+// order of the f32 sums
 template <int PB_, int GS_, bool HAS_MIN, int PITCH = kMmaBN>
 struct GroupDotMma : V2Mma<kV2g, PB_, GS_, HAS_MIN, PITCH> {  // v2g's planes, off2 and xsum term
   using V2 = V2Mma<kV2g, PB_, GS_, HAS_MIN, PITCH>;

@@ -34,14 +34,14 @@ and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (CUDA cores) and of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy for the
 tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
 ``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for v2g and
-v2h, of the tensor-core decode mainloop of ``csrc/qmatmul_decode_mma.cuh``:
-bf16 operands from the variant's ``DECODE_MMA_MIN_ROWS`` to 8 rows, every
-B=8 decode step);
+v2h and v2s, of the tensor-core decode mainloop of
+``csrc/qmatmul_decode_mma.cuh``: bf16 operands from the variant's
+``DECODE_MMA_MIN_ROWS`` to 8 rows, every B=8 decode step);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
 (``csrc/qmatmul_v2m.cu``, and ``csrc/qmatmul_v2m_mma.cuh``, their policies
 for the same mainloop: the raw codes as the B operand, each group's
-partial product scaled in f32; v2p's and v2t's also for the decode
-mainloop, bf16 operands from their ``DECODE_MMA_MIN_ROWS`` to 8 rows). The
+partial product scaled in f32; all three also for the decode mainloop,
+bf16 operands from their ``DECODE_MMA_MIN_ROWS`` to 8 rows). The
 variants differ only in where the scale
 and offset arithmetic happens, not in the format, so the packers and
 loaders are the same for all of them.
@@ -520,8 +520,8 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     return bm, per, -(-n_sg // per)
 
 
-# the tile code of the tensor-core decode tile of v2g, v2h, v2t, v2p and
-# v4 (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
+# the tile code of the tensor-core decode tile of v2g, v2h, v2s, v2m, v2t,
+# v2p and v4 (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
 # mma.sync), which neither a CUDA-core tile (1, 2, 4, 8 rows) nor a
 # prefill tile (32, 64, 128) uses
 DECODE_MMA_TILE = 16
@@ -544,8 +544,14 @@ DECODE_MMA_TILE = 16
 #   v2t: its 128 projections (the group-sum form) on the decode tile at
 #     M = 1 5.38 against the CUDA-core tile's 7.35, at M = 2 5.43 against
 #     5.31, at M = 3 5.43 against 6.39: one threshold of 1 loses 2% at two
-#     rows.
-DECODE_MMA_MIN_ROWS = {"v2g": 2, "v2p": 3, "v2h": 1, "v2t": 1}
+#     rows;
+#   v2m: its 128 projections (the group-dot form at gs 32) on the decode
+#     tile at M = 1 5.43-5.45 against the CUDA-core tile's 7.30-7.32, at
+#     M = 2 5.41-5.44 against 8.46-8.48, at M = 3 5.41-5.42 against 5.86;
+#   v2s: its 128 projections (split halves) at M = 1 5.60-5.61 against the
+#     CUDA-core tile's 5.23-5.24, at M = 2 5.57-5.62 against 5.64-5.70, at
+#     M = 3 5.57-5.62 against 6.76-6.80.
+DECODE_MMA_MIN_ROWS = {"v2g": 2, "v2p": 3, "v2h": 1, "v2t": 1, "v2m": 1, "v2s": 2}
 DECODE_MMA_VARIANTS = tuple(DECODE_MMA_MIN_ROWS)
 # blocks per SM the decode tile's split-K plan fills: two waves of the four
 # resident blocks (csrc/qmatmul_decode_mma.cuh; timed against 4 and 12 with
@@ -713,9 +719,10 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 
     A CUDA ``x`` (f32 or bf16) launches the kernel on the current stream
     and counts one launch (with bf16 operands: from ``MMA_MIN_ROWS`` rows
-    the tensor-core tiles, also counted in ``mma_launches``; v2g, v2h,
-    v2t and v2p below that, from their ``DECODE_MMA_MIN_ROWS``, their
-    tensor-core decode tile, also counted in ``decode_mma_launches``); a
+    the tensor-core tiles, also counted in ``mma_launches``; the variants
+    of ``DECODE_MMA_VARIANTS`` below that, from their
+    ``DECODE_MMA_MIN_ROWS``, their tensor-core decode tile, also counted in
+    ``decode_mma_launches``); a
     CPU ``x``
     runs the plain version. The kernel library is built on first use. The planes are validated, and their
     alignment read, on the first call with each weight; later calls check
@@ -760,7 +767,11 @@ def dequant_matmul_v2s(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     codes only): the low- and high-nibble halves summed apart (from
     ``MMA_MIN_ROWS`` rows with bf16 operands on the tensor-core tiles, each
     64-row step's high-nibble products summed before they meet the low
-    ones)."""
+    ones; with bf16 operands from its ``DECODE_MMA_MIN_ROWS`` to 8 rows on
+    the tensor-core decode tile, ``V2Mma<kV2s>`` through
+    ``csrc/qmatmul_decode_mma.cuh``: each warp's high-nibble slice of a
+    step summed apart, then added once; also counted in
+    ``decode_mma_launches``)."""
     return _per_weight(dequant_matmul_v2s, "v2s", x, rql, mxu_dtype)
 
 
@@ -831,7 +842,12 @@ def dequant_matmul_v2m(x: torch.Tensor, rql: RuntimeQuantLinearV2,
     kernel (``csrc/qmatmul_v2m.cu``; gs 32: Q4_K, Q5_K): each group's raw
     codes dotted with x, the scale applied to the partial sum at once (from
     ``MMA_MIN_ROWS`` rows with bf16 operands on the tensor-core tiles of
-    ``csrc/qmatmul_v2m_mma.cuh``, also counted in ``mma_launches``)."""
+    ``csrc/qmatmul_v2m_mma.cuh``, also counted in ``mma_launches``; with
+    bf16 operands from its ``DECODE_MMA_MIN_ROWS`` to 8 rows on the
+    tensor-core decode tile, ``GroupDotMma`` at gs 32 through
+    ``csrc/qmatmul_decode_mma.cuh``: each k16 slice's partial, half a
+    group, scaled into the accumulator by its own FMA; also counted in
+    ``decode_mma_launches``)."""
     return _group_dot(dequant_matmul_v2m, "v2m", x, rql, mxu_dtype)
 
 

@@ -1337,8 +1337,7 @@ def test_v2p_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda
     """v2p's decode tile copies an x that is not 16-byte aligned; f32
     operands, vec-1 weights and fewer rows than its DECODE_MMA_MIN_ROWS
     stay on the CUDA-core tiles (decode_mma_launches unchanged); at gs 32
-    v2t runs its own decode tile at 8 rows, and v2m keeps its CUDA-core
-    tiles."""
+    v2t and v2m run their own decode tiles at 8 rows."""
     monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, "v2p", 2)
     fn = qmatmul.dequant_matmul_v2p
     q6 = _rql(T.Q6_K, 512, 512, seed=12, device=cuda)
@@ -1356,26 +1355,31 @@ def test_v2p_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda
     fn(x, _rql(T.Q6_K, 333, 512, seed=13, device=cuda))
     q4 = _rql(T.Q4_K, 512, 512, seed=14, device=cuda)
     n0 = {v: V2_WRAPPERS[v].launches for v in ("v2m", "v2t")}
-    t0 = qmatmul.dequant_matmul_v2t.decode_mma_launches
+    t0 = {v: V2_WRAPPERS[v].decode_mma_launches for v in n0}
     qmatmul.dequant_matmul_v2m(x, q4)
     qmatmul.dequant_matmul_v2t(x, q4)
     torch.cuda.synchronize()
     assert fn.decode_mma_launches == d0 + 1
     assert {v: V2_WRAPPERS[v].launches - n0[v] for v in n0} == {"v2m": 1, "v2t": 1}
-    assert qmatmul.dequant_matmul_v2t.decode_mma_launches == t0 + 1
-    assert not hasattr(qmatmul.dequant_matmul_v2m, "decode_mma_launches")
+    assert {v: V2_WRAPPERS[v].decode_mma_launches - t0[v] for v in n0} == {"v2m": 1, "v2t": 1}
 
 
-# the decode tiles of v2h (V2Mma<kV2h>, all five K-quants: DECODE_MMA_CASES)
-# and v2t (GroupSumMma, Q4_K / Q5_K: V2P_DECODE_CASES), each with the
-# planted control its limit must reject: v2h against v2f's f32 affine
-# (bf16(scale * q - off2), one rounding), v2t against v2g's rounding
-# (bf16(scale * q))
+# the decode tiles of v2h (V2Mma<kV2h>, all five K-quants: DECODE_MMA_CASES),
+# v2t (GroupSumMma, Q4_K / Q5_K: V2P_DECODE_CASES), v2m (GroupDotMma at gs
+# 32, Q4_K / Q5_K) and v2s (V2Mma<kV2s>, split halves: Q4_K / Q2_K / Q3_K),
+# each with the planted control its limit must reject: v2h against v2f's f32
+# affine (bf16(scale * q - off2), one rounding), v2t and v2m against v2g's
+# rounding (bf16(scale * q)), v2s against the unrounded scale * q (the
+# group-dot plain version)
 V2H_V2T_DECODE = [*[("v2h", q, *c) for q in ALL_K for c in DECODE_MMA_CASES],
-                  *[("v2t", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES]]
+                  *[("v2t", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES],
+                  *[("v2m", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES],
+                  *[("v2s", q, *c) for q in (T.Q4_K, T.Q2_K, T.Q3_K) for c in DECODE_MMA_CASES]]
 DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
                       x, rql, torch.bfloat16, "v2f"),
-                  "v2t": qmatmul.dequant_matmul_v2g_reference}
+                  "v2t": qmatmul.dequant_matmul_v2g_reference,
+                  "v2m": qmatmul.dequant_matmul_v2g_reference,
+                  "v2s": qmatmul.dequant_matmul_v2m_reference}
 
 
 @pytest.mark.cuda
@@ -1383,14 +1387,16 @@ DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
                          ids=lambda a: getattr(a, "name", str(a)))
 def test_v2h_v2t_decode_mma_tiles_match_plain(cuda, f32_exact, monkeypatch, variant, qtype, M,
                                              d_out, d_in, dtype, blocks):
-    """v2h and v2t with bf16 operands at 1-8 rows on their decode tiles
-    (every row count: their DECODE_MMA_MIN_ROWS lowered here) against their
-    plain versions, within 1e-5 of the largest sum of |terms| of an output
-    (v2h: its bf16 weights bit for bit, f32 sums in another order; v2t:
-    exact products of raw codes, each step's scaled slice partials summed
-    before the accumulator); the planted control fails that limit. One
-    launch, counted on decode_mma_launches and not on mma_launches; a
-    second call is bit-equal."""
+    """v2h, v2t, v2m and v2s with bf16 operands at 1-8 rows on their decode
+    tiles (every row count: their DECODE_MMA_MIN_ROWS lowered here) against
+    their plain versions, within 1e-5 of the largest sum of |terms| of an
+    output (v2h: its bf16 weights bit for bit, f32 sums in another order;
+    v2t: exact products of raw codes, each step's scaled slice partials
+    summed before the accumulator; v2m: each slice partial scaled into the
+    accumulator; v2s: v2g's bf16 weights, each step's high-nibble slice
+    summed apart); the planted control fails that limit. One launch,
+    counted on decode_mma_launches and not on mma_launches; a second call
+    is bit-equal."""
     monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
     monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, variant, 1)
     fn, ref, _ = V2_VARIANTS[variant]
@@ -1457,10 +1463,13 @@ def test_v2h_decode_mma_tile_weights_bit_equal(cuda, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,qtype", [("v2h", T.Q4_K), ("v2h", T.Q6_K), ("v2t", T.Q4_K),
-                                           ("v2t", T.Q5_K)], ids=lambda a: getattr(a, "name", a))
+                                           ("v2t", T.Q5_K), ("v2m", T.Q4_K), ("v2m", T.Q5_K),
+                                           ("v2s", T.Q4_K), ("v2s", T.Q3_K)],
+                         ids=lambda a: getattr(a, "name", a))
 def test_v2h_v2t_decode_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(
         cuda, monkeypatch, variant, qtype):
-    """The v2h and v2t decode tiles copy an x that is not 16-byte aligned;
+    """The v2h, v2t, v2m and v2s decode tiles copy an x that is not 16-byte
+    aligned;
     f32 operands, vec-1 weights and fewer rows than the variant's
     DECODE_MMA_MIN_ROWS stay on the CUDA-core tiles (decode_mma_launches
     unchanged, no mma_launches)."""

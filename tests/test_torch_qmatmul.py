@@ -222,10 +222,10 @@ def test_v2g_bf16_decode_takes_the_decode_tile(M):
 @pytest.mark.parametrize("M", [1, 8])
 def test_decode_keeps_the_cuda_core_tiles_elsewhere(variant, mxu, vec, M):
     """f32 operands, vec-1 weights and the variants without a decode tile
-    (v2, v3, v2f, v2s, v2m) keep _launch_plan's CUDA-core tiles at M <= 8;
-    v2h, v2t and v2p (bf16 operands, vec 4) take their own decode tiles
+    (v2, v3, v2f) keep _launch_plan's CUDA-core tiles at M <= 8; v2h, v2s,
+    v2m, v2t and v2p (bf16 operands, vec 4) take their own decode tiles
     from their DECODE_MMA_MIN_ROWS."""
-    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t")
+    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t", "v2m", "v2s")
     route = qmatmul._v2_route(variant, mxu)
     decode = variant in qmatmul.DECODE_MMA_VARIANTS and mxu == torch.bfloat16
     assert route[3] is decode
@@ -456,8 +456,8 @@ def test_v2p_bf16_decode_takes_the_decode_tile(M):
     """v2p with bf16 operands on a vec-4 weight: every M from its
     DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes the group-dot form of
     the decode tile (the Q6_K head of a B=8 step under v2m), fewer rows
-    the CUDA-core tile; f32 operands, vec-1 weights and v2m keep the
-    CUDA-core tiles; v2t takes its own decode tile from its threshold."""
+    the CUDA-core tile; f32 operands and vec-1 weights keep the CUDA-core
+    tiles; v2t and v2m take their own decode tiles from their thresholds."""
     route = qmatmul._v2_route("v2p", torch.bfloat16)
     assert route[3:] == (True, qmatmul.DECODE_MMA_MIN_ROWS["v2p"])
     d_out, n_sg = STEP_8B["lm_head"]
@@ -467,13 +467,13 @@ def test_v2p_bf16_decode_takes_the_decode_tile(M):
         assert got == qmatmul._decode_mma_plan(d_out, n_sg, 132) == (16, 16, 1)
     else:
         assert got == core
-    for variant, mxu, vec in (("v2p", torch.float32, 4), ("v2p", torch.bfloat16, 1),
-                              ("v2m", torch.bfloat16, 4)):
+    for variant, mxu, vec in (("v2p", torch.float32, 4), ("v2p", torch.bfloat16, 1)):
         assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, mxu)) == \
             qmatmul._launch_plan(M, d_out, n_sg, 132, vec, 8)
-    v2t = qmatmul._plan(M, d_out, n_sg, 132, 4, *qmatmul._v2_route("v2t", torch.bfloat16))
-    assert v2t == (qmatmul._decode_mma_plan(d_out, n_sg, 132)
-                   if M >= qmatmul.DECODE_MMA_MIN_ROWS["v2t"] else core)
+    for variant in ("v2t", "v2m"):
+        got = qmatmul._plan(M, d_out, n_sg, 132, 4, *qmatmul._v2_route(variant, torch.bfloat16))
+        assert got == (qmatmul._decode_mma_plan(d_out, n_sg, 132)
+                       if M >= qmatmul.DECODE_MMA_MIN_ROWS[variant] else core)
 
 
 @pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
@@ -502,14 +502,15 @@ def test_v2p_wrapper_counts_each_tile(mt, counted, monkeypatch):
                      "mma_launches": int(counted == "mma_launches")}
 
 
-@pytest.mark.parametrize("variant", ["v2h", "v2t"])
+@pytest.mark.parametrize("variant", ["v2h", "v2t", "v2m", "v2s"])
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
 def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
-    """v2h and v2t with bf16 operands on a vec-4 weight: every M from the
-    variant's DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes its decode tile
-    at every 8B decode shape it runs (v2h the head too; v2t leaves the
-    gs-16 head to v2g), fewer rows the CUDA-core tiles; f32 operands and
-    vec-1 weights keep the CUDA-core tiles."""
+    """v2h, v2t, v2m and v2s with bf16 operands on a vec-4 weight: every M
+    from the variant's DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes its
+    decode tile at every 8B decode shape it runs (v2h the head too; v2t
+    and v2s leave the gs-16 head to v2g, v2m to v2p), fewer rows the
+    CUDA-core tiles; f32 operands and vec-1 weights keep the CUDA-core
+    tiles."""
     lo = qmatmul.DECODE_MMA_MIN_ROWS[variant]
     assert 1 <= lo < qmatmul.MMA_MIN_ROWS
     route = qmatmul._v2_route(variant, torch.bfloat16)
@@ -525,13 +526,16 @@ def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
 
 
 @pytest.mark.parametrize("variant,lib,code,gs", [("v2h", "qmatmul_v3", 4, 32),
-                                                 ("v2t", "qmatmul_v2m", 1, 32)])
+                                                 ("v2t", "qmatmul_v2m", 1, 32),
+                                                 ("v2m", "qmatmul_v2m", 0, 32),
+                                                 ("v2s", "qmatmul_v2g", 5, 32)])
 @pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
                                         (32, "mma_launches")])
 def test_v2h_v2t_wrappers_count_each_tile(variant, lib, code, gs, mt, counted, monkeypatch):
-    """A v2h or v2t launch counts once on ``launches`` and, by the tile that
-    ran, on ``decode_mma_launches`` or ``mma_launches``; each asks for its
-    own route (a stand-in launch on the meta device reports the tile)."""
+    """A v2h, v2t, v2m or v2s launch counts once on ``launches`` and, by the
+    tile that ran, on ``decode_mma_launches`` or ``mma_launches``; each
+    asks for its own route (a stand-in launch on the meta device reports
+    the tile)."""
     from types import SimpleNamespace
 
     fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[variant])
@@ -720,3 +724,46 @@ def test_wrapper_checks_planes():
     with pytest.raises(ValueError, match="sc_q"):
         qmatmul._check_planes(x, bad)
     qmatmul._check_planes(x, tr)
+
+
+def test_cuda_build_runs_nvcc_in_csrc_on_the_bare_name(tmp_path, monkeypatch):
+    """cuda_build.build runs nvcc in ops/csrc on the bare source name and
+    hands cudafe++ that name as the source's path (it hashes the path into
+    the anonymous namespace's symbols, so an absolute path made the build
+    depend on where the tree lies), writes to an absolute temporary path
+    moved into place with nvcc's output kept beside it, and keys the
+    library on the command's form too. nvcc and subprocess.run are
+    stand-ins here: no compiler runs."""
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from gptq_gguf_tpu_torch.ops import cuda_build
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append((cmd, kw))
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"lib")
+        return SimpleNamespace(returncode=0, stdout="ptxas info")
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", run)
+    assert cuda_build.build("qmatmul_v2m") == "ptxas info"
+    (cmd, kw), = calls
+    assert kw["cwd"] == cuda_build.CSRC and (cuda_build.CSRC / "qmatmul_v2m.cu").is_file()
+    assert cmd[0] == "/usr/local/cuda/bin/nvcc" and cmd[-1] == "qmatmul_v2m.cu"
+    assert [a for a in cmd if a.endswith(".cu")] == ["--orig_src_path_name=qmatmul_v2m.cu",
+                                                     "qmatmul_v2m.cu"]
+    assert cmd[cmd.index("--orig_src_path_name=qmatmul_v2m.cu") - 1] == "-Xcudafe"
+    assert not any(str(cuda_build.CSRC) in a for a in cmd)
+    assert tuple(cmd[1:1 + len(cuda_build.NVCC_FLAGS)]) == cuda_build.NVCC_FLAGS
+    tmp = Path(cmd[cmd.index("-o") + 1])
+    lib = cuda_build.library_path("qmatmul_v2m")
+    assert tmp.is_absolute() and tmp.parent == lib.parent == tmp_path / "_build"
+    assert not tmp.exists() and lib.read_bytes() == b"lib"
+    assert lib.with_suffix(".log").read_text() == "ptxas info"
+    assert cuda_build.build("qmatmul_v2m") is None and len(calls) == 1  # built already
+    command = cuda_build._command  # another form of the command is another library
+    monkeypatch.setattr(cuda_build, "_command", lambda *a: command(*a)[:-1] + ["./qmatmul_v2m.cu"])
+    assert cuda_build.library_path("qmatmul_v2m") != lib

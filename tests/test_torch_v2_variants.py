@@ -133,20 +133,31 @@ def _decode_slice(pb, kh, j):
     return kh + 2 * j if pb == 2 else 2 * kh + j
 
 
-def _v2t_in_decode_order(x, rql, swap=False):
-    """v2t as its tensor-core decode tile computes it (GroupSumMma on the
-    decode mainloop of csrc/qmatmul_decode_mma.cuh), in f32: per 64-row
-    step q of a supergroup the staged code rows (4-bit codes: byte rows
-    32q.. of the supergroup, whose low nibbles are step rows 0-31 and high
-    nibbles 32-63; byte codes: rows 64q..), each K half kh's two k16 slices
-    taken by decode_slice's map, each slice's exact partial bf16(x) @ q
-    scaled by the step's group 16 * sl / 32 and the two summed into a step
-    sum added to that half once; the first half also takes the step's
-    xsum @ off2 out; the halves meet at the end. ``swap`` gives each slice
-    the step's other group (a wrong nibble-group map)."""
+def _in_decode_order(x, rql, form, swap=False):
+    """A variant as its tensor-core decode tile computes it (the decode
+    mainloop of csrc/qmatmul_decode_mma.cuh), in f32: per 64-row step q of a
+    supergroup the staged code rows (4-bit codes: byte rows 32q.. of the
+    supergroup, whose low nibbles are step rows 0-31 and high nibbles
+    32-63; byte codes: rows 64q..), each K half kh's two k16 slices j taken
+    by decode_slice's map; the first half also takes the step's xsum @
+    off2 out; the halves meet at the end. The forms:
+
+    * "v2t" (GroupSumMma): each slice's exact partial bf16(x) @ q scaled by
+      the step's group 16 * sl / 32, the two summed into a step sum added
+      to the half once;
+    * "v2m" (GroupDotMma at gs 32): each scaled slice partial added to the
+      half by itself;
+    * "v2s" (V2Mma<kV2s>, F::SPLIT_HALVES): v2g's weights bf16(scale * q),
+      slice 0 (the low nibbles) added to the half, slice 1 (the high
+      nibbles, 128 rows up) summed apart and added after it.
+
+    ``swap`` plants a fault: the group-dot forms give each slice the
+    step's other group (a wrong nibble-group map), v2s dots each nibble
+    slice with the x rows of the other nibble."""
     M, d_in = x.shape
-    pb, d_out = rql.per_byte, rql.d_out
+    pb, gs, d_out = rql.per_byte, rql.group_size, rql.d_out
     scale, off2 = qmatmul._folded_planes_v2(rql)
+    w = qmatmul._v2_operand(rql, "v2s", torch.bfloat16)[0] if form == "v2s" else None
     xb, x32 = x.to(torch.bfloat16).float(), x.float()
     half = [torch.zeros(M, d_out), torch.zeros(M, d_out)]
     for sg in range(d_in // 256):
@@ -159,45 +170,58 @@ def _v2t_in_decode_order(x, rql, swap=False):
                 codes = rql.qs[sg * 256 + 64 * q: sg * 256 + 64 * q + 64].float()
                 rows = list(range(64 * q, 64 * q + 64))
             rows = torch.tensor(rows) + 256 * sg
-            group = [int(rows[32 * lg]) // 32 for lg in range(2)]  # the step's staged groups
+            x_rows = torch.cat([rows[32:], rows[:32]]) if swap and form == "v2s" else rows
+            group = [int(rows[32 * lg]) // 32 for lg in range(2)]  # the step's staged gs-32 groups
             for kh in range(2):
                 s = None
                 for j in range(2):
                     sl = _decode_slice(pb, kh, j)
                     k = slice(16 * sl, 16 * sl + 16)
-                    g = group[(16 * sl // 32) ^ int(swap)]
-                    p = (xb[:, rows[k]] @ codes[k]) * scale[g]
-                    s = p if s is None else s + p
-                half[kh] = half[kh] + s
-            for g in group:
-                xs = x32[:, torch.arange(32 * g, 32 * g + 32)].sum(1, keepdim=True)
+                    if form == "v2s":
+                        p = xb[:, x_rows[k]] @ w[rows[k]]
+                    else:
+                        g = group[(16 * sl // 32) ^ int(swap)]
+                        p = (xb[:, rows[k]] @ codes[k]) * scale[g]
+                    if form == "v2t":
+                        s = p if s is None else s + p
+                    else:
+                        half[kh] = half[kh] + p
+                if form == "v2t":
+                    half[kh] = half[kh] + s
+            for g in sorted({int(r) // gs for r in rows}):
+                xs = x32[:, torch.arange(gs * g, gs * g + gs)].sum(1, keepdim=True)
                 half[0] = half[0] - xs * off2[g]
     return half[0] + half[1]
 
 
-@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q5_K], ids=lambda q: q.name)
+@pytest.mark.parametrize("form,qtype", [("v2t", T.Q4_K), ("v2t", T.Q5_K), ("v2m", T.Q4_K),
+                                        ("v2m", T.Q5_K), ("v2s", T.Q4_K), ("v2s", T.Q2_K),
+                                        ("v2s", T.Q3_K)], ids=lambda a: getattr(a, "name", a))
 @pytest.mark.parametrize("M", [1, 8])
-def test_v2t_decode_order_matches_jax_interpret(qtype, M):
-    """The function v2t's decode tile computes, in its order (decode_slice's
-    map, each slice scaled by its group, a step sum per K half, the halves
-    added, xsum @ off2 subtracted), against JAX's _kernel_v2t in interpret
-    mode on a bf16-valued x: the products are exact on both sides and only
-    the grouping and the order of the f32 sums differ, so within 1e-5 of
-    the largest sum of |terms| of an output (the limit the tile is held to
-    on the card). The same order with the slices' groups swapped fails
+def test_decode_order_matches_jax_interpret(form, qtype, M):
+    """The function v2t's, v2m's and v2s's decode tiles compute, each in
+    its order (_in_decode_order), against JAX's _kernel_v2t, _kernel_v2m and
+    _kernel_v2s in interpret mode on a bf16-valued x: the products are
+    exact on both sides (raw codes, or v2g's bf16 weights) and only the
+    grouping and the order of the f32 sums differ, so within 1e-5 of the
+    largest sum of |terms| of an output (the limit the tiles are held to
+    on the card). The same order with the planted fault (the slices'
+    groups swapped; for v2s x's halves swapped against the nibbles) fails
     that limit."""
     jr, tr = _pair(qtype)
     x = torch.from_numpy(np.random.default_rng(M + 50).normal(size=(M, 512)).astype(np.float32))
     x = x.to(torch.bfloat16).float()
     want = np.asarray(jq.dequant_matmul_pallas_v2(jnp.asarray(x.numpy()), jr, interpret=True,
-                                                  variant="v2t", mxu_dtype=jnp.bfloat16))
-    scale, off2 = qmatmul._folded_planes_v2(tr)
-    q = qmatmul._unpack_codes(tr.qs, tr.per_byte, 512).float().reshape(16, 32, -1)
-    terms = (x.abs() @ (q * scale[:, None, :]).reshape(512, -1).abs()
-             + x.reshape(M, 16, 32).sum(-1).abs() @ off2.abs())
+                                                  variant=form, mxu_dtype=jnp.bfloat16))
+    _, off2 = qmatmul._folded_planes_v2(tr)
+    # the weights as the terms: v2s's rounded, the group dots' scale * q unrounded
+    w = qmatmul._v2_operand(tr, "v2s" if form == "v2s" else "v2g",
+                            torch.bfloat16 if form == "v2s" else torch.float32)[0]
+    gs = tr.group_size
+    terms = x.abs() @ w.abs() + x.reshape(M, 512 // gs, gs).sum(-1).abs() @ off2.abs()
     tol = 1e-5 * terms.max().item()
-    np.testing.assert_allclose(_v2t_in_decode_order(x, tr).numpy(), want, rtol=0, atol=tol)
-    assert np.abs(_v2t_in_decode_order(x, tr, swap=True).numpy() - want).max() > tol
+    np.testing.assert_allclose(_in_decode_order(x, tr, form).numpy(), want, rtol=0, atol=tol)
+    assert np.abs(_in_decode_order(x, tr, form, swap=True).numpy() - want).max() > tol
 
 
 @pytest.mark.parametrize("qtype", ALL_K)
@@ -318,13 +342,13 @@ def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
 ])
 def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """Every per-weight build, v2s among them, takes the tensor-core tiles
-    with bf16 operands from MMA_MIN_ROWS rows (v2g and v2h below that
+    with bf16 operands from MMA_MIN_ROWS rows (v2g, v2h and v2s below that
     their tensor-core decode tiles); f32 operands and vec-1 weights keep
     the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     route = qmatmul._v2_route(variant, dt)
     want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want
-    if variant in ("v2g", "v2h") and (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
+    if variant in ("v2g", "v2h", "v2s") and (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
         want = (qmatmul.DECODE_MMA_TILE, 1, 16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
     assert variant in qmatmul.MMA_VARIANTS
@@ -342,14 +366,14 @@ def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want
 ])
 def test_group_dot_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """v2m, v2t and v2p take the tensor-core tiles with bf16 operands from
-    MMA_MIN_ROWS rows (v2t's of at most 64 rows), and v2p and v2t below
-    that their tensor-core decode tiles; f32 operands and vec-1 weights
-    keep the 8-row CUDA-core tiles at any M."""
+    MMA_MIN_ROWS rows (v2t's of at most 64 rows), and below that their
+    tensor-core decode tiles; f32 operands and vec-1 weights keep the
+    8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     want = mma_want if mxu == "bf16" else core_want
     if variant == "v2t" and mxu == "bf16":  # its tiles stop at 64 rows (MMA_BM_MAX)
         want = {(128, 28672): (64, 16, 1), (1024, 128512): (64, 16, 1)}.get((M, d_out), want)
-    if variant in ("v2p", "v2t") and (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
+    if (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
         want = (qmatmul.DECODE_MMA_TILE, 1, 16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *qmatmul._v2_route(variant, dt)) == want
     assert qmatmul.MMA_GROUP_DOT == ("v2m", "v2t", "v2p")

@@ -67,7 +67,7 @@ checkout of the repository. Phases, each raising on failure:
    lm_head at M = 8, the threshold M, 128, 1024 with a bf16 x, v4 also at
    M = 1, 2 and 4 (v1 and v4 from the threshold on their tensor-core
    tiles, csrc/qmatmul_v1_mma.cuh and the v4 policy, and v4 from
-   qmv4.DECODE_MMA_MIN_ROWS to 8 rows on its tensor-core decode tile,
+   qmatmul.DECODE_MMA_MIN_ROWS["v4"] to 8 rows on its tensor-core decode tile,
    csrc/qmatmul_decode_mma.cuh, each within 1e-5 of the largest sum of
    |terms| with a planted control that must fail that limit: v4 the
    unrounded weights, v1 the weights rounded to bf16; beside each v1
@@ -106,17 +106,24 @@ checkout of the repository. Phases, each raising on failure:
    v2f's f32 affine), and at the four Q4_K projection shapes v2t's (its
    group-sum form; control: v2g's rounding), v2m's (the group-dot form at
    gs 32; control: v2g's rounding) and v2s's (V2Mma<kV2s>, split halves;
-   control: the unrounded scale * q) at M = 1, 2, 4 and 8, with small
-   Q2_K / Q3_K / Q5_K and ragged cases; (b) 2-layer
-   logits through
-   each variant's kernels against its plain versions, and the differences
-   between variants; (c) phase 3's 12 requests served under
+   control: the unrounded scale * q) at M = 1, 2, 4 and 8, and v3's
+   (V2Mma<kV3>, packed bf16 weights, the xsum term; control: the
+   unrounded scale * q) and v2's (V2Mma<kV2>, its FMA forms; control:
+   v2g's rounding) at every 8B shape and the head, with small Q2_K /
+   Q3_K / Q5_K and ragged cases; (b) 2-layer logits under each knob
+   setting, one pass in which every matmul call runs the variant's kernel
+   and its plain version on the same x (the plain output handed on), each
+   call within 8a's limit and the head's logits within 3e-3 of max|logit|,
+   a planted control (control_of's plain version in place of the kernel)
+   that must fail the per-call limit; beside it, printed only, the
+   kernels end to end against the plain versions end to end and against
+   v2g's; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward (every call of a B=8 step on a decode tile: under
-   v2m its projections on v2m's and its head on v2p's, under v2h every
-   call on v2h's, under v2t and v2s the projections on the variant's and
-   the head on v2g's); (d) perplexity through the
+   v2m its projections on v2m's and its head on v2p's, under v2h, v3 and
+   v2 every call on the variant's, under v2t and v2s the projections on
+   the variant's and the head on v2g's); (d) perplexity through the
    serving path under
    v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
    call on the tensor-core tiles (under v2m: v2m's, and v2p's on the head;
@@ -650,18 +657,29 @@ V2M_V2S_DECODE_SMALL = (("Q5_K 1024->768", 768, 1024, "Q5_K", 6, "v2m"),
                         ("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v2s"),
                         ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3, "v2s"),
                         ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 7, "v2s"))
+# the same for v3 and v2, from another generator of their own (SEED)
+V3_V2_DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v3"),
+                      ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3, "v3"),
+                      ("Q5_K 1024->768", 768, 1024, "Q5_K", 6, "v3"),
+                      ("ragged Q6_K 2048->1000", 1000, 2048, "Q6_K", 7, "v3"),
+                      ("Q2_K 1024->768", 768, 1024, "Q2_K", 6, "v2"),
+                      ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 2, "v2"),
+                      ("Q5_K 1024->768", 768, 1024, "Q5_K", 5, "v2"),
+                      ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 8, "v2"))
 # the variants whose decode tiles 8a holds at the four Q4_K projection
-# shapes (v2h's also at the head)
-Q4_DECODE_VARIANTS = ("v2h", "v2t", "v2m", "v2s")
+# shapes, and those of them it holds at the head too (their 8c runs put
+# every call of a B=8 step on their decode tiles)
+Q4_DECODE_VARIANTS = ("v2h", "v2t", "v2m", "v2s", "v3", "v2")
+HEAD_DECODE_VARIANTS = ("v2h", "v3", "v2")
 
 
 def phase_v2h_v2t_decode_kernels(params, device, rng):
-    """8a: the tensor-core decode tiles of v2h (every 8B shape and the
-    padded Q6_K head), v2t (its group-sum form), v2m (the group-dot form at
-    gs 32) and v2s (split halves), the last three at the four Q4_K
-    projection shapes, at M = 1, 2, 4 and 8 (decode_case: 1e-5 limit, the
-    planted control, the CUDA-core tile beside it), then
-    V2H_V2T_DECODE_SMALL and V2M_V2S_DECODE_SMALL."""
+    """8a: the tensor-core decode tiles of v2h, v3 and v2 (every 8B shape
+    and the padded Q6_K head), v2t (its group-sum form), v2m (the
+    group-dot form at gs 32) and v2s (split halves), the last three at the
+    four Q4_K projection shapes, at M = 1, 2, 4 and 8 (decode_case: 1e-5
+    limit, the planted control, the CUDA-core tile beside it), then
+    V2H_V2T_DECODE_SMALL, V2M_V2S_DECODE_SMALL and V3_V2_DECODE_SMALL."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
@@ -671,12 +689,14 @@ def phase_v2h_v2t_decode_kernels(params, device, rng):
     for M in DECODE_MS:
         for name, rql in step_shapes(params):
             x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
-            for variant in ("v2h",) if name.startswith("lm_head") else Q4_DECODE_VARIANTS:
+            for variant in (HEAD_DECODE_VARIANTS if name.startswith("lm_head")
+                            else Q4_DECODE_VARIANTS):
                 recs.append(decode_case(name, x, rql, flush, variant))
             del x
             torch.cuda.empty_cache()
     for cases, gen in ((V2H_V2T_DECODE_SMALL, rng),
-                       (V2M_V2S_DECODE_SMALL, np.random.default_rng(SEED))):
+                       (V2M_V2S_DECODE_SMALL, np.random.default_rng(SEED)),
+                       (V3_V2_DECODE_SMALL, np.random.default_rng(SEED))):
         for name, d_out, d_in, qt, M, variant in cases:
             rql = synthetic_rql(gen, d_out, d_in, T[qt], device)
             x = torch.randn(M, d_in, device=device)
@@ -849,16 +869,16 @@ def decode_counts() -> dict:
 
 def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
     """The decode-tile launches a run of forwards with token ``shapes``
-    (B, S) should count: every call with bf16 operands of a variant of
-    qmatmul.DECODE_MMA_MIN_ROWS (v2g, v2p, v2h, v2t, v2m, v2s) from its
-    threshold to MMA_MIN_ROWS - 1 rows, and of v4's (vec-4 weights: every
-    8B one) from qmv4.DECODE_MMA_MIN_ROWS, the projections at B * S rows and the head at
-    B (``per_forward`` names each kernel's calls per forward: 4 per layer,
-    the head, or both)."""
-    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+    (B, S) should count: every call of a kernel of
+    qmatmul.DECODE_MMA_MIN_ROWS (the v2 variants v2g, v2p, v2h, v2t, v2m,
+    v2s, v3 and v2 with bf16 operands; v4 on vec-4 weights: every 8B one)
+    from its threshold to MMA_MIN_ROWS - 1 rows, the projections at B * S
+    rows and the head at B (``per_forward`` names each kernel's calls per
+    forward: 4 per layer, the head, or both)."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
 
     out = {}
-    for v, lo in (*qmatmul.DECODE_MMA_MIN_ROWS.items(), ("v4", qmv4.DECODE_MMA_MIN_ROWS)):
+    for v, lo in qmatmul.DECODE_MMA_MIN_ROWS.items():
         on_tile = range(lo, qmatmul.MMA_MIN_ROWS)
         n = per_forward.get(v, 0)
         proj, head = n >= 4 * n_layers, n in (1, 4 * n_layers + 1)
@@ -889,7 +909,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     want_decode); then a steady B=8 decode block."""
     import torch
 
-    from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
+    from gptq_gguf_tpu_torch.ops import qmatmul
     from gptq_gguf_tpu_torch.serving import engine, model as qmodel
 
     n_fwd = [0]
@@ -952,7 +972,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     if dmma != want_dmma:
         raise RuntimeError(f"{label} serving: decode-tile launches {dmma}, want {want_dmma}")
     if any(dmma.values()):
-        lo = {**qmatmul.DECODE_MMA_MIN_ROWS, "v4": qmv4.DECODE_MMA_MIN_ROWS}
+        lo = qmatmul.DECODE_MMA_MIN_ROWS
         log(f"serving ({label}): {dmma} tensor-core decode-tile launches: every call of "
             + ", ".join(f"{k} of {lo[k]}-{qmatmul.MMA_MIN_ROWS - 1} rows"
                         for k, n in dmma.items() if n))
@@ -987,7 +1007,8 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
                         serve_decode_ms_per_step=decode["s"] / max(decode["steps"], 1) * 1e3,
                         generated_tok_s=(gen_tokens - 12) / decode["s"], launches=launches,
                         mma_launches=mma.get(kernel, 0), decode_mma_launches=dmma,
-                        prefill_forwards=n_prefill, forwards=n_fwd[0])
+                        prefill_forwards=n_prefill, forwards=n_fwd[0],
+                        b8_steps=shapes.count((8, 1)))
 
 
 def two_layer_logits(params, cfg, prompt, feed, mm, device):
@@ -2021,8 +2042,8 @@ def format_case(name, fmt, x, rql, flush):
     3.35 TB/s, operations at bf16 989 TFLOP/s on the tensor-core tiles, f32
     67 TFLOP/s on v1's CUDA-core tiles). A v4 call on a vec-4 weight must
     run the tensor-core tiles from MMA_MIN_ROWS rows and the tensor-core
-    decode tile from qmv4.DECODE_MMA_MIN_ROWS (1) to 8 rows, counted on
-    that tile alone, held to 1e-5 with a planted control (v4_unrounded); a
+    decode tile from qmatmul.DECODE_MMA_MIN_ROWS["v4"] (1) to 8 rows,
+    counted on that tile alone, held to 1e-5 with a planted control (v4_unrounded); a
     v1 call with a bf16 x on a vec-4 weight the tensor-core tiles from
     MMA_MIN_ROWS rows, held to 1e-5 of its group dot's terms with a
     planted control (v1_bf16_weights). Beside a decode-tile case, and a v1
@@ -2040,7 +2061,8 @@ def format_case(name, fmt, x, rql, flush):
     vec4 = rql.d_out % 4 == 0
     want_mma = (vec4 and M >= qmatmul.MMA_MIN_ROWS
                 and (not v1 or x.dtype == torch.bfloat16))
-    want_decode = not v1 and vec4 and qmv4.DECODE_MMA_MIN_ROWS <= M < qmatmul.MMA_MIN_ROWS
+    want_decode = (not v1 and vec4
+                   and qmatmul.DECODE_MMA_MIN_ROWS["v4"] <= M < qmatmul.MMA_MIN_ROWS)
     m0, d0 = getattr(fn, "mma_launches", 0), getattr(fn, "decode_mma_launches", 0)
     y_k = fn(x, rql)
     mma = getattr(fn, "mma_launches", 0) - m0
@@ -2127,7 +2149,7 @@ def phase_format_kernels(params, rng, device):
     and the unpadded Q6_K lm_head, at M = 8, the threshold (MMA_MIN_ROWS),
     128 and 1024 with a bf16 x, v4 also at M = 1, 2 and 4 (v1 and v4 from
     the threshold on their tensor-core tiles, v4 from
-    qmv4.DECODE_MMA_MIN_ROWS to 8 rows on its tensor-core decode tile, the
+    qmatmul.DECODE_MMA_MIN_ROWS["v4"] to 8 rows on its tensor-core decode tile, the
     CUDA-core tile beside each); Q2_K / Q3_K / Q5_K and ragged d_out at
     small shapes with an f32 x, and for v1 V1_MMA_SMALL with a bf16 x."""
     import torch
@@ -2363,7 +2385,9 @@ VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m
                           ("v2h", "qmatmul_v2_mma.cuh", 551, STEP, "v2h"),
                           ("v2t", "qmatmul_v2m_mma.cuh", 789, Q4_SHAPES, "v2t"),
                           ("v2m", "qmatmul_v2m_mma.cuh", 729, Q4_SHAPES, "v2m"),
-                          ("v2s", "qmatmul_v2_mma.cuh", 660, Q4_SHAPES, "v2s"))
+                          ("v2s", "qmatmul_v2_mma.cuh", 660, Q4_SHAPES, "v2s"),
+                          ("v3", "qmatmul_v2_mma.cuh", 429, STEP, "v3"),
+                          ("v2", "qmatmul_v2_mma.cuh", 377, STEP, "v2"))
 
 
 def variant_runs(n_layers: int):
@@ -2543,12 +2567,37 @@ def knobs(variant: str, gs16: str):
     return old
 
 
+# 8b's limit for the prefill's calls on the per-weight tensor-core prefill
+# tiles (v2g, v2, v3, v2f, v2h, v2s at 9 rows or more), in units of the
+# largest sum of |terms| of an output: phase 2's limit for v2g's kernel at
+# these rows. Each of those tiles runs an output's whole K through one
+# chain of mma.sync accumulations, whose adds do not round to nearest:
+# on 8b's activations the v2g tile read 1.14x the 1e-5 of 8a, the v2 tile
+# 0.99x, the split halves of v2s 0.60x, while
+# the group-dot tiles (a fresh accumulator per k16 slice) read 0.08x, and
+# against the same function in f64 the tile read 1.11x where the f32
+# torch.matmul of the plain version read 0.11x (H100: PERF.md)
+PREFILL_TILE_LIMIT = 1e-4
+
+
 def phase_variant_consistency(params, cfg, rng, device):
     """8b: 2 layers at full width, one 128-token prefill and 4 decode steps
-    under each knob setting of 8c, through the effective variants' kernels
-    and through their plain versions, held to phase 4's 3e-3 of
-    max|logit|; the differences of each setting's kernel logits from
-    v2g's are printed (the variants round differently by design)."""
+    under each knob setting of 8c. The gate is one pass in which every
+    packed matmul call runs the effective variant's kernel and its plain
+    version on the same x and hands the plain output on, so both see the
+    same inputs at every call (a bf16 rounding that flips between layers
+    cannot reach the next call): each call within 8a's limit, 1e-5 of the
+    largest sum of |terms| of an output, the head's logits also within
+    3e-3 of their max|logit|. The prefill's calls on the per-weight
+    variants' tensor-core prefill tiles are held to phase 2's limit for
+    those tiles, 1e-4 (PREFILL_TILE_LIMIT), and read against 1e-5 as
+    well. The same pass with control_of's plain version in place of the
+    kernel must fail the per-call limit, and the pass counts the
+    tensor-core and decode-tile launches the route gives. Beside it,
+    information only: the kernels end to end against the plain versions
+    end to end (their difference, argmax agreement), and each setting's
+    kernel logits against v2g's (the variants round differently by
+    design)."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
@@ -2556,6 +2605,7 @@ def phase_variant_consistency(params, cfg, rng, device):
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 128)), device=device)
     feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4,)), device=device)
     fns = variant_fns()
+    head = params["lm_head"]
 
     def through(plain: bool):
         def mm(x, rql):
@@ -2563,45 +2613,123 @@ def phase_variant_consistency(params, cfg, rng, device):
             return fns[v][1 if plain else 0](x, rql, torch.bfloat16)
         return mm
 
+    def shared(calls, control: bool):
+        """every call: the kernel (or control_of's plain version) and the
+        plain version on the same x, the plain output handed on"""
+        def mm(x, rql):
+            v = qmatmul.effective_v2_variant_for(rql)
+            y_p = fns[v][1](x, rql, torch.bfloat16)
+            if control:
+                c_var, c_mxu = control_of(v, "bf16")
+                y_k = fns[c_var][1](x, rql, mxu_dtype(c_mxu))
+            else:
+                y_k = fns[v][0](x, rql, torch.bfloat16)
+            terms = max(variant_terms(x, rql, v, "bf16"), 1e-30)
+            tile = (v in qmatmul.PER_WEIGHT_VARIANTS and x.shape[0] >= qmatmul.MMA_MIN_ROWS
+                    and rql.d_out % 4 == 0)
+            rec = dict(variant=v, M=x.shape[0], d_out=rql.d_out, prefill_tile=tile,
+                       finite=bool(torch.isfinite(y_k).all()),
+                       err=(y_k - y_p).abs().max().item(), tol_8a=1e-5 * terms,
+                       tol=(PREFILL_TILE_LIMIT if tile else 1e-5) * terms)
+            if rql is head:
+                rec["logit_tol"] = 3e-3 * y_p.abs().max().item()
+            if tile and not control:  # both against the same function in f64
+                w, corrects = qmatmul._v2_operand(rql, v, torch.bfloat16)
+                y64 = x.to(torch.bfloat16).double() @ w.double()
+                del w
+                if corrects:
+                    y64 -= (x.double().reshape(x.shape[0], -1, rql.group_size).sum(-1)
+                            @ qmatmul._folded_planes_v2(rql)[1].double())
+                rec["kernel_vs_f64"] = (y_k - y64).abs().max().item()
+                rec["plain_vs_f64"] = (y_p - y64).abs().max().item()
+                del y64
+            calls.append(rec)
+            return y_p
+        return mm
+
+    def passes(calls):
+        return [c for c in calls if c["finite"] and c["err"] <= c["tol"]
+                and c["err"] <= c.get("logit_tol", np.inf)]
+
     out = {}
     base = two_layer_logits(params, cfg, prompt, feed, qmatmul.dequant_matmul_v2g, device)
     for variant, gs16, per_forward in variant_runs(2):
         label = variant + (f" (gs16 {gs16})" if gs16 else "")
         old = knobs(variant, gs16)
+        calls, ctrl = [], []
         try:
             reset_matmul_counts()
-            lk = two_layer_logits(params, cfg, prompt, feed, through(False), device)
+            two_layer_logits(params, cfg, prompt, feed, shared(calls, False), device)
             mma, dmma = mma_counts(), decode_counts()
+            two_layer_logits(params, cfg, prompt, feed, shared(ctrl, True), device)
+            lk = two_layer_logits(params, cfg, prompt, feed, through(False), device)
             lp = two_layer_logits(params, cfg, prompt, feed, through(True), device)
         finally:
             knobs(*old)
         # the 128-row prefill's 4 x 2 projections on the variant's
         # tensor-core tiles, the 1-row head (v2p under v2m, v2g under v2t
-        # and v2s) and the decode steps not; v2g's calls among those on
-        # its decode tile
+        # and v2s) and the decode steps not; the calls of 1-8 rows on the
+        # decode tiles from each variant's threshold
         if mma != {k: 8 if k == variant else 0 for k in mma}:
             raise RuntimeError(f"{label}: tensor-core launches {mma}")
         want_dmma = want_decode(per_forward, [(1, 128)] + [(1, 1)] * 4, 2)
         if dmma != want_dmma:
             raise RuntimeError(f"{label}: decode-tile launches {dmma}, want {want_dmma}")
+        heads = [c for c in calls if "logit_tol" in c]
+        worst = max(calls, key=lambda c: c["err"] / c["tol"])
+        tiles = [c for c in calls if c["prefill_tile"]]
+        worst_8a = max(c["err"] / c["tol_8a"] for c in calls)
+        ctrl_bad = len(ctrl) - len(passes(ctrl))
         scale = lp.abs().max().item()
         err = (lk - lp).abs().max().item()
         d_g = (lk - base).abs().max().item()
         agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-        log(f"{label} consistency (2 layers, prefill + 4 decode): max|dlogit| kernel vs plain "
-            f"{err:.3e}, tol {3e-3 * scale:.3e} (3e-3 of max|logit| {scale:.3e}); argmax "
-            f"agreement {agree:.2f}; vs v2g's kernels {d_g:.3e}; tensor-core launches "
-            f"{mma.get(variant, 0)}")
-        if not (torch.isfinite(lk).all() and err <= 3e-3 * scale):
-            raise RuntimeError(f"{label}: kernel and plain logits disagree")
-        out[label] = dict(kernel_vs_plain=err, tol=3e-3 * scale, vs_v2g=d_g)
+        log(f"{label} consistency (2 layers, prefill + 4 decode), every call on shared inputs: "
+            f"{len(passes(calls))} of {len(calls)} calls within their limit, 1e-5 of their "
+            f"terms ({PREFILL_TILE_LIMIT:g} on the {len(tiles)} per-weight prefill-tile calls; "
+            f"worst {worst['variant']} M={worst['M']} d_out={worst['d_out']}: "
+            f"{worst['err']:.3e} of {worst['tol']:.3e}; against 1e-5 at every call "
+            f"{worst_8a:.2f}x at most, "
+            f"{max((c['err'] / c['tol_8a'] for c in calls if not c['prefill_tile']), default=0):.2f}x"
+            f" off the prefill tiles; prefill tiles against the same function in f64: kernel "
+            f"{max((c['kernel_vs_f64'] / c['tol_8a'] for c in tiles), default=0):.2f}x, plain "
+            f"{max((c['plain_vs_f64'] / c['tol_8a'] for c in tiles), default=0):.2f}x of 1e-5); "
+            f"head logits {max(c['err'] for c in heads):.3e} against "
+            f"3e-3 of max|logit| ({min(c['logit_tol'] for c in heads):.3e}); control "
+            f"({', '.join(sorted({'/'.join(control_of(c['variant'], 'bf16')) for c in ctrl}))}) "
+            f"rejected at {ctrl_bad} of {len(ctrl)} calls (least "
+            f"{min(c['err'] / c['tol'] for c in ctrl):.1f}x the limit); "
+            f"tensor-core launches {mma.get(variant, 0)}, decode tile {dmma}")
+        log(f"{label} free-running (information): max|dlogit| kernels vs plain end to end "
+            f"{err:.3e} (3e-3 of max|logit| {3e-3 * scale:.3e}); argmax agreement {agree:.2f}; "
+            f"vs v2g's kernels {d_g:.3e}")
+        if len(passes(calls)) != len(calls) or not torch.isfinite(lk).all():
+            raise RuntimeError(f"{label}: kernel and plain disagree on shared inputs "
+                               f"({len(calls) - len(passes(calls))} of {len(calls)} calls)")
+        if ctrl_bad == 0:
+            raise RuntimeError(f"{label}: the per-call limit does not reject the control")
+        out[label] = dict(calls=len(calls), worst_err=worst["err"], worst_tol=worst["tol"],
+                          worst_vs_1e5=worst_8a, prefill_tile_calls=len(tiles),
+                          prefill_tile_vs_f64={
+                              k: max((c[f"{k}_vs_f64"] / c["tol_8a"] for c in tiles), default=0)
+                              for k in ("kernel", "plain")},
+                          head_logit_err=max(c["err"] for c in heads),
+                          head_logit_tol=min(c["logit_tol"] for c in heads),
+                          control_rejected=ctrl_bad,
+                          control_min_ratio=min(c["err"] / c["tol"] for c in ctrl),
+                          free_running=dict(kernel_vs_plain=err, tol=3e-3 * scale,
+                                            argmax_agreement=agree),
+                          vs_v2g=d_g)
     return out
 
 
 def phase_variant_serving(params, cfg, requests):
     """8c: phase 3's 12 requests under each knob setting, in turns between
     two v2g runs (the host-bound step drifts within a call), each with its
-    exact launches per forward."""
+    exact launches per forward, and every call of each B=8 decode step on
+    the decode tile of the variant that runs it."""
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
     runs = [("v2g", "", None)] + list(variant_runs(cfg.num_hidden_layers)) + [("v2g", "", None)]
     out = {}
     for i, (variant, gs16, per_forward) in enumerate(runs):
@@ -2613,6 +2741,15 @@ def phase_variant_serving(params, cfg, requests):
             counts, rec = phase_serving(params, cfg, requests, variant, label, per_forward)
         finally:
             knobs(*old)
+        per_forward = per_forward or {variant: 4 * cfg.num_hidden_layers + 1}
+        b8 = {k: n * rec["b8_steps"] for k, n in per_forward.items()
+              if k in qmatmul.DECODE_MMA_VARIANTS}
+        if not rec["b8_steps"] or any(rec["decode_mma_launches"][k] < n for k, n in b8.items()):
+            raise RuntimeError(f"{label} serving: decode-tile launches "
+                               f"{rec['decode_mma_launches']}, want at least {b8} "
+                               f"({rec['b8_steps']} B=8 steps)")
+        log(f"serving ({label}): every call of its {rec['b8_steps']} B=8 steps on the decode "
+            f"tile ({b8}; in all {rec['decode_mma_launches']})")
         out[label] = dict(rec, counts=counts)
     ref = [out["v2g (before)"], out["v2g (after)"]]
     for label, rec in out.items():
@@ -2694,11 +2831,12 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma
     8a's M=8 times with bf16 operands, the dispatch's); its error is the
     largest of all its 8a cases. v2's entry adds its f32 operand mode.
     ``launches`` counts the CUDA-core tiles' launches of 8c's run (the
-    calls of v2p, v2h, v2t, v2m and v2s at M = 8 are timed on that tile:
-    on_core; their tensor-core decode tiles are
+    calls of v2p, v2h, v2t, v2m, v2s, v3 and v2 at M = 8 are timed on that
+    tile: on_core; their tensor-core decode tiles are
     qmatmul_<variant>_decode_mma), ``mma_launches`` its tensor-core tiles'
-    (every prefill projection). Where the route now gives every call of
-    8c's run to the tensor-core tiles (v2h, v2t, v2m, v2s), ``launches``
+    (every prefill projection). Where the route gives the calls of 8c's
+    run to the tensor-core tiles (Q4_DECODE_VARIANTS; a one-row prefill
+    head below a threshold of 2 stays on the CUDA-core tile), ``launches``
     counts them all, as v4's entries do, and
     ``core_launches`` the CUDA-core tile's own (its times are that tile's:
     "tile")."""
@@ -2731,8 +2869,8 @@ def variant_summary(name, source, replaces, variant, shapes, recs, launches, mma
 def variant_launches(rec, variant: str, run: str) -> tuple:
     """(launches, mma_launches[, core_launches]) of ``variant``'s summary
     entry from 8c's run ``run`` (its record ``rec``): the CUDA-core tiles'
-    launches, or for v2h, v2t, v2m and v2s, whose every call there runs a
-    tensor-core tile, all of them and the CUDA-core tiles' beside."""
+    launches, or for the variants of Q4_DECODE_VARIANTS, whose calls there
+    run the tensor-core tiles, all of them and the CUDA-core tiles' beside."""
     mma = rec["mma_launches"] if variant == run else 0
     core = rec["counts"][variant] - mma - rec["decode_mma_launches"].get(variant, 0)
     if variant in Q4_DECODE_VARIANTS:

@@ -33,6 +33,12 @@ __device__ __forceinline__ float byte_magic(uint32_t m, int c) {
   return __uint_as_float(__byte_perm(m, 0x4B000000u, 0x7650u | c));
 }
 
+// 128 + byte c of m as a float, for a byte below 128, by one byte permute:
+// f32 0x43QQ0000 holds it in the significand's top 7 bits under 2^7
+__device__ __forceinline__ float byte_128(uint32_t m, int c) {
+  return __uint_as_float(__byte_perm(m, 0x43000000u, 0x7044u | c << 8));
+}
+
 // round two f32 to bf16 (nearest even) in one packed conversion
 __device__ __forceinline__ void bf16_round2(float& a, float& b) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);

@@ -9,8 +9,10 @@
 //       by qmatmul_v2g.cu) for Q4_K, Q2_K, Q3_K, Q5_K and Q6_K weights, bf16
 //       operands; V2Mma<kV2s, ...> (the same files) for the 4-bit three
 //       (Q4_K, Q2_K, Q3_K): v2g's weights in the split-halves form
-//       (F::SPLIT_HALVES) below; and V2Mma<kV2h, ...> (built by
-//       qmatmul_v3.cu) for the five: v2h's weights, no xsum term;
+//       (F::SPLIT_HALVES) below; V2Mma<kV2h, ...> and V2Mma<kV3, ...>
+//       (built by qmatmul_v3.cu) for the five: v2h's weights, no xsum
+//       term, and v3's, with it; and V2Mma<kV2, ...> (built by
+//       qmatmul_v2.cu) for the five: v2's weights, no xsum term;
 //   V4Mma<PB, GS, I8, kDecodePitch> (qmatmul_v4.cu): the v4 bodies pb2,
 //       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x;
 //   GroupDotMma<PB, GS, HAS_MIN, kDecodePitch> (qmatmul_v2m_mma.cuh, built
@@ -24,12 +26,13 @@
 // (qmatmul.DECODE_MMA_MIN_ROWS[variant]) up to qmatmul.MMA_MIN_ROWS - 1:
 // gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g :605 (bf16 operands), the
 // default variant, which carries every projection and the lm_head of a
-// decode step (129 calls per Llama-3-8B step at B = 8), _kernel_v2h :551
-// (its 129 calls under GG_PALLAS_V2_VARIANT=v2h), _kernel_v2t :789 and
+// decode step (129 calls per Llama-3-8B step at B = 8), _kernel_v2h :551,
+// _kernel_v3 :429 and _kernel_v2 :377 (the 129 calls of each under its
+// GG_PALLAS_V2_VARIANT), _kernel_v2t :789 and
 // _kernel_v2s :660 (their 128 projections; the head runs v2g), _kernel_v2m
 // :729 (its 128 projections) and _kernel_v2p :844 (the head under v2m);
 // at M = 1-8
-// (qmv4.DECODE_MMA_MIN_ROWS up): gptq_gguf_tpu/ops/qmv4.py::_kernel_v4_pb2
+// (qmatmul.DECODE_MMA_MIN_ROWS["v4"] up): gptq_gguf_tpu/ops/qmv4.py::_kernel_v4_pb2
 // :264, _kernel_v4_pb2_i8 :305 and _kernel_v4_pb1 :346 (128 Q4_K calls and
 // the Q6_K head of a v4 step):
 //   y (M, d_out) f32 = bf16(x) @ w - xsum @ off   (f32 sums)
@@ -62,8 +65,9 @@
 //     high ones for another); a byte permute makes each code a float
 //     (byte_magic), one FMA with the group scale and one packed
 //     conversion per two weights make the bf16 pair (decode_frags lays the
-//     fragments out; the policy gives each weight; v2h's weight is bf16
-//     arithmetic, so its policy forms each pair in packed bf16 operations:
+//     fragments out; the policy gives each weight; v2h's and v3's weights
+//     are bf16 arithmetic, so their policy forms each pair in packed bf16
+//     operations, and v2's forms each weight from 128 + q (byte_128):
 //     decode_frags' PAIRS). Staged code rows are
 //     padded by 16 bytes (kDecodePitch), so the four k-slot lanes load from
 //     distinct banks;
@@ -126,8 +130,9 @@
 // registers, 4 bytes of spill stores and 4 of loads at Q6_K, none at Q2_K
 // / Q3_K; v2h's: 64 registers (63 at Q3_K), no spills; v2t's and v2m's:
 // 64, no spills; v2s's: 64, 4 bytes of spill stores and 4 of loads at Q3_K
-// (as v2g's), none at Q4_K / Q2_K (printed by tools/time_v2_kernels.py,
-// tools/ptxas_diff.py and chip_smoke.py phase 1).
+// (as v2g's), none at Q4_K / Q2_K; v3's: 55-64, v2's: 62-64, no spills
+// (printed by tools/time_v2_kernels.py, tools/ptxas_diff.py and
+// chip_smoke.py phase 1).
 
 #pragma once
 

@@ -2,9 +2,9 @@
 // (sm_90a): the v2 format's policy for the shared prefill mainloop of
 // qmatmul_mma.cuh and the decode mainloop of qmatmul_decode_mma.cuh. The
 // same function as the CUDA-core template in qmatmul_v2_weight.cuh, for
-// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for v2g, v2h
-// and v2s, at their decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8) on
-// the decode tile:
+// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for every
+// build but v2f, at its decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8)
+// on the decode tile:
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off2 ]   (f32 sums)
 // with w the build's bf16 weight from the same group_affine / weight
 // functions (so bit for bit the decode kernel's, and the JAX bodies'), and
@@ -17,15 +17,18 @@
 // v2h). v2s builds v2g's weights and sums each step's high-nibble products
 // apart before they meet the low-nibble ones (the mainloop's
 // F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). The
-// decode tile replaces _kernel_v2g :605, _kernel_v2h :551 and _kernel_v2s
-// :660 at their decode rows (launch_decode_mma); v2h's weight,
-// bf16(bf16(bf16(scale) * q) - bf16(off2)), comes from packed bf16
-// arithmetic there (frags_v2h), bit for bit group_affine / weight_q's on
-// the CUDA cores, and it has no xsum term (its offset is in the weight);
-// v2s builds v2g's fragments (the same FMA) and the decode mainloop sums
-// a warp's high-nibble slice of each step apart before it meets the
-// accumulator (F::SPLIT_HALVES there too). The
-// other builds' decode steps, f32 operands (TF32 would change the
+// decode tile replaces _kernel_v2g :605, _kernel_v2 :377, _kernel_v3 :429,
+// _kernel_v2h :551 and _kernel_v2s :660 at their decode rows
+// (launch_decode_mma), each weight bit for bit group_affine / weight_q's
+// on the CUDA cores: v3's, bf16(bf16(scale) * q), and v2h's,
+// bf16(bf16(bf16(scale) * q) - bf16(off2)), come from packed bf16
+// arithmetic there (frags_bf16; v3 keeps the xsum term, v2h has none, its
+// offset is in the weight); v2's, bf16(scale * (q - shift) - off), from one
+// f32 FMA per weight and, for the formats with a min, one subtraction
+// (frags_v2; no xsum term); v2s builds v2g's fragments (the same FMA) and
+// the decode mainloop sums a warp's high-nibble slice of each step apart
+// before it meets the accumulator (F::SPLIT_HALVES there too). v2f's
+// decode steps, f32 operands (TF32 would change the
 // products) and weights the wrapper gives one column per thread (vec 1:
 // d_out % 4 != 0 or planes not 16-byte aligned; no Llama-3-8B weight is
 // one) stay on the CUDA-core kernel.
@@ -178,69 +181,107 @@ struct V2Mma {
   // the decode tile's bf16 A fragments (decode_frags in
   // qmatmul_decode_mma.cuh) of K half kh from the staged codes; sc / o2
   // are the step's group rows (rows<P>), the weights those of group_affine
-  // / weight as in build
+  // / weight as in build, bit for bit
   template <int P>
   __device__ __forceinline__ static void frags(const Args& a, const char* st, const float* sc,
                                                const float* o2, int c0, int kh, int t,
                                                uint32_t (&af)[2][2][4]) {
-    if constexpr (BUILD == kV2h) {
-      frags_v2h<P>(st, sc, o2, c0, kh, t, af);
-      return;
-    }
-    Affine f[4];
-    float nb[4];
-    auto slice = [&](int, int sl) {
-      const int lg = 16 * sl / GS;
-      const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
-      const float4 o4 = *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0);
-      f[0] = group_affine<BUILD, true, HAS_MIN>(s4.x, o4.x, a.shift);
-      f[1] = group_affine<BUILD, true, HAS_MIN>(s4.y, o4.y, a.shift);
-      f[2] = group_affine<BUILD, true, HAS_MIN>(s4.z, o4.z, a.shift);
-      f[3] = group_affine<BUILD, true, HAS_MIN>(s4.w, o4.w, a.shift);
+    if constexpr (BUILD == kV2h || BUILD == kV3) {
+      frags_bf16<P>(st, sc, o2, c0, kh, t, af);
+    } else if constexpr (BUILD == kV2) {
+      frags_v2<P>(a, st, sc, o2, c0, kh, t, af);
+    } else {
+      static_assert(BUILD == kV2g || BUILD == kV2s, "v2f has no decode tile");
+      float s[4], nb[4];
+      auto slice = [&](int, int sl) {
+        const int lg = 16 * sl / GS;
+        const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
+        s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) nb[c] = -f[c].s * 8388608.f;
-      return 0u;
-    };
-    // v2g / v2s: s * q = fma(s, 2^23 + q, -s 2^23), exact (s * q has at
-    // most 24 significant bits and the FMA rounds once), one operation
-    auto wt = [&](int, int c, float mq) {
-      if constexpr (BUILD == kV2g || BUILD == kV2s) return fmaf(f[c].s, mq, nb[c]);
-      else return weight_q<BUILD, true, HAS_MIN>(f[c], mq - 8388608.f);
-    };
-    decode_frags<PB, PITCH>(st + P + c0, kh, t, slice, wt, af);
+        for (int c = 0; c < 4; ++c) nb[c] = -s[c] * 8388608.f;
+        return 0u;
+      };
+      // v2g / v2s: s * q = fma(s, 2^23 + q, -s 2^23), exact (s * q has at
+      // most 24 significant bits and the FMA rounds once), one operation
+      auto wt = [&](int, int c, float mq) { return fmaf(s[c], mq, nb[c]); };
+      decode_frags<PB, PITCH>(st + P + c0, kh, t, slice, wt, af);
+    }
   }
 
-  // v2h's A fragments in packed bf16 arithmetic: per pair of weights one
-  // byte permute and one mask make bf16(128 + q) of two codes, one bf16x2
-  // FMA s (128 + q) - 128 s gives bf16(s * q) (the exact s * q, one
-  // rounding) and one bf16x2 subtraction bf16(bf16(s * q) - o): the
-  // weights of group_affine / weight_q in f32 bit for bit, since the f32
-  // subtraction of two bf16 values is exact where their exponents differ
-  // by 16 or less and, where they differ by more, leaves the larger one's
-  // bf16 rounding unchanged either way. s = bf16(scale), o = bf16(off2)
+  // v2's A fragments: per weight one byte permute makes 128 + q a float
+  // (byte_128) and one FMA s (128 + q) - s (128 + shift) gives s (q -
+  // shift) exactly: s (128 + shift) is exact in f32 (s has at most 18
+  // significant bits, 128 + shift is 132 = 4 * 33 or 160 = 32 * 5 for the
+  // signed types and 128 for the others), so the FMA rounds the exact
+  // s (q - shift), which has at most 24 bits, once, to itself. Formats with
+  // a min then subtract o = off2 in one f32 operation, rounded once: the
+  // weights of group_affine / weight_q<kV2> (scale * (q - shift) - off),
+  // whose own product is exact too, bit for bit
   template <int P>
-  __device__ __forceinline__ static void frags_v2h(const char* st, const float* sc,
-                                                   const float* o2, int c0, int kh, int t,
-                                                   uint32_t (&af)[2][2][4]) {
-    uint32_t s2[4], ns2[4], o2w[4];  // bf16x2 of s, -128 s and o
+  __device__ __forceinline__ static void frags_v2(const Args& a, const char* st, const float* sc,
+                                                  const float* o2, int c0, int kh, int t,
+                                                  uint32_t (&af)[2][2][4]) {
+    float s[4], nb[4], o[4];
     auto slice = [&](int, int sl) {
       const int lg = 16 * sl / GS;
       const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
-      const float4 o4 = *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0);
+      s[0] = s4.x, s[1] = s4.y, s[2] = s4.z, s[3] = s4.w;
+      if constexpr (HAS_MIN) {
+        const float4 o4 = *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0);
+        o[0] = o4.x, o[1] = o4.y, o[2] = o4.z, o[3] = o4.w;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) nb[c] = -s[c] * (128.f + a.shift);
+      return 0u;
+    };
+    auto weight = [&](int c, uint32_t m) {
+      const float w = fmaf(s[c], byte_128(m, c), nb[c]);
+      if constexpr (HAS_MIN) return w - o[c];
+      else return w;
+    };
+    auto pair = [&](int, int c, uint32_t ma, uint32_t mb) {
+      return bf16x2_bits(weight(c, ma), weight(c, mb));
+    };
+    decode_frags<PB, PITCH, true>(st + P + c0, kh, t, slice, pair, af);
+  }
+
+  // v3's and v2h's A fragments in packed bf16 arithmetic: per pair of
+  // weights one byte permute and one mask make bf16(128 + q) of two codes
+  // and one bf16x2 FMA s (128 + q) - 128 s gives bf16(s * q) (the exact
+  // s * q, one rounding): v3's weight; v2h's takes one bf16x2 subtraction
+  // more, bf16(bf16(s * q) - o). Both are the weights of group_affine /
+  // weight_q in f32 bit for bit (as values: the FMA gives +0 where the f32
+  // product of a negative s and q = 0 is -0), v3's since the f32 s * q is
+  // exact, v2h's also since the f32 subtraction of two bf16 values is
+  // exact where their exponents differ by 16 or less and, where they
+  // differ by more, leaves the larger one's bf16 rounding unchanged either
+  // way. s = bf16(scale), o = bf16(off2); v3's off2 is the mainloop's xsum
+  // term
+  template <int P>
+  __device__ __forceinline__ static void frags_bf16(const char* st, const float* sc,
+                                                    const float* o2, int c0, int kh, int t,
+                                                    uint32_t (&af)[2][2][4]) {
+    constexpr bool SUB = BUILD == kV2h;
+    uint32_t s2[4], ns2[4], o2w[4];  // bf16x2 of s, -128 s and o (v2h)
+    auto slice = [&](int, int sl) {
+      const int lg = 16 * sl / GS;
+      const float4 s4 = *reinterpret_cast<const float4*>(sc + lg * kMmaBN + c0);
+      const float4 o4 = SUB ? *reinterpret_cast<const float4*>(o2 + lg * kMmaBN + c0) : s4;
       const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, ov[4] = {o4.x, o4.y, o4.z, o4.w};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float s = bf16_round(sv[c]);
         s2[c] = bf16x2_bits(s, s);
         ns2[c] = bf16x2_bits(-128.f * s, -128.f * s);
-        o2w[c] = bf16x2_bits(ov[c], ov[c]);
+        if constexpr (SUB) o2w[c] = bf16x2_bits(ov[c], ov[c]);
       }
       return 0u;
     };
     auto bf2 = [](const uint32_t& u) { return *reinterpret_cast<const __nv_bfloat162*>(&u); };
     auto pair = [&](int, int c, uint32_t ma, uint32_t mb) {
       const uint32_t m = (__byte_perm(ma, mb, c | (c + 4) << 8) & 0x00FF00FFu) | 0x43004300u;
-      const __nv_bfloat162 w = __hsub2(__hfma2(bf2(s2[c]), bf2(m), bf2(ns2[c])), bf2(o2w[c]));
+      __nv_bfloat162 w = __hfma2(bf2(s2[c]), bf2(m), bf2(ns2[c]));
+      if constexpr (SUB) w = __hsub2(w, bf2(o2w[c]));
       return *reinterpret_cast<const uint32_t*>(&w);
     };
     decode_frags<PB, PITCH, true>(st + P + c0, kh, t, slice, pair, af);
@@ -254,8 +295,8 @@ bool launch_mma(const V2Args& a, int bm) {
   return launch_mma_tiles<V2Mma<BUILD, PB, GS, HAS_MIN>>(a, bm);
 }
 
-// the tensor-core decode tile (qmatmul_decode_mma.cuh) of build v2g, v2h
-// or v2s, M <= 8 rows (declared in qmatmul_v2_weight.cuh)
+// the tensor-core decode tile (qmatmul_decode_mma.cuh) of every build but
+// v2f, M <= 8 rows (declared in qmatmul_v2_weight.cuh)
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a) {
   launch_decode_mma_tile<V2Mma<BUILD, PB, GS, HAS_MIN, kDecodePitch>>(a);

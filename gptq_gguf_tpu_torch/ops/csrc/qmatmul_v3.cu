@@ -1,8 +1,8 @@
 // The v3 and v2h kernel variants: builds kV3 and kV2h of the per-weight
 // dequant-matmul kernel in qmatmul_v2_weight.cuh (what each computes is
 // written there), their tensor-core prefill tiles (qmatmul_v2_mma.cuh) and
-// v2h's tensor-core decode tile (qmatmul_decode_mma.cuh, through the same
-// header).
+// their tensor-core decode tiles (qmatmul_decode_mma.cuh, through the same
+// header; both form their weights in packed bf16 arithmetic there).
 // Built by gptq_gguf_tpu_torch/ops/cuda_build.py into a shared library with
 // a plain C interface, bound with ctypes by
 // gptq_gguf_tpu_torch/ops/qmatmul.py::dequant_matmul_v3 / _v2h.

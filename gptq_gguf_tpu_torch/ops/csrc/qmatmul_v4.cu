@@ -26,8 +26,8 @@
 // the same rounding, so their bf16 weights are equal bit for bit.
 //
 // Three paths, chosen by the wrapper's launch plan (qmatmul._plan):
-//   * M = 1-8 on vec-4 weights (decode; qmv4.DECODE_MMA_MIN_ROWS to
-//     qmatmul.MMA_MIN_ROWS - 1), f32 or bf16 x: V4Mma again, for the
+//   * M = 1-8 on vec-4 weights (decode; qmatmul.DECODE_MMA_MIN_ROWS["v4"]
+//     to qmatmul.MMA_MIN_ROWS - 1), f32 or bf16 x: V4Mma again, for the
 //     tensor-core decode mainloop of qmatmul_decode_mma.cuh (the weight as
 //     mma.sync's A operand, x's rows its n8; what bounds it and its design
 //     are written there). Per 64-row step rows<P> writes the step's scales

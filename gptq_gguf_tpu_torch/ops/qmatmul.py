@@ -33,8 +33,8 @@ and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (``csrc/qmatmul_v3.cu``), all instances of ``csrc/qmatmul_v2_weight.cuh``
 (CUDA cores) and of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy for the
 tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
-``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for v2g and
-v2h and v2s, of the tensor-core decode mainloop of
+``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for every
+per-weight variant but v2f, of the tensor-core decode mainloop of
 ``csrc/qmatmul_decode_mma.cuh``: bf16 operands from the variant's
 ``DECODE_MMA_MIN_ROWS`` to 8 rows, every B=8 decode step);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
@@ -520,17 +520,18 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     return bm, per, -(-n_sg // per)
 
 
-# the tile code of the tensor-core decode tile of v2g, v2h, v2s, v2m, v2t,
-# v2p and v4 (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
+# the tile code of the tensor-core decode tile of every v2 variant but v2f
+# and of v4 (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
 # mma.sync), which neither a CUDA-core tile (1, 2, 4, 8 rows) nor a
 # prefill tile (32, 64, 128) uses
 DECODE_MMA_TILE = 16
-# The v2 variants with a tensor-core decode tile, each with the fewest rows
-# of a bf16-operand call on a vec-4 weight it takes there (up to
-# MMA_MIN_ROWS - 1; fewer rows run the CUDA-core tiles; v4 has its own,
-# qmv4.DECODE_MMA_MIN_ROWS), read at every call. Each was timed against
-# the CUDA-core tile at M = 1, 2 and 3 (tools/time_v2_kernels.py --variant
-# V --m 1,2,3 --core --decode-min-rows 1, H100: PERF.md):
+# Every kernel with a tensor-core decode tile, each with the fewest rows of
+# a call on a vec-4 weight it takes there (up to MMA_MIN_ROWS - 1; fewer
+# rows run the CUDA-core tiles), read at every call: the v2 variants (with
+# bf16 operands) and "v4", the v4 format's kernel (ops/qmv4.py; f32 or
+# bf16 x). Each was timed against the CUDA-core tile at M = 1, 2 and 3
+# (tools/time_v2_kernels.py --variant V, or --format v4, --m 1,2,3 --core
+# --decode-min-rows 1, H100: PERF.md):
 #   v2g: the 129 calls of one Llama-3-8B step at M = 1 on the CUDA-core
 #     tile 5.37-5.39 ms against the decode tile's 5.76-5.81, at M = 2
 #     6.02-6.03 against 5.78, at M = 3 (the 4-row tile) 7.03-7.06 against
@@ -550,9 +551,21 @@ DECODE_MMA_TILE = 16
 #     M = 2 5.41-5.44 against 8.46-8.48, at M = 3 5.41-5.42 against 5.86;
 #   v2s: its 128 projections (split halves) at M = 1 5.60-5.61 against the
 #     CUDA-core tile's 5.23-5.24, at M = 2 5.57-5.62 against 5.64-5.70, at
-#     M = 3 5.57-5.62 against 6.76-6.80.
-DECODE_MMA_MIN_ROWS = {"v2g": 2, "v2p": 3, "v2h": 1, "v2t": 1, "v2m": 1, "v2s": 2}
-DECODE_MMA_VARIANTS = tuple(DECODE_MMA_MIN_ROWS)
+#     M = 3 5.57-5.62 against 6.76-6.80;
+#   v3: the 129 calls of a step (packed bf16 weights, the xsum term) at
+#     M = 1 on the CUDA-core tile 5.41 against the decode tile's 5.82, at
+#     M = 2 6.09-6.15 against 5.81-5.86, at M = 3 7.10 against 5.82;
+#   v2: the 129 calls of a step (its FMA forms) at M = 1 on the CUDA-core
+#     tile 5.49-5.55 against the decode tile's 5.52-5.61, at M = 2
+#     6.09-6.17 against 5.54-5.63, at M = 3 7.18 against 5.57;
+#   v4: the 129 calls of a step with f32 scales at M = 1 on the CUDA-core
+#     tile 9.34-9.36 against the decode tile's 5.76-5.77, at M = 2
+#     6.57-6.59 against 5.73-5.77, at M = 3 (its 4-row tile) 10.51 against
+#     5.77-5.79.
+DECODE_MMA_MIN_ROWS = {"v2g": 2, "v2p": 3, "v2h": 1, "v2t": 1, "v2m": 1, "v2s": 2, "v3": 2,
+                       "v2": 2, "v4": 1}
+# the v2 variants among them
+DECODE_MMA_VARIANTS = tuple(v for v in DECODE_MMA_MIN_ROWS if v != "v4")
 # blocks per SM the decode tile's split-K plan fills: two waves of the four
 # resident blocks (csrc/qmatmul_decode_mma.cuh; timed against 4 and 12 with
 # tools/time_v2_kernels.py --decode-blocks: PERF.md)
@@ -733,14 +746,23 @@ def dequant_matmul_v2g(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 def dequant_matmul_v2_exact(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                             mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """y = T(x) @ T(scale * (q - shift) - off) through the v2 kernel
-    (``csrc/qmatmul_v2.cu``): the bit-exact f32 weight, then rounded."""
+    (``csrc/qmatmul_v2.cu``): the bit-exact f32 weight, then rounded; with
+    bf16 operands from its ``DECODE_MMA_MIN_ROWS`` to 8 rows on the
+    tensor-core decode tile (``V2Mma<kV2>`` through
+    ``csrc/qmatmul_decode_mma.cuh``: each weight one f32 FMA from 128 + q,
+    and one subtraction for the formats with a min; also counted in
+    ``decode_mma_launches``)."""
     return _per_weight(dequant_matmul_v2_exact, "v2", x, rql, mxu_dtype)
 
 
 def dequant_matmul_v3(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                       mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """y = T(x) @ T(T(q) * T(scale)) - xsum @ off2 through the v3 kernel
-    (``csrc/qmatmul_v3.cu``): the scale rounded before the product."""
+    (``csrc/qmatmul_v3.cu``): the scale rounded before the product; with
+    bf16 operands from its ``DECODE_MMA_MIN_ROWS`` to 8 rows on the
+    tensor-core decode tile (``V2Mma<kV3>`` through
+    ``csrc/qmatmul_decode_mma.cuh``: each pair of weights one bf16x2 FMA,
+    the xsum term in f32; also counted in ``decode_mma_launches``)."""
     return _per_weight(dequant_matmul_v3, "v3", x, rql, mxu_dtype)
 
 

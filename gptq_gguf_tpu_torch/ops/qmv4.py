@@ -22,8 +22,8 @@ hi-group scales (s / 16) and the -8 in ``offc`` (offc_hi -= 8 * s).
 
 ``dequant_matmul_v4`` launches the hand-written kernel
 (``csrc/qmatmul_v4.cu``: the tensor-core decode tile of
-``csrc/qmatmul_decode_mma.cuh`` from ``DECODE_MMA_MIN_ROWS`` (1) to 8
-rows, tensor-core tiles from ``qmatmul.MMA_MIN_ROWS`` rows, CUDA-core tiles
+``csrc/qmatmul_decode_mma.cuh`` from ``qmatmul.DECODE_MMA_MIN_ROWS["v4"]``
+(1) to 8 rows, tensor-core tiles from ``qmatmul.MMA_MIN_ROWS`` rows, CUDA-core tiles
 for vec-1 weights) for a CUDA tensor and runs its plain PyTorch
 version, ``dequant_matmul_v4_reference``, for a CPU tensor. The JAX
 package's ``_split_planes`` and ``select_tiles_v4`` are TPU layout rules
@@ -43,6 +43,7 @@ import torch
 from .. import resolve_device
 from ..formats.ggml import KQUANT_SPECS, QK_K, GGMLQuantizationType
 from .kquant import SuperGroupParams
+from . import qmatmul
 from .qmatmul import (_HALF, DECODE_MMA_TILE, _folded_planes_v2, _nibble_pack, _pack_codes,
                       _ptr, _to_device, c_function, launch_setup)
 
@@ -219,15 +220,6 @@ def dequant_matmul_v4_reference(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> t
     return y
 
 
-# the fewest rows of a vec-4 weight's call on the tensor-core decode tile
-# (up to qmatmul.MMA_MIN_ROWS - 1): the 129 calls of one Llama-3-8B step
-# with f32 scales ran at M = 1 on the CUDA-core tile in 9.34-9.36 ms against
-# the decode tile's 5.76-5.77, at M = 2 in 6.57-6.59 against 5.73-5.77, at
-# M = 3 (its 4-row tile) in 10.51 against 5.77-5.79
-# (tools/time_v2_kernels.py --format v4 --m 1,2,3 --core --decode-min-rows
-# 1, H100: PERF.md); v2g's, qmatmul.DECODE_MMA_MIN_ROWS["v2g"], is 2
-DECODE_MMA_MIN_ROWS = 1
-
 _V4_ARGS = ((ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
             + (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,))
 
@@ -237,10 +229,12 @@ def _launch_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4, mma: bool = True,
     """One launch of ``csrc/qmatmul_v4.cu`` on x's current stream (the
     library is built on first use), the tensor-core tiles allowed where
     ``mma`` and ``decode_mma`` allow them (``qmatmul._plan``; the decode
-    tile from DECODE_MMA_MIN_ROWS rows). Returns (y, the tile that ran:
+    tile from ``qmatmul.DECODE_MMA_MIN_ROWS["v4"]`` rows, read at every
+    call). Returns (y, the tile that ran:
     "decode_mma", "mma" or "cuda_core")."""
     x, vec, mt, per, splits, out, part = launch_setup(
-        x, rql, mma=mma, decode_mma=decode_mma, decode_min_rows=DECODE_MMA_MIN_ROWS)
+        x, rql, mma=mma, decode_mma=decode_mma,
+        decode_min_rows=qmatmul.DECODE_MMA_MIN_ROWS["v4"])
     M, d_in = x.shape
     rc = c_function("qmatmul_v4", "gg_v4_matmul", _V4_ARGS)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.scale),
@@ -259,9 +253,10 @@ def dequant_matmul_v4(x: torch.Tensor, rql: RuntimeQuantLinearV4) -> torch.Tenso
     """y (M, d_out) f32 = x @ dequant(W)^T through the v4 kernel
     (``csrc/qmatmul_v4.cu``; the offset correction runs inside it, one
     launch); a CPU ``x`` runs the plain version. A vec-4 weight (f32 or
-    bf16 x) runs the tensor-core decode tile from ``DECODE_MMA_MIN_ROWS``
-    (1) to 8 rows (also counted in ``decode_mma_launches``) and the
-    tensor-core tiles from ``MMA_MIN_ROWS`` rows (``mma_launches``);
+    bf16 x) runs the tensor-core decode tile from
+    ``qmatmul.DECODE_MMA_MIN_ROWS["v4"]`` (1) to 8 rows (also counted in
+    ``decode_mma_launches``) and the tensor-core tiles from
+    ``MMA_MIN_ROWS`` rows (``mma_launches``);
     vec-1 weights the CUDA-core tiles at any M. The planes are validated
     on the first call with each weight; later calls check only x."""
     if x.device.type == "cpu":

@@ -1,7 +1,7 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
 every v2 variant, of v1 and of v4, the tensor-core decode tiles of v2g,
-v2h, v2t, v2p and v4, GPTQ
+v2, v3, v2h, v2s, v2m, v2t, v2p and v4, GPTQ
 column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
@@ -18,8 +18,8 @@ differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 sum of |terms| of one output (1e-5 on v4's and v1's tensor-core tiles,
 each with a planted control that must fail it), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-and v2s tensor-core tiles and on the decode tiles of v2g, v2h, v2t, v2p
-and v4). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles and on the decode tiles of v2g, v2, v3, v2h,
+v2s, v2m, v2t, v2p and v4). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
@@ -875,12 +875,12 @@ def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
 @pytest.mark.cuda
 def test_decode_mma_tile_failures_raise(cuda, monkeypatch):
     """No fallback: a decode-tile launch the source does not instantiate
-    (v2's build given the decode tile's code, as the route would give it)
+    (v2f's build given the decode tile's code, as the route would give it)
     raises, and so does a build failure of the library, which counts
     nothing."""
     rql = _rql(T.Q4_K, 512, 512, seed=5, device=cuda)
     x = torch.randn(8, 512, device=cuda).to(torch.bfloat16)
-    lib, code = qmatmul._PER_WEIGHT["v2"]
+    lib, code = qmatmul._PER_WEIGHT["v2f"]
     with pytest.raises(RuntimeError, match="launch failed"):
         qmatmul._launch_v2(lib, code, x, rql, torch.bfloat16,
                            *qmatmul._v2_route("v2g", torch.bfloat16))
@@ -951,7 +951,7 @@ def test_v4_decode_mma_tile_matches_plain(cuda, monkeypatch, fmt, qtype, M, d_ou
          ).to(cuda, dtype)
     splits = qmatmul._plan(M, d_out, d_in // 256, qmatmul._sm_count(cuda.index or 0), 4,
                            mma=True, decode_mma=True,
-                           decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)[2]
+                           decode_min_rows=qmatmul.DECODE_MMA_MIN_ROWS["v4"])[2]
     assert (splits == 1) == (blocks == 0)
     n0, d0, m0, body0 = _v4_counts()
     got = fn(x, rql)
@@ -1366,20 +1366,25 @@ def test_v2p_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda
 
 # the decode tiles of v2h (V2Mma<kV2h>, all five K-quants: DECODE_MMA_CASES),
 # v2t (GroupSumMma, Q4_K / Q5_K: V2P_DECODE_CASES), v2m (GroupDotMma at gs
-# 32, Q4_K / Q5_K) and v2s (V2Mma<kV2s>, split halves: Q4_K / Q2_K / Q3_K),
-# each with the planted control its limit must reject: v2h against v2f's f32
-# affine (bf16(scale * q - off2), one rounding), v2t and v2m against v2g's
-# rounding (bf16(scale * q)), v2s against the unrounded scale * q (the
-# group-dot plain version)
+# 32, Q4_K / Q5_K), v2s (V2Mma<kV2s>, split halves: Q4_K / Q2_K / Q3_K), v3
+# (V2Mma<kV3>, packed bf16 weights and the xsum term) and v2 (V2Mma<kV2>,
+# its FMA forms), the last two at all five K-quants, each with the planted
+# control its limit must reject: v2h against v2f's f32 affine (bf16(scale *
+# q - off2), one rounding), v2t, v2m and v2 against v2g's rounding
+# (bf16(scale * q), the offset out of the weight), v2s and v3 against the
+# unrounded scale * q (the group-dot plain version)
 V2H_V2T_DECODE = [*[("v2h", q, *c) for q in ALL_K for c in DECODE_MMA_CASES],
                   *[("v2t", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES],
                   *[("v2m", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES],
-                  *[("v2s", q, *c) for q in (T.Q4_K, T.Q2_K, T.Q3_K) for c in DECODE_MMA_CASES]]
+                  *[("v2s", q, *c) for q in (T.Q4_K, T.Q2_K, T.Q3_K) for c in DECODE_MMA_CASES],
+                  *[(v, q, *c) for v in ("v3", "v2") for q in ALL_K for c in DECODE_MMA_CASES]]
 DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
                       x, rql, torch.bfloat16, "v2f"),
                   "v2t": qmatmul.dequant_matmul_v2g_reference,
                   "v2m": qmatmul.dequant_matmul_v2g_reference,
-                  "v2s": qmatmul.dequant_matmul_v2m_reference}
+                  "v2s": qmatmul.dequant_matmul_v2m_reference,
+                  "v3": qmatmul.dequant_matmul_v2m_reference,
+                  "v2": qmatmul.dequant_matmul_v2g_reference}
 
 
 @pytest.mark.cuda
@@ -1387,10 +1392,11 @@ DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
                          ids=lambda a: getattr(a, "name", str(a)))
 def test_v2h_v2t_decode_mma_tiles_match_plain(cuda, f32_exact, monkeypatch, variant, qtype, M,
                                              d_out, d_in, dtype, blocks):
-    """v2h, v2t, v2m and v2s with bf16 operands at 1-8 rows on their decode
-    tiles (every row count: their DECODE_MMA_MIN_ROWS lowered here) against
-    their plain versions, within 1e-5 of the largest sum of |terms| of an
-    output (v2h: its bf16 weights bit for bit, f32 sums in another order;
+    """v2h, v2t, v2m, v2s, v3 and v2 with bf16 operands at 1-8 rows on their
+    decode tiles (every row count: their DECODE_MMA_MIN_ROWS lowered here)
+    against their plain versions, within 1e-5 of the largest sum of |terms|
+    of an output (v2h, v3, v2: their bf16 weights bit for bit, f32 sums in
+    another order, v3 with the xsum term;
     v2t: exact products of raw codes, each step's scaled slice partials
     summed before the accumulator; v2m: each slice partial scaled into the
     accumulator; v2s: v2g's bf16 weights, each step's high-nibble slice
@@ -1461,15 +1467,106 @@ def test_v2h_decode_mma_tile_weights_bit_equal(cuda, monkeypatch):
         assert torch.equal(got, w)
 
 
+def _edge_planes(qtype, device, off: bool = True):
+    """A 512 x 512 weight of ``qtype`` planted at its extremes, for the
+    decode tiles' weight arithmetic (v3's packed bf16 FMA, v2's FMA forms):
+    f16 super-scales (and super-mins) over their range, 2^-24 to 65504,
+    group scales (int8 for Q6_K: -128..127) and codes over their whole
+    ranges; column 0 holds the largest super-scale, the largest scale
+    magnitudes (both signs for the signed types) and codes alternating
+    between 0 and the largest. ``off`` False leaves off2 zero (mins of 0,
+    shift 0), so unit rows of x return v3's weights with its xsum term."""
+    rng = np.random.default_rng(34 + int(qtype))
+    spec = KQUANT_SPECS[qtype]
+    d_in = d_out = 512
+    n_sg, ng, gs = d_in // 256, d_in // spec.group_size, spec.group_size
+    per_byte = 2 if spec.bits <= 4 else 1
+    q_hi = spec.qmax - spec.qmin
+    lo, hi = ((-128, 127) if qtype == T.Q6_K else (-32, 31)) if spec.signed else (0, spec.scale_maxq)
+
+    def super_scale():
+        v = 2.0 ** rng.integers(-24, 16, (n_sg, d_out)) * rng.uniform(1, 2, (n_sg, d_out))
+        v = np.minimum(v, 65504).astype(np.float16).astype(np.float32)
+        v[:, 0] = 65504
+        return np.repeat(v, 2, axis=0)  # d_rep 2
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    sc = rng.integers(lo, hi + 1, (ng, d_out))
+    sc[:, 0] = np.where(np.arange(ng) % 2, lo, hi) if spec.signed else hi
+    codes = rng.integers(0, q_hi + 1, (d_in, d_out))
+    codes[:, 0] = np.where(np.arange(d_in) % 2, q_hi, 0)
+    qs = qmatmul._nibble_pack(codes) if per_byte == 2 else codes
+    mn = dmin = None
+    if not spec.signed:
+        mn = rng.integers(0, spec.scale_maxq + 1, (ng, d_out)) * off
+        mn[:, 0] = spec.scale_maxq * off
+        dmin = super_scale()
+    return qmatmul.RuntimeQuantLinearV2(
+        t(qs.astype(np.uint8)), t(super_scale()), t(dmin),
+        t(sc.astype(np.int8 if spec.signed else np.uint8)),
+        t(None if mn is None else mn.astype(np.uint8)), d_in, gs, per_byte,
+        -spec.qmin if off else 0, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+@pytest.mark.parametrize("variant", ["v3", "v2"])
+def test_v3_v2_decode_mma_tile_weights_bit_equal(cuda, monkeypatch, variant, qtype):
+    """Through unit rows of x the v3 and v2 decode tiles return their bf16
+    weights, on the planted planes of _edge_planes: v3's from one bf16x2
+    FMA per pair (its off2 left zero here, so the xsum term subtracts
+    nothing), v2's from one f32 FMA per weight and a subtraction of the
+    offset; each equal to the plain version's T(T(scale) * q) and
+    T(scale * (q - shift) - off), rounded in f32 (v3's from the planes with
+    their offsets, which its weights do not depend on)."""
+    monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, variant, 1)
+    fn = V2_WRAPPERS[variant]
+    rql = _edge_planes(qtype, cuda, off=variant == "v2")
+    w = qmatmul._v2_operand(_edge_planes(qtype, cuda), variant, torch.bfloat16)[0]
+    eye = torch.eye(512, device=cuda, dtype=torch.bfloat16)
+    d0 = fn.decode_mma_launches
+    got = torch.cat([fn(eye[k:k + 8], rql) for k in range(0, 512, 8)])
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 64
+    assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["v3", "v2"])
+def test_v3_v2_decode_mma_tile_failures_raise(cuda, monkeypatch, variant):
+    """No fallback: the decode tile's code with f32 operands, which the
+    source does not instantiate, raises; a build failure of the library
+    raises and counts nothing."""
+    rql = _rql(T.Q6_K, 512, 512, seed=6, device=cuda)
+    x = torch.randn(8, 512, device=cuda).to(torch.bfloat16)
+    lib, code = qmatmul._PER_WEIGHT[variant]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        qmatmul._launch_v2(lib, code, x, rql, torch.float32,
+                           *qmatmul._v2_route(variant, torch.bfloat16))
+    fn = V2_WRAPPERS[variant]
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(qmatmul, "c_function", lambda lib, *a: broken(lib))
+    n0, d0 = fn.launches, fn.decode_mma_launches
+    with pytest.raises(RuntimeError, match=f"nvcc failed for {lib}"):
+        fn(x, rql)
+    assert (fn.launches, fn.decode_mma_launches) == (n0, d0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,qtype", [("v2h", T.Q4_K), ("v2h", T.Q6_K), ("v2t", T.Q4_K),
                                            ("v2t", T.Q5_K), ("v2m", T.Q4_K), ("v2m", T.Q5_K),
-                                           ("v2s", T.Q4_K), ("v2s", T.Q3_K)],
+                                           ("v2s", T.Q4_K), ("v2s", T.Q3_K), ("v3", T.Q4_K),
+                                           ("v3", T.Q6_K), ("v2", T.Q4_K), ("v2", T.Q6_K)],
                          ids=lambda a: getattr(a, "name", a))
 def test_v2h_v2t_decode_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(
         cuda, monkeypatch, variant, qtype):
-    """The v2h, v2t, v2m and v2s decode tiles copy an x that is not 16-byte
-    aligned;
+    """The v2h, v2t, v2m, v2s, v3 and v2 decode tiles copy an x that is not
+    16-byte aligned;
     f32 operands, vec-1 weights and fewer rows than the variant's
     DECODE_MMA_MIN_ROWS stay on the CUDA-core tiles (decode_mma_launches
     unchanged, no mma_launches)."""

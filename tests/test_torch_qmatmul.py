@@ -221,11 +221,11 @@ def test_v2g_bf16_decode_takes_the_decode_tile(M):
 ], ids=lambda a: str(a).replace("torch.", ""))
 @pytest.mark.parametrize("M", [1, 8])
 def test_decode_keeps_the_cuda_core_tiles_elsewhere(variant, mxu, vec, M):
-    """f32 operands, vec-1 weights and the variants without a decode tile
-    (v2, v3, v2f) keep _launch_plan's CUDA-core tiles at M <= 8; v2h, v2s,
+    """f32 operands, vec-1 weights and the variant without a decode tile
+    (v2f) keep _launch_plan's CUDA-core tiles at M <= 8; v2, v3, v2h, v2s,
     v2m, v2t and v2p (bf16 operands, vec 4) take their own decode tiles
     from their DECODE_MMA_MIN_ROWS."""
-    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t", "v2m", "v2s")
+    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t", "v2m", "v2s", "v3", "v2")
     route = qmatmul._v2_route(variant, mxu)
     decode = variant in qmatmul.DECODE_MMA_VARIANTS and mxu == torch.bfloat16
     assert route[3] is decode
@@ -305,7 +305,7 @@ def test_v4_plan(M, d_out, n_sg, vec, want):
 
 
 @pytest.mark.parametrize("M,d_out,n_sg,vec", [
-    (1, 4096, 16, 4),        # from qmv4.DECODE_MMA_MIN_ROWS (1) to 8 rows: the decode tile
+    (1, 4096, 16, 4),        # from DECODE_MMA_MIN_ROWS["v4"] (1) to 8 rows: the decode tile
     (2, 4096, 16, 4),
     (5, 6144, 16, 4),
     (8, 28672, 16, 4),
@@ -319,15 +319,17 @@ def test_v4_plan(M, d_out, n_sg, vec, want):
 ])
 def test_v4_plan_with_the_decode_tile(M, d_out, n_sg, vec):
     """The v4 wrapper's plan (launch_setup(x, rql, mma=True,
-    decode_mma=True, decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)): vec-4
+    decode_mma=True, decode_min_rows=DECODE_MMA_MIN_ROWS["v4"])): vec-4
     weights at 1 to 8 rows take _decode_mma_plan (v4's CUDA-core tile ran
     one row slower: PERF.md); vec-1 weights and M >= MMA_MIN_ROWS keep the
-    plans test_v4_plan holds. v2g's threshold stays at 2 rows."""
+    plans test_v4_plan holds. v2g's threshold stays at 2 rows; qmv4 keeps
+    no threshold of its own."""
     from gptq_gguf_tpu_torch.ops import qmv4
 
-    assert qmv4.DECODE_MMA_MIN_ROWS == 1 and qmatmul.DECODE_MMA_MIN_ROWS["v2g"] == 2
+    assert qmatmul.DECODE_MMA_MIN_ROWS["v4"] == 1 and qmatmul.DECODE_MMA_MIN_ROWS["v2g"] == 2
+    assert not hasattr(qmv4, "DECODE_MMA_MIN_ROWS")
     got = qmatmul._plan(M, d_out, n_sg, 132, vec, mma=True, decode_mma=True,
-                        decode_min_rows=qmv4.DECODE_MMA_MIN_ROWS)
+                        decode_min_rows=qmatmul.DECODE_MMA_MIN_ROWS["v4"])
     if vec == 4 and M < qmatmul.MMA_MIN_ROWS:
         assert got == qmatmul._decode_mma_plan(d_out, n_sg, 132)
         assert got[0] == qmatmul.DECODE_MMA_TILE
@@ -379,7 +381,7 @@ def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
     launch_setup: v1 asking for the tensor-core prefill tiles with a bf16
     x only (its other defaults: the CUDA-core tiles of up to 32 rows), v4
     for the tensor-core prefill tiles and the tensor-core decode tile from
-    one row (qmv4.DECODE_MMA_MIN_ROWS) whatever x is."""
+    one row (qmatmul.DECODE_MMA_MIN_ROWS["v4"]) whatever x is."""
     from gptq_gguf_tpu_torch.ops import qmv4
 
     mod, fn = ((qmatmul, qmatmul.dequant_matmul_v1) if fmt.startswith("v1")
@@ -502,20 +504,21 @@ def test_v2p_wrapper_counts_each_tile(mt, counted, monkeypatch):
                      "mma_launches": int(counted == "mma_launches")}
 
 
-@pytest.mark.parametrize("variant", ["v2h", "v2t", "v2m", "v2s"])
+@pytest.mark.parametrize("variant", ["v2h", "v2t", "v2m", "v2s", "v3", "v2"])
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
 def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
-    """v2h, v2t, v2m and v2s with bf16 operands on a vec-4 weight: every M
-    from the variant's DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1 takes its
-    decode tile at every 8B decode shape it runs (v2h the head too; v2t
-    and v2s leave the gs-16 head to v2g, v2m to v2p), fewer rows the
-    CUDA-core tiles; f32 operands and vec-1 weights keep the CUDA-core
-    tiles."""
+    """v2h, v2t, v2m, v2s, v3 and v2 with bf16 operands on a vec-4 weight:
+    every M from the variant's DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1
+    takes its decode tile at every 8B decode shape it runs (v2h, v3 and v2
+    the head too; v2t and v2s leave the gs-16 head to v2g, v2m to v2p),
+    fewer rows the CUDA-core tiles; f32 operands and vec-1 weights keep
+    the CUDA-core tiles."""
     lo = qmatmul.DECODE_MMA_MIN_ROWS[variant]
     assert 1 <= lo < qmatmul.MMA_MIN_ROWS
     route = qmatmul._v2_route(variant, torch.bfloat16)
     assert route[3:] == (True, lo)
-    shapes = STEP_8B if variant == "v2h" else {k: v for k, v in STEP_8B.items() if k != "lm_head"}
+    shapes = (STEP_8B if variant in ("v2h", "v3", "v2")
+              else {k: v for k, v in STEP_8B.items() if k != "lm_head"})
     for d_out, n_sg in shapes.values():
         core = qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
         got = qmatmul._plan(M, d_out, n_sg, 132, 4, *route)
@@ -528,14 +531,16 @@ def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
 @pytest.mark.parametrize("variant,lib,code,gs", [("v2h", "qmatmul_v3", 4, 32),
                                                  ("v2t", "qmatmul_v2m", 1, 32),
                                                  ("v2m", "qmatmul_v2m", 0, 32),
-                                                 ("v2s", "qmatmul_v2g", 5, 32)])
+                                                 ("v2s", "qmatmul_v2g", 5, 32),
+                                                 ("v3", "qmatmul_v3", 2, 16),
+                                                 ("v2", "qmatmul_v2", 1, 16)])
 @pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
                                         (32, "mma_launches")])
 def test_v2h_v2t_wrappers_count_each_tile(variant, lib, code, gs, mt, counted, monkeypatch):
-    """A v2h, v2t, v2m or v2s launch counts once on ``launches`` and, by the
-    tile that ran, on ``decode_mma_launches`` or ``mma_launches``; each
-    asks for its own route (a stand-in launch on the meta device reports
-    the tile)."""
+    """A v2h, v2t, v2m, v2s, v3 or v2 launch counts once on ``launches``
+    and, by the tile that ran, on ``decode_mma_launches`` or
+    ``mma_launches``; each asks for its own route (a stand-in launch on the
+    meta device reports the tile)."""
     from types import SimpleNamespace
 
     fn = getattr(qmatmul, qmatmul.V2_WRAPPERS[variant])

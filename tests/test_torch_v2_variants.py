@@ -149,15 +149,18 @@ def _in_decode_order(x, rql, form, swap=False):
       half by itself;
     * "v2s" (V2Mma<kV2s>, F::SPLIT_HALVES): v2g's weights bf16(scale * q),
       slice 0 (the low nibbles) added to the half, slice 1 (the high
-      nibbles, 128 rows up) summed apart and added after it.
+      nibbles, 128 rows up) summed apart and added after it;
+    * "v3" (V2Mma<kV3>): v3's weights bf16(bf16(scale) * q), each slice's
+      products added to the half.
 
     ``swap`` plants a fault: the group-dot forms give each slice the
-    step's other group (a wrong nibble-group map), v2s dots each nibble
-    slice with the x rows of the other nibble."""
+    step's other group (a wrong nibble-group map), v2s and v3 dot each
+    slice with the x rows of the step's other half."""
     M, d_in = x.shape
     pb, gs, d_out = rql.per_byte, rql.group_size, rql.d_out
     scale, off2 = qmatmul._folded_planes_v2(rql)
-    w = qmatmul._v2_operand(rql, "v2s", torch.bfloat16)[0] if form == "v2s" else None
+    per_weight = form in ("v2s", "v3")
+    w = qmatmul._v2_operand(rql, form, torch.bfloat16)[0] if per_weight else None
     xb, x32 = x.to(torch.bfloat16).float(), x.float()
     half = [torch.zeros(M, d_out), torch.zeros(M, d_out)]
     for sg in range(d_in // 256):
@@ -170,14 +173,14 @@ def _in_decode_order(x, rql, form, swap=False):
                 codes = rql.qs[sg * 256 + 64 * q: sg * 256 + 64 * q + 64].float()
                 rows = list(range(64 * q, 64 * q + 64))
             rows = torch.tensor(rows) + 256 * sg
-            x_rows = torch.cat([rows[32:], rows[:32]]) if swap and form == "v2s" else rows
+            x_rows = torch.cat([rows[32:], rows[:32]]) if swap and per_weight else rows
             group = [int(rows[32 * lg]) // 32 for lg in range(2)]  # the step's staged gs-32 groups
             for kh in range(2):
                 s = None
                 for j in range(2):
                     sl = _decode_slice(pb, kh, j)
                     k = slice(16 * sl, 16 * sl + 16)
-                    if form == "v2s":
+                    if per_weight:
                         p = xb[:, x_rows[k]] @ w[rows[k]]
                     else:
                         g = group[(16 * sl // 32) ^ int(swap)]
@@ -196,27 +199,31 @@ def _in_decode_order(x, rql, form, swap=False):
 
 @pytest.mark.parametrize("form,qtype", [("v2t", T.Q4_K), ("v2t", T.Q5_K), ("v2m", T.Q4_K),
                                         ("v2m", T.Q5_K), ("v2s", T.Q4_K), ("v2s", T.Q2_K),
-                                        ("v2s", T.Q3_K)], ids=lambda a: getattr(a, "name", a))
+                                        ("v2s", T.Q3_K), ("v3", T.Q4_K), ("v3", T.Q3_K),
+                                        ("v3", T.Q6_K)], ids=lambda a: getattr(a, "name", a))
 @pytest.mark.parametrize("M", [1, 8])
 def test_decode_order_matches_jax_interpret(form, qtype, M):
-    """The function v2t's, v2m's and v2s's decode tiles compute, each in
-    its order (_in_decode_order), against JAX's _kernel_v2t, _kernel_v2m and
-    _kernel_v2s in interpret mode on a bf16-valued x: the products are
-    exact on both sides (raw codes, or v2g's bf16 weights) and only the
-    grouping and the order of the f32 sums differ, so within 1e-5 of the
-    largest sum of |terms| of an output (the limit the tiles are held to
-    on the card). The same order with the planted fault (the slices'
-    groups swapped; for v2s x's halves swapped against the nibbles) fails
-    that limit."""
+    """The function v2t's, v2m's, v2s's and v3's decode tiles compute, each
+    in its order (_in_decode_order; v3 with its xsum term, off2 = scale *
+    shift for the signed types), against JAX's _kernel_v2t, _kernel_v2m,
+    _kernel_v2s and _kernel_v3 in interpret mode on a bf16-valued x: the
+    products are exact on both sides (raw codes, or v2g's or v3's bf16
+    weights) and only the grouping and the order of the f32 sums differ, so
+    within 1e-5 of the largest sum of |terms| of an output (the limit the
+    tiles are held to on the card). The same order with the planted fault
+    (the slices' groups swapped; for v2s and v3 x's halves swapped against
+    the code rows) fails that limit."""
     jr, tr = _pair(qtype)
     x = torch.from_numpy(np.random.default_rng(M + 50).normal(size=(M, 512)).astype(np.float32))
     x = x.to(torch.bfloat16).float()
     want = np.asarray(jq.dequant_matmul_pallas_v2(jnp.asarray(x.numpy()), jr, interpret=True,
                                                   variant=form, mxu_dtype=jnp.bfloat16))
     _, off2 = qmatmul._folded_planes_v2(tr)
-    # the weights as the terms: v2s's rounded, the group dots' scale * q unrounded
-    w = qmatmul._v2_operand(tr, "v2s" if form == "v2s" else "v2g",
-                            torch.bfloat16 if form == "v2s" else torch.float32)[0]
+    # the weights as the terms: v2s's and v3's rounded, the group dots'
+    # scale * q unrounded
+    per_weight = form in ("v2s", "v3")
+    w = qmatmul._v2_operand(tr, form if per_weight else "v2g",
+                            torch.bfloat16 if per_weight else torch.float32)[0]
     gs = tr.group_size
     terms = x.abs() @ w.abs() + x.reshape(M, 512 // gs, gs).sum(-1).abs() @ off2.abs()
     tol = 1e-5 * terms.max().item()
@@ -342,13 +349,13 @@ def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
 ])
 def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """Every per-weight build, v2s among them, takes the tensor-core tiles
-    with bf16 operands from MMA_MIN_ROWS rows (v2g, v2h and v2s below that
-    their tensor-core decode tiles); f32 operands and vec-1 weights keep
+    with bf16 operands from MMA_MIN_ROWS rows (every build but v2f below
+    that its tensor-core decode tile); f32 operands and vec-1 weights keep
     the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     route = qmatmul._v2_route(variant, dt)
     want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want
-    if variant in ("v2g", "v2h", "v2s") and (mxu, M, vec) == ("bf16", 8, 4):  # their decode tiles
+    if variant in qmatmul.DECODE_MMA_VARIANTS and (mxu, M, vec) == ("bf16", 8, 4):  # decode tiles
         want = (qmatmul.DECODE_MMA_TILE, 1, 16)
     assert qmatmul._plan(M, d_out, n_sg, 132, vec, *route) == want
     assert variant in qmatmul.MMA_VARIANTS

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 
 from gptq_gguf_tpu.ops import qmatmul as jq
 from gptq_gguf_tpu_torch.ops import qmatmul
-from tests.test_torch_kernel_cuda import _v2h_edge_planes
+from tests.test_torch_kernel_cuda import _edge_planes, _v2h_edge_planes
 from tests.test_torch_qmatmul import ALL_K
 from tests.test_torch_v2_variants import MXU, PLAIN, _pair, check_plain_against_jax
 
@@ -94,3 +94,69 @@ def test_v2h_bf16_pair_arithmetic_equals_the_f32_path():
     gap = np.abs(np.floor(np.log2(np.abs(p) + 1e-300)) - np.floor(np.log2(np.abs(o) + 1e-300)))
     assert ties(exact_p) > 0 and ties(exact_w) > 0
     assert int(((gap > 16) & (p != 0)).sum()) > 1000
+
+
+def _ties(v):
+    """float64 values exactly halfway between two bf16 neighbours."""
+    return int(((v.view(np.uint64) & np.uint64((1 << 45) - 1)) == np.uint64(1 << 44)).sum())
+
+
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_v3_bf16_pair_arithmetic_equals_the_f32_path(qtype):
+    """v3's decode tile forms each weight in packed bf16 arithmetic: one
+    byte permute and a mask give bf16(128 + q) (exact: at most 8
+    significant bits), one FMA s (128 + q) - 128 s (128 s exact in bf16)
+    rounds the exact s * q once to nearest even. The plain version (and
+    JAX's body) round the f32 product, T(T(scale) * q), exact in f32. On
+    the planted planes of _edge_planes (the largest super-scale, scale and
+    code of the format among them), emulated exactly in float64, the two
+    are equal, with ties of the rounding among the weights."""
+    rql = _edge_planes(qtype, "cpu")
+    scale, _ = qmatmul._folded_planes_v2(rql)
+    ng, gs, d_out = scale.shape[0], rql.group_size, rql.d_out
+    q = qmatmul._unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).double()
+    q = q.reshape(ng, gs, d_out).numpy()
+    s = scale.to(torch.bfloat16).double().numpy()[:, None, :]
+    m = 128 + q
+    assert np.array_equal(_round_bf16(m), m) and np.array_equal(_round_bf16(128 * s), 128 * s)
+    exact = s * m - 128 * s  # the FMA's exact value (at most 16 significant bits)
+    got = _round_bf16(exact).reshape(ng * gs, d_out)
+    want = qmatmul._v2_operand(rql, "v3", torch.bfloat16)[0].double().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert _ties(exact) > 0
+    # the largest super-scale, scale magnitude and code meet in one weight
+    sc_big = np.abs(rql.sc_q.numpy().astype(np.float64)).max()
+    biggest = _round_bf16(_round_bf16(np.array([65504 * sc_big])) * q.max())[0]
+    assert np.abs(got).max() == biggest
+
+
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_v2_fma_forms_equal_the_f32_path(qtype):
+    """v2's decode tile forms each weight as fma(s, 128 + q, nb) with nb =
+    -s (128 + shift) (128 + q from one byte permute), then, for the formats
+    with a min, one f32 subtraction of off2. nb is exact in f32 (s has at
+    most 18 significant bits, 128 + shift is 128, 132 or 160), so the FMA
+    rounds the exact s (q - shift) once, which is itself; the subtraction
+    rounds s * q - off2 once. On the planted planes of _edge_planes,
+    emulated with the FMA's one rounding taken from the exact float64
+    value, these are weight_q<kV2>'s f32 weights (dequantize_runtime_v2)
+    bit for bit, and so are their bf16 roundings."""
+    rql = _edge_planes(qtype, "cpu")
+    scale, off2 = qmatmul._folded_planes_v2(rql)
+    ng, gs, d_out = scale.shape[0], rql.group_size, rql.d_out
+    q = qmatmul._unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).numpy().astype(np.float32)
+    q = q.reshape(ng, gs, d_out)
+    s = scale.numpy()[:, None, :]
+    nb = -s * np.float32(128 + rql.shift)  # f32 product
+    assert np.array_equal(nb.astype(np.float64), -s.astype(np.float64) * (128 + rql.shift))
+    exact = s.astype(np.float64) * (np.float32(128) + q).astype(np.float64) + nb
+    w = exact.astype(np.float32)  # the FMA's one rounding
+    if rql.has_min:
+        w = w - off2.numpy()[:, None, :]
+    else:
+        assert np.array_equal(w.astype(np.float64), exact)  # s (q - shift), exact
+    want = qmatmul._v2_operand(rql, "v2", torch.float32)[0].numpy()
+    np.testing.assert_array_equal(w.reshape(ng * gs, d_out), want)
+    np.testing.assert_array_equal(
+        torch.from_numpy(w.reshape(ng * gs, d_out)).to(torch.bfloat16).float().numpy(),
+        qmatmul._v2_operand(rql, "v2", torch.bfloat16)[0].numpy())

@@ -46,9 +46,9 @@ with the tensor-core tiles ruled out: ``core_ms_per_call``), and with
 mma=False)`` in the roots that have it);
 ``--decode-blocks`` sets the decode tile's split-K target
 (``qmatmul.DECODE_MMA_BLOCKS_PER_SM``), ``--decode-min-rows`` the fewest
-rows the route gives the decode tile (every variant's entry of the table
-``qmatmul.DECODE_MMA_MIN_ROWS``, or in older roots that constant and
-``qmatmul.V2P_DECODE_MMA_MIN_ROWS``, and with ``--format``
+rows the route gives the decode tile (every entry of the table
+``qmatmul.DECODE_MMA_MIN_ROWS``, v4's among them, or in older roots that
+constant and ``qmatmul.V2P_DECODE_MMA_MIN_ROWS``, and with ``--format``
 ``qmv4.DECODE_MMA_MIN_ROWS`` in the roots that have it),
 to time the tile at rows the route leaves to the CUDA-core tile, or to
 move a threshold.

@@ -64,22 +64,26 @@ checkout of the repository. Phases, each raising on failure:
    to the package's packers first): (a) the v1 kernel and the v4 kernel's
    three bodies (f32 and bf16 scales, i32 and i8 layouts) against their
    plain versions at every 8B projection shape and the unpadded Q6_K
-   lm_head at M = 8, the threshold M, 128, 1024 with a bf16 x, v4 also at
-   M = 1, 2 and 4 (v1 and v4 from the threshold on their tensor-core
-   tiles, csrc/qmatmul_v1_mma.cuh and the v4 policy, and v4 from
-   qmatmul.DECODE_MMA_MIN_ROWS["v4"] to 8 rows on its tensor-core decode tile,
-   csrc/qmatmul_decode_mma.cuh, each within 1e-5 of the largest sum of
-   |terms| with a planted control that must fail that limit: v4 the
-   unrounded weights, v1 the weights rounded to bf16; beside each v1
-   tensor-core case and each decode-tile case the CUDA-core tile of the
-   same rows, held to the same limit and timed), plus Q2_K / Q3_K / Q5_K
-   and ragged d_out with an f32 x (the CUDA-core tiles) and, for v1, with
-   a bf16 x at 9-130 rows (its tiles; 333 columns: vec 1, v1_kernel);
-   (b) 2-layer logits kernel vs plain per format; (c) phase 3's 12
+   lm_head at M = 1, 2, 4, 8, the threshold M, 128, 1024 with a bf16 x
+   (from the threshold on their tensor-core tiles,
+   csrc/qmatmul_v1_mma.cuh and the v4 policy, and from
+   qmatmul.DECODE_MMA_MIN_ROWS["v1"] / ["v4"] to 8 rows on their
+   tensor-core decode tiles, csrc/qmatmul_decode_mma.cuh, each within
+   1e-5 of the largest sum of |terms| with a planted control that must
+   fail that limit: v4 the unrounded weights, v1 the weights rounded to
+   bf16; beside each v1 tensor-core case and each decode-tile case the
+   CUDA-core tile of the same rows, held to the same limit and timed),
+   plus Q2_K / Q3_K / Q5_K and ragged d_out with an f32 x (the CUDA-core
+   tiles: v1's f32 x stays on v1_kernel at every M) and, for v1, with a
+   bf16 x at 9-130 rows (its tiles; 333 columns: vec 1, v1_kernel);
+   (b) 2-layer logits kernel vs plain per format, v1's also call by call
+   on shared inputs (the plain output handed on; each call within 1e-5
+   of its group dot's terms, the weights rounded to bf16 as the control);
+   (c) phase 3's 12
    requests served in v1, v4 and v4 i8 (129 launches of that format's
    kernel per forward, none of another's; v1's and v4's every prefill
-   projection on the tensor-core tiles, v4's every call of a decode step
-   on its decode tile) beside phase 3's v2 numbers; (d) perplexity through
+   projection on the tensor-core tiles, v1's and v4's every call of a
+   decode step on their decode tiles) beside phase 3's v2 numbers; (d) perplexity through
    the serving path on the 32-layer model in v2, v1 and v4 (2 sequences
    of 512 tokens, within 0.05 nats/token of each other; every call on the
    format's tensor-core tiles, each format within 1e-3 nats/token of the
@@ -108,21 +112,24 @@ checkout of the repository. Phases, each raising on failure:
    gs 32; control: v2g's rounding) and v2s's (V2Mma<kV2s>, split halves;
    control: the unrounded scale * q) at M = 1, 2, 4 and 8, and v3's
    (V2Mma<kV3>, packed bf16 weights, the xsum term; control: the
-   unrounded scale * q) and v2's (V2Mma<kV2>, its FMA forms; control:
-   v2g's rounding) at every 8B shape and the head, with small Q2_K /
-   Q3_K / Q5_K and ragged cases; (b) 2-layer logits under each knob
+   unrounded scale * q), v2's (V2Mma<kV2>, its FMA forms; control: v2g's
+   rounding) and v2f's (V2Mma<kV2f>, v2's FMA forms, which give its
+   weights; control: v2g's rounding) at every 8B shape and the head, with
+   small Q2_K / Q3_K / Q5_K and ragged cases; (b) 2-layer logits under each knob
    setting, one pass in which every matmul call runs the variant's kernel
    and its plain version on the same x (the plain output handed on), each
    call within 8a's limit and the head's logits within 3e-3 of max|logit|,
    a planted control (control_of's plain version in place of the kernel)
-   that must fail the per-call limit; beside it, printed only, the
+   that must fail the per-call limit, and the same pass with every
+   decode-tile variant's threshold at one row (every decode step's call
+   on a decode tile, v2f's among them); beside it, printed only, the
    kernels end to end against the plain versions end to end and against
    v2g's; (c) phase 3's 12 requests served under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward (every call of a B=8 step on a decode tile: under
-   v2m its projections on v2m's and its head on v2p's, under v2h, v3 and
-   v2 every call on the variant's, under v2t and v2s the projections on
+   v2m its projections on v2m's and its head on v2p's, under v2h, v3, v2
+   and v2f every call on the variant's, under v2t and v2s the projections on
    the variant's and the head on v2g's); (d) perplexity through the
    serving path under
    v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
@@ -527,15 +534,15 @@ DECODE_CONTROL = {"v2h": ("v2f", "bf16")}
 
 def decode_case(name, x, rql, flush, variant="v2g"):
     """variant_case for the tensor-core decode tile of ``variant`` (v2g,
-    v2h, v2s's split halves, v2t's group-sum form or the group-dot form
-    of v2m and v2p; bf16 operands,
+    v2h, v3, v2, v2f, v2s's split halves, v2t's group-sum form or the
+    group-dot form of v2m and v2p; bf16 operands,
     M <= 8; at fewer rows than the variant's threshold,
     qmatmul.DECODE_MMA_MIN_ROWS[variant], where the route takes the
     CUDA-core tile, with that threshold lowered for the case): within 1e-5
     of the largest sum of |terms| of an output, a limit its planted
     control (v2g, v2s: the group-dot plain version, the unrounded scale *
-    q; v2t, v2m, v2p: v2g's plain version, bf16(scale * q); v2h: v2f's,
-    the f32 affine rounded once) must fail; every launch of the case counted on
+    q; v2t, v2m, v2p, v2, v2f: v2g's plain version, bf16(scale * q); v2h:
+    v2f's, the f32 affine rounded once) must fail; every launch of the case counted on
     ``decode_mma_launches`` and none on ``mma_launches``; beside it, the
     CUDA-core tile of the same rows on the same inputs (qmatmul's internal
     route with the tensor-core tiles ruled out), held to the same limit
@@ -657,7 +664,7 @@ V2M_V2S_DECODE_SMALL = (("Q5_K 1024->768", 768, 1024, "Q5_K", 6, "v2m"),
                         ("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v2s"),
                         ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3, "v2s"),
                         ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 7, "v2s"))
-# the same for v3 and v2, from another generator of their own (SEED)
+# the same for v3, v2 and v2f, from another generator of their own (SEED)
 V3_V2_DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v3"),
                       ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 3, "v3"),
                       ("Q5_K 1024->768", 768, 1024, "Q5_K", 6, "v3"),
@@ -665,17 +672,20 @@ V3_V2_DECODE_SMALL = (("Q2_K 1024->768", 768, 1024, "Q2_K", 5, "v3"),
                       ("Q2_K 1024->768", 768, 1024, "Q2_K", 6, "v2"),
                       ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 2, "v2"),
                       ("Q5_K 1024->768", 768, 1024, "Q5_K", 5, "v2"),
-                      ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 8, "v2"))
+                      ("ragged Q4_K 2048->1000", 1000, 2048, "Q4_K", 8, "v2"),
+                      ("Q3_K 1024->768 f32x", 768, 1024, "Q3_K", 5, "v2f"),
+                      ("Q5_K 1024->768", 768, 1024, "Q5_K", 2, "v2f"),
+                      ("ragged Q6_K 2048->1000", 1000, 2048, "Q6_K", 8, "v2f"))
 # the variants whose decode tiles 8a holds at the four Q4_K projection
 # shapes, and those of them it holds at the head too (their 8c runs put
 # every call of a B=8 step on their decode tiles)
-Q4_DECODE_VARIANTS = ("v2h", "v2t", "v2m", "v2s", "v3", "v2")
-HEAD_DECODE_VARIANTS = ("v2h", "v3", "v2")
+Q4_DECODE_VARIANTS = ("v2h", "v2t", "v2m", "v2s", "v3", "v2", "v2f")
+HEAD_DECODE_VARIANTS = ("v2h", "v3", "v2", "v2f")
 
 
 def phase_v2h_v2t_decode_kernels(params, device, rng):
-    """8a: the tensor-core decode tiles of v2h, v3 and v2 (every 8B shape
-    and the padded Q6_K head), v2t (its group-sum form), v2m (the
+    """8a: the tensor-core decode tiles of v2h, v3, v2 and v2f (every 8B
+    shape and the padded Q6_K head), v2t (its group-sum form), v2m (the
     group-dot form at gs 32) and v2s (split halves), the last three at the
     four Q4_K projection shapes, at M = 1, 2, 4 and 8 (decode_case: 1e-5
     limit, the planted control, the CUDA-core tile beside it), then
@@ -859,19 +869,21 @@ def mma_counts() -> dict:
 def decode_counts() -> dict:
     """kernel -> launches of its tensor-core decode tile
     (csrc/qmatmul_decode_mma.cuh: the v2 variants of
-    qmatmul.DECODE_MMA_VARIANTS and v4)."""
+    qmatmul.DECODE_MMA_VARIANTS, v4 and v1)."""
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
 
     return {**{v: getattr(qmatmul, qmatmul.V2_WRAPPERS[v]).decode_mma_launches
                for v in qmatmul.DECODE_MMA_VARIANTS},
-            "v4": qmv4.dequant_matmul_v4.decode_mma_launches}
+            "v4": qmv4.dequant_matmul_v4.decode_mma_launches,
+            "v1": qmatmul.dequant_matmul_v1.decode_mma_launches}
 
 
 def want_decode(per_forward: dict, shapes, n_layers: int) -> dict:
     """The decode-tile launches a run of forwards with token ``shapes``
     (B, S) should count: every call of a kernel of
     qmatmul.DECODE_MMA_MIN_ROWS (the v2 variants v2g, v2p, v2h, v2t, v2m,
-    v2s, v3 and v2 with bf16 operands; v4 on vec-4 weights: every 8B one)
+    v2s, v3, v2 and v2f with bf16 operands; v4 on vec-4 weights: every 8B
+    one; v1 with a bf16 x on them, which serving passes at every call)
     from its threshold to MMA_MIN_ROWS - 1 rows, the projections at B * S
     rows and the head at B (``per_forward`` names each kernel's calls per
     forward: 4 per layer, the head, or both)."""
@@ -905,7 +917,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     wrapper) and no other's; every projection of a prefill (16 rows or
     more) on the tensor-core tiles when ``kernel`` has them, and nothing of
     a decode step (8 rows) or a head (each sequence's last row); every
-    call of a decode step on the tensor-core decode tile (v2g, v4:
+    call of a decode step on the tensor-core decode tile (v2g, v1, v4:
     want_decode); then a steady B=8 decode block."""
     import torch
 
@@ -1852,7 +1864,7 @@ def phase_paged_http(eng, cfg, rng):
 
 FORMATS = ("v1", "v4", "v4 i8", "v4 bf16")  # 7a: every kernel body, both scale dtypes
 FORMAT_MS = (8, 128, 1024)  # decode, a prefill chunk, a perplexity batch (B * S rows)
-FORMAT_DECODE_MS = (1, 2, 4)  # v4's further decode rows (its tensor-core decode tile)
+FORMAT_DECODE_MS = (1, 2, 4)  # the further decode rows (v1's and v4's tensor-core decode tiles)
 # 7a's v1 cases on its tensor-core tiles beyond the 8B shapes (bf16 x): name,
 # d_out, d_in, type, M (1000 columns: code rows not 16-byte aligned, 4-byte
 # copies; 333: vec 1, v1_kernel at any M)
@@ -2045,11 +2057,13 @@ def format_case(name, fmt, x, rql, flush):
     decode tile from qmatmul.DECODE_MMA_MIN_ROWS["v4"] (1) to 8 rows,
     counted on that tile alone, held to 1e-5 with a planted control (v4_unrounded); a
     v1 call with a bf16 x on a vec-4 weight the tensor-core tiles from
-    MMA_MIN_ROWS rows, held to 1e-5 of its group dot's terms with a
-    planted control (v1_bf16_weights). Beside a decode-tile case, and a v1
+    MMA_MIN_ROWS rows and the tensor-core decode tile from
+    qmatmul.DECODE_MMA_MIN_ROWS["v1"] (1) to 8 rows, held to 1e-5 of its
+    group dot's terms with a planted control (v1_bf16_weights); a v1 call
+    with an f32 x v1_kernel at any M. Beside a decode-tile case, and a v1
     tensor-core case, the CUDA-core tile of the same rows (qmv4._launch_v4
-    with the tensor-core tiles ruled out, qmatmul._launch_v1 without
-    them), held to the same limit and timed."""
+    and qmatmul._launch_v1 with the tensor-core tiles ruled out), held to
+    the same limit and timed."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
@@ -2061,8 +2075,9 @@ def format_case(name, fmt, x, rql, flush):
     vec4 = rql.d_out % 4 == 0
     want_mma = (vec4 and M >= qmatmul.MMA_MIN_ROWS
                 and (not v1 or x.dtype == torch.bfloat16))
-    want_decode = (not v1 and vec4
-                   and qmatmul.DECODE_MMA_MIN_ROWS["v4"] <= M < qmatmul.MMA_MIN_ROWS)
+    want_decode = (vec4 and (not v1 or x.dtype == torch.bfloat16)
+                   and qmatmul.DECODE_MMA_MIN_ROWS["v1" if v1 else "v4"] <= M
+                   < qmatmul.MMA_MIN_ROWS)
     m0, d0 = getattr(fn, "mma_launches", 0), getattr(fn, "decode_mma_launches", 0)
     y_k = fn(x, rql)
     mma = getattr(fn, "mma_launches", 0) - m0
@@ -2096,7 +2111,7 @@ def format_case(name, fmt, x, rql, flush):
     if want_decode or (v1 and want_mma):
         def core():
             if v1:
-                return qmatmul._launch_v1(x, rql, mma=False)
+                return qmatmul._launch_v1(x, rql, mma=False, decode_mma=False)
             return qmv4._launch_v4(x, rql, mma=False, decode_mma=False)
 
         y_core, tile = core()
@@ -2132,7 +2147,7 @@ def format_case(name, fmt, x, rql, flush):
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations", op_rate=rate,
                bytes=nbytes, plane_bytes=rql.bytes_read, flops=flops)
-    if v1 and want_mma:  # the CUDA-core tile beside it is bound by f32 operations
+    if v1 and tiled:  # the CUDA-core tile beside it is bound by f32 operations
         rec["core_bound_ms"] = max(t_bytes, flops / F32_FLOP_PER_S * 1e3)
     extra = f", control {err_c:.2e}, {tile}" if tiled else ""
     if core_ms is not None:
@@ -2146,12 +2161,13 @@ def format_case(name, fmt, x, rql, flush):
 def phase_format_kernels(params, rng, device):
     """7a: the v1 kernel and the three v4 bodies (f32 and bf16 scales)
     against their plain versions at every Llama-3-8B projection shape (Q4_K)
-    and the unpadded Q6_K lm_head, at M = 8, the threshold (MMA_MIN_ROWS),
-    128 and 1024 with a bf16 x, v4 also at M = 1, 2 and 4 (v1 and v4 from
-    the threshold on their tensor-core tiles, v4 from
-    qmatmul.DECODE_MMA_MIN_ROWS["v4"] to 8 rows on its tensor-core decode tile, the
-    CUDA-core tile beside each); Q2_K / Q3_K / Q5_K and ragged d_out at
-    small shapes with an f32 x, and for v1 V1_MMA_SMALL with a bf16 x."""
+    and the unpadded Q6_K lm_head, at M = 1, 2, 4, 8, the threshold
+    (MMA_MIN_ROWS), 128 and 1024 with a bf16 x (v1 and v4 from the
+    threshold on their tensor-core tiles, from
+    qmatmul.DECODE_MMA_MIN_ROWS["v1"] / ["v4"] to 8 rows on their
+    tensor-core decode tiles, the CUDA-core tile beside each); Q2_K / Q3_K
+    / Q5_K and ragged d_out at small shapes with an f32 x (v1: v1_kernel),
+    and for v1 V1_MMA_SMALL with a bf16 x."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
@@ -2174,8 +2190,7 @@ def phase_format_kernels(params, rng, device):
     for fmt in FORMATS:
         for name, v2 in shapes:
             rql = as_format(v2, fmt)
-            decode_ms = FORMAT_DECODE_MS if fmt.startswith("v4") else ()
-            for M in sorted({*FORMAT_MS, *decode_ms, qmatmul.MMA_MIN_ROWS}):
+            for M in sorted({*FORMAT_MS, *FORMAT_DECODE_MS, qmatmul.MMA_MIN_ROWS}):
                 x = (torch.randn(M, rql.d_in_local, device=device) * 0.5).to(torch.bfloat16)
                 recs.append(format_case(name, fmt, x, rql, flush))
             del rql
@@ -2191,11 +2206,65 @@ def phase_format_kernels(params, rng, device):
     return recs
 
 
+def v1_calls(params, cfg, prompt, feed, device) -> dict:
+    """7b's per-call check of v1: the 2-layer logits once more, every call
+    through the v1 kernel and its plain version on the same x, the plain
+    output handed on. Each call with a bf16 x on a vec-4 weight (the
+    prefill's projections on the tensor-core tiles, the heads and the
+    decode steps on the decode tile) within 7a's limit for those tiles,
+    1e-5 of its group dot's terms; any other call within 1e-4 of its
+    terms. The same pass with v1_bf16_weights in the kernel's place must
+    fail the limit at some tiled call; the kernel's pass counts its
+    tensor-core and decode-tile launches as the route gives them."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    def shared(calls, control: bool):
+        def mm(x, rql):
+            y_p = qmatmul.dequant_matmul_v1_reference(x, rql)
+            y_k = v1_bf16_weights(x, rql) if control else qmatmul.dequant_matmul_v1(x, rql)
+            tiled = x.dtype == torch.bfloat16 and rql.d_out % 4 == 0
+            terms = v1_group_terms(x, rql) if tiled else format_terms(x, rql)
+            calls.append(dict(M=x.shape[0], tiled=tiled, finite=bool(torch.isfinite(y_k).all()),
+                              err=(y_k - y_p).abs().max().item(),
+                              tol=(1e-5 if tiled else 1e-4) * max(terms, 1e-30)))
+            return y_p
+        return mm
+
+    calls, ctrl = [], []
+    reset_matmul_counts()
+    two_layer_logits(params, cfg, prompt, feed, shared(calls, False), device)
+    mma, dmma = mma_counts()["v1"], decode_counts()["v1"]
+    two_layer_logits(params, cfg, prompt, feed, shared(ctrl, True), device)
+    want = want_decode({"v1": 4 * 2 + 1}, [(1, prompt.shape[1])] + [(1, 1)] * feed.shape[0],
+                       2)["v1"]
+    bad = [c for c in calls if not (c["finite"] and c["err"] <= c["tol"])]
+    rejected = sum(c["err"] > c["tol"] for c in ctrl if c["tiled"])
+    worst = max(calls, key=lambda c: c["err"] / c["tol"])
+    log(f"v1 per call (2 layers, prefill + 4 decode, shared inputs): {len(calls) - len(bad)} of "
+        f"{len(calls)} calls within their limit ({sum(c['tiled'] for c in calls)} tiled, 1e-5 "
+        f"of their group dot's terms; worst M={worst['M']}: {worst['err']:.3e} of "
+        f"{worst['tol']:.3e}); tensor-core launches {mma}, decode tile {dmma} (want 8, "
+        f"{want}); control (v1_bf16_weights) rejected at {rejected} of "
+        f"{sum(c['tiled'] for c in ctrl)} tiled calls")
+    if bad:
+        raise RuntimeError(f"v1: kernel and plain disagree on shared inputs at {len(bad)} calls")
+    if (mma, dmma) != (8, want):
+        raise RuntimeError(f"v1 per call: tensor-core launches {mma}, decode tile {dmma}; "
+                           f"want 8, {want}")
+    if rejected == 0:
+        raise RuntimeError("v1 per call: the limit does not reject the control")
+    return dict(calls=len(calls), worst_err=worst["err"], worst_tol=worst["tol"],
+                mma_launches=mma, decode_mma_launches=dmma, control_rejected=rejected)
+
+
 def phase_format_consistency(fparams, cfg, rng, device):
     """7b: 2 layers at full width, one 128-token prefill and 4 decode steps
     in each format through its kernel and through its plain version, held
-    to phase 4's 3e-3 of max|logit|; the logit differences between the
-    formats' kernel runs are printed (they round differently by design)."""
+    to phase 4's 3e-3 of max|logit|; v1's also call by call (v1_calls);
+    the logit differences between the formats' kernel runs are printed
+    (they round differently by design)."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul, qmv4
@@ -2220,6 +2289,8 @@ def phase_format_consistency(fparams, cfg, rng, device):
             f"agreement {agree:.2f}")
         if not (torch.isfinite(lk).all() and err <= 3e-3 * scale):
             raise RuntimeError(f"{fmt}: kernel and plain logits disagree")
+        if fmt == "v1":
+            v1_calls(fparams[fmt], cfg, prompt, feed, device)
     diffs = {f"{a} vs {b}": (kernel_logits[a] - kernel_logits[b]).abs().max().item()
              for a, b in (("v1", "v2"), ("v4", "v2"), ("v1", "v4"))}
     log("between formats (kernels): " + ", ".join(f"max|dlogit| {k} {v:.3e}"
@@ -2387,7 +2458,8 @@ VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m
                           ("v2m", "qmatmul_v2m_mma.cuh", 729, Q4_SHAPES, "v2m"),
                           ("v2s", "qmatmul_v2_mma.cuh", 660, Q4_SHAPES, "v2s"),
                           ("v3", "qmatmul_v2_mma.cuh", 429, STEP, "v3"),
-                          ("v2", "qmatmul_v2_mma.cuh", 377, STEP, "v2"))
+                          ("v2", "qmatmul_v2_mma.cuh", 377, STEP, "v2"),
+                          ("v2f", "qmatmul_v2_mma.cuh", 496, STEP, "v2f"))
 
 
 def variant_runs(n_layers: int):
@@ -2593,7 +2665,11 @@ def phase_variant_consistency(params, cfg, rng, device):
     those tiles, 1e-4 (PREFILL_TILE_LIMIT), and read against 1e-5 as
     well. The same pass with control_of's plain version in place of the
     kernel must fail the per-call limit, and the pass counts the
-    tensor-core and decode-tile launches the route gives. Beside it,
+    tensor-core and decode-tile launches the route gives. The same pass
+    again with every decode-tile variant's threshold lowered to one row
+    holds the decode steps' calls on the decode tiles call by call, those
+    of the variants whose route leaves one row to the CUDA-core tile (v2g,
+    v2s, v3, v2, v2f; v2p) among them. Beside it,
     information only: the kernels end to end against the plain versions
     end to end (their difference, argmax agreement), and each setting's
     kernel logits against v2g's (the variants round differently by
@@ -2656,7 +2732,9 @@ def phase_variant_consistency(params, cfg, rng, device):
     for variant, gs16, per_forward in variant_runs(2):
         label = variant + (f" (gs16 {gs16})" if gs16 else "")
         old = knobs(variant, gs16)
-        calls, ctrl = [], []
+        calls, ctrl, dcalls = [], [], []
+        rows = qmatmul.DECODE_MMA_MIN_ROWS
+        low = dict(rows)
         try:
             reset_matmul_counts()
             two_layer_logits(params, cfg, prompt, feed, shared(calls, False), device)
@@ -2664,7 +2742,13 @@ def phase_variant_consistency(params, cfg, rng, device):
             two_layer_logits(params, cfg, prompt, feed, shared(ctrl, True), device)
             lk = two_layer_logits(params, cfg, prompt, feed, through(False), device)
             lp = two_layer_logits(params, cfg, prompt, feed, through(True), device)
+            rows.update(dict.fromkeys(qmatmul.DECODE_MMA_VARIANTS, 1))
+            reset_matmul_counts()
+            two_layer_logits(params, cfg, prompt, feed, shared(dcalls, False), device)
+            dmma1 = decode_counts()
+            want_dmma1 = want_decode(per_forward, [(1, 128)] + [(1, 1)] * 4, 2)
         finally:
+            rows.update(low)
             knobs(*old)
         # the 128-row prefill's 4 x 2 projections on the variant's
         # tensor-core tiles, the 1-row head (v2p under v2m, v2g under v2t
@@ -2675,6 +2759,14 @@ def phase_variant_consistency(params, cfg, rng, device):
         want_dmma = want_decode(per_forward, [(1, 128)] + [(1, 1)] * 4, 2)
         if dmma != want_dmma:
             raise RuntimeError(f"{label}: decode-tile launches {dmma}, want {want_dmma}")
+        if dmma1 != want_dmma1:
+            raise RuntimeError(f"{label}: decode-tile launches from one row {dmma1}, want "
+                               f"{want_dmma1}")
+        one_row = [c for c in dcalls if c["M"] < qmatmul.MMA_MIN_ROWS]
+        if len(passes(dcalls)) != len(dcalls):
+            raise RuntimeError(f"{label}: kernel and plain disagree on shared inputs with every "
+                               f"one-row call on the decode tiles "
+                               f"({len(dcalls) - len(passes(dcalls))} of {len(dcalls)} calls)")
         heads = [c for c in calls if "logit_tol" in c]
         worst = max(calls, key=lambda c: c["err"] / c["tol"])
         tiles = [c for c in calls if c["prefill_tile"]]
@@ -2703,6 +2795,10 @@ def phase_variant_consistency(params, cfg, rng, device):
         log(f"{label} free-running (information): max|dlogit| kernels vs plain end to end "
             f"{err:.3e} (3e-3 of max|logit| {3e-3 * scale:.3e}); argmax agreement {agree:.2f}; "
             f"vs v2g's kernels {d_g:.3e}")
+        log(f"{label} consistency, every call of 1-8 rows on the decode tiles (thresholds at "
+            f"one row): {len(one_row)} such calls within 1e-5 of their terms (at most "
+            f"{max(c['err'] / c['tol'] for c in one_row):.2f}x), decode tile "
+            f"{ {k: n for k, n in dmma1.items() if n} }")
         if len(passes(calls)) != len(calls) or not torch.isfinite(lk).all():
             raise RuntimeError(f"{label}: kernel and plain disagree on shared inputs "
                                f"({len(calls) - len(passes(calls))} of {len(calls)} calls)")
@@ -2717,6 +2813,9 @@ def phase_variant_consistency(params, cfg, rng, device):
                           head_logit_tol=min(c["logit_tol"] for c in heads),
                           control_rejected=ctrl_bad,
                           control_min_ratio=min(c["err"] / c["tol"] for c in ctrl),
+                          one_row_decode=dict(
+                              calls=len(one_row), launches=dmma1,
+                              worst_vs_1e5=max(c["err"] / c["tol"] for c in one_row)),
                           free_running=dict(kernel_vs_plain=err, tol=3e-3 * scale,
                                             argmax_agreement=agree),
                           vs_v2g=d_g)
@@ -2932,14 +3031,15 @@ def format_step(recs, fmt, shapes, M, ms_key="ms"):
 def format_summary(name, source, replaces, body, fmt, shapes, recs, launches, mma_launches):
     """The summary entry of one v1 / v4 kernel body: one B=8 decode step
     (the four projections of every layer and / or the lm_head, at the M=8
-    times of 7a in ``fmt``) on its CUDA-core tile (v4's route takes its
-    decode tile there: qmatmul_v4_decode_mma_*), and beside it the same
-    calls at M = 1024 (one 8B forward's share, on the tensor-core tiles:
-    qmatmul_v1_mma for v1); ``launches`` the body's in 7c (v4: every
-    tile; v1: its CUDA-core tile's), and its tensor-core launches in 7c /
-    7d; its error is the largest of all its 7a cases."""
+    times of 7a in ``fmt``) on its CUDA-core tile (the route takes the
+    decode tile there: qmatmul_v4_decode_mma_*, qmatmul_v1_decode_mma),
+    and beside it the same calls at M = 1024 (one 8B forward's share, on
+    the tensor-core tiles: qmatmul_v1_mma for v1); ``launches`` the
+    body's in 7c (every tile), ``mma_launches`` its tensor-core launches
+    in 7c / 7d (v1: and its CUDA-core tile's own, "core_serving" /
+    "core_ppl"); its error is the largest of all its 7a cases."""
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
-    step = format_step(recs, fmt, shapes, 8, "ms" if fmt == "v1" else "core_ms")
+    step = format_step(recs, fmt, shapes, 8, "core_ms")
     return {"name": name, "route": "cuda", "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches, "mma_launches": mma_launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs if r["body"] == body),
@@ -2977,16 +3077,22 @@ def v1_mma_summary(recs, launches):
 
 
 def format_decode_summary(body, fmt, shapes, recs, launches):
-    """The summary entry of v4's tensor-core decode tile for one body: one
-    B=8 decode step at M = 8 from 7a's records in ``fmt`` (the CUDA-core
-    tile's beside it), M = 2 and 4 under "at_m"; ``launches`` the body's
-    decode-tile launches in 7c; its error the largest of its decode-tile
-    cases."""
-    line = {"pb2": 264, "pb2_i8": 305, "pb1": 346}[body]
+    """The summary entry of v4's tensor-core decode tile for one body, or
+    of v1's (body "v1"): one B=8 decode step at M = 8 from 7a's records in
+    ``fmt`` (the CUDA-core tile's beside it), M = 1, 2 and 4 under "at_m";
+    ``launches`` the body's decode-tile launches in 7c; its error the
+    largest of its decode-tile cases."""
     calls = sum(1 if k == "lm_head" else N_LAYERS for k in shapes)
-    return {"name": f"qmatmul_v4_decode_mma_{body}", "route": "cuda",
-            "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v4.cu",
-            "replaces": f"gptq_gguf_tpu/ops/qmv4.py:{line}", "launches": launches,
+    if body == "v1":
+        name, source, replaces = ("qmatmul_v1_decode_mma", "qmatmul_v1_mma.cuh",
+                                  "gptq_gguf_tpu/ops/qmatmul.py:157")
+    else:
+        line = {"pb2": 264, "pb2_i8": 305, "pb1": 346}[body]
+        name, source, replaces = (f"qmatmul_v4_decode_mma_{body}", "qmatmul_v4.cu",
+                                  f"gptq_gguf_tpu/ops/qmv4.py:{line}")
+    return {"name": name, "route": "cuda",
+            "source": f"gptq_gguf_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs
                                if r["body"] == body and r["tile"] == "decode_mma"),
             **format_step(recs, fmt, shapes, 8), "tile": "decode_mma",
@@ -3062,6 +3168,14 @@ def run(device) -> dict:
     # call, so each format is read between two v2 runs
     for fmt, kernel in (("v1", "v1"), ("v4", "v4"), ("v4 i8", "v4"), ("v2", "v2g")):
         fcounts, rec = phase_serving(fparams[fmt], cfg, requests, kernel, fmt)
+        if kernel == "v1":  # phase_serving held every call of 1-8 rows to the decode tile
+            b8 = (4 * N_LAYERS + 1) * rec["b8_steps"]
+            if not rec["b8_steps"] or rec["decode_mma_launches"]["v1"] < b8:
+                raise RuntimeError(f"v1 serving: decode-tile launches "
+                                   f"{rec['decode_mma_launches']['v1']}, want at least {b8} "
+                                   f"({rec['b8_steps']} B=8 steps)")
+            log(f"serving (v1): every call of its {rec['b8_steps']} B=8 steps on the decode "
+                f"tile ({b8}; in all {rec['decode_mma_launches']['v1']})")
         if kernel == "v4":
             n = rec["forwards"]
             body = "v4_pb2_i8" if fmt == "v4 i8" else "v4_pb2"
@@ -3166,19 +3280,24 @@ def run(device) -> dict:
                       paged_runs["int4"]["launches"])] + [
         format_summary(name, source, replaces, body, fmt, shapes, frecs,
                        fserve[fmt]["counts"][f"v4_{body}"] if body != "v1"
-                       else fserve["v1"]["counts"]["v1"] - fserve["v1"]["mma_launches"],
+                       else fserve["v1"]["counts"]["v1"],
                        {"serving": fserve[fmt]["counts"].get(f"v4_{body}_mma", 0),
                         "ppl": fppl[fmt]["counts"].get(f"v4_{body}_mma", 0) if fmt in fppl
                         else None} if body != "v1"
                        else {"serving": fserve["v1"]["mma_launches"],
-                             "ppl": fppl["v1"]["mma_launches"]})
+                             "ppl": fppl["v1"]["mma_launches"],
+                             "core_serving": fserve["v1"]["counts"]["v1"]
+                             - fserve["v1"]["mma_launches"]
+                             - fserve["v1"]["decode_mma_launches"]["v1"],
+                             "core_ppl": fppl["v1"]["launches"] - fppl["v1"]["mma_launches"]})
         for name, source, replaces, body, fmt, shapes in V1_V4_BODIES] + [
         v1_mma_summary(frecs, {"launches": fserve["v1"]["mma_launches"],
                                "ppl_launches": fppl["v1"]["mma_launches"],
                                "ppl_long_launches": fppl["v1 long"]["mma_launches"]})] + [
         format_decode_summary(body, fmt, shapes, frecs,
-                              fserve[fmt]["counts"][f"v4_{body}_decode_mma"])
-        for _, _, _, body, fmt, shapes in V1_V4_BODIES if body != "v1"] + [
+                              fserve[fmt]["counts"][f"v4_{body}_decode_mma"] if body != "v1"
+                              else fserve["v1"]["decode_mma_launches"]["v1"])
+        for _, _, _, body, fmt, shapes in V1_V4_BODIES] + [
         variant_summary(name, source, f"gptq_gguf_tpu/ops/qmatmul.py:{line}", variant, shapes,
                         vcrecs, *variant_launches(vserve[run], variant, run))
         for name, source, line, variant, shapes, run in V2_VARIANT_KERNELS] + [

@@ -11,10 +11,15 @@
 //       (Q4_K, Q2_K, Q3_K): v2g's weights in the split-halves form
 //       (F::SPLIT_HALVES) below; V2Mma<kV2h, ...> and V2Mma<kV3, ...>
 //       (built by qmatmul_v3.cu) for the five: v2h's weights, no xsum
-//       term, and v3's, with it; and V2Mma<kV2, ...> (built by
-//       qmatmul_v2.cu) for the five: v2's weights, no xsum term;
+//       term, and v3's, with it; and V2Mma<kV2, ...> and V2Mma<kV2f, ...>
+//       (built by qmatmul_v2.cu) for the five: v2's weights, no xsum
+//       term, which are v2f's too;
 //   V4Mma<PB, GS, I8, kDecodePitch> (qmatmul_v4.cu): the v4 bodies pb2,
 //       pb2_i8 and pb1, f32 or bf16 scales, f32 or bf16 x;
+//   V1Mma<PB, GS, kDecodePitch> (qmatmul_v1_mma.cuh, built by
+//       qmatmul_v1.cu): v1 with a bf16 x, in the group-dot form
+//       (F::GROUP_DOT) below, v1's f32 scale_t rows copied into the group
+//       rows and its offset_t rows read where they were staged;
 //   GroupDotMma<PB, GS, HAS_MIN, kDecodePitch> (qmatmul_v2m_mma.cuh, built
 //       by qmatmul_v2m.cu): v2m (gs 32: Q4_K, Q5_K) and v2p (gs 16: Q2_K,
 //       Q3_K, Q6_K, the lm_head under v2m), bf16 operands, in the
@@ -27,14 +32,16 @@
 // gptq_gguf_tpu/ops/qmatmul.py::_kernel_v2g :605 (bf16 operands), the
 // default variant, which carries every projection and the lm_head of a
 // decode step (129 calls per Llama-3-8B step at B = 8), _kernel_v2h :551,
-// _kernel_v3 :429 and _kernel_v2 :377 (the 129 calls of each under its
-// GG_PALLAS_V2_VARIANT), _kernel_v2t :789 and
+// _kernel_v3 :429, _kernel_v2 :377 and _kernel_v2f :496 (the 129 calls of
+// each under its GG_PALLAS_V2_VARIANT), _kernel_v2t :789 and
 // _kernel_v2s :660 (their 128 projections; the head runs v2g), _kernel_v2m
 // :729 (its 128 projections) and _kernel_v2p :844 (the head under v2m);
 // at M = 1-8
 // (qmatmul.DECODE_MMA_MIN_ROWS["v4"] up): gptq_gguf_tpu/ops/qmv4.py::_kernel_v4_pb2
 // :264, _kernel_v4_pb2_i8 :305 and _kernel_v4_pb1 :346 (128 Q4_K calls and
-// the Q6_K head of a v4 step):
+// the Q6_K head of a v4 step); with a bf16 x at M = 1-8
+// (qmatmul.DECODE_MMA_MIN_ROWS["v1"] up): gptq_gguf_tpu/ops/qmatmul.py::
+// _kernel :157 (the 129 calls of a v1 step):
 //   y (M, d_out) f32 = bf16(x) @ w - xsum @ off   (f32 sums)
 // with w the format's bf16 weight from the same helpers as its CUDA-core
 // decode tiles and its prefill tiles, so bit for bit theirs and the JAX
@@ -99,13 +106,15 @@
 //   * an f32 x with bf16 operands is rounded as it is staged and its group
 //     sums are taken on the way (stage_x); a bf16 x's from the staged tile
 //     (sum_x);
-//   * group dot (F::GROUP_DOT; v2p, gs 16): F::frags builds the raw codes
-//     (exact in bf16) and F::rows the step's f32 scale and off2 rows; each
+//   * group dot (F::GROUP_DOT; v2p and v1 at gs 16): F::frags builds the
+//     raw codes (exact in bf16) and F::rows the step's f32 scale (and, for
+//     v2p, off2) rows; each
 //     k16 slice of the warp's K half (at gs 16 one group) runs into a fresh
 //     C fragment, which one FMA per fragment value adds to the accumulator
 //     times the slice's group scale of that column: y = sum_g scale_g
 //     (bf16(x_g) @ q_g) - xsum @ off2, the JAX body's terms (_kernel_v2p
-//     :844) in another order of the f32 sums;
+//     :844; v1's _kernel :157 with scale_t and offset_t, its weight q *
+//     scale_t - offset_t split in two) in another order of the f32 sums;
 //   * group sum (F::GROUP_SUM, a group dot; v2t, gs 32): the warp's two
 //     scaled slice partials of a step go into a step sum, s = p0 s0 +
 //     p1 s1, which is added to the accumulator once: JAX's sum(parts *
@@ -113,7 +122,7 @@
 //     half, the two halves meeting at the end. At gs 32 decode_slice puts
 //     a warp's low-nibble slice in the step's group 0 and its high-nibble
 //     slice in group 1 (4-bit codes), or both byte-code slices in group
-//     kh. v2m (gs 32) takes the plain group-dot form on the same map: each
+//     kh. v2m and v1 (gs 32) take the plain group-dot form on the same map: each
 //     slice's partial into the accumulator by its own FMAs, JAX's
 //     sum_g scale_g p_g (_kernel_v2m :729) with each group's dot in two
 //     halves;
@@ -130,9 +139,9 @@
 // registers, 4 bytes of spill stores and 4 of loads at Q6_K, none at Q2_K
 // / Q3_K; v2h's: 64 registers (63 at Q3_K), no spills; v2t's and v2m's:
 // 64, no spills; v2s's: 64, 4 bytes of spill stores and 4 of loads at Q3_K
-// (as v2g's), none at Q4_K / Q2_K; v3's: 55-64, v2's: 62-64, no spills
-// (printed by tools/time_v2_kernels.py, tools/ptxas_diff.py and
-// chip_smoke.py phase 1).
+// (as v2g's), none at Q4_K / Q2_K; v3's: 55-64, v2's and v2f's: 62-64,
+// v1's: 64, no spills (printed by tools/time_v2_kernels.py,
+// tools/ptxas_diff.py and chip_smoke.py phase 1).
 
 #pragma once
 

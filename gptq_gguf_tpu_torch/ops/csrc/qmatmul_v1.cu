@@ -35,11 +35,14 @@
 //     the wrapper also splits the K axis over supergroups (gridDim.z) and a
 //     second kernel reduces those partials in a fixed order (no float
 //     atomics): results are reproducible run to run.
-// With a bf16 x at M >= 9 rows on vec-4 weights (serving's prefill, whose
-// activations are bf16) the wrapper runs the tensor-core tiles of
-// qmatmul_v1_mma.cuh instead (V1Mma for the mainloop of qmatmul_mma.cuh):
-// the same function as a group dot of raw codes, exact in bf16, with f32
-// sums. An f32 x, M <= 8 and vec-1 weights stay here.
+// With a bf16 x on vec-4 weights (serving's activations are bf16) the
+// wrapper runs the tensor-core tiles of qmatmul_v1_mma.cuh instead: at
+// M >= 9 rows the prefill tiles (V1Mma for the mainloop of
+// qmatmul_mma.cuh), from qmatmul.DECODE_MMA_MIN_ROWS["v1"] to 8 rows the
+// decode tile (V1Mma<PB, GS, kDecodePitch> for the mainloop of
+// qmatmul_decode_mma.cuh): the same function as a group dot of raw codes,
+// exact in bf16, with f32 sums. An f32 x, fewer rows and vec-1 weights
+// stay here.
 
 #include "qmatmul_common.cuh"
 #include "qmatmul_v1_mma.cuh"
@@ -227,13 +230,18 @@ bool launch_tile(const V1Args& a, int mt, int vec) {
 }
 
 // tile 0: v1_kernel's row tiles (launch_tile); tile 1: the tensor-core
-// tiles of qmatmul_v1_mma.cuh, mt (32, 64 or 128) rows per block, for a
-// bf16 x on vec-4 weights only
+// tiles of qmatmul_v1_mma.cuh, for a bf16 x on vec-4 weights only: mt
+// (32, 64 or 128) rows per block of the prefill tiles, or kDecodeMmaTile
+// the decode tile over all M <= 8 rows
 template <int PB, int GS>
 bool launch_format(const V1Args& a, int tile, int mt, int vec) {
   if (tile == 0) return launch_tile<PB, GS>(a, mt, vec);
-  if (tile == 1 && vec == 4 && a.x_bf16) return launch_mma_tiles<V1Mma<PB, GS>>(a, mt);
-  return false;
+  if (tile != 1 || vec != 4 || !a.x_bf16) return false;
+  if (mt == kDecodeMmaTile) {
+    launch_decode_mma_tile<V1Mma<PB, GS, kDecodePitch>>(a);
+    return true;
+  }
+  return launch_mma_tiles<V1Mma<PB, GS>>(a, mt);
 }
 
 }  // namespace
@@ -243,10 +251,11 @@ bool launch_format(const V1Args& a, int tile, int mt, int vec) {
 // does not instantiate). x is bf16 when x_bf16 != 0, else f32. partials is
 // (splits, M, d_out) f32 scratch when splits > 1, ignored otherwise. tile
 // 0 runs v1_kernel with mt rows per block (1, 2, 4, 8, 16, 32 with vec 4;
-// 1, 8, 32 with vec 1); tile 1 the tensor-core tiles with mt rows per
-// block (32, 64, 128; vec 4 and a bf16 x only, which must be 16-byte
-// aligned). vec 4 needs d_out % 4 == 0 and 16-byte-aligned planes. Every
-// pointer is a device pointer of contiguous data.
+// 1, 8, 32 with vec 1); tile 1 the tensor-core tiles (vec 4 and a bf16 x
+// only): the prefill tiles with mt rows per block (32, 64, 128; x 16-byte
+// aligned), or with mt kDecodeMmaTile (16) the decode tile over all
+// M <= 8 rows. vec 4 needs d_out % 4 == 0 and 16-byte-aligned planes.
+// Every pointer is a device pointer of contiguous data.
 extern "C" int gg_v1_matmul(const void* x, int x_bf16, const uint8_t* qs,
                             const float* scale_t, const float* offset_t,
                             float* partials, float* out, int M, int d_in,

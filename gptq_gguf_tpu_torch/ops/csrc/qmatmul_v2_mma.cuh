@@ -2,9 +2,8 @@
 // (sm_90a): the v2 format's policy for the shared prefill mainloop of
 // qmatmul_mma.cuh and the decode mainloop of qmatmul_decode_mma.cuh. The
 // same function as the CUDA-core template in qmatmul_v2_weight.cuh, for
-// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and, for every
-// build but v2f, at its decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8)
-// on the decode tile:
+// bf16 operands at M >= 9 rows (qmatmul.MMA_MIN_ROWS) and at each build's
+// decode rows (qmatmul.DECODE_MMA_MIN_ROWS up to 8) on the decode tile:
 //   y (M, d_out) f32 = bf16(x) @ w  [ - xsum @ off2 ]   (f32 sums)
 // with w the build's bf16 weight from the same group_affine / weight
 // functions (so bit for bit the decode kernel's, and the JAX bodies'), and
@@ -18,20 +17,23 @@
 // apart before they meet the low-nibble ones (the mainloop's
 // F::SPLIT_HALVES; JAX's x_lo @ w_lo + x_hi @ w_hi per K tile). The
 // decode tile replaces _kernel_v2g :605, _kernel_v2 :377, _kernel_v3 :429,
-// _kernel_v2h :551 and _kernel_v2s :660 at their decode rows
-// (launch_decode_mma), each weight bit for bit group_affine / weight_q's
-// on the CUDA cores: v3's, bf16(bf16(scale) * q), and v2h's,
+// _kernel_v2f :496, _kernel_v2h :551 and _kernel_v2s :660 at their decode
+// rows (launch_decode_mma), each weight bit for bit group_affine /
+// weight_q's on the CUDA cores: v3's, bf16(bf16(scale) * q), and v2h's,
 // bf16(bf16(bf16(scale) * q) - bf16(off2)), come from packed bf16
 // arithmetic there (frags_bf16; v3 keeps the xsum term, v2h has none, its
 // offset is in the weight); v2's, bf16(scale * (q - shift) - off), from one
 // f32 FMA per weight and, for the formats with a min, one subtraction
-// (frags_v2; no xsum term); v2s builds v2g's fragments (the same FMA) and
-// the decode mainloop sums a warp's high-nibble slice of each step apart
-// before it meets the accumulator (F::SPLIT_HALVES there too). v2f's
-// decode steps, f32 operands (TF32 would change the
-// products) and weights the wrapper gives one column per thread (vec 1:
-// d_out % 4 != 0 or planes not 16-byte aligned; no Llama-3-8B weight is
-// one) stay on the CUDA-core kernel.
+// (frags_v2; no xsum term); v2f's, bf16(scale * q - off2), is v2's value
+// (with a min off2 is v2's off and the shift 0; without one off2 = scale *
+// shift, exact, and scale * q - scale * shift is the exact scale * (q -
+// shift)), so frags_v2 builds it too; v2s builds v2g's fragments (the same
+// FMA) and the decode mainloop sums a warp's high-nibble slice of each
+// step apart before it meets the accumulator (F::SPLIT_HALVES there too).
+// f32 operands (TF32 would change the products) and weights the wrapper
+// gives one column per thread (vec 1: d_out % 4 != 0 or planes not
+// 16-byte aligned; no Llama-3-8B weight is one) stay on the CUDA-core
+// kernel.
 //
 // Per 64-row step it stages the code bytes, the step's sc_q / mn_q rows and
 // the supergroup's d_sg / dmin_sg row (issue). For the prefill tiles each
@@ -188,10 +190,10 @@ struct V2Mma {
                                                uint32_t (&af)[2][2][4]) {
     if constexpr (BUILD == kV2h || BUILD == kV3) {
       frags_bf16<P>(st, sc, o2, c0, kh, t, af);
-    } else if constexpr (BUILD == kV2) {
+    } else if constexpr (BUILD == kV2 || BUILD == kV2f) {  // v2f's weights are v2's
       frags_v2<P>(a, st, sc, o2, c0, kh, t, af);
     } else {
-      static_assert(BUILD == kV2g || BUILD == kV2s, "v2f has no decode tile");
+      static_assert(BUILD == kV2g || BUILD == kV2s, "a build without decode fragments");
       float s[4], nb[4];
       auto slice = [&](int, int sl) {
         const int lg = 16 * sl / GS;
@@ -208,7 +210,7 @@ struct V2Mma {
     }
   }
 
-  // v2's A fragments: per weight one byte permute makes 128 + q a float
+  // v2's (and v2f's) A fragments: per weight one byte permute makes 128 + q a float
   // (byte_128) and one FMA s (128 + q) - s (128 + shift) gives s (q -
   // shift) exactly: s (128 + shift) is exact in f32 (s has at most 18
   // significant bits, 128 + shift is 132 = 4 * 33 or 160 = 32 * 5 for the
@@ -216,7 +218,10 @@ struct V2Mma {
   // s (q - shift), which has at most 24 bits, once, to itself. Formats with
   // a min then subtract o = off2 in one f32 operation, rounded once: the
   // weights of group_affine / weight_q<kV2> (scale * (q - shift) - off),
-  // whose own product is exact too, bit for bit
+  // whose own product is exact too, bit for bit; and so v2f's,
+  // weight_q<kV2f> (scale * q - off2), which is that value: off2 is off
+  // where there is a min (shift 0) and the exact scale * shift where there
+  // is none
   template <int P>
   __device__ __forceinline__ static void frags_v2(const Args& a, const char* st, const float* sc,
                                                   const float* o2, int c0, int kh, int t,
@@ -295,8 +300,8 @@ bool launch_mma(const V2Args& a, int bm) {
   return launch_mma_tiles<V2Mma<BUILD, PB, GS, HAS_MIN>>(a, bm);
 }
 
-// the tensor-core decode tile (qmatmul_decode_mma.cuh) of every build but
-// v2f, M <= 8 rows (declared in qmatmul_v2_weight.cuh)
+// the tensor-core decode tile (qmatmul_decode_mma.cuh) of every build,
+// M <= 8 rows (declared in qmatmul_v2_weight.cuh)
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a) {
   launch_decode_mma_tile<V2Mma<BUILD, PB, GS, HAS_MIN, kDecodePitch>>(a);

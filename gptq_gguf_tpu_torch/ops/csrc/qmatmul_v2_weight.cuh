@@ -58,12 +58,11 @@
 //     partials in a fixed order (no float atomics): token streams stay
 //     reproducible run to run;
 //   * rows per block: up to 8. With bf16 operands every build runs M >= 9
-//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh, and every build
-//     but v2f also its decode rows (from qmatmul.DECODE_MMA_MIN_ROWS) on
-//     the tensor-core decode tile (qmatmul_decode_mma.cuh, tile code
-//     kDecodeMmaTile); f32 operands (a test mode) and vec 1 weights stay
-//     here at any M, in 8-row tiles, and so do v2f's decode steps and the
-//     calls below those thresholds;
+//     rows on the tensor-core tiles of qmatmul_v2_mma.cuh, and its decode
+//     rows (from qmatmul.DECODE_MMA_MIN_ROWS) on the tensor-core decode
+//     tile (qmatmul_decode_mma.cuh, tile code kDecodeMmaTile); f32
+//     operands (a test mode) and vec 1 weights stay here at any M, in 8-row
+//     tiles, and so do the calls below those thresholds;
 //   * tiles of 8 rows or fewer are declared for 4 blocks per SM, which lets
 //     the compiler keep up to 128 registers a thread: left alone it kept 72
 //     at the 8-row decode tile and ran the Llama-3-8B gate/up and down
@@ -306,15 +305,15 @@ void launch(const V2Args& a) {
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_mma(const V2Args& a, int bm);
 
-// the tensor-core decode tile of every build but v2f (tile code
-// kDecodeMmaTile), defined in qmatmul_v2_mma.cuh
+// the tensor-core decode tile of every build (tile code kDecodeMmaTile),
+// defined in qmatmul_v2_mma.cuh
 template <int BUILD, int PB, int GS, bool HAS_MIN>
 bool launch_decode_mma(const V2Args& a);
 
 // row tiles: MT in {1, 2, 4, 8} for VEC 4, {1, 8} for VEC 1 on the CUDA
 // cores; mt of 32, 64 or 128 (VEC 4, bf16 operands) the tensor-core tiles
-// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands, every
-// build but v2f) the tensor-core decode tile
+// with mt rows per block; kDecodeMmaTile (VEC 4, bf16 operands) the
+// tensor-core decode tile
 template <int BUILD, bool BF16, int PB, int GS, bool HAS_MIN>
 bool launch_tile(const V2Args& a, int mt, int vec) {
   if (vec == 4) {
@@ -324,7 +323,7 @@ bool launch_tile(const V2Args& a, int mt, int vec) {
       case 4: launch<BUILD, BF16, PB, GS, HAS_MIN, 4, 4>(a); return true;
       case 8: launch<BUILD, BF16, PB, GS, HAS_MIN, 8, 4>(a); return true;
       case kDecodeMmaTile:
-        if constexpr (BF16 && BUILD != kV2f) return launch_decode_mma<BUILD, PB, GS, HAS_MIN>(a);
+        if constexpr (BF16) return launch_decode_mma<BUILD, PB, GS, HAS_MIN>(a);
         return false;
       default:
         if constexpr (BF16) return launch_mma<BUILD, PB, GS, HAS_MIN>(a, mt);
@@ -384,8 +383,8 @@ bool dispatch_build(const V2Args& a, int build, int mxu_bf16, int per_byte, int 
 // bf16 when mxu_bf16 != 0, else kept in f32. partials is (splits, M, d_out)
 // f32 scratch when splits > 1, ignored otherwise. mt is the rows per block:
 // 1, 2, 4, 8 on the CUDA cores; 32, 64, 128 on the tensor cores (vec 4 and
-// bf16 operands only); kDecodeMmaTile (16) the tensor-core decode tile of
-// every build but v2f over all M <= 8 rows (vec 4, bf16 operands). vec 4 needs
+// bf16 operands only); kDecodeMmaTile (16) the tensor-core decode tile
+// over all M <= 8 rows (vec 4, bf16 operands). vec 4 needs
 // d_out % 4 == 0 and 16-byte-aligned planes. Every pointer is a device
 // pointer of contiguous data.
 #define GG_V2_WEIGHT_ENTRY(NAME, ...)                                                      \

@@ -14,9 +14,10 @@ instead of 16. Every layout is byte-identical to the JAX package's
 * v1 (``RuntimeQuantLinear``): ``scale_t`` / ``offset_t`` (n_groups, d_out)
   f32, w = scale_t * q - offset_t with the signed shift folded into
   ``offset_t``. Kernel: ``csrc/qmatmul_v1.cu``, f32 end to end; with a
-  bf16 x of ``MMA_MIN_ROWS`` rows or more the tensor-core tiles of
-  ``csrc/qmatmul_v1_mma.cuh``, the same function as a group dot of raw
-  codes (exact bf16 products, f32 sums).
+  bf16 x the tensor-core tiles of ``csrc/qmatmul_v1_mma.cuh`` (the prefill
+  tiles from ``MMA_MIN_ROWS`` rows, the decode tile from
+  ``DECODE_MMA_MIN_ROWS["v1"]`` to 8 rows), the same function as a group
+  dot of raw codes (exact bf16 products, f32 sums).
 * v2 (``RuntimeQuantLinearV2``): ``d_sg`` / ``dmin_sg`` (d_rep * n_sg, d_out)
   f32 super-scale / super-min, each supergroup row replicated ``d_rep`` = 2
   times (a TPU tiling rule the layout keeps so packed weights compare equal
@@ -34,7 +35,7 @@ and ``v2f`` (``csrc/qmatmul_v2.cu``), ``v3`` and ``v2h``
 (CUDA cores) and of ``csrc/qmatmul_v2_mma.cuh`` (v2's policy for the
 tensor-core mainloop of ``csrc/qmatmul_mma.cuh``: bf16 operands at
 ``MMA_MIN_ROWS`` rows or more, prefill and perplexity; and, for every
-per-weight variant but v2f, of the tensor-core decode mainloop of
+per-weight variant, of the tensor-core decode mainloop of
 ``csrc/qmatmul_decode_mma.cuh``: bf16 operands from the variant's
 ``DECODE_MMA_MIN_ROWS`` to 8 rows, every B=8 decode step);
 and the group-dot family ``v2m`` / ``v2t`` / ``v2p``
@@ -520,18 +521,20 @@ def _mma_plan(M: int, d_out: int, n_sg: int, n_sm: int, bm_max: int = 128):
     return bm, per, -(-n_sg // per)
 
 
-# the tile code of the tensor-core decode tile of every v2 variant but v2f
+# the tile code of the tensor-core decode tile of every v2 variant, of v1
 # and of v4 (csrc/qmatmul_decode_mma.cuh: all of x's 1-8 rows as the n8 of
-# mma.sync), which neither a CUDA-core tile (1, 2, 4, 8 rows) nor a
-# prefill tile (32, 64, 128) uses
+# mma.sync), which neither a v2 or v4 CUDA-core tile (1, 2, 4, 8 rows) nor
+# a prefill tile (32, 64, 128) uses (v1_kernel's 16-row tile is tile code
+# 0 of its entry point, the decode tile tile code 1)
 DECODE_MMA_TILE = 16
 # Every kernel with a tensor-core decode tile, each with the fewest rows of
 # a call on a vec-4 weight it takes there (up to MMA_MIN_ROWS - 1; fewer
 # rows run the CUDA-core tiles), read at every call: the v2 variants (with
-# bf16 operands) and "v4", the v4 format's kernel (ops/qmv4.py; f32 or
+# bf16 operands), "v1", the v1 format's kernel (a bf16 x; an f32 x stays
+# on v1_kernel), and "v4", the v4 format's kernel (ops/qmv4.py; f32 or
 # bf16 x). Each was timed against the CUDA-core tile at M = 1, 2 and 3
-# (tools/time_v2_kernels.py --variant V, or --format v4, --m 1,2,3 --core
-# --decode-min-rows 1, H100: PERF.md):
+# (tools/time_v2_kernels.py --variant V, or --format v1 | v4, --m 1,2,3
+# --core --decode-min-rows 1, H100: PERF.md):
 #   v2g: the 129 calls of one Llama-3-8B step at M = 1 on the CUDA-core
 #     tile 5.37-5.39 ms against the decode tile's 5.76-5.81, at M = 2
 #     6.02-6.03 against 5.78, at M = 3 (the 4-row tile) 7.03-7.06 against
@@ -558,14 +561,20 @@ DECODE_MMA_TILE = 16
 #   v2: the 129 calls of a step (its FMA forms) at M = 1 on the CUDA-core
 #     tile 5.49-5.55 against the decode tile's 5.52-5.61, at M = 2
 #     6.09-6.17 against 5.54-5.63, at M = 3 7.18 against 5.57;
+#   v2f: the 129 calls of a step (v2's FMA forms) at M = 1 on the
+#     CUDA-core tile 5.51 against the decode tile's 5.57, at M = 2 6.09
+#     against 5.54, at M = 3 7.15 against 5.56;
 #   v4: the 129 calls of a step with f32 scales at M = 1 on the CUDA-core
 #     tile 9.34-9.36 against the decode tile's 5.76-5.77, at M = 2
 #     6.57-6.59 against 5.73-5.77, at M = 3 (its 4-row tile) 10.51 against
-#     5.77-5.79.
+#     5.77-5.79;
+#   v1: the 129 calls of a step with a bf16 x (the group-dot form) on the
+#     decode tile at M = 1 5.27-5.34 against v1_kernel's 5.27-5.33 (a
+#     tie), at M = 2 5.32 against 8.76, at M = 3 5.31 against 8.68.
 DECODE_MMA_MIN_ROWS = {"v2g": 2, "v2p": 3, "v2h": 1, "v2t": 1, "v2m": 1, "v2s": 2, "v3": 2,
-                       "v2": 2, "v4": 1}
+                       "v2": 2, "v2f": 2, "v4": 1, "v1": 1}
 # the v2 variants among them
-DECODE_MMA_VARIANTS = tuple(v for v in DECODE_MMA_MIN_ROWS if v != "v4")
+DECODE_MMA_VARIANTS = tuple(v for v in DECODE_MMA_MIN_ROWS if v not in ("v4", "v1"))
 # blocks per SM the decode tile's split-K plan fills: two waves of the four
 # resident blocks (csrc/qmatmul_decode_mma.cuh; timed against 4 and 12 with
 # tools/time_v2_kernels.py --decode-blocks: PERF.md)
@@ -692,7 +701,7 @@ def _v2_route(variant: str, mxu_dtype) -> tuple:
     from decode_min_rows rows (the variant's DECODE_MMA_MIN_ROWS, read at
     every call)."""
     bf16 = mxu_dtype == torch.bfloat16
-    decode = bf16 and variant in DECODE_MMA_MIN_ROWS
+    decode = bf16 and variant in DECODE_MMA_VARIANTS
     return (8, bf16, MMA_BM_MAX.get(variant, 128), decode,
             DECODE_MMA_MIN_ROWS[variant] if decode else None)
 
@@ -769,7 +778,11 @@ def dequant_matmul_v3(x: torch.Tensor, rql: RuntimeQuantLinearV2,
 def dequant_matmul_v2f(x: torch.Tensor, rql: RuntimeQuantLinearV2,
                        mxu_dtype=torch.bfloat16) -> torch.Tensor:
     """y = T(x) @ T(scale * q - off2) through the v2f kernel
-    (``csrc/qmatmul_v2.cu``): the shift folded into the group offset."""
+    (``csrc/qmatmul_v2.cu``): the shift folded into the group offset; with
+    bf16 operands from its ``DECODE_MMA_MIN_ROWS`` to 8 rows on the
+    tensor-core decode tile (``V2Mma<kV2f>`` through
+    ``csrc/qmatmul_decode_mma.cuh``: v2's FMA forms, whose weights are
+    v2f's bit for bit; also counted in ``decode_mma_launches``)."""
     return _per_weight(dequant_matmul_v2f, "v2f", x, rql, mxu_dtype)
 
 
@@ -801,46 +814,61 @@ _V1_ARGS = ((ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 5
             + (ctypes.c_int,) * 10 + (ctypes.c_void_p,))
 
 
-def _launch_v1(x: torch.Tensor, rql: RuntimeQuantLinear, mma: bool = True):
+def _launch_v1(x: torch.Tensor, rql: RuntimeQuantLinear, mma: bool = True,
+               decode_mma: bool = True):
     """One launch of ``csrc/qmatmul_v1.cu`` on x's current stream (the
-    library is built on first use). With ``mma``, a bf16 x of
-    ``MMA_MIN_ROWS`` rows or more on a vec-4 weight runs the tensor-core
-    tiles (``csrc/qmatmul_v1_mma.cuh``: the group dot of raw codes, exact
-    products and f32 sums); everything else runs v1_kernel's CUDA-core
-    tiles of up to 32 rows (an f32 x would have to be rounded to bf16).
-    Returns (y, the tile that ran: "mma" or "cuda_core")."""
-    mma = mma and x.dtype == torch.bfloat16
-    x, vec, mt, per, splits, out, part = launch_setup(x, rql, mma=mma)
+    library is built on first use). A bf16 x on a vec-4 weight runs the
+    tensor-core tiles of ``csrc/qmatmul_v1_mma.cuh`` (the group dot of raw
+    codes, exact products and f32 sums; tile code 1 of the entry point):
+    with ``mma`` the prefill tiles from ``MMA_MIN_ROWS`` rows, with
+    ``decode_mma`` the decode tile from ``DECODE_MMA_MIN_ROWS["v1"]``
+    (read at every call) to 8 rows. Everything else runs v1_kernel's
+    CUDA-core tiles of up to 32 rows (an f32 x would have to be rounded to
+    bf16). Returns (y, the tile that ran: "decode_mma", "mma" or
+    "cuda_core")."""
+    bf16 = x.dtype == torch.bfloat16
+    lo = DECODE_MMA_MIN_ROWS["v1"]
+    x, vec, mt, per, splits, out, part = launch_setup(
+        x, rql, mma=mma and bf16, decode_mma=decode_mma and bf16, decode_min_rows=lo)
     M, d_in = x.shape
-    tc = mma and vec == 4 and M >= MMA_MIN_ROWS  # _plan gave the tensor-core tiles
+    # the tiles _plan gave (v1_kernel has a 16-row tile too, under tile code 0)
+    tile = ("mma" if mma and bf16 and vec == 4 and M >= MMA_MIN_ROWS else
+            "decode_mma" if decode_mma and bf16 and vec == 4 and lo <= M < MMA_MIN_ROWS else
+            "cuda_core")
     rc = c_function("qmatmul_v1", "gg_v1_matmul", _V1_ARGS)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), _ptr(rql.qs), _ptr(rql.scale_t),
+        x.data_ptr(), int(bf16), _ptr(rql.qs), _ptr(rql.scale_t),
         _ptr(rql.offset_t), _ptr(part), out.data_ptr(),
-        M, d_in, rql.d_out, rql.per_byte, rql.group_size, int(tc), mt, vec, per, splits,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        M, d_in, rql.d_out, rql.per_byte, rql.group_size, int(tile != "cuda_core"), mt, vec,
+        per, splits, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul_v1 launch failed: CUDA error {rc}")
-    return out, "mma" if tc else "cuda_core"
+    return out, tile
 
 
 def dequant_matmul_v1(x: torch.Tensor, rql: RuntimeQuantLinear) -> torch.Tensor:
     """y (M, d_out) f32 = f32(x) @ (scale_t * q - offset_t) through the v1
     kernel (``csrc/qmatmul_v1.cu``); a CPU ``x`` runs the plain version. A
-    bf16 x of ``MMA_MIN_ROWS`` rows or more on a vec-4 weight (prefill and
-    perplexity under serving) runs the tensor-core tiles, also counted in
-    ``mma_launches``; an f32 x, 1-8 rows and vec-1 weights the f32
-    CUDA-core tiles. Same contract as ``dequant_matmul_v2g``."""
+    bf16 x on a vec-4 weight runs the tensor-core tiles: from
+    ``MMA_MIN_ROWS`` rows (prefill and perplexity under serving) the
+    prefill tiles, also counted in ``mma_launches``; from
+    ``DECODE_MMA_MIN_ROWS["v1"]`` to 8 rows (decode steps) the decode
+    tile, also counted in ``decode_mma_launches``. An f32 x, fewer rows
+    and vec-1 weights run the f32 CUDA-core tiles. Same contract as
+    ``dequant_matmul_v2g``."""
     if x.device.type == "cpu":
         return dequant_matmul_v1_reference(x, rql)
     out, tile = _launch_v1(x, rql)
     dequant_matmul_v1.launches += 1
     if tile == "mma":
         dequant_matmul_v1.mma_launches += 1
+    elif tile == "decode_mma":
+        dequant_matmul_v1.decode_mma_launches += 1
     return out
 
 
 dequant_matmul_v1.launches = 0
 dequant_matmul_v1.mma_launches = 0
+dequant_matmul_v1.decode_mma_launches = 0
 
 _GROUP_DOT = {"v2m": (0, 32), "v2t": (1, 32), "v2p": (2, 16)}  # body, group size
 

@@ -1,7 +1,7 @@
 """The CUDA kernels (v2g, v1 and v4 dequant-matmul, the v2 variants v2 /
 v3 / v2f / v2h / v2s / v2m / v2t / v2p, the tensor-core prefill tiles of
 every v2 variant, of v1 and of v4, the tensor-core decode tiles of v2g,
-v2, v3, v2h, v2s, v2m, v2t, v2p and v4, GPTQ
+v2, v3, v2f, v2h, v2s, v2m, v2t, v2p, v1 and v4, GPTQ
 column-block solve, paged
 flash-decode over bf16 / f32 and int4 pools) against their plain PyTorch
 versions, on the card.
@@ -16,10 +16,11 @@ Tolerances: v2g and its plain version compute the same bf16 products and
 differ only in the order of the f32 sums: atol 1e-4 of max|y|. The v1
 (f32) and v4 (bf16 products) kernels likewise: atol 1e-4 of the largest
 sum of |terms| of one output (1e-5 on v4's and v1's tensor-core tiles,
-each with a planted control that must fail it), and so do
+their decode tiles among them, each with a planted control that must
+fail it), and so do
 the v2 variant kernels in either operand type (1e-5 on the group-dot
-and v2s tensor-core tiles and on the decode tiles of v2g, v2, v3, v2h,
-v2s, v2m, v2t, v2p and v4). The GPTQ solve repeats its plain version's
+and v2s tensor-core tiles and on the decode tiles of v2g, v2, v3, v2f,
+v2h, v2s, v2m, v2t, v2p and v4). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
@@ -841,7 +842,7 @@ def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
     reads it; f32 operands, vec-1 weights, fewer rows than v2g's
     DECODE_MMA_MIN_ROWS and every other variant stay off v2g's decode tile
     at M <= 8 (v2g's decode_mma_launches unchanged, and no variant's
-    mma_launches moves; v2h, v2t and v2p run their own decode tiles)."""
+    mma_launches moves; the others run their own decode tiles)."""
     fn = qmatmul.dequant_matmul_v2g
     rql = _rql(T.Q4_K, 512, 512, seed=4, device=cuda)
     buf = torch.randn(8 * 512 + 1, device=cuda).to(torch.bfloat16)
@@ -875,15 +876,28 @@ def test_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda):
 @pytest.mark.cuda
 def test_decode_mma_tile_failures_raise(cuda, monkeypatch):
     """No fallback: a decode-tile launch the source does not instantiate
-    (v2f's build given the decode tile's code, as the route would give it)
-    raises, and so does a build failure of the library, which counts
-    nothing."""
+    (v2g's build with f32 operands given the decode tile's code; v1's
+    entry point given it, tile code 1, with an f32 x) raises or returns an
+    error, and so does a build failure of the library (v2g's, v1's), which
+    counts nothing."""
     rql = _rql(T.Q4_K, 512, 512, seed=5, device=cuda)
     x = torch.randn(8, 512, device=cuda).to(torch.bfloat16)
-    lib, code = qmatmul._PER_WEIGHT["v2f"]
+    lib, code = qmatmul._PER_WEIGHT["v2g"]
+    n0 = {v: (f.launches, f.decode_mma_launches) for v, f in V2_WRAPPERS.items()
+          if hasattr(f, "decode_mma_launches")}
     with pytest.raises(RuntimeError, match="launch failed"):
-        qmatmul._launch_v2(lib, code, x, rql, torch.bfloat16,
+        qmatmul._launch_v2(lib, code, x, rql, torch.float32,
                            *qmatmul._v2_route("v2g", torch.bfloat16))
+    v1 = _rql(T.Q4_K, 512, 512, seed=5, device=cuda, pack=qmatmul.pack_runtime)
+    xf, out = x.float(), torch.empty(8, 512, device=cuda)
+    # tile 1 with mt DECODE_MMA_TILE (the decode tile), vec 4, 2 supergroups in 1 split
+    rc = qmatmul.c_function("qmatmul_v1", "gg_v1_matmul", qmatmul._V1_ARGS)(
+        xf.data_ptr(), 0, v1.qs.data_ptr(), v1.scale_t.data_ptr(), v1.offset_t.data_ptr(),
+        None, out.data_ptr(), 8, 512, 512, v1.per_byte, v1.group_size, 1,
+        qmatmul.DECODE_MMA_TILE, 4, 2, 1, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    assert {v: (f.launches, f.decode_mma_launches) for v, f in V2_WRAPPERS.items()
+            if v in n0} == n0
 
     def broken(name):
         raise RuntimeError(f"nvcc failed for {name}.cu")
@@ -893,6 +907,11 @@ def test_decode_mma_tile_failures_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v2g"):
         qmatmul.dequant_matmul_v2g(x, rql)
     assert qmatmul.dequant_matmul_v2g.decode_mma_launches == n0
+    fn = qmatmul.dequant_matmul_v1
+    n1 = (fn.launches, fn.decode_mma_launches)
+    with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v1"):
+        fn(x, v1)
+    assert (fn.launches, fn.decode_mma_launches) == n1
 
 
 # v4's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh with V4Mma):
@@ -1224,9 +1243,10 @@ def test_v1_mma_tiles_match_plain(cuda, f32_exact, qtype, M, d_out, d_in):
 @pytest.mark.cuda
 def test_v1_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(cuda, f32_exact):
     """v1's tiles copy a bf16 x that is not 16-byte aligned before they
-    read it; an f32 x at prefill rows, 1-8 rows of a bf16 x and vec-1
-    weights stay on v1_kernel (mma_launches unchanged), each within its
-    limit; _launch_v1 without mma runs v1_kernel on the tiles' inputs."""
+    read it; an f32 x at prefill rows, 1-8 rows of a bf16 x (the decode
+    tile) and vec-1 weights stay off the prefill tiles (mma_launches
+    unchanged), each within its limit; _launch_v1 without mma runs
+    v1_kernel on the tiles' inputs."""
     fn = qmatmul.dequant_matmul_v1
     rql = _rql(T.Q4_K, 512, 1024, seed=4, device=cuda, pack=qmatmul.pack_runtime)
     buf = torch.randn(64 * 1024 + 1, generator=torch.Generator().manual_seed(5)).to(cuda)
@@ -1239,19 +1259,19 @@ def test_v1_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(cuda, f32_exa
     assert fn.mma_launches == m0 + 1
     assert (got - want).abs().max().item() <= 1e-5 * _v1_group_terms(x, rql)
     vec1 = _rql(T.Q6_K, 333, 512, seed=6, device=cuda, pack=qmatmul.pack_runtime)
-    n0 = fn.launches
+    n0, d0 = fn.launches, fn.decode_mma_launches
     for xx, w in ((x.float(), rql), (x[:8], rql), (x[:40, :512], vec1)):
         got = fn(xx, w)
         want = qmatmul.dequant_matmul_v1_reference(xx, w)
         torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
-                                   atol=1e-4 * _terms(xx, w))
+        tol = 1e-5 * _v1_group_terms(xx, w) if xx.shape[0] <= 8 else 1e-4 * _terms(xx, w)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=tol)
     y, tile = qmatmul._launch_v1(x, rql, mma=False)
     want = qmatmul.dequant_matmul_v1_reference(x, rql)
     torch.cuda.synchronize()
     assert tile == "cuda_core"
     assert (y - want).abs().max().item() <= 1e-4 * _terms(x, rql)
-    assert (fn.launches - n0, fn.mma_launches) == (3, m0 + 1)
+    assert (fn.launches - n0, fn.mma_launches, fn.decode_mma_launches - d0) == (3, m0 + 1, 1)
 
 
 @pytest.mark.cuda
@@ -1278,6 +1298,92 @@ def test_v1_mma_tiles_refuse_an_f32_x(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for qmatmul_v1"):
         fn(x.to(torch.bfloat16), rql)
     assert (fn.launches, fn.mma_launches) == n0
+
+
+# v1's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh with V1Mma:
+# a bf16 x of DECODE_MMA_MIN_ROWS["v1"] to 8 rows on a vec-4 weight): M =
+# 1, 2, 5, 8; d_out 768 and a ragged 1000 (code rows not 16-byte aligned:
+# 4-byte copies); the K axis split as the plan does (blocks 4) or not at
+# all (blocks 0)
+V1_DECODE_CASES = [
+    (1, 768, 1024, 4),
+    (2, 1000, 512, 0),
+    (2, 768, 2048, 4),
+    (5, 1000, 2048, 4),
+    (5, 768, 512, 0),
+    (8, 768, 2048, 4),
+    (8, 1000, 1024, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,d_out,d_in,blocks", V1_DECODE_CASES)
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_v1_decode_mma_tile_matches_plain(cuda, f32_exact, monkeypatch, qtype, M, d_out, d_in,
+                                          blocks):
+    """v1 with a bf16 x at decode rows on its tensor-core decode tile (the
+    group dot of raw codes, each k16 slice's partial scaled by its group's
+    scale_t, xsum @ offset_t) against its plain version (the JAX kernel's
+    f32 function): exact products, f32 sums grouped otherwise, within 1e-5
+    of the largest sum of |terms| of an output; the weights rounded to
+    bf16 fail that limit. One launch, counted on decode_mma_launches and
+    not on mma_launches; a second call is bit-equal."""
+    monkeypatch.setattr(qmatmul, "DECODE_MMA_BLOCKS_PER_SM", blocks)
+    rql = _rql(qtype, d_out, d_in, seed=M + 17 * d_out + int(qtype), device=cuda,
+               pack=qmatmul.pack_runtime)
+    fn = qmatmul.dequant_matmul_v1
+    x = (torch.randn(M, d_in, generator=torch.Generator().manual_seed(M + d_in)) * 0.5
+         ).to(cuda, torch.bfloat16)
+    splits = qmatmul._plan(M, d_out, d_in // 256, qmatmul._sm_count(cuda.index or 0), 4,
+                           decode_mma=True, decode_min_rows=qmatmul.DECODE_MMA_MIN_ROWS["v1"])[2]
+    assert (splits == 1) == (blocks == 0)
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    got = qmatmul.dequant_matmul(x, rql)
+    again = fn(x, rql)
+    want = qmatmul.dequant_matmul_v1_reference(x, rql)
+    control = _v1_bf16_weights(x, rql)
+    torch.cuda.synchronize()
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (2, 2, 0)
+    assert got.shape == want.shape == (M, d_out) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    tol = 1e-5 * _v1_group_terms(x, rql)
+    assert (got - want).abs().max().item() <= tol
+    assert (got - control).abs().max().item() > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K], ids=lambda q: q.name)
+def test_v1_decode_mma_tile_takes_a_misaligned_x_and_leaves_the_rest_alone(cuda, f32_exact,
+                                                                           qtype):
+    """v1's decode tile copies a bf16 x that is not 16-byte aligned before
+    it reads it; an f32 x at 1-8 rows (which the tile would round) and
+    vec-1 weights stay on v1_kernel (decode_mma_launches unchanged), each
+    within its limit; _launch_v1 with neither tile runs v1_kernel on the
+    tile's inputs and names it."""
+    fn = qmatmul.dequant_matmul_v1
+    rql = _rql(qtype, 512, 1024, seed=9 + int(qtype), device=cuda, pack=qmatmul.pack_runtime)
+    buf = torch.randn(8 * 1024 + 1, generator=torch.Generator().manual_seed(6)).to(cuda)
+    x = buf.to(torch.bfloat16)[1:].view(8, 1024)
+    assert x.data_ptr() % 16
+    n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+    got = fn(x, rql)
+    want = qmatmul.dequant_matmul_v1_reference(x, rql)
+    torch.cuda.synchronize()
+    assert fn.decode_mma_launches == d0 + 1
+    assert (got - want).abs().max().item() <= 1e-5 * _v1_group_terms(x, rql)
+    vec1 = _rql(qtype, 333, 512, seed=10, device=cuda, pack=qmatmul.pack_runtime)
+    for xx, w in ((x.float(), rql), (x[:5].float(), rql), (x[:8, :512], vec1)):
+        got = fn(xx, w)
+        want = qmatmul.dequant_matmul_v1_reference(xx, w)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+                                   atol=1e-4 * _terms(xx, w))
+    y, tile = qmatmul._launch_v1(x, rql, mma=False, decode_mma=False)
+    want = qmatmul.dequant_matmul_v1_reference(x, rql)
+    torch.cuda.synchronize()
+    assert tile == "cuda_core"
+    assert (y - want).abs().max().item() <= 1e-4 * _terms(x, rql)
+    assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (4, 1, 0)
 
 
 # v2p's tensor-core decode tile (csrc/qmatmul_decode_mma.cuh with
@@ -1377,14 +1483,16 @@ V2H_V2T_DECODE = [*[("v2h", q, *c) for q in ALL_K for c in DECODE_MMA_CASES],
                   *[("v2t", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES],
                   *[("v2m", q, *c) for q in (T.Q4_K, T.Q5_K) for c in V2P_DECODE_CASES],
                   *[("v2s", q, *c) for q in (T.Q4_K, T.Q2_K, T.Q3_K) for c in DECODE_MMA_CASES],
-                  *[(v, q, *c) for v in ("v3", "v2") for q in ALL_K for c in DECODE_MMA_CASES]]
+                  *[(v, q, *c) for v in ("v3", "v2", "v2f") for q in ALL_K
+                    for c in DECODE_MMA_CASES]]
 DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
                       x, rql, torch.bfloat16, "v2f"),
                   "v2t": qmatmul.dequant_matmul_v2g_reference,
                   "v2m": qmatmul.dequant_matmul_v2g_reference,
                   "v2s": qmatmul.dequant_matmul_v2m_reference,
                   "v3": qmatmul.dequant_matmul_v2m_reference,
-                  "v2": qmatmul.dequant_matmul_v2g_reference}
+                  "v2": qmatmul.dequant_matmul_v2g_reference,
+                  "v2f": qmatmul.dequant_matmul_v2g_reference}
 
 
 @pytest.mark.cuda
@@ -1392,11 +1500,12 @@ DECODE_CONTROL = {"v2h": lambda x, rql: qmatmul.dequant_matmul_v2w_reference(
                          ids=lambda a: getattr(a, "name", str(a)))
 def test_v2h_v2t_decode_mma_tiles_match_plain(cuda, f32_exact, monkeypatch, variant, qtype, M,
                                              d_out, d_in, dtype, blocks):
-    """v2h, v2t, v2m, v2s, v3 and v2 with bf16 operands at 1-8 rows on their
-    decode tiles (every row count: their DECODE_MMA_MIN_ROWS lowered here)
-    against their plain versions, within 1e-5 of the largest sum of |terms|
-    of an output (v2h, v3, v2: their bf16 weights bit for bit, f32 sums in
-    another order, v3 with the xsum term;
+    """v2h, v2t, v2m, v2s, v3, v2 and v2f with bf16 operands at 1-8 rows on
+    their decode tiles (every row count: their DECODE_MMA_MIN_ROWS lowered
+    here) against their plain versions, within 1e-5 of the largest sum of
+    |terms| of an output (v2h, v3, v2, v2f: their bf16 weights bit for bit
+    (v2f's from v2's FMA forms), f32 sums in another order, v3 with the
+    xsum term;
     v2t: exact products of raw codes, each step's scaled slice partials
     summed before the accumulator; v2m: each slice partial scaled into the
     accumulator; v2s: v2g's bf16 weights, each step's high-nibble slice
@@ -1512,18 +1621,19 @@ def _edge_planes(qtype, device, off: bool = True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
-@pytest.mark.parametrize("variant", ["v3", "v2"])
+@pytest.mark.parametrize("variant", ["v3", "v2", "v2f"])
 def test_v3_v2_decode_mma_tile_weights_bit_equal(cuda, monkeypatch, variant, qtype):
-    """Through unit rows of x the v3 and v2 decode tiles return their bf16
-    weights, on the planted planes of _edge_planes: v3's from one bf16x2
-    FMA per pair (its off2 left zero here, so the xsum term subtracts
-    nothing), v2's from one f32 FMA per weight and a subtraction of the
-    offset; each equal to the plain version's T(T(scale) * q) and
-    T(scale * (q - shift) - off), rounded in f32 (v3's from the planes with
-    their offsets, which its weights do not depend on)."""
+    """Through unit rows of x the v3, v2 and v2f decode tiles return their
+    bf16 weights, on the planted planes of _edge_planes: v3's from one
+    bf16x2 FMA per pair (its off2 left zero here, so the xsum term
+    subtracts nothing), v2's and v2f's from one f32 FMA per weight and a
+    subtraction of the offset; each equal to the plain version's
+    T(T(scale) * q), T(scale * (q - shift) - off) and T(scale * q - off2),
+    rounded in f32 (v3's from the planes with their offsets, which its
+    weights do not depend on)."""
     monkeypatch.setitem(qmatmul.DECODE_MMA_MIN_ROWS, variant, 1)
     fn = V2_WRAPPERS[variant]
-    rql = _edge_planes(qtype, cuda, off=variant == "v2")
+    rql = _edge_planes(qtype, cuda, off=variant != "v3")
     w = qmatmul._v2_operand(_edge_planes(qtype, cuda), variant, torch.bfloat16)[0]
     eye = torch.eye(512, device=cuda, dtype=torch.bfloat16)
     d0 = fn.decode_mma_launches
@@ -1534,7 +1644,7 @@ def test_v3_v2_decode_mma_tile_weights_bit_equal(cuda, monkeypatch, variant, qty
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["v3", "v2"])
+@pytest.mark.parametrize("variant", ["v3", "v2", "v2f"])
 def test_v3_v2_decode_mma_tile_failures_raise(cuda, monkeypatch, variant):
     """No fallback: the decode tile's code with f32 operands, which the
     source does not instantiate, raises; a build failure of the library
@@ -1561,12 +1671,13 @@ def test_v3_v2_decode_mma_tile_failures_raise(cuda, monkeypatch, variant):
 @pytest.mark.parametrize("variant,qtype", [("v2h", T.Q4_K), ("v2h", T.Q6_K), ("v2t", T.Q4_K),
                                            ("v2t", T.Q5_K), ("v2m", T.Q4_K), ("v2m", T.Q5_K),
                                            ("v2s", T.Q4_K), ("v2s", T.Q3_K), ("v3", T.Q4_K),
-                                           ("v3", T.Q6_K), ("v2", T.Q4_K), ("v2", T.Q6_K)],
+                                           ("v3", T.Q6_K), ("v2", T.Q4_K), ("v2", T.Q6_K),
+                                           ("v2f", T.Q4_K), ("v2f", T.Q3_K)],
                          ids=lambda a: getattr(a, "name", a))
 def test_v2h_v2t_decode_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(
         cuda, monkeypatch, variant, qtype):
-    """The v2h, v2t, v2m, v2s, v3 and v2 decode tiles copy an x that is not
-    16-byte aligned;
+    """The v2h, v2t, v2m, v2s, v3, v2 and v2f decode tiles copy an x that is
+    not 16-byte aligned;
     f32 operands, vec-1 weights and fewer rows than the variant's
     DECODE_MMA_MIN_ROWS stay on the CUDA-core tiles (decode_mma_launches
     unchanged, no mma_launches)."""

@@ -221,11 +221,14 @@ def test_v2g_bf16_decode_takes_the_decode_tile(M):
 ], ids=lambda a: str(a).replace("torch.", ""))
 @pytest.mark.parametrize("M", [1, 8])
 def test_decode_keeps_the_cuda_core_tiles_elsewhere(variant, mxu, vec, M):
-    """f32 operands, vec-1 weights and the variant without a decode tile
-    (v2f) keep _launch_plan's CUDA-core tiles at M <= 8; v2, v3, v2h, v2s,
-    v2m, v2t and v2p (bf16 operands, vec 4) take their own decode tiles
-    from their DECODE_MMA_MIN_ROWS."""
-    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t", "v2m", "v2s", "v3", "v2")
+    """f32 operands and vec-1 weights keep _launch_plan's CUDA-core tiles
+    at M <= 8; v2, v3, v2f, v2h, v2s, v2m, v2t and v2p (bf16 operands, vec
+    4) take their own decode tiles from their DECODE_MMA_MIN_ROWS, below
+    that the CUDA-core tiles. The table's other kernels, v4 and v1, are
+    not v2 variants: _v2_route never takes their rows."""
+    assert qmatmul.DECODE_MMA_VARIANTS == ("v2g", "v2p", "v2h", "v2t", "v2m", "v2s", "v3", "v2",
+                                           "v2f")
+    assert set(qmatmul.DECODE_MMA_MIN_ROWS) - set(qmatmul.DECODE_MMA_VARIANTS) == {"v4", "v1"}
     route = qmatmul._v2_route(variant, mxu)
     decode = variant in qmatmul.DECODE_MMA_VARIANTS and mxu == torch.bfloat16
     assert route[3] is decode
@@ -263,21 +266,26 @@ def test_v2g_wrapper_counts_each_tile(mt, counted, monkeypatch):
     (8, 4096, 16, (8, 1, 16)), (128, 4096, 16, (32, 1, 16)), (1024, 28672, 16, (32, 16, 1)),
     (1024, 128256, 16, (32, 16, 1))])
 def test_v1_v4_plan_unchanged(M, d_out, n_sg, want, x_dtype):
-    """The v1 wrapper calls launch_setup(x, rql, mma=x is bf16): with an
+    """The v1 wrapper calls launch_setup(x, rql, mma=bf16, decode_mma=bf16,
+    decode_min_rows=DECODE_MMA_MIN_ROWS["v1"]), bf16 whether x is: with an
     f32 x the defaults keep v1's CUDA-core tiles of up to 32 rows at every
     M; a bf16 x of MMA_MIN_ROWS rows or more takes the tensor-core tiles
-    (_mma_plan), and 1-8 rows the same CUDA-core tiles (v4's plan:
-    test_v4_plan)."""
+    (_mma_plan), and from the threshold to 8 rows the tensor-core decode
+    tile (_decode_mma_plan; v4's plan: test_v4_plan)."""
     import inspect
 
     defaults = {k: p.default for k, p in inspect.signature(qmatmul.launch_setup).parameters.items()
                 if p.default is not inspect.Parameter.empty}
     assert defaults == {"mt_max": 32, "mma": False, "bm_max": 128, "decode_mma": False,
                         "decode_min_rows": None}
-    ask = {**defaults, "mma": x_dtype == "bf16"}
+    bf16 = x_dtype == "bf16"
+    ask = {**defaults, "mma": bf16, "decode_mma": bf16,
+           "decode_min_rows": qmatmul.DECODE_MMA_MIN_ROWS["v1"]}
     got = qmatmul._plan(M, d_out, n_sg, 132, 4, **ask)
-    if x_dtype == "bf16" and M >= qmatmul.MMA_MIN_ROWS:
+    if bf16 and M >= qmatmul.MMA_MIN_ROWS:
         assert got == qmatmul._mma_plan(M, d_out, n_sg, 132)
+    elif bf16 and M >= qmatmul.DECODE_MMA_MIN_ROWS["v1"]:
+        assert got == qmatmul._decode_mma_plan(d_out, n_sg, 132)
     else:
         assert got == qmatmul._launch_plan(M, d_out, n_sg, 132, 4) == want
 
@@ -373,15 +381,19 @@ def test_v4_wrapper_counts_each_tile(tile, counted, per_byte, layout, body, monk
         assert getattr(fn, k) == {b: c + n * (b == body) for b, c in was.items()}, k
 
 
-@pytest.mark.parametrize("fmt,want", [("v1", {"mma": False}), ("v1 bf16", {"mma": True}),
-                                      ("v4", {"mma": True, "decode_mma": True,
-                                              "decode_min_rows": 1})])
+@pytest.mark.parametrize("fmt,want", [
+    ("v1", {"mma": False, "decode_mma": False, "decode_min_rows": 1}),
+    ("v1 bf16", {"mma": True, "decode_mma": True, "decode_min_rows": 1}),
+    ("v4", {"mma": True, "decode_mma": True, "decode_min_rows": 1})])
 def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
     """A tensor off the CPU (here one on the meta device) goes to
-    launch_setup: v1 asking for the tensor-core prefill tiles with a bf16
-    x only (its other defaults: the CUDA-core tiles of up to 32 rows), v4
-    for the tensor-core prefill tiles and the tensor-core decode tile from
-    one row (qmatmul.DECODE_MMA_MIN_ROWS["v4"]) whatever x is."""
+    launch_setup: v1 asking for the tensor-core prefill tiles and the
+    tensor-core decode tile from qmatmul.DECODE_MMA_MIN_ROWS["v1"] rows
+    with a bf16 x only (its other defaults: the CUDA-core tiles of up to
+    32 rows), v4 for the tensor-core prefill tiles and the tensor-core
+    decode tile from one row (qmatmul.DECODE_MMA_MIN_ROWS["v4"]) whatever
+    x is."""
+    assert qmatmul.DECODE_MMA_MIN_ROWS["v1"] == qmatmul.DECODE_MMA_MIN_ROWS["v4"] == 1
     from gptq_gguf_tpu_torch.ops import qmv4
 
     mod, fn = ((qmatmul, qmatmul.dequant_matmul_v1) if fmt.startswith("v1")
@@ -402,17 +414,21 @@ def test_v1_v4_wrappers_ask_for_their_plan(fmt, want, monkeypatch):
 @pytest.mark.parametrize("x_dtype,M,vec,tile", [
     ("bf16", 9, 4, "mma"),            # from MMA_MIN_ROWS: the tensor-core tiles
     ("bf16", 1024, 4, "mma"),
-    ("bf16", 8, 4, "cuda_core"),      # 1-8 rows: v1_kernel, as before
-    ("bf16", 1, 4, "cuda_core"),
-    ("f32", 128, 4, "cuda_core"),     # an f32 x would be rounded: v1_kernel at any M
+    ("bf16", 8, 4, "decode_mma"),     # DECODE_MMA_MIN_ROWS["v1"] (1) to 8 rows: the decode tile
+    ("bf16", 1, 4, "decode_mma"),
+    ("f32", 8, 4, "cuda_core"),       # an f32 x would be rounded: v1_kernel at any M
+    ("f32", 128, 4, "cuda_core"),
     ("bf16", 128, 1, "cuda_core"),    # vec 1: one column per thread
+    ("bf16", 8, 1, "cuda_core"),
 ])
 def test_v1_route_and_counts(x_dtype, M, vec, tile, monkeypatch):
     """v1's route end to end up to the C call (on the meta device, with
     launch_setup's plan for a card of 132 SMs and a stand-in library): the
-    tile code the entry point gets (1: the tensor-core tiles), the rows
-    per block, and the counts on dequant_matmul_v1 (every launch; the
-    tensor-core ones also on mma_launches)."""
+    tile code the entry point gets (1: the tensor-core tiles, the decode
+    tile among them as mt DECODE_MMA_TILE), the rows per block, and the
+    counts on dequant_matmul_v1 (every launch; the tensor-core ones also
+    on mma_launches or decode_mma_launches)."""
+    assert qmatmul.DECODE_MMA_MIN_ROWS["v1"] == 1
     from types import SimpleNamespace
 
     fn = qmatmul.dequant_matmul_v1
@@ -438,19 +454,24 @@ def test_v1_route_and_counts(x_dtype, M, vec, tile, monkeypatch):
                           group_size=32)
     x = torch.empty(M, 256 * n_sg, device="meta",
                     dtype=torch.bfloat16 if x_dtype == "bf16" else torch.float32)
-    before = (fn.launches, fn.mma_launches)
-    for k, v in zip(("launches", "mma_launches"), before):  # restored after the test
+    keys = ("launches", "mma_launches", "decode_mma_launches")
+    before = [getattr(fn, k) for k in keys]
+    for k, v in zip(keys, before):  # restored after the test
         monkeypatch.setattr(fn, k, v)
     fn(x, rql)
     (args,) = calls
     assert len(args) == len(qmatmul._V1_ARGS)
     tc, mt = args[12], args[13]  # after M, d_in, d_out, per_byte, group_size
-    assert (tc, args[1]) == (int(tile == "mma"), int(x_dtype == "bf16"))
+    assert (tc, args[1]) == (int(tile != "cuda_core"), int(x_dtype == "bf16"))
     if tile == "mma":
         assert mt == qmatmul._mma_plan(M, d_out, n_sg, 132)[0] in (32, 64, 128)
+    elif tile == "decode_mma":
+        assert (mt, *args[15:17]) == qmatmul._decode_mma_plan(d_out, n_sg, 132)
+        assert mt == qmatmul.DECODE_MMA_TILE
     else:
         assert mt == qmatmul._launch_plan(M, d_out, n_sg, 132, vec)[0] <= 32
-    assert (fn.launches - before[0], fn.mma_launches - before[1]) == (1, int(tile == "mma"))
+    assert [getattr(fn, k) - b for k, b in zip(keys, before)] == [
+        1, int(tile == "mma"), int(tile == "decode_mma")]
 
 
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
@@ -504,20 +525,21 @@ def test_v2p_wrapper_counts_each_tile(mt, counted, monkeypatch):
                      "mma_launches": int(counted == "mma_launches")}
 
 
-@pytest.mark.parametrize("variant", ["v2h", "v2t", "v2m", "v2s", "v3", "v2"])
+@pytest.mark.parametrize("variant", ["v2h", "v2t", "v2m", "v2s", "v3", "v2", "v2f"])
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
 def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
-    """v2h, v2t, v2m, v2s, v3 and v2 with bf16 operands on a vec-4 weight:
-    every M from the variant's DECODE_MMA_MIN_ROWS to MMA_MIN_ROWS - 1
-    takes its decode tile at every 8B decode shape it runs (v2h, v3 and v2
-    the head too; v2t and v2s leave the gs-16 head to v2g, v2m to v2p),
+    """v2h, v2t, v2m, v2s, v3, v2 and v2f with bf16 operands on a vec-4
+    weight: every M from the variant's DECODE_MMA_MIN_ROWS to
+    MMA_MIN_ROWS - 1 takes its decode tile at every 8B decode shape it
+    runs (v2h, v3, v2 and v2f the head too; v2t and v2s leave the gs-16
+    head to v2g, v2m to v2p),
     fewer rows the CUDA-core tiles; f32 operands and vec-1 weights keep
     the CUDA-core tiles."""
     lo = qmatmul.DECODE_MMA_MIN_ROWS[variant]
     assert 1 <= lo < qmatmul.MMA_MIN_ROWS
     route = qmatmul._v2_route(variant, torch.bfloat16)
     assert route[3:] == (True, lo)
-    shapes = (STEP_8B if variant in ("v2h", "v3", "v2")
+    shapes = (STEP_8B if variant in ("v2h", "v3", "v2", "v2f")
               else {k: v for k, v in STEP_8B.items() if k != "lm_head"})
     for d_out, n_sg in shapes.values():
         core = qmatmul._launch_plan(M, d_out, n_sg, 132, 4, 8)
@@ -533,11 +555,12 @@ def test_v2h_v2t_bf16_decode_takes_the_decode_tile(variant, M):
                                                  ("v2m", "qmatmul_v2m", 0, 32),
                                                  ("v2s", "qmatmul_v2g", 5, 32),
                                                  ("v3", "qmatmul_v3", 2, 16),
-                                                 ("v2", "qmatmul_v2", 1, 16)])
+                                                 ("v2", "qmatmul_v2", 1, 16),
+                                                 ("v2f", "qmatmul_v2", 3, 16)])
 @pytest.mark.parametrize("mt,counted", [(8, None), (qmatmul.DECODE_MMA_TILE, "decode_mma_launches"),
                                         (32, "mma_launches")])
 def test_v2h_v2t_wrappers_count_each_tile(variant, lib, code, gs, mt, counted, monkeypatch):
-    """A v2h, v2t, v2m, v2s, v3 or v2 launch counts once on ``launches``
+    """A v2h, v2t, v2m, v2s, v3, v2 or v2f launch counts once on ``launches``
     and, by the tile that ran, on ``decode_mma_launches`` or
     ``mma_launches``; each asks for its own route (a stand-in launch on the
     meta device reports the tile)."""
@@ -612,28 +635,34 @@ def test_plain_v1_matches_jax_interpret(qtype, M):
                                rtol=0, atol=1e-4 * mag)
 
 
+def _v1_staged_step(rql, sg, q):
+    """The raw codes (f32, 64 x d_out) of 64-row step q of supergroup sg as
+    v1's tiles stage them, and the weight row of each (4-bit codes: byte
+    rows 32q.. of the supergroup, whose low nibbles are weight rows 32q..
+    and high nibbles 128 + 32q..; byte codes: rows 64q..)."""
+    if rql.per_byte == 2:
+        b = rql.qs[sg * 128 + 32 * q: sg * 128 + 32 * q + 32].int()
+        codes = torch.cat([b & 0xF, b >> 4]).float()
+        rows = [*range(32 * q, 32 * q + 32), *range(128 + 32 * q, 160 + 32 * q)]
+    else:
+        codes = rql.qs[sg * 256 + 64 * q: sg * 256 + 64 * q + 64].float()
+        rows = list(range(64 * q, 64 * q + 64))
+    return codes, torch.tensor(rows) + 256 * sg
+
+
 def _v1_in_tile_order(x, rql):
     """v1 as its tensor-core tiles compute it (csrc/qmatmul_v1_mma.cuh on
     the mainloop of csrc/qmatmul_mma.cuh), in f32: for each 64-row step q
-    of a supergroup the staged code rows (4-bit codes: byte rows 32q.. of
-    the supergroup, whose low nibbles are weight rows 32q.. and high
-    nibbles 128 + 32q..; byte codes: rows 64q..), each group's exact
-    partial bf16(x_g) @ q_g times its scale_t row into the sum, then the
-    step's groups' xsum @ offset_t rows out of it."""
+    of a supergroup the staged code rows (_v1_staged_step), each group's
+    exact partial bf16(x_g) @ q_g times its scale_t row into the sum, then
+    the step's groups' xsum @ offset_t rows out of it."""
     M, d_in = x.shape
-    gs, pb, d_out = rql.group_size, rql.per_byte, rql.d_out
+    gs, d_out = rql.group_size, rql.d_out
     xb, x32 = x.to(torch.bfloat16).float(), x.float()
     y = torch.zeros(M, d_out)
     for sg in range(d_in // 256):
         for q in range(4):
-            if pb == 2:
-                b = rql.qs[sg * 128 + 32 * q: sg * 128 + 32 * q + 32].int()
-                codes = torch.cat([b & 0xF, b >> 4]).float()
-                rows = [*range(32 * q, 32 * q + 32), *range(128 + 32 * q, 160 + 32 * q)]
-            else:
-                codes = rql.qs[sg * 256 + 64 * q: sg * 256 + 64 * q + 64].float()
-                rows = list(range(64 * q, 64 * q + 64))
-            rows = torch.tensor(rows) + 256 * sg
+            codes, rows = _v1_staged_step(rql, sg, q)
             groups = [(int(rows[lg * gs]) // gs, slice(lg * gs, lg * gs + gs))
                       for lg in range(64 // gs)]
             for g, k in groups:
@@ -668,6 +697,66 @@ def test_v1_group_dot_in_tile_order_matches_jax_interpret(qtype, M):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
     np.testing.assert_allclose(qmatmul.dequant_matmul_v1_reference(xt, tr).numpy(), got,
                                rtol=0, atol=tol)
+
+
+def _v1_in_decode_order(x, rql, swap=False):
+    """v1 as its tensor-core decode tile computes it (V1Mma<PB, GS,
+    kDecodePitch> on the decode mainloop of csrc/qmatmul_decode_mma.cuh,
+    its group-dot form), in f32: per 64-row step q of a supergroup the
+    staged code rows (_v1_staged_step), each K half kh's two k16
+    slices j taken by decode_slice's map (test_torch_v2_variants.py), each
+    slice's exact partial bf16(x) @ q times the scale_t row of its group
+    (the step's group 16 * sl / gs) into the half; the first half also
+    takes the step's xsum @ offset_t rows out; the halves meet at the end.
+    ``swap`` plants a fault: each slice takes the scale_t row of the step's
+    neighbouring group (a wrong slice-group map)."""
+    from tests.test_torch_v2_variants import _decode_slice
+
+    M, d_in = x.shape
+    gs, pb, d_out = rql.group_size, rql.per_byte, rql.d_out
+    xb, x32 = x.to(torch.bfloat16).float(), x.float()
+    half = [torch.zeros(M, d_out), torch.zeros(M, d_out)]
+    for sg in range(d_in // 256):
+        for q in range(4):
+            codes, rows = _v1_staged_step(rql, sg, q)
+            group = [int(rows[lg * gs]) // gs for lg in range(64 // gs)]  # the staged rows
+            for kh in range(2):
+                for j in range(2):
+                    sl = _decode_slice(pb, kh, j)
+                    k = slice(16 * sl, 16 * sl + 16)
+                    g = group[(16 * sl // gs) ^ int(swap)]
+                    half[kh] = half[kh] + (xb[:, rows[k]] @ codes[k]) * rql.scale_t[g]
+            for g in group:
+                xs = x32[:, gs * g: gs * g + gs].sum(1, keepdim=True)
+                half[0] = half[0] - xs * rql.offset_t[g]
+    return half[0] + half[1]
+
+
+@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q3_K, T.Q6_K], ids=lambda q: q.name)
+@pytest.mark.parametrize("M", [1, 8])
+def test_v1_decode_order_matches_jax_interpret(qtype, M):
+    """The function v1's tensor-core decode tile computes, in its order
+    (_v1_in_decode_order: raw codes by the decode tile's slice map, each
+    k16 slice's partial scaled by its group's scale_t, xsum @ offset_t on
+    the first K half, which carries Q3_K's and Q6_K's shift), against
+    JAX's v1 Pallas kernel (_kernel) in interpret mode on a bf16-valued x:
+    the products are exact on both sides and only the grouping and the
+    order of the f32 sums differ, so within 1e-5 of the largest sum of
+    |terms| of an output (the limit the tile is held to on the card). The
+    same order with the planted fault (the slices' groups swapped) fails
+    that limit."""
+    jr, tr = _v1_pair(qtype, d_in=1024, seed=70 + int(qtype))
+    xt = torch.from_numpy(np.random.default_rng(M + 20).normal(size=(M, 1024)).astype(np.float32))
+    xt = xt.to(torch.bfloat16).float()
+    want = np.asarray(jq.dequant_matmul_pallas(jnp.asarray(xt.numpy()), jr, tile_out=256,
+                                               tile_in=512, interpret=True))
+    ng, gs = tr.scale_t.shape[0], tr.group_size
+    q = qmatmul._unpack_codes(tr.qs, tr.per_byte, 1024).float()
+    sq = (q.reshape(ng, gs, -1) * tr.scale_t[:, None, :]).reshape(1024, -1)
+    terms = (xt.abs() @ sq.abs() + xt.reshape(M, ng, gs).sum(-1).abs() @ tr.offset_t.abs())
+    tol = 1e-5 * terms.max().item()
+    np.testing.assert_allclose(_v1_in_decode_order(xt, tr).numpy(), want, rtol=0, atol=tol)
+    assert np.abs(_v1_in_decode_order(xt, tr, swap=True).numpy() - want).max() > tol
 
 
 @pytest.mark.parametrize("fmt", ["v1", "v2", "v4"])

@@ -349,9 +349,9 @@ def test_group_dot_launch_plan(M, d_out, n_sg, vec, want):
 ])
 def test_per_weight_route(variant, mxu, M, d_out, n_sg, vec, mma_want, core_want):
     """Every per-weight build, v2s among them, takes the tensor-core tiles
-    with bf16 operands from MMA_MIN_ROWS rows (every build but v2f below
-    that its tensor-core decode tile); f32 operands and vec-1 weights keep
-    the 8-row CUDA-core tiles at any M."""
+    with bf16 operands from MMA_MIN_ROWS rows (every build, v2f among
+    them, below that its tensor-core decode tile); f32 operands and vec-1
+    weights keep the 8-row CUDA-core tiles at any M."""
     dt = torch.bfloat16 if mxu == "bf16" else torch.float32
     route = qmatmul._v2_route(variant, dt)
     want = mma_want if mxu == "bf16" and variant in qmatmul.MMA_VARIANTS else core_want

@@ -130,18 +130,12 @@ def test_v3_bf16_pair_arithmetic_equals_the_f32_path(qtype):
     assert np.abs(got).max() == biggest
 
 
-@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
-def test_v2_fma_forms_equal_the_f32_path(qtype):
-    """v2's decode tile forms each weight as fma(s, 128 + q, nb) with nb =
-    -s (128 + shift) (128 + q from one byte permute), then, for the formats
-    with a min, one f32 subtraction of off2. nb is exact in f32 (s has at
-    most 18 significant bits, 128 + shift is 128, 132 or 160), so the FMA
-    rounds the exact s (q - shift) once, which is itself; the subtraction
-    rounds s * q - off2 once. On the planted planes of _edge_planes,
-    emulated with the FMA's one rounding taken from the exact float64
-    value, these are weight_q<kV2>'s f32 weights (dequantize_runtime_v2)
-    bit for bit, and so are their bf16 roundings."""
-    rql = _edge_planes(qtype, "cpu")
+def _v2_fma_form(rql):
+    """The weights of v2's decode-tile FMA forms (V2Mma::frags_v2) on the
+    planes of rql, f32 (d_in, d_out): fma(s, 128 + q, nb) with nb = -s (128
+    + shift), emulated with the FMA's one rounding taken from the exact
+    float64 value, then, for the formats with a min, one f32 subtraction
+    of off2. Asserts nb exact and, without a min, the FMA exact."""
     scale, off2 = qmatmul._folded_planes_v2(rql)
     ng, gs, d_out = scale.shape[0], rql.group_size, rql.d_out
     q = qmatmul._unpack_codes(rql.qs, rql.per_byte, rql.d_in_local).numpy().astype(np.float32)
@@ -155,8 +149,43 @@ def test_v2_fma_forms_equal_the_f32_path(qtype):
         w = w - off2.numpy()[:, None, :]
     else:
         assert np.array_equal(w.astype(np.float64), exact)  # s (q - shift), exact
+    return w.reshape(ng * gs, d_out)
+
+
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_v2_fma_forms_equal_the_f32_path(qtype):
+    """v2's decode tile forms each weight as fma(s, 128 + q, nb) with nb =
+    -s (128 + shift) (128 + q from one byte permute), then, for the formats
+    with a min, one f32 subtraction of off2. nb is exact in f32 (s has at
+    most 18 significant bits, 128 + shift is 128, 132 or 160), so the FMA
+    rounds the exact s (q - shift) once, which is itself; the subtraction
+    rounds s * q - off2 once. On the planted planes of _edge_planes,
+    emulated with the FMA's one rounding taken from the exact float64
+    value, these are weight_q<kV2>'s f32 weights (dequantize_runtime_v2)
+    bit for bit, and so are their bf16 roundings."""
+    rql = _edge_planes(qtype, "cpu")
+    w = _v2_fma_form(rql)
     want = qmatmul._v2_operand(rql, "v2", torch.float32)[0].numpy()
-    np.testing.assert_array_equal(w.reshape(ng * gs, d_out), want)
+    np.testing.assert_array_equal(w, want)
     np.testing.assert_array_equal(
-        torch.from_numpy(w.reshape(ng * gs, d_out)).to(torch.bfloat16).float().numpy(),
+        torch.from_numpy(w).to(torch.bfloat16).float().numpy(),
         qmatmul._v2_operand(rql, "v2", torch.bfloat16)[0].numpy())
+
+
+@pytest.mark.parametrize("mxu", ["f32", "bf16"])
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda q: q.name)
+def test_v2f_fma_form_equals_the_f32_path(qtype, mxu):
+    """v2f's decode tile builds v2's fragments (V2Mma<kV2f> takes
+    frags_v2): its weight scale * q - off2 is v2's value, for off2 is v2's
+    offset where the format has a min (shift 0) and the exact scale *
+    shift where it has none (shift 4 or 32, powers of two), and scale * q -
+    scale * shift is the exact scale * (q - shift) (at most 24 significant
+    bits). On the planted planes of _edge_planes the FMA form equals the
+    plain version's v2f operand (_v2_operand(rql, "v2f", ...), the JAX
+    body's weight) bit for bit, in f32 and rounded to bf16."""
+    rql = _edge_planes(qtype, "cpu")
+    w = torch.from_numpy(_v2_fma_form(rql))
+    dt = torch.float32 if mxu == "f32" else torch.bfloat16
+    want = qmatmul._v2_operand(rql, "v2f", dt)[0]
+    assert want.dtype == torch.float32
+    np.testing.assert_array_equal(w.to(dt).float().numpy(), want.numpy())

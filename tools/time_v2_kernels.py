@@ -43,7 +43,8 @@ the variant's or the format's CUDA-core tile on the same inputs
 (``qmatmul._launch_v2``, or ``qmv4._launch_v4`` in the roots that have it,
 with the tensor-core tiles ruled out: ``core_ms_per_call``), and with
 ``--format v1`` at every M v1_kernel's tile (``qmatmul._launch_v1(x, w,
-mma=False)`` in the roots that have it);
+mma=False, decode_mma=False)`` in the roots that have it; roots without
+the decode tile take no ``decode_mma``);
 ``--decode-blocks`` sets the decode tile's split-K target
 (``qmatmul.DECODE_MMA_BLOCKS_PER_SM``), ``--decode-min-rows`` the fewest
 rows the route gives the decode tile (every entry of the table
@@ -69,6 +70,7 @@ at M = 8 the B=8 decode step). Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import shutil
@@ -266,7 +268,10 @@ def one_root(root: str, variant: str, fmt: str, reps: int, ms: list, bm: int, co
             tiles[name] = tile_of(wrapper, lambda: fn(x, rql))
             out[name] = device_ms(lambda: fn(x, rql))
             if core and v1 and hasattr(qmatmul, "_launch_v1"):  # v1_kernel at any M
-                core_ms[name] = device_ms(lambda: qmatmul._launch_v1(x, rql, mma=False))
+                off = {"mma": False}
+                if "decode_mma" in inspect.signature(qmatmul._launch_v1).parameters:
+                    off["decode_mma"] = False
+                core_ms[name] = device_ms(lambda: qmatmul._launch_v1(x, rql, **off))
             elif core and M <= 8 and fmt and not v1 and hasattr(qmv4, "_launch_v4"):
                 core_ms[name] = device_ms(lambda: qmv4._launch_v4(x, rql, False, False))
             elif core and M <= 8 and not fmt:

@@ -1121,6 +1121,10 @@ BLOCK = 128               # the default GPTQ block
 # (name, rows of one block solve, column blocks per 8B layer): q/k/v solved
 # row-concatenated, o, gate/up row-concatenated, down over 14336 columns
 SOLVE_SHAPES = (("qkv", 6144, 32), ("o", 4096, 32), ("gateup", 28672, 32), ("down", 4096, 112))
+# (name, rows, block width) of the wide blocks held beside them: a block of
+# 512 and the whole o-projection as one block (--static_groups
+# --block_size 0), which the kernel runs 128 columns at a time
+WIDE_SOLVES = (("o", 4096, 512), ("o", 4096, 4096))
 
 
 def solve_cost(d_row: int, bs: int):
@@ -1132,28 +1136,30 @@ def solve_cost(d_row: int, bs: int):
 
 def solve_inputs(rng, U, d_row, qtype, device):
     """One block's w, U and per-column s / z: s / z from a K-quant fit of
-    a w-like (d_row, 256) draw, U a diagonal block of a real factor."""
+    a w-like (d_row, max(256, bs)) draw, U (bs, bs) a diagonal block of a
+    real factor."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS
     from gptq_gguf_tpu_torch.ops import kquant
 
     spec = KQUANT_SPECS[qtype]
-    x = torch.as_tensor(rng.normal(size=(d_row, 256)) * 0.02, dtype=torch.float32, device=device)
-    s, z = kquant._expanded_scales(kquant.fit_supergroups(x, qtype), spec, 256)
-    return (x[:, :BLOCK].contiguous(), U, s[:, :BLOCK].contiguous(), z[:, :BLOCK].contiguous(),
+    bs = U.shape[0]
+    width = max(256, bs)
+    x = torch.as_tensor(rng.normal(size=(d_row, width)) * 0.02, dtype=torch.float32,
+                        device=device)
+    s, z = kquant._expanded_scales(kquant.fit_supergroups(x, qtype), spec, width)
+    return (x[:, :bs].contiguous(), U, s[:, :bs].contiguous(), z[:, :bs].contiguous(),
             spec.qmin, spec.qmax, 1e-9)
 
 
-def phase_gptq_kernel(rng, device):
-    """The block-solve kernel against its plain version at every 8B solve
-    shape, for Q4_K, Q6_K and Q3_K: codes and err bit-equal."""
+def solve_factor(rng, device):
+    """The upper factor U (H, H) of a seeded SPD Hessian of an H-wide
+    layer, factorized as the walk does."""
     import torch
 
-    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
     from gptq_gguf_tpu_torch.ops import gptq
 
-    # a seeded SPD Hessian of an H-wide layer, factorized as the walk does
     n = H
     X = torch.as_tensor(rng.normal(size=(2 * n, n)), dtype=torch.float32, device=device)
     X = X @ (torch.eye(n, device=device) + torch.as_tensor(
@@ -1164,36 +1170,57 @@ def phase_gptq_kernel(rng, device):
                                                   method="device")
     if bad:
         raise RuntimeError("the seeded Hessian did not factorize")
-    U = U_full[n // 4:n // 4 + BLOCK, n // 4:n // 4 + BLOCK].contiguous()
-    del U_full, hess
+    return U_full
+
+
+def u_block(U_full, bs: int):
+    """A (bs, bs) diagonal block of U_full: from a quarter in, or from the
+    start where bs spans it."""
+    n = U_full.shape[0]
+    a = n // 4 if bs < n else 0
+    return U_full[a:a + bs, a:a + bs].contiguous()
+
+
+def phase_gptq_kernel(rng, device):
+    """The block-solve kernel against its plain version at every 8B solve
+    shape, for Q4_K, Q6_K and Q3_K, and at the wide blocks of WIDE_SOLVES
+    for Q4_K and Q6_K: codes and err bit-equal."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import gptq
+
+    U_full = solve_factor(rng, device)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     recs = []
-    for qtype in (T.Q4_K, T.Q6_K, T.Q3_K):
-        for name, d_row, per_layer in SOLVE_SHAPES:
-            if qtype != T.Q4_K and name == "down":
-                continue  # the same kernel shape as o
-            args = solve_inputs(rng, U, d_row, qtype, device)
-            qk, ek = gptq.solve_block(*args)
-            qp, ep = gptq.solve_block_reference(*args)
-            torch.cuda.synchronize()
-            err = max((qk - qp).abs().max().item(), (ek - ep).abs().max().item())
-            if not (torch.equal(qk, qp) and torch.equal(ek, ep)):
-                raise RuntimeError(f"gptq_solve {name} {qtype.name}: kernel and plain differ "
-                                   f"(max |diff| {err:.3e})")
-            nbytes, ops = solve_cost(d_row, BLOCK)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
-            rec = dict(name=name, qtype=qtype.name, d_row=d_row, bs=BLOCK, per_layer=per_layer,
-                       max_abs_err=err,
-                       ms=cuda_ms(lambda: gptq.solve_block(*args), 20, flush_buf.zero_),
-                       call_ms=call_ms(lambda: gptq.solve_block(*args), 20),
-                       plain_ms=cuda_ms(lambda: gptq.solve_block_reference(*args), 2,
-                                        flush_buf.zero_),
-                       bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
-            recs.append(rec)
-            log(f"  gptq_solve {name:>6} {qtype.name} ({d_row}x{BLOCK}) bit-equal; kernel "
-                f"{rec['ms']:.4f} ms (call {rec['call_ms']:.4f})  plain {rec['plain_ms']:.2f} ms"
-                f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, {ops:.3e} ops)")
+    cases = [(qtype, name, d_row, BLOCK, per_layer) for qtype in (T.Q4_K, T.Q6_K, T.Q3_K)
+             for name, d_row, per_layer in SOLVE_SHAPES
+             if qtype == T.Q4_K or name != "down"]  # down: the same kernel shape as o
+    cases += [(qtype, name, d_row, bs, 0) for qtype in (T.Q4_K, T.Q6_K)
+              for name, d_row, bs in WIDE_SOLVES]
+    for qtype, name, d_row, bs, per_layer in cases:
+        args = solve_inputs(rng, u_block(U_full, bs), d_row, qtype, device)
+        qk, ek = gptq.solve_block(*args)
+        qp, ep = gptq.solve_block_reference(*args)
+        torch.cuda.synchronize()
+        err = max((qk - qp).abs().max().item(), (ek - ep).abs().max().item())
+        if not (torch.equal(qk, qp) and torch.equal(ek, ep)):
+            raise RuntimeError(f"gptq_solve {name} {qtype.name}: kernel and plain differ "
+                               f"(max |diff| {err:.3e})")
+        nbytes, ops = solve_cost(d_row, bs)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+        rec = dict(name=name, qtype=qtype.name, d_row=d_row, bs=bs, per_layer=per_layer,
+                   max_abs_err=err,
+                   ms=cuda_ms(lambda: gptq.solve_block(*args), 20, flush_buf.zero_),
+                   call_ms=call_ms(lambda: gptq.solve_block(*args), 20),
+                   plain_ms=cuda_ms(lambda: gptq.solve_block_reference(*args), 2,
+                                    flush_buf.zero_),
+                   bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        recs.append(rec)
+        log(f"  gptq_solve {name:>6} {qtype.name} ({d_row}x{bs}) bit-equal; kernel "
+            f"{rec['ms']:.4f} ms (call {rec['call_ms']:.4f})  plain {rec['plain_ms']:.2f} ms"
+            f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, {ops:.3e} ops)")
     return recs
 
 
@@ -1430,6 +1457,62 @@ def phase_gptq_whole_solve(solves, device):
     if agree < 0.9999 or rel > 1e-4:
         raise RuntimeError("whole solve: kernel and plain disagree")
     return dict(kernel_s=sk, plain_s=sp, code_agreement=agree, objective_rel_diff=rel)
+
+
+STATIC_CALIB_TOKENS = 16384  # the static-groups run's calibration set: four sequences
+
+
+def phase_gptq_static_groups(tmp: Path, solves, device):
+    """--static_groups --block_size 0: every linear is one block of all its
+    columns, which the kernel takes 128 at a time. The command line on the
+    2-layer checkpoint (one launch per solve, 14 artifacts), then layer 0's
+    o and down projections (4096 and 14336 columns) through
+    gptq_quantize_matrix, kernel against plain: codes and params bit-equal."""
+    import torch
+
+    from gptq_gguf_tpu_torch.__main__ import main as port_main
+    from gptq_gguf_tpu_torch.ops import gptq
+    from gptq_gguf_tpu_torch.quant import artifacts
+
+    save = tmp / "layers_static"
+    argv = quantize_argv(tmp / "ckpt", save, device, profile=False)
+    argv[argv.index("--calibration_tokens") + 1] = str(STATIC_CALIB_TOKENS)
+    gptq.solve_block.launches = 0
+    t = time.perf_counter()
+    port_main(argv + ["--static_groups", "--block_size", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, n_art = gptq.solve_block.launches, len(artifacts.list_layers(save))
+    log(f"quantize --static_groups --block_size 0 ({STATIC_CALIB_TOKENS} tokens): {wall:.2f} s, "
+        f"{launches} solve-kernel launches, {n_art} artifacts")
+    if launches != 4 * GPTQ_LAYERS or n_art != 7 * GPTQ_LAYERS:
+        raise RuntimeError(f"{launches} launches (want {4 * GPTQ_LAYERS}: q/k/v, o, gate/up and "
+                           f"down one block each), {n_art} artifacts")
+    cfg = gptq.GPTQConfig(static_groups=True, block_size=0)
+    rec = dict(wall_s=wall, launches=launches)
+    for j, label in ((1, "o"), (3, "down")):
+        W, Hm, qtype = solves[j]
+        runs = {}
+        for route, fn in (("kernel", gptq.solve_block), ("plain", gptq.solve_block_reference)):
+            solve0 = gptq.solve_block
+            gptq.solve_block = fn
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = gptq.gptq_quantize_matrix(W, Hm, qtype, cfg, device=device)
+                torch.cuda.synchronize()
+                runs[route] = (res, time.perf_counter() - t)
+            finally:
+                gptq.solve_block = solve0
+        (rk, sk), (rp, sp) = runs["kernel"], runs["plain"]
+        same = torch.equal(rk.qweight, rp.qweight) and all(
+            torch.equal(a, b) for a, b in zip(rk.params, rp.params))
+        log(f"  whole {label} solve as one block of {W.shape[1]} columns: kernel {sk:.3f} s, "
+            f"plain {sp:.3f} s; codes and params bit-equal: {same}")
+        if not same:
+            raise RuntimeError(f"static groups, block_size 0, {label}: kernel and plain differ")
+        rec[label] = dict(columns=W.shape[1], kernel_s=sk, plain_s=sp)
+    return rec
 
 
 def phase_gptq_to_serving(arts, device):
@@ -3220,6 +3303,7 @@ def run(device) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gptq_") as tmp:
         g_launches, gptq_rec, solves, arts = phase_gptq_quantize(Path(tmp), device)
         gptq_rec["whole_o_solve"] = phase_gptq_whole_solve(solves, device)
+        gptq_rec["static_groups_bs0"] = phase_gptq_static_groups(Path(tmp), solves, device)
         del solves
         phase_gptq_to_serving(arts, device)
         gptq_formats = phase_gptq_formats(Path(tmp) / "ckpt", Path(tmp) / "layers", arts,
@@ -3274,6 +3358,8 @@ def run(device) -> dict:
         "bound_by": "bytes" if g_bytes >= g_ops else "operations",
         "library_ms": None,
         "per": f"one Llama-3-8B-width layer at Q4_K: {sum(r['per_layer'] for r in q4)} calls",
+        "wide": [{k: r[k] for k in ("qtype", "d_row", "bs", "ms", "plain_ms", "bound_ms")}
+                 for r in grecs if r["bs"] != BLOCK],
     }, paged_summary("paged_flash_decode", 70, precs["paged_flash_decode"],
                      paged_runs["bf16"]["launches"]),
         paged_summary("paged_flash_decode_q4", 160, precs["paged_flash_decode_q4"],

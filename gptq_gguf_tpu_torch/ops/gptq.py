@@ -10,14 +10,14 @@ Port of ``gptq_gguf_tpu/ops/gptq.py``:
   identity and raise the issue flag, as the reference does.
 * The column loop runs block by block. At each supergroup boundary the
   dynamic scales are refit on the current residual; each block's
-  128-column recurrence is one launch of ``csrc/gptq_solve.cu`` (its plain
-  PyTorch version for CPU tensors); the trailing columns take one f32 GEMM
-  of the block's errors.
+  recurrence (128 columns by default, any width) is one launch of
+  ``csrc/gptq_solve.cu`` (its plain PyTorch version for CPU tensors); the
+  trailing columns take one f32 GEMM of the block's errors.
 * act_order (stable argsort of the Hessian diagonal), static groups and the
   Q3_K special case follow the reference.
 
-Rows are independent given U, which is what the kernel exploits: one
-thread per row.
+Rows are independent given U, which is what the kernel exploits: each row
+is spread over a few lanes of one warp, its columns in their registers.
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ from ..formats.ggml import KQUANT_SPECS, GGMLQuantizationType
 from . import kquant
 from .kquant import ScaleSearchConfig, SuperGroupParams
 
-# the largest block the kernel takes: its residual rows live in shared memory
-MAX_BLOCK = 256
 # d_col above which the factorization runs on host LAPACK (scipy)
 HOST_FACTORIZE_THRESHOLD = 16384
 
@@ -205,16 +203,14 @@ def solve_block(w_blk: torch.Tensor, u_blk: torch.Tensor, s_blk: torch.Tensor,
                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q, err) of one column block. CUDA tensors launch
     ``csrc/gptq_solve.cu`` on the current stream and count one launch; CPU
-    tensors run ``solve_block_reference``. The kernel takes blocks of at
-    most MAX_BLOCK columns and raises on anything it does not take."""
+    tensors run ``solve_block_reference``. The kernel takes blocks of any
+    width (128 columns in registers at a time) and raises on anything it
+    does not take."""
     if w_blk.device.type == "cpu":
         return solve_block_reference(w_blk, u_blk, s_blk, z_blk, qmin, qmax, eps)
     if w_blk.device.type != "cuda":
         raise ValueError(f"unsupported device {w_blk.device}")
     d_row, bs = w_blk.shape
-    if bs > MAX_BLOCK:
-        raise ValueError(f"block of {bs} columns: the GPTQ solve kernel takes at most "
-                         f"{MAX_BLOCK} (use --block_size <= {MAX_BLOCK})")
     for name, t, shape in (("w", w_blk, (d_row, bs)), ("u", u_blk, (bs, bs)),
                            ("s", s_blk, (d_row, bs)), ("z", z_blk, (d_row, bs))):
         if t.device != w_blk.device or t.dtype != torch.float32 or not t.is_contiguous() \

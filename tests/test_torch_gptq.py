@@ -2,10 +2,18 @@
 
 The same seeded numpy weights and Hessians go through
 ``gptq_gguf_tpu.ops.gptq`` and ``gptq_gguf_tpu_torch.ops.gptq``.
-Tolerances: the block solve's err within 1e-6 relative (XLA fuses the
-rank-1 update into multiply-adds, the plain version does not); whole
-solves hold JAX's own bar against the reference: objective within 1%,
-codes agreeing in >= 99% (>= 97% under act_order)."""
+Tolerances: the block solve's err within 1e-6 relative plus
+1e-6 * (bs / 128) ** 0.75 of max|err|. The gap is the rounding alone: JAX's
+err equals, bit for bit, the plain recurrence with s * q - z and each
+update rounded once as a fused multiply-add (the test checks it), while
+the port rounds each product apart. That drift grows with the updates a
+column takes: its median over 12 seeds grows 1.36-1.67x per doubling of the
+block (``tools/gptq_solve_drift.py``), hence the exponent. Whole solves
+hold JAX's own bar against the reference: objective within 1%, codes
+agreeing in >= 99% (>= 97% under act_order)."""
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,6 +27,9 @@ from gptq_gguf_tpu.ops import kquant as jk
 from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS
 from gptq_gguf_tpu_torch.ops import gptq as tg
 from gptq_gguf_tpu_torch.ops import kquant as tk
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+from gptq_solve_drift import contracted_solve  # noqa: E402
 
 
 def make_problem(seed, d_row=16, d_col=512, n=2048):
@@ -47,12 +58,16 @@ def test_accumulate_hessian_matches_jax():
     np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K, T.Q3_K], ids=lambda q: q.name)
-def test_block_solve_matches_pallas_interpret(qtype):
-    """The plain block solve against the Pallas kernel in interpret mode."""
+@pytest.mark.parametrize("qtype,bs", [pytest.param(q, 128, id=q.name)
+                                      for q in (T.Q4_K, T.Q6_K, T.Q3_K)]
+                         + [pytest.param(q, 256, id=f"{q.name}-bs256")
+                            for q in (T.Q4_K, T.Q6_K, T.Q3_K)])
+def test_block_solve_matches_pallas_interpret(qtype, bs):
+    """The plain block solve against the Pallas kernel in interpret mode,
+    whose err is the contracted recurrence's bit for bit."""
     spec = KQUANT_SPECS[qtype]
     rng = np.random.default_rng(int(qtype))
-    d_row, bs = 64, 128
+    d_row = 64
     _, _, H = make_problem(int(qtype), d_col=bs, n=512)
     _, U, _ = jg.prepare_hessian_inverse(jnp.asarray(H), jnp.ones((1, bs)), 1e-2)
     U = np.asarray(U)
@@ -65,8 +80,10 @@ def test_block_solve_matches_pallas_interpret(qtype):
     qt, et = tg.solve_block(*(torch.from_numpy(np.array(a, np.float32))
                               for a in (w, U, s, z)), spec.qmin, spec.qmax, 1e-9)
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(contracted_solve(w, U, s, z, spec.qmin, spec.qmax, 1e-9)[1],
+                                  np.asarray(ej))
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-6,
-                               atol=1e-6 * np.abs(np.asarray(ej)).max())
+                               atol=1e-6 * (bs / 128) ** 0.75 * np.abs(np.asarray(ej)).max())
 
 
 SOLVES = [(T.Q4_K, {}), (T.Q6_K, {}), (T.Q2_K, {}), (T.Q5_K, {"static_groups": True}),

@@ -386,8 +386,8 @@ def _solve_inputs(d_row, bs, qtype, seed, device):
     """w, U (the upper factor of a seeded SPD matrix), s, z for one block."""
     spec = KQUANT_SPECS[qtype]
     rng = np.random.default_rng(seed)
-    A = rng.normal(size=(bs, 4 * bs))
-    Hm = torch.from_numpy(A @ A.T / (4 * bs) + 0.1 * np.eye(bs))
+    A = rng.normal(size=(bs, min(4 * bs, 1024)))  # 1024 samples at most: wide blocks stay cheap
+    Hm = torch.from_numpy(A @ A.T / A.shape[1] + 0.1 * np.eye(bs))
     Ur = torch.linalg.cholesky(Hm.flip(0, 1)).flip(0, 1)
     U = torch.linalg.solve_triangular(Ur, torch.eye(bs, dtype=torch.float64), upper=True)
     w = rng.normal(size=(d_row, bs)) * 0.05
@@ -400,7 +400,8 @@ def _solve_inputs(d_row, bs, qtype, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("qtype", [T.Q4_K, T.Q6_K, T.Q3_K], ids=lambda q: q.name)
 @pytest.mark.parametrize("d_row,bs", [(1, 32), (77, 128), (4096, 128), (300, 256),
-                                      (20000, 128), (33, 64)])
+                                      (20000, 128), (33, 64), (300, 512), (64, 4096),
+                                      (28672, 128), (100, 200), (16400, 300)])
 def test_gptq_solve_kernel_matches_plain(cuda, qtype, d_row, bs):
     spec = KQUANT_SPECS[qtype]
     args = _solve_inputs(d_row, bs, qtype, d_row + bs, cuda) + [spec.qmin, spec.qmax, 1e-9]
@@ -415,9 +416,6 @@ def test_gptq_solve_kernel_matches_plain(cuda, qtype, d_row, bs):
 @pytest.mark.cuda
 def test_gptq_solve_kernel_refuses_what_it_does_not_take(cuda):
     w, U, s, z = _solve_inputs(64, 128, T.Q4_K, 1, cuda)
-    w2, U2, s2, z2 = _solve_inputs(8, 512, T.Q4_K, 2, cuda)
-    with pytest.raises(ValueError, match="at most 256"):
-        gptq.solve_block(w2, U2, s2, z2, 0, 15, 1e-9)
     with pytest.raises(ValueError, match="u:"):
         gptq.solve_block(w, U.double(), s, z, 0, 15, 1e-9)
     with pytest.raises(ValueError, match="s:"):
@@ -425,8 +423,28 @@ def test_gptq_solve_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bs", [128, 300])
+def test_gptq_solve_kernel_extreme_values(cuda, bs):
+    """Operands outside the kernel's fast division (a zero row, huge and
+    tiny weights, a huge scale) send their panels through its exact pass:
+    still bit-equal."""
+    spec = KQUANT_SPECS[T.Q6_K]
+    w, U, s, z = _solve_inputs(40, bs, T.Q6_K, 5, cuda)
+    w[0] = 0.0
+    w[1, 5], w[2, 7], w[3, bs - 1] = 1e30, 1e-30, -3e-39
+    s[4, 9] = 1e25
+    args = [w, U, s, z, spec.qmin, spec.qmax, 1e-9]
+    qk, ek = gptq.solve_block(*args)
+    qp, ep = gptq.solve_block_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ek).all()
+    assert torch.equal(qk, qp) and torch.equal(ek, ep)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("qtype,kw", [(T.Q4_K, {}), (T.Q6_K, {"act_order": True,
-                                                               "static_groups": True})])
+                                                               "static_groups": True}),
+                                      (T.Q4_K, {"static_groups": True, "block_size": 0})])
 def test_gptq_quantize_matrix_kernel_equals_plain_on_card(cuda, qtype, kw, monkeypatch):
     rng = np.random.default_rng(3)
     W = (rng.normal(size=(96, 512)) * 0.08).astype(np.float32)
@@ -435,7 +453,8 @@ def test_gptq_quantize_matrix_kernel_equals_plain_on_card(cuda, qtype, kw, monke
     H = 2 * X.T @ X / 2048
     n0 = gptq.solve_block.launches
     got = gptq.gptq_quantize_matrix(W, H, qtype, gptq.GPTQConfig(**kw))
-    assert gptq.solve_block.launches - n0 == 4  # 512 columns in blocks of 128
+    # 512 columns in blocks of 128, or one block of all 512 (block_size 0)
+    assert gptq.solve_block.launches - n0 == 512 // (kw.get("block_size", 128) or 512)
     monkeypatch.setattr(gptq, "solve_block", gptq.solve_block_reference)
     want = gptq.gptq_quantize_matrix(W, H, qtype, gptq.GPTQConfig(**kw))
     assert torch.equal(got.qweight, want.qweight)

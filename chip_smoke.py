@@ -45,6 +45,16 @@ checkout of the repository. Phases, each raising on failure:
    breakdown, the refit's and the factorizations' seconds); one whole
    o-projection solve through the kernel and through the plain version;
    the artifacts packed into the v2 serving format and run through v2g;
+   after 7e, the ``pack`` command line writes the checkpoint (with a BPE
+   tokenizer.json of its 128256 tokens) and its artifacts as a bf16 +
+   Q4_K GGUF (seconds, bytes and tensors beside the card's name and power
+   limit; host code), read back exactly (each Q4_K tensor unpacks to its
+   artifact bit for bit, each float tensor holds the checkpoint's values,
+   general.file_type 15), loaded onto the card (each projection's v2
+   planes equal 7e's), served by ``serve`` from 16 prompt tokens (v2g
+   launches; greedy tokens equal 7e's v2 tokens up to a near-tie, each
+   step's top-2 gap printed) and from a text prompt through the GGUF's own
+   vocabulary, and scored by ``ppl --gguf-path serving`` (finite);
 6. paged serving at full width (run before phase 5, while the serving
    weights are on the card): both paged flash-decode kernels against their
    plain versions at the 8B attention shape (B=8, 8 kv heads of 4 query
@@ -145,6 +155,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import struct
 import subprocess
@@ -253,15 +264,19 @@ def layer_variant(base, gen, code_bits):
         base.per_byte, base.shift, base.d_rep)
 
 
+def card_name_and_power() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device_and_build():
     import torch
 
     from gptq_gguf_tpu_torch.ops import cuda_build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_name_and_power())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     def timed_build(name):
@@ -1117,6 +1132,7 @@ GPTQ_LAYERS = 2           # depth of the quantized checkpoint (every layer is th
 # the capture takes the flash-attention branch and the activations (4 GiB)
 # live in host memory between blocks
 CALIB_TOKENS, CALIB_SEQ = 262144, 4096
+EVAL_SEQ = 512  # the instrumented quantize run's --eval_sequence_length
 BLOCK = 128               # the default GPTQ block
 # (name, rows of one block solve, column blocks per 8B layer): q/k/v solved
 # row-concatenated, o, gate/up row-concatenated, down over 14336 columns
@@ -1286,11 +1302,15 @@ def h_objective(D, Hm) -> float:
 
 
 def quantize_argv(ckpt: Path, save: Path, device, profile: bool):
+    """The user's quantize command line; the instrumented run also profiles
+    its stages and scores the quantized model (--eval_perplexity, 100
+    sequences of EVAL_SEQ tokens)."""
     argv = ["quantize", "--model_name_or_path", str(ckpt), "--calibration_data", "synthetic",
             "--calibration_tokens", str(CALIB_TOKENS), "--calibration_sequence_length",
             str(CALIB_SEQ), "--default_bit_width", "Q4_K", "--save_dir", str(save),
             "--device", str(device)]
-    return argv + ["--stage-profile"] if profile else argv
+    return argv + ["--stage-profile", "--eval_perplexity", "--eval_sequence_length",
+                   str(EVAL_SEQ)] if profile else argv
 
 
 def phase_gptq_quantize(tmp: Path, device):
@@ -1314,14 +1334,14 @@ def phase_gptq_quantize(tmp: Path, device):
     def run_quantize(save, profile):
         gptq.solve_block.launches = 0
         t = time.perf_counter()
-        port_main(quantize_argv(ckpt, save, device, profile))
+        lines = run_cli(quantize_argv(ckpt, save, device, profile))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = gptq.solve_block.launches
         if launches != per_layer_launches * GPTQ_LAYERS:
             raise RuntimeError(f"{launches} solve-kernel launches, want "
                                f"{per_layer_launches} x {GPTQ_LAYERS}")
-        return launches, wall, json.loads((save / "stage_timings.json").read_text())
+        return launches, wall, json.loads((save / "stage_timings.json").read_text()), lines
 
     # run 1, as a user runs it; each solve's inputs are recorded by
     # reference only (no copy, no wait for the card)
@@ -1335,7 +1355,7 @@ def phase_gptq_quantize(tmp: Path, device):
     save = tmp / "layers"
     gptq.gptq_quantize_matrix = recording_solve
     try:
-        launches, wall, timings = run_quantize(save, profile=False)
+        launches, wall, timings, _ = run_quantize(save, profile=False)
     finally:
         gptq.gptq_quantize_matrix = solve0
     s_layer = timings["quantize"] / GPTQ_LAYERS
@@ -1361,7 +1381,7 @@ def phase_gptq_quantize(tmp: Path, device):
     gptq.kquant.fit_supergroups = timed("refit", fit0)
     gptq.factorize_hinv_cholesky = timed("factorize", fact0)
     try:
-        _, wall_p, timings_p = run_quantize(tmp / "layers_profiled", profile=True)
+        _, wall_p, timings_p, lines = run_quantize(tmp / "layers_profiled", profile=True)
     finally:
         gptq.kquant.fit_supergroups, gptq.factorize_hinv_cholesky = fit0, fact0
     stages = {k.split("/", 1)[1]: v for k, v in timings_p.items() if k.startswith("quantize/")}
@@ -1369,6 +1389,11 @@ def phase_gptq_quantize(tmp: Path, device):
         f"{timings_p['quantize'] / GPTQ_LAYERS:.2f} s/layer; stages (s): "
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; inside factorize_solve: "
         f"refit {timers['refit']:.3f}, factorize {timers['factorize']:.3f}")
+    ppl_q = [float(x.rsplit(":", 1)[1]) for x in lines if x.startswith("synthetic perplexity:")]
+    if len(ppl_q) != 1 or not math.isfinite(ppl_q[0]):
+        raise RuntimeError(f"quantize --eval_perplexity printed {ppl_q}")
+    log(f"  --eval_perplexity: {ppl_q[0]:.4f} on 100 x {EVAL_SEQ} synthetic tokens in "
+        f"{timings_p['eval_perplexity']:.2f} s (card {card_name_and_power()})")
 
     # 14 artifacts with the JAX names, shapes and dtypes
     want = {"q_proj": (N_HEAD * HD, H), "k_proj": (N_KV * HD, H), "v_proj": (N_KV * HD, H),
@@ -1421,7 +1446,8 @@ def phase_gptq_quantize(tmp: Path, device):
                   sequence_length=CALIB_SEQ, wall_s=wall, s_per_layer=s_layer,
                   launches=launches, instrumented=dict(
                       wall_s=wall_p, s_per_layer=timings_p["quantize"] / GPTQ_LAYERS,
-                      stages=stages, refit_s=timers["refit"], factorize_s=timers["factorize"]),
+                      stages=stages, refit_s=timers["refit"], factorize_s=timers["factorize"],
+                      eval_perplexity=ppl_q[0], eval_perplexity_s=timings_p["eval_perplexity"]),
                   worst_gptq_over_rtn=worst,
                   objectives={k: list(v) for k, v in objectives.items()})
     return launches, record, solves, arts
@@ -2488,6 +2514,7 @@ def phase_gptq_formats(ckpt: Path, save: Path, arts, device):
     dense = loader.load_params(ckpt, cfg)
     prompt = np.arange(1, 17, dtype=np.int64)
     out = {}
+    v2_layers = None
     fmt0 = qmatmul.RUNTIME_FORMAT
     for fmt in ("v1", "v2", "v4"):
         qmatmul.RUNTIME_FORMAT = fmt
@@ -2500,6 +2527,8 @@ def phase_gptq_formats(ckpt: Path, save: Path, arts, device):
             w = qp["layers"][li][key]
             if not torch.equal(qmodel._dequant_any(w), art.dequantize(device)):
                 raise RuntimeError(f"{fmt} {name}: dequantization differs from the artifact's")
+        if fmt == "v2":
+            v2_layers = qp["layers"]  # unfused: the packed GGUF's planes are held to these
         qp = qmodel.fuse_params_for_serving(qp, cfg)
         toks = engine.generate(qp, cfg, [prompt], max_new_tokens=6, max_len=64)[0]
         if len(toks) != 6 or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -2509,7 +2538,201 @@ def phase_gptq_formats(ckpt: Path, save: Path, arts, device):
             f"dequantize bit-equal to their artifacts; greedy tokens {toks}")
         del qp
         torch.cuda.empty_cache()
-    return out
+    return out, v2_layers
+
+
+PACK_PROMPT = "The quick brown fox jumps over the lazy dog."
+NEAR_TIE = 3e-3  # top-2 gap, as a fraction of max|logit|, below which a greedy step may flip
+
+
+def write_tokenizer(ckpt: Path) -> None:
+    """A BPE tokenizer.json of the checkpoint's V tokens beside its
+    config.json, of the form tests/test_packer.py's write_tiny_tokenizer
+    writes at 256: ids 0-255 the GPT-2 byte alphabet (any text encodes, a
+    byte a token), the rest "<tN>", the last an added special token."""
+    from gptq_gguf_tpu_torch.serving.tokenizer import _BYTE_ENC
+
+    vocab = {_BYTE_ENC[b]: b for b in range(256)}
+    vocab.update({f"<t{i}>": i for i in range(256, V - 1)})
+    tok = {"model": {"type": "BPE", "vocab": vocab, "merges": []},
+           "added_tokens": [{"id": V - 1, "content": "<|end_of_text|>", "special": True}]}
+    (ckpt / "tokenizer.json").write_text(json.dumps(tok))
+    (ckpt / "tokenizer_config.json").write_text(json.dumps({"bos_token_id": 0,
+                                                            "eos_token_id": V - 1}))
+
+
+def run_cli(argv) -> list:
+    """The port's command line with argv; its printed lines (also logged)."""
+    import contextlib
+    import io
+
+    from gptq_gguf_tpu_torch.__main__ import main as port_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return lines
+
+
+def phase_gptq_pack(tmp: Path, arts, v2_layers, greedy_v2, device):
+    """5, after 7e: the port's ``pack`` writes the 2-layer GPTQ checkpoint
+    and its artifacts as a bf16 + Q4_K GGUF (host code, timed). Read back
+    exactly: each Q4_K tensor unpacks to its artifact bit for bit (q / k
+    through the inverse rope permutation), each float tensor holds the
+    checkpoint's values (bf16 bits for the 2-D ones). Served (v2g
+    launches; greedy tokens equal 7e's v2 tokens up to a near-tie), and the
+    params serve loaded onto the card hold each projection's v2 planes equal
+    to 7e's from the same artifacts; served from a text prompt through the
+    GGUF's own vocabulary, and scored."""
+    import torch
+
+    from gptq_gguf_tpu_torch.export.packer import hf_to_gguf_name
+    from gptq_gguf_tpu_torch.formats import convert, safetensors
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.ops.qmatmul import RuntimeQuantLinearV2
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+    from gptq_gguf_tpu_torch.serving import tokenizer as gtok
+
+    t_step = time.perf_counter()
+    ckpt, out = tmp / "ckpt", tmp / "model.gguf"
+    write_tokenizer(ckpt)
+    t = time.perf_counter()
+    run_cli(["pack", "--model_dir", str(ckpt), "--quant_dir", str(tmp / "layers"),
+             "--outfile", str(out), "--outtype", "bf16"])
+    pack_s = time.perf_counter() - t
+    r = GGUFReader(out)
+    n_bytes = out.stat().st_size
+    log(f"pack: {GPTQ_LAYERS}-layer Llama-3-8B-width GPTQ checkpoint -> {n_bytes} bytes, "
+        f"{len(r.tensors)} tensors in {pack_s:.2f} s (host code; card "
+        f"{card_name_and_power()})")
+    if len(r.tensors) != 3 + 9 * GPTQ_LAYERS or r.get("general.file_type") != 15:
+        raise RuntimeError(f"GGUF: {len(r.tensors)} tensors, "
+                           f"file_type {r.get('general.file_type')}")
+    if len(r.get("tokenizer.ggml.tokens")) != V:
+        raise RuntimeError("GGUF vocabulary is not the checkpoint's")
+    for name, art in arts.items():
+        gname = hf_to_gguf_name(name + ".weight")
+        info = r.tensors[gname]
+        key = name.split(".")[-1]
+        heads = N_HEAD if key == "q_proj" else N_KV
+        inv = (np.argsort(convert.gqa_permute_rows(info.shape[0], heads))
+               if key in ("q_proj", "k_proj") else np.arange(info.shape[0]))
+        got = convert.unpack_layer(np.asarray(r.tensor_bytes(gname)), info.ggml_type, info.shape)
+        want = (art.qweight, art.super_group_scale, art.group_scale_quant,
+                art.super_group_zero, art.group_zero_quant)
+        if info.ggml_type != T.Q4_K or art.q_type != T.Q4_K or any(
+                a.dtype != b.dtype or a[inv].tobytes() != np.ascontiguousarray(b).tobytes()
+                for a, b in zip(got, want)):
+            raise RuntimeError(f"{gname}: does not unpack to its artifact bit for bit")
+    header, _ = safetensors.read_header(ckpt / "model.safetensors")
+    floats = [n for n in sorted(header)
+              if hf_to_gguf_name(n) is not None and n[:-len(".weight")] not in arts]
+    for hf_name, t_ckpt in safetensors.iter_file(ckpt / "model.safetensors", floats):
+        gname = hf_to_gguf_name(hf_name)
+        info = r.tensors[gname]
+        if t_ckpt.dim() == 2:
+            same = (info.ggml_type == T.BF16 and np.asarray(r.tensor_bytes(gname)).tobytes()
+                    == t_ckpt.view(torch.int16).numpy().tobytes())
+        else:
+            same = info.ggml_type == T.F32 and np.array_equal(r.tensor_float(gname),
+                                                              t_ckpt.float().numpy())
+        if not same:
+            raise RuntimeError(f"{gname}: does not hold the checkpoint's values")
+    prompt_ids = gtok.from_gguf(r).encode(PACK_PROMPT)
+    del r
+    read_s = time.perf_counter() - t - pack_s
+    log(f"  read back in {read_s:.1f} s: {len(arts)} Q4_K tensors bit-equal to their artifacts, "
+        f"{len(floats)} float tensors equal to the checkpoint's, general.file_type 15, "
+        f"{V} tokens")
+
+    # serve loads the GGUF onto the card (load_gguf_for_serving); its params
+    # are kept to compare with 7e's
+    prompt = np.arange(1, 17, dtype=np.int64)
+    kept = {}
+    load0 = qmodel.load_gguf_for_serving
+
+    def load_and_keep(*a, **kw):
+        kept["params"], kept["cfg"] = load0(*a, **kw)
+        return kept["params"], kept["cfg"]
+
+    t = time.perf_counter()
+    reset_matmul_counts()
+    qmodel.load_gguf_for_serving = load_and_keep
+    try:
+        lines = run_cli(["serve", "--gguf-file", str(out), "--prompt-tokens", *map(str, prompt),
+                         "--max-new-tokens", "6", "--max-len", "64", "--num-slots", "1",
+                         "--device", str(device)])
+    finally:
+        qmodel.load_gguf_for_serving = load0
+    launches = matmul_counts()["v2g"]
+    serve_s = time.perf_counter() - t
+    toks = json.loads(lines[-1])
+    if launches <= 0 or len(toks) != 6:
+        raise RuntimeError(f"serve: {launches} v2g launches, tokens {toks}")
+    params, cfg = kept["params"], kept["cfg"]
+    if params["embed_tokens"].device.type != torch.device(device).type:
+        raise RuntimeError("serve did not load the GGUF onto the card")
+    n_planes = 0
+    for li, layer in enumerate(v2_layers):
+        for key, w in layer.items():
+            if not isinstance(w, RuntimeQuantLinearV2):
+                continue
+            g = params["layers"][li][key]
+            for plane in ("qs", "d_sg", "dmin_sg", "sc_q", "mn_q"):
+                a, b = getattr(g, plane), getattr(w, plane)
+                if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                    raise RuntimeError(f"layer {li} {key}: GGUF plane {plane} differs from 7e's")
+            if (g.d_in, g.group_size, g.per_byte, g.shift, g.d_rep) != (
+                    w.d_in, w.group_size, w.per_byte, w.shift, w.d_rep):
+                raise RuntimeError(f"layer {li} {key}: GGUF weight's layout differs from 7e's")
+            n_planes += 1
+    if n_planes != len(arts):
+        raise RuntimeError(f"{n_planes} projections compared, want {len(arts)}")
+    # each step's top-2 gap of the GGUF model on its own stream (one prefill)
+    ids = torch.as_tensor(np.concatenate([prompt, toks[:-1]]), device=device)[None]
+    cache = qmodel.init_cache(cfg, 1, 64, device=device)
+    with torch.no_grad():
+        logits, _ = qmodel.forward_cached(qmodel.fuse_params_for_serving(params, cfg), cfg,
+                                          ids, cache, all_logits=True)
+    steps = logits[0, len(prompt) - 1:].float()
+    top2 = torch.topk(steps, 2, dim=-1).values
+    gaps = ((top2[:, 0] - top2[:, 1]) / steps.abs().amax(-1)).tolist()
+    del params, cache, logits, kept
+    torch.cuda.empty_cache()
+    flip = next((i for i, (a, b) in enumerate(zip(toks, greedy_v2)) if a != b), None)
+    log(f"  serve in {serve_s:.1f} s (the GGUF loaded onto the card; its {n_planes} "
+        f"projections' v2 planes equal 7e's): tokens {toks} (7e's v2: {greedy_v2}), "
+        f"{launches} v2g launches; top-2 gap / max|logit| per step {[round(g, 5) for g in gaps]}")
+    if flip is not None and not gaps[flip] < NEAR_TIE:
+        raise RuntimeError(f"serve: step {flip} differs from 7e's with a top-2 gap of "
+                           f"{gaps[flip]:.2e} of max|logit| (near-tie limit {NEAR_TIE})")
+    t = time.perf_counter()
+    text = run_cli(["serve", "--gguf-file", str(out), "--prompt", PACK_PROMPT,
+                    "--max-new-tokens", "6", "--max-len", "64", "--num-slots", "1",
+                    "--device", str(device)])
+    if not text[0].startswith("generated 6 tokens") or len(prompt_ids) < len(PACK_PROMPT):
+        raise RuntimeError(f"serve --prompt: {text}, prompt tokens {prompt_ids}")
+    text_s = time.perf_counter() - t
+    t = time.perf_counter()
+    run_cli(["ppl", "--gguf-file", str(out), "--gguf-path", "serving", "--datasets", "synthetic",
+             "--eval_tokens", str(2 * 512), "--sequence_length", "512", "--device", str(device),
+             "--output_path", str(tmp / "ppl.json")])
+    ppl = json.loads((tmp / "ppl.json").read_text())["synthetic"]
+    if not np.isfinite(ppl):
+        raise RuntimeError(f"ppl of the packed GGUF: {ppl}")
+    out.unlink()
+    ppl_s = time.perf_counter() - t
+    step_s = time.perf_counter() - t_step
+    log(f"  serve --prompt in {text_s:.1f} s; ppl (serving, 2 x 512 synthetic tokens) "
+        f"{ppl:.4f} in {ppl_s:.1f} s; the step took {step_s:.1f} s")
+    return dict(pack_s=pack_s, bytes=n_bytes, tensors=3 + 9 * GPTQ_LAYERS, v2g_launches=launches,
+                tokens=toks, first_difference=flip, gaps=gaps, text_prompt_tokens=len(prompt_ids),
+                ppl=ppl, seconds=dict(read_back=read_s, serve=serve_s, serve_text=text_s,
+                                      ppl=ppl_s, step=step_s))
 
 
 # ---------------------------------------------------------------------------
@@ -3306,8 +3529,11 @@ def run(device) -> dict:
         gptq_rec["static_groups_bs0"] = phase_gptq_static_groups(Path(tmp), solves, device)
         del solves
         phase_gptq_to_serving(arts, device)
-        gptq_formats = phase_gptq_formats(Path(tmp) / "ckpt", Path(tmp) / "layers", arts,
-                                          device)
+        gptq_formats, v2_layers = phase_gptq_formats(Path(tmp) / "ckpt", Path(tmp) / "layers",
+                                                     arts, device)
+        gptq_rec["pack"] = phase_gptq_pack(Path(tmp), arts, v2_layers, gptq_formats["v2"],
+                                           device)
+        del v2_layers
 
     # the kernel's numbers for one decode step at B=8: the four projections
     # of every layer plus the lm_head, at the M=8 shapes measured above

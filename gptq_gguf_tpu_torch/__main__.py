@@ -1,7 +1,9 @@
-"""Command line of the port: ``python -m gptq_gguf_tpu_torch {quantize,serve,ppl} ...``.
+"""Command line of the port: ``python -m gptq_gguf_tpu_torch {quantize,pack,serve,ppl} ...``.
 
 ``quantize`` runs the GPTQ calibration walk over an HF llama checkpoint and
-writes one K-quant artifact per linear (``cli/quantize.py``). ``ppl``
+writes one K-quant artifact per linear (``cli/quantize.py``). ``pack``
+writes the checkpoint and those artifacts as a K-quant GGUF, on the host
+(``cli/tools.py``, ``export/packer.py``). ``ppl``
 scores a GGUF (dense, or through the serving kernels) or an HF checkpoint
 (``cli/tools.py``). ``serve``
 loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
@@ -114,11 +116,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .cli import quantize, tools
 
     quantize.build_parser(sub.add_parser("quantize", help="GPTQ K-quant calibration walk"))
+    tools.build_pack(sub.add_parser("pack", help="HF checkpoint + artifacts -> GGUF"))
     build_serve(sub.add_parser("serve", help="greedy decoding from a K-quant GGUF"))
     tools.build_ppl(sub.add_parser("ppl", help="perplexity of a GGUF or an HF checkpoint"))
     args = ap.parse_args(argv)
     if args.cmd == "quantize":
         quantize.run(args)
+    elif args.cmd == "pack":
+        tools.run_pack(args)
     elif args.cmd == "ppl":
         tools.run_ppl(args)
     else:

@@ -7,6 +7,9 @@
 
 Writes one ``<save_dir>/<hf_module_name>/data.npz`` per quantized linear
 (the JAX package's artifact layout) and ``stage_timings.json``.
+``--eval_perplexity`` then scores the quantized model on 100 sequences of
+``--eval_sequence_length`` tokens of the calibration source's evaluation
+split (``utils.data.get_data``, train=False).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ def build_parser(p: argparse.ArgumentParser) -> None:
     p.add_argument("--nstep", type=int, default=20)
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval_perplexity", action="store_true")
+    p.add_argument("--eval_sequence_length", type=int, default=4096)
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--offload-activations", dest="offload_activations",
                    choices=["auto", "on", "off"], default="auto",
@@ -87,7 +92,7 @@ def run(args) -> dict:
     os.makedirs(args.save_dir, exist_ok=True)
     stage_times = {} if args.stage_profile else None
     t = time.perf_counter()
-    calibrate.quantize_model(
+    qparams = calibrate.quantize_model(
         params, cfg, calib, quant_config=quant_config, gptq_cfg=gptq_cfg,
         save_dir=args.save_dir, quant_non_block=args.quant_non_block_modules,
         quantizable_regex=args.quantizable_modules, batch_size=args.batch_size,
@@ -99,6 +104,22 @@ def run(args) -> dict:
     if stage_times is not None:
         times.update({f"quantize/{k}": v for k, v in stage_times.items()})
         print("stage breakdown:", json.dumps({k: round(v, 2) for k, v in stage_times.items()}))
+    if args.eval_perplexity:
+        from ..evals.ppl import compute_perplexity
+        from ..utils.data import TEXT_DATASETS, get_data
+
+        t = time.perf_counter()
+        name = "wikitext2" if args.calibration_data in TEXT_DATASETS else args.calibration_data
+        seq = args.eval_sequence_length
+        eval_data = get_data(name, 100 * seq, seq, train=False, vocab_size=cfg.vocab_size)
+        # onto the card in the dtype each tensor has (the walk's quantized
+        # blocks are already there): the forward computes in f32 itself
+        dev = resolve_device(args.device)
+        qparams = {k: v.to(dev) for k, v in qparams.items() if k != "layers"} | {
+            "layers": [{k: v.to(dev) for k, v in layer.items()} for layer in qparams["layers"]]}
+        ppl = compute_perplexity(qparams, cfg, eval_data)
+        times["eval_perplexity"] = time.perf_counter() - t
+        print(f"{name} perplexity: {ppl:.4f}")
     Path(args.save_dir, "stage_timings.json").write_text(json.dumps(times, indent=2))
     if args.verbose:
         for stage, secs in times.items():

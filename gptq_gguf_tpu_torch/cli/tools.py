@@ -1,4 +1,13 @@
-"""The ``ppl`` subcommand of the port (after ``gptq_gguf_tpu/cli/tools.py``).
+"""The ``pack`` and ``ppl`` subcommands of the port (after
+``gptq_gguf_tpu/cli/tools.py``).
+
+    python -m gptq_gguf_tpu_torch pack --model_dir /models/llama \\
+      --quant_dir out/layers --outfile model.gguf [--outtype f16|f32|bf16|q8_0|auto]
+
+writes a K-quant GGUF from an HF llama checkpoint and the artifacts of
+``quantize`` (``export/packer.py``), optionally sharded
+(``--split-max-tensors`` / ``--split-max-size``). It runs on the host
+(numpy) and launches nothing on the card.
 
     python -m gptq_gguf_tpu_torch ppl --gguf-file model.gguf \\
       --datasets synthetic --eval_tokens 4096 --sequence_length 512 \\
@@ -18,10 +27,92 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import time
+from pathlib import Path
 
 import numpy as np
 
 from . import common
+
+
+def build_pack(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_dir", help="HF checkpoint")
+    p.add_argument("--quant_dir", default=None, help="calibration artifacts")
+    p.add_argument("--outfile")
+    p.add_argument("--outtype", default="f16", choices=["f32", "f16", "bf16", "q8_0", "auto"],
+                   help="format of the tensors without an artifact ('auto': the 16-bit "
+                        "float of the checkpoint's dtype)")
+    p.add_argument("--vocab-only", action="store_true", help="write metadata + vocab, no tensors")
+    p.add_argument("--metadata", default=None, help="JSON file of extra metadata overrides")
+    p.add_argument("--model-name", default=None, help="override general.name")
+    p.add_argument("--print-supported-models", action="store_true")
+    p.add_argument("--split-max-tensors", type=int, default=0,
+                   help="shard the output GGUF every N tensors")
+    p.add_argument("--split-max-size", default=None,
+                   help="shard the output GGUF at ~SIZE (e.g. 40G)")
+    p.add_argument("--mmproj", action="store_true", help="not ported yet")
+
+
+def _resolve_outtype(args):
+    from ..formats import safetensors
+    from ..formats.ggml import GGMLQuantizationType as T
+
+    name = args.outtype
+    if name == "auto":  # the 16-bit float of the first file's first tensor
+        files = sorted(Path(args.model_dir).glob("*.safetensors"))
+        name = "f16"
+        if files:
+            header, _ = safetensors.read_header(files[0])
+            if header:
+                name = "bf16" if header[min(header)]["dtype"] == "BF16" else "f16"
+    return {"f32": T.F32, "f16": T.F16, "bf16": T.BF16, "q8_0": T.Q8_0}[name]
+
+
+def _size_bytes(text: str) -> int:
+    """"40G" / "512M" / "64K" or a plain byte count."""
+    units = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}
+    sfx = text[-1].upper()
+    return int(text[:-1]) * units[sfx] if sfx in units else int(text)
+
+
+def run_pack(args):
+    """Write the GGUF (or its shards); returns the paths written."""
+    from ..export import packer
+
+    if args.print_supported_models:
+        for mt in packer.SUPPORTED_MODEL_TYPES:
+            print(mt)
+        return []
+    if args.mmproj:
+        raise NotImplementedError("pack --mmproj is not ported yet")
+    if not args.model_dir or not args.outfile:
+        raise SystemExit("--model_dir and --outfile are required")
+    if args.quant_dir is None and not args.vocab_only:
+        raise SystemExit("--quant_dir is required unless --vocab-only is given")
+    extra = {}
+    if args.metadata:
+        with open(args.metadata) as f:
+            extra.update(json.load(f))
+    if args.model_name:
+        extra["general.name"] = args.model_name
+    t0 = time.perf_counter()
+    out = packer.pack_model(args.model_dir, args.quant_dir, args.outfile,
+                            default_float=_resolve_outtype(args),
+                            extra_metadata=extra or None, vocab_only=args.vocab_only)
+    written = [out]
+    if args.split_max_tensors or args.split_max_size:
+        from ..mapper import shards
+
+        prefix = str(out)[:-5] if str(out).endswith(".gguf") else str(out)
+        written = shards.split_gguf_file(
+            out, prefix, max_tensors=args.split_max_tensors,
+            max_size=_size_bytes(args.split_max_size) if args.split_max_size else 0)
+        os.unlink(out)
+    for path in written:
+        print(f"wrote {path}")
+    print(f"pack took {time.perf_counter() - t0:.2f} s")
+    return written
 
 
 def build_ppl(p: argparse.ArgumentParser) -> None:

@@ -1,7 +1,10 @@
-"""GGML K-quant blocks -> layer codes and two-level scales.
+"""Layer codes and two-level scales <-> GGML K-quant blocks.
 
-Copy of ``gptq_gguf_tpu/formats/convert.py::unpack_layer``; the packing
-direction stays in the JAX package.
+Copy of ``gptq_gguf_tpu/formats/convert.py``: ``pack_layer`` writes a
+quantized layer's artifact as GGML blocks (what ``pack`` puts in a GGUF),
+``unpack_layer`` reads them back bit-exactly, and ``gqa_permute_rows`` is
+the q / k row order that a llama GGUF stores (``pack`` applies it, the
+serving loader undoes it).
 """
 
 from __future__ import annotations
@@ -12,6 +15,40 @@ import numpy as np
 
 from . import ggml
 from .ggml import GGMLQuantizationType, KQUANT_SPECS, QK_K
+
+
+def gqa_permute_rows(n_rows: int, n_head: int) -> np.ndarray:
+    """Row permutation from HF's rotate-half rope layout to GGML's
+    interleaved layout (llama.cpp LlamaModel.permute): ``w_gguf =
+    w_hf[perm]``; ``np.argsort(perm)`` undoes it."""
+    idx = np.arange(n_rows)
+    return idx.reshape(n_head, 2, n_rows // n_head // 2).swapaxes(1, 2).reshape(n_rows)
+
+
+def pack_layer(qweight: np.ndarray, super_scale: np.ndarray, scale_q: np.ndarray,
+               super_zero: np.ndarray, zero_q: np.ndarray,
+               qtype: GGMLQuantizationType) -> np.ndarray:
+    """A quantized (d_row, d_col) layer -> (n_blocks, type_size) uint8 GGML
+    blocks. qweight (d_row, d_col) int codes; super_scale / super_zero
+    (d_row, n_sg); scale_q / zero_q (d_row, n_groups) (the zeros are unused
+    by the signed types)."""
+    spec = KQUANT_SPECS[qtype]
+    if qweight.shape[1] % QK_K != 0:
+        raise ValueError(f"d_col {qweight.shape[1]} not divisible by {QK_K}")
+    q = np.asarray(qweight).reshape(-1, QK_K)
+    d = np.asarray(super_scale, dtype=np.float32).reshape(-1)
+    sc = np.asarray(scale_q).reshape(-1, spec.num_groups)
+    if qtype == GGMLQuantizationType.Q3_K:
+        return ggml.pack_q3_k(q, d, sc)
+    if qtype == GGMLQuantizationType.Q6_K:
+        return ggml.pack_q6_k(q, d, sc)
+    pack = {GGMLQuantizationType.Q2_K: ggml.pack_q2_k, GGMLQuantizationType.Q4_K: ggml.pack_q4_k,
+            GGMLQuantizationType.Q5_K: ggml.pack_q5_k}.get(qtype)
+    if pack is None:
+        raise NotImplementedError(f"pack_layer: {qtype!r}")
+    dmin = np.asarray(super_zero, dtype=np.float32).reshape(-1)
+    mn = np.asarray(zero_q).reshape(-1, spec.num_groups)
+    return pack(q, d, sc, dmin, mn)
 
 
 def unpack_layer(

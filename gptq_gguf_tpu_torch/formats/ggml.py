@@ -1,9 +1,11 @@
 """GGML quantization types and bit-exact K-quant block unpackers.
 
 Trimmed copy of ``gptq_gguf_tpu/formats/ggml.py``: the type table, the
-K-quant specs, the unpackers/dequantizers of Q2_K..Q6_K and Q8_0, and the
-float passthroughs that ``GGUFReader.tensor_float`` needs. Pure numpy; the
-packers, the IQ codecs and the native C++ branch stay in the JAX package.
+K-quant specs, the packers and unpackers/dequantizers of Q2_K..Q6_K and
+Q8_0 (with Q8_0's round-to-nearest quantizer, for ``pack --outtype
+q8_0``), and the float passthroughs that ``GGUFReader.tensor_float``
+needs. Pure numpy, byte-identical to the JAX package's blocks; the IQ
+codecs and the native C++ branch stay in the JAX package.
 
 Block layouts (QK_K = 256):
   Q2_K  84B: scales u8[16] | qs u8[64] | d f16 | dmin f16
@@ -287,6 +289,124 @@ def unpack_q8_0(blocks: np.ndarray):
 def dequant_q8_0(blocks: np.ndarray) -> np.ndarray:
     q, d = unpack_q8_0(blocks)
     return (d[:, None] * q.astype(np.float32)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Packers: the inverse of the unpackers above (llama.cpp block layouts)
+# ---------------------------------------------------------------------------
+
+
+def _f16_bytes(x: np.ndarray) -> np.ndarray:
+    """(n,) float -> (n, 2) uint8 little-endian fp16 bytes."""
+    return np.ascontiguousarray(x.astype(np.float16)).view(np.uint8).reshape(-1, 2)
+
+
+def pack_scale_min_k4(sc: np.ndarray, mn: np.ndarray) -> np.ndarray:
+    """(n, 8) 6-bit scales and mins -> (n, 12) bytes: bytes 0-3 hold sc[0:4]
+    with sc[4:8]'s high 2 bits in bits 6-7, bytes 4-7 likewise for mn,
+    bytes 8-11 sc[4:8]'s low nibble | mn[4:8]'s low nibble << 4."""
+    sc = sc.astype(np.uint8)
+    mn = mn.astype(np.uint8)
+    out = np.zeros((sc.shape[0], 12), dtype=np.uint8)
+    out[:, 0:4] = (sc[:, 0:4] & 63) | ((sc[:, 4:8] >> 4) << 6)
+    out[:, 4:8] = (mn[:, 0:4] & 63) | ((mn[:, 4:8] >> 4) << 6)
+    out[:, 8:12] = (sc[:, 4:8] & 0x0F) | ((mn[:, 4:8] & 0x0F) << 4)
+    return out
+
+
+def _pack_2bit_lanes(q: np.ndarray) -> np.ndarray:
+    """(n, 256) values in [0,3] -> (n, 64) bytes (the layout
+    ``_unpack_2bit_lanes`` reads)."""
+    v = q.reshape(-1, 2, 4, 32).astype(np.uint16)
+    shifts = (2 * np.arange(4, dtype=np.uint16))[None, None, :, None]
+    return (v << shifts).sum(axis=2).astype(np.uint8).reshape(-1, 64)
+
+
+def pack_q2_k(q: np.ndarray, d: np.ndarray, sc: np.ndarray, dmin: np.ndarray,
+              mn: np.ndarray) -> np.ndarray:
+    """q (n, 256) in [0,3]; d / dmin (n,) stored fp16; sc / mn (n, 16)
+    4-bit group scales / mins -> (n, 84) bytes."""
+    scales = (sc.astype(np.uint8) & 0x0F) | ((mn.astype(np.uint8) & 0x0F) << 4)
+    return np.concatenate([scales, _pack_2bit_lanes(q), _f16_bytes(d), _f16_bytes(dmin)],
+                          axis=1)
+
+
+def _pack_q3_scales(sc6: np.ndarray) -> np.ndarray:
+    """(n, 16) 6-bit values -> (n, 12) bytes: low nibbles in bytes 0-7, the
+    high 2 bits of value j in byte 8 + j % 4 at bit 2 * (j // 4)."""
+    sc6 = sc6.astype(np.uint8)
+    out = np.zeros((sc6.shape[0], 12), dtype=np.uint8)
+    lo = sc6 & 0x0F
+    hi = (sc6 >> 4) & 0x03
+    out[:, 0:8] = lo[:, 0:8] | (lo[:, 8:16] << 4)
+    for j in range(16):
+        out[:, 8 + (j % 4)] |= hi[:, j] << (2 * (j // 4))
+    return out
+
+
+def pack_q3_k(q_signed: np.ndarray, d: np.ndarray, sc: np.ndarray) -> np.ndarray:
+    """q_signed (n, 256) in [-4, 3]; d (n,); sc (n, 16) in [-32, 31], stored
+    + 32 -> (n, 110) bytes."""
+    L = (q_signed.astype(np.int16) + 4).astype(np.uint8)  # 0..7
+    hbit = (L > 3).astype(np.uint8)
+    low = np.where(L > 3, L - 4, L)
+    shifts = np.arange(8, dtype=np.uint16)[None, :, None]
+    hmask = (hbit.reshape(-1, 8, 32).astype(np.uint16) << shifts).sum(axis=1).astype(np.uint8)
+    scales = _pack_q3_scales(sc.astype(np.int16) + 32)
+    return np.concatenate([hmask, _pack_2bit_lanes(low), scales, _f16_bytes(d)], axis=1)
+
+
+def _pack_nibble_pairs(q: np.ndarray) -> np.ndarray:
+    """(n, 256) 4-bit values -> (n, 128): per 64-chunk, the first 32 in the
+    low nibbles."""
+    v = q.reshape(-1, 4, 2, 32).astype(np.uint8)
+    return (v[:, :, 0, :] | (v[:, :, 1, :] << 4)).reshape(-1, 128)
+
+
+def pack_q4_k(q: np.ndarray, d: np.ndarray, sc: np.ndarray, dmin: np.ndarray,
+              mn: np.ndarray) -> np.ndarray:
+    """q (n, 256) in [0,15]; d / dmin (n,); sc / mn (n, 8) 6-bit -> (n, 144)."""
+    return np.concatenate([_f16_bytes(d), _f16_bytes(dmin), pack_scale_min_k4(sc, mn),
+                           _pack_nibble_pairs(q)], axis=1)
+
+
+def pack_q5_k(q: np.ndarray, d: np.ndarray, sc: np.ndarray, dmin: np.ndarray,
+              mn: np.ndarray) -> np.ndarray:
+    """q (n, 256) in [0,31]: bit 4 in qh (chunk c, half h -> bit 2c + h),
+    the low nibbles in ql -> (n, 176)."""
+    hi = (q.reshape(-1, 4, 2, 32).astype(np.uint8) >> 4).astype(np.uint16)
+    shifts = (2 * np.arange(4, dtype=np.uint16))[None, :, None, None] + np.arange(
+        2, dtype=np.uint16)[None, None, :, None]
+    qh = (hi << shifts).sum(axis=(1, 2)).astype(np.uint8)
+    return np.concatenate([_f16_bytes(d), _f16_bytes(dmin), pack_scale_min_k4(sc, mn), qh,
+                           _pack_nibble_pairs(q & 0x0F)], axis=1)
+
+
+def pack_q6_k(q_signed: np.ndarray, d: np.ndarray, sc: np.ndarray) -> np.ndarray:
+    """q_signed (n, 256) in [-32, 31]; sc (n, 16) int8, stored raw ->
+    (n, 210)."""
+    v = (q_signed.astype(np.int16) + 32).astype(np.uint8).reshape(-1, 2, 4, 32)  # 0..63
+    lo = v & 0x0F
+    hi = (v >> 4).astype(np.uint16)  # 2 bits
+    # ql, per 128-chunk: [l] = lo0 | lo2 << 4, [32 + l] = lo1 | lo3 << 4
+    ql = np.concatenate([lo[:, :, 0, :] | (lo[:, :, 2, :] << 4),
+                         lo[:, :, 1, :] | (lo[:, :, 3, :] << 4)], axis=2).reshape(-1, 128)
+    shifts = (2 * np.arange(4, dtype=np.uint16))[None, None, :, None]
+    qh = (hi << shifts).sum(axis=2).astype(np.uint8).reshape(-1, 64)
+    return np.concatenate([ql, qh, sc.astype(np.int8).view(np.uint8), _f16_bytes(d)], axis=1)
+
+
+def pack_q8_0(q: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """q (n, 32) int8, d (n,) -> (n, 34)."""
+    return np.concatenate([_f16_bytes(d), q.astype(np.int8).view(np.uint8)], axis=1)
+
+
+def quantize_q8_0(x: np.ndarray) -> np.ndarray:
+    """Round-to-nearest Q8_0 of (n, 32) floats -> (n, 34) bytes."""
+    d = (np.abs(x).max(axis=1) / 127.0).astype(np.float32)
+    inv = np.where(d > 0, 1.0 / np.where(d > 0, d, 1.0), 0.0)
+    q = np.clip(np.round(x * inv[:, None]), -128, 127).astype(np.int8)
+    return pack_q8_0(q, d)
 
 
 _DEQUANT = {

@@ -13,7 +13,7 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
-from typing import Dict, Iterator, Tuple, Union
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,13 +45,16 @@ def read_header(path: Union[str, Path]) -> Tuple[Dict, int]:
     return header, 8 + n
 
 
-def iter_file(path: Union[str, Path]) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(name, CPU tensor) for every tensor of one file, in header order.
-    The tensors are copies: nothing stays mapped."""
+def iter_file(path: Union[str, Path], names: Optional[Sequence[str]] = None
+              ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor) for every tensor of one file in header order, or
+    for ``names`` in their order. The tensors are copies: nothing stays
+    mapped."""
     header, base = read_header(path)
     mm = np.memmap(path, dtype=np.uint8, mode="r")
     try:
-        for name, info in header.items():
+        for name in header if names is None else names:
+            info = header[name]
             if info["dtype"] not in _DTYPES:
                 raise NotImplementedError(f"{path}: tensor {name} has dtype {info['dtype']}")
             np_dt, t_dt = _DTYPES[info["dtype"]]
@@ -64,10 +67,12 @@ def iter_file(path: Union[str, Path]) -> Iterator[Tuple[str, torch.Tensor]]:
 
 
 def iter_dir(model_dir: Union[str, Path]) -> Iterator[Tuple[str, torch.Tensor]]:
-    """Every tensor of every ``*.safetensors`` file of a checkpoint directory."""
+    """Every tensor of every ``*.safetensors`` file of a checkpoint directory:
+    files sorted by name, each file's tensors sorted by name (the order of
+    the JAX package's walk, whose ``safe_open(...).keys()`` are sorted)."""
     files = sorted(Path(model_dir).glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"no .safetensors files in {model_dir}")
     for path in files:
-        yield from iter_file(path)
+        yield from iter_file(path, sorted(read_header(path)[0]))
 

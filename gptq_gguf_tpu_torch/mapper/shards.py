@@ -1,8 +1,9 @@
-"""Open a GGUF given as one file or as a ``-NNNNN-of-NNNNN`` shard set.
+"""Sharded GGUF files: split one, or read a ``-NNNNN-of-NNNNN`` set as one.
 
-Copy of the reading half of ``gptq_gguf_tpu/mapper/shards.py``
-(``open_gguf`` and ``GGUFSetReader``); split and merge stay in the JAX
-package.
+Copy of ``gptq_gguf_tpu/mapper/shards.py`` without the merge:
+``split_gguf_file`` breaks a GGUF into llama.cpp ``gguf-split`` shards (the
+first carries the whole metadata, every shard the ``split.*`` keys), and
+``open_gguf`` opens a plain file or any shard of a set (``GGUFSetReader``).
 """
 
 from __future__ import annotations
@@ -11,13 +12,67 @@ import re
 from pathlib import Path
 from typing import Any, Dict, List, Union
 
-from ..formats.gguf import GGUFReader, GGUFValue
+from ..formats.gguf import GGUFReader, GGUFValue, GGUFValueType, GGUFWriter
 
 LLM_KV_SPLIT_NO = "split.no"
 LLM_KV_SPLIT_COUNT = "split.count"
 LLM_KV_SPLIT_TENSORS_COUNT = "split.tensors.count"
 
 _SHARD_RE = re.compile(r"^(.*)-(\d{5})-of-(\d{5})\.gguf$")
+
+
+def shard_name(prefix: Union[str, Path], i: int, n: int) -> Path:
+    return Path(f"{prefix}-{i + 1:05d}-of-{n:05d}.gguf")
+
+
+def _plan(reader: GGUFReader, max_tensors: int = 0, max_size: int = 0) -> List[List[str]]:
+    """Greedy shard plan over tensor_order (llama.cpp gguf-split: a shard
+    closes when either bound would be exceeded)."""
+    shards: List[List[str]] = []
+    cur: List[str] = []
+    cur_bytes = 0
+    for name in reader.tensor_order:
+        nb = reader.tensors[name].nbytes
+        if cur and ((max_tensors and len(cur) >= max_tensors)
+                    or (max_size and cur_bytes + nb > max_size)):
+            shards.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(name)
+        cur_bytes += nb
+    if cur:
+        shards.append(cur)
+    return shards
+
+
+def split_gguf_file(src: Union[str, Path], dst_prefix: Union[str, Path], *,
+                    max_tensors: int = 0, max_size: int = 0) -> List[Path]:
+    """Split ``src`` into shards named ``<dst_prefix>-NNNNN-of-NNNNN.gguf``;
+    ``max_size`` counts tensor payload bytes."""
+    if not max_tensors and not max_size:
+        raise ValueError("need --split-max-tensors or --split-max-size")
+    r = GGUFReader(src)
+    plan = _plan(r, max_tensors, max_size)
+    n = len(plan)
+    if n < 2:
+        raise ValueError(f"split would produce {n} shard(s); nothing to do")
+    out: List[Path] = []
+    for i, names in enumerate(plan):
+        path = shard_name(dst_prefix, i, n)
+        w = GGUFWriter(path)
+        if i == 0:  # the whole metadata rides the first shard only
+            for k, v in r.metadata.items():
+                w.add_kv(k, v)
+        w.add_kv(LLM_KV_SPLIT_NO, GGUFValue(GGUFValueType.UINT16, i))
+        w.add_kv(LLM_KV_SPLIT_COUNT, GGUFValue(GGUFValueType.UINT16, n))
+        w.add_kv(LLM_KV_SPLIT_TENSORS_COUNT, GGUFValue(GGUFValueType.INT32, len(r.tensor_order)))
+        for name in names:
+            info = r.tensors[name]
+            w.add_tensor(name, r.tensor_bytes(name), raw_dtype=info.ggml_type,
+                         raw_shape=info.shape)
+        w.write()
+        out.append(path)
+    r.close()
+    return out
 
 
 def _find_shards(first: Path) -> List[Path]:

@@ -350,13 +350,6 @@ def quantize_params_for_serving(params: Dict[str, Any], cfg: LlamaConfig,
     return out
 
 
-def _gqa_permute_rows(n_rows: int, n_head: int) -> np.ndarray:
-    """Row permutation from HF rotate-half rope layout to GGML's interleaved
-    layout (llama.cpp LlamaModel.permute): ``w_gguf = w_hf[perm]``."""
-    idx = np.arange(n_rows)
-    return idx.reshape(n_head, 2, n_rows // n_head // 2).swapaxes(1, 2).reshape(n_rows)
-
-
 # llama.* metadata keys that change the model beyond the dense Llama path
 _UNPORTED_KEYS = ("expert_count", "embedding_scale", "residual_scale",
                   "attention.scale", "logit_scale")
@@ -450,7 +443,7 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
         inv = None
         if ".attn_q." in name or ".attn_k." in name:  # undo llama.cpp's rope permute
             heads = n_head if ".attn_q." in name else n_kv
-            inv = np.argsort(_gqa_permute_rows(info.shape[0], heads))
+            inv = np.argsort(convert.gqa_permute_rows(info.shape[0], heads))
         if dense or info.ggml_type not in K_QUANT_TYPES or info.shape[-1] % 256 != 0:
             return dense_tensor(name, inv, dtype)
         q, ss, sc, sz, zq = convert.unpack_layer(

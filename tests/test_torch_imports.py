@@ -2,6 +2,7 @@
 entry points default to the card and raise without one, and chip_smoke.py
 refuses to run without a card or outside a checkout."""
 
+import json
 import os
 import re
 import shutil
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from gptq_gguf_tpu_torch.formats import gguf
+
 REPO = Path(__file__).resolve().parents[1]
 PKG = "gptq_gguf_tpu_torch"
 
@@ -23,12 +26,12 @@ def _port_modules():
         for p in (REPO / PKG).rglob("*.py"))
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path_factory):
     mods = _port_modules()
     assert f"{PKG}.ops.qmatmul" in mods and f"{PKG}.serving.engine" in mods
     assert f"{PKG}.ops.gptq" in mods and f"{PKG}.quant.calibrate" in mods
     for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer",
-              "ops.qmv4", "evals.ppl", "cli.tools"):
+              "ops.qmv4", "evals.ppl", "cli.tools", "export.packer", "export.spm"):
         assert f"{PKG}.{m}" in mods
     # the kernel sources ops.qmatmul binds (the v2 variants among them) and
     # every header a source includes
@@ -38,13 +41,38 @@ def test_port_imports_no_jax():
     for src in csrc.glob("*.cu*"):
         for header in re.findall(r'#include "([^"]+)"', src.read_text()):
             assert (csrc / header).is_file(), (src.name, header)
+    # ... and `pack` runs (its lazy imports included) on a tiny llama with a
+    # Q4_K artifact and a BPE vocabulary, without JAX, ml_dtypes or the
+    # safetensors package
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.quant import artifacts
+    from tests.torch_pack_fixtures import write_bpe, write_safetensors
+
+    tmp = tmp_path_factory.mktemp("pack_alone")
+    d = tmp / "m"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(dict(
+        model_type="llama", vocab_size=320, hidden_size=256, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1)))
+    rng = np.random.default_rng(0)
+    write_safetensors(d / "model.safetensors", {
+        "model.embed_tokens.weight": rng.normal(size=(320, 256)).astype(np.float32),
+        "model.layers.0.self_attn.q_proj.weight": rng.normal(size=(256, 256)).astype(np.float16)})
+    write_bpe(d, 320)
+    z = np.zeros((256, 1), np.float16)
+    artifacts.save_layer(tmp / "layers", "model.layers.0.self_attn.q_proj", artifacts.LayerArtifact(
+        T.Q4_K, rng.integers(0, 16, size=(256, 256)).astype(np.uint8), z + 0.01, z,
+        np.ones((256, 8), np.uint8), np.zeros((256, 8), np.uint8)))
+    pack = ["pack", "--model_dir", str(d), "--quant_dir", str(tmp / "layers"),
+            "--outfile", str(tmp / "x.gguf"), "--outtype", "bf16"]
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(REPO / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'gptq_gguf_tpu' or m.startswith('gptq_gguf_tpu.')]\n"
+        f"importlib.import_module('{PKG}.__main__').main({pack!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'gptq_gguf_tpu', 'ml_dtypes', 'safetensors')]\n"
         "print('BAD', bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -52,6 +80,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert gguf.GGUFReader(tmp / "x.gguf").tensors["blk.0.attn_q.weight"].ggml_type == T.Q4_K
 
 
 @pytest.fixture

@@ -54,7 +54,29 @@ checkout of the repository. Phases, each raising on failure:
    planes equal 7e's), served by ``serve`` from 16 prompt tokens (v2g
    launches; greedy tokens equal 7e's v2 tokens up to a near-tie, each
    step's top-2 gap printed) and from a text prompt through the GGUF's own
-   vocabulary, and scored by ``ppl --gguf-path serving`` (finite);
+   vocabulary, and scored by ``ppl --gguf-path serving`` (finite); then the
+   search and assembly path on the same checkpoint: ``quantize
+   --default_bit_width Q6_K`` (16384 tokens, on the solve kernel, its
+   launches printed) packed as a second GGUF; ``build-db`` of the Q4_K and
+   Q6_K GGUFs (every layers-gguf file its GGUF tensor's bytes, every
+   layers-hf tensor its dequantization, q / k rows inverse-permuted, f16:
+   exact, host); ``search`` on the card (sparse KL, 5.5 bits, group rule
+   size, 4096 tokens in sequences of 512, 4 generations of 8 offspring,
+   survivors 2 then 1; a config within budget naming database files and
+   holding both types; teacher, per-candidate and per-generation seconds;
+   the sparse KL of uniform Q4_K, uniform Q6_K, below it, and the config);
+   ``convert-config`` and ``stitch`` (each tensor the bytes of the GGUF
+   whose type the config picked, the source's metadata but
+   general.file_type and its tensor order; the scored layers-hf tensors
+   the stitched tensors' dequantization); ``serve`` of the stitched GGUF
+   (its v2 planes equal to those quantize_params_for_serving builds from
+   the artifacts the config picked, v2g launches as many as the config
+   implies, a prefill's calls on the tensor-core tiles and a B=8 step's on
+   the decode tile held call by call with a planted control, greedy tokens
+   equal to the plain versions' up to a near-tie); ``gguf-split
+   --split-max-tensors 8`` (the first shard serves the same tokens,
+   ``--merge`` gives back the file byte for byte); ``ppl --gguf-path
+   serving`` (finite); the step's seconds and peak disk use;
 6. paged serving at full width (run before phase 5, while the serving
    weights are on the card): both paged flash-decode kernels against their
    plain versions at the 8B attention shape (B=8, 8 kv heads of 4 query
@@ -154,9 +176,11 @@ The second-to-last line is the kernel summary JSON, the last line
 from __future__ import annotations
 
 import dataclasses
+import filecmp
 import json
 import math
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -2598,7 +2622,7 @@ def phase_gptq_pack(tmp: Path, arts, v2_layers, greedy_v2, device):
     from gptq_gguf_tpu_torch.serving import tokenizer as gtok
 
     t_step = time.perf_counter()
-    ckpt, out = tmp / "ckpt", tmp / "model.gguf"
+    ckpt, out = tmp / "ckpt", tmp / "model-Q4_K.gguf"  # the level in the name, for build-db
     write_tokenizer(ckpt)
     t = time.perf_counter()
     run_cli(["pack", "--model_dir", str(ckpt), "--quant_dir", str(tmp / "layers"),
@@ -2724,15 +2748,482 @@ def phase_gptq_pack(tmp: Path, arts, v2_layers, greedy_v2, device):
     ppl = json.loads((tmp / "ppl.json").read_text())["synthetic"]
     if not np.isfinite(ppl):
         raise RuntimeError(f"ppl of the packed GGUF: {ppl}")
-    out.unlink()
     ppl_s = time.perf_counter() - t
     step_s = time.perf_counter() - t_step
     log(f"  serve --prompt in {text_s:.1f} s; ppl (serving, 2 x 512 synthetic tokens) "
         f"{ppl:.4f} in {ppl_s:.1f} s; the step took {step_s:.1f} s")
-    return dict(pack_s=pack_s, bytes=n_bytes, tensors=3 + 9 * GPTQ_LAYERS, v2g_launches=launches,
-                tokens=toks, first_difference=flip, gaps=gaps, text_prompt_tokens=len(prompt_ids),
-                ppl=ppl, seconds=dict(read_back=read_s, serve=serve_s, serve_text=text_s,
-                                      ppl=ppl_s, step=step_s))
+    return out, dict(pack_s=pack_s, bytes=n_bytes, tensors=3 + 9 * GPTQ_LAYERS,
+                     v2g_launches=launches, tokens=toks, first_difference=flip, gaps=gaps,
+                     text_prompt_tokens=len(prompt_ids), ppl=ppl,
+                     seconds=dict(read_back=read_s, serve=serve_s, serve_text=text_s, ppl=ppl_s,
+                                  step=step_s))
+
+
+# the search of phase 5's mixed step: sparse KL against the bf16 checkpoint
+# on 4096 synthetic tokens in sequences of 512, a few generations
+SEARCH_TOKENS, SEARCH_SEQ, SEARCH_BITS = 4096, 512, 5.5
+SEARCH_ARGS = ("--target_bitwidth", str(SEARCH_BITS), "--fitness_fn", "sparse_kl",
+               "--group_rule", "size", "--generations", "4", "--offspring", "8",
+               "--survivors_per_selection", "2", "1", "--tokens_per_selection", "2048", "4096",
+               "--initially_generated", "4", "--initial_tokens", "2048")
+LEVEL_BITS = {"Q4_K": 4.5, "Q6_K": 6.5625}
+HF_KEYS = {"attn_q": "q_proj", "attn_k": "k_proj", "attn_v": "v_proj", "attn_output": "o_proj",
+           "ffn_gate": "gate_proj", "ffn_up": "up_proj", "ffn_down": "down_proj"}
+
+
+def disk_bytes(root: Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def hf_weight(r, name: str):
+    """A GGUF block linear as the layer database's HF layout holds it:
+    formats.ggml.dequantize, q / k rows back in HF's order, f16."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats import convert, ggml
+
+    info = r.tensors[name]
+    w = ggml.dequantize(np.asarray(r.tensor_bytes(name)), info.ggml_type, info.shape)
+    comp = name.split(".")[2]
+    if comp in ("attn_q", "attn_k"):
+        w = w[np.argsort(convert.gqa_permute_rows(info.shape[0],
+                                                  N_HEAD if comp == "attn_q" else N_KV))]
+    return torch.from_numpy(np.ascontiguousarray(w.astype(np.float16)))
+
+
+def v2g_per_forward(levels: dict) -> int:
+    """v2g calls of one forward of the stitched model: per layer q/k/v fused
+    into one when they share a type (else three), o, gate/up fused when they
+    share one (else two), down; the bf16 head is dense."""
+    n = 0
+    for li in range(GPTQ_LAYERS):
+        t = {k: levels[f"blk.{li}.{c}.weight"] for c, k in HF_KEYS.items()}
+        n += (1 if t["q_proj"] == t["k_proj"] == t["v_proj"] else 3) + 1
+        n += (1 if t["gate_proj"] == t["up_proj"] else 2) + 1
+    return n
+
+
+def stitched_calls(params, cfg, rng, device):
+    """Every v2g call of a prefill of 8 x 16 tokens (M = 128: the
+    tensor-core tiles) and of one B=8 decode step (M = 8: the decode tile)
+    through the stitched model, kernel and plain version on the same x,
+    the plain output handed on (as 8b does): each within 1e-5 of its
+    largest sum of |terms| (PREFILL_TILE_LIMIT on the prefill tiles, 8b's
+    limit there), and control_of's plain version in place of the kernel,
+    which must fail that limit."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    fns = variant_fns()
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 16)), device=device)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 1)), device=device)
+
+    def shared(calls, control):
+        def mm(x, rql):
+            y_p = fns["v2g"][1](x, rql, torch.bfloat16)
+            if control:
+                c_var, c_mxu = control_of("v2g", "bf16")
+                y_k = fns[c_var][1](x, rql, mxu_dtype(c_mxu))
+            else:
+                y_k = fns["v2g"][0](x, rql, torch.bfloat16)
+            tile = x.shape[0] >= qmatmul.MMA_MIN_ROWS and rql.d_out % 4 == 0
+            terms = max(variant_terms(x, rql, "v2g", "bf16"), 1e-30)
+            calls.append(dict(M=x.shape[0], shape=(rql.d_out, rql.d_in), gs=rql.group_size,
+                              finite=bool(torch.isfinite(y_k).all()), tile=tile,
+                              err=(y_k - y_p).abs().max().item(), tol_1e5=1e-5 * terms,
+                              tol=(PREFILL_TILE_LIMIT if tile else 1e-5) * terms))
+            return y_p
+        return mm
+
+    out = {}
+    fn0 = qmatmul.dequant_matmul
+    for control in (False, True):
+        calls = []
+        reset_matmul_counts()
+        qmatmul.dequant_matmul = shared(calls, control)
+        try:
+            cache = qmodel.init_cache(cfg, 8, 64, device=device)
+            with torch.no_grad():
+                _, cache = qmodel.forward_cached(params, cfg, ids, cache)
+                qmodel.forward_cached(params, cfg, feed, cache)
+        finally:
+            qmatmul.dequant_matmul = fn0
+        out[control] = (calls, mma_counts()["v2g"], decode_counts()["v2g"])
+    return out
+
+
+def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
+    """5, after the pack step: a second level, the layer database, the
+    search, the stitcher, and the stitched GGUF served. ``quantize
+    --default_bit_width Q6_K`` of the 2-layer checkpoint (16384 tokens, on
+    the solve kernel) packed as a second GGUF; ``build-db`` of both, every
+    layers-gguf file its GGUF tensor's bytes and every layers-hf tensor its
+    dequantization (exact, host); ``search`` on the card (sparse KL, 5.5
+    bits: a config within budget holding both types), the sparse KL of
+    uniform Q4_K, uniform Q6_K and the config on its 4096 tokens;
+    ``convert-config`` and ``stitch``: each tensor the bytes of the GGUF
+    whose type the config picked, the source's metadata and order, the
+    scored layers-hf tensors the dequantization of the stitched ones;
+    ``serve`` (v2 planes equal to quantize_params_for_serving's from the
+    artifacts the config picked, v2g launches as the config implies,
+    tokens equal to the plain versions' up to a near-tie), every v2g call
+    of a prefill and a B=8 decode step held call by call; ``gguf-split``,
+    ``serve`` from the first shard and ``--merge`` back byte for byte;
+    ``ppl --gguf-path serving``."""
+    import torch
+
+    from gptq_gguf_tpu_torch.evals import ppl as ppl_mod
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.mapper import splitter
+    from gptq_gguf_tpu_torch.mapper.stitcher import GGUFStitcher
+    from gptq_gguf_tpu_torch.models import loader
+    from gptq_gguf_tpu_torch.ops import gptq, qmatmul
+    from gptq_gguf_tpu_torch.search import evopress
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel
+
+    t_step = time.perf_counter()
+    peak = [0]
+
+    def note_disk():
+        peak[0] = max(peak[0], disk_bytes(tmp))
+
+    ckpt, rec, secs = tmp / "ckpt", {}, {}
+
+    # 1. the second level: Q6_K GPTQ on the solve kernel, packed
+    save6, q6_gguf = tmp / "layers_q6", tmp / "model-Q6_K.gguf"
+    argv = quantize_argv(ckpt, save6, device, profile=False)
+    argv[argv.index("--calibration_tokens") + 1] = str(STATIC_CALIB_TOKENS)
+    argv[argv.index("--default_bit_width") + 1] = "Q6_K"
+    gptq.solve_block.launches = 0
+    t = time.perf_counter()
+    run_cli(argv)
+    torch.cuda.synchronize()
+    secs["quantize_q6"] = time.perf_counter() - t
+    q6_launches = gptq.solve_block.launches
+    want = sum(n for _, _, n in SOLVE_SHAPES) * GPTQ_LAYERS
+    log(f"quantize --default_bit_width Q6_K ({STATIC_CALIB_TOKENS} tokens): "
+        f"{secs['quantize_q6']:.2f} s, {q6_launches} solve-kernel launches")
+    if q6_launches != want:
+        raise RuntimeError(f"Q6_K quantize: {q6_launches} solve-kernel launches, want {want}")
+    t = time.perf_counter()
+    run_cli(["pack", "--model_dir", str(ckpt), "--quant_dir", str(save6), "--outfile",
+             str(q6_gguf), "--outtype", "bf16"])
+    secs["pack_q6"] = time.perf_counter() - t
+    note_disk()
+
+    # 2. build-db, held exactly on the host
+    db = tmp / "db"
+    t = time.perf_counter()
+    run_cli(["build-db", "--models", str(q4_gguf), str(q6_gguf), "--output-dir", str(db)])
+    secs["build_db"] = time.perf_counter() - t
+    note_disk()
+    t = time.perf_counter()
+    readers = {"Q4_K": GGUFReader(q4_gguf), "Q6_K": GGUFReader(q6_gguf)}
+
+    def prefix(info):
+        qname = info.ggml_type.name
+        return f"{splitter._bits_prefix(splitter.nominal_bits(qname))}-{qname}"
+
+    def check_tensor(item):
+        """(1, 1 if a block linear's layers-hf tensor was checked too)"""
+        level, name = item
+        r, info = readers[level], readers[level].tensors[name]
+        raw = (db / "layers-gguf" / name / f"{prefix(info)}.pth").read_bytes()
+        if raw != r.tensor_bytes(name).tobytes():
+            raise RuntimeError(f"layers-gguf {name} ({level}): not the GGUF's bytes")
+        if not (name.startswith("blk.") and name.split(".")[2] in HF_KEYS):
+            return 1, 0
+        hf = splitter.gguf_to_hf_name(name)[:-len(".weight")]
+        got = torch.load(db / "layers-hf" / hf / f"{prefix(info)}.pth", weights_only=True)
+        if got.dtype != torch.float16 or not torch.equal(got, hf_weight(r, name)):
+            raise RuntimeError(f"layers-hf {hf} ({level}): not the dequantization")
+        return 1, 1
+
+    with ThreadPoolExecutor(8) as ex:
+        counts = np.sum(list(ex.map(check_tensor, [(lv, n) for lv, r in readers.items()
+                                                   for n in r.tensor_order])), axis=0)
+    secs["build_db_check"] = time.perf_counter() - t
+    q6_bytes = q6_gguf.stat().st_size
+    log(f"build-db of the Q4_K and Q6_K GGUFs in {secs['build_db']:.1f} s (pack Q6_K "
+        f"{secs['pack_q6']:.1f} s, {q6_bytes} bytes): {counts[0]} layers-gguf files equal to "
+        f"their GGUF tensors' bytes and {counts[1]} layers-hf tensors equal to their "
+        f"dequantization (checked in {secs['build_db_check']:.1f} s)")
+    if tuple(counts) != (2 * (3 + 9 * GPTQ_LAYERS), 2 * 7 * GPTQ_LAYERS):
+        raise RuntimeError(f"build-db checked {tuple(counts)} files")
+
+    # 3. the search on the card, timed by part
+    hf_db, seen, fit_s = db / "layers-hf", {}, []
+    search0, teacher0, fitness0 = (evopress.evo_press_search, evopress.compute_target_logits,
+                                   evopress.compute_fitness)
+
+    def timed_teacher(*a, **kw):
+        t0 = time.perf_counter()
+        out = teacher0(*a, **kw)
+        torch.cuda.synchronize()
+        seen["teacher_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_fitness(*a, **kw):
+        t0 = time.perf_counter()
+        f = fitness0(*a, **kw)  # a float: the card is done
+        fit_s.append(time.perf_counter() - t0)
+        return f
+
+    def kept_search(model, calib, cfg, **kw):
+        log0, stamps = kw.pop("log", print), []
+
+        def stamped(msg):
+            stamps.append(time.perf_counter())
+            log0(msg)
+
+        t0 = time.perf_counter()
+        out = search0(model, calib, cfg, log=stamped, **kw)
+        seen.update(model=model, calib=calib, teacher=kw.get("target_logits"), result=out,
+                    stamps=[t0] + stamps + [time.perf_counter()])
+        return out
+
+    t = time.perf_counter()
+    evopress.evo_press_search, evopress.compute_target_logits = kept_search, timed_teacher
+    evopress.compute_fitness = timed_fitness
+    try:
+        run_cli(["search", "--model_name_or_path", str(ckpt), "--quant_weights_path",
+                 str(hf_db), *SEARCH_ARGS, "--calibration_data", "synthetic",
+                 "--calibration_tokens", str(SEARCH_TOKENS), "--calibration_sequence_length",
+                 str(SEARCH_SEQ), "--device", str(device)])
+    finally:
+        evopress.evo_press_search, evopress.compute_target_logits = search0, teacher0
+        evopress.compute_fitness = fitness0
+    secs["search"] = time.perf_counter() - t
+    best, groups, available = seen["result"]
+    model = seen["model"]
+    cfg_path = hf_db / f"evo-sparse_kl-configuration-{SEARCH_BITS}.txt"
+    chosen = evopress.parse_state_config(cfg_path)
+    budget = sum(int(model.numel(n) * SEARCH_BITS) for g in groups for n in g)
+    bits = evopress.calculate_total_bits(best, groups, model.numel)
+    weights = sum(model.numel(n) for g in groups for n in g)
+    types = sorted({f.split("-", 1)[1][:-len(".pth")] for _, f in chosen.values()})
+    if bits > budget or types != ["Q4_K", "Q6_K"] or len(chosen) != 7 * GPTQ_LAYERS or any(
+            not (hf_db / n / f).is_file() for n, (_, f) in chosen.items()):
+        raise RuntimeError(f"search config: {bits} bits of a budget of {budget}, types {types}, "
+                           f"{len(chosen)} lines")
+    stamps = seen["stamps"]
+    gens = [b - a for a, b in zip(stamps[1:], stamps[2:])]
+    kl = {}
+    for label, state in (("Q4_K", [[4.5] * len(g) for g in groups]),
+                         ("Q6_K", [[6.5625] * len(g) for g in groups]), ("searched", best)):
+        model.load_layers(groups, state, available)
+        kl[label] = ppl_mod.compute_sparse_kl_div(model.params, model.cfg, seen["calib"],
+                                                  seen["teacher"])
+    log(f"search (sparse KL, {SEARCH_BITS} bits, {SEARCH_TOKENS} tokens in sequences of "
+        f"{SEARCH_SEQ}) in {secs['search']:.1f} s: teacher logits {seen['teacher_s']:.2f} s, "
+        f"{len(fit_s)} candidates scored in {np.mean(fit_s):.3f} s each (sum "
+        f"{sum(fit_s):.1f}), the initial selection {stamps[1] - stamps[0]:.1f} s, "
+        f"generations {[round(g, 1) for g in gens]} s; config {bits / weights:.4f} bits/weight "
+        f"(budget {budget / weights:.4f}), "
+        f"{sum(f.endswith('Q6_K.pth') for _, f in chosen.values())} of {len(chosen)} linears "
+        f"at Q6_K; sparse KL on its {SEARCH_TOKENS} tokens: uniform Q4_K {kl['Q4_K']:.5f}, "
+        f"uniform Q6_K {kl['Q6_K']:.5f}, searched {kl['searched']:.5f} (card "
+        f"{card_name_and_power()})")
+    if not kl["Q6_K"] < kl["Q4_K"]:
+        raise RuntimeError(f"sparse KL: uniform Q6_K {kl['Q6_K']} not below Q4_K {kl['Q4_K']}")
+    rec["search"] = dict(bits_per_weight=bits / weights, budget=budget / weights, kl=kl,
+                         teacher_s=seen["teacher_s"], candidates=len(fit_s),
+                         candidate_s=float(np.mean(fit_s)), generation_s=gens,
+                         q6_linears=sum(f.endswith("Q6_K.pth") for _, f in chosen.values()))
+    del model, seen
+    torch.cuda.empty_cache()
+
+    # 4. convert-config, stitch: the chosen bytes, the source's metadata and order
+    stitch_cfg, mixed = tmp / "stitch.txt", tmp / "mixed.gguf"
+    t = time.perf_counter()
+    run_cli(["convert-config", "--input", str(cfg_path), "--output", str(stitch_cfg)])
+    valid = run_cli(["stitch", "--split-dir", str(db / "layers-gguf"), "--config",
+                     str(stitch_cfg), "--validate-only"])
+    if valid[-1] != "configuration valid":
+        raise RuntimeError(f"stitch --validate-only: {valid}")
+    run_cli(["stitch", "--split-dir", str(db / "layers-gguf"), "--config", str(stitch_cfg),
+             "--output", str(mixed)])
+    secs["stitch"] = time.perf_counter() - t
+    note_disk()
+    t = time.perf_counter()
+    level = {n: c.quant_type for n, c in GGUFStitcher(db / "layers-gguf", stitch_cfg)
+             .config.items()}
+    r, src = GGUFReader(mixed), readers["Q6_K"]  # the database's metadata is the last split's
+    if r.tensor_order != src.tensor_order:
+        raise RuntimeError("stitched tensor order is not the source's")
+    for name in r.tensor_order:
+        if (r.tensor_bytes(name).tobytes()
+                != readers.get(level[name], readers["Q4_K"]).tensor_bytes(name).tobytes()):
+            raise RuntimeError(f"stitched {name}: not the {level[name]} GGUF's bytes")
+    keys = [k for k in src.metadata if k != "general.file_type"]
+    if [k for k in r.metadata if k != "general.file_type"] != keys or any(
+            r.metadata[k] != src.metadata[k] for k in keys):
+        raise RuntimeError("stitched metadata differs from the source's")
+    # the scored file is the dequantization of its level's GGUF tensor (the
+    # build-db check) and the stitched tensor is that tensor's bytes (above):
+    # so the scored model is the served one where the two name one level
+    mapping = json.loads((hf_db / "hf_to_gguf_mapping.json").read_text())
+    same = [fname.split("-", 1)[1][:-len(".pth")] == level[mapping[hf + ".weight"]]
+            for hf, (_, fname) in chosen.items()]
+    if not all(same):
+        raise RuntimeError("a scored layers-hf tensor is not of the stitched tensor's level")
+    secs["stitch_check"] = time.perf_counter() - t
+    levels = {n: level[n] for n in r.tensor_order if n.startswith("blk.")
+              and n.split(".")[2] in HF_KEYS}
+    file_type, stitched_bytes = r.get("general.file_type"), mixed.stat().st_size
+    log(f"  convert-config, stitch --validate-only and stitch in {secs['stitch']:.1f} s: "
+        f"{len(r.tensors)} tensors ({stitched_bytes} bytes), each the bytes of the GGUF "
+        f"its config picked, the source's metadata and order, general.file_type {file_type}; "
+        f"the {len(same)} layers-hf tensors the search scored are of the stitched tensors' "
+        f"levels, so their dequantization (checked in {secs['stitch_check']:.1f} s)")
+    del r, src, readers
+    shutil.rmtree(db)
+    q6_gguf.unlink()
+    q4_gguf.unlink()
+
+    # 5. serve the stitched GGUF
+    per_forward = v2g_per_forward(levels)
+    prompt = np.arange(1, 17, dtype=np.int64)
+    kept, forwards = {}, [0]
+    load0, fwd0 = qmodel.load_gguf_for_serving, qmodel.forward_cached
+
+    def load_and_keep(*a, **kw):
+        kept["params"], kept["cfg"] = load0(*a, **kw)
+        return kept["params"], kept["cfg"]
+
+    def counted_forward(*a, **kw):
+        forwards[0] += 1
+        return fwd0(*a, **kw)
+
+    serve_argv = ["--prompt-tokens", *map(str, prompt), "--max-new-tokens", "6", "--max-len",
+                  "64", "--num-slots", "1", "--device", str(device)]
+    t = time.perf_counter()
+    reset_matmul_counts()
+    qmodel.load_gguf_for_serving, qmodel.forward_cached = load_and_keep, counted_forward
+    try:
+        lines = run_cli(["serve", "--gguf-file", str(mixed), *serve_argv])
+    finally:
+        qmodel.load_gguf_for_serving, qmodel.forward_cached = load0, fwd0
+    secs["serve"] = time.perf_counter() - t
+    launches = matmul_counts()["v2g"]
+    toks = json.loads(lines[-1])
+    if launches != per_forward * forwards[0] or len(toks) != 6:
+        raise RuntimeError(f"serve: {launches} v2g launches over {forwards[0]} forwards, want "
+                           f"{per_forward} a forward; tokens {toks}")
+    params, cfg = kept.pop("params"), kept.pop("cfg")
+    # the planes quantize_params_for_serving builds from the artifacts the config picked
+    dense_cfg = loader.load_config(ckpt, dtype=torch.bfloat16)
+    dense = loader.load_params(ckpt, dense_cfg)
+    q6_layers = qmodel.quantize_params_for_serving(dense, dense_cfg, save6,
+                                                   device=device)["layers"]
+    del dense
+    n_planes = 0
+    for li in range(GPTQ_LAYERS):
+        for comp, key in HF_KEYS.items():
+            want_w = (v2_layers if levels[f"blk.{li}.{comp}.weight"] == "Q4_K"
+                      else q6_layers)[li][key]
+            g = params["layers"][li][key]
+            for plane in ("qs", "d_sg", "dmin_sg", "sc_q", "mn_q"):
+                a, b = getattr(g, plane), getattr(want_w, plane)
+                if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                    raise RuntimeError(f"layer {li} {key}: stitched plane {plane} differs from "
+                                       f"the {levels[f'blk.{li}.{comp}.weight']} artifact's")
+            if (g.d_in, g.group_size, g.per_byte, g.shift, g.d_rep) != (
+                    want_w.d_in, want_w.group_size, want_w.per_byte, want_w.shift,
+                    want_w.d_rep):
+                raise RuntimeError(f"layer {li} {key}: layout differs from the artifact's")
+            n_planes += 1
+    del q6_layers
+    fused = qmodel.fuse_params_for_serving(params, cfg)
+    # call by call: a prefill on the tensor-core tiles, a B=8 step on the decode tile
+    calls = stitched_calls(fused, cfg, np.random.default_rng(SEED), device)
+    (kcalls, k_mma, k_dec), (ccalls, _, _) = calls[False], calls[True]
+    bad = [c for c in kcalls if not (c["finite"] and c["err"] <= c["tol"])]
+    ctrl_bad = sum(not c["err"] <= c["tol"] for c in ccalls)
+    q6_shapes = {c["shape"] for c in kcalls if c["gs"] == 16}
+    want_q6 = {(w.d_out, w.d_in) for layer in fused["layers"] for w in layer.values()
+               if isinstance(w, qmatmul.RuntimeQuantLinearV2) and w.group_size == 16}
+    log(f"  stitched model call by call (8 x 16-token prefill, one B=8 step; "
+        f"{per_forward} v2g calls a forward): {len(kcalls) - len(bad)} of {len(kcalls)} calls "
+        f"within their limit (worst {max(c['err'] / c['tol_1e5'] for c in kcalls):.2f}x of "
+        f"1e-5 of the terms; {sum(c['tile'] for c in kcalls)} prefill-tile calls held to "
+        f"{PREFILL_TILE_LIMIT:g}), tensor-core launches {k_mma}, decode-tile launches {k_dec}; "
+        f"control rejected at {ctrl_bad} of {len(ccalls)} calls; Q6_K shapes "
+        f"{sorted(q6_shapes)}")
+    if bad or ctrl_bad == 0 or len(kcalls) != 2 * per_forward or k_mma != per_forward \
+            or k_dec != per_forward or not want_q6 <= q6_shapes:
+        raise RuntimeError(f"stitched model call by call: {len(bad)} calls over the limit, "
+                           f"control rejected at {ctrl_bad}, {len(kcalls)} calls, tensor-core "
+                           f"{k_mma}, decode tile {k_dec}, Q6_K {q6_shapes} of {want_q6}")
+    # greedy tokens against the plain versions' on the same params
+    fn0, plain_v2g = qmatmul.dequant_matmul, variant_fns()["v2g"][1]
+    qmatmul.dequant_matmul = lambda x, rql: plain_v2g(x, rql, torch.bfloat16)
+    try:
+        plain = engine.generate(fused, cfg, [prompt], max_new_tokens=6, max_len=64)[0]
+    finally:
+        qmatmul.dequant_matmul = fn0
+    ids = torch.as_tensor(np.concatenate([prompt, toks[:-1]]), device=device)[None]
+    cache = qmodel.init_cache(cfg, 1, 64, device=device)
+    with torch.no_grad():
+        logits, _ = qmodel.forward_cached(fused, cfg, ids, cache, all_logits=True)
+    steps = logits[0, len(prompt) - 1:].float()
+    top2 = torch.topk(steps, 2, dim=-1).values
+    gaps = ((top2[:, 0] - top2[:, 1]) / steps.abs().amax(-1)).tolist()
+    del params, fused, cache, logits
+    torch.cuda.empty_cache()
+    flip = next((i for i, (a, b) in enumerate(zip(toks, plain)) if a != b), None)
+    log(f"  serve in {secs['serve']:.1f} s: tokens {toks} (plain versions: {plain}), "
+        f"{launches} v2g launches = {per_forward} x {forwards[0]} forwards; the {n_planes} "
+        f"projections' v2 planes equal to the chosen artifacts'; top-2 gap / max|logit| per "
+        f"step {[round(g, 5) for g in gaps]}")
+    if flip is not None and not gaps[flip] < NEAR_TIE:
+        raise RuntimeError(f"serve: step {flip} differs from the plain versions' with a top-2 "
+                           f"gap of {gaps[flip]:.2e} of max|logit|")
+
+    # 6. gguf-split, serve from the first shard, --merge back
+    t = time.perf_counter()
+    shards = [line.split()[-1] for line in run_cli(
+        ["gguf-split", "--input", str(mixed), "--output", str(tmp / "mixed-split"),
+         "--split-max-tensors", "8"])]
+    note_disk()
+    shard_toks = json.loads(run_cli(["serve", "--gguf-file", shards[0], *serve_argv])[-1])
+    run_cli(["gguf-split", "--merge", "--input", shards[0], "--output",
+             str(tmp / "merged.gguf")])
+    note_disk()
+    merged_same = filecmp.cmp(tmp / "merged.gguf", mixed, shallow=False)
+    secs["split_serve_merge"] = time.perf_counter() - t
+    log(f"  gguf-split --split-max-tensors 8: {len(shards)} shards; serve from the first: "
+        f"{shard_toks}; --merge gives back the stitched file byte for byte: {merged_same} "
+        f"({secs['split_serve_merge']:.1f} s)")
+    if shard_toks != toks or not merged_same or len(shards) != -(-(3 + 9 * GPTQ_LAYERS) // 8):
+        raise RuntimeError(f"split / merge: shard tokens {shard_toks}, merged equal "
+                           f"{merged_same}, {len(shards)} shards")
+    for p in shards + [tmp / "merged.gguf"]:
+        Path(p).unlink()
+
+    # 7. perplexity through the serving path
+    t = time.perf_counter()
+    run_cli(["ppl", "--gguf-file", str(mixed), "--gguf-path", "serving", "--datasets",
+             "synthetic", "--eval_tokens", str(2 * 512), "--sequence_length", "512",
+             "--device", str(device), "--output_path", str(tmp / "ppl_mixed.json")])
+    ppl = json.loads((tmp / "ppl_mixed.json").read_text())["synthetic"]
+    secs["ppl"] = time.perf_counter() - t
+    if not np.isfinite(ppl):
+        raise RuntimeError(f"ppl of the stitched GGUF: {ppl}")
+    mixed.unlink()
+    secs["step"] = time.perf_counter() - t_step
+    log(f"  ppl (serving, 2 x 512 synthetic tokens) {ppl:.4f} in {secs['ppl']:.1f} s; the step "
+        f"took {secs['step']:.1f} s, peak disk use {peak[0]} bytes in the temporary directory "
+        f"(card {card_name_and_power()})")
+    return dict(rec, q6_solve_launches=q6_launches, q6_gguf_bytes=q6_bytes,
+                stitched_bytes=stitched_bytes, file_type=file_type,
+                v2g_per_forward=per_forward, v2g_launches=launches, tokens=toks,
+                plain_tokens=plain, gaps=gaps, first_difference=flip,
+                call_by_call=dict(calls=len(kcalls), control_rejected=ctrl_bad,
+                                  worst_vs_1e5=max(c["err"] / c["tol_1e5"] for c in kcalls)),
+                shards=len(shards), ppl=ppl, peak_disk_bytes=peak[0], seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -3531,8 +4022,9 @@ def run(device) -> dict:
         phase_gptq_to_serving(arts, device)
         gptq_formats, v2_layers = phase_gptq_formats(Path(tmp) / "ckpt", Path(tmp) / "layers",
                                                      arts, device)
-        gptq_rec["pack"] = phase_gptq_pack(Path(tmp), arts, v2_layers, gptq_formats["v2"],
-                                           device)
+        q4_gguf, gptq_rec["pack"] = phase_gptq_pack(Path(tmp), arts, v2_layers,
+                                                    gptq_formats["v2"], device)
+        gptq_rec["mixed"] = phase_gptq_mixed(Path(tmp), q4_gguf, v2_layers, device)
         del v2_layers
 
     # the kernel's numbers for one decode step at B=8: the four projections

@@ -7,10 +7,12 @@ is copied and trimmed. Entry points run on the card (``device="cuda"``) and
 raise when CUDA is missing; only an explicit ``device="cpu"`` runs the plain
 PyTorch versions on the host.
 
-Three slices are ported. GPTQ quantization of a dense Llama checkpoint:
-the safetensors reader, K-quant fitting, the GPTQ solver with its
-hand-written column-block CUDA kernel, the calibration walk and its
-per-layer artifacts (``quantize``). Greedy serving of a K-quant GGUF
+Ported: GPTQ quantization of a dense Llama checkpoint (the safetensors
+reader, K-quant fitting, the GPTQ solver with its hand-written column-block
+CUDA kernel, the calibration walk and its per-layer artifacts:
+``quantize``) and its GGUF (``pack``). The layer database, the EvoPress
+bit-width search and the stitcher that assembles a mixed GGUF
+(``build-db``, ``search``, ``stitch``). Greedy serving of a K-quant GGUF
 Llama: GGUF reading, the v2 runtime weight format, the hand-written v2g
 dequant-matmul CUDA kernel, the dense Llama decoder with a contiguous bf16
 KV cache, and the continuous-batching engine (``serve``). Paged serving

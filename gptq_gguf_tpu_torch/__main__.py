@@ -1,9 +1,14 @@
-"""Command line of the port: ``python -m gptq_gguf_tpu_torch {quantize,pack,serve,ppl} ...``.
+"""Command line of the port: ``python -m gptq_gguf_tpu_torch <command> ...``.
 
 ``quantize`` runs the GPTQ calibration walk over an HF llama checkpoint and
 writes one K-quant artifact per linear (``cli/quantize.py``). ``pack``
 writes the checkpoint and those artifacts as a K-quant GGUF, on the host
-(``cli/tools.py``, ``export/packer.py``). ``ppl``
+(``cli/tools.py``, ``export/packer.py``). ``build-db`` splits GGUFs of
+several quantization levels into the layer database (``split`` one file
+into one layout), ``search`` runs EvoPress over it on the card,
+``convert-config`` renames its config to GGUF tensors and ``stitch``
+assembles the chosen tensors into one GGUF; ``gguf-split`` shards or
+merges a GGUF (``cli/tools.py``, ``mapper/``, ``search/``). ``ppl``
 scores a GGUF (dense, or through the serving kernels) or an HF checkpoint
 (``cli/tools.py``). ``serve``
 loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
@@ -119,15 +124,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     tools.build_pack(sub.add_parser("pack", help="HF checkpoint + artifacts -> GGUF"))
     build_serve(sub.add_parser("serve", help="greedy decoding from a K-quant GGUF"))
     tools.build_ppl(sub.add_parser("ppl", help="perplexity of a GGUF or an HF checkpoint"))
+    runs = {"quantize": quantize.run, "pack": tools.run_pack, "serve": run_serve,
+            "ppl": tools.run_ppl}
+    for name, build, run, text in (
+            ("split", tools.build_split, tools.run_split, "GGUF -> layer database"),
+            ("stitch", tools.build_stitch, tools.run_stitch, "layer database + config -> GGUF"),
+            ("convert-config", tools.build_convert_config, tools.run_convert_config,
+             "search config (HF names) -> stitch config (GGUF names)"),
+            ("build-db", tools.build_build_db, tools.run_build_db,
+             "GGUFs of several levels -> the search's layer database"),
+            ("search", tools.build_search, tools.run_search, "EvoPress bit-width search"),
+            ("gguf-split", tools.build_gguf_split, tools.run_gguf_split,
+             "shard a GGUF, or merge shards")):
+        build(sub.add_parser(name, help=text))
+        runs[name] = run
     args = ap.parse_args(argv)
-    if args.cmd == "quantize":
-        quantize.run(args)
-    elif args.cmd == "pack":
-        tools.run_pack(args)
-    elif args.cmd == "ppl":
-        tools.run_ppl(args)
-    else:
-        run_serve(args)
+    runs[args.cmd](args)
     return 0
 
 

@@ -21,6 +21,27 @@ kept packed (``--gguf-path serving``: every projection and the lm_head run
 through the runtime format's kernel). ``auto`` picks dense below 2e9 bytes
 of f32 weights. Datasets are ``synthetic`` or pre-tokenized files, so no
 tokenizer is read; the text datasets raise in ``utils.data.get_data``.
+
+The layer database, the search and assembly (``mapper/``, ``search/``):
+
+    python -m gptq_gguf_tpu_torch build-db --models m-Q4_K.gguf m-Q6_K.gguf --output-dir db
+    python -m gptq_gguf_tpu_torch search --model_name_or_path /models/llama \
+      --quant_weights_path db/layers-hf --target_bitwidth 5.5 --fitness_fn sparse_kl \
+      --calibration_data synthetic --calibration_tokens 4096 \
+      --calibration_sequence_length 512 [--device cpu]
+    python -m gptq_gguf_tpu_torch convert-config \
+      --input db/layers-hf/evo-sparse_kl-configuration-5.5.txt --output stitch.txt
+    python -m gptq_gguf_tpu_torch stitch --split-dir db/layers-gguf --config stitch.txt \
+      --output mixed.gguf [--validate-only | --list-tensors | --inspect-metadata]
+
+``build-db`` splits each GGUF into the raw ``layers-gguf`` and the
+dequantized ``layers-hf`` databases (``split`` does one of the two for one
+file); ``search`` runs EvoPress on the card, each candidate's layers
+swapped into the dense model from ``layers-hf``, and writes its config into
+that directory; ``convert-config`` renames it to GGUF tensors; ``stitch``
+writes the chosen tensors' bytes as one GGUF. ``gguf-split`` shards a GGUF
+(``--split-max-tensors`` / ``--split-max-size``) or merges a set
+(``--merge``). All but ``search`` are host code and launch nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 from pathlib import Path
 
@@ -177,3 +199,192 @@ def run_ppl(args) -> dict:
         with open(args.output_path, "w") as f:
             json.dump(results, f, indent=2)
     return results
+
+
+def build_split(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--gguf-file", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--gguf-layers", action="store_true", help="raw GGML layout")
+    p.add_argument("--hf-layers", action="store_true", help="dequantized HF layout")
+    p.add_argument("--bitwidth", default=None, help="type name for tensors of an unknown type")
+    p.add_argument("--list-bitwidths", action="store_true")
+
+
+def run_split(args) -> None:
+    from ..mapper import splitter
+
+    if args.list_bitwidths:
+        for layer, bws in splitter.list_bitwidths(args.output_dir).items():
+            print(f"{layer}: {bws}")
+        return
+    split = splitter.split_hf if args.hf_layers else splitter.split_gguf
+    split(args.gguf_file, args.output_dir, overwrite_bitwidth=args.bitwidth)
+
+
+def build_stitch(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--split-dir", required=True)
+    p.add_argument("--config", default=None)
+    p.add_argument("--output", default=None)
+    p.add_argument("--default-bitwidth", type=float, default=4.5)
+    p.add_argument("--default-quant-type", default="Q4_K")
+    p.add_argument("--validate-only", action="store_true")
+    p.add_argument("--list-tensors", action="store_true")
+    p.add_argument("--inspect-metadata", action="store_true")
+
+
+def run_stitch(args) -> None:
+    from ..mapper.stitcher import GGUFStitcher
+
+    st = GGUFStitcher(args.split_dir, args.config, args.default_bitwidth,
+                      args.default_quant_type)
+    if args.validate_only:
+        problems = st.validate()
+        if problems:
+            print("\n".join(problems))
+            sys.exit(1)
+        print("configuration valid")
+        return
+    if args.list_tensors:
+        for name, info in st.list_tensors().items():
+            print(f"{name}: {info}")
+        return
+    if args.inspect_metadata:
+        print(json.dumps(st.manifest.get("metadata", {}), indent=2, default=str))
+        return
+    if not args.output:
+        sys.exit("--output required")
+    print(f"wrote {st.stitch(args.output)}")
+
+
+def build_convert_config(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--missing-value", default="32")
+    p.add_argument("--moe", action="store_true", default=None)
+
+
+def run_convert_config(args) -> None:
+    from ..mapper import config_converter
+
+    cfg = config_converter.convert_file(args.input, args.output, args.missing_value, args.moe)
+    print(f"wrote {len(cfg)} entries to {args.output}")
+
+
+def build_build_db(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--models", nargs="+", required=True, help=".gguf files")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--copy-models", action="store_true")
+    p.add_argument("--skip-hf", action="store_true")
+
+
+def run_build_db(args) -> None:
+    from ..mapper import db_builder
+
+    db_builder.build_ep_database(args.models, args.output_dir, copy_models=args.copy_models,
+                                 skip_hf=args.skip_hf)
+
+
+def build_search(p: argparse.ArgumentParser) -> None:
+    common.add_model_args(p)
+    common.add_data_args(p)
+    p.add_argument("--quant_weights_path", required=True, help="HF-layout database")
+    p.add_argument("--target_bitwidth", type=float, required=True)
+    p.add_argument("--generations", type=int, default=50)
+    p.add_argument("--offspring", type=int, default=128)
+    p.add_argument("--survivors_per_selection", type=int, nargs="+", default=[16, 4, 1])
+    p.add_argument("--tokens_per_selection", type=int, nargs="+",
+                   default=[2048, 16384, 131072])
+    p.add_argument("--fitness_fn", default="kl", choices=["ppl", "kl", "sparse_kl"])
+    p.add_argument("--group_rule", default="size", choices=["none", "name", "size"])
+    p.add_argument("--initially_generated", type=int, default=64)
+    p.add_argument("--initial_tokens", type=int, default=16384)
+    p.add_argument("--kl_topk", type=int, default=64)
+    p.add_argument("--eval_every", type=int, default=10)
+    p.add_argument("--eval_datasets", nargs="+", default=None,
+                   help="datasets of the periodic perplexity (synthetic | token file)")
+    p.add_argument("--eval_tokens", type=int, default=2**17)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint_path", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+    # options of the JAX CLI that the port does not take yet
+    p.add_argument("--wandb", action="store_true", help="not ported yet")
+    p.add_argument("--dp", type=int, default=None, help="not ported yet")
+    p.add_argument("--tp", type=int, default=1, help="not ported yet")
+    p.add_argument("--multihost", action="store_true", help="not ported yet")
+
+
+def run_search(args) -> str:
+    """EvoPress on ``--device``; writes the config into the database
+    directory and returns its path."""
+    from .. import resolve_device
+    from ..search import evopress
+    from ..utils.data import get_data
+
+    if args.wandb:
+        raise NotImplementedError(
+            "search --wandb is not ported yet (ROADMAP Queue 1, 'GPTQ leftovers')")
+    if args.multihost or args.dp not in (None, 0, 1) or args.tp not in (None, 0, 1):
+        raise NotImplementedError("search over a device mesh (--dp / --tp / --multihost) is "
+                                  "not ported yet (ROADMAP Queue 1, 'Scale-out')")
+    dev = resolve_device(args.device)
+    cfg, host = common.load_model(args)
+    params = {k: v.float() for k, v in host.items() if k != "layers"}
+    params["layers"] = [{k: v.float() for k, v in layer.items()} for layer in host["layers"]]
+    del host
+    calib = common.load_calibration(args, cfg)
+    model = evopress.SearchModel(params, cfg, args.quant_weights_path, device=dev)
+    del params
+
+    target_logits = None
+    if args.fitness_fn in ("kl", "sparse_kl"):
+        if args.fitness_fn == "kl":
+            est = sum(np.atleast_2d(np.asarray(c)).size for c in calib) * cfg.vocab_size * 4
+            if est > 8e9:
+                print(f"[search] WARNING: dense KL teacher cache needs ~{est / 1e9:.0f} GB "
+                      "of host memory (seqs x vocab f32); consider --fitness_fn sparse_kl")
+        target_logits = evopress.compute_target_logits(model, calib, args.fitness_fn,
+                                                       topk=args.kl_topk)
+    ecfg = evopress.EvoPressConfig(
+        target_bitwidth=args.target_bitwidth, generations=args.generations,
+        offspring=args.offspring, survivors_per_selection=tuple(args.survivors_per_selection),
+        tokens_per_selection=tuple(args.tokens_per_selection), fitness_fn=args.fitness_fn,
+        group_rule=args.group_rule, initially_generated=args.initially_generated,
+        initial_tokens=args.initial_tokens, kl_topk=args.kl_topk, eval_every=args.eval_every,
+        seed=args.seed, checkpoint_path=args.checkpoint_path)
+    eval_datasets = None
+    if args.eval_datasets:
+        seq = calib[0].shape[-1]
+        eval_datasets = {name: get_data(name, args.eval_tokens, seq, train=False,
+                                        vocab_size=cfg.vocab_size)
+                         for name in args.eval_datasets}
+    best, groups, available = evopress.evo_press_search(
+        model, calib, ecfg, target_logits=target_logits, eval_datasets=eval_datasets)
+    out = os.path.join(args.quant_weights_path,
+                       f"evo-{args.fitness_fn}-configuration-{args.target_bitwidth}.txt")
+    evopress.write_config(out, groups, best, available)
+    print(f"wrote {out}")
+    return out
+
+
+def build_gguf_split(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--input", required=True, help="source .gguf (or first shard for --merge)")
+    p.add_argument("--output", required=True,
+                   help="shard prefix (split) or output .gguf (merge)")
+    p.add_argument("--split-max-tensors", type=int, default=0)
+    p.add_argument("--split-max-size", default=None,
+                   help="e.g. 500M or 2G (approximate, tensor payloads)")
+    p.add_argument("--merge", action="store_true", help="reassemble a shard set into one file")
+
+
+def run_gguf_split(args) -> None:
+    from ..mapper import shards
+
+    if args.merge:
+        print(f"wrote {shards.merge_gguf_files(args.input, args.output)}")
+        return
+    out = shards.split_gguf_file(
+        args.input, args.output, max_tensors=args.split_max_tensors,
+        max_size=_size_bytes(args.split_max_size) if args.split_max_size else 0)
+    for o in out:
+        print(f"wrote {o}")

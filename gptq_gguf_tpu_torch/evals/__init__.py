@@ -1,1 +1,1 @@
-"""Evaluation of the port's models (perplexity)."""
+"""Evaluation of the port's models (perplexity, KL against a teacher)."""

@@ -1,15 +1,18 @@
-"""Perplexity evaluation.
+"""Perplexity and KL evaluation.
 
-Port of ``compute_perplexity`` and its two batch scorers from
-``gptq_gguf_tpu/evals/ppl.py``. It keeps the reference's running-mean NLL
-exactly: per batch, the mean cross-entropy over shifted tokens is folded
-into a running mean weighted by token counts, and perplexity is exp of the
-final mean. The batches run on the device the params live on.
+Port of ``compute_perplexity`` (with its two batch scorers),
+``compute_kl_div`` and ``compute_sparse_kl_div`` from
+``gptq_gguf_tpu/evals/ppl.py``. Perplexity keeps the reference's
+running-mean NLL exactly: per batch, the mean cross-entropy over shifted
+tokens is folded into a running mean weighted by token counts, and
+perplexity is exp of the final mean. The KL scores are token means of
+KL(teacher || model) against cached teacher logits, dense or top-k. The
+batches run on the device the params live on.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -66,3 +69,57 @@ def compute_perplexity(params, cfg: LlamaConfig, data: Sequence[np.ndarray],
             nll_running = a * loss + b * nll_running
             tokens_processed += n_new
     return float(np.exp(nll_running))
+
+
+def _token_kl(logits: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
+    """KL(teacher || model) at each position of (B, S, K) logits, f32:
+    sum q * (log q - log p) over the last axis (F.kl_div with log
+    targets)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    logq = torch.log_softmax(teacher.float(), dim=-1)
+    return torch.sum(torch.exp(logq) * (logq - logp), dim=-1)
+
+
+def _batch_kl(params, ids: torch.Tensor, target_logits: torch.Tensor, cfg: LlamaConfig):
+    """(mean, per-position) KL of one (B, S) batch over its shifted
+    positions against the teacher's (B, S, V) logits."""
+    kl = _token_kl(llama.forward(params, ids, cfg)[:, :-1, :], target_logits[:, :-1, :])
+    return torch.mean(kl), kl
+
+
+def compute_kl_div(params, cfg: LlamaConfig, data: Sequence[np.ndarray],
+                   target_logits: Sequence[Any]) -> float:
+    """Token-mean KL against cached dense teacher logits (metrics.py:41-86).
+
+    The reference's batchmean over B * S * V elements ranks the same as
+    this token mean; the JAX package returns the token mean too."""
+    device = params["embed_tokens"].device
+    total, count = 0.0, 0
+    with torch.no_grad():
+        for ids, tl in zip(data, target_logits):
+            ids = torch.as_tensor(np.atleast_2d(np.asarray(ids)), device=device)
+            _, kl = _batch_kl(params, ids, torch.as_tensor(tl, device=device), cfg)
+            total += float(kl.sum())
+            count += kl.numel()
+    return total / max(count, 1)
+
+
+def compute_sparse_kl_div(params, cfg: LlamaConfig, data: Sequence[np.ndarray],
+                          sparse_targets: Sequence[Any]) -> float:
+    """Top-k sparse KL (metrics.py:89-119): the model's and the teacher's
+    logits both restricted to the teacher's top-k ids at each position.
+    ``sparse_targets`` holds (values, ids) per sequence, numpy or tensors
+    (on the params' device, as ``search.evopress.compute_target_logits``
+    keeps them)."""
+    device = params["embed_tokens"].device
+    total, count = 0.0, 0
+    with torch.no_grad():
+        for ids, (t_logits, t_ids) in zip(data, sparse_targets):
+            ids = torch.as_tensor(np.atleast_2d(np.asarray(ids)), device=device)
+            logits = llama.forward(params, ids, cfg)
+            g = torch.gather(logits, -1, torch.as_tensor(t_ids, device=device).long())
+            t = torch.as_tensor(t_logits, device=device)
+            kl = _token_kl(g[:, :-1, :], t[:, :-1, :])
+            total += float(kl.sum())
+            count += kl.numel()
+    return total / max(count, 1)

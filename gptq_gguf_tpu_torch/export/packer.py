@@ -26,24 +26,10 @@ import numpy as np
 import torch
 
 from ..formats import convert, ggml, safetensors
-from ..formats.ggml import GGMLQuantizationType
+from ..formats.ggml import FILE_TYPE_IDS, GGMLQuantizationType
 from ..formats.gguf import GGUFWriter
 from ..models.loader import SUPPORTED_MODEL_TYPES
 from ..quant import artifacts
-
-# llama.cpp LLAMA_FTYPE ids for general.file_type
-FILE_TYPE_IDS = {
-    GGMLQuantizationType.Q2_K: 10,
-    GGMLQuantizationType.Q3_K: 12,  # MOSTLY_Q3_K_M
-    GGMLQuantizationType.Q4_K: 15,  # MOSTLY_Q4_K_M
-    GGMLQuantizationType.Q5_K: 17,  # MOSTLY_Q5_K_M
-    GGMLQuantizationType.Q6_K: 18,
-    GGMLQuantizationType.F16: 1,
-    GGMLQuantizationType.F32: 0,
-    GGMLQuantizationType.BF16: 32,
-    GGMLQuantizationType.Q8_0: 7,
-}
-
 
 def hf_to_gguf_name(name: str) -> Optional[str]:
     """The GGUF tensor name of an HF tensor name, or None (not packed)."""

@@ -123,6 +123,36 @@ KQUANT_SPECS: Dict[GGMLQuantizationType, KQuantSpec] = {
 
 K_QUANT_TYPES = tuple(KQUANT_SPECS)
 
+# Nominal bit widths by type name, the layer database's and the search's
+# budget unit (the reference's mapper/gguf_splitter.py:52-93): Q2_K and Q8_K
+# differ slightly from the bits their blocks hold, as there.
+NOMINAL_BITS: Dict[str, float] = {
+    "F32": 32.0, "F16": 16.0, "BF16": 16.0,
+    "I8": 8.0, "I16": 16.0, "I32": 32.0, "I64": 64.0,
+    "Q4_0": 4.5, "Q4_1": 5.0, "Q5_0": 5.5, "Q5_1": 6.0,
+    "Q8_0": 8.5, "Q8_1": 9.0,
+    "Q2_K": 2.5625, "Q3_K": 3.4375, "Q4_K": 4.5, "Q5_K": 5.5,
+    "Q6_K": 6.5625, "Q8_K": 8.5,
+    "IQ2_XXS": 2.0625, "IQ2_XS": 2.3125, "IQ2_S": 2.5, "IQ2_M": 2.7,
+    "IQ3_XXS": 3.0625, "IQ3_S": 3.44, "IQ3_M": 3.66,
+    "IQ4_NL": 4.56, "IQ4_XS": 4.25, "IQ1_S": 1.5625, "IQ1_M": 1.75,
+}
+
+
+# llama.cpp LLAMA_FTYPE ids for general.file_type: what ``pack`` writes for
+# its dominant type, and what the stitcher writes for a majority type.
+FILE_TYPE_IDS: Dict[GGMLQuantizationType, int] = {
+    GGMLQuantizationType.Q2_K: 10,
+    GGMLQuantizationType.Q3_K: 12,  # MOSTLY_Q3_K_M
+    GGMLQuantizationType.Q4_K: 15,  # MOSTLY_Q4_K_M
+    GGMLQuantizationType.Q5_K: 17,  # MOSTLY_Q5_K_M
+    GGMLQuantizationType.Q6_K: 18,
+    GGMLQuantizationType.F16: 1,
+    GGMLQuantizationType.F32: 0,
+    GGMLQuantizationType.BF16: 32,
+    GGMLQuantizationType.Q8_0: 7,
+}
+
 
 def type_size(qtype: GGMLQuantizationType) -> int:
     return GGML_BLOCK_SIZES[qtype][1]

@@ -1,1 +1,1 @@
-"""GGUF file-set helpers."""
+"""GGUF shard sets, the layer database and the stitcher."""

@@ -1,9 +1,11 @@
-"""Sharded GGUF files: split one, or read a ``-NNNNN-of-NNNNN`` set as one.
+"""Sharded GGUF files: split one, read a ``-NNNNN-of-NNNNN`` set as one, or
+merge a set back.
 
-Copy of ``gptq_gguf_tpu/mapper/shards.py`` without the merge:
-``split_gguf_file`` breaks a GGUF into llama.cpp ``gguf-split`` shards (the
-first carries the whole metadata, every shard the ``split.*`` keys), and
-``open_gguf`` opens a plain file or any shard of a set (``GGUFSetReader``).
+Copy of ``gptq_gguf_tpu/mapper/shards.py``: ``split_gguf_file`` breaks a
+GGUF into llama.cpp ``gguf-split`` shards (the first carries the whole
+metadata, every shard the ``split.*`` keys), ``open_gguf`` opens a plain
+file or any shard of a set (``GGUFSetReader``), and ``merge_gguf_files``
+writes a set as one file again.
 """
 
 from __future__ import annotations
@@ -150,3 +152,21 @@ def open_gguf(path: Union[str, Path]):
                 "the -NNNNN-of-NNNNN naming; rename the set or merge it")
         return r
     return GGUFSetReader(paths)
+
+
+def merge_gguf_files(first: Union[str, Path], out: Union[str, Path]) -> Path:
+    """A shard set as one GGUF (``gguf-split --merge``): the first shard's
+    metadata without the ``split.*`` keys, every tensor in set order."""
+    s = open_gguf(first)
+    if isinstance(s, GGUFReader):
+        s.close()
+        raise ValueError(f"{first} is not a sharded GGUF set")
+    w = GGUFWriter(out)
+    for k, v in s.metadata.items():
+        w.add_kv(k, v)
+    for name in s.tensor_order:
+        info = s.tensors[name]
+        w.add_tensor(name, s.tensor_bytes(name), raw_dtype=info.ggml_type, raw_shape=info.shape)
+    w.write()
+    s.close()
+    return Path(out)

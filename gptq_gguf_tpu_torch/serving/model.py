@@ -26,7 +26,7 @@ import torch
 
 from .. import resolve_device
 from ..formats import convert
-from ..formats.ggml import KQUANT_SPECS, K_QUANT_TYPES
+from ..formats.ggml import KQUANT_SPECS, K_QUANT_TYPES, GGMLQuantizationType
 from ..mapper.shards import open_gguf
 from ..models import llama
 from ..models.llama import LlamaConfig
@@ -433,6 +433,11 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
     n_head, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
 
     def dense_tensor(name: str, inv, dt):
+        info = r.tensors[name]
+        if info.ggml_type == GGMLQuantizationType.BF16:  # raw bits: no f32 copy on the host
+            w = np.asarray(r.tensor_bytes(name)).view(np.int16).reshape(info.shape)
+            w = w[inv] if inv is not None else w.copy()
+            return torch.from_numpy(w).view(torch.bfloat16).to(device=dev).to(dtype=dt)
         w = r.tensor_float(name)
         if inv is not None:
             w = w[inv]

@@ -31,7 +31,9 @@ def test_port_imports_no_jax(tmp_path_factory):
     assert f"{PKG}.ops.qmatmul" in mods and f"{PKG}.serving.engine" in mods
     assert f"{PKG}.ops.gptq" in mods and f"{PKG}.quant.calibrate" in mods
     for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer",
-              "ops.qmv4", "evals.ppl", "cli.tools", "export.packer", "export.spm"):
+              "ops.qmv4", "evals.ppl", "cli.tools", "export.packer", "export.spm",
+              "mapper.splitter", "mapper.stitcher", "mapper.config_converter",
+              "mapper.db_builder", "search.evopress"):
         assert f"{PKG}.{m}" in mods
     # the kernel sources ops.qmatmul binds (the v2 variants among them) and
     # every header a source includes
@@ -140,6 +142,14 @@ def test_entry_points_default_to_cuda(no_cuda):
                                           SuperGroupParams(z, z, zi, zi), T.Q4_K, fmt="v4"),
         lambda: qmodel.quantize_params_for_serving({"layers": []}, cfg, REPO / "missing"),
         lambda: main(["ppl", "--gguf-file", str(REPO / "missing.gguf")]),
+    ]
+    # the search: its model and its command line without --device
+    from gptq_gguf_tpu_torch.search import evopress
+
+    calls += [
+        lambda: evopress.SearchModel({"layers": []}, cfg, REPO / "missing"),
+        lambda: main(["search", "--model_name_or_path", str(REPO / "missing"),
+                      "--quant_weights_path", str(REPO / "missing"), "--target_bitwidth", "5"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -38,31 +38,8 @@ from gptq_gguf_tpu_torch.models import llama
 from gptq_gguf_tpu_torch.quant import artifacts, calibrate
 from gptq_gguf_tpu_torch.utils import data
 from tests.test_torch_calibrate import H, I, L, NH, NKV, V, _tiny_tensors
-from tests.torch_pack_fixtures import write_bpe, write_safetensors
-
-KQ = (T.Q2_K, T.Q3_K, T.Q4_K, T.Q5_K, T.Q6_K)
-LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
-           "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
-
-
-def _codes(rng, qtype, rows, cols):
-    """Seeded artifact fields of one (rows, cols) layer of ``qtype``, each in
-    its type's range and dtype."""
-    spec = ggml.KQUANT_SPECS[qtype]
-    n_sg, ng = cols // 256, cols // spec.group_size
-    q = rng.integers(spec.qmin, spec.qmax + 1, size=(rows, cols))
-    if spec.signed:
-        lo, hi = (-32, 32) if qtype == T.Q3_K else (-128, 128)
-        sc = rng.integers(lo, hi, size=(rows, ng)).astype(np.int8)
-        mn = np.zeros((rows, ng), np.int8)
-        dmin = np.zeros((rows, n_sg), np.float16)
-    else:
-        sc = rng.integers(0, spec.scale_maxq + 1, size=(rows, ng)).astype(np.uint8)
-        mn = rng.integers(0, spec.scale_maxq + 1, size=(rows, ng)).astype(np.uint8)
-        dmin = rng.uniform(0, 0.01, size=(rows, n_sg)).astype(np.float16)
-    d = rng.uniform(0, 0.01, size=(rows, n_sg)).astype(np.float16)
-    return (q.astype(np.int8 if spec.signed else np.uint8), d, sc, dmin, mn)
-
+from tests.torch_pack_fixtures import (KQ, _checkpoint, _codes, _write_spm, write_bpe,
+                                       write_safetensors)
 
 # ---------------------------------------------------------------------------
 # Block packers and the GGUF writer
@@ -186,74 +163,6 @@ def test_gguf_writer_refuses_wrong_sizes(tmp_path):
 # ---------------------------------------------------------------------------
 # pack_model: the whole file, both command lines
 # ---------------------------------------------------------------------------
-
-
-def _write_spm(d):
-    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
-    pieces += [(f"▁p{i}", -float(i) / 3, 1) for i in range(V - 10)]
-    pieces += [(f"<0x{i:02X}>", 0.0, 6) for i in range(4)]
-    (d / "tokenizer.model").write_bytes(jspm.build_model(pieces, unk_id=0, bos_id=1, eos_id=2,
-                                                         pad_id=-1))
-    (d / "added_tokens.json").write_text(json.dumps({"<extra>": V - 2}))
-    (d / "tokenizer_config.json").write_text(json.dumps({
-        "added_tokens_decoder": {str(V - 1): {"content": "<end>", "special": False},
-                                 "1": {"content": "<s>"}},
-        "chat_template": [{"name": "default", "template": "d"},
-                          {"name": "tool_use", "template": "t"}, {"name": "broken"}]}))
-    (d / "generation_config.json").write_text(json.dumps({"eos_token_id": [2, 7]}))
-
-
-def _write_artifacts(q, seed, names):
-    rng = np.random.default_rng(seed)
-    shapes = {"self_attn.q_proj": (H, H), "self_attn.k_proj": (NKV * H // NH, H),
-              "self_attn.v_proj": (NKV * H // NH, H), "self_attn.o_proj": (H, H),
-              "mlp.gate_proj": (I, H), "mlp.up_proj": (I, H), "mlp.down_proj": (H, I),
-              "model.embed_tokens": (V, H), "lm_head": (V, H)}
-    for k, name in enumerate(names):
-        qtype = KQ[(k + seed) % len(KQ)]
-        fields = _codes(rng, qtype, *shapes[name.split(".", 3)[-1] if "layers" in name else name])
-        artifacts.save_layer(q, name, artifacts.LayerArtifact(qtype, *fields[:2], fields[3],
-                                                               fields[2], fields[4]))
-
-
-def _checkpoint(root, case):
-    """A tiny llama checkpoint (and artifacts) for one pack case; returns
-    (model_dir, quant_dir)."""
-    d, q = root / "m", root / "layers"
-    d.mkdir()
-    cfg = dict(model_type="llama", vocab_size=V, hidden_size=H, intermediate_size=I,
-               num_hidden_layers=L, num_attention_heads=NH, num_key_value_heads=NKV,
-               max_position_embeddings=512, rms_norm_eps=1e-6, rope_theta=500000.0,
-               tie_word_embeddings=False, _name_or_path="tiny/llama")
-    t = _tiny_tensors(seed=4, dtype=ml_dtypes.bfloat16 if case == "bf16_auto" else np.float32)
-    if case == "llama3_tied":
-        cfg.update(tie_word_embeddings=True, rope_scaling=dict(
-            rope_type="llama3", factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
-            original_max_position_embeddings=128))
-        del t["lm_head.weight"]
-    if case == "tied_quantized":
-        cfg.update(tie_word_embeddings=True, rope_scaling=dict(type="linear", factor=2.0))
-        del t["lm_head.weight"]
-    if case == "attention_bias":  # llama's attention_bias / mlp_bias: 1-D f32 tensors
-        cfg.update(attention_bias=True, mlp_bias=True)
-        rng = np.random.default_rng(5)
-        for name in [n for n in t if n.endswith("_proj.weight")]:
-            t[name[:-len("weight")] + "bias"] = rng.normal(size=t[name].shape[0]).astype(np.float32)
-    (d / "config.json").write_text(json.dumps(cfg))
-    if case == "unsorted_two_files":  # headers in reverse order; files sorted by name
-        names = sorted(t, reverse=True)
-        write_safetensors(d / "model-00002-of-00002.safetensors", {n: t[n] for n in names[:9]})
-        write_safetensors(d / "model-00001-of-00002.safetensors", {n: t[n] for n in names[9:]})
-    else:
-        write_safetensors(d / "model.safetensors", t)
-    _write_spm(d) if case == "spm" else write_bpe(d, V)
-    names = [f"model.layers.{i}.{n}" for i in range(L) for n in LINEARS]
-    if case == "tied_quantized":
-        names += ["model.embed_tokens", "lm_head"]
-    if case == "bf16_auto":
-        names = names[::3]  # some linears stay float
-    _write_artifacts(q, sum(map(ord, case)) % 5, names)
-    return d, q
 
 
 PACK_CASES = {
@@ -491,6 +400,42 @@ def test_pipeline_in_the_port(quantized, tmp_path, capsys, one_thread):
     assert res == 0
     got = json.loads((tmp_path / "ppl.json").read_text())["synthetic"]
     assert np.isfinite(got) and 1 < got < 10 * V
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bf16_gguf_loads_its_bits(quantized, tmp_path, dtype, one_thread):
+    """A bf16 GGUF (no artifacts: every linear dense) loads for serving from
+    its raw bits: each tensor equals its f32 dequantization cast to the
+    model's dtype, q / k rows back in HF's order; norms stay f32."""
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    d = quantized[0]
+    out = tmp_path / "bf16.gguf"
+    packer.pack_model(d, None, out, default_float=T.BF16)
+    params, cfg = qmodel.load_gguf_for_serving(out, dtype=dtype, device="cpu")
+    r = gguf.GGUFReader(out)
+    keys = {"attn_q": ("q_proj", NH), "attn_k": ("k_proj", NKV), "attn_v": ("v_proj", 0),
+            "attn_output": ("o_proj", 0), "ffn_gate": ("gate_proj", 0),
+            "ffn_up": ("up_proj", 0), "ffn_down": ("down_proj", 0)}
+    seen = 0
+    for name in r.tensor_order:
+        if r.tensors[name].ggml_type != T.BF16:
+            continue
+        w = r.tensor_float(name)
+        parts = name.split(".")
+        if name == "token_embd.weight":
+            got = params["embed_tokens"]
+        elif name == "output.weight":
+            got = params["lm_head"]
+        else:
+            key, heads = keys[parts[2]]
+            got = params["layers"][int(parts[1])][key]
+            if heads:
+                w = w[np.argsort(convert.gqa_permute_rows(w.shape[0], heads))]
+        assert got.dtype == dtype and torch.equal(got, torch.from_numpy(w).to(dtype)), name
+        seen += 1
+    assert seen == 2 + 7 * cfg.num_hidden_layers - cfg.tie_word_embeddings
+    assert params["norm"].dtype == torch.float32
 
 
 def test_quantize_eval_perplexity(quantized, tmp_path, capsys, monkeypatch):

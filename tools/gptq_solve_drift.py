@@ -17,9 +17,11 @@ which every err element satisfies
 
     |plain - contracted| <= 1e-6 |contracted| + c * 1e-6 * max|contracted|
 
-(the test's tolerance, c its atol coefficient), and prints per type and
-width the median and maximum of c over the seeds, and per type the
-medians' growth per doubling of the width. A seed whose codes differ
+(the test's former tolerance, c its atol coefficient), and prints per type
+and width the median and maximum of c over the seeds, the largest share
+of ``contraction_bound`` (the limit derived from the recurrence's rounding
+errors, which the test now holds) that any err element uses, and per type
+the medians' growth per doubling of the width. A seed whose codes differ
 between the two is counted and left out. numpy and the port only; no card.
 """
 
@@ -54,6 +56,35 @@ def contracted_solve(w, u, s, z, qmin, qmax, eps):
                         ).astype(np.float32)
         q[:, i], err[:, i] = qi, e
     return q, err
+
+
+def contraction_bound(e_plain, e_contracted, u, s, q, z):
+    """Elementwise bound on |e_plain - e_contracted| from the rounding
+    errors of the recurrence, both runs with the same codes q.
+
+    Column i's err solves e_i U_ii = w_i - r_i - sum_{k<i} e_k U_ki with
+    r = s * q - z, so e = (w - r) U^-1 (U upper triangular). Each computed
+    err satisfies that system perturbed (Higham, Accuracy and Stability of
+    Numerical Algorithms, 2nd ed., Lemma 3.1 and Theorem 8.5, with column
+    i's running sum divided through by its initial value's rounding
+    factors): e^ (U + dU) = w - r - dr, |dU| <= g |U|,
+    |dr| <= g (|s q| + |z|), g = gamma_{bs+3} = n u / (1 - n u), u = 2^-24:
+    bs + 2 roundings of one column's chain, one more for the replay's f64
+    sum rounded to f32. Hence e^ - e = -(e^ dU + dr) U^-1 and
+
+        |e_plain - e_contracted| <= g ((|e_plain| + |e_contracted|) |U|
+                                       + 2 (|s q| + |z|)) |U^-1|,
+
+    evaluated in f64 with U^-1 of the f32 U."""
+    u64 = np.asarray(u, np.float64)
+    bs = u64.shape[0]
+    n = bs + 3
+    g = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    sq = np.abs(np.asarray(s, np.float64) * np.asarray(q, np.float64))
+    terms = ((np.abs(np.asarray(e_plain, np.float64)) + np.abs(np.asarray(e_contracted,
+                                                                          np.float64)))
+             @ np.abs(u64) + 2 * (sq + np.abs(np.asarray(z, np.float64))))
+    return g * terms @ np.abs(np.linalg.inv(u64))
 
 
 def solve_problem(seed: int, bs: int, signed: bool, d_row: int = 64, n: int = 512):
@@ -91,7 +122,7 @@ def main() -> int:
         spec = KQUANT_SPECS[qtype]
         medians = []
         for bs in widths:
-            cs, flips = [], 0
+            cs, used, flips = [], [], 0
             for k in range(args.seeds):
                 w, U, s, z = solve_problem(1000 * k + int(qtype), bs, spec.signed)
                 qc, ec = contracted_solve(w, U, s, z, spec.qmin, spec.qmax, 1e-9)
@@ -102,9 +133,12 @@ def main() -> int:
                     continue
                 gap = np.abs(ep.numpy() - ec) - 1e-6 * np.abs(ec)
                 cs.append(gap.clip(0).max() / np.abs(ec).max() * 1e6)
+                bound = contraction_bound(ep.numpy(), ec, U, s, qc, z)
+                used.append((np.abs(ep.numpy() - ec) / bound).max())
             medians.append(float(np.median(cs)))
             print(f"{qtype.name} bs {bs}: c median {medians[-1]:.3f}, max {max(cs):.3f} "
-                  f"over {len(cs)} seeds ({flips} with other codes)", flush=True)
+                  f"over {len(cs)} seeds ({flips} with other codes); share of "
+                  f"contraction_bound used: max {max(used):.2e}", flush=True)
         growth = [b / a for a, b in zip(medians, medians[1:])]
         print(f"{qtype.name}: median c grows by " + ", ".join(f"{g:.2f}" for g in growth)
               + " per doubling", flush=True)

@@ -156,7 +156,8 @@ checkout of the repository. Phases, each raising on failure:
    decode-tile variant's threshold at one row (every decode step's call
    on a decode tile, v2f's among them); beside it, printed only, the
    kernels end to end against the plain versions end to end and against
-   v2g's; (c) phase 3's 12 requests served under
+   v2g's; (c) phase 3's 12 requests served (on the first
+   VARIANT_SERVING_LAYERS = 8 layers) under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward (every call of a B=8 step on a decode tile: under
@@ -167,7 +168,31 @@ checkout of the repository. Phases, each raising on failure:
    v2m, v2, v2t and v2s, within 0.05 nats/token of v2g's (phase 7d); every
    call on the tensor-core tiles (under v2m: v2m's, and v2p's on the head;
    under v2t and v2s: theirs, and v2g's on the head), v2m, v2t and v2s
-   within 1e-3 nats/token of the same model through their plain versions.
+   within 1e-3 nats/token of the same model through their plain versions;
+9. sampled decoding and the int8 / int4 contiguous caches (run after phase
+   4, on phase 3's model): (a) the sampler chain (serving/sampling.py) on
+   one B=8 decode step's logits, each row with its own temperature, top-k,
+   top-p, min-p, penalties and seed, on the card and on the CPU: penalized
+   logits within 1e-6, masks equal but at elements whose exclusive mass
+   lies within TOP_P_EDGE of top_p (counted), SAMPLER_STEPS draws of every
+   row equal but where the noisy top-2 gap is below NOISY_TIE (counted),
+   with the draw counter shifted by one as a planted control that must
+   fail; SAMPLER_DRAWS draws of one row within 5 sd of its masked softmax
+   and none outside it; the sampler's device ms per B=8 step; (b) phase
+   3's 12 requests with mixed settings (mix_sampling) through the
+   contiguous engine twice (phase 3's launches per forward, every call of
+   a B=8 step on v2g's decode tile; the same tokens both times) and the
+   paged engine (129 v2g launches a forward, one paged-kernel launch a
+   layer and step), each seeded request equal to itself served alone and
+   on the paged engine up to a near-tie, top_k = 1 at temperature 1 equal
+   to phase 3's greedy tokens, ms/step and tok/s; (c) the int8 and int4
+   caches: 2-layer logits (a 128-token prefill and 4 decode steps) on the
+   card against the CPU plain path (KV_CPU_LIMIT: phase 4's for int8) and
+   against the bf16 cache (KV_LOGIT_LIMIT), the contiguous int4 cache against the paged
+   int4 kernel (phase 6's limit), the mix served in each (launches, the
+   cache's bytes against KV_BYTES, ms/step); (d) a seeded sampled chat with
+   n = 2 and logprobs over serve_http: two distinct choices, repeated on a
+   second call, each token's logprob the engine's own.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -202,17 +227,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, flush=None) -> float:
+def cuda_ms(fn, reps: int, flush=None, sleep_cycles: int = 50_000_000) -> float:
     """Mean device time of fn() over reps calls: CUDA events around each
     call, ``flush`` (L2 eviction) outside them. A device sleep queued first
-    keeps the card busy while the host queues every call, so host overhead
-    between the events is not counted."""
+    (``sleep_cycles``) keeps the card busy while the host queues every
+    call, so host overhead between the events is not counted: it must
+    outlast the host's queueing of all reps."""
     import torch
 
     fn()
     fn()  # warm-up: first-call library setup stays out
     torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(sleep_cycles)
     events = []
     for _ in range(reps):
         if flush is not None:
@@ -948,8 +974,10 @@ def matmul_counts() -> dict:
     return out
 
 
-def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=None):
-    """ContinuousBatchingEngine(num_slots=8, max_len=2048) on ``requests``
+def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=None,
+                  sampling=None, engine_kw=None, steady=True):
+    """ContinuousBatchingEngine(num_slots=8, max_len=2048, **engine_kw) on
+    ``requests`` (each with its SamplingParams from ``sampling``, or greedy)
     with ``params`` in one runtime format: budgets, token ranges, and every
     packed matmul through ``kernel``'s wrapper (4 per layer + the lm_head
     per forward; or the launches per forward ``per_forward`` names, by
@@ -957,7 +985,8 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     more) on the tensor-core tiles when ``kernel`` has them, and nothing of
     a decode step (8 rows) or a head (each sequence's last row); every
     call of a decode step on the tensor-core decode tile (v2g, v1, v4:
-    want_decode); then a steady B=8 decode block."""
+    want_decode); then (``steady``) a steady B=8 decode block. The record
+    holds each request's tokens (in request order) and the cache's bytes."""
     import torch
 
     from gptq_gguf_tpu_torch.ops import qmatmul
@@ -966,7 +995,9 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     n_fwd = [0]
     rows, shapes = [], []
     decode = {"s": 0.0, "steps": 0}
-    fwd0, scan0 = qmodel.forward_cached, engine._decode_steps_scan
+    fwd0 = qmodel.forward_cached
+    scans = {"_decode_steps_scan": engine._decode_steps_scan,
+             "_sampled_decode_steps_scan": engine._sampled_decode_steps_scan}
 
     def counting_forward(*a, **kw):
         n_fwd[0] += 1
@@ -974,18 +1005,26 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
         shapes.append(tuple(a[2].shape))
         return fwd0(*a, **kw)
 
-    def timed_scan(*a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = scan0(*a, **kw)
-        torch.cuda.synchronize()
-        decode["s"] += time.perf_counter() - t
-        decode["steps"] += a[4] if len(a) > 4 else kw["k"]
-        return out
+    def timed(scan0, k_arg):
+        def timed_scan(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = scan0(*a, **kw)
+            torch.cuda.synchronize()
+            decode["s"] += time.perf_counter() - t
+            decode["steps"] += a[k_arg] if len(a) > k_arg else kw["k"]
+            return out
+        return timed_scan
 
-    eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=8, max_len=2048)
-    uids = {eng.submit(p, max_new_tokens=n) for p, n in requests}
-    qmodel.forward_cached, engine._decode_steps_scan = counting_forward, timed_scan
+    eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=8, max_len=2048,
+                                          **(engine_kw or {}))
+    sampling = sampling or [None] * len(requests)
+    order = [eng.submit(p, max_new_tokens=n, sampling_params=sp)
+             for (p, n), sp in zip(requests, sampling)]
+    uids = set(order)
+    qmodel.forward_cached = counting_forward
+    engine._decode_steps_scan = timed(scans["_decode_steps_scan"], 4)
+    engine._sampled_decode_steps_scan = timed(scans["_sampled_decode_steps_scan"], 5)
     reset_matmul_counts()
     try:
         torch.cuda.synchronize()
@@ -994,7 +1033,9 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        qmodel.forward_cached, engine._decode_steps_scan = fwd0, scan0
+        qmodel.forward_cached = fwd0
+        for name, fn in scans.items():
+            setattr(engine, name, fn)
     counts = matmul_counts()
     mma = mma_counts()
     dmma = decode_counts()
@@ -1038,9 +1079,18 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
         f"{wall:.2f} s; {n_fwd[0]} forwards, kernel launches "
         f"{ {k: counts[k] for k in per_forward} } ({per_forward} per forward), "
         f"prefix hits {eng.prefix_hits}")
-    log(f"serving decode: {decode['steps']} block steps in {decode['s']:.3f} s "
+    log(f"serving decode ({label}): {decode['steps']} block steps in {decode['s']:.3f} s "
         f"= {decode['s'] / max(decode['steps'], 1) * 1e3:.2f} ms/step, "
         f"{(gen_tokens - 12) / decode['s']:.1f} generated tok/s")
+    kv_bytes = sum(t.numel() * t.element_size() for bufs in eng.cache[:-1] for t in bufs)
+    rec = dict(wall_s=wall, serve_decode_ms_per_step=decode["s"] / max(decode["steps"], 1) * 1e3,
+               generated_tok_s=(gen_tokens - 12) / decode["s"], launches=launches,
+               mma_launches=mma.get(kernel, 0), decode_mma_launches=dmma,
+               prefill_forwards=n_prefill, forwards=n_fwd[0],
+               b8_steps=shapes.count((8, 1)), kv_bytes=kv_bytes,
+               outputs=[by_uid[u].output for u in order])
+    if not steady:
+        return counts, rec
     # steady B=8 decode: every slot live at fill ~300, one 32-step block
     tokens = torch.randint(0, cfg.vocab_size, (8,), device=eng.device, dtype=torch.int32)
     cache = eng.cache._replace(lengths=torch.full((8,), 300, dtype=torch.int32,
@@ -1054,12 +1104,7 @@ def phase_serving(params, cfg, requests, kernel="v2g", label="v2", per_forward=N
     toks.cpu()
     dt = (time.perf_counter() - t) / 32
     log(f"steady decode B=8 ({label}): {dt * 1e3:.2f} ms/step, {8 / dt:.1f} tok/s")
-    return counts, dict(wall_s=wall, decode_ms_per_step=dt * 1e3, decode_tok_s=8 / dt,
-                        serve_decode_ms_per_step=decode["s"] / max(decode["steps"], 1) * 1e3,
-                        generated_tok_s=(gen_tokens - 12) / decode["s"], launches=launches,
-                        mma_launches=mma.get(kernel, 0), decode_mma_launches=dmma,
-                        prefill_forwards=n_prefill, forwards=n_fwd[0],
-                        b8_steps=shapes.count((8, 1)))
+    return counts, dict(rec, decode_ms_per_step=dt * 1e3, decode_tok_s=8 / dt)
 
 
 def two_layer_logits(params, cfg, prompt, feed, mm, device):
@@ -1144,6 +1189,599 @@ def phase_consistency(params, cfg, rng, device):
         raise RuntimeError("kernel and plain logits disagree")
     if not err_c > tol:
         raise RuntimeError("the limit does not tell the exact-f32 control from the plain version")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: sampled decoding and the int8 / int4 contiguous caches
+# ---------------------------------------------------------------------------
+
+SAMPLER_STEPS = 64     # 9a: draws of every row held card against CPU
+SAMPLER_DRAWS = 4096   # 9a: draws of one row held to its masked softmax
+TOP_P_EDGE = 1e-5      # exclusive mass this close to top_p: card and CPU masks may differ
+NOISY_TIE = 1e-4       # a noisy top-2 gap (scaled scores) below which card and CPU may draw apart
+F32_MIN = float(np.finfo(np.float32).min)
+KV_DTYPES = ("int8", "int4")
+# the contiguous cache's bytes at 32 layers, 8 slots, 2049 rows (the drop row
+# included), 8 KV heads of 128: bf16 K / V; int8 codes + f32 entry scales;
+# int4 codes + f32 group scales
+KV_BYTES = {"bf16": 2_148_532_224, "int8": 1_107_836_928, "int4": 671_416_320}
+# 2-layer logits of a quantized cache against the bf16 cache, as a fraction
+# of max|logit|: the quantization's own error, which the limit states
+KV_LOGIT_LIMIT = {"int8": 2e-2, "int4": 1e-1}
+# card against the CPU plain path, as a fraction of max|logit|: phase 4's
+# 3e-3 (f32 sum order, turned into rare bf16 flips); int4 twice that: a K or
+# V value one bf16 ulp apart can round to the next int4 code at a .5
+# boundary, a step of a seventh of its group's largest |value| (the codes
+# that differ between the two caches are counted and printed)
+KV_CPU_LIMIT = {"int8": 3e-3, "int4": 6e-3}
+CHAT_TEMPLATE = ("{% for m in messages %}<{{ m['role'] }}>{{ m['content'] }}{% endfor %}"
+                 "{% if add_generation_prompt %}<assistant>{% endif %}")
+
+
+def sampler_rows():
+    """9a's eight rows: each its own settings and seed."""
+    from gptq_gguf_tpu_torch.serving.sampling import SamplingParams as SP
+
+    return [SP(temperature=0.7, seed=11), SP(temperature=1.0, top_k=50, seed=12),
+            SP(temperature=0.9, top_p=0.9, seed=13), SP(temperature=1.2, min_p=0.05, seed=14),
+            SP(temperature=0.8, top_k=40, top_p=0.95, min_p=0.02, repetition_penalty=1.2,
+               seed=15),
+            SP(temperature=1.0, presence_penalty=0.5, frequency_penalty=0.3, seed=16),
+            SP(repetition_penalty=1.3), SP(temperature=0.6, top_k=20, seed=17)]
+
+
+def mix_sampling(n: int):
+    """Phase 3's mix with mixed settings, by request index mod 6: greedy;
+    seeded temperature with top-k / top-p / min-p; penalties at
+    temperature 0; top_k = 1 at temperature 1 (greedy's tokens); seeded
+    top-p; unseeded min-p with a penalty (the engine's fallback seed)."""
+    from gptq_gguf_tpu_torch.serving.sampling import SamplingParams as SP
+
+    kinds = (lambda i: SP(),
+             lambda i: SP(temperature=0.8, top_k=40, top_p=0.95, min_p=0.05, seed=100 + i),
+             lambda i: SP(repetition_penalty=1.2, presence_penalty=0.3, frequency_penalty=0.2),
+             lambda i: SP(temperature=1.0, top_k=1),
+             lambda i: SP(temperature=0.7, top_p=0.9, seed=200 + i),
+             lambda i: SP(temperature=1.1, min_p=0.1, repetition_penalty=1.1))
+    return [kinds[i % 6](i) for i in range(n)]
+
+
+def on_device(tensors, device, what: str) -> None:
+    """No fallback: every tensor of ``what`` lives on ``device``."""
+    if any(t.device.type != device.type for t in tensors):
+        raise RuntimeError(f"{what}: a tensor is not on {device.type}")
+
+
+def slot_states(rows, prompts, vocab: int, device):
+    from gptq_gguf_tpu_torch.serving import sampling
+
+    st = sampling.init_state(len(rows), vocab, device=device)
+    for i, sp in enumerate(rows):
+        sampling.set_slot(st, i, sp, prompts[i].to(device), fallback_seed=i)
+    return st
+
+
+def top_p_edges(s: np.ndarray, top_p: float) -> np.ndarray:
+    """Elements of one row of scaled logits whose exclusive cumulative mass
+    (f64, sorted descending) lies within TOP_P_EDGE of top_p."""
+    order = np.argsort(-s, kind="stable")
+    e = np.exp(s[order].astype(np.float64) - s.max())
+    p = e / e.sum()
+    excl = np.cumsum(p) - p
+    out = np.zeros(s.shape, bool)
+    out[order] = np.abs(excl - top_p) <= TOP_P_EDGE
+    return out
+
+
+def draw_flips(toks_a, toks_b, noisy_b) -> tuple:
+    """(explained, unexplained) token differences: a difference is explained
+    when the row's noisy top-2 gap in ``noisy_b`` is below NOISY_TIE."""
+    import torch
+
+    diff = (toks_a.cpu() != toks_b.cpu()).nonzero().flatten().tolist()
+    top2 = torch.topk(noisy_b.cpu(), 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    near = sum(gaps[r] < NOISY_TIE for r in diff)
+    return near, len(diff) - near
+
+
+def phase_sampler(params, cfg, rng, device, card: str):
+    """9a: the sampler chain on one B=8 decode step's logits, each row with
+    its own settings, on the card and on the CPU: penalized logits within
+    1e-6, masks equal but at the top_p edge (counted), SAMPLER_STEPS draws
+    of every row equal but at noisy near-ties (counted), the draw counter
+    shifted by one as a planted control that must fail; SAMPLER_DRAWS
+    draws of one row against its masked softmax; the sampler's device ms
+    per B=8 step."""
+    import torch
+
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel, sampling
+
+    rows = sampler_rows()
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 64)), device=device)
+    cache = qmodel.init_cache(cfg, 8, 512, device=device)
+    for b in range(8):
+        _, _, cache = engine._prefill_slot(params, cfg, prompts[b:b + 1], cache, b)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8,)), dtype=torch.int32,
+                           device=device)
+    logits, _ = qmodel.forward_cached(params, cfg, feed[:, None], cache, fill_max=64)
+    del cache
+    ctx = torch.cat([prompts, feed[:, None].long()], 1)
+    st = slot_states(rows, ctx, cfg.vocab_size, device)
+    on_device(list(st) + [logits], device, "sampler state")
+    cpu_logits = logits.cpu()
+    cpu_st = slot_states(rows, ctx.cpu(), cfg.vocab_size, torch.device("cpu"))
+
+    m_d, l_d, g_d = sampling._chain(logits, st)
+    m_c, l_c, g_c = sampling._chain(cpu_logits, cpu_st)
+    pen_err = ((l_d.cpu() - l_c).abs() / l_c.abs().clamp_min(1e-30)).max().item()
+    if not pen_err <= 1e-6 or not torch.equal(g_d.cpu(), g_c):
+        raise RuntimeError(f"sampler: penalized logits card vs CPU rel err {pen_err:.2e}")
+    keep_d, keep_c = m_d.cpu() > F32_MIN, m_c > F32_MIN
+    edges, kept = 0, []
+    for i, sp in enumerate(rows):
+        diff = (keep_d[i] != keep_c[i]).numpy()
+        t = 1.0 if sp.is_greedy else sp.temperature
+        if diff[~top_p_edges(l_c[i].numpy() / t, sp.top_p)].any():
+            raise RuntimeError(f"sampler row {i}: card and CPU masks differ off the top_p edge")
+        edges += int(diff.sum())
+        kept.append(int(keep_d[i].sum()))
+
+    def noisy(lg, s):
+        m, _, _ = sampling._chain(lg, s)
+        return m + sampling.gumbel_noise(s.seeds, s.draws, s.vocab_hash)
+
+    near = bad = bad_ctl = 0
+    for j in range(SAMPLER_STEPS):
+        st.draws.fill_(j)
+        cpu_st.draws.fill_(j)
+        toks_d = sampling.sample(logits, st)
+        toks_c = sampling.sample(cpu_logits, cpu_st)
+        n, b = draw_flips(toks_d, toks_c, noisy(cpu_logits, cpu_st))
+        near, bad = near + n, bad + b
+        cpu_st.draws.fill_(j + 1)  # planted control: the next draw's noise
+        bad_ctl += draw_flips(toks_d, sampling.sample(cpu_logits, cpu_st),
+                              noisy(cpu_logits, cpu_st))[1]
+    n_draws = SAMPLER_STEPS * len(rows)
+    log(f"sampler (9a, {card}): {n_draws} draws card vs CPU: {bad} differ off a noisy "
+        f"near-tie (< {NOISY_TIE}), {near} at one; masks differ at {edges} top_p-edge "
+        f"elements (kept per row {kept}); penalized rel err {pen_err:.2e}; control "
+        f"(draw counter + 1): {bad_ctl} differ")
+    if bad:
+        raise RuntimeError(f"sampler: {bad} card draws differ from the CPU's")
+    if not bad_ctl:
+        raise RuntimeError("sampler: the shifted draw counter passes the token check")
+
+    # frequencies: SAMPLER_DRAWS draws of row 7 (top_k 20) on the card
+    row, chunk = 7, 512
+    one = sampling.SlotSampling(*(t if name == "vocab_hash" else
+                                  t[row:row + 1].expand(chunk, *t.shape[1:]).clone()
+                                  for name, t in zip(sampling.SlotSampling._fields, st)))
+    counts = torch.zeros(cfg.vocab_size, dtype=torch.int64, device=device)
+    for c in range(SAMPLER_DRAWS // chunk):
+        one.draws.copy_(torch.arange(c * chunk, (c + 1) * chunk, device=device))
+        toks = sampling.sample(logits[row:row + 1].expand(chunk, -1), one)
+        counts += torch.bincount(toks.long(), minlength=cfg.vocab_size)
+    m = m_d[row].double().cpu()
+    p = torch.where(m > F32_MIN, torch.exp(m - m.max()), torch.zeros_like(m))
+    p = (p / p.sum()).numpy()
+    freq = counts.cpu().numpy() / SAMPLER_DRAWS
+    bound = 5 * np.sqrt(p * (1 - p) / SAMPLER_DRAWS) + 1.0 / SAMPLER_DRAWS
+    dev = np.abs(freq - p)
+    log(f"sampler (9a): {SAMPLER_DRAWS} draws of row {row} ({int((p > 0).sum())} kept): "
+        f"max |freq - p| {dev.max():.4f} (bound 5 sd + 1/N, its least {bound[p > 0].min():.4f}),"
+        f" {int(counts.cpu()[torch.from_numpy(p == 0)].sum())} outside the mask")
+    if freq[p == 0].sum() != 0 or not (dev <= bound).all():
+        raise RuntimeError("sampler: draws do not follow the masked softmax")
+
+    # device and host ms of the sampler's work in one B=8 step: ~100
+    # launches a call, so only 5 calls fit the card's launch queue behind
+    # the sleep (with more the host blocks and the events time its queueing)
+    st2 = slot_states(rows, ctx, cfg.vocab_size, device)
+    work = lambda: (sampling.count_tokens(st2, feed), sampling.sample_step(logits, st2))  # noqa: E731
+    ms = cuda_ms(work, 5, sleep_cycles=1_000_000_000)
+    host_ms = call_ms(work, 20)
+    nbytes = logits.numel() * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"sampler (9a, {card}): {ms:.4f} device ms per B=8 step ({host_ms:.4f} host ms), "
+        f"bound {bound_ms:.5f} ms ({nbytes} B: the logits read once)")
+    return dict(draws=n_draws, near_ties=near, top_p_edges=edges, control_differ=bad_ctl,
+                freq_max_dev=float(dev.max()), device_ms=ms, host_ms=host_ms,
+                bound_ms=bound_ms, kept=kept)
+
+
+def stream_gap(params, cfg, prompt, out, t, sp, device) -> float:
+    """The top-2 gap, as a fraction of max|logit|, of what decides output
+    position t of a request: the raw logits at the prefill's token of a
+    greedy request, its penalized logits after; masked + noise (times the
+    temperature: logit units) of a sampled one, at its draw t."""
+    import torch
+
+    from gptq_gguf_tpu_torch.serving import model as qmodel, sampling
+
+    ids = torch.as_tensor(np.concatenate([np.asarray(prompt), np.asarray(out[:t], np.int64)]),
+                          device=device)
+    cache = qmodel.init_cache(cfg, 1, ids.numel() + 1, device=device)
+    logits, _ = qmodel.forward_cached(params, cfg, ids[None], cache)
+    st = sampling.init_state(1, cfg.vocab_size, device=device)
+    sampling.set_slot(st, 0, sp, ids)
+    st.draws.fill_(t)
+    masked, pen, _ = sampling._chain(logits, st)
+    if sp.is_greedy:
+        row = logits[0] if t == 0 else pen[0]
+    else:
+        row = (masked + sampling.gumbel_noise(st.seeds, st.draws, st.vocab_hash))[0]
+        row = row * sp.temperature
+    top2 = torch.topk(row.float(), 2).values
+    return float(top2[0] - top2[1]) / float(logits.abs().max())
+
+
+def same_stream(params, cfg, request, sp, a, b, what, device) -> int:
+    """Two runs' tokens of one request: equal, or apart from a first flip
+    at a near-tie (stream_gap below NEAR_TIE). Returns tokens compared."""
+    t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if len(a) != len(b):
+        raise RuntimeError(f"{what}: {len(a)} vs {len(b)} tokens")
+    if t is None:
+        return len(a)
+    gap = stream_gap(params, cfg, request[0], a, t, sp, device)
+    log(f"  {what}: first flip at token {t}, top-2 gap {gap:.2e} of max|logit|")
+    if not gap < NEAR_TIE:
+        raise RuntimeError(f"{what}: tokens differ at {t}, gap {gap:.2e} is no near-tie")
+    return t
+
+
+def paged_sampled(params, cfg, requests, sps, device):
+    """The paged engine on the mixed mix: budgets, token ranges, pages back,
+    129 v2g launches per forward with every call of a B=8 step on the
+    decode tile, one paged-kernel launch per layer and decode step."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import engine, paged
+
+    eng = engine.PagedContinuousBatchingEngine(params, cfg, num_slots=8, max_len=PAGE * PPS,
+                                               page_size=PAGE, device=device)
+    on_device(list(eng.sampler), device, "paged sampler state")
+    order = [eng.submit(p, max_new_tokens=n, sampling_params=sp)
+             for (p, n), sp in zip(requests, sps)]
+    shapes, decode = [], {"s": 0.0, "steps": 0}
+    fwd0 = paged.forward_paged
+    steps0 = {k: getattr(engine, k) for k in ("_paged_decode_step", "_paged_sampled_decode_step")}
+
+    def counting(*a, **kw):
+        shapes.append(tuple(a[2].shape))
+        return fwd0(*a, **kw)
+
+    def timed(fn):
+        def step(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            decode["s"] += time.perf_counter() - t
+            decode["steps"] += 1
+            return out
+        return step
+
+    paged.forward_paged = counting
+    for k, fn in steps0.items():
+        setattr(engine, k, timed(fn))
+    reset_matmul_counts()
+    pa.paged_flash_decode.launches = pa.paged_flash_decode_q4.launches = 0
+    try:
+        done = {r.uid: r for r in eng.run_until_done()}
+    finally:
+        paged.forward_paged = fwd0
+        for k, fn in steps0.items():
+            setattr(engine, k, fn)
+    counts, dmma = matmul_counts(), decode_counts()
+    per = 4 * cfg.num_hidden_layers + 1
+    want_dmma = want_decode({"v2g": per}, shapes, cfg.num_hidden_layers)
+    if counts["v2g"] != per * len(shapes) or dmma != want_dmma:
+        raise RuntimeError(f"paged sampled serving: v2g launches {counts['v2g']}, decode tile "
+                           f"{dmma}; want {per} x {len(shapes)} forwards, {want_dmma}")
+    if pa.paged_flash_decode.launches != cfg.num_hidden_layers * decode["steps"]:
+        raise RuntimeError(f"paged sampled serving: {pa.paged_flash_decode.launches} paged "
+                           f"kernel launches, {decode['steps']} decode steps")
+    if eng.alloc.available != eng.cache.n_pages:
+        raise RuntimeError("paged sampled serving: pages not returned")
+    outs = [done[u].output for u in order]
+    for (p, n), out in zip(requests, outs):
+        if len(out) != n or not all(0 <= t < cfg.vocab_size for t in out):
+            raise RuntimeError("paged sampled serving: budget or token range")
+    ms = decode["s"] / decode["steps"] * 1e3
+    gen = sum(map(len, outs))
+    log(f"paged sampled serving: {decode['steps']} decode steps at {ms:.2f} ms/step, "
+        f"{(gen - len(outs)) / decode['s']:.1f} generated tok/s; v2g {counts['v2g']} launches "
+        f"({per} per forward, decode tile {dmma['v2g']}), paged kernel "
+        f"{pa.paged_flash_decode.launches}")
+    return outs, dict(decode_ms_per_step=ms, generated_tok_s=(gen - len(outs)) / decode["s"],
+                      launches=counts["v2g"], decode_mma_launches=dmma["v2g"],
+                      paged_launches=pa.paged_flash_decode.launches)
+
+
+def phase_sampled_serving(params, cfg, requests, greedy, device, card: str):
+    """9b: phase 3's 12 requests with mixed settings (mix_sampling) through
+    the contiguous engine twice (k-step blocks; phase 3's launches per
+    forward, every call of a B=8 step on v2g's decode tile) and the paged
+    engine: every request repeats its tokens across the two runs; each
+    seeded one equals itself served alone and on the paged engine up to a
+    near-tie; top_k = 1 at temperature 1 gives phase 3's greedy tokens."""
+    from gptq_gguf_tpu_torch.serving import engine
+
+    sps = mix_sampling(len(requests))
+    runs = [phase_serving(params, cfg, requests, "v2g", label, sampling=sps, steady=False)[1]
+            for label in ("sampled mix", "sampled mix again")]
+    a, b = runs[0].pop("outputs"), runs[1].pop("outputs")
+    if a != b:
+        raise RuntimeError("sampled mix: a request's tokens differ between two runs")
+    # greedy in the same call, after the sampled runs (the host-bound step
+    # drifts between calls)
+    after = phase_serving(params, cfg, requests, "v2g", "greedy after the sampled mix",
+                          steady=False)[1]
+    if after.pop("outputs") != greedy:
+        raise RuntimeError("greedy mix: tokens differ from phase 3's")
+    seeded = [i for i, sp in enumerate(sps) if sp.seed is not None]
+    compared = {}
+    for i in seeded:
+        eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=8, max_len=2048)
+        on_device(list(eng.sampler), device, "sampler state")
+        eng.submit(requests[i][0], max_new_tokens=requests[i][1], sampling_params=sps[i])
+        alone = eng.run_until_done()[0].output
+        compared[f"alone {i}"] = same_stream(params, cfg, requests[i], sps[i], alone, a[i],
+                                             f"request {i} alone vs in the mix", device)
+        del eng
+    for i, sp in enumerate(sps):
+        if sp.top_k == 1 and not sp.is_greedy:
+            compared[f"top_k=1 {i}"] = same_stream(
+                params, cfg, requests[i], sp.__class__(), a[i], greedy[i],
+                f"request {i} top_k=1 at T=1 vs phase 3's greedy", device)
+    p_outs, p_rec = paged_sampled(params, cfg, requests, sps, device)
+    for i in seeded:
+        compared[f"paged {i}"] = same_stream(params, cfg, requests[i], sps[i], p_outs[i], a[i],
+                                             f"request {i} paged vs contiguous", device)
+    r = runs[0]
+    log(f"sampled serving (9b, {card}): {r['serve_decode_ms_per_step']:.2f} / "
+        f"{runs[1]['serve_decode_ms_per_step']:.2f} ms per decode step, "
+        f"{r['generated_tok_s']:.1f} / {runs[1]['generated_tok_s']:.1f} generated tok/s; "
+        f"greedy after them {after['serve_decode_ms_per_step']:.2f} ms, "
+        f"{after['generated_tok_s']:.1f} tok/s; tokens compared {compared}")
+    return dict(runs=runs, greedy_after=after, paged=p_rec, compared=compared, seeded=seeded)
+
+
+def params_to(v, dev):
+    """Serving params (v2 weights, tensors) copied to ``dev``."""
+    from gptq_gguf_tpu_torch.ops.qmatmul import RuntimeQuantLinearV2
+
+    if isinstance(v, RuntimeQuantLinearV2):
+        return RuntimeQuantLinearV2(*(None if t is None else t.to(dev)
+                                      for t in (v.qs, v.d_sg, v.dmin_sg, v.sc_q, v.mn_q)),
+                                    v.d_in, v.group_size, v.per_byte, v.shift, v.d_rep)
+    if isinstance(v, dict):
+        return {k: params_to(x, dev) for k, x in v.items()}
+    if isinstance(v, list):
+        return [params_to(x, dev) for x in v]
+    return v.to(dev)
+
+
+def cached_plain_v2g():
+    """v2g's plain version (dequant_matmul_v2g_reference's arithmetic) with
+    each weight's operand built once: the CPU plain path at 8B widths."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    ops = {}
+
+    def mm(x, rql):
+        if id(rql) not in ops:
+            ops[id(rql)] = (qmatmul._v2_operand(rql, "v2g", torch.bfloat16)[0],
+                            qmatmul._folded_planes_v2(rql)[1], rql)
+        w, off2, _ = ops[id(rql)]
+        x32 = x.float()
+        M, d_in = x32.shape
+        xsum = x32.reshape(M, d_in // rql.group_size, rql.group_size).sum(dim=-1)
+        return x32.to(torch.bfloat16).float() @ w - xsum @ off2
+
+    return mm
+
+
+def phase_kv_quant(params, cfg, rng, requests, greedy, device, card: str):
+    """9c: the int8 and int4 contiguous caches. 2-layer logits (a 128-token
+    prefill and 4 decode steps) on the card against the CPU plain path
+    (KV_CPU_LIMIT) and against the bf16 cache (KV_LOGIT_LIMIT); the
+    contiguous int4 cache against the paged int4 kernel on the same inputs
+    (phase 6's limit); phase 3's mix served in int8 and int4 (phase 3's
+    launches per forward, the cache's bytes, ms/step)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa, qmatmul
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel, paged
+
+    p2 = {**params, "layers": params["layers"][:2]}
+    c2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, 128))
+    feed = rng.integers(0, cfg.vocab_size, size=(4,))
+
+    def logits_of(p, kv_dtype, dev, mm=None):
+        fn0 = qmatmul.dequant_matmul
+        if mm is not None:
+            qmatmul.dequant_matmul = mm
+        try:
+            cache = qmodel.init_cache(c2, 1, 2048, kv_dtype=kv_dtype, device=dev)
+            if kv_dtype is not None:
+                on_device(list(cache.k) + list(cache.k_s), dev, f"{kv_dtype} cache")
+            _, row, cache = engine._prefill_slot(p, c2, torch.as_tensor(prompt, device=dev),
+                                                 cache, 0)
+            rows = [row[None].float()]
+            for tok in feed:
+                lg, cache = qmodel.forward_cached(p, c2, torch.full((1, 1), int(tok),
+                                                                    device=dev), cache)
+                rows.append(lg.float())
+            n = prompt.shape[1] + len(feed)
+            codes = [b[:, :, :n].cpu() for b in cache.k + cache.v]
+            return torch.cat(rows).cpu(), codes
+        finally:
+            qmatmul.dequant_matmul = fn0
+
+    t = time.time()
+    cpu = torch.device("cpu")
+    pc = params_to(p2, cpu)
+    plain = cached_plain_v2g()
+    x = torch.randn(128, H, generator=torch.Generator().manual_seed(SEED)).to(torch.bfloat16)
+    w0 = pc["layers"][0]["o_proj"]
+    if not torch.equal(plain(x, w0), qmatmul.dequant_matmul_v2g_reference(x, w0)):
+        raise RuntimeError("the cached CPU plain path is not v2g's plain version")
+    bf16, _ = logits_of(p2, None, device)
+    res = {}
+    for kvd in KV_DTYPES:
+        lk, ck = logits_of(p2, kvd, device)
+        lc, cc = logits_of(pc, kvd, cpu, plain)
+        scale = lc.abs().max().item()
+        err = (lk - lc).abs().max().item()
+        err_b = (lk - bf16).abs().max().item()
+        agree = (lk.argmax(-1) == bf16.argmax(-1)).float().mean().item()
+        n_diff = sum(int((a != b).sum()) for a, b in zip(ck, cc))
+        n_codes = sum(a.numel() for a in ck)
+        tol = KV_CPU_LIMIT[kvd] * scale
+        log(f"kv {kvd} (9c, 2 layers, prefill 128 + 4 decode, {card}): card vs CPU plain "
+            f"max|dlogit| {err:.3e} = {err / scale:.2e} of max|logit| (tol {tol:.3e}, "
+            f"{KV_CPU_LIMIT[kvd]} of it; {n_diff} of {n_codes} code bytes differ); vs the bf16 "
+            f"cache {err_b:.3e} = {err_b / scale:.2e} of max|logit| (limit "
+            f"{KV_LOGIT_LIMIT[kvd]}); argmax agreement with bf16 {agree:.2f}")
+        if not (torch.isfinite(lk).all() and err <= tol):
+            raise RuntimeError(f"kv {kvd}: card and CPU plain logits disagree")
+        if not err_b <= KV_LOGIT_LIMIT[kvd] * scale:
+            raise RuntimeError(f"kv {kvd}: logits {err_b / scale:.2e} of max|logit| from bf16's")
+        res[kvd] = dict(card_vs_cpu=err / scale, vs_bf16=err_b / scale, scale=scale,
+                        codes_differ=n_diff, codes=n_codes)
+    del pc, plain
+    log(f"kv (9c): the CPU plain path and its checks took {time.time() - t:.1f} s")
+
+    # contiguous int4 against the paged int4 kernel, phase 6's inputs' shape
+    prompt2 = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 60)), device=device)
+    feed2 = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 8)), device=device)
+    table = torch.randperm(2 * PPS, device=device).to(torch.int32).reshape(2, PPS)
+    pcache = paged.init_paged_cache(c2, 2, PAGE * PPS, PAGE, kv_dtype="int4", device=device)
+    pcache = pcache._replace(page_table=table)
+    ccache = qmodel.init_cache(c2, 2, PAGE * PPS, kv_dtype="int4", device=device)
+    n0 = pa.paged_flash_decode_q4.launches
+    pl, pcache = paged.forward_paged(p2, c2, prompt2, pcache)
+    cl, ccache = qmodel.forward_cached(p2, c2, prompt2, ccache)
+    prow, crow = [pl], [cl]
+    for j in range(feed2.shape[1]):
+        pl, pcache = paged.forward_paged(p2, c2, feed2[:, j:j + 1], pcache)
+        cl, ccache = qmodel.forward_cached(p2, c2, feed2[:, j:j + 1], ccache)
+        prow.append(pl)
+        crow.append(cl)
+    launched = pa.paged_flash_decode_q4.launches - n0
+    a, b = torch.stack(prow), torch.stack(crow)
+    scale = b.abs().max().item()
+    err = (a - b).abs().max().item()
+    log(f"kv int4 (9c): contiguous vs the paged int4 kernel ({launched} launches), 2 layers, "
+        f"prefill 60 + 8 decode: max|dlogit| {err:.3e}, tol {3e-3 * scale:.3e} (3e-3 of "
+        f"max|logit|)")
+    if launched != 2 * 8 or not err <= 3e-3 * scale:
+        raise RuntimeError("kv int4: the contiguous cache and the paged kernel disagree")
+    res["int4_vs_paged"] = err / scale
+    del pcache, ccache
+
+    serve = {}
+    for kvd in KV_DTYPES:
+        _, rec = phase_serving(params, cfg, requests, "v2g", f"kv {kvd}",
+                               engine_kw={"kv_quantized": kvd})
+        outs = rec.pop("outputs")
+        same = sum(x == y for o, g in zip(outs, greedy) for x, y in zip(o, g))
+        if rec["kv_bytes"] != KV_BYTES[kvd]:
+            raise RuntimeError(f"kv {kvd}: {rec['kv_bytes']} B allocated, want {KV_BYTES[kvd]}")
+        log(f"kv {kvd} serving (9c, {card}): {rec['serve_decode_ms_per_step']:.2f} ms per "
+            f"decode step, {rec['generated_tok_s']:.1f} generated tok/s, steady B=8 "
+            f"{rec['decode_ms_per_step']:.2f} ms; KV {rec['kv_bytes']} B "
+            f"(bf16 {KV_BYTES['bf16']}); {same} of {sum(map(len, greedy))} tokens as bf16's")
+        serve[kvd] = dict(rec, tokens_as_bf16=same)
+    return dict(logits=res, serving=serve)
+
+
+def phase_sampled_http(params, cfg, device, card: str):
+    """9d: a seeded sampled chat with n = 2 and logprobs over serve_http on
+    port 0: two distinct choices, the same on a second call, each token's
+    logprob the engine's own for the same request run directly."""
+    import dataclasses as dc
+    import urllib.request
+
+    from gptq_gguf_tpu_torch.serving import engine, server
+    from gptq_gguf_tpu_torch.serving.tokenizer import _BYTE_ENC, GGUFTokenizer
+
+    vocab = [_BYTE_ENC[b] for b in range(256)] + [f"<t{i}>" for i in range(256, cfg.vocab_size)]
+    tok = server.wrap_gguf_tokenizer(GGUFTokenizer("gpt2", vocab, merges=[],
+                                                   chat_template=CHAT_TEMPLATE))
+    payload = {"messages": [{"role": "user", "content": "Hello from the card."}], "n": 2,
+               "temperature": 0.9, "top_k": 50, "top_p": 0.95, "seed": 1234,
+               "max_tokens": 16, "logprobs": True, "top_logprobs": 2}
+    prompt = tok(tok.apply_chat_template(payload["messages"], add_generation_prompt=True,
+                                         tokenize=False))["input_ids"]
+    sp = server._sampling_from_json(payload)
+    eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=8, max_len=2048)
+    uids = [eng.submit(np.asarray(prompt), 16, sampling_params=dc.replace(sp, seed=1234 + i),
+                       logprobs=2) for i in range(2)]
+    direct = {r.uid: r for r in eng.run_until_done()}
+    direct = [direct[u] for u in uids]
+    eng.completed.clear()
+    srv, runner = server.serve_http(eng, port=0, block=False, tokenizer=tok)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post():
+        req = urllib.request.Request(f"{base}/v1/chat/completions",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        t0 = time.perf_counter()
+        first = post()
+        wall = time.perf_counter() - t0
+        again = post()
+    finally:
+        srv.shutdown()
+        runner.stop()
+    worst = 0.0
+    for reply in (first, again):
+        if [c["index"] for c in reply["choices"]] != [0, 1]:
+            raise RuntimeError(f"HTTP chat: choices {reply['choices']}")
+        for choice, req in zip(reply["choices"], direct):
+            content = choice["logprobs"]["content"]
+            if ([e["token"] for e in content] != [tok.decode([t]) for t in req.output]
+                    or len(content) != 16):
+                raise RuntimeError("HTTP chat: a choice's tokens are not the engine's")
+            worst = max(worst, *(abs(e["logprob"] - d[0])
+                                 for e, d in zip(content, req.logprob_data)))
+    if worst > 1e-5:
+        raise RuntimeError(f"HTTP chat: logprobs {worst:.2e} from the engine's")
+    contents = [c["message"]["content"] for c in first["choices"]]
+    if contents[0] == contents[1] or [c["message"]["content"] for c in again["choices"]] != contents:
+        raise RuntimeError("HTTP chat: the seeded choices are not distinct and repeatable")
+    log(f"sampled HTTP (9d, {card}): chat n=2 seeded, 16 tokens each in {wall:.2f} s; choices "
+        f"distinct, repeated on a second call; logprobs within {worst:.1e} of the engine's")
+    return dict(wall_s=wall, logprob_max_diff=worst)
+
+
+def phase_sampling_and_kv(params, cfg, rng, requests, greedy, device):
+    """Phase 9 (a)-(d) on phase 3's model."""
+    import torch
+
+    card = card_name_and_power()
+    t9 = time.time()
+    rec = dict(sampler=phase_sampler(params, cfg, rng, device, card))
+    rec["serving"] = phase_sampled_serving(params, cfg, requests, greedy, device, card)
+    torch.cuda.empty_cache()
+    rec["kv"] = phase_kv_quant(params, cfg, rng, requests, greedy, device, card)
+    torch.cuda.empty_cache()
+    rec["http"] = phase_sampled_http(params, cfg, device, card)
+    rec["seconds"] = time.time() - t9
+    log(f"phase 9 took {rec['seconds']:.1f} s")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3259,6 +3897,9 @@ VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m
                           ("v2f", "qmatmul_v2_mma.cuh", 496, STEP, "v2f"))
 
 
+VARIANT_SERVING_LAYERS = 8  # 8c's depth (the first 8 of phase 3's 32 layers)
+
+
 def variant_runs(n_layers: int):
     """8c: (PALLAS_V2_VARIANT, PALLAS_V2_VARIANT_GS16, launches per forward
     by wrapper): Q4_K projections 4 per layer, the Q6_K lm_head once."""
@@ -3635,6 +4276,7 @@ def phase_variant_serving(params, cfg, requests):
         old = knobs(variant, gs16)
         try:
             counts, rec = phase_serving(params, cfg, requests, variant, label, per_forward)
+            rec.pop("outputs")
         finally:
             knobs(*old)
         per_forward = per_forward or {variant: 4 * cfg.num_hidden_layers + 1}
@@ -3921,7 +4563,7 @@ def paged_summary(name, source_line, krec, launches):
 
 
 def run(device) -> dict:
-    """All eight phases on ``device``; returns the kernel summary."""
+    """All nine phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
@@ -3938,12 +4580,15 @@ def run(device) -> dict:
     log("== phase 3: full-width serving")
     requests = serve_requests(rng, cfg, 12, *SERVE_MIX)
     counts, serve = phase_serving(params, cfg, requests)
+    greedy = serve.pop("outputs")
     # the CUDA-core tiles' own: the one-row heads of the prefills
     launches = counts["v2g"] - serve["mma_launches"] - serve["decode_mma_launches"]["v2g"]
     if launches == 0:
         raise RuntimeError("serving: no launch of v2g's CUDA-core tile")
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
+    log("== phase 9: sampled decoding and the int8 / int4 caches")
+    sampled = phase_sampling_and_kv(params, cfg, rng, requests, greedy, device)
     log("== phase 6: paged serving at full width")
     t6 = time.time()
     precs = phase_paged_kernels(rng, device)
@@ -3965,6 +4610,7 @@ def run(device) -> dict:
     # call, so each format is read between two v2 runs
     for fmt, kernel in (("v1", "v1"), ("v4", "v4"), ("v4 i8", "v4"), ("v2", "v2g")):
         fcounts, rec = phase_serving(fparams[fmt], cfg, requests, kernel, fmt)
+        rec.pop("outputs")
         if kernel == "v1":  # phase_serving held every call of 1-8 rows to the decode tile
             b8 = (4 * N_LAYERS + 1) * rec["b8_steps"]
             if not rec["b8_steps"] or rec["decode_mma_launches"]["v1"] < b8:
@@ -4006,7 +4652,10 @@ def run(device) -> dict:
                                V2S_SMALL)
     gdrecs = phase_mma_kernels(params, ("v2m", "v2t"), device, rng, GROUP_DOT_SMALL)
     vcross = phase_variant_consistency(params, cfg, rng, device)
-    vserve = phase_variant_serving(params, cfg, requests)
+    # 8c at a cut depth: phase 9's serving runs keep chip_smoke inside its limit
+    vserve = phase_variant_serving(
+        {**params, "layers": params["layers"][:VARIANT_SERVING_LAYERS]},
+        dataclasses.replace(cfg, num_hidden_layers=VARIANT_SERVING_LAYERS), requests)
     vppl = phase_variant_ppl(params, cfg, fppl["v2"])
     log(f"phase 8 took {time.time() - t8:.1f} s")
     del params
@@ -4113,7 +4762,7 @@ def run(device) -> dict:
         variant_mma_summary(name, source, line, variant, shapes, mrecs + gdrecs,
                             vppl[run]["mma_launches"][variant])
         for name, source, line, variant, shapes, run in VARIANT_MMA_KERNELS],
-        "serving": serve, "gptq": gptq_rec, "paged": paged_rec,
+        "serving": serve, "sampling": sampled, "gptq": gptq_rec, "paged": paged_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),
         "variants": dict(serving=vserve, ppl=vppl, logits=vcross),

@@ -12,10 +12,12 @@ reader, K-quant fitting, the GPTQ solver with its hand-written column-block
 CUDA kernel, the calibration walk and its per-layer artifacts:
 ``quantize``) and its GGUF (``pack``). The layer database, the EvoPress
 bit-width search and the stitcher that assembles a mixed GGUF
-(``build-db``, ``search``, ``stitch``). Greedy serving of a K-quant GGUF
-Llama: GGUF reading, the v2 runtime weight format, the hand-written v2g
-dequant-matmul CUDA kernel, the dense Llama decoder with a contiguous bf16
-KV cache, and the continuous-batching engine (``serve``). Paged serving
+(``build-db``, ``search``, ``stitch``). Serving a K-quant GGUF Llama:
+GGUF reading, the v2 runtime weight format, the hand-written v2g
+dequant-matmul CUDA kernel, the dense Llama decoder with a contiguous bf16,
+int8 or int4 KV cache, the per-slot sampler chain (penalties, top-k / top-p
+/ min-p, temperature, seeded draws, logprobs), and the continuous-batching
+engine (``serve``). Paged serving
 over HTTP: block-table KV page pools (bf16 or int4), the paged engine,
 the hand-written paged flash-decode CUDA kernels, the GGUF tokenizer and
 the HTTP server (``serve --http --paged``).

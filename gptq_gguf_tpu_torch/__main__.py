@@ -12,14 +12,17 @@ merges a GGUF (``cli/tools.py``, ``mapper/``, ``search/``). ``ppl``
 scores a GGUF (dense, or through the serving kernels) or an HF checkpoint
 (``cli/tools.py``). ``serve``
 loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
-either greedily decodes one prompt (token ids or text) or, with
-``--http``, serves HTTP requests; ``--paged`` takes the paged-KV engine
-instead of the contiguous one.
+either greedily decodes one prompt (token ids or text), or, with
+``--http``, serves HTTP requests (greedy or sampled, with logprobs), or,
+with ``--benchmark``, times decode steps with every slot filled and prints
+one JSON line; ``--paged`` takes the paged-KV engine instead of the
+contiguous one, ``--kv-dtype int8 | int4`` a quantized KV cache.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from typing import List, Optional
@@ -35,8 +38,18 @@ def build_serve(p: argparse.ArgumentParser) -> None:
                    help="text prompt, tokenized with the GGUF's own vocab "
                         "(tokenizer.ggml.* metadata, like llama.cpp)")
     p.add_argument("--max-new-tokens", type=int, default=32)
+    p.add_argument("--benchmark", action="store_true",
+                   help="measure decode throughput on this GGUF: fill all slots, run "
+                        "timed decode steps, print one JSON line")
+    p.add_argument("--benchmark-steps", type=int, default=32)
+    p.add_argument("--benchmark-prompt-len", type=int, default=64)
     p.add_argument("--num-slots", type=int, default=8)
     p.add_argument("--max-len", type=int, default=2048)
+    p.add_argument("--kv-quantized", action="store_true",
+                   help="int8 KV cache (halves KV memory and traffic)")
+    p.add_argument("--kv-dtype", default=None, choices=["bf16", "int8", "int4"],
+                   help="KV cache dtype (int4: packed codes + group scales, 3.2x less KV "
+                        "memory and traffic); overrides --kv-quantized")
     p.add_argument("--paged", action="store_true", help="block-table paged KV cache")
     p.add_argument("--page-size", type=int, default=64)
     p.add_argument("--http", action="store_true", help="run the HTTP server loop")
@@ -48,16 +61,64 @@ def build_serve(p: argparse.ArgumentParser) -> None:
                    help="cuda (default) or cpu for the plain PyTorch path")
 
 
+def kv_dtype(args) -> str:
+    """The KV cache dtype the flags ask for: --kv-dtype, else int8 under
+    --kv-quantized, else bf16."""
+    return args.kv_dtype or ("int8" if args.kv_quantized else "bf16")
+
+
 def make_engine(args, params, cfg, eos_id=None):
-    """The engine the flags ask for: paged (--paged) or contiguous."""
+    """The engine the flags ask for: paged (--paged; bf16 or int4 pools) or
+    contiguous (bf16, int8 or int4 cache)."""
     from .serving import engine
 
+    kvd = kv_dtype(args)
     if args.paged:
+        if kvd == "int8":
+            raise SystemExit("--paged takes --kv-dtype bf16 or int4 (no paged int8 pools)")
         return engine.PagedContinuousBatchingEngine(
             params, cfg, num_slots=args.num_slots, max_len=args.max_len,
-            page_size=args.page_size, eos_token_id=eos_id, device=args.device)
+            page_size=args.page_size, eos_token_id=eos_id,
+            kv_quantized="int4" if kvd == "int4" else False, device=args.device)
     return engine.ContinuousBatchingEngine(params, cfg, num_slots=args.num_slots,
-                                           max_len=args.max_len, eos_token_id=eos_id)
+                                           max_len=args.max_len, eos_token_id=eos_id,
+                                           kv_quantized=kvd)
+
+
+def run_benchmark(args, params, cfg) -> dict:
+    """Decode throughput with every slot filled: each slot prefilled with
+    one random prompt, 4 warm-up steps, then --benchmark-steps decode
+    steps, each read back; returns the JSON record."""
+    import torch
+
+    from .serving import engine, model as qmodel
+
+    rng = np.random.default_rng(0)
+    B, P = args.num_slots, args.benchmark_prompt_len
+    dev = params["embed_tokens"].device
+    cache = qmodel.init_cache(cfg, B, args.max_len, kv_dtype=kv_dtype(args), device=dev)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, P)), device=dev)
+    t0 = time.time()
+    for slot in range(B):
+        tok, _, cache = engine._prefill_slot(params, cfg, prompt, cache, slot)
+        int(tok)
+    prefill_s = time.time() - t0
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B,)), dtype=torch.int32,
+                             device=dev)
+    fill = P
+    for _ in range(4):  # warm-up
+        tokens, _, cache = engine._decode_step(params, cfg, tokens, cache, fill)
+        tokens.tolist()
+        fill += 1
+    t0 = time.time()
+    for _ in range(args.benchmark_steps):
+        tokens, _, cache = engine._decode_step(params, cfg, tokens, cache, fill)
+        tokens.tolist()  # the readback waits for the step
+        fill += 1
+    dt = (time.time() - t0) / args.benchmark_steps
+    return {"tokens_per_s": round(B / dt, 2), "ms_per_step": round(dt * 1e3, 3),
+            "batch": B, "prompt_len": P, "max_len": args.max_len,
+            "prefill_s_total": round(prefill_s, 2), "kv_dtype": kv_dtype(args)}
 
 
 def _gguf_tokenizer(path):
@@ -88,6 +149,9 @@ def run_serve(args) -> None:
                 tokenizer, eos_id = wrap_gguf_tokenizer(gg), gg.eos_id
         serve_http(make_engine(args, params, cfg, eos_id), host=args.host, port=args.port,
                    tokenizer=tokenizer)
+        return
+    if args.benchmark:
+        print(json.dumps(run_benchmark(args, params, cfg)))
         return
 
     gg = None
@@ -122,7 +186,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     quantize.build_parser(sub.add_parser("quantize", help="GPTQ K-quant calibration walk"))
     tools.build_pack(sub.add_parser("pack", help="HF checkpoint + artifacts -> GGUF"))
-    build_serve(sub.add_parser("serve", help="greedy decoding from a K-quant GGUF"))
+    build_serve(sub.add_parser("serve", help="serve a K-quant GGUF (one prompt, HTTP or a "
+                                             "decode benchmark)"))
     tools.build_ppl(sub.add_parser("ppl", help="perplexity of a GGUF or an HF checkpoint"))
     runs = {"quantize": quantize.run, "pack": tools.run_pack, "serve": run_serve,
             "ppl": tools.run_ppl}

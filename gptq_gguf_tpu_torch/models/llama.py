@@ -264,7 +264,9 @@ def dequant_kv_q4(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
                     dynamic_length: bool = False,
-                    n_live: Optional[int] = None) -> torch.Tensor:
+                    n_live: Optional[int] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Online-softmax attention over KV chunks (plain PyTorch; the JAX
     package writes it as XLA code, not as a kernel).
 
@@ -277,10 +279,16 @@ def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
     its host mirror of the fill), else max(qpos) // chunk + 1 from one
     readback. Chunks past the fill are masked entirely, so a count that is
     too high changes nothing.
+
+    k_scale / v_scale: (B, nKV, L) per-entry scales of an int8 cache, or
+    (B, nKV, L, hd // KV_Q4_GROUP) group scales of a packed int4 cache (k / v
+    then hold two codes per byte); each chunk is dequantized as it is cast
+    to f32, and the output is f32.
     """
     B, nH, S, hd = q.shape
     nKV, L = k.shape[1], k.shape[2]
-    vd = v.shape[-1]
+    q4 = k_scale is not None and k_scale.ndim == 4
+    vd = v.shape[-1] * (2 if q4 else 1)
     G = nH // nKV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(B, nKV, G, S, hd).float() * scale
@@ -296,8 +304,15 @@ def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
     acc = torch.zeros((B, nKV, G, S, vd), dtype=torch.float32, device=q.device)
     for c in range(n_chunks):
         lo, hi = c * chunk, min((c + 1) * chunk, L)
-        kc = k[:, :, lo:hi].float()
-        vc = v[:, :, lo:hi].float()
+        if q4:
+            kc = dequant_kv_q4(k[:, :, lo:hi], k_scale[:, :, lo:hi])
+            vc = dequant_kv_q4(v[:, :, lo:hi], v_scale[:, :, lo:hi])
+        else:
+            kc = k[:, :, lo:hi].float()
+            vc = v[:, :, lo:hi].float()
+            if k_scale is not None:
+                kc = kc * k_scale[:, :, lo:hi, None]
+                vc = vc * v_scale[:, :, lo:hi, None]
         kp = torch.arange(lo, hi, device=q.device)
         s = torch.einsum("bkgsh,bkth->bkgst", qg, kc)
         vmask = (kp[None, None, :] <= qpos[:, :, None])[:, None, None]  # (B,1,1,S,t)
@@ -309,7 +324,7 @@ def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
         acc = acc * corr[..., None] + torch.einsum("bkgst,bkth->bkgsh", p, vc)
         m = m2
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(B, nH, S, vd).to(v.dtype)
+    return out.reshape(B, nH, S, vd).to(v.dtype if k_scale is None else torch.float32)
 
 
 def _act_only(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:

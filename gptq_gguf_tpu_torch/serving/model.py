@@ -7,7 +7,9 @@ or v4). The KV cache is a preallocated per-layer (B, n_kv, max_len + 1, hd)
 buffer updated in place: row ``max_len`` is a drop row that absorbs writes
 past the end of the cache (the JAX package drops them with
 ``.at[...].set(mode="drop")``), so retired slots can keep decoding inside a
-block without a bounds check on the host.
+block without a bounds check on the host. The cache holds bf16 entries
+(``KVCache``), int8 codes with per-entry scales (``KVCacheQ8``) or split-nibble
+int4 codes with per-group scales (``KVCacheQ4``), the JAX package's layouts.
 
 A model is built from a .gguf file (``load_gguf_for_serving``, packed in
 ``qmatmul.RUNTIME_FORMAT`` or, with ``dense=True``, dequantized to dense
@@ -66,20 +68,96 @@ class KVCache(NamedTuple):
         return self.k[0].shape[2] - 1
 
 
+class KVCacheQ8(NamedTuple):
+    """int8 KV cache: per-(slot, head, position) symmetric f32 scales (the
+    JAX package's layout, plus the drop row); llama.cpp's q8_0 KV analogue."""
+
+    k: List[torch.Tensor]    # per layer (B, n_kv, max_len + 1, hd) int8
+    v: List[torch.Tensor]
+    k_s: List[torch.Tensor]  # per layer (B, n_kv, max_len + 1) f32
+    v_s: List[torch.Tensor]
+    lengths: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[2] - 1
+
+
+# int4 KV group size: one symmetric f32 scale per KV_Q4_GROUP consecutive
+# head-dim features (per slot, head, position)
+KV_Q4_GROUP = llama.KV_Q4_GROUP
+
+
+class KVCacheQ4(NamedTuple):
+    """int4 KV cache: two codes per byte (split layout: feature j < hd/2 in
+    byte j's low nibble, feature j >= hd/2 in byte j - hd/2's high nibble),
+    one symmetric f32 scale per KV_Q4_GROUP features (the JAX package's
+    layout, plus the drop row)."""
+
+    k: List[torch.Tensor]    # per layer (B, n_kv, max_len + 1, hd // 2) uint8
+    v: List[torch.Tensor]
+    k_s: List[torch.Tensor]  # per layer (B, n_kv, max_len + 1, hd // 32) f32
+    v_s: List[torch.Tensor]
+    lengths: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[2] - 1
+
+
+_QUANT_CACHES = (KVCacheQ8, KVCacheQ4)
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               kv_dtype: Optional[str] = None, device="cuda") -> KVCache:
-    """Zeroed contiguous cache. kv_dtype None / "bf16" uses ``dtype``; the
-    int8 and int4 caches are not ported yet."""
-    if kv_dtype not in (None, "bf16"):
-        raise NotImplementedError(f"kv_dtype {kv_dtype!r} is not ported yet")
+               kv_dtype: Optional[str] = None, device="cuda"):
+    """Zeroed contiguous cache with a drop row: kv_dtype None / "bf16" uses
+    ``dtype`` (KVCache), "int8" KVCacheQ8, "int4" KVCacheQ4 (head_dim a
+    multiple of 2 * KV_Q4_GROUP, as in the JAX package)."""
     dev = resolve_device(device)
-    shape = (batch, cfg.num_key_value_heads, max_len + 1, cfg.head_dim_)
     n = cfg.num_hidden_layers
-    return KVCache(
-        [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(n)],
-        [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(n)],
-        torch.zeros((batch,), dtype=torch.int32, device=dev),
-    )
+    hd = cfg.head_dim_
+    rows = (batch, cfg.num_key_value_heads, max_len + 1)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+
+    def bufs(shape, dt):
+        return [torch.zeros(shape, dtype=dt, device=dev) for _ in range(n)]
+
+    if kv_dtype in (None, "bf16"):
+        return KVCache(bufs(rows + (hd,), dtype), bufs(rows + (hd,), dtype), lengths)
+    if kv_dtype == "int8":
+        return KVCacheQ8(bufs(rows + (hd,), torch.int8), bufs(rows + (hd,), torch.int8),
+                         bufs(rows, torch.float32), bufs(rows, torch.float32), lengths)
+    if kv_dtype == "int4":
+        if hd % (2 * KV_Q4_GROUP):
+            raise NotImplementedError(
+                f"int4 KV needs head_dim divisible by {2 * KV_Q4_GROUP}, got {hd}")
+        codes, scales = rows + (hd // 2,), rows + (hd // KV_Q4_GROUP,)
+        return KVCacheQ4(bufs(codes, torch.uint8), bufs(codes, torch.uint8),
+                         bufs(scales, torch.float32), bufs(scales, torch.float32), lengths)
+    raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+
+
+def slot_view(cache, slot: int, lengths: torch.Tensor):
+    """A one-slot cache of views into ``cache``'s buffers (codes and scales
+    alike), with ``lengths`` (1,): writes through it land in the slot."""
+    def take(bufs):
+        return [b[slot:slot + 1] for b in bufs]
+
+    if isinstance(cache, _QUANT_CACHES):
+        return type(cache)(take(cache.k), take(cache.v), take(cache.k_s), take(cache.v_s),
+                           lengths)
+    return KVCache(take(cache.k), take(cache.v), lengths)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> (int8 codes, (...) f32 scales), symmetric per entry;
+    rounds half to even, as the JAX package does."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1) / 127.0
+    inv = torch.where(s > 0, 1.0 / torch.where(s > 0, s, torch.ones_like(s)),
+                      torch.zeros_like(s))
+    q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127)
+    return q.to(torch.int8), s
 
 
 def _quantize_kv_q4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,10 +177,12 @@ def _quantize_kv_q4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _cached_attention(q, k_cache, v_cache, lengths, scale=None,
-                      n_live: Optional[int] = None):
+                      n_live: Optional[int] = None, k_scale=None, v_scale=None):
     """q: (B, nH, S, hd); caches (B, nKV, L, hd); slot b's queries sit at
     positions lengths[b] + [0, S). Long caches stream through the
-    online-softmax path; decode reads only the ``n_live`` live chunks."""
+    online-softmax path; decode reads only the ``n_live`` live chunks.
+    k_scale / v_scale: the per-entry scales of an int8 cache (B, nKV, L) or
+    the group scales of an int4 cache (B, nKV, L, hd // KV_Q4_GROUP)."""
     B, nH, S, hd = q.shape
     nKV = k_cache.shape[1]
     L = k_cache.shape[2]
@@ -111,7 +191,13 @@ def _cached_attention(q, k_cache, v_cache, lengths, scale=None,
         qpos = lengths[:, None] + ar[None, :]
         return llama.flash_attention(
             q, k_cache, v_cache, qpos, scale, dynamic_length=(S == 1),
-            n_live=n_live).to(q.dtype)
+            n_live=n_live, k_scale=k_scale, v_scale=v_scale).to(q.dtype)
+    if k_scale is not None and k_scale.ndim == 4:  # int4 packed cache
+        k_cache = llama.dequant_kv_q4(k_cache, k_scale)
+        v_cache = llama.dequant_kv_q4(v_cache, v_scale)
+    elif k_scale is not None:
+        k_cache = k_cache.float() * k_scale[..., None]
+        v_cache = v_cache.float() * v_scale[..., None]
     groups = nH // nKV
     qg = q.reshape(B, nKV, groups, S, hd)
     scale = scale if scale is not None else 1.0 / float(np.sqrt(hd))
@@ -169,6 +255,8 @@ def forward_cached(
         top = int(lengths.max()) if fill_max is None else int(fill_max)
         n_live = top // llama.FLASH_CHUNK + 1
 
+    # int8 / int4 caches: each new entry quantized as it is written
+    quant = {KVCacheQ8: _quantize_kv, KVCacheQ4: _quantize_kv_q4}.get(type(cache))
     x = params["embed_tokens"][input_ids].to(cfg.dtype)
     for li, layer in enumerate(params["layers"]):
         h = llama.apply_norm(x, cfg, layer["input_layernorm"])
@@ -191,10 +279,21 @@ def forward_cached(
         q, k = llama.apply_rope(q, k, cos_l, sin_l)
 
         k_buf, v_buf = cache.k[li], cache.v[li]
-        k_buf[bidx, :, write_pos] = k.transpose(1, 2).to(k_buf.dtype)
-        v_buf[bidx, :, write_pos] = v.transpose(1, 2).to(v_buf.dtype)
+        k_new, v_new = k.transpose(1, 2), v.transpose(1, 2)  # (B, S, nKV, hd)
+        ks = vs = None
+        if quant is not None:
+            kq, k_s = quant(k_new)
+            vq, v_s = quant(v_new)
+            k_buf[bidx, :, write_pos] = kq
+            v_buf[bidx, :, write_pos] = vq
+            cache.k_s[li][bidx, :, write_pos] = k_s
+            cache.v_s[li][bidx, :, write_pos] = v_s
+            ks, vs = cache.k_s[li][:, :, :L], cache.v_s[li][:, :, :L]
+        else:
+            k_buf[bidx, :, write_pos] = k_new.to(k_buf.dtype)
+            v_buf[bidx, :, write_pos] = v_new.to(v_buf.dtype)
         attn = _cached_attention(q, k_buf[:, :, :L], v_buf[:, :, :L], lengths,
-                                 n_live=n_live)
+                                 n_live=n_live, k_scale=ks, v_scale=vs)
         attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
         x = x + _q_linear(attn, layer["o_proj"])
 
@@ -216,7 +315,7 @@ def forward_cached(
         last = x[torch.arange(B, device=dev), n_valid - 1, :]
         advance = n_valid
     logits = _head_logits(params, cfg, llama.apply_norm(last, cfg, params["norm"]))
-    return logits, KVCache(cache.k, cache.v, (lengths + advance).to(torch.int32))
+    return logits, cache._replace(lengths=(lengths + advance).to(torch.int32))
 
 
 def _head_logits(params: Dict[str, Any], cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:

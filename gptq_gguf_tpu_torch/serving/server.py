@@ -1,4 +1,4 @@
-"""Minimal HTTP inference server over the port's greedy engines.
+"""Minimal HTTP inference server over the port's engines.
 
 A trimmed copy of ``gptq_gguf_tpu/serving/server.py``: one background
 thread steps the engine (``ContinuousBatchingEngine`` or
@@ -6,12 +6,18 @@ thread steps the engine (``ContinuousBatchingEngine`` or
 block on completion events. stdlib only (http.server + threading).
 
 Endpoints (JSON):
-  POST /completion   {"prompt_tokens": [..], "max_new_tokens": N}
-                     -> {"tokens": [...], "finish_reason": .., "latency_s": ..}
+  POST /completion   {"prompt_tokens": [..], "max_new_tokens": N,
+                      "temperature": t, "top_k": k, "top_p": p, "min_p": m,
+                      "presence_penalty": a, "frequency_penalty": b,
+                      "repetition_penalty": r, "seed": s, "logprobs": n}
+                     -> {"tokens": [...], "finish_reason": .., "latency_s": ..,
+                         "logprobs": {"token_logprobs": [..], "top": [..]}}
                      (or {"prompt": "text"} when a tokenizer is loaded)
   POST /v1/completions, /v1/chat/completions
                      OpenAI-compatible subsets (need a tokenizer; chat
-                     needs one with a chat template)
+                     needs one with a chat template); chat takes "n"
+                     choices (seed + i for choice i when seeded) and
+                     "logprobs" / "top_logprobs"
   POST /tokenize {"content": ..}, /detokenize {"tokens": [..]}
   GET  /health, /v1/models
 
@@ -19,10 +25,8 @@ Endpoints (JSON):
 server-sent events ending with "data: [DONE]". A stop-string hit cancels
 the in-flight request, freeing its slot at once.
 
-What the engines do not have yet answers 501 with a "not ported yet"
-message and is never served greedily in its place: sampling (temperature,
-penalties) and logprobs. Embeddings, reranking and image messages answer
-400, as the JAX package's server does with no such model loaded.
+Embeddings, reranking and image messages answer 400, as the JAX package's
+server does with no such model loaded.
 
 If a step of the engine raises (a CUDA error, say), every waiting request
 ends with 500 and the engine is not stepped again.
@@ -30,6 +34,7 @@ ends with 500 and the engine is not stepped again.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue
 import threading
@@ -46,12 +51,7 @@ _SAMPLING_KEYS = ("temperature", "top_k", "top_p", "min_p", "presence_penalty",
 
 
 def _sampling_from_json(req: Dict[str, Any]) -> Optional[SamplingParams]:
-    """The request's sampling settings; SamplingParams raises
-    NotImplementedError (501) for anything but greedy decoding. logprobs
-    are refused the same way."""
-    if req.get("logprobs"):
-        raise NotImplementedError("logprobs are not ported yet; the engine serves "
-                                  "greedy tokens only")
+    """The request's sampling settings, or None (the engine's default)."""
     if not any(k in req for k in _SAMPLING_KEYS):
         return None
     return SamplingParams(
@@ -95,13 +95,15 @@ class EngineRunner:
         self.thread.join(timeout=5)
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int,
-               sampling_params: Optional[SamplingParams] = None, stream: bool = False) -> int:
+               sampling_params: Optional[SamplingParams] = None, stream: bool = False,
+               logprobs: int = 0) -> int:
         ev = threading.Event()
         with self.lock:
             if self.error is not None:
                 raise RuntimeError(f"the engine stopped: {type(self.error).__name__}: "
                                    f"{self.error}")
-            uid = self.engine.submit(prompt, max_new_tokens, sampling_params=sampling_params)
+            uid = self.engine.submit(prompt, max_new_tokens, sampling_params=sampling_params,
+                                     logprobs=logprobs)
             self.events[uid] = ev
             if stream:
                 self.streams[uid] = queue.Queue()
@@ -313,11 +315,16 @@ def make_handler(runner: EngineRunner, tokenizer=None):
                         self._sse_send("[DONE]")
                         runner.wait(uid, timeout=1)  # reap the result entry
                         return
-            uid = runner.submit(prompt, max_new, sp)
+            uid = runner.submit(prompt, max_new, sp, logprobs=int(req.get("logprobs", 0)))
             result = runner.wait(uid, timeout=timeout)
             out: Dict[str, Any] = {"tokens": result.output,
                                    "finish_reason": result.finish_reason,
                                    "latency_s": round(time.time() - t0, 3)}
+            if result.logprob_data:
+                out["logprobs"] = {
+                    "token_logprobs": [d[0] for d in result.logprob_data],
+                    "top": [[{"id": i, "logprob": v} for i, v in zip(d[1], d[2])]
+                            for d in result.logprob_data]}
             if tokenizer is not None:
                 out["text"] = tokenizer.decode(result.output)
             self._json(200, out)
@@ -364,25 +371,42 @@ def make_handler(runner: EngineRunner, tokenizer=None):
             prompt = self._chat_messages(req)
             if prompt is None:
                 return
-            if int(req.get("n", 1)) != 1:
-                raise NotImplementedError("n > 1 (several sampled choices) is not ported yet")
             max_new = int(req.get("max_tokens", req.get("max_new_tokens", 128)))
             sp = _sampling_from_json(req)
             stops = _stops(req)
+            want_lp = int(req.get("top_logprobs", 1)) if req.get("logprobs") else 0
             t0 = time.time()
             if req.get("stream"):
                 self._chat_stream(req, prompt, max_new, sp, stops, t0)
                 return
-            uid = runner.submit(prompt, max_new, sp)
-            result = runner.wait(uid, timeout=float(req.get("timeout_s", 600)))
-            content, finish = self._finish_text(list(result.output),
-                                                result.finish_reason or "length", stops)
-            n_out = len(result.output)
+            n = max(1, int(req.get("n", 1)))
+            uids = []
+            for i in range(n):
+                sp_i = sp
+                if n > 1 and sp is not None and sp.seed is not None:
+                    sp_i = dataclasses.replace(sp, seed=sp.seed + i)  # distinct draws
+                uids.append(runner.submit(prompt, max_new, sp_i, logprobs=want_lp))
+            timeout = float(req.get("timeout_s", 600))
+            results = [runner.wait(u, timeout=timeout) for u in uids]
+            choices = []
+            for idx, result in enumerate(results):
+                content, finish = self._finish_text(list(result.output),
+                                                    result.finish_reason or "length", stops)
+                choice: Dict[str, Any] = {
+                    "index": idx, "message": {"role": "assistant", "content": content},
+                    "finish_reason": finish}
+                if result.logprob_data:
+                    choice["logprobs"] = {"content": [
+                        {"token": tokenizer.decode([t]), "logprob": d[0],
+                         "top_logprobs": [{"token": tokenizer.decode([i]), "logprob": v}
+                                          for i, v in zip(d[1], d[2])]}
+                        for t, d in zip(result.output, result.logprob_data)]}
+                choices.append(choice)
+            n_out = sum(len(r.output) for r in results)
             self._json(200, {
-                "id": f"chatcmpl-{result.uid}", "object": "chat.completion",
+                "id": f"chatcmpl-{results[0].uid}", "object": "chat.completion",
                 "created": int(t0), "model": req.get("model", "gptq-gguf-tpu"),
-                "choices": [{"index": 0, "message": {"role": "assistant", "content": content},
-                             "finish_reason": finish}],
+                "choices": choices,
                 "usage": {"prompt_tokens": int(prompt.size), "completion_tokens": n_out,
                           "total_tokens": int(prompt.size) + n_out},
             })

@@ -3,9 +3,12 @@
 A dense tiny Llama (the JAX package's init_params, carried into the port)
 is served on port 0; every reply is held to the same engine run directly:
 token streams equal. The tokenizer endpoints use the port's copy of the
-GGUF tokenizer, held to the JAX package's on the same vocab."""
+GGUF tokenizer, held to the JAX package's on the same vocab. Sampled,
+penalized, logprob and n > 1 requests are served (deterministic ones equal
+the engine run directly with the same settings)."""
 
 import concurrent.futures
+import dataclasses
 import json
 import urllib.error
 import urllib.request
@@ -78,10 +81,17 @@ def _status(addr, path, payload):
     return e.value.code, json.loads(e.value.read())
 
 
-def _direct(kind, params, cfg, prompts, max_new):
+def _direct(kind, params, cfg, prompts, max_new, sampling=None, logprobs=0):
+    """The requests run on a fresh engine: their token lists, or their
+    Requests when ``sampling`` (one SamplingParams for all, or a list) or
+    ``logprobs`` is given."""
     eng = _engine(kind, params, cfg)
-    uids = [eng.submit(np.asarray(p), max_new_tokens=max_new) for p in prompts]
-    done = {r.uid: r.output for r in eng.run_until_done()}
+    sps = sampling if isinstance(sampling, list) else [sampling] * len(prompts)
+    uids = [eng.submit(np.asarray(p), max_new_tokens=max_new, sampling_params=sp,
+                       logprobs=logprobs) for p, sp in zip(prompts, sps)]
+    done = {r.uid: r for r in eng.run_until_done()}
+    if sampling is None and not logprobs:
+        return [done[u].output for u in uids]
     return [done[u] for u in uids]
 
 
@@ -127,10 +137,65 @@ def test_bad_requests_answer_400(http_server):
                               "top_p": 0.9, "temperature": 1.0}),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hello"}], "n": 2}),
 ])
-def test_unported_requests_answer_501(http_server, path, payload):
-    _, _, _, addr = http_server
-    code, body = _status(addr, path, payload)
-    assert code == 501 and "not ported yet" in body["error"]
+def test_sampled_requests_answer_200(http_server, path, payload):
+    """The requests the greedy-only server refused (sampling, penalties,
+    logprobs, n > 1) are served; the deterministic ones equal the engine
+    run directly with the same settings."""
+    kind, params, cfg, addr = http_server
+    out = _post(addr, path, payload)
+    if path == "/completion":
+        toks = out["tokens"]
+        assert toks and all(0 <= t < VOCAB for t in toks) and out["finish_reason"] == "length"
+        sp = server._sampling_from_json(payload)
+        if sp is None or sp.is_greedy:  # deterministic: the engine's own tokens
+            assert toks == _direct(kind, params, cfg, [payload["prompt_tokens"]], 64, sp,
+                                   logprobs=payload.get("logprobs", 0))[0].output
+        if "logprobs" in payload:  # JAX's shape: one entry per token, top-n dicts
+            lp = out["logprobs"]
+            assert len(lp["token_logprobs"]) == len(lp["top"]) == len(toks)
+            for chosen, top, t in zip(lp["token_logprobs"], lp["top"], toks):
+                assert [sorted(d) for d in top] == [["id", "logprob"]] * 2
+                assert chosen == top[0]["logprob"] >= top[1]["logprob"]
+                assert top[0]["id"] == t  # greedy: the chosen token is the top one
+    else:
+        choices = out["choices"]
+        assert [c["index"] for c in choices] == list(range(payload.get("n", 1)))
+        for c in choices:
+            assert c["message"]["role"] == "assistant" and isinstance(c["message"]["content"], str)
+            assert c["finish_reason"] in ("length", "stop")
+        assert out["usage"]["completion_tokens"] > 0
+
+
+def test_chat_n_seeded_choices_and_logprobs(http_server):
+    """A seeded sampled chat with n = 2 and logprobs: the two choices
+    differ (seeds s and s + 1), a second call repeats both, and each
+    token's logprob is the engine's own for the same request."""
+    kind, params, cfg, addr = http_server
+    payload = {"messages": [{"role": "user", "content": "hello"}], "n": 2, "temperature": 1.0,
+               "top_k": 40, "seed": 11, "max_tokens": 8, "logprobs": True, "top_logprobs": 3}
+    first = _post(addr, "/v1/chat/completions", payload)
+    again = _post(addr, "/v1/chat/completions", payload)
+    jtok = JaxTokenizer(**_tok_args())
+    prompt = jtok.encode("<user>hello<assistant>")
+    sp = server._sampling_from_json(payload)
+    direct = _direct(kind, params, cfg, [prompt, prompt], 8,
+                     [dataclasses.replace(sp, seed=11), dataclasses.replace(sp, seed=12)],
+                     logprobs=3)
+    # the contiguous engine may reuse a slot's KV prefix (an earlier chat's),
+    # which moves logits in their last bits: logprobs are held to 1e-5
+    for reply in (first, again):
+        assert [c["index"] for c in reply["choices"]] == [0, 1]
+        for choice, req in zip(reply["choices"], direct):
+            assert choice["message"]["content"] == jtok.decode(req.output)
+            content = choice["logprobs"]["content"]
+            assert len(content) == len(req.output) == len(req.logprob_data) == 8
+            assert [e["token"] for e in content] == [jtok.decode([t]) for t in req.output]
+            for e, (chosen, ids, vals) in zip(content, req.logprob_data):
+                assert abs(e["logprob"] - chosen) <= 1e-5
+                assert [t["token"] for t in e["top_logprobs"]] == [jtok.decode([i]) for i in ids]
+                np.testing.assert_allclose([t["logprob"] for t in e["top_logprobs"]], vals,
+                                           rtol=0, atol=1e-5)
+    assert direct[0].output != direct[1].output  # seeds 11 and 12 draw apart
 
 
 def test_stream_chunks_concatenate(http_server):
@@ -169,7 +234,7 @@ class _FailingEngine:
     def __init__(self):
         self.slot_req, self.queue, self.completed, self._uid = [None], [], [], 0
 
-    def submit(self, prompt, max_new_tokens, sampling_params=None):
+    def submit(self, prompt, max_new_tokens, sampling_params=None, logprobs=0):
         self._uid += 1
         self.queue.append(self._uid)
         return self._uid

@@ -112,10 +112,11 @@ checkout of the repository. Phases, each raising on failure:
    on shared inputs (the plain output handed on; each call within 1e-5
    of its group dot's terms, the weights rounded to bf16 as the control);
    (c) phase 3's 12
-   requests served in v1, v4 and v4 i8 (129 launches of that format's
-   kernel per forward, none of another's; v1's and v4's every prefill
-   projection on the tensor-core tiles, v1's and v4's every call of a
-   decode step on their decode tiles) beside phase 3's v2 numbers; (d) perplexity through
+   requests served (on the first FORMAT_SERVING_LAYERS = 8 layers) in v1,
+   v4 and v4 i8 (33 launches of that format's kernel per forward, none of
+   another's; v1's and v4's every prefill projection on the tensor-core
+   tiles, v1's and v4's every call of a decode step on their decode tiles)
+   between two v2 runs at the same depth; (d) perplexity through
    the serving path on the 32-layer model in v2, v1 and v4 (2 sequences
    of 512 tokens, within 0.05 nats/token of each other; every call on the
    format's tensor-core tiles, each format within 1e-3 nats/token of the
@@ -192,7 +193,25 @@ checkout of the repository. Phases, each raising on failure:
    int4 kernel (phase 6's limit), the mix served in each (launches, the
    cache's bytes against KV_BYTES, ms/step); (d) a seeded sampled chat with
    n = 2 and logprobs over serve_http: two distinct choices, repeated on a
-   second call, each token's logprob the engine's own.
+   second call, each token's logprob the engine's own;
+10. stage 1's llama-quantize route (run last, in phase 5's temporary
+   directory, on its 2-layer checkpoint): (a) ``imatrix`` of 16384
+   synthetic tokens written as a llama.cpp .imatrix (layer 0's q/k/v
+   vector within 1e-4 of a float64 host computation of input_layernorm of
+   the embedding; the file read back exactly); (b) ``pack --outtype bf16``
+   with no artifacts (its tensor bytes); (c) ``llama-quantize --ftype
+   Q4_K_M --imatrix`` with every K-quant fit on the card (the recipe's
+   type for every tensor, general.file_type, tensor bytes, 5.316 bits per
+   weight; seconds of host reads, card fits, host packing and writing),
+   ``rtn-quantize --quant_type Q4_K --imatrix`` whose layer-0 artifacts
+   pack to the recipe file's tensors byte for byte, quantize_tensor_blocks
+   of a Q6_K and a Q4_K tensor equal on the card and the CPU, and each
+   linear's imatrix-weighted error of the imatrix fit at most 1.001 times
+   a plain fit's; (d) that file served (v2g launches per forward as its
+   types imply, a prefill's and a B=8 step's v2g calls held call by call
+   with a planted control, greedy tokens against the plain versions' up
+   to a near-tie); (e) ``llama-quantize --ftype Q3_K_M --imatrix``
+   (Q3_K, Q4_K, Q5_K and Q6_K at 8B widths) checked and served the same way.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -3429,11 +3448,12 @@ def hf_weight(r, name: str):
     return torch.from_numpy(np.ascontiguousarray(w.astype(np.float16)))
 
 
-def v2g_per_forward(levels: dict) -> int:
-    """v2g calls of one forward of the stitched model: per layer q/k/v fused
+def v2g_per_forward(levels: dict, packed_head: bool = False) -> int:
+    """v2g calls of one forward of a mixed model: per layer q/k/v fused
     into one when they share a type (else three), o, gate/up fused when they
-    share one (else two), down; the bf16 head is dense."""
-    n = 0
+    share one (else two), down; and the head when it is packed (a bf16 head
+    is dense)."""
+    n = int(packed_head)
     for li in range(GPTQ_LAYERS):
         t = {k: levels[f"blk.{li}.{c}.weight"] for c, k in HF_KEYS.items()}
         n += (1 if t["q_proj"] == t["k_proj"] == t["v_proj"] else 3) + 1
@@ -3492,6 +3512,33 @@ def stitched_calls(params, cfg, rng, device):
     return out
 
 
+def plain_tokens_and_gaps(fused, cfg, prompt, toks, device):
+    """The greedy tokens of ``fused`` from ``prompt`` through v2g's plain
+    version (as many as ``toks``), each step's top-2 gap over max|logit| of
+    the kernel's own stream ``toks`` (one prefill), and the first step at
+    which the two streams differ (None if they agree)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel
+
+    fn0, plain_v2g = qmatmul.dequant_matmul, variant_fns()["v2g"][1]
+    qmatmul.dequant_matmul = lambda x, rql: plain_v2g(x, rql, torch.bfloat16)
+    try:
+        plain = engine.generate(fused, cfg, [prompt], max_new_tokens=len(toks), max_len=64)[0]
+    finally:
+        qmatmul.dequant_matmul = fn0
+    ids = torch.as_tensor(np.concatenate([prompt, toks[:-1]]), device=device)[None]
+    cache = qmodel.init_cache(cfg, 1, 64, device=device)
+    with torch.no_grad():
+        logits, _ = qmodel.forward_cached(fused, cfg, ids, cache, all_logits=True)
+    steps = logits[0, len(prompt) - 1:].float()
+    top2 = torch.topk(steps, 2, dim=-1).values
+    gaps = ((top2[:, 0] - top2[:, 1]) / steps.abs().amax(-1)).tolist()
+    flip = next((i for i, (a, b) in enumerate(zip(toks, plain)) if a != b), None)
+    return plain, gaps, flip
+
+
 def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
     """5, after the pack step: a second level, the layer database, the
     search, the stitcher, and the stitched GGUF served. ``quantize
@@ -3519,7 +3566,7 @@ def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
     from gptq_gguf_tpu_torch.models import loader
     from gptq_gguf_tpu_torch.ops import gptq, qmatmul
     from gptq_gguf_tpu_torch.search import evopress
-    from gptq_gguf_tpu_torch.serving import engine, model as qmodel
+    from gptq_gguf_tpu_torch.serving import model as qmodel
 
     t_step = time.perf_counter()
     peak = [0]
@@ -3795,23 +3842,9 @@ def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
         raise RuntimeError(f"stitched model call by call: {len(bad)} calls over the limit, "
                            f"control rejected at {ctrl_bad}, {len(kcalls)} calls, tensor-core "
                            f"{k_mma}, decode tile {k_dec}, Q6_K {q6_shapes} of {want_q6}")
-    # greedy tokens against the plain versions' on the same params
-    fn0, plain_v2g = qmatmul.dequant_matmul, variant_fns()["v2g"][1]
-    qmatmul.dequant_matmul = lambda x, rql: plain_v2g(x, rql, torch.bfloat16)
-    try:
-        plain = engine.generate(fused, cfg, [prompt], max_new_tokens=6, max_len=64)[0]
-    finally:
-        qmatmul.dequant_matmul = fn0
-    ids = torch.as_tensor(np.concatenate([prompt, toks[:-1]]), device=device)[None]
-    cache = qmodel.init_cache(cfg, 1, 64, device=device)
-    with torch.no_grad():
-        logits, _ = qmodel.forward_cached(fused, cfg, ids, cache, all_logits=True)
-    steps = logits[0, len(prompt) - 1:].float()
-    top2 = torch.topk(steps, 2, dim=-1).values
-    gaps = ((top2[:, 0] - top2[:, 1]) / steps.abs().amax(-1)).tolist()
-    del params, fused, cache, logits
+    plain, gaps, flip = plain_tokens_and_gaps(fused, cfg, prompt, toks, device)
+    del params, fused
     torch.cuda.empty_cache()
-    flip = next((i for i, (a, b) in enumerate(zip(toks, plain)) if a != b), None)
     log(f"  serve in {secs['serve']:.1f} s: tokens {toks} (plain versions: {plain}), "
         f"{launches} v2g launches = {per_forward} x {forwards[0]} forwards; the {n_planes} "
         f"projections' v2 planes equal to the chosen artifacts'; top-2 gap / max|logit| per "
@@ -3865,6 +3898,381 @@ def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: stage 1's llama-quantize route (imatrix, recipes, rtn-quantize)
+# ---------------------------------------------------------------------------
+
+IMATRIX_TOKENS, IMATRIX_SEQ = 16384, 512
+# the layer-0 q/k/v importance vector against a float64 host computation
+# of its input (input_layernorm of the embedding): f32 norms, f32 sums of
+# 512 squares and a 32-step f32 EMA, each at most ~1e-6 of the value
+IMATRIX_F64_RTOL = 1e-4
+# tensor bytes of the 2-layer checkpoint's files: 1,486,880,768 bf16 weights
+# plus 20,480 f32 norm values; the two recipes of it
+BF16_TENSOR_BYTES = 2_973_843_456
+RECIPE_BYTES = {"Q4_K_M": 988_110_848, "Q3_K_M": 858_603_520}
+RECIPE_BITS = {"Q4_K_M": 7_904_886_784}  # 5.316 bits over 1,486,901,248 elements
+N_ELEMENTS = 1_486_901_248
+IMATRIX_HELPS = 1.001  # imatrix fit's weighted error over the plain fit's, at most
+GGUF_LINEARS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+
+
+def recipe_levels(r) -> dict:
+    """GGUF block linear -> its type name, of a recipe file."""
+    return {f"blk.{li}.{c}.weight": r.tensors[f"blk.{li}.{c}.weight"].ggml_type.name
+            for li in range(GPTQ_LAYERS) for c in GGUF_LINEARS}
+
+
+def check_recipe_file(path: Path, ftype: str, t_cli: float, times: dict) -> dict:
+    """The types recipe_tensor_type gives every tensor, general.file_type,
+    the tensor bytes and the summary's bits per weight."""
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.quant import recipes, rtn
+
+    r = GGUFReader(path)
+    types = {n: r.tensors[n].ggml_type.name for n in r.tensor_order}
+    want = {n: recipes.recipe_tensor_type(ftype, n, int(n.split(".")[1]) if n.startswith("blk.")
+                                          else 0, GPTQ_LAYERS, N_HEAD // N_KV).name
+            if recipes._is_quantizable(n, r.tensors[n].shape) else "F32" for n in r.tensor_order}
+    summary = rtn.quantization_summary(path)
+    counts = {k: v["tensors"] for k, v in sorted(summary["types"].items())}
+    log(f"  llama-quantize --ftype {ftype} --imatrix in {t_cli:.1f} s (host reads "
+        f"{times.get('read', 0):.1f} s, card fits {times.get('fit', 0):.1f} s, host packing "
+        f"{times.get('pack', 0):.1f} s, writing {times.get('write', 0):.1f} s): "
+        f"{summary['tensor_bytes']} tensor bytes, {summary['bits_per_weight']:.4f} bits per "
+        f"weight ({summary['tensor_bytes'] * 8} bits over {summary['total_elements']} "
+        f"elements), tensors by type {counts}, general.file_type "
+        f"{r.get('general.file_type')} (card {card_name_and_power()})")
+    if types != want or r.get("general.file_type") != recipes.FTYPE_IDS[ftype]:
+        bad = {n: (types[n], want[n]) for n in types if types[n] != want[n]}
+        raise RuntimeError(f"{ftype}: types {bad} differ from the recipe's, file_type "
+                           f"{r.get('general.file_type')}")
+    if summary["tensor_bytes"] != RECIPE_BYTES[ftype] or summary["total_elements"] != N_ELEMENTS:
+        raise RuntimeError(f"{ftype}: {summary['tensor_bytes']} tensor bytes, want "
+                           f"{RECIPE_BYTES[ftype]}")
+    if ftype in RECIPE_BITS and (summary["tensor_bytes"] * 8 != RECIPE_BITS[ftype]
+                                 or round(summary["bits_per_weight"], 3) != 5.316):
+        raise RuntimeError(f"{ftype}: {summary['bits_per_weight']} bits per weight")
+    return dict(seconds=t_cli, stages=dict(times), tensor_bytes=summary["tensor_bytes"],
+                bits_per_weight=summary["bits_per_weight"], tensors_by_type=counts)
+
+
+def llama_quantize_on_card(src: Path, out: Path, ftype: str, imatrix_path: Path, device):
+    """``llama-quantize --imatrix`` through the command line, its stages
+    timed (recipes.llama_quantize's stage_times) and every K-quant fit
+    held to the card; returns (seconds, stages, fits)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import kquant
+    from gptq_gguf_tpu_torch.quant import recipes
+
+    times, fits = {}, []
+    lq0, fit0 = recipes.llama_quantize, kquant.quantize_rtn
+
+    def timed(*a, **kw):
+        return lq0(*a, **kw, stage_times=times)
+
+    def on_card(x, *a, **kw):
+        fits.append(x.device.type)
+        return fit0(x, *a, **kw)
+
+    recipes.llama_quantize, kquant.quantize_rtn = timed, on_card
+    t = time.perf_counter()
+    try:
+        run_cli(["llama-quantize", "--input", str(src), "--output", str(out), "--ftype", ftype,
+                 "--imatrix", str(imatrix_path), "--device", str(device)])
+    finally:
+        recipes.llama_quantize, kquant.quantize_rtn = lq0, fit0
+    torch.cuda.synchronize()
+    if not fits or set(fits) != {torch.device(device).type}:
+        raise RuntimeError(f"{ftype}: K-quant fits ran on {sorted(set(fits))}")
+    return time.perf_counter() - t, times, len(fits)
+
+
+def serve_recipe(path: Path, per_forward: int, tokens: int, device) -> dict:
+    """``serve`` of a recipe GGUF from 16 prompt tokens: v2g launches per
+    forward as its types imply; every v2g call of an 8 x 16-token prefill
+    and of a B=8 decode step held call by call with the planted control
+    (stitched_calls: the projections of the prefill on the tensor-core
+    tiles, the Q6_K head's 8 rows and every call of the step on the decode
+    tile); greedy tokens against the plain versions' up to a near-tie."""
+    import torch
+
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    prompt = np.arange(1, 17, dtype=np.int64)
+    kept, forwards = {}, [0]
+    load0, fwd0 = qmodel.load_gguf_for_serving, qmodel.forward_cached
+
+    def load_and_keep(*a, **kw):
+        kept["params"], kept["cfg"] = load0(*a, **kw)
+        return kept["params"], kept["cfg"]
+
+    def counted_forward(*a, **kw):
+        forwards[0] += 1
+        return fwd0(*a, **kw)
+
+    t = time.perf_counter()
+    reset_matmul_counts()
+    qmodel.load_gguf_for_serving, qmodel.forward_cached = load_and_keep, counted_forward
+    try:
+        lines = run_cli(["serve", "--gguf-file", str(path), "--prompt-tokens",
+                         *map(str, prompt), "--max-new-tokens", str(tokens), "--max-len", "64",
+                         "--num-slots", "1", "--device", str(device)])
+    finally:
+        qmodel.load_gguf_for_serving, qmodel.forward_cached = load0, fwd0
+    serve_s = time.perf_counter() - t
+    launches = matmul_counts()["v2g"]
+    toks = json.loads(lines[-1])
+    if launches != per_forward * forwards[0] or len(toks) != tokens:
+        raise RuntimeError(f"serve {path.name}: {launches} v2g launches over {forwards[0]} "
+                           f"forwards, want {per_forward} a forward; tokens {toks}")
+    params, cfg = kept.pop("params"), kept.pop("cfg")
+    fused = qmodel.fuse_params_for_serving(params, cfg)
+    calls = stitched_calls(fused, cfg, np.random.default_rng(SEED), device)
+    (kcalls, k_mma, k_dec), (ccalls, _, _) = calls[False], calls[True]
+    bad = [c for c in kcalls if not (c["finite"] and c["err"] <= c["tol"])]
+    ctrl_bad = sum(not c["err"] <= c["tol"] for c in ccalls)
+    shapes = sorted({(c["shape"], c["gs"]) for c in kcalls})
+    # the packed Q6_K head runs at the prefill's 8 last rows: the decode tile
+    if bad or ctrl_bad == 0 or len(kcalls) != 2 * per_forward or k_mma != per_forward - 1 \
+            or k_dec != per_forward + 1:
+        raise RuntimeError(f"{path.name} call by call: {len(bad)} calls over the limit, control "
+                           f"rejected at {ctrl_bad}, {len(kcalls)} calls, tensor-core {k_mma}, "
+                           f"decode tile {k_dec}")
+    plain, gaps, flip = plain_tokens_and_gaps(fused, cfg, prompt, toks, device)
+    del params, fused
+    torch.cuda.empty_cache()
+    worst = max(c["err"] / c["tol_1e5"] for c in kcalls)
+    log(f"  serve {path.name} in {serve_s:.1f} s: tokens {toks} (plain versions: {plain}), "
+        f"{launches} v2g launches = {per_forward} a forward x {forwards[0]}; call by call "
+        f"(8 x 16-token prefill, one B=8 step): {len(kcalls)} calls within their limit (worst "
+        f"{worst:.2f}x of 1e-5 of the terms), tensor-core launches {k_mma}, decode-tile "
+        f"launches {k_dec}, control rejected at {ctrl_bad} of {len(ccalls)} calls; shapes "
+        f"(d_out, d_in, group size) {[(*s, g) for s, g in shapes]}; top-2 gap / max|logit| per "
+        f"step {[round(g, 5) for g in gaps]} (card {card_name_and_power()})")
+    if flip is not None and not gaps[flip] < NEAR_TIE:
+        raise RuntimeError(f"serve {path.name}: step {flip} differs from the plain versions' "
+                           f"with a top-2 gap of {gaps[flip]:.2e} of max|logit|")
+    return dict(seconds=serve_s, v2g_per_forward=per_forward, v2g_launches=launches,
+                forwards=forwards[0], tokens=toks, plain_tokens=plain, first_difference=flip,
+                gaps=gaps, call_by_call=dict(calls=len(kcalls), mma=k_mma, decode=k_dec,
+                                             control_rejected=ctrl_bad, worst_vs_1e5=worst),
+                shapes=[[*s, g] for s, g in shapes])
+
+
+def phase_recipes(tmp: Path, device) -> dict:
+    """10, in phase 5's temporary directory, on its 2-layer Llama-3-8B-width
+    checkpoint: (a) ``imatrix`` of IMATRIX_TOKENS synthetic tokens as a
+    llama.cpp .imatrix (layer 0's q/k/v vector against a float64 host
+    computation, the file read back exactly); (b) ``pack --outtype bf16``
+    with no artifacts (its tensor bytes); (c) ``llama-quantize --ftype
+    Q4_K_M --imatrix`` with the K-quant fits on the card (the recipe's
+    types, bytes and bits per weight); ``rtn-quantize --quant_type Q4_K
+    --imatrix`` of the checkpoint, layer 0's artifacts packed equal to the
+    recipe file's tensors byte for byte; quantize_tensor_blocks of a Q6_K
+    and a Q4_K tensor on the card and on the CPU, equal; every linear's
+    imatrix-weighted error of the imatrix fit at most IMATRIX_HELPS times
+    the plain fit's; (d) the Q4_K_M file served (serve_recipe); (e)
+    ``llama-quantize --ftype Q3_K_M --imatrix``, served."""
+    import torch
+
+    from gptq_gguf_tpu_torch.export.packer import hf_to_gguf_name
+    from gptq_gguf_tpu_torch.formats import convert, ggml, safetensors
+    from gptq_gguf_tpu_torch.formats.ggml import GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.ops import kquant
+    from gptq_gguf_tpu_torch.quant import artifacts, recipes, rtn
+    from gptq_gguf_tpu_torch.quant.imatrix_io import load_imatrix
+    from gptq_gguf_tpu_torch.utils.data import get_data
+
+    t_phase = time.perf_counter()
+    ckpt, rec, secs = tmp / "ckpt", {}, {}
+    card = card_name_and_power()
+    data = ["--calibration_data", "synthetic", "--calibration_tokens", str(IMATRIX_TOKENS),
+            "--calibration_sequence_length", str(IMATRIX_SEQ)]
+
+    # (a) the importance vectors, kept in memory as computed
+    computed = []
+    imatrix0 = rtn.compute_imatrix
+
+    def kept_imatrix(*a, **kw):
+        computed.append(imatrix0(*a, **kw))
+        return computed[-1]
+
+    im_path = tmp / "model.imatrix"
+    rtn.compute_imatrix = kept_imatrix
+    t = time.perf_counter()
+    try:
+        run_cli(["imatrix", "--model_name_or_path", str(ckpt), *data, "--output", str(im_path),
+                 "--device", str(device)])
+    finally:
+        rtn.compute_imatrix = imatrix0
+    secs["imatrix"] = time.perf_counter() - t
+    loaded, ncalls, dataset = load_imatrix(im_path)
+    want_keys = [hf_to_gguf_name(n + ".weight") for n in computed[0]]
+    exact = list(loaded) == want_keys and all(
+        np.array_equal(loaded[g], computed[0][n]) for g, n in zip(want_keys, computed[0]))
+    # layer 0's q/k/v input: input_layernorm of the embedding, in float64
+    hdr = {n: t_ for n, t_ in safetensors.iter_file(
+        ckpt / "model.safetensors",
+        ["model.embed_tokens.weight", "model.layers.0.input_layernorm.weight"])}
+    emb = hdr["model.embed_tokens.weight"].double().numpy()
+    norm_w = hdr["model.layers.0.input_layernorm.weight"].double().numpy()
+    calib = get_data("synthetic", IMATRIX_TOKENS, IMATRIX_SEQ, vocab_size=V)
+    acc = np.zeros(H)
+    for ids in calib:
+        x = emb[ids[0]]
+        h = x / np.sqrt((x * x).mean(-1, keepdims=True) + 1e-5) * norm_w
+        acc += (h * h).sum(0)
+    ref = acc / len(calib)
+    got = loaded["blk.0.attn_q.weight"]
+    rel = float(np.max(np.abs(got - ref) / ref))
+    same_qkv = all(np.array_equal(loaded[f"blk.0.{c}.weight"], got) for c in ("attn_k", "attn_v"))
+    log(f"imatrix ({IMATRIX_TOKENS} synthetic tokens in sequences of {IMATRIX_SEQ}) in "
+        f"{secs['imatrix']:.2f} s: {len(loaded)} vectors (ncall {sorted(set(ncalls.values()))}, "
+        f"dataset {dataset!r}), read back exactly: {exact}; layer 0's q/k/v vector within "
+        f"{rel:.3e} of the float64 host computation (limit {IMATRIX_F64_RTOL:g}) (card {card})")
+    if not exact or len(loaded) != 7 * GPTQ_LAYERS or not same_qkv or not rel <= IMATRIX_F64_RTOL:
+        raise RuntimeError(f"imatrix: read back exactly {exact}, {len(loaded)} vectors, q/k/v "
+                           f"shared {same_qkv}, layer 0 {rel:.3e} from float64")
+    rec["imatrix"] = dict(seconds=secs["imatrix"], vectors=len(loaded), f64_rel=rel)
+    del emb, hdr
+
+    # (b) the float GGUF
+    (tmp / "no-artifacts").mkdir()
+    src = tmp / "model-bf16.gguf"
+    t = time.perf_counter()
+    run_cli(["pack", "--model_dir", str(ckpt), "--quant_dir", str(tmp / "no-artifacts"),
+             "--outfile", str(src), "--outtype", "bf16"])
+    secs["pack_bf16"] = time.perf_counter() - t
+    f_sum = rtn.quantization_summary(src)
+    log(f"  pack --outtype bf16 (no artifacts) in {secs['pack_bf16']:.2f} s: "
+        f"{f_sum['tensor_bytes']} tensor bytes, types {sorted(f_sum['types'])} (card {card})")
+    if f_sum["tensor_bytes"] != BF16_TENSOR_BYTES or set(f_sum["types"]) != {"BF16", "F32"}:
+        raise RuntimeError(f"bf16 GGUF: {f_sum['tensor_bytes']} tensor bytes, types "
+                           f"{f_sum['types']}")
+    rec["bf16_gguf"] = dict(seconds=secs["pack_bf16"], tensor_bytes=f_sum["tensor_bytes"])
+
+    # (c) the Q4_K_M recipe with the imatrix, its K-quant fits on the card
+    q4km = tmp / "model-Q4_K_M.gguf"
+    t_cli, times, n_fits = llama_quantize_on_card(src, q4km, "Q4_K_M", im_path, device)
+    rec["Q4_K_M"] = dict(check_recipe_file(q4km, "Q4_K_M", t_cli, times), fits=n_fits)
+    r = GGUFReader(q4km)
+    levels = recipe_levels(r)
+    if not (all(levels[f"blk.0.{c}.weight"] == "Q4_K" for c in GGUF_LINEARS)
+            and levels["blk.1.attn_v.weight"] == levels["blk.1.ffn_down.weight"] == "Q6_K"):
+        raise RuntimeError(f"Q4_K_M levels {levels}")
+
+    # the two routes: rtn-quantize's layer-0 artifacts packed = the recipe's tensors
+    rtn_dir = tmp / "rtn-layers"
+    computed.clear()
+    rtn.compute_imatrix = kept_imatrix
+    t = time.perf_counter()
+    try:
+        run_cli(["rtn-quantize", "--model_name_or_path", str(ckpt), *data, "--quant_type", "Q4_K",
+                 "--imatrix", "--save_dir", str(rtn_dir), "--device", str(device)])
+    finally:
+        rtn.compute_imatrix = imatrix0
+    secs["rtn_quantize"] = time.perf_counter() - t
+    same_im = all(np.array_equal(computed[0][n], loaded[hf_to_gguf_name(n + ".weight")])
+                  for n in computed[0])
+    equal = []
+    for comp, key in HF_KEYS.items():
+        gname = f"blk.0.{comp}.weight"
+        mod = "self_attn" if key[0] in "qkvo" else "mlp"
+        art = artifacts.load_layer(rtn_dir, f"model.layers.0.{mod}.{key}")
+        perm = np.arange(art.qweight.shape[0])
+        if comp in ("attn_q", "attn_k"):
+            perm = convert.gqa_permute_rows(art.qweight.shape[0],
+                                            N_HEAD if comp == "attn_q" else N_KV)
+        blocks = convert.pack_layer(art.qweight[perm], art.super_group_scale[perm],
+                                    art.group_scale_quant[perm], art.super_group_zero[perm],
+                                    art.group_zero_quant[perm], art.q_type)
+        equal.append(blocks.tobytes() == np.asarray(r.tensor_bytes(gname)).tobytes())
+    log(f"  rtn-quantize --quant_type Q4_K --imatrix in {secs['rtn_quantize']:.1f} s (its "
+        f"imatrix equal to the file's: {same_im}): layer 0's {len(equal)} artifacts packed "
+        f"(q / k rows permuted) equal to the Q4_K_M file's tensors byte for byte: "
+        f"{sum(equal)} of {len(equal)} (card {card})")
+    if not same_im or not all(equal):
+        raise RuntimeError(f"routes: imatrix equal {same_im}, tensors equal {equal}")
+    shutil.rmtree(rtn_dir)
+
+    # card against CPU: the same tensor's blocks from both devices
+    device_rec = {}
+    for name, qtype in (("blk.1.attn_v.weight", T.Q6_K), ("blk.0.attn_k.weight", T.Q4_K)):
+        w = GGUFReader(src).tensor_float(name)
+        im = loaded[name]
+        t = time.perf_counter()
+        on_card = recipes.quantize_tensor_blocks(w, qtype, im, device=device)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_cpu = recipes.quantize_tensor_blocks(w, qtype, im, device="cpu")
+        cpu_s = time.perf_counter() - t
+        differ = int((on_card != on_cpu).any(axis=1).sum())
+        device_rec[name] = dict(differing_superblocks=differ, superblocks=len(on_card),
+                                card_s=card_s, cpu_s=cpu_s,
+                                recipe_equal=on_card.tobytes() == np.asarray(
+                                    r.tensor_bytes(name)).tobytes())
+        log(f"  quantize_tensor_blocks {name} ({qtype.name}, {w.shape}) card vs CPU: "
+            f"{differ} of {len(on_card)} super-blocks differ (card {card_s:.2f} s, CPU "
+            f"{cpu_s:.2f} s); the card's equal to the recipe file's: "
+            f"{device_rec[name]['recipe_equal']} (card {card})")
+        if differ or not device_rec[name]["recipe_equal"]:
+            raise RuntimeError(f"{name}: card and CPU fits differ in {differ} super-blocks")
+    rec["card_vs_cpu"] = device_rec
+
+    # the imatrix helps: weighted error of the recipe's fit against a plain fit
+    ratios = {}
+    t = time.perf_counter()
+    for name in levels:
+        info = r.tensors[name]
+        w = torch.from_numpy(GGUFReader(src).tensor_float(name)).to(device)
+        im = torch.from_numpy(loaded[name]).to(device)
+        w_im = torch.from_numpy(ggml.dequantize(np.asarray(r.tensor_bytes(name)), info.ggml_type,
+                                                info.shape)).to(device)
+        q, p = kquant.quantize_rtn(w, info.ggml_type)
+        w_plain = kquant.dequantize(q, p, info.ggml_type)
+
+        def werr(y):
+            return float((((y - w) ** 2).double().sum(0) * im.double()).sum())
+
+        ratios[name] = werr(w_im) / werr(w_plain)
+        del w, w_im, w_plain, q, p
+    secs["imatrix_helps"] = time.perf_counter() - t
+    worst = max(ratios, key=ratios.get)
+    log(f"  imatrix-weighted squared error, imatrix fit over plain fit, per linear: "
+        f"{ {n: round(v, 5) for n, v in ratios.items()} } (worst {worst} {ratios[worst]:.5f}, "
+        f"limit {IMATRIX_HELPS}; {secs['imatrix_helps']:.1f} s; card {card})")
+    if not all(v <= IMATRIX_HELPS for v in ratios.values()):
+        raise RuntimeError(f"imatrix fit worse than plain: {ratios}")
+    rec["Q4_K_M"]["imatrix_over_plain"] = ratios
+    del r
+    torch.cuda.empty_cache()
+
+    # (d) serve the Q4_K_M file
+    rec["Q4_K_M"]["serve"] = serve_recipe(q4km, v2g_per_forward(levels, packed_head=True), 6,
+                                          device)
+    q4km.unlink()
+
+    # (e) the Q3_K_M recipe, served
+    q3km = tmp / "model-Q3_K_M.gguf"
+    t_cli, times, n_fits = llama_quantize_on_card(src, q3km, "Q3_K_M", im_path, device)
+    rec["Q3_K_M"] = dict(check_recipe_file(q3km, "Q3_K_M", t_cli, times), fits=n_fits)
+    levels3 = recipe_levels(GGUFReader(q3km))
+    if not {"Q3_K", "Q4_K", "Q5_K"} <= set(levels3.values()) \
+            or levels3["blk.0.attn_v.weight"] != "Q5_K":
+        raise RuntimeError(f"Q3_K_M levels {levels3}")
+    src.unlink()
+    rec["Q3_K_M"]["serve"] = serve_recipe(q3km, v2g_per_forward(levels3, packed_head=True), 8,
+                                          device)
+    q3km.unlink()
+    im_path.unlink()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 took {rec['seconds']:.1f} s (card {card})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the v2 kernel variants at full width
 # ---------------------------------------------------------------------------
 
@@ -3898,6 +4306,7 @@ VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m
 
 
 VARIANT_SERVING_LAYERS = 8  # 8c's depth (the first 8 of phase 3's 32 layers)
+FORMAT_SERVING_LAYERS = 8   # 7c's depth, likewise
 
 
 def variant_runs(n_layers: int):
@@ -4563,7 +4972,7 @@ def paged_summary(name, source_line, krec, launches):
 
 
 def run(device) -> dict:
-    """All nine phases on ``device``; returns the kernel summary."""
+    """All ten phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
@@ -4606,13 +5015,18 @@ def run(device) -> dict:
     fparams = {"v2": params, **{f: format_params(params, f) for f in ("v1", "v4", "v4 i8")}}
     cross = phase_format_consistency(fparams, cfg, rng, device)
     fserve = {}
-    # v2 once more after the others: the host-bound step drifts within a
-    # call, so each format is read between two v2 runs
-    for fmt, kernel in (("v1", "v1"), ("v4", "v4"), ("v4 i8", "v4"), ("v2", "v2g")):
-        fcounts, rec = phase_serving(fparams[fmt], cfg, requests, kernel, fmt)
+    # 7c at a cut depth (phase 10 keeps chip_smoke inside its limit); v2 at
+    # the same depth before and after the others: the host-bound step drifts
+    # within a call, so each format is read between two v2 runs
+    cut = dataclasses.replace(cfg, num_hidden_layers=FORMAT_SERVING_LAYERS)
+    for fmt, kernel in (("v2 before", "v2g"), ("v1", "v1"), ("v4", "v4"), ("v4 i8", "v4"),
+                        ("v2", "v2g")):
+        fp = fparams[fmt.split()[0] if fmt == "v2 before" else fmt]
+        fcounts, rec = phase_serving({**fp, "layers": fp["layers"][:FORMAT_SERVING_LAYERS]}, cut,
+                                     requests, kernel, fmt)
         rec.pop("outputs")
         if kernel == "v1":  # phase_serving held every call of 1-8 rows to the decode tile
-            b8 = (4 * N_LAYERS + 1) * rec["b8_steps"]
+            b8 = (4 * FORMAT_SERVING_LAYERS + 1) * rec["b8_steps"]
             if not rec["b8_steps"] or rec["decode_mma_launches"]["v1"] < b8:
                 raise RuntimeError(f"v1 serving: decode-tile launches "
                                    f"{rec['decode_mma_launches']['v1']}, want at least {b8} "
@@ -4622,7 +5036,7 @@ def run(device) -> dict:
         if kernel == "v4":
             n = rec["forwards"]
             body = "v4_pb2_i8" if fmt == "v4 i8" else "v4_pb2"
-            if fcounts[body] != 4 * N_LAYERS * n or fcounts["v4_pb1"] != n:
+            if fcounts[body] != 4 * FORMAT_SERVING_LAYERS * n or fcounts["v4_pb1"] != n:
                 raise RuntimeError(f"{fmt} serving: body launches {fcounts}, {n} forwards")
             # phase_serving held the decode tile's total to every call of
             # 2-8 rows; both bodies among them
@@ -4630,11 +5044,15 @@ def run(device) -> dict:
             if (fcounts[f"{body}_decode_mma"] + fcounts["v4_pb1_decode_mma"] != decode
                     or not fcounts[f"{body}_decode_mma"] or not fcounts["v4_pb1_decode_mma"]):
                 raise RuntimeError(f"{fmt} serving: decode-tile launches {fcounts}")
-        log(f"serving ({fmt}) beside v2 in this call: {rec['serve_decode_ms_per_step']:.2f} vs "
-            f"{serve['serve_decode_ms_per_step']:.2f} ms per decode step, "
-            f"{rec['generated_tok_s']:.1f} vs {serve['generated_tok_s']:.1f} generated tok/s; "
-            f"steady B=8 {rec['decode_ms_per_step']:.2f} vs {serve['decode_ms_per_step']:.2f} ms")
         fserve[fmt] = dict(rec, counts=fcounts)
+    base = fserve["v2 before"]
+    for fmt in ("v1", "v4", "v4 i8", "v2"):
+        rec = fserve[fmt]
+        log(f"serving ({fmt}, depth {FORMAT_SERVING_LAYERS}) beside the v2 run before it: "
+            f"{rec['serve_decode_ms_per_step']:.2f} vs {base['serve_decode_ms_per_step']:.2f} ms "
+            f"per decode step, {rec['generated_tok_s']:.1f} vs {base['generated_tok_s']:.1f} "
+            f"generated tok/s; steady B=8 {rec['decode_ms_per_step']:.2f} vs "
+            f"{base['decode_ms_per_step']:.2f} ms")
     fppl = phase_format_ppl(fparams, cfg, device)
     log(f"phase 7 took {time.time() - t7:.1f} s")
     del fparams
@@ -4675,6 +5093,8 @@ def run(device) -> dict:
                                                     gptq_formats["v2"], device)
         gptq_rec["mixed"] = phase_gptq_mixed(Path(tmp), q4_gguf, v2_layers, device)
         del v2_layers
+        log("== phase 10: the llama-quantize route (imatrix, recipes, rtn-quantize)")
+        recipes_rec = phase_recipes(Path(tmp), device)
 
     # the kernel's numbers for one decode step at B=8: the four projections
     # of every layer plus the lm_head, at the M=8 shapes measured above
@@ -4763,6 +5183,7 @@ def run(device) -> dict:
                             vppl[run]["mma_launches"][variant])
         for name, source, line, variant, shapes, run in VARIANT_MMA_KERNELS],
         "serving": serve, "sampling": sampled, "gptq": gptq_rec, "paged": paged_rec,
+        "recipes": recipes_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),
         "variants": dict(serving=vserve, ppl=vppl, logits=vcross),

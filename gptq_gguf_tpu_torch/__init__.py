@@ -10,7 +10,10 @@ PyTorch versions on the host.
 Ported: GPTQ quantization of a dense Llama checkpoint (the safetensors
 reader, K-quant fitting, the GPTQ solver with its hand-written column-block
 CUDA kernel, the calibration walk and its per-layer artifacts:
-``quantize``) and its GGUF (``pack``). The layer database, the EvoPress
+``quantize``) and its GGUF (``pack``); stage 1's other route, the
+llama-quantize recipes with importance vectors and round-to-nearest
+artifacts (``imatrix``, ``llama-quantize``, ``rtn-quantize``). The layer
+database, the EvoPress
 bit-width search and the stitcher that assembles a mixed GGUF
 (``build-db``, ``search``, ``stitch``). Serving a K-quant GGUF Llama:
 GGUF reading, the v2 runtime weight format, the hand-written v2g

@@ -8,7 +8,11 @@ several quantization levels into the layer database (``split`` one file
 into one layout), ``search`` runs EvoPress over it on the card,
 ``convert-config`` renames its config to GGUF tensors and ``stitch``
 assembles the chosen tensors into one GGUF; ``gguf-split`` shards or
-merges a GGUF (``cli/tools.py``, ``mapper/``, ``search/``). ``ppl``
+merges a GGUF (``cli/tools.py``, ``mapper/``, ``search/``). The
+llama-quantize route: ``imatrix`` measures each linear's importance
+vector, ``rtn-quantize`` writes round-to-nearest artifacts (and a GGUF),
+``llama-quantize`` requantizes a float GGUF with a llama.cpp recipe
+(``quant/{rtn,recipes,imatrix_io}.py``). ``ppl``
 scores a GGUF (dense, or through the serving kernels) or an HF checkpoint
 (``cli/tools.py``). ``serve``
 loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
@@ -200,7 +204,13 @@ def main(argv: Optional[List[str]] = None) -> int:
              "GGUFs of several levels -> the search's layer database"),
             ("search", tools.build_search, tools.run_search, "EvoPress bit-width search"),
             ("gguf-split", tools.build_gguf_split, tools.run_gguf_split,
-             "shard a GGUF, or merge shards")):
+             "shard a GGUF, or merge shards"),
+            ("rtn-quantize", tools.build_rtn, tools.run_rtn,
+             "round-to-nearest K-quant artifacts (optionally imatrix-weighted)"),
+            ("imatrix", tools.build_imatrix, tools.run_imatrix,
+             "importance vectors of every linear (.npz or llama.cpp .imatrix)"),
+            ("llama-quantize", tools.build_llama_quantize, tools.run_llama_quantize,
+             "GGUF -> GGUF with a llama.cpp recipe (Q4_K_M, IQ4_XS, ...)")):
         build(sub.add_parser(name, help=text))
         runs[name] = run
     args = ap.parse_args(argv)

@@ -35,4 +35,4 @@ def load_calibration(args, cfg):
 
     seq = args.calibration_sequence_length or min(cfg.max_position_embeddings, 4096)
     return get_data(args.calibration_data, args.calibration_tokens, seq,
-                    vocab_size=cfg.vocab_size, seed=args.seed)
+                    vocab_size=cfg.vocab_size, seed=getattr(args, "seed", 0))

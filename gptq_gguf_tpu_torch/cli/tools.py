@@ -42,6 +42,22 @@ that directory; ``convert-config`` renames it to GGUF tensors; ``stitch``
 writes the chosen tensors' bytes as one GGUF. ``gguf-split`` shards a GGUF
 (``--split-max-tensors`` / ``--split-max-size``) or merges a set
 (``--merge``). All but ``search`` are host code and launch nothing.
+
+Stage 1's llama-quantize route (``quant/{rtn,recipes,imatrix_io}.py``):
+
+    python -m gptq_gguf_tpu_torch imatrix --model_name_or_path /models/llama \
+      --calibration_data synthetic --calibration_tokens 16384 \
+      --calibration_sequence_length 512 --output model.imatrix [--device cpu]
+    python -m gptq_gguf_tpu_torch llama-quantize --input model-f16.gguf \
+      --output model-Q4_K_M.gguf --ftype Q4_K_M --imatrix model.imatrix [--device cpu]
+    python -m gptq_gguf_tpu_torch rtn-quantize --model_name_or_path /models/llama \
+      --quant_type Q4_K --imatrix --save_dir out/layers --outfile model.gguf [--device cpu]
+
+``imatrix`` writes each linear's importance vector (an .npz under HF and
+GGUF names, or a llama.cpp .imatrix); ``llama-quantize`` requantizes a
+float GGUF with a llama.cpp recipe, its K-quant fits on the card and its
+packing on the host; ``rtn-quantize`` writes round-to-nearest artifacts
+(and with ``--outfile`` the GGUF ``pack`` makes of them).
 """
 
 from __future__ import annotations
@@ -388,3 +404,134 @@ def run_gguf_split(args) -> None:
         max_size=_size_bytes(args.split_max_size) if args.split_max_size else 0)
     for o in out:
         print(f"wrote {o}")
+
+
+# -- stage 1's llama-quantize route: imatrix, rtn-quantize, llama-quantize ----
+
+
+def build_rtn(p: argparse.ArgumentParser) -> None:
+    common.add_model_args(p)
+    common.add_data_args(p)
+    p.add_argument("--quant_type", default="Q4_K",
+                   choices=["Q2_K", "Q3_K", "Q4_K", "Q5_K", "Q6_K"])
+    p.add_argument("--imatrix", action="store_true",
+                   help="importance-weighted scale fitting from a calibration pass")
+    p.add_argument("--pure", action="store_true",
+                   help="quantize embeddings / head at the same type too")
+    p.add_argument("--save_dir", required=True)
+    p.add_argument("--outfile", default=None, help="optionally pack to .gguf")
+    p.add_argument("--summary", default=None, help="quantization_summary.json path")
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+
+
+def run_rtn(args) -> None:
+    """RTN artifacts of every linear (imatrix-weighted with --imatrix),
+    optionally packed into a GGUF with its summary."""
+    from .. import resolve_device
+    from ..quant import rtn
+
+    dev = resolve_device(args.device)
+    cfg, params = common.load_model(args)
+    imatrix = None
+    if args.imatrix:
+        calib = common.load_calibration(args, cfg)
+        imatrix = rtn.compute_imatrix(params, cfg, calib, batch_size=args.batch_size,
+                                      device=dev)
+    qt = args.quant_type
+    qmap = {k: qt for k in ("q_proj", "k_proj", "v_proj", "o_proj",
+                            "gate_proj", "up_proj", "down_proj")}
+    if args.pure:
+        qmap["embed_tokens"] = qt
+        qmap["lm_head"] = qt
+    rtn.rtn_quantize_model(params, cfg, qmap, args.save_dir, imatrix=imatrix,
+                           quant_non_block=args.pure, device=dev)
+    if args.outfile:
+        from ..export import packer
+
+        packer.pack_model(args.model_name_or_path, args.save_dir, args.outfile)
+        if args.summary:
+            rtn.quantization_summary(args.outfile, args.summary)
+        print(f"wrote {args.outfile}")
+
+
+def build_imatrix(p: argparse.ArgumentParser) -> None:
+    common.add_model_args(p)
+    common.add_data_args(p)
+    p.add_argument("--output", required=True,
+                   help=".npz of importance vectors, or a llama.cpp-format binary when "
+                        "the name ends in .imatrix")
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+
+
+def run_imatrix(args) -> None:
+    """Importance vectors of every linear: an .npz under HF and GGUF names,
+    or a llama.cpp .imatrix under GGUF names."""
+    from .. import resolve_device
+    from ..export.packer import hf_to_gguf_name
+    from ..quant import rtn
+
+    dev = resolve_device(args.device)
+    cfg, params = common.load_model(args)
+    calib = common.load_calibration(args, cfg)
+    im = rtn.compute_imatrix(params, cfg, calib, batch_size=args.batch_size, device=dev)
+    out = {}
+    for hf_name, vec in im.items():
+        out[hf_name] = np.asarray(vec, np.float32)
+        gguf_name = hf_to_gguf_name(hf_name + ".weight")
+        if gguf_name:
+            out[gguf_name] = out[hf_name]
+    if str(args.output).endswith(".imatrix"):
+        from ..quant.imatrix_io import save_imatrix
+
+        gguf_only = {k: v for k, v in out.items()
+                     if k.startswith(("blk.", "output", "token_embd"))}
+        save_imatrix(gguf_only, args.output, dataset=str(args.calibration_data))
+        print(f"wrote {len(gguf_only)} importance vectors "
+              f"(llama.cpp .imatrix) to {args.output}")
+    else:
+        np.savez(args.output, **out)
+        print(f"wrote {len(im)} importance vectors (hf + gguf keys) to {args.output}")
+
+
+def build_llama_quantize(p: argparse.ArgumentParser) -> None:
+    from ..quant.recipes import FTYPE_IDS
+
+    p.add_argument("--input", required=True, help="source .gguf (typically F16)")
+    p.add_argument("--output", required=True)
+    p.add_argument("--ftype", required=True, choices=sorted(FTYPE_IDS),
+                   help="recipe, e.g. Q4_K_M / IQ4_XS")
+    p.add_argument("--imatrix", default=None,
+                   help=".npz or llama.cpp .imatrix of per-tensor importance vectors "
+                        "(GGUF tensor names)")
+    p.add_argument("--pure", action="store_true",
+                   help="base type for every tensor (llama-quantize --pure)")
+    p.add_argument("--summary", default=None, help="quantization_summary.json path")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="where the K-quant fits run: cuda (default) or cpu")
+
+
+def run_llama_quantize(args) -> None:
+    """Requantize a GGUF with a recipe; prints the output's bits per weight."""
+    from .. import resolve_device
+    from ..quant import recipes, rtn
+
+    dev = resolve_device(args.device)
+    imatrix = None
+    if args.imatrix:
+        if str(args.imatrix).endswith(".imatrix"):
+            from ..quant.imatrix_io import load_imatrix
+
+            imatrix, _, _ = load_imatrix(args.imatrix)
+        else:
+            with np.load(args.imatrix) as z:
+                imatrix = {k: z[k] for k in z.files}
+    progress = (lambda name, t: print(f"{name} -> {t}")) if args.verbose else None
+    out = recipes.llama_quantize(args.input, args.output, args.ftype, imatrix=imatrix,
+                                 pure=args.pure, progress=progress, device=dev)
+    summary = rtn.quantization_summary(out, args.summary)
+    print(f"wrote {out} ({summary['bits_per_weight']:.3f} bpw)")

@@ -3,9 +3,10 @@
 Trimmed copy of ``gptq_gguf_tpu/formats/ggml.py``: the type table, the
 K-quant specs, the packers and unpackers/dequantizers of Q2_K..Q6_K and
 Q8_0 (with Q8_0's round-to-nearest quantizer, for ``pack --outtype
-q8_0``), and the float passthroughs that ``GGUFReader.tensor_float``
-needs. Pure numpy, byte-identical to the JAX package's blocks; the IQ
-codecs and the native C++ branch stay in the JAX package.
+q8_0``), the round-to-nearest codecs the ``llama-quantize`` recipes write
+(Q4_0, Q8_K, IQ4_NL, IQ4_XS), and the float passthroughs that
+``GGUFReader.tensor_float`` needs. Pure numpy, byte-identical to the JAX
+package's blocks; the native C++ branch stays in the JAX package.
 
 Block layouts (QK_K = 256):
   Q2_K  84B: scales u8[16] | qs u8[64] | d f16 | dmin f16
@@ -14,13 +15,17 @@ Block layouts (QK_K = 256):
   Q5_K 176B: d f16 | dmin f16 | scales u8[12] | qh u8[32] | qs u8[128]
   Q6_K 210B: ql u8[128] | qh u8[64] | scales i8[16] | d f16
   Q8_0  34B: d f16 | qs i8[32]
+  Q4_0  18B: d f16 | qs u8[16]          (value = d * (q - 8))
+  Q8_K 292B: d f32 | qs i8[256] | bsums i16[16]
+  IQ4_NL 18B: d f16 | qs u8[16]         (value = d * IQ4NL_VALUES[q])
+  IQ4_XS 136B: d f16 | scales_h u16 | scales_l u8[4] | qs u8[128]
 """
 
 from __future__ import annotations
 
 import dataclasses
 from enum import IntEnum
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -154,8 +159,18 @@ FILE_TYPE_IDS: Dict[GGMLQuantizationType, int] = {
 }
 
 
+# Exact bits per weight, from the block sizes.
+BITS_PER_WEIGHT: Dict[GGMLQuantizationType, float] = {
+    t: GGML_BLOCK_SIZES[t][1] * 8.0 / GGML_BLOCK_SIZES[t][0] for t in GGML_BLOCK_SIZES
+}
+
+
 def type_size(qtype: GGMLQuantizationType) -> int:
     return GGML_BLOCK_SIZES[qtype][1]
+
+
+def block_elems(qtype: GGMLQuantizationType) -> int:
+    return GGML_BLOCK_SIZES[qtype][0]
 
 
 def row_nbytes(qtype: GGMLQuantizationType, n_elems: int) -> int:
@@ -439,13 +454,239 @@ def quantize_q8_0(x: np.ndarray) -> np.ndarray:
     return pack_q8_0(q, d)
 
 
+# ---------------------------------------------------------------------------
+# Q4_0 (32-element blocks)
+# ---------------------------------------------------------------------------
+
+
+def pack_q4_0(q: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """q: (n, 32) in [0, 15] (value = (x/d)+8), d: (n,) -> (n, 18)."""
+    v = q.astype(np.uint8)
+    qs = v[:, 0:16] | (v[:, 16:32] << 4)
+    return np.concatenate([_f16_bytes(d), qs], axis=1)
+
+
+def unpack_q4_0(blocks: np.ndarray):
+    b = blocks.reshape(-1, 18)
+    d = _f16_from_bytes(b[:, 0:2])
+    qs = b[:, 2:18]
+    q = np.concatenate([qs & 0x0F, qs >> 4], axis=1)
+    return q, d
+
+
+def dequant_q4_0(blocks: np.ndarray) -> np.ndarray:
+    q, d = unpack_q4_0(blocks)
+    return (d[:, None] * (q.astype(np.float32) - 8.0)).astype(np.float32)
+
+
+def quantize_q4_0(x: np.ndarray) -> np.ndarray:
+    """Round-to-nearest Q4_0 of (n, 32) floats -> (n, 18) bytes
+    (llama.cpp quantize_row_q4_0_ref: d = max-magnitude element / -8)."""
+    idx = np.abs(x).argmax(axis=1)
+    mx = x[np.arange(x.shape[0]), idx]
+    d = (mx / -8.0).astype(np.float32)
+    inv = np.where(d != 0, 1.0 / np.where(d != 0, d, 1.0), 0.0)
+    q = np.clip(np.round(x * inv[:, None]) + 8.0, 0, 15).astype(np.uint8)
+    return pack_q4_0(q, d.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Q8_K (the activation format of llama.cpp's K-quant dot products)
+# ---------------------------------------------------------------------------
+
+
+def pack_q8_k(q: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """q: (n, 256) int8, d: (n,) f32 -> (n, 292) bytes; bsums are derived."""
+    n = q.shape[0]
+    qi = q.astype(np.int8)
+    bsums = qi.reshape(n, 16, 16).astype(np.int32).sum(axis=2).astype(np.int16)
+    return np.concatenate(
+        [np.ascontiguousarray(d.astype(np.float32)).view(np.uint8).reshape(n, 4),
+         qi.view(np.uint8),
+         np.ascontiguousarray(bsums).view(np.uint8).reshape(n, 32)],
+        axis=1)
+
+
+def unpack_q8_k(blocks: np.ndarray):
+    b = blocks.reshape(-1, 292)
+    d = np.ascontiguousarray(b[:, 0:4]).view(np.float32).reshape(-1)
+    q = np.ascontiguousarray(b[:, 4:260]).view(np.int8)
+    bsums = np.ascontiguousarray(b[:, 260:292]).view(np.int16).reshape(-1, 16)
+    return q, d, bsums
+
+
+def dequant_q8_k(blocks: np.ndarray) -> np.ndarray:
+    q, d, _ = unpack_q8_k(blocks)
+    return (d[:, None] * q.astype(np.float32)).astype(np.float32)
+
+
+def quantize_q8_k(x: np.ndarray) -> np.ndarray:
+    """llama.cpp quantize_row_q8_K_ref: iscale = -127/x[argmax|x|]."""
+    x = x.reshape(-1, QK_K).astype(np.float32)
+    idx = np.abs(x).argmax(axis=1)
+    mx = x[np.arange(x.shape[0]), idx]
+    zero = mx == 0.0
+    iscale = np.where(zero, 0.0, -127.0 / np.where(zero, 1.0, mx))
+    q = np.minimum(np.rint(iscale[:, None] * x), 127).astype(np.int8)
+    q[zero] = 0
+    d = np.where(zero, 0.0, 1.0 / np.where(zero, 1.0, iscale)).astype(np.float32)
+    return pack_q8_k(q, d)
+
+
+# ---------------------------------------------------------------------------
+# IQ4_NL / IQ4_XS (non-linear 4-bit; llama.cpp's kvalues_iq4nl codebook)
+# ---------------------------------------------------------------------------
+
+IQ4NL_VALUES = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    dtype=np.int8,
+)
+_IQ4NL_MIDS = (IQ4NL_VALUES[:-1].astype(np.float32) + IQ4NL_VALUES[1:]) / 2.0
+_GROUP_MAX_EPS = 1e-15
+
+
+def _best_iq4_index(x: np.ndarray) -> np.ndarray:
+    """llama.cpp best_index_int8: the nearest codebook entry, ties to the
+    higher index."""
+    return np.searchsorted(_IQ4NL_MIDS, x, side="right").astype(np.uint8)
+
+
+def _iq4_fit_scales(xb: np.ndarray, w: np.ndarray, ntry: int = 7) -> np.ndarray:
+    """The weighted scale search of quantize_row_iq4_nl_impl, per 32-block.
+
+    xb, w: (n, 32); returns the float scale of each block (n,). Candidate
+    inverse scales: the refit of the initial grid fit, then (itry +
+    values[0]) / max for itry in [-ntry, ntry]; the winner maximizes
+    sumqx^2 / sumq2 (strict improvement, in candidate order). Builds
+    (n, 2 * ntry + 2, 32) temporaries.
+    """
+    n = xb.shape[0]
+    vals = IQ4NL_VALUES.astype(np.float32)
+    amax_i = np.abs(xb).argmax(axis=1)
+    mx = xb[np.arange(n), amax_i]
+    dead = np.abs(mx) < _GROUP_MAX_EPS
+    safe_mx = np.where(dead, 1.0, mx)
+
+    d0 = -safe_mx / vals[0]
+    id0 = 1.0 / d0
+    cand_ids = [id0]
+    for itry in range(-ntry, ntry + 1):
+        cand_ids.append((itry + vals[0]) / safe_mx)
+    ids = np.stack(cand_ids, axis=1)  # (n, C)
+
+    ql = _best_iq4_index(ids[:, :, None] * xb[:, None, :])  # (n, C, 32)
+    qv = vals[ql]
+    sumqx = (w[:, None, :] * qv * xb[:, None, :]).sum(axis=2)
+    sumq2 = (w[:, None, :] * qv * qv).sum(axis=2)
+    ok = sumq2 > 0
+    metric = np.where(ok, sumqx * sumqx / np.where(ok, sumq2, 1.0), -np.inf)
+    # candidate 0 is the refit of the grid fit: its d is sumqx / sumq2 (d0 if
+    # degenerate); later candidates replace it only on strict improvement
+    d = np.where(ok[:, 0], sumqx[:, 0] / np.where(ok[:, 0], sumq2[:, 0], 1.0), d0)
+    best = metric[:, 0].copy()
+    for c in range(1, ids.shape[1]):
+        better = metric[:, c] > best
+        d = np.where(better, sumqx[:, c] / np.where(ok[:, c], sumq2[:, c], 1.0), d)
+        best = np.where(better, metric[:, c], best)
+    return np.where(dead, 0.0, d)
+
+
+def _iq4_weights(x: np.ndarray, qw: Optional[np.ndarray], sbs: int) -> np.ndarray:
+    """Per-element least-squares weights: qw * sqrt(sigma2 + x^2) with an
+    importance matrix, else x^2."""
+    if qw is None:
+        return x * x
+    sigma2 = 2.0 * (x * x).reshape(-1, sbs).sum(axis=1) / sbs
+    return qw * np.sqrt(sigma2.repeat(sbs).reshape(x.shape) + x * x)
+
+
+def quantize_iq4_nl(x: np.ndarray, quant_weights: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n, 32) floats -> (n, 18) IQ4_NL bytes (llama.cpp quantize_iq4_nl)."""
+    x = x.reshape(-1, 32).astype(np.float32)
+    w = _iq4_weights(x, quant_weights, 32).reshape(-1, 32)
+    d = _iq4_fit_scales(x, w)
+    idv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    L = _best_iq4_index(idv[:, None] * x)
+    qs = (L[:, 0:16] | (L[:, 16:32] << 4)).astype(np.uint8)
+    return np.concatenate([_f16_bytes(d), qs], axis=1)
+
+
+def unpack_iq4_nl(blocks: np.ndarray):
+    b = blocks.reshape(-1, 18)
+    d = _f16_from_bytes(b[:, 0:2])
+    qs = b[:, 2:18]
+    L = np.concatenate([qs & 0x0F, qs >> 4], axis=1)
+    return L, d
+
+
+def dequant_iq4_nl(blocks: np.ndarray) -> np.ndarray:
+    L, d = unpack_iq4_nl(blocks)
+    return (d[:, None] * IQ4NL_VALUES[L].astype(np.float32)).astype(np.float32)
+
+
+def quantize_iq4_xs(x: np.ndarray, quant_weights: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n, 256) floats -> (n, 136) IQ4_XS bytes: per-32-block 6-bit scales
+    (stored + 32) under one f16 d, codebook indices into kvalues_iq4nl."""
+    x = x.reshape(-1, QK_K).astype(np.float32)
+    n = x.shape[0]
+    w = _iq4_weights(x, quant_weights, QK_K)
+    xb = x.reshape(-1, 32)  # (n*8, 32)
+    scales = _iq4_fit_scales(xb, w.reshape(-1, 32)).reshape(n, 8)
+
+    amax_i = np.abs(scales).argmax(axis=1)
+    max_scale = scales[np.arange(n), amax_i]
+    d = -max_scale / 32.0
+    idv = np.where(d != 0.0, 1.0 / np.where(d == 0.0, 1.0, d), 0.0)
+    ls = np.clip(np.rint(idv[:, None] * scales), -32, 31)
+    dl = d[:, None] * ls
+    idl = np.where(dl != 0.0, 1.0 / np.where(dl == 0.0, 1.0, dl), 0.0)
+    L = _best_iq4_index(idl.repeat(32, axis=1).reshape(n, 8, 32) * x.reshape(n, 8, 32))
+    L = L.reshape(n, 8, 2, 16)
+    qs = (L[:, :, 0, :] | (L[:, :, 1, :] << 4)).reshape(n, 128).astype(np.uint8)
+    lq = (ls + 32).astype(np.uint16)
+    scales_l = ((lq & 0x0F)[:, 0::2] | ((lq & 0x0F)[:, 1::2] << 4)).astype(np.uint8)
+    sh = np.zeros(n, np.uint16)
+    for ib in range(8):
+        sh |= ((lq[:, ib] >> 4) & 3).astype(np.uint16) << np.uint16(2 * ib)
+    return np.concatenate(
+        [_f16_bytes(d), np.ascontiguousarray(sh).view(np.uint8).reshape(n, 2), scales_l, qs],
+        axis=1)
+
+
+def unpack_iq4_xs(blocks: np.ndarray):
+    b = blocks.reshape(-1, 136)
+    n = b.shape[0]
+    d = _f16_from_bytes(b[:, 0:2])
+    sh = np.ascontiguousarray(b[:, 2:4]).view(np.uint16).reshape(-1)
+    sl = b[:, 4:8]
+    lo = np.empty((n, 8), np.uint8)
+    lo[:, 0::2] = sl & 0x0F
+    lo[:, 1::2] = sl >> 4
+    hi = np.stack([(sh >> (2 * ib)) & 3 for ib in range(8)], axis=1).astype(np.uint8)
+    ls = (lo | (hi << 4)).astype(np.int16) - 32  # (n, 8)
+    qs = b[:, 8:136].reshape(n, 8, 16)
+    L = np.concatenate([qs & 0x0F, qs >> 4], axis=2).reshape(n, 256)
+    return L, d, ls
+
+
+def dequant_iq4_xs(blocks: np.ndarray) -> np.ndarray:
+    L, d, ls = unpack_iq4_xs(blocks)
+    dl = d[:, None] * ls.astype(np.float32)  # (n, 8)
+    v = IQ4NL_VALUES[L].astype(np.float32).reshape(-1, 8, 32)
+    return (dl[:, :, None] * v).reshape(-1, QK_K).astype(np.float32)
+
+
 _DEQUANT = {
     GGMLQuantizationType.Q2_K: dequant_q2_k,
     GGMLQuantizationType.Q3_K: dequant_q3_k,
     GGMLQuantizationType.Q4_K: dequant_q4_k,
     GGMLQuantizationType.Q5_K: dequant_q5_k,
     GGMLQuantizationType.Q6_K: dequant_q6_k,
+    GGMLQuantizationType.Q4_0: dequant_q4_0,
     GGMLQuantizationType.Q8_0: dequant_q8_0,
+    GGMLQuantizationType.Q8_K: dequant_q8_k,
+    GGMLQuantizationType.IQ4_NL: dequant_iq4_nl,
+    GGMLQuantizationType.IQ4_XS: dequant_iq4_xs,
 }
 
 

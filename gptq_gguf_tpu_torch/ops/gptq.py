@@ -270,7 +270,8 @@ def _solve_core(W: torch.Tensor, U: torch.Tensor, col_group: torch.Tensor,
             # dynamic supergroup refit on the current residual of the next
             # 256 columns
             sg = c1 // sgs
-            p = kquant.fit_supergroups(w[:, c1:c1 + sgs], qtype, cfg.scale_cfg)
+            p = kquant.fit_supergroups(w[:, c1:c1 + sgs], qtype, cfg.scale_cfg,
+                                        card_sums=True)
             ss[:, sg] = p.super_scale.float()[:, 0]
             sz[:, sg] = p.super_zero.float()[:, 0]
             sq[:, sg * gpsg:(sg + 1) * gpsg] = p.scale_q.float()
@@ -301,7 +302,7 @@ def _solve_with_init(W32, U, col_group, col_sg, qtype, cfg: GPTQConfig):
     spec = KQUANT_SPECS[qtype]
     d_row, d_col = W32.shape
     if cfg.static_groups:
-        init = _params_f32(kquant.fit_supergroups(W32, qtype, cfg.scale_cfg))
+        init = _params_f32(kquant.fit_supergroups(W32, qtype, cfg.scale_cfg, card_sums=True))
     else:
         n_sg, ng = d_col // spec.super_group_size, d_col // spec.group_size
         z = functools.partial(torch.zeros, dtype=torch.float32, device=W32.device)
@@ -338,7 +339,8 @@ def gptq_quantize_matrix(W, H, qtype: GGMLQuantizationType, cfg: GPTQConfig = GP
         W32, Hd = _mask_and_damp(H[perm][:, perm], W_masked[:, perm], cfg.rel_damp)
         U, issue = factorize_hinv_cholesky(Hd, factorize)
         del Hd
-        init = _params_f32(kquant.fit_supergroups(W_masked, qtype, cfg.scale_cfg))
+        init = _params_f32(kquant.fit_supergroups(W_masked, qtype, cfg.scale_cfg,
+                                                   card_sums=True))
         qweight, params = _solve_core(W32, U, group_of_col[perm], sg_of_col[perm], init,
                                       qtype, cfg)
         qweight, result = _cast_result(qweight, params, spec)

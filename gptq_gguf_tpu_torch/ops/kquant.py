@@ -9,19 +9,26 @@ square that wraps mod 256, and candidates anchored at the current best
 min).
 
 Arithmetic order. The JAX package's results are those of XLA, which fuses
-a product that feeds an add into one fused multiply-add (one rounding) and
-sums a reduction in index order. On the host the port writes those fused
-products out (``_fma``), sums in XLA:CPU's order (``_red``) and rounds
-square roots and divisions as XLA:CPU does, so on the CPU its codes and
-params are bit-equal to the JAX package's. On the card each of these is
-one plain torch operation (``torch.addcmul``, one torch reduction, one
-``torch.sqrt``, one division): the refit issues each as a separate launch,
-so the host's emulation would only add launches there. The last bit of a
-sum may then differ from the host's, and with it, rarely, a code.
+a product that feeds an add into one fused multiply-add (one rounding),
+sums a reduction in index order and moves a constant factor onto the
+smaller operand of a product. The port writes those fused products out
+(``_fma``), sums in XLA:CPU's order (``_red``), rounds square roots and
+divisions as XLA:CPU does and multiplies in XLA's order, so on the CPU its
+codes and params are bit-equal to the JAX package's. Every step is an
+elementwise IEEE operation in a fixed order (no torch reduction but
+``amax`` / ``amin``, which are exact), so the card computes the same bits
+as the host: a fit does not depend on the device it runs on.
+
+``card_sums=True`` trades that for speed on the card: each ordered sum and
+fused product becomes one torch reduction or ``torch.addcmul`` (about a
+third of the launches), whose last bit, and rarely a code, may differ from
+the host's. The GPTQ walk's dynamic refit takes it: its residual already
+follows the card's solve, not the CPU's. On the CPU it changes nothing.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -76,11 +83,13 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c. On the host with one rounding to f32: the product of two
-    f32 values is exact in f64, so one f64 add and one cast round like a
-    fused multiply-add (up to a double rounding too rare to matter)."""
-    if a.device.type != "cpu":
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+         card_sums: bool = False) -> torch.Tensor:
+    """a * b + c with one rounding to f32: the product of two f32 values is
+    exact in f64, so one f64 add and one cast round like a fused
+    multiply-add (up to a double rounding too rare to matter), on every
+    device alike; with ``card_sums`` on the card, ``torch.addcmul``."""
+    if card_sums and a.device.type != "cpu":
         return torch.addcmul(c, a, b)
     return (a.double() * b.double() + c.double()).float()
 
@@ -99,10 +108,12 @@ _LANES = {("sum_l", 32): 8, ("sum_l2", 32): 8, ("sum_xl", 32): 8, ("err0", 32): 
           ("err", 32): 8, ("sum_l2", 16): 8}
 
 
-def _red(a: torch.Tensor, b: Optional[torch.Tensor] = None, site: str = "") -> torch.Tensor:
+def _red(a: torch.Tensor, b: Optional[torch.Tensor] = None, site: str = "",
+         card_sums: bool = False) -> torch.Tensor:
     """sum over the last axis, kept, of a * b (each product fused into the
-    running sum) or of a. On the card: one torch reduction."""
-    if a.device.type != "cpu":
+    running sum) or of a, in XLA:CPU's order on every device; with
+    ``card_sums`` on the card, one torch reduction."""
+    if card_sums and a.device.type != "cpu":
         return (a if b is None else a * b).sum(-1, keepdim=True)
     if b is None:
         p = a.double()
@@ -122,9 +133,8 @@ def _red(a: torch.Tensor, b: Optional[torch.Tensor] = None, site: str = "") -> t
 
 def _sqrt(t: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root (torch's vectorized CPU sqrt is
-    not: it is off by an ulp on ~1% of inputs; the card's is)."""
-    if t.device.type != "cpu":
-        return torch.sqrt(t)
+    not: it is off by an ulp on ~1% of inputs; the card's is, and f64's
+    rounded to f32 is too)."""
     return torch.sqrt(t.double()).float()
 
 
@@ -156,19 +166,24 @@ def _where(cond, a, b) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def make_quants(x: torch.Tensor, maxq: int,
-                cfg: ScaleSearchConfig = ScaleSearchConfig()) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric min/max grid fit for the signed K-quants (Q3_K / Q6_K).
-    ``x``: (..., gs); returns (scale, zero) of shape (...,), zero always 0.
-    The "mse" branch runs the intended shrink search (rounding the
-    quotient), as the JAX package does."""
+def _symmetric_range(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xmin, xmax) of make_quants' symmetric grid over the last axis
+    (-1 and 1 for a degenerate group)."""
     xmin0 = x.amin(dim=-1)
     xmax0 = x.amax(dim=-1)
     xmax = torch.maximum(xmin0.abs(), xmax0)
     xmin = torch.where(xmin0 < 0, -xmax, xmin0)
     degenerate = xmin == xmax
-    xmin = _where(degenerate, -1.0, xmin)
-    xmax = _where(degenerate, 1.0, xmax)
+    return _where(degenerate, -1.0, xmin), _where(degenerate, 1.0, xmax)
+
+
+def make_quants(x: torch.Tensor, maxq: int, cfg: ScaleSearchConfig = ScaleSearchConfig(),
+                card_sums: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric min/max grid fit for the signed K-quants (Q3_K / Q6_K).
+    ``x``: (..., gs); returns (scale, zero) of shape (...,), zero always 0.
+    The "mse" branch runs the intended shrink search (rounding the
+    quotient), as the JAX package does."""
+    xmin, xmax = _symmetric_range(x)
     scale = _div_c(xmax - xmin, maxq)
 
     if cfg.quant_scale == "mse":
@@ -187,12 +202,12 @@ def make_quants(x: torch.Tensor, maxq: int,
             scale1 = _div_c(xmax1 - xmin1, maxq)
             q = torch.clamp(torch.round(
                 (x - zero_val) / torch.clamp_min(scale1, _f32(1e-9))[..., None]), 0, maxq)
-            y = _fma(q, scale1[..., None], torch.full_like(q, zero_val))
+            y = _fma(q, scale1[..., None], torch.full_like(q, zero_val), card_sums)
             d = (y - x).abs()
             if cfg.norm == 2.0:
-                loss = _red(d, d, "mse")[..., 0]
+                loss = _red(d, d, "mse", card_sums)[..., 0]
             else:
-                loss = _red(d ** cfg.norm, None, "mse")[..., 0]
+                loss = _red(d ** cfg.norm, None, "mse", card_sums)[..., 0]
             better = loss < min_loss
             best = torch.where(better, scale1, best)
             min_loss = torch.where(better, loss, min_loss)
@@ -201,19 +216,22 @@ def make_quants(x: torch.Tensor, maxq: int,
 
 
 def make_k_quants(x: torch.Tensor, maxq: int, cfg: ScaleSearchConfig = ScaleSearchConfig(),
-                  weights: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  weights: Optional[torch.Tensor] = None,
+                  card_sums: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted least-squares scale/min refinement for the unsigned K-quants
     (Q2_K / Q4_K / Q5_K), llama.cpp's ``make_qkx2_quants`` scheme.
     ``x``: (..., gs); returns (scale, zero) of shape (...,) with
     zero = -best_min >= 0. ``weights`` default to av_x + |x|; they may
     also be given as a pair (a, b) of factors of a * b, whose sum the
     reference's compiled program takes as fused products."""
+    red = functools.partial(_red, card_sums=card_sums)
+    fma = functools.partial(_fma, card_sums=card_sums)
     eps = _f32(cfg.eps)
     gs = x.shape[-1]
     factors = weights if isinstance(weights, tuple) else None
     if factors is not None:
         weights = factors[0] * factors[1]
-    sum_x2 = _red(x, x, "sum_x2")
+    sum_x2 = red(x, x, "sum_x2")
     av_x = _sqrt(_div_c(sum_x2, gs))
     if weights is None:
         weights = av_x + x.abs()
@@ -222,17 +240,17 @@ def make_k_quants(x: torch.Tensor, maxq: int, cfg: ScaleSearchConfig = ScaleSear
     x_max = x.amax(dim=-1, keepdim=True)
     const_mask = x_max == x_min
 
-    sum_w = _red(*factors, "sum_w") if factors is not None else _red(weights, None, "sum_w")
+    sum_w = red(*factors, "sum_w") if factors is not None else red(weights, None, "sum_w")
     wx = weights * x  # rounded once: XLA keeps it for sum_x and sum_xl
-    sum_x = _red(wx, None, "sum_x")
+    sum_x = red(wx, None, "sum_x")
 
     scale0 = _where(const_mask, 0.0, _div_c(x_max - x_min, maxq))
     iscale0 = _rdiv(1.0, torch.clamp_min(scale0, eps))
     q0 = torch.clamp(torch.round((x - x_min) * iscale0), 0, maxq)
     q0 = _where(const_mask, 0.0, q0)
 
-    diff0 = _fma(scale0, q0, x_min.expand_as(q0)) - x
-    best_err = _red(weights * diff0, diff0, "err0")
+    diff0 = fma(scale0, q0, x_min.expand_as(q0)) - x
+    best_err = red(weights * diff0, diff0, "err0")
 
     if cfg.nstep < 1:
         return scale0.squeeze(-1), (-x_min).squeeze(-1)
@@ -251,26 +269,26 @@ def make_k_quants(x: torch.Tensor, maxq: int, cfg: ScaleSearchConfig = ScaleSear
         new_q = torch.clamp(torch.round((x - best_min) * cand_iscale), 0, maxq)
         new_q = _where(const_mask, 0.0, new_q)
 
-        sum_l = _red(weights, new_q, "sum_l")
+        sum_l = red(weights, new_q, "sum_l")
         if cfg.compat_uint8_overflow:
             u = new_q.to(torch.uint8)
             nq_sq = (u * u).float()  # wraps mod 256, as uint8 does
         else:
             nq_sq = new_q * new_q
-        sum_l2 = _red(weights, nq_sq, "sum_l2")
-        sum_xl = _red(wx, new_q, "sum_xl")
+        sum_l2 = red(weights, nq_sq, "sum_l2")
+        sum_xl = red(wx, new_q, "sum_xl")
 
-        D = _fma(sum_w, sum_l2, -(sum_l * sum_l))
+        D = fma(sum_w, sum_l2, -(sum_l * sum_l))
         valid = D > eps
         Dsafe = _where(valid, D, 1.0)
-        this_scale = _fma(sum_w, sum_xl, -(sum_x * sum_l)) / Dsafe
-        this_min = _fma(sum_l2, sum_x, -(sum_l * sum_xl)) / Dsafe
+        this_scale = fma(sum_w, sum_xl, -(sum_x * sum_l)) / Dsafe
+        this_min = fma(sum_l2, sum_x, -(sum_l * sum_xl)) / Dsafe
         pos = this_min > 0
         this_scale = torch.where(pos, sum_xl / torch.clamp_min(sum_l2, eps), this_scale)
         this_min = _where(pos, 0.0, this_min)
 
-        diff = _fma(this_scale, new_q, this_min.expand_as(new_q)) - x
-        cand_err = _red(weights * diff, diff, "err")
+        diff = fma(this_scale, new_q, this_min.expand_as(new_q)) - x
+        cand_err = red(weights * diff, diff, "err")
         better = valid & (cand_err < best_err)
         best_scale = torch.where(better, this_scale, best_scale)
         best_min = torch.where(better, this_min, best_min)
@@ -298,13 +316,15 @@ def _int_dtype(spec: KQuantSpec) -> torch.dtype:
 
 def fit_supergroups(x: torch.Tensor, qtype: GGMLQuantizationType,
                     cfg: ScaleSearchConfig = ScaleSearchConfig(),
-                    imatrix: Optional[torch.Tensor] = None) -> SuperGroupParams:
+                    imatrix: Optional[torch.Tensor] = None,
+                    card_sums: bool = False) -> SuperGroupParams:
     """Fit quantization parameters for all supergroups of a (d_row, d_col)
     weight at once (d_col % 256 == 0).
 
     ``imatrix``: optional (d_col,) importance weights (mean squared
     activations) for the llama-quantize ``--imatrix`` path: the weighted
-    types' group weights become ``im * sqrt(sigma2 + x^2)``."""
+    types' group weights become ``im * sqrt(sigma2 + x^2)``. ``card_sums``:
+    the card's faster sums (module docstring)."""
     spec = KQUANT_SPECS[qtype]
     d_row, d_col = x.shape
     n_sg = d_col // spec.super_group_size
@@ -315,11 +335,11 @@ def fit_supergroups(x: torch.Tensor, qtype: GGMLQuantizationType,
     if imatrix is not None and _MAKE_FN[qtype] is make_k_quants:
         im = imatrix.float().reshape(1, n_sg, gpsg, spec.group_size)
         flat = x.reshape(d_row, n_sg, 1, gpsg * spec.group_size)
-        sigma2 = _div_c(_red(flat, flat, "sigma2"), gpsg * spec.group_size)
-        w = (im, _sqrt(_fma(x, x, sigma2.expand_as(x))))
-        scale, zero = make_k_quants(x, maxq, cfg, weights=w)
-    else:
-        scale, zero = _MAKE_FN[qtype](x, maxq, cfg)  # (d_row, n_sg, gpsg)
+        sigma2 = _div_c(_red(flat, flat, "sigma2", card_sums), gpsg * spec.group_size)
+        w = (im, _sqrt(_fma(x, x, sigma2.expand_as(x), card_sums)))
+        scale, zero = make_k_quants(x, maxq, cfg, weights=w, card_sums=card_sums)
+    else:  # (d_row, n_sg, gpsg)
+        scale, zero = _MAKE_FN[qtype](x, maxq, cfg, card_sums=card_sums)
 
     max_scale = scale.amax(dim=-1)
     max_zero = zero.amax(dim=-1)
@@ -331,8 +351,15 @@ def fit_supergroups(x: torch.Tensor, qtype: GGMLQuantizationType,
         return _where(pos, _rdiv(spec.scale_maxq, _where(pos, m, 1.0)), 0.0)
 
     int_dtype = _int_dtype(spec)
-    scale_q = torch.clamp(torch.round(inv(max_scale)[..., None] * scale), 0,
-                          spec.scale_maxq).to(int_dtype)
+    if _MAKE_FN[qtype] is make_quants and cfg.quant_scale != "mse":
+        # an absmax scale is (xmax - xmin) times the f32 constant 1 / maxq,
+        # and the JAX package's compiled fit moves that constant onto the
+        # per-supergroup inverse: round((xmax - xmin) * (inv * (1 / maxq)))
+        xmin, xmax = _symmetric_range(x)
+        scale_q = (xmax - xmin) * _div_c(inv(max_scale), maxq)[..., None]
+    else:
+        scale_q = inv(max_scale)[..., None] * scale
+    scale_q = torch.clamp(torch.round(scale_q), 0, spec.scale_maxq).to(int_dtype)
     zero_q = torch.clamp(torch.round(inv(max_zero)[..., None] * zero), 0,
                          spec.scale_maxq).to(int_dtype)
     return SuperGroupParams(super_scale, super_zero,

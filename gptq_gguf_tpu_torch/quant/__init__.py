@@ -1,1 +1,2 @@
-"""GPTQ calibration walk and its per-layer artifacts."""
+"""GPTQ calibration walk and its per-layer artifacts; the llama-quantize
+route (recipes, RTN, importance vectors)."""

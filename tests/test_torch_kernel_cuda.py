@@ -24,7 +24,11 @@ v2h, v2s, v2m, v2t, v2p and v4). The GPTQ solve repeats its plain version's
 IEEE f32 operations in the same order: codes and errors equal bit for bit. The paged decode kernels and their
 plain versions sum the same f32 terms in another order (and take exp and
 tanh from other libraries; the bf16 / int4 kernels' tensor-core products
-carry q in three bf16 parts and P in two): atol 1e-4 of max|out|."""
+carry q in three bf16 parts and P in two): atol 1e-4 of max|out|.
+
+Beside the kernels, the K-quant fit (no kernel: a string of torch
+operations) on the card against the CPU: every step elementwise IEEE in a
+fixed order, so params and codes equal bit for bit."""
 
 import numpy as np
 import pytest
@@ -89,6 +93,29 @@ def test_kernel_matches_plain(cuda, qtype, M, d_out, d_in, dtype):
     rql = _rql(qtype, d_out, d_in, seed=M * 7 + int(qtype), device=cuda)
     x = torch.randn(M, d_in, generator=torch.Generator().manual_seed(M)).to(cuda, dtype)
     _check(x, rql)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qtype", ALL_K, ids=lambda t: t.name)
+def test_kquant_fit_on_card_equals_cpu(cuda, qtype):
+    """quantize_rtn with and without an importance matrix, the card against
+    the CPU (the llama-quantize route's fit); the GPTQ refit's card_sums
+    path runs too (its sums may differ in the last bit)."""
+    from gptq_gguf_tpu_torch.ops import kquant
+
+    rng = np.random.default_rng(int(qtype))
+    x = torch.from_numpy((rng.normal(size=(96, 1024)) * 0.02).astype(np.float32))
+    x[0, :256] = 0.0
+    im = torch.from_numpy(rng.uniform(0.05, 3.0, 1024).astype(np.float32))
+    for imx in (None, im):
+        q_cpu, p_cpu = kquant.quantize_rtn(x, qtype, imatrix=imx)
+        q_gpu, p_gpu = kquant.quantize_rtn(x.to(cuda), qtype,
+                                           imatrix=None if imx is None else imx.to(cuda))
+        assert torch.equal(q_gpu.cpu(), q_cpu)
+        for a, b in zip(p_gpu, p_cpu):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    p = kquant.fit_supergroups(x.to(cuda), qtype, card_sums=True)
+    assert all(a.is_cuda and a.shape == b.shape for a, b in zip(p, p_cpu))
 
 
 @pytest.mark.cuda

@@ -88,9 +88,10 @@ checkout of the repository. Phases, each raising on failure:
    attention without its last live chunk) that must fail the same limit;
    PagedContinuousBatchingEngine serving
    phase 3's 12-request mix in bf16, int4 and on an oversubscribed 24-page
-   pool (budgets, pages returned, 32 kernel launches per decode step); a
-   steady B=8 step at fill 300 and 1900; HTTP (serve_http on port 0): 8
-   concurrent requests equal the engine's direct outputs, one streamed;
+   pool (budgets, pages returned, a kernel launch per layer and decode
+   step); a steady B=8 step at fill 300 and 1900; HTTP (serve_http on port
+   0): 8 concurrent requests equal the engine's direct outputs, one
+   streamed; the engine runs on the first PAGED_SERVING_LAYERS = 8 layers;
 7. the v1 and v4 runtime formats at full width (after phase 6, on the same
    model: the v2 weights converted on the card, every format's planes held
    to the package's packers first): (a) the v1 kernel and the v4 kernel's
@@ -171,7 +172,8 @@ checkout of the repository. Phases, each raising on failure:
    under v2t and v2s: theirs, and v2g's on the head), v2m, v2t and v2s
    within 1e-3 nats/token of the same model through their plain versions;
 9. sampled decoding and the int8 / int4 contiguous caches (run after phase
-   4, on phase 3's model): (a) the sampler chain (serving/sampling.py) on
+   4, on the first SAMPLED_SERVING_LAYERS = 8 layers of phase 3's model,
+   phase 3's mix served greedily at that depth first as the reference): (a) the sampler chain (serving/sampling.py) on
    one B=8 decode step's logits, each row with its own temperature, top-k,
    top-p, min-p, penalties and seed, on the card and on the CPU: penalized
    logits within 1e-6, masks equal but at elements whose exclusive mass
@@ -183,10 +185,10 @@ checkout of the repository. Phases, each raising on failure:
    3's 12 requests with mixed settings (mix_sampling) through the
    contiguous engine twice (phase 3's launches per forward, every call of
    a B=8 step on v2g's decode tile; the same tokens both times) and the
-   paged engine (129 v2g launches a forward, one paged-kernel launch a
+   paged engine (4 v2g launches a layer plus the head a forward, one paged-kernel launch a
    layer and step), each seeded request equal to itself served alone and
    on the paged engine up to a near-tie, top_k = 1 at temperature 1 equal
-   to phase 3's greedy tokens, ms/step and tok/s; (c) the int8 and int4
+   to the greedy tokens at its depth, ms/step and tok/s; (c) the int8 and int4
    caches: 2-layer logits (a 128-token prefill and 4 decode steps) on the
    card against the CPU plain path (KV_CPU_LIMIT: phase 4's for int8) and
    against the bf16 cache (KV_LOGIT_LIMIT), the contiguous int4 cache against the paged
@@ -211,7 +213,24 @@ checkout of the repository. Phases, each raising on failure:
    types imply, a prefill's and a B=8 step's v2g calls held call by call
    with a planted control, greedy tokens against the plain versions' up
    to a near-tie); (e) ``llama-quantize --ftype Q3_K_M --imatrix``
-   (Q3_K, Q4_K, Q5_K and Q6_K at 8B widths) checked and served the same way.
+   (Q3_K, Q4_K, Q5_K and Q6_K at 8B widths) checked and served the same way;
+11. the qwen3 and qwen2 families (run after phase 10, in the same temporary
+   directory): (a) a seeded 2-layer checkpoint of Qwen3-8B's widths (hidden
+   4096, 32 heads of 128, 8 KV heads, intermediate 12288, vocab 151936; q /
+   k norm weights drawn) through ``quantize`` (GPTQ on the solve kernel,
+   16384 tokens, embedding and head RTN at the default Q4_K; 384 solve
+   launches), ``pack``
+   and ``serve`` (9 v2g calls a forward: q / k / v and gate / up fused, the
+   head padded to 152064 rows; the calls of an 8 x 16-token prefill and a
+   B=8 step held call by call with the planted control; tokens against the
+   plain versions' up to a near-tie), then 4 greedy requests on the
+   contiguous and the paged engine (bf16 pool), their tokens equal up to a
+   near-tie; (b) a seeded 2-layer checkpoint of Qwen2.5-7B's widths (hidden
+   3584, 28 heads, 4 KV heads, intermediate 18944, vocab 152064; q / k / v
+   biases drawn) through ``rtn-quantize --outfile`` and ``serve`` the same
+   way (12 v2g calls a forward: q / k / v apart, the bf16 head dense), and
+   the solve kernel at its block shapes and over one whole 18944-column
+   down solve, against its plain version.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -232,6 +251,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1526,7 +1546,7 @@ def phase_sampled_serving(params, cfg, requests, greedy, device, card: str):
     forward, every call of a B=8 step on v2g's decode tile) and the paged
     engine: every request repeats its tokens across the two runs; each
     seeded one equals itself served alone and on the paged engine up to a
-    near-tie; top_k = 1 at temperature 1 gives phase 3's greedy tokens."""
+    near-tie; top_k = 1 at temperature 1 gives the greedy reference's tokens."""
     from gptq_gguf_tpu_torch.serving import engine
 
     sps = mix_sampling(len(requests))
@@ -1540,7 +1560,7 @@ def phase_sampled_serving(params, cfg, requests, greedy, device, card: str):
     after = phase_serving(params, cfg, requests, "v2g", "greedy after the sampled mix",
                           steady=False)[1]
     if after.pop("outputs") != greedy:
-        raise RuntimeError("greedy mix: tokens differ from phase 3's")
+        raise RuntimeError("greedy mix: tokens differ from the greedy reference's")
     seeded = [i for i, sp in enumerate(sps) if sp.seed is not None]
     compared = {}
     for i in seeded:
@@ -1555,7 +1575,7 @@ def phase_sampled_serving(params, cfg, requests, greedy, device, card: str):
         if sp.top_k == 1 and not sp.is_greedy:
             compared[f"top_k=1 {i}"] = same_stream(
                 params, cfg, requests[i], sp.__class__(), a[i], greedy[i],
-                f"request {i} top_k=1 at T=1 vs phase 3's greedy", device)
+                f"request {i} top_k=1 at T=1 vs the greedy reference", device)
     p_outs, p_rec = paged_sampled(params, cfg, requests, sps, device)
     for i in seeded:
         compared[f"paged {i}"] = same_stream(params, cfg, requests[i], sps[i], p_outs[i], a[i],
@@ -1712,8 +1732,9 @@ def phase_kv_quant(params, cfg, rng, requests, greedy, device, card: str):
                                engine_kw={"kv_quantized": kvd})
         outs = rec.pop("outputs")
         same = sum(x == y for o, g in zip(outs, greedy) for x, y in zip(o, g))
-        if rec["kv_bytes"] != KV_BYTES[kvd]:
-            raise RuntimeError(f"kv {kvd}: {rec['kv_bytes']} B allocated, want {KV_BYTES[kvd]}")
+        want = KV_BYTES[kvd] * cfg.num_hidden_layers // N_LAYERS  # the cache of this depth
+        if rec["kv_bytes"] != want:
+            raise RuntimeError(f"kv {kvd}: {rec['kv_bytes']} B allocated, want {want}")
         log(f"kv {kvd} serving (9c, {card}): {rec['serve_decode_ms_per_step']:.2f} ms per "
             f"decode step, {rec['generated_tok_s']:.1f} generated tok/s, steady B=8 "
             f"{rec['decode_ms_per_step']:.2f} ms; KV {rec['kv_bytes']} B "
@@ -3226,20 +3247,22 @@ PACK_PROMPT = "The quick brown fox jumps over the lazy dog."
 NEAR_TIE = 3e-3  # top-2 gap, as a fraction of max|logit|, below which a greedy step may flip
 
 
-def write_tokenizer(ckpt: Path) -> None:
-    """A BPE tokenizer.json of the checkpoint's V tokens beside its
-    config.json, of the form tests/test_packer.py's write_tiny_tokenizer
-    writes at 256: ids 0-255 the GPT-2 byte alphabet (any text encodes, a
-    byte a token), the rest "<tN>", the last an added special token."""
+def write_tokenizer(ckpt: Path, n_vocab: Optional[int] = None) -> None:
+    """A BPE tokenizer.json of the checkpoint's tokens (V, or ``n_vocab``)
+    beside its config.json, of the form tests/test_packer.py's
+    write_tiny_tokenizer writes at 256: ids 0-255 the GPT-2 byte alphabet
+    (any text encodes, a byte a token), the rest "<tN>", the last an added
+    special token."""
     from gptq_gguf_tpu_torch.serving.tokenizer import _BYTE_ENC
 
+    n = n_vocab or V
     vocab = {_BYTE_ENC[b]: b for b in range(256)}
-    vocab.update({f"<t{i}>": i for i in range(256, V - 1)})
+    vocab.update({f"<t{i}>": i for i in range(256, n - 1)})
     tok = {"model": {"type": "BPE", "vocab": vocab, "merges": []},
-           "added_tokens": [{"id": V - 1, "content": "<|end_of_text|>", "special": True}]}
+           "added_tokens": [{"id": n - 1, "content": "<|end_of_text|>", "special": True}]}
     (ckpt / "tokenizer.json").write_text(json.dumps(tok))
     (ckpt / "tokenizer_config.json").write_text(json.dumps({"bos_token_id": 0,
-                                                            "eos_token_id": V - 1}))
+                                                            "eos_token_id": n - 1}))
 
 
 def run_cli(argv) -> list:
@@ -3988,13 +4011,16 @@ def llama_quantize_on_card(src: Path, out: Path, ftype: str, imatrix_path: Path,
     return time.perf_counter() - t, times, len(fits)
 
 
-def serve_recipe(path: Path, per_forward: int, tokens: int, device) -> dict:
+def serve_recipe(path: Path, per_forward: int, tokens: int, device, packed_head: bool = True,
+                 keep=None) -> dict:
     """``serve`` of a recipe GGUF from 16 prompt tokens: v2g launches per
     forward as its types imply; every v2g call of an 8 x 16-token prefill
     and of a B=8 decode step held call by call with the planted control
     (stitched_calls: the projections of the prefill on the tensor-core
-    tiles, the Q6_K head's 8 rows and every call of the step on the decode
-    tile); greedy tokens against the plain versions' up to a near-tie."""
+    tiles, a packed head's 8 rows and every call of the step on the decode
+    tile); greedy tokens against the plain versions' up to a near-tie.
+    ``keep``: a dict that receives the fused params and config the command
+    loaded (else they are freed)."""
     import torch
 
     from gptq_gguf_tpu_torch.serving import model as qmodel
@@ -4033,13 +4059,15 @@ def serve_recipe(path: Path, per_forward: int, tokens: int, device) -> dict:
     bad = [c for c in kcalls if not (c["finite"] and c["err"] <= c["tol"])]
     ctrl_bad = sum(not c["err"] <= c["tol"] for c in ccalls)
     shapes = sorted({(c["shape"], c["gs"]) for c in kcalls})
-    # the packed Q6_K head runs at the prefill's 8 last rows: the decode tile
-    if bad or ctrl_bad == 0 or len(kcalls) != 2 * per_forward or k_mma != per_forward - 1 \
-            or k_dec != per_forward + 1:
+    # a packed head runs at the prefill's 8 last rows: the decode tile
+    if bad or ctrl_bad == 0 or len(kcalls) != 2 * per_forward \
+            or k_mma != per_forward - packed_head or k_dec != per_forward + packed_head:
         raise RuntimeError(f"{path.name} call by call: {len(bad)} calls over the limit, control "
                            f"rejected at {ctrl_bad}, {len(kcalls)} calls, tensor-core {k_mma}, "
                            f"decode tile {k_dec}")
     plain, gaps, flip = plain_tokens_and_gaps(fused, cfg, prompt, toks, device)
+    if keep is not None:
+        keep.update(params=fused, cfg=cfg)
     del params, fused
     torch.cuda.empty_cache()
     worst = max(c["err"] / c["tol_1e5"] for c in kcalls)
@@ -4273,6 +4301,309 @@ def phase_recipes(tmp: Path, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the qwen3 and qwen2 families, checkpoint to served tokens
+# ---------------------------------------------------------------------------
+
+# the published configs (Qwen/Qwen3-8B and Qwen/Qwen2.5-7B config.json),
+# their depth cut to GPTQ_LAYERS when written
+QWEN3_8B = dict(model_type="qwen3", architectures=["Qwen3ForCausalLM"], vocab_size=151936,
+                hidden_size=4096, intermediate_size=12288, num_hidden_layers=36,
+                num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+                max_position_embeddings=40960, rope_theta=1000000.0, rms_norm_eps=1e-6,
+                tie_word_embeddings=False, attention_bias=False, hidden_act="silu")
+QWEN25_7B = dict(model_type="qwen2", architectures=["Qwen2ForCausalLM"], vocab_size=152064,
+                 hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+                 num_attention_heads=28, num_key_value_heads=4,
+                 max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-6,
+                 tie_word_embeddings=False, sliding_window=131072, use_sliding_window=False,
+                 max_window_layers=28, hidden_act="silu")
+# 11a's calibration set: four sequences of CALIB_SEQ (phase 5's synthetic data)
+FAMILY_CALIB_TOKENS = 16384
+# v2g calls of one forward, from the fusion rule: qwen3 q/k/v fused (1), o,
+# gate/up fused (1), down, and its Q4_K head; qwen2 q/k/v apart (3: its
+# biases), o, gate/up, down, its head dense (bf16); phase 5 served 8 (its
+# head dense)
+FAMILY_V2G_PER_FORWARD = {"qwen3": 4 * GPTQ_LAYERS + 1, "qwen2": 6 * GPTQ_LAYERS}
+FAMILY_TOKENS = 6       # greedy tokens of each ``serve``
+FAMILY_REQUESTS = 4     # requests on the contiguous and the paged engine
+
+
+def family_solves_of(hf: dict):
+    """(name, rows, column blocks) of a layer's block solves at ``hf``'s
+    widths, as phase 5's SOLVE_SHAPES: q/k/v and gate/up row-concatenated
+    (Qwen2.5-7B: 3584 + 512 + 512 and 2 x 18944 rows over 28 blocks), o,
+    down over intermediate / BLOCK blocks (148)."""
+    h, inter = hf["hidden_size"], hf["intermediate_size"]
+    nh, nkv = hf["num_attention_heads"], hf["num_key_value_heads"]
+    hd = hf.get("head_dim") or h // nh
+    return (("qkv", (nh + 2 * nkv) * hd, h // BLOCK), ("o", h, nh * hd // BLOCK),
+            ("gateup", 2 * inter, h // BLOCK), ("down", h, inter // BLOCK))
+
+
+def write_family_checkpoint(path: Path, hf: dict, device) -> None:
+    """A seeded checkpoint of ``hf``'s widths and GPTQ_LAYERS layers, bf16
+    weights of std 0.02 as write_checkpoint's; qwen2's q / k / v biases
+    (std 0.5) and qwen3's q / k norm weights (1 + 0.1 x normal) drawn, so
+    that both are exercised."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 11)
+
+    def rnd(*shape, std=0.02, mean=0.0):
+        return (mean + torch.randn(shape, generator=gen, device=device) * std
+                ).to(torch.bfloat16).cpu()
+
+    h, inter, vocab = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    nh, nkv = hf["num_attention_heads"], hf["num_key_value_heads"]
+    hd = hf.get("head_dim") or h // nh
+    ones = torch.ones(h, dtype=torch.bfloat16)
+    t = {"model.embed_tokens.weight": rnd(vocab, h), "model.norm.weight": ones,
+         "lm_head.weight": rnd(vocab, h)}
+    for i in range(GPTQ_LAYERS):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": ones, p + "post_attention_layernorm.weight": ones,
+                  p + "self_attn.q_proj.weight": rnd(nh * hd, h),
+                  p + "self_attn.k_proj.weight": rnd(nkv * hd, h),
+                  p + "self_attn.v_proj.weight": rnd(nkv * hd, h),
+                  p + "self_attn.o_proj.weight": rnd(h, nh * hd),
+                  p + "mlp.gate_proj.weight": rnd(inter, h), p + "mlp.up_proj.weight": rnd(inter, h),
+                  p + "mlp.down_proj.weight": rnd(h, inter)})
+        if hf["model_type"] == "qwen2":
+            for k, n in (("q", nh), ("k", nkv), ("v", nkv)):
+                t[p + f"self_attn.{k}_proj.bias"] = rnd(n * hd, std=0.5)
+        if hf["model_type"] == "qwen3":
+            t[p + "self_attn.q_norm.weight"] = rnd(hd, std=0.1, mean=1.0)
+            t[p + "self_attn.k_norm.weight"] = rnd(hd, std=0.1, mean=1.0)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(dict(hf, num_hidden_layers=GPTQ_LAYERS,
+                                                      torch_dtype="bfloat16")))
+    write_safetensors(t, path / "model.safetensors")
+    write_tokenizer(path, vocab)
+
+
+def family_engines(params, cfg, rng, device) -> dict:
+    """FAMILY_REQUESTS greedy requests on the contiguous engine and on the
+    paged engine (bf16 pool): every request's tokens equal, or the first
+    difference at a near-tie of the contiguous stream (NEAR_TIE of
+    max|logit|); the paged kernel launched once a layer and decode step."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel
+
+    requests = serve_requests(rng, cfg, FAMILY_REQUESTS, 16, 65, 8, 9)
+    out, steps = {}, [0]
+    step0 = engine._paged_decode_step
+
+    def counted_step(*a, **kw):
+        steps[0] += 1
+        return step0(*a, **kw)
+
+    for label in ("contiguous", "paged"):
+        if label == "paged":
+            eng = engine.PagedContinuousBatchingEngine(params, cfg, num_slots=FAMILY_REQUESTS,
+                                                       max_len=128, page_size=64, device=device)
+        else:
+            eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=FAMILY_REQUESTS,
+                                                  max_len=128)
+        uids = [eng.submit(p, max_new_tokens=n) for p, n in requests]
+        pa.paged_flash_decode.launches = 0
+        engine._paged_decode_step = counted_step
+        t = time.perf_counter()
+        try:
+            done = {r.uid: r.output for r in eng.run_until_done()}
+        finally:
+            engine._paged_decode_step = step0
+        out[label] = dict(seconds=time.perf_counter() - t,
+                          tokens=[list(map(int, done[u])) for u in uids])
+        del eng
+    launches = pa.paged_flash_decode.launches
+    if not steps[0] or launches != cfg.num_hidden_layers * steps[0]:
+        raise RuntimeError(f"paged engine: {launches} paged-kernel launches over {steps[0]} "
+                           f"decode steps, want {cfg.num_hidden_layers} a step")
+    flips = []
+    for (prompt, n), a, b in zip(requests, out["contiguous"]["tokens"], out["paged"]["tokens"]):
+        if len(a) != n or len(b) != n or not all(0 <= x < cfg.vocab_size for x in a + b):
+            raise RuntimeError(f"engines: {len(a)} / {len(b)} tokens of {n}, or out of range")
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if t is None:
+            continue
+        ids = torch.as_tensor(np.concatenate([prompt, a[:t]]), device=device)[None]
+        cache = qmodel.init_cache(cfg, 1, 128, device=device)
+        with torch.no_grad():
+            logits, _ = qmodel.forward_cached(params, cfg, ids, cache)
+        top2 = torch.topk(logits[0].float(), 2).values
+        gap = float(top2[0] - top2[1]) / float(logits.abs().max())
+        flips.append((t, gap))
+        if not gap < NEAR_TIE:
+            raise RuntimeError(f"paged and contiguous tokens differ at step {t}, top-2 gap "
+                               f"{gap:.2e} of max|logit|")
+    log(f"  engines, {FAMILY_REQUESTS} greedy requests: contiguous "
+        f"{out['contiguous']['seconds']:.2f} s, paged {out['paged']['seconds']:.2f} s "
+        f"({launches} paged-kernel launches over {steps[0]} decode steps); tokens equal"
+        + (f" but at near-ties {flips}" if flips else "")
+        + f" (card {card_name_and_power()})")
+    return dict(out, paged_launches=launches, decode_steps=steps[0], near_tie_flips=flips)
+
+
+def family_solves(rng, device) -> dict:
+    """The solve kernel at Qwen2.5-7B's block shapes against its plain
+    version (Q4_K, bit-equal), and the blocked solve of a down projection
+    over one 18944-column Hessian factor (148 blocks) through both: codes
+    and scales equal. The factor comes from the card (the walk factorizes
+    above gptq.HOST_FACTORIZE_THRESHOLD columns on the host, in f64: ~20 s
+    at this width, which the check does not need)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS, GGMLQuantizationType as T
+    from gptq_gguf_tpu_torch.ops import gptq, kquant
+
+    U_full = solve_factor(rng, device)
+    for name, d_row, _ in family_solves_of(QWEN25_7B):
+        args = solve_inputs(rng, u_block(U_full, BLOCK), d_row, T.Q4_K, device)
+        qk, ek = gptq.solve_block(*args)
+        qp, ep = gptq.solve_block_reference(*args)
+        if not (torch.equal(qk, qp) and torch.equal(ek, ep)):
+            raise RuntimeError(f"gptq_solve {name} ({d_row} rows) at Qwen2.5-7B width: kernel "
+                               "and plain differ")
+    del U_full
+    h, inter = QWEN25_7B["hidden_size"], QWEN25_7B["intermediate_size"]
+    W = torch.as_tensor(rng.normal(size=(h, inter)) * 0.02, dtype=torch.float32, device=device)
+    X = torch.as_tensor(rng.normal(size=(2048, inter)), dtype=torch.float32, device=device)
+    cfg = gptq.GPTQConfig()
+    W32, Hd = gptq._mask_and_damp(2.0 * X.T @ X / X.shape[0], W, cfg.rel_damp)
+    del X
+    t = time.perf_counter()
+    U, bad = gptq.factorize_hinv_cholesky(Hd, "device")
+    torch.cuda.synchronize()
+    fact_s = time.perf_counter() - t
+    spec = KQUANT_SPECS[T.Q4_K]
+    cols = torch.arange(inter, device=device)
+    runs = {}
+    for label, fn in (("kernel", gptq.solve_block), ("plain", gptq.solve_block_reference)):
+        solve0 = gptq.solve_block
+        gptq.solve_block, launches0 = fn, solve0.launches
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            q, p = gptq._solve_with_init(W32.clone(), U, cols // spec.group_size,
+                                         cols // spec.super_group_size, T.Q4_K, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            gptq.solve_block = solve0
+        runs[label] = (q, p, secs, solve0.launches - launches0)
+    (qk, pk, sk, n), (qp, pp, sp, _) = runs["kernel"], runs["plain"]
+    equal = torch.equal(qk, qp) and all(torch.equal(a, b) for a, b in zip(pk, pp))
+    obj = h_objective(W32 - kquant.dequantize(qk, pk, T.Q4_K), Hd)
+    log(f"  solve kernel at Qwen2.5-7B's four block shapes bit-equal to its plain version; "
+        f"down ({h}x{inter}) over one {inter}-column factor (device factorization "
+        f"{fact_s:.2f} s): {n} launches, kernel {sk:.3f} s, plain {sp:.3f} s, codes and "
+        f"scales equal: {equal}, objective {obj:.6e}")
+    if bad or n != inter // BLOCK or not equal or not math.isfinite(obj):
+        raise RuntimeError("down solve at Qwen2.5-7B width: kernel and plain disagree")
+    return dict(kernel_s=sk, plain_s=sp, factorize_s=fact_s, launches=n, equal=equal,
+                objective=obj)
+
+
+def phase_families(tmp: Path, device) -> dict:
+    """11: (a) a Qwen3-8B-width checkpoint (GPTQ_LAYERS layers) through
+    ``quantize`` (GPTQ on the solve kernel, FAMILY_CALIB_TOKENS tokens,
+    embedding and head RTN at the command's default Q4_K), ``pack`` and ``serve`` (v2g launches per
+    forward as FAMILY_V2G_PER_FORWARD, the first forwards' calls held call
+    by call, tokens against the plain versions'), then the contiguous and
+    the paged engine on FAMILY_REQUESTS requests; (b) a Qwen2.5-7B-width
+    checkpoint with q / k / v biases through ``rtn-quantize --outfile`` and
+    ``serve`` the same way (q / k / v unfused), and the solve kernel at its
+    widths (family_solves)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.ops import gptq
+    from gptq_gguf_tpu_torch.quant import artifacts
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power()
+    rec = {}
+    rng = np.random.default_rng(SEED + 11)
+    for fam, hf in (("qwen3", QWEN3_8B), ("qwen2", QWEN25_7B)):
+        secs, r = {}, {}
+        ckpt = tmp / fam
+        t = time.perf_counter()
+        write_family_checkpoint(ckpt, hf, device)
+        secs["checkpoint"] = time.perf_counter() - t
+        save, gguf = tmp / f"{fam}-layers", tmp / f"{fam}.gguf"
+        t = time.perf_counter()
+        gptq.solve_block.launches = 0
+        if fam == "qwen3":
+            run_cli(["quantize", "--model_name_or_path", str(ckpt), "--calibration_data",
+                     "synthetic", "--calibration_tokens", str(FAMILY_CALIB_TOKENS),
+                     "--calibration_sequence_length", str(CALIB_SEQ), "--default_bit_width",
+                     "Q4_K", "--quant_non_block_modules", "--save_dir", str(save),
+                     "--device", str(device)])
+            secs["quantize"] = time.perf_counter() - t
+            t = time.perf_counter()
+            run_cli(["pack", "--model_dir", str(ckpt), "--quant_dir", str(save),
+                     "--outfile", str(gguf)])
+            secs["pack"] = time.perf_counter() - t
+            # Qwen3-8B: q/k/v, o and gate/up over 32 blocks each, down over 96
+            want = sum(n for _, _, n in family_solves_of(hf)) * GPTQ_LAYERS
+        else:
+            run_cli(["rtn-quantize", "--model_name_or_path", str(ckpt), "--quant_type", "Q4_K",
+                     "--save_dir", str(save), "--outfile", str(gguf), "--device", str(device)])
+            secs["rtn_quantize_and_pack"] = time.perf_counter() - t
+            want = 0
+        r["solve_launches"] = gptq.solve_block.launches
+        names = artifacts.list_layers(save)
+        n_arts = 7 * GPTQ_LAYERS + 2 * (fam == "qwen3")
+        if r["solve_launches"] != want or len(names) != n_arts:
+            raise RuntimeError(f"{fam}: {r['solve_launches']} solve launches (want {want}), "
+                               f"{len(names)} artifacts (want {n_arts})")
+        shutil.rmtree(save)
+        shutil.rmtree(ckpt)
+        rd = GGUFReader(gguf)
+        arch = rd.get("general.architecture")
+        extra = {"qwen3": "blk.1.attn_k_norm.weight", "qwen2": "blk.1.attn_v.bias"}[fam]
+        if arch != fam or extra not in rd.tensors \
+                or rd.tensors["output.weight"].ggml_type.name != ("Q4_K" if fam == "qwen3"
+                                                                    else "F16"):
+            raise RuntimeError(f"{gguf.name}: arch {arch}, head "
+                               f"{rd.tensors['output.weight'].ggml_type.name}, tensors "
+                               f"{list(rd.tensors)[:12]}")
+        r["gguf_bytes"] = gguf.stat().st_size
+        del rd
+        keep = {}
+        r["serve"] = serve_recipe(gguf, FAMILY_V2G_PER_FORWARD[fam], FAMILY_TOKENS, device,
+                                  packed_head=fam == "qwen3", keep=keep)
+        params, cfg = keep["params"], keep["cfg"]
+        layer = params["layers"][0]
+        if ("qkv_proj" in layer) != (fam == "qwen3") or "gateup_proj" not in layer \
+                or cfg.qk_norm != (fam == "qwen3") or cfg.attention_bias != (fam == "qwen2"):
+            raise RuntimeError(f"{fam} serving params: {sorted(layer)}, {cfg}")
+        if fam == "qwen3":
+            padded = -(-hf["vocab_size"] // 512) * 512  # 151936 -> 152064
+            if params["lm_head"].d_out != padded or cfg.vocab_size != hf["vocab_size"]:
+                raise RuntimeError(f"qwen3 head d_out {params['lm_head'].d_out}, want {padded}")
+            r["engines"] = family_engines(params, cfg, rng, device)
+        del params, cfg, keep, layer
+        torch.cuda.empty_cache()
+        gguf.unlink()
+        if fam == "qwen2":
+            r["solves"] = family_solves(rng, device)
+        secs["all"] = sum(secs.values()) + r["serve"]["seconds"]
+        r["seconds"] = secs
+        log(f"  {fam}: GGUF {r['gguf_bytes']} bytes; seconds {secs}; v2g calls a forward "
+            f"{FAMILY_V2G_PER_FORWARD[fam]} (phase 5: 8); worst call "
+            f"{r['serve']['call_by_call']['worst_vs_1e5']:.3f}x of 1e-5 of its terms "
+            f"(limit 1x, 10x on the prefill tiles: PREFILL_TILE_LIMIT) (card {card})")
+        rec[fam] = r
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 took {rec['seconds']:.1f} s (card {card})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the v2 kernel variants at full width
 # ---------------------------------------------------------------------------
 
@@ -4307,6 +4638,8 @@ VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m
 
 VARIANT_SERVING_LAYERS = 8  # 8c's depth (the first 8 of phase 3's 32 layers)
 FORMAT_SERVING_LAYERS = 8   # 7c's depth, likewise
+SAMPLED_SERVING_LAYERS = 8  # phase 9's depth (phase 11 keeps chip_smoke inside its limit)
+PAGED_SERVING_LAYERS = 8    # 6c-e's depth, likewise
 
 
 def variant_runs(n_layers: int):
@@ -4972,7 +5305,7 @@ def paged_summary(name, source_line, krec, launches):
 
 
 def run(device) -> dict:
-    """All ten phases on ``device``; returns the kernel summary."""
+    """All eleven phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
@@ -4997,14 +5330,24 @@ def run(device) -> dict:
     log("== phase 4: consistency")
     phase_consistency(params, cfg, rng, device)
     log("== phase 9: sampled decoding and the int8 / int4 caches")
-    sampled = phase_sampling_and_kv(params, cfg, rng, requests, greedy, device)
+    # at a cut depth (phase 11 keeps chip_smoke inside its limit): its greedy
+    # reference is phase 3's mix served again at that depth
+    cut9 = dataclasses.replace(cfg, num_hidden_layers=SAMPLED_SERVING_LAYERS)
+    p9 = {**params, "layers": params["layers"][:SAMPLED_SERVING_LAYERS]}
+    _, g9 = phase_serving(p9, cut9, requests, "v2g", f"greedy, depth {SAMPLED_SERVING_LAYERS}",
+                          steady=False)
+    sampled = phase_sampling_and_kv(p9, cut9, rng, requests, g9.pop("outputs"), device)
+    del p9
     log("== phase 6: paged serving at full width")
     t6 = time.time()
     precs = phase_paged_kernels(rng, device)
     phase_paged_consistency(params, cfg, rng, device)
-    paged_runs, paged_eng = phase_paged_serving(params, cfg, rng, device)
-    paged_rec = dict(runs=paged_runs, steady=phase_paged_steady(paged_eng, cfg, device),
-                     http=phase_paged_http(paged_eng, cfg, rng))
+    # 6c-e at a cut depth, likewise
+    cut6 = dataclasses.replace(cfg, num_hidden_layers=PAGED_SERVING_LAYERS)
+    paged_runs, paged_eng = phase_paged_serving(
+        {**params, "layers": params["layers"][:PAGED_SERVING_LAYERS]}, cut6, rng, device)
+    paged_rec = dict(runs=paged_runs, steady=phase_paged_steady(paged_eng, cut6, device),
+                     http=phase_paged_http(paged_eng, cut6, rng))
     log(f"phase 6 took {time.time() - t6:.1f} s")
     del paged_eng
     torch.cuda.empty_cache()
@@ -5095,6 +5438,8 @@ def run(device) -> dict:
         del v2_layers
         log("== phase 10: the llama-quantize route (imatrix, recipes, rtn-quantize)")
         recipes_rec = phase_recipes(Path(tmp), device)
+        log("== phase 11: the qwen3 and qwen2 families, checkpoint to served tokens")
+        families_rec = phase_families(Path(tmp), device)
 
     # the kernel's numbers for one decode step at B=8: the four projections
     # of every layer plus the lm_head, at the M=8 shapes measured above
@@ -5122,7 +5467,7 @@ def run(device) -> dict:
     log(f"one 8B-width layer of GPTQ solves: {int(per_layer('bytes'))} bytes, "
         f"{per_layer('ops'):.4e} f32 operations; kernel {per_layer('ms'):.3f} ms, byte bound "
         f"{g_bytes:.4f} ms, operation bound {g_ops:.4f} ms")
-    return {"kernels": [{
+    summary = {"kernels": [{
         "name": "qmatmul_v2g", "route": "cuda",
         "source": "gptq_gguf_tpu_torch/ops/csrc/qmatmul_v2g.cu",
         "replaces": "gptq_gguf_tpu/ops/qmatmul.py:605",
@@ -5183,11 +5528,22 @@ def run(device) -> dict:
                             vppl[run]["mma_launches"][variant])
         for name, source, line, variant, shapes, run in VARIANT_MMA_KERNELS],
         "serving": serve, "sampling": sampled, "gptq": gptq_rec, "paged": paged_rec,
-        "recipes": recipes_rec,
+        "recipes": recipes_rec, "families": families_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),
         "variants": dict(serving=vserve, ppl=vppl, logits=vcross),
         "seconds": time.time() - t_start}
+    # phase 11's launches beside each kernel's main-path count
+    fam = families_rec
+    fam_launches = {
+        "qmatmul_v2g": {f: fam[f]["serve"]["v2g_launches"] for f in ("qwen3", "qwen2")},
+        "gptq_solve": {"qwen3": fam["qwen3"]["solve_launches"],
+                       "qwen2_down": fam["qwen2"]["solves"]["launches"]},
+        "paged_flash_decode": {"qwen3": fam["qwen3"]["engines"]["paged_launches"]}}
+    for k in summary["kernels"]:
+        if k["name"] in fam_launches:
+            k["families_launches"] = fam_launches[k["name"]]
+    return summary
 
 
 def main() -> int:

@@ -1,13 +1,15 @@
-"""Pack a quantized llama (HF checkpoint + per-layer artifacts) into a GGUF.
+"""Pack a quantized dense model (HF checkpoint + per-layer artifacts) into a GGUF.
 
-Port of the llama path of ``gptq_gguf_tpu/export/packer.py``: the same file,
-byte for byte, from the same checkpoint and artifacts. It walks the
-checkpoint's safetensors files (sorted by name, each file's tensors sorted
-by name) and, for each tensor, either packs its GPTQ artifact into exact
-GGML K-quant blocks or writes the float tensor in the ``default_float``
-type (norms and 1-D tensors stay f32). The q / k rows go from HF's
-rotate-half rope layout to GGML's interleaved one: codes and every per-row
-scale of an artifact are permuted together. Metadata: the architecture
+Port of the llama / mistral / qwen2 / qwen3 path of
+``gptq_gguf_tpu/export/packer.py``: the same file, byte for byte, from the
+same checkpoint and artifacts. It walks the checkpoint's safetensors files
+(sorted by name, each file's tensors sorted by name) and, for each tensor,
+either packs its GPTQ artifact into exact GGML K-quant blocks or writes the
+float tensor in the ``default_float`` type (norms, biases and other 1-D
+tensors stay f32). For llama and mistral the q / k rows go from HF's
+rotate-half rope layout to GGML's interleaved one (codes and every per-row
+scale of an artifact are permuted together); qwen2 and qwen3 keep HF's row
+order, as llama.cpp reads them. Metadata: the architecture
 keys, then the tokenizer's (BPE ``tokenizer.json`` or SentencePiece
 ``tokenizer.model``), then any extra keys, then ``general.file_type``.
 
@@ -54,6 +56,8 @@ def hf_to_gguf_name(name: str) -> Optional[str]:
         "self_attn.k_proj.bias": "attn_k.bias",
         "self_attn.v_proj.bias": "attn_v.bias",
         "self_attn.o_proj.bias": "attn_output.bias",
+        "self_attn.q_norm.weight": "attn_q_norm.weight",
+        "self_attn.k_norm.weight": "attn_k_norm.weight",
         "mlp.gate_proj.bias": "ffn_gate.bias",
         "mlp.up_proj.bias": "ffn_up.bias",
         "mlp.down_proj.bias": "ffn_down.bias",
@@ -70,6 +74,7 @@ class LlamaArch:
     and the rope permutation of the q / k rows."""
 
     gguf_arch = "llama"
+    permute_qk = True
 
     def __init__(self, hf_config: Dict[str, Any]):
         self.hf = hf_config
@@ -114,6 +119,8 @@ class LlamaArch:
         return md
 
     def row_permutation(self, hf_name: str, n_rows: int) -> Optional[np.ndarray]:
+        if not self.permute_qk:
+            return None
         n_head = self.hf["num_attention_heads"]
         if ".self_attn.q_proj." in hf_name:
             return convert.gqa_permute_rows(n_rows, n_head)
@@ -122,12 +129,45 @@ class LlamaArch:
         return None
 
 
+class MistralArch(LlamaArch):
+    """mistral: llama's keys and permutation under the llama arch tag, as
+    the JAX package writes it."""
+
+
+class Qwen2Arch(LlamaArch):
+    """qwen2: its own arch tag, q / k rows in HF's order."""
+
+    gguf_arch = "qwen2"
+    permute_qk = False
+
+
+class Qwen3Arch(Qwen2Arch):
+    """qwen3: qwen2's rules plus the explicit head width (its head_dim is
+    not hidden / heads)."""
+
+    gguf_arch = "qwen3"
+
+    def metadata(self) -> Dict[str, Any]:
+        md = super().metadata()
+        c = self.hf
+        head_dim = c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"]
+        md[f"{self.gguf_arch}.attention.key_length"] = head_dim
+        md[f"{self.gguf_arch}.attention.value_length"] = head_dim
+        return md
+
+
+# the conversion rules of each HF model type the port packs
+ARCH_BY_MODEL_TYPE = {"llama": LlamaArch, "mistral": MistralArch, "qwen2": Qwen2Arch,
+                      "qwen3": Qwen3Arch}
+
+
 # ---------------------------------------------------------------------------
 # Tokenizer metadata
 # ---------------------------------------------------------------------------
 
 # llama.cpp picks its pretokenizer regex from tokenizer.ggml.pre
-PRE_TOKENIZER_BY_MODEL_TYPE = {"llama": "llama-bpe"}
+PRE_TOKENIZER_BY_MODEL_TYPE = {"llama": "llama-bpe", "mistral": "llama-bpe",
+                               "qwen2": "qwen2", "qwen3": "qwen2"}
 
 _NORMAL, _CONTROL, _USER_DEFINED, _UNUSED = 1, 3, 4, 5  # GGUF token types
 
@@ -334,8 +374,8 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
                default_float: GGMLQuantizationType = GGMLQuantizationType.F16,
                extra_metadata: Optional[Dict[str, Any]] = None,
                vocab_only: bool = False) -> Path:
-    """Write a llama.cpp-loadable GGUF of an HF llama checkpoint and its
-    artifacts.
+    """Write a llama.cpp-loadable GGUF of an HF llama / mistral / qwen2 /
+    qwen3 checkpoint and its artifacts.
 
     model_dir: config.json + *.safetensors (+ tokenizer files). quant_dir:
     the ``<hf_module_name>/data.npz`` artifacts tree of ``quantize`` (None:
@@ -352,7 +392,7 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
             f"model_type {model_type!r} is not ported yet; supported: {SUPPORTED_MODEL_TYPES}")
     if "text_config" in hf_cfg:
         raise NotImplementedError("multimodal checkpoints (text_config) are not ported yet")
-    spec = LlamaArch(hf_cfg)
+    spec = ARCH_BY_MODEL_TYPE[model_type](hf_cfg)
     quant_layers = artifacts.list_layers(quant_dir) if quant_dir is not None else {}
 
     writer = GGUFWriter(out_path)

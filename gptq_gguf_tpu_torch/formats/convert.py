@@ -4,17 +4,35 @@ Copy of ``gptq_gguf_tpu/formats/convert.py``: ``pack_layer`` writes a
 quantized layer's artifact as GGML blocks (what ``pack`` puts in a GGUF),
 ``unpack_layer`` reads them back bit-exactly, and ``gqa_permute_rows`` is
 the q / k row order that a llama GGUF stores (``pack`` applies it, the
-serving loader undoes it).
+serving loader undoes it). Large layers are packed in chunks of rows on
+host threads (``by_row_chunks``): rows are independent, so the chunks'
+blocks are the whole's, byte for byte.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Tuple
 
 import numpy as np
 
 from . import ggml
 from .ggml import GGMLQuantizationType, KQUANT_SPECS, QK_K
+
+
+# rows of one chunk of host work on a large tensor, a thread each (numpy
+# releases the interpreter lock in its loops)
+CHUNK_ROWS = 4096
+
+
+def by_row_chunks(fn: Callable[[int, int], object], n_rows: int) -> List:
+    """[fn(a, b)] over the row spans [a, b) of CHUNK_ROWS rows, a thread each."""
+    spans = [(a, min(a + CHUNK_ROWS, n_rows)) for a in range(0, n_rows, CHUNK_ROWS)]
+    if len(spans) == 1:
+        return [fn(*spans[0])]
+    with ThreadPoolExecutor(min(len(spans), os.cpu_count() or 1)) as pool:
+        return list(pool.map(lambda span: fn(*span), spans))
 
 
 def gqa_permute_rows(n_rows: int, n_head: int) -> np.ndarray:
@@ -35,6 +53,11 @@ def pack_layer(qweight: np.ndarray, super_scale: np.ndarray, scale_q: np.ndarray
     spec = KQUANT_SPECS[qtype]
     if qweight.shape[1] % QK_K != 0:
         raise ValueError(f"d_col {qweight.shape[1]} not divisible by {QK_K}")
+    if qweight.shape[0] > CHUNK_ROWS:
+        parts = by_row_chunks(lambda a, b: pack_layer(
+            qweight[a:b], super_scale[a:b], scale_q[a:b], super_zero[a:b], zero_q[a:b], qtype),
+            qweight.shape[0])
+        return np.concatenate(parts)
     q = np.asarray(qweight).reshape(-1, QK_K)
     d = np.asarray(super_scale, dtype=np.float32).reshape(-1)
     sc = np.asarray(scale_q).reshape(-1, spec.num_groups)

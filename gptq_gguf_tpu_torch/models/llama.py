@@ -4,9 +4,11 @@ Port of the dense-Llama subset of ``gptq_gguf_tpu/models/llama.py``:
 the config, RMSNorm, RoPE (default / linear / llama3 / gguf_factors), the
 SwiGLU activation, the chunked online-softmax attention the serving path
 uses on long caches, and the non-cached block the calibration walk runs
-(``block_capture``: the block and the inputs of its linears). Other model
-families, rope types and attention variants raise ``NotImplementedError``
-naming what is missing.
+(``block_capture``: the block and the inputs of its linears). The block
+covers the llama, mistral, qwen2 and qwen3 families: qwen2's q / k / v
+biases and qwen3's per-head q / k RMSNorm before rope ride along as float
+params. Other model families, rope types and attention variants raise
+``NotImplementedError`` naming what is missing.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
     tie_word_embeddings: bool = False
+    attention_bias: bool = False
+    qk_norm: bool = False  # qwen3-style per-head q/k RMSNorm before rope
     # frozen item-tuple (or dict) of HF-style rope_scaling keys
     rope_scaling: Optional[Any] = None
     dtype: torch.dtype = torch.float32
@@ -46,13 +50,17 @@ class LlamaConfig:
 
     @staticmethod
     def from_hf_dict(d: Dict[str, Any], dtype: torch.dtype = torch.float32) -> "LlamaConfig":
-        """Build from a HF transformers config.json dict (llama only)."""
+        """Build from a HF transformers config.json dict of the families the
+        port covers (``FAMILIES``), by the JAX package's rules: mistral's and
+        qwen2's ``sliding_window`` is dropped, qwen3 has the per-head q/k
+        norm, ``attention_bias`` is read as given (qwen2's biases are found
+        by their tensors)."""
         mt = d.get("model_type", "llama")
-        if mt != "llama":
-            raise NotImplementedError(f"model_type {mt!r} is not ported yet (llama only)")
-        for key in ("attention_bias", "mlp_bias"):
-            if d.get(key):
-                raise NotImplementedError(f"llama with {key}=True is not ported yet")
+        if mt not in FAMILIES:
+            raise NotImplementedError(
+                f"model_type {mt!r} is not ported yet (supported: {', '.join(FAMILIES)})")
+        if d.get("mlp_bias"):
+            raise NotImplementedError(f"{mt} with mlp_bias=True is not ported yet")
         return LlamaConfig(
             vocab_size=d["vocab_size"], hidden_size=d["hidden_size"],
             intermediate_size=d["intermediate_size"],
@@ -63,7 +71,13 @@ class LlamaConfig:
             rope_theta=d.get("rope_theta", 10000.0),
             max_position_embeddings=d.get("max_position_embeddings", 4096),
             tie_word_embeddings=d.get("tie_word_embeddings", False),
+            attention_bias=bool(d.get("attention_bias", False)),
+            qk_norm=mt == "qwen3",
             rope_scaling=_freeze_value(d.get("rope_scaling")), dtype=dtype)
+
+
+# the HF model types whose dense blocks the port runs
+FAMILIES = ("llama", "mistral", "qwen2", "qwen3")
 
 
 def _freeze_value(v):
@@ -82,13 +96,12 @@ _NEUTRAL = {
     "rms_add_unit": False, "embed_scale": False, "partial_rotary_factor": 1.0,
     "rope_interleaved": False, "parallel_blocks": False, "sliding_window": None,
     "sliding_layers": None, "rope_local_theta": None, "rope_sliding_only": False,
-    "rope_layers": None, "qk_norm": False, "qk_norm_after_rope": False,
+    "rope_layers": None, "qk_norm_after_rope": False,
     "clip_qkv": None, "pos_type": "rope", "attn_logit_softcap": None,
     "final_logit_softcap": None, "query_pre_attn_scalar": None,
     "embedding_multiplier": None, "attention_scale": None,
     "residual_multiplier": None, "logits_multiplier": None,
-    "moe_num_experts": None, "kv_lora_rank": None, "attention_bias": False,
-    "mlp_bias": False,
+    "moe_num_experts": None, "kv_lora_rank": None, "mlp_bias": False,
 }
 
 
@@ -105,18 +118,23 @@ def config_from_reference(ref) -> LlamaConfig:
     return LlamaConfig(**kw, dtype=_DTYPES[np.dtype(ref.dtype).name])
 
 
-# the keys of a dense Llama block, and the module-level keys of the params
+# the keys of a dense block (qwen2's attention biases and qwen3's per-head
+# q / k norms among them), and the module-level keys of the params
 _LAYER_KEYS = frozenset(("input_layernorm", "post_attention_layernorm", "q_proj", "k_proj",
-                         "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"))
+                         "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+                         "q_bias", "k_bias", "v_bias", "o_bias", "q_norm", "k_norm"))
 _TOP_KEYS = frozenset(("embed_tokens", "norm", "lm_head", "layers"))
 
 
 def check_dense_layer(layer: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for a block that is not a dense Llama
-    block (MoE, MLA, biases, extra norms)."""
+    """Raise NotImplementedError for a block that is not a dense block of
+    the ported families (MoE, MLA, MLP biases, extra norms), naming the keys
+    it refuses."""
     extra = sorted(set(layer) - _LAYER_KEYS)
     if extra:
-        raise NotImplementedError(f"block params {extra} are not ported yet (dense Llama only)")
+        raise NotImplementedError(
+            f"block params {extra} are not ported yet (dense llama / mistral / qwen2 / "
+            "qwen3 blocks only)")
 
 
 def dense_params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device="cuda"):
@@ -349,6 +367,31 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) 
     return y.to(x.dtype)
 
 
+def add_qkv_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 layer: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """qwen2's q / k / v biases added to the projections' outputs (the
+    serving forwards, whose kernels take no bias). An f32 bias makes a bf16
+    output f32, as the JAX package's promotion does."""
+    if layer.get("q_bias") is None:
+        return q, k, v
+    return q + layer["q_bias"], k + layer["k_bias"], v + layer["v_bias"]
+
+
+def head_qk_norm(q: torch.Tensor, k: torch.Tensor, layer: Dict[str, Any],
+                 cfg: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qwen3's per-head q / k RMSNorm over the last (head_dim) axis, applied
+    after the head split and before rope; q and k unchanged without
+    ``cfg.qk_norm``. The flat (olmo2) form, one norm over all heads, is
+    refused."""
+    if not cfg.qk_norm:
+        return q, k
+    if layer["q_norm"].shape[0] != cfg.head_dim_:
+        raise NotImplementedError(
+            "the flat (olmo2-style) q / k norm over all heads is not ported yet")
+    return (rms_norm(q, layer["q_norm"], cfg.rms_norm_eps),
+            rms_norm(k, layer["k_norm"], cfg.rms_norm_eps))
+
+
 def attention_scores(q, k, v, mask, scale=None) -> torch.Tensor:
     """Plain attention: q (B, nH, S, hd), k/v (B, nKV, S, hd), mask (B, S, S)
     bool; GQA by head grouping. Returns f32 (B, nH, S, hd)."""
@@ -370,17 +413,20 @@ def causal_mask(B: int, S: int, device=None) -> torch.Tensor:
 def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
                   layer_idx: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One dense Llama block, also returning the inputs of its quantizable
+    """One dense block, also returning the inputs of its quantizable
     linears: (out, {"qkv", "o", "gateup", "down"}). x: (B, S, H); cos/sin:
-    (B, S, hd); mask: (B, S, S) causal."""
+    (B, S, hd); mask: (B, S, S) causal. Attention biases are added inside
+    the linears (f32, before the cast back), and the per-head q / k norm
+    runs before rope, as in the JAX package's block."""
     check_dense_layer(layer)
     B, S, H = x.shape
     hd = cfg.head_dim_
     nH, nKV = cfg.num_attention_heads, cfg.num_key_value_heads
     h1 = apply_norm(x, cfg, layer["input_layernorm"])
-    q = _linear(h1, layer["q_proj"]).reshape(B, S, nH, hd).transpose(1, 2)
-    k = _linear(h1, layer["k_proj"]).reshape(B, S, nKV, hd).transpose(1, 2)
-    v = _linear(h1, layer["v_proj"]).reshape(B, S, nKV, hd).transpose(1, 2)
+    q = _linear(h1, layer["q_proj"], layer.get("q_bias")).reshape(B, S, nH, hd).transpose(1, 2)
+    k = _linear(h1, layer["k_proj"], layer.get("k_bias")).reshape(B, S, nKV, hd).transpose(1, 2)
+    v = _linear(h1, layer["v_proj"], layer.get("v_bias")).reshape(B, S, nKV, hd).transpose(1, 2)
+    q, k = head_qk_norm(q, k, layer, cfg)
     q, k = apply_rope(q, k, cos, sin)
     if S >= 2 * FLASH_CHUNK:
         # long sequences stream KV chunks (the causal mask is implied)
@@ -389,7 +435,7 @@ def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Te
     else:
         attn = attention_scores(q, k, v, mask)
     attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
-    x = x + _linear(attn, layer["o_proj"])
+    x = x + _linear(attn, layer["o_proj"], layer.get("o_bias"))
     h2 = apply_norm(x, cfg, layer["post_attention_layernorm"])
     gate = _linear(h2, layer["gate_proj"])
     up = _linear(h2, layer["up_proj"])
@@ -399,7 +445,7 @@ def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Te
 
 
 def block_forward(layer, x, cos, sin, mask, cfg: LlamaConfig, layer_idx: int = 0) -> torch.Tensor:
-    """One dense Llama block: (B, S, H) -> (B, S, H)."""
+    """One dense block: (B, S, H) -> (B, S, H)."""
     return block_capture(layer, x, cos, sin, mask, cfg, layer_idx)[0]
 
 
@@ -474,4 +520,6 @@ def set_linear(params, name: str, value):
 # {"embed_tokens": (V, H), "norm": (H,), "lm_head": packed (absent if tied),
 #  "layers": [{"input_layernorm", "post_attention_layernorm": (H,),
 #              "qkv_proj" | "q_proj"/"k_proj"/"v_proj", "o_proj",
-#              "gateup_proj" | "gate_proj"/"up_proj", "down_proj"}, ...]}
+#              "gateup_proj" | "gate_proj"/"up_proj", "down_proj",
+#              ["q_bias"/"k_bias"/"v_bias"/"o_bias": (d_out,) f32],
+#              ["q_norm"/"k_norm": (hd,)]}, ...]}

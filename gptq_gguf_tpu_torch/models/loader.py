@@ -1,9 +1,10 @@
-"""HF checkpoint -> the port's param dict (dense Llama).
+"""HF checkpoint -> the port's param dict (dense llama, mistral, qwen2, qwen3).
 
-Port of the llama part of ``gptq_gguf_tpu/models/loader.py``: reads
+Port of the dense part of ``gptq_gguf_tpu/models/loader.py``: reads
 ``config.json`` and ``*.safetensors`` (through the port's own container
-reader) into the ``models.llama`` layout. Other model types raise
-``NotImplementedError`` naming the type.
+reader) into the ``models.llama`` layout, attention biases and per-head
+q / k norms included. Other model types raise ``NotImplementedError``
+naming the type.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..formats import safetensors
-from .llama import LlamaConfig
+from .llama import FAMILIES, LlamaConfig
 
-SUPPORTED_MODEL_TYPES = ("llama",)
+SUPPORTED_MODEL_TYPES = FAMILIES
 
 _TOP = {"model.embed_tokens.weight": "embed_tokens", "model.norm.weight": "norm",
         "lm_head.weight": "lm_head"}
@@ -28,6 +29,12 @@ _LAYER = {
     "self_attn.k_proj.weight": "k_proj",
     "self_attn.v_proj.weight": "v_proj",
     "self_attn.o_proj.weight": "o_proj",
+    "self_attn.q_proj.bias": "q_bias",
+    "self_attn.k_proj.bias": "k_bias",
+    "self_attn.v_proj.bias": "v_bias",
+    "self_attn.o_proj.bias": "o_bias",
+    "self_attn.q_norm.weight": "q_norm",
+    "self_attn.k_norm.weight": "k_norm",
     "mlp.gate_proj.weight": "gate_proj",
     "mlp.up_proj.weight": "up_proj",
     "mlp.down_proj.weight": "down_proj",
@@ -51,7 +58,7 @@ def _host_value(t: torch.Tensor) -> torch.Tensor:
 
 
 def load_params(model_dir: Union[str, Path], cfg: Optional[LlamaConfig] = None) -> Dict[str, Any]:
-    """Load a llama checkpoint into the ``models.llama`` param dict, every
+    """Load a checkpoint into the ``models.llama`` param dict, every
     weight in host memory (the JAX loader's ``host=True``): the calibration
     walk stages one block onto the card at a time."""
     model_dir = Path(model_dir)

@@ -1,10 +1,12 @@
-"""Quantized serving model: KV-cached dense Llama over runtime-packed weights.
+"""Quantized serving model: a KV-cached dense model over runtime-packed weights.
 
-Port of the dense-Llama path of ``gptq_gguf_tpu/serving/model.py``. Every
-projection and the lm_head go through ``ops.qmatmul.dequant_matmul``, which
-routes each packed weight to its format's CUDA kernel on the card (v1, v2g
-or v4). The KV cache is a preallocated per-layer (B, n_kv, max_len + 1, hd)
-buffer updated in place: row ``max_len`` is a drop row that absorbs writes
+Port of the dense path of ``gptq_gguf_tpu/serving/model.py`` for the llama,
+mistral, qwen2 and qwen3 families (qwen2's q / k / v biases and qwen3's
+per-head q / k norm ride along as float params). Every projection and the
+lm_head go through ``ops.qmatmul.dequant_matmul``, which routes each packed
+weight to its format's CUDA kernel on the card (v1, v2g or v4). The KV
+cache is a preallocated per-layer (B, n_kv, max_len + 1, hd) buffer
+updated in place: row ``max_len`` is a drop row that absorbs writes
 past the end of the cache (the JAX package drops them with
 ``.at[...].set(mode="drop")``), so retired slots can keep decoding inside a
 block without a bounds check on the host. The cache holds bf16 entries
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..formats import convert
+from ..formats import convert, ggml
 from ..formats.ggml import KQUANT_SPECS, K_QUANT_TYPES, GGMLQuantizationType
 from ..mapper.shards import open_gguf
 from ..models import llama
@@ -270,11 +272,13 @@ def forward_cached(
             q = _q_linear(h, layer["q_proj"])
             k = _q_linear(h, layer["k_proj"])
             v = _q_linear(h, layer["v_proj"])
+        q, k, v = llama.add_qkv_bias(q, k, v, layer)
         nH = q.shape[-1] // hd
         nKV = k.shape[-1] // hd
         q = q.reshape(B, S, nH, hd).transpose(1, 2)
         k = k.reshape(B, S, nKV, hd).transpose(1, 2)
         v = v.reshape(B, S, nKV, hd).transpose(1, 2)
+        q, k = llama.head_qk_norm(q, k, layer, cfg)
         cos_l, sin_l = llama.select_rope(cos, sin, cfg, li)
         q, k = llama.apply_rope(q, k, cos_l, sin_l)
 
@@ -295,7 +299,7 @@ def forward_cached(
         attn = _cached_attention(q, k_buf[:, :, :L], v_buf[:, :, :L], lengths,
                                  n_live=n_live, k_scale=ks, v_scale=vs)
         attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
-        x = x + _q_linear(attn, layer["o_proj"])
+        x = x + _o_proj(attn, layer)
 
         h = llama.apply_norm(x, cfg, layer["post_attention_layernorm"])
         if "gateup_proj" in layer:
@@ -316,6 +320,12 @@ def forward_cached(
         advance = n_valid
     logits = _head_logits(params, cfg, llama.apply_norm(last, cfg, params["norm"]))
     return logits, cache._replace(lengths=(lengths + advance).to(torch.int32))
+
+
+def _o_proj(attn: torch.Tensor, layer: Dict[str, Any]) -> torch.Tensor:
+    """The attention output projection, plus its bias where the layer has one."""
+    out = _q_linear(attn, layer["o_proj"])
+    return out if layer.get("o_bias") is None else out + layer["o_bias"]
 
 
 def _head_logits(params: Dict[str, Any], cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
@@ -347,9 +357,10 @@ def _fuse(parts) -> Optional[Any]:
 def fuse_layer_projections(layer: Dict[str, Any], cfg: Optional[LlamaConfig] = None) -> Dict[str, Any]:
     """Fuse q/k/v and gate/up packed weights into single kernel launches
     (exact: concatenation along output columns). No-op when the parts do
-    not share a fusable format and layout."""
+    not share a fusable format and layout; q/k/v stay apart when the layer
+    has attention biases, as in the JAX package (gate/up still fuse)."""
     out = dict(layer)
-    if "q_proj" in out and "qkv_proj" not in out:
+    if "q_proj" in out and out.get("q_bias") is None and "qkv_proj" not in out:
         fused = _fuse([out["q_proj"], out["k_proj"], out["v_proj"]])
         if fused is not None:
             out["qkv_proj"] = fused
@@ -449,17 +460,33 @@ def quantize_params_for_serving(params: Dict[str, Any], cfg: LlamaConfig,
     return out
 
 
-# llama.* metadata keys that change the model beyond the dense Llama path
+def _packed_to(w, dev: torch.device):
+    """A packed weight (v1, v2 or v4) with its planes moved to ``dev``."""
+    for _, cls, planes, fields in _PACKED_DICTS:
+        if type(w) is cls:
+            return cls(*(None if getattr(w, k) is None else getattr(w, k).to(dev)
+                         for k in planes), *(getattr(w, k) for k in fields))
+    raise TypeError(f"not a packed weight: {type(w).__name__}")
+
+
+# {arch}.* metadata keys that change the model beyond the dense path
 _UNPORTED_KEYS = ("expert_count", "embedding_scale", "residual_scale",
                   "attention.scale", "logit_scale")
 
+# the GGUF architectures the serving loader takes, and those whose q / k
+# rows are in llama.cpp's interleaved rope layout (the JAX package's list;
+# the packer permutes the same ones)
+GGUF_ARCHES = ("llama", "mistral", "qwen2", "qwen3")
+PERMUTED_QK_ARCHES = ("llama", "mistral")
+
 
 def _config_from_gguf(r, arch: str, dtype) -> LlamaConfig:
-    """LlamaConfig from a llama-arch GGUF's metadata."""
-    if arch != "llama":
+    """LlamaConfig from a GGUF's {arch}.* metadata; the attention biases and
+    the per-head q / k norm are read off the tensors present."""
+    if arch not in GGUF_ARCHES:
         raise NotImplementedError(
             f"GGUF architecture {arch!r} is not supported by the serving "
-            "loader of the port (supported: llama)")
+            f"loader of the port (supported: {', '.join(GGUF_ARCHES)})")
     for key in _UNPORTED_KEYS:
         if r.get(f"{arch}.{key}") is not None:
             raise NotImplementedError(f"GGUF key {arch}.{key} is not ported yet")
@@ -494,6 +521,8 @@ def _config_from_gguf(r, arch: str, dtype) -> LlamaConfig:
         rms_norm_eps=r.get(f"{arch}.attention.layer_norm_rms_epsilon", 1e-5),
         rope_theta=r.get(f"{arch}.rope.freq_base", 10000.0),
         max_position_embeddings=r.get(f"{arch}.context_length", 4096),
+        attention_bias="blk.0.attn_q.bias" in r.tensors,
+        qk_norm="blk.0.attn_q_norm.weight" in r.tensors,
         rope_scaling=rope_scaling,
         dtype=dtype,
     )
@@ -506,19 +535,28 @@ _NAME_MAP = {
     "attn_k": "k_proj",
     "attn_v": "v_proj",
     "attn_output": "o_proj",
+    "attn_q_norm": "q_norm",
+    "attn_k_norm": "k_norm",
     "ffn_gate": "gate_proj",
     "ffn_up": "up_proj",
     "ffn_down": "down_proj",
 }
+# blk.N.<name>.bias of the attention projections -> their layer keys
+_BIAS_MAP = {"attn_q": "q_bias", "attn_k": "k_bias", "attn_v": "v_bias",
+             "attn_output": "o_bias"}
+# layer keys held as f32 vectors
+_F32_KEYS = ("input_layernorm", "post_attention_layernorm", "q_norm", "k_norm")
 
 
 def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
                           device="cuda", dense: bool = False
                           ) -> Tuple[Dict[str, Any], LlamaConfig]:
-    """Build a serving model directly from a llama-arch .gguf (one file or a
-    shard set). K-quant tensors are unpacked bit-exactly to codes and
-    scales and repacked on ``device`` in ``qmatmul.RUNTIME_FORMAT``
-    (``pack_runtime_auto``); other tensors load as dense arrays. Raises on
+    """Build a serving model directly from a llama / mistral / qwen2 / qwen3
+    .gguf (one file or a shard set). K-quant tensors are unpacked bit-exactly
+    to codes and scales and repacked on ``device`` in
+    ``qmatmul.RUNTIME_FORMAT`` (``pack_runtime_auto``); other tensors load as
+    dense arrays. Large tensors are prepared in row chunks on host threads
+    (``convert.by_row_chunks``). Raises on
     tensor names it does not understand: a silently dropped tensor means
     silently wrong logits.
 
@@ -530,6 +568,13 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
     arch = r.get("general.architecture", "llama")
     cfg = _config_from_gguf(r, arch, dtype)
     n_head, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    permuted_qk = arch in PERMUTED_QK_ARCHES
+
+    def rows(name: str, a: int, b: int) -> np.ndarray:
+        """The raw bytes of rows [a, b) of a 2-D tensor."""
+        info = r.tensors[name]
+        per_row = info.nbytes // info.shape[0]
+        return np.asarray(r.tensor_bytes(name))[a * per_row:b * per_row]
 
     def dense_tensor(name: str, inv, dt):
         info = r.tensors[name]
@@ -537,7 +582,12 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
             w = np.asarray(r.tensor_bytes(name)).view(np.int16).reshape(info.shape)
             w = w[inv] if inv is not None else w.copy()
             return torch.from_numpy(w).view(torch.bfloat16).to(device=dev).to(dtype=dt)
-        w = r.tensor_float(name)
+        if len(info.shape) == 2:
+            parts = convert.by_row_chunks(lambda a, b: ggml.dequantize(
+                rows(name, a, b), info.ggml_type, (b - a, info.shape[1])), info.shape[0])
+            w = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        else:
+            w = r.tensor_float(name)
         if inv is not None:
             w = w[inv]
         return torch.from_numpy(np.ascontiguousarray(w)).to(device=dev, dtype=dt)
@@ -545,18 +595,29 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
     def load_weight(name: str):
         info = r.tensors[name]
         inv = None
-        if ".attn_q." in name or ".attn_k." in name:  # undo llama.cpp's rope permute
+        if permuted_qk and (".attn_q." in name or ".attn_k." in name):  # undo the rope permute
             heads = n_head if ".attn_q." in name else n_kv
             inv = np.argsort(convert.gqa_permute_rows(info.shape[0], heads))
         if dense or info.ggml_type not in K_QUANT_TYPES or info.shape[-1] % 256 != 0:
             return dense_tensor(name, inv, dtype)
-        q, ss, sc, sz, zq = convert.unpack_layer(
-            np.asarray(r.tensor_bytes(name)), info.ggml_type, info.shape)
-        if inv is not None:
-            q, ss, sc, sz, zq = q[inv], ss[inv], sc[inv], sz[inv], zq[inv]
-        q = q.astype(np.int8 if KQUANT_SPECS[info.ggml_type].signed else np.uint8)
-        return qmatmul.pack_runtime_auto(q, SuperGroupParams(ss, sz, sc, zq),
-                                         info.ggml_type, device=dev)
+
+        def packed(a: int, b: int, where: torch.device):
+            q, ss, sc, sz, zq = convert.unpack_layer(rows(name, a, b), info.ggml_type,
+                                                     (b - a, info.shape[1]))
+            if inv is not None:
+                q, ss, sc, sz, zq = q[inv], ss[inv], sc[inv], sz[inv], zq[inv]
+            q = q.astype(np.int8 if KQUANT_SPECS[info.ggml_type].signed else np.uint8)
+            return qmatmul.pack_runtime_auto(q, SuperGroupParams(ss, sz, sc, zq),
+                                             info.ggml_type, device=where)
+
+        # chunks of convert.CHUNK_ROWS rows packed on host threads and joined
+        # along d_out (exact for v2 and v4; v1 and permuted q / k load whole)
+        join = {"v2": qmatmul.fuse_rql_v2, "v4": qmv4.fuse_rql_v4}.get(qmatmul.RUNTIME_FORMAT)
+        if inv is not None or join is None or info.shape[0] <= convert.CHUNK_ROWS:
+            return packed(0, info.shape[0], dev)
+        host = torch.device("cpu")
+        return _packed_to(join(convert.by_row_chunks(lambda a, b: packed(a, b, host),
+                                                     info.shape[0])), dev)
 
     params: Dict[str, Any] = {}
     layers: List[Dict[str, Any]] = [dict() for _ in range(cfg.num_hidden_layers)]
@@ -577,8 +638,11 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
             li, comp = int(name.split(".")[1]), name.split(".")[2]
             key = _NAME_MAP[comp]
             layers[li][key] = (dense_tensor(name, None, torch.float32)
-                               if key.endswith("layernorm")
-                               else load_weight(name))
+                               if key in _F32_KEYS else load_weight(name))
+        elif name.startswith("blk.") and name.endswith(".bias") \
+                and name.split(".")[2] in _BIAS_MAP:
+            li, comp = int(name.split(".")[1]), name.split(".")[2]
+            layers[li][_BIAS_MAP[comp]] = dense_tensor(name, None, torch.float32)
         else:
             raise NotImplementedError(
                 f"GGUF tensor {name!r} has no mapping for arch {arch!r} in the "

@@ -172,11 +172,13 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig, input_ids: torch.Ten
             q = _q_linear(h, layer["q_proj"])
             k = _q_linear(h, layer["k_proj"])
             v = _q_linear(h, layer["v_proj"])
+        q, k, v = llama.add_qkv_bias(q, k, v, layer)
         nH = q.shape[-1] // hd
         nKV = k.shape[-1] // hd
         q = q.reshape(B, S, nH, hd).transpose(1, 2)
         k = k.reshape(B, S, nKV, hd).transpose(1, 2)
         v = v.reshape(B, S, nKV, hd)
+        q, k = llama.head_qk_norm(q, k, layer, cfg)
         cos_l, sin_l = llama.select_rope(cos, sin, cfg, li)
         q, k = llama.apply_rope(q, k, cos_l, sin_l)
         k = k.transpose(1, 2)  # (B, S, nKV, hd)
@@ -211,7 +213,7 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig, input_ids: torch.Ten
                 v_all = _gather_slot_kv(v_pool, table)
             attn = qmodel._cached_attention(q, k_all, v_all, lengths)
         attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
-        x = x + _q_linear(attn, layer["o_proj"])
+        x = x + qmodel._o_proj(attn, layer)
 
         h = llama.apply_norm(x, cfg, layer["post_attention_layernorm"])
         if "gateup_proj" in layer:

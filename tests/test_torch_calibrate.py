@@ -117,13 +117,14 @@ def test_loader_matches_jax(ckpt, tmp_path):
 
 
 def test_loader_refuses_other_model_types(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen3"}))
-    with pytest.raises(NotImplementedError, match="qwen3"):
-        loader.load_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="attention_bias"):
+    for mt in ("phi3", "gemma"):  # families not ported yet
+        (tmp_path / "config.json").write_text(json.dumps({"model_type": mt}))
+        with pytest.raises(NotImplementedError, match=mt):
+            loader.load_config(tmp_path)
+    with pytest.raises(NotImplementedError, match="mlp_bias"):
         llama.LlamaConfig.from_hf_dict(dict(model_type="llama", vocab_size=8, hidden_size=8,
                                             intermediate_size=8, num_hidden_layers=1,
-                                            num_attention_heads=1, attention_bias=True))
+                                            num_attention_heads=1, mlp_bias=True))
 
 
 @pytest.mark.parametrize("S", [16, 1024])  # 1024: the chunked (flash) attention path

@@ -1744,3 +1744,36 @@ def test_v2h_v2t_decode_mma_tiles_take_a_misaligned_x_and_leave_the_rest_alone(
     fn(x, _rql(qtype, 333, 512, seed=22 + int(qtype), device=cuda))
     torch.cuda.synchronize()
     assert (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0) == (4, 1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_out,d_in,qtype", [(512, 3584, T.Q4_K), (3584, 18944, T.Q4_K),
+                                              (151936, 4096, T.Q6_K), (151936, 3584, T.Q4_K)],
+                         ids=["kv_3584", "down_18944", "qwen3_head", "qwen2_head"])
+def test_v2g_at_the_qwen_family_shapes(cuda, d_out, d_in, qtype):
+    """v2g against its plain version at the shapes the qwen families bring:
+    Qwen2.5-7B's k / v projections (d_out 512 over d_in 3584 = 14 x 256, no
+    multiple of 512), its down projection (d_in 18944) and the heads of
+    151936 rows padded to 152064 as the serving loader pads them. M = 1
+    runs the CUDA-core tile (within 1e-4 of the largest sum of |terms|),
+    M = 8 the tensor-core decode tile (1e-5), M = 128 the tensor-core
+    prefill tiles (1e-4: chip_smoke's PREFILL_TILE_LIMIT)."""
+    rql = _rql(qtype, d_out, d_in, seed=d_out + d_in, device=cuda)
+    if d_out % 512:
+        rql = qmatmul.pad_dout_v2(rql)
+        assert rql.d_out == 152064
+    fn = qmatmul.dequant_matmul_v2g
+    gen = torch.Generator().manual_seed(d_in)
+    for M, tile, limit in ((1, "core", 1e-4), (8, "decode", 1e-5), (128, "mma", 1e-4)):
+        x = torch.randn(M, d_in, generator=gen).to(cuda, torch.bfloat16)
+        n0, d0, m0 = fn.launches, fn.decode_mma_launches, fn.mma_launches
+        got = fn(x, rql)
+        want = qmatmul.dequant_matmul_v2g_reference(x, rql)
+        torch.cuda.synchronize()
+        ran = (fn.launches - n0, fn.decode_mma_launches - d0, fn.mma_launches - m0)
+        assert ran == {"core": (1, 0, 0), "decode": (1, 1, 0), "mma": (1, 0, 1)}[tile], M
+        assert got.shape == (M, rql.d_out) and bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err <= limit * _v2_terms(x, rql, torch.bfloat16), (M, err)
+        if d_out % 512:
+            assert got[:, d_out:].abs().max().item() == 0  # the pad rows give exact zeros

@@ -38,7 +38,10 @@ def test_config_from_reference():
     jcfg, cfg = _cfgs(dtype=jnp.bfloat16)
     assert cfg.dtype == torch.bfloat16 and cfg.head_dim_ == 64
     assert cfg.num_key_value_heads == 2 and cfg.rope_theta == 500000.0
-    for bad in (dict(sliding_window=16), dict(qk_norm=True), dict(act_fn="gelu_tanh"),
+    # qwen3's per-head q/k norm is ported; hunyuan's norm after rope is not
+    assert llama.config_from_reference(dataclasses.replace(jcfg, qk_norm=True)).qk_norm
+    for bad in (dict(sliding_window=16), dict(qk_norm=True, qk_norm_after_rope=True),
+                dict(act_fn="gelu_tanh"),
                 dict(norm_type="layernorm"), dict(moe_num_experts=4)):
         with pytest.raises(NotImplementedError):
             llama.config_from_reference(dataclasses.replace(jcfg, **bad))

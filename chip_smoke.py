@@ -8,7 +8,9 @@ checkout of the repository. Phases, each raising on failure:
 
 1. device and build: the card's name and power limit; the kernels are
    built from gptq_gguf_tpu_torch/ops/csrc/ (one nvcc per source, all at
-   once) and their build times printed;
+   once; meanwhile phase 2's weights are packed on the card and, once the
+   solve kernel is built, phase 5's two quantize walks run) and their
+   build times printed;
 2. kernel against its plain PyTorch version on the card, at every
    projection shape of Llama-3-8B (Q4_K, Q6_K lm_head) at M = 8 (v2g's
    CUDA-core tile, the decode tile's threshold raised for these cases)
@@ -91,7 +93,7 @@ checkout of the repository. Phases, each raising on failure:
    pool (budgets, pages returned, a kernel launch per layer and decode
    step); a steady B=8 step at fill 300 and 1900; HTTP (serve_http on port
    0): 8 concurrent requests equal the engine's direct outputs, one
-   streamed; the engine runs on the first PAGED_SERVING_LAYERS = 8 layers;
+   streamed; the engine runs on the first PAGED_SERVING_LAYERS = 4 layers;
 7. the v1 and v4 runtime formats at full width (after phase 6, on the same
    model: the v2 weights converted on the card, every format's planes held
    to the package's packers first): (a) the v1 kernel and the v4 kernel's
@@ -113,7 +115,7 @@ checkout of the repository. Phases, each raising on failure:
    on shared inputs (the plain output handed on; each call within 1e-5
    of its group dot's terms, the weights rounded to bf16 as the control);
    (c) phase 3's 12
-   requests served (on the first FORMAT_SERVING_LAYERS = 8 layers) in v1,
+   requests served (on the first FORMAT_SERVING_LAYERS = 4 layers) in v1,
    v4 and v4 i8 (33 launches of that format's kernel per forward, none of
    another's; v1's and v4's every prefill projection on the tensor-core
    tiles, v1's and v4's every call of a decode step on their decode tiles)
@@ -159,7 +161,7 @@ checkout of the repository. Phases, each raising on failure:
    on a decode tile, v2f's among them); beside it, printed only, the
    kernels end to end against the plain versions end to end and against
    v2g's; (c) phase 3's 12 requests served (on the first
-   VARIANT_SERVING_LAYERS = 8 layers) under
+   VARIANT_SERVING_LAYERS = 4 layers) under
    PALLAS_V2_VARIANT = v2, v2m, v2t, v2g with the gs=16 knob at v2p, v3,
    v2f, v2h and v2s, in turns between two v2g runs, each with its exact
    launches per forward (every call of a B=8 step on a decode tile: under
@@ -172,7 +174,7 @@ checkout of the repository. Phases, each raising on failure:
    under v2t and v2s: theirs, and v2g's on the head), v2m, v2t and v2s
    within 1e-3 nats/token of the same model through their plain versions;
 9. sampled decoding and the int8 / int4 contiguous caches (run after phase
-   4, on the first SAMPLED_SERVING_LAYERS = 8 layers of phase 3's model,
+   4, on the first SAMPLED_SERVING_LAYERS = 4 layers of phase 3's model,
    phase 3's mix served greedily at that depth first as the reference): (a) the sampler chain (serving/sampling.py) on
    one B=8 decode step's logits, each row with its own temperature, top-k,
    top-p, min-p, penalties and seed, on the card and on the CPU: penalized
@@ -215,22 +217,40 @@ checkout of the repository. Phases, each raising on failure:
    to a near-tie); (e) ``llama-quantize --ftype Q3_K_M --imatrix``
    (Q3_K, Q4_K, Q5_K and Q6_K at 8B widths) checked and served the same way;
 11. the qwen3 and qwen2 families (run after phase 10, in the same temporary
-   directory): (a) a seeded 2-layer checkpoint of Qwen3-8B's widths (hidden
+   directory): (a) a seeded 1-layer checkpoint of Qwen3-8B's widths (hidden
    4096, 32 heads of 128, 8 KV heads, intermediate 12288, vocab 151936; q /
    k norm weights drawn) through ``quantize`` (GPTQ on the solve kernel,
-   16384 tokens, embedding and head RTN at the default Q4_K; 384 solve
+   16384 tokens, embedding and head RTN at the default Q4_K; 192 solve
    launches), ``pack``
-   and ``serve`` (9 v2g calls a forward: q / k / v and gate / up fused, the
+   and ``serve`` (5 v2g calls a forward: q / k / v and gate / up fused, the
    head padded to 152064 rows; the calls of an 8 x 16-token prefill and a
    B=8 step held call by call with the planted control; tokens against the
    plain versions' up to a near-tie), then 4 greedy requests on the
    contiguous and the paged engine (bf16 pool), their tokens equal up to a
-   near-tie; (b) a seeded 2-layer checkpoint of Qwen2.5-7B's widths (hidden
+   near-tie; (b) a seeded 1-layer checkpoint of Qwen2.5-7B's widths (hidden
    3584, 28 heads, 4 KV heads, intermediate 18944, vocab 152064; q / k / v
    biases drawn) through ``rtn-quantize --outfile`` and ``serve`` the same
-   way (12 v2g calls a forward: q / k / v apart, the bf16 head dense), and
+   way (6 v2g calls a forward: q / k / v apart, the bf16 head dense), and
    the solve kernel at its block shapes and over one whole 18944-column
-   down solve, against its plain version.
+   down solve, against its plain version;
+12. the rest of evals/ and the search's leftovers (run after phase 11, on
+   phase 5's checkpoint, layers-hf database, searched config and GGUFs):
+   (a) ``ppl`` with the database's weights swapped in by the searched
+   config and at the Q4_K level, each within 0.05 nats/token of the GGUF
+   holding the same weights scored dense; layer 1 dropped; block by block
+   (``--memory_efficient``) within 1e-3 of plain; (b) ``estimate-errors``
+   over the database (Q6_K below Q4_K on all 14 linears; layer 0's o_proj
+   against a float64 host computation); (c) the FastOBQ ladder at bits 2-8
+   (84 files; errors falling with bits, 4 bits at or below flat RTN, by
+   ``estimate-errors``), the FastOBC ladder at sparsity 0.5 (3 levels; every
+   block's zeros its threshold's count), the OWL ratios, and the first 256
+   rows of layer 0's k_proj through both solvers on the card and the CPU
+   from one factor; (d) ``parity`` at
+   Q4_K and Q6_K (416 solve-kernel launches each, JAX's report keys), each
+   GGUF through ``ppl --gguf-path serving`` (v2g launches as its types
+   imply, within 0.05 nats/token of the report); (e) lm-eval's scorers at
+   batch 8 and 1 and ``score_rolling`` against ``compute_perplexity``; (f)
+   one ``masked_sgd`` step on the pruned layer-0 down_proj.
 
 The second-to-last line is the kernel summary JSON, the last line
 {"ok": true, "device": {...}}.
@@ -244,7 +264,6 @@ import json
 import math
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
@@ -266,30 +285,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, flush=None, sleep_cycles: int = 50_000_000) -> float:
+def cuda_ms(fn, reps: int, flush=None, sleep_cycles: int = 5_000_000) -> float:
     """Mean device time of fn() over reps calls: CUDA events around each
     call, ``flush`` (L2 eviction) outside them. A device sleep queued first
     (``sleep_cycles``) keeps the card busy while the host queues every
     call, so host overhead between the events is not counted: it must
-    outlast the host's queueing of all reps."""
+    outlast the host's queueing of all reps. An event recorded right after
+    the sleep shows it did (it is still pending once the last call is
+    queued); where it did not, the reading is taken once more behind a
+    sleep 16 times as long (a fn that waits for the card itself can never
+    be covered, so there is no third try)."""
     import torch
 
     fn()
     fn()  # warm-up: first-call library setup stays out
     torch.cuda.synchronize()
-    torch.cuda._sleep(sleep_cycles)
-    events = []
-    for _ in range(reps):
-        if flush is not None:
-            flush()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events) / reps
+    while True:
+        torch.cuda._sleep(sleep_cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        events = []
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        covered = not slept.query()
+        torch.cuda.synchronize()
+        if covered or sleep_cycles > 50_000_000:
+            return sum(a.elapsed_time(b) for a, b in events) / reps
+        sleep_cycles *= 16
 
 
 def call_ms(fn, reps: int) -> float:
@@ -375,15 +404,28 @@ def phase_device_and_build():
 
     names = ("qmatmul_v2g", "gptq_solve", "paged_decode", "qmatmul_v1", "qmatmul_v4",
              "qmatmul_v2", "qmatmul_v2m", "qmatmul_v3")
-    with ThreadPoolExecutor(len(names)) as ex:  # one nvcc per source, all at once
-        builds = dict(zip(names, ex.map(timed_build, names)))
-    for name, (nvcc_log, secs) in builds.items():
-        log(f"build: {name} in {secs:.1f} s ({'cached' if nvcc_log is None else 'built'})")
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", nvcc_log or "")]
-        spill = sum(int(m) for m in re.findall(r"(\d+) bytes spill", nvcc_log or ""))
-        if regs:
-            log(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-                f"{spill} bytes of spill stores and loads")
+    ex = ThreadPoolExecutor(len(names))  # one nvcc per source, all at once
+    builds = {name: ex.submit(timed_build, name) for name in names}
+    done = set()
+
+    def finish(*only):
+        """Wait for the builds named (all by default); log each one's
+        seconds and ptxas report once."""
+        for name in only or names:
+            if name in done:
+                continue
+            done.add(name)
+            nvcc_log, secs = builds[name].result()
+            log(f"build: {name} in {secs:.1f} s ({'cached' if nvcc_log is None else 'built'})")
+            regs = [int(m) for m in re.findall(r"Used (\d+) registers", nvcc_log or "")]
+            spill = sum(int(m) for m in re.findall(r"(\d+) bytes spill", nvcc_log or ""))
+            if regs:
+                log(f"  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+                    f"{spill} bytes of spill stores and loads")
+        if not only:
+            ex.shutdown()
+
+    return finish
 
 
 def term_magnitude(x, rql) -> float:
@@ -426,7 +468,7 @@ def kernel_case(name, x, rql, flush):
     xbf = x.to(torch.bfloat16)
     ms = cuda_ms(lambda: qmatmul.dequant_matmul_v2g(x, rql), 20, flush)
     wall_ms = call_ms(lambda: qmatmul.dequant_matmul_v2g(x, rql), 20)
-    plain_ms = cuda_ms(lambda: qmatmul.dequant_matmul_v2g_reference(x, rql), 3, flush)
+    plain_ms = cuda_ms(lambda: qmatmul.dequant_matmul_v2g_reference(x, rql), 1, flush)
     library_ms = cuda_ms(lambda: torch.matmul(xbf, w_lib), 20, flush)
     del w_lib
     # bytes: each plane once (one copy of each super-scale row), x, y
@@ -1931,7 +1973,7 @@ def phase_gptq_kernel(rng, device):
                    max_abs_err=err,
                    ms=cuda_ms(lambda: gptq.solve_block(*args), 20, flush_buf.zero_),
                    call_ms=call_ms(lambda: gptq.solve_block(*args), 20),
-                   plain_ms=cuda_ms(lambda: gptq.solve_block_reference(*args), 2,
+                   plain_ms=cuda_ms(lambda: gptq.solve_block_reference(*args), 1,
                                     flush_buf.zero_),
                    bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -1942,32 +1984,12 @@ def phase_gptq_kernel(rng, device):
     return recs
 
 
-def write_safetensors(tensors, path) -> None:
-    """A minimal safetensors writer (u64 header length, JSON header, raw
-    little-endian data), enough for the synthetic checkpoint."""
-    import torch
-
-    names = sorted(tensors)
-    header, off = {}, 0
-    for name in names:
-        t = tensors[name]
-        nb = t.numel() * t.element_size()
-        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype],
-                        "shape": list(t.shape), "data_offsets": [off, off + nb]}
-        off += nb
-    raw = json.dumps(header).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for name in names:
-            f.write(tensors[name].contiguous().view(torch.uint8).numpy())
-
-
 def write_checkpoint(path: Path, device) -> None:
     """A seeded Llama-3-8B-width llama checkpoint of GPTQ_LAYERS layers,
     bf16 weights of std 0.02, as config.json plus one safetensors file."""
     import torch
+
+    from gptq_gguf_tpu_torch.formats import safetensors
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -1993,7 +2015,7 @@ def write_checkpoint(path: Path, device) -> None:
         num_hidden_layers=GPTQ_LAYERS, num_attention_heads=N_HEAD, num_key_value_heads=N_KV,
         head_dim=HD, rope_theta=500000.0, rms_norm_eps=1e-5, max_position_embeddings=8192,
         tie_word_embeddings=False, torch_dtype="bfloat16")))
-    write_safetensors(t, path / "model.safetensors")
+    safetensors.write_safetensors(t, path / "model.safetensors")
 
 
 def h_objective(D, Hm) -> float:
@@ -2942,7 +2964,7 @@ def format_case(name, fmt, x, rql, flush):
     reps = 20 if M <= 128 else 5
     ms = cuda_ms(lambda: fn(x, rql), reps, flush)
     wall_ms = call_ms(lambda: fn(x, rql), reps)
-    plain_ms = cuda_ms(lambda: ref(x, rql), 2, flush)
+    plain_ms = cuda_ms(lambda: ref(x, rql), 1, flush)
     library_ms = cuda_ms(lambda: torch.matmul(x_lib, w_lib), reps, flush)
     del w_lib, x_lib
     nbytes = rql.bytes_read + x.numel() * x.element_size() + M * rql.d_out * 4
@@ -3579,7 +3601,8 @@ def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
     tokens equal to the plain versions' up to a near-tie), every v2g call
     of a prefill and a B=8 decode step held call by call; ``gguf-split``,
     ``serve`` from the first shard and ``--merge`` back byte for byte;
-    ``ppl --gguf-path serving``."""
+    ``ppl --gguf-path serving``. The layers-hf database (with the searched
+    config), the stitched GGUF and the Q4_K GGUF stay for phase 12."""
     import torch
 
     from gptq_gguf_tpu_torch.evals import ppl as ppl_mod
@@ -3787,9 +3810,10 @@ def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
         f"the {len(same)} layers-hf tensors the search scored are of the stitched tensors' "
         f"levels, so their dequantization (checked in {secs['stitch_check']:.1f} s)")
     del r, src, readers
-    shutil.rmtree(db)
+    # phase 12 reads the layers-hf database and its config, the stitched and
+    # the Q4_K GGUF, and removes them
+    shutil.rmtree(db / "layers-gguf")
     q6_gguf.unlink()
-    q4_gguf.unlink()
 
     # 5. serve the stitched GGUF
     per_forward = v2g_per_forward(levels)
@@ -3906,7 +3930,6 @@ def phase_gptq_mixed(tmp: Path, q4_gguf: Path, v2_layers, device):
     secs["ppl"] = time.perf_counter() - t
     if not np.isfinite(ppl):
         raise RuntimeError(f"ppl of the stitched GGUF: {ppl}")
-    mixed.unlink()
     secs["step"] = time.perf_counter() - t_step
     log(f"  ppl (serving, 2 x 512 synthetic tokens) {ppl:.4f} in {secs['ppl']:.1f} s; the step "
         f"took {secs['step']:.1f} s, peak disk use {peak[0]} bytes in the temporary directory "
@@ -4305,7 +4328,9 @@ def phase_recipes(tmp: Path, device) -> dict:
 # ---------------------------------------------------------------------------
 
 # the published configs (Qwen/Qwen3-8B and Qwen/Qwen2.5-7B config.json),
-# their depth cut to GPTQ_LAYERS when written
+# their depth cut to FAMILY_LAYERS when written (the layers repeat one
+# shape; the embedding and head are the cost)
+FAMILY_LAYERS = 1
 QWEN3_8B = dict(model_type="qwen3", architectures=["Qwen3ForCausalLM"], vocab_size=151936,
                 hidden_size=4096, intermediate_size=12288, num_hidden_layers=36,
                 num_attention_heads=32, num_key_value_heads=8, head_dim=128,
@@ -4323,7 +4348,7 @@ FAMILY_CALIB_TOKENS = 16384
 # gate/up fused (1), down, and its Q4_K head; qwen2 q/k/v apart (3: its
 # biases), o, gate/up, down, its head dense (bf16); phase 5 served 8 (its
 # head dense)
-FAMILY_V2G_PER_FORWARD = {"qwen3": 4 * GPTQ_LAYERS + 1, "qwen2": 6 * GPTQ_LAYERS}
+FAMILY_V2G_PER_FORWARD = {"qwen3": 4 * FAMILY_LAYERS + 1, "qwen2": 6 * FAMILY_LAYERS}
 FAMILY_TOKENS = 6       # greedy tokens of each ``serve``
 FAMILY_REQUESTS = 4     # requests on the contiguous and the paged engine
 
@@ -4341,11 +4366,13 @@ def family_solves_of(hf: dict):
 
 
 def write_family_checkpoint(path: Path, hf: dict, device) -> None:
-    """A seeded checkpoint of ``hf``'s widths and GPTQ_LAYERS layers, bf16
+    """A seeded checkpoint of ``hf``'s widths and FAMILY_LAYERS layers, bf16
     weights of std 0.02 as write_checkpoint's; qwen2's q / k / v biases
     (std 0.5) and qwen3's q / k norm weights (1 + 0.1 x normal) drawn, so
     that both are exercised."""
     import torch
+
+    from gptq_gguf_tpu_torch.formats import safetensors
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 11)
@@ -4360,7 +4387,7 @@ def write_family_checkpoint(path: Path, hf: dict, device) -> None:
     ones = torch.ones(h, dtype=torch.bfloat16)
     t = {"model.embed_tokens.weight": rnd(vocab, h), "model.norm.weight": ones,
          "lm_head.weight": rnd(vocab, h)}
-    for i in range(GPTQ_LAYERS):
+    for i in range(FAMILY_LAYERS):
         p = f"model.layers.{i}."
         t.update({p + "input_layernorm.weight": ones, p + "post_attention_layernorm.weight": ones,
                   p + "self_attn.q_proj.weight": rnd(nh * hd, h),
@@ -4376,9 +4403,9 @@ def write_family_checkpoint(path: Path, hf: dict, device) -> None:
             t[p + "self_attn.q_norm.weight"] = rnd(hd, std=0.1, mean=1.0)
             t[p + "self_attn.k_norm.weight"] = rnd(hd, std=0.1, mean=1.0)
     path.mkdir(parents=True, exist_ok=True)
-    (path / "config.json").write_text(json.dumps(dict(hf, num_hidden_layers=GPTQ_LAYERS,
+    (path / "config.json").write_text(json.dumps(dict(hf, num_hidden_layers=FAMILY_LAYERS,
                                                       torch_dtype="bfloat16")))
-    write_safetensors(t, path / "model.safetensors")
+    safetensors.write_safetensors(t, path / "model.safetensors")
     write_tokenizer(path, vocab)
 
 
@@ -4508,7 +4535,7 @@ def family_solves(rng, device) -> dict:
 
 
 def phase_families(tmp: Path, device) -> dict:
-    """11: (a) a Qwen3-8B-width checkpoint (GPTQ_LAYERS layers) through
+    """11: (a) a Qwen3-8B-width checkpoint (FAMILY_LAYERS layers) through
     ``quantize`` (GPTQ on the solve kernel, FAMILY_CALIB_TOKENS tokens,
     embedding and head RTN at the command's default Q4_K), ``pack`` and ``serve`` (v2g launches per
     forward as FAMILY_V2G_PER_FORWARD, the first forwards' calls held call
@@ -4548,7 +4575,7 @@ def phase_families(tmp: Path, device) -> dict:
                      "--outfile", str(gguf)])
             secs["pack"] = time.perf_counter() - t
             # Qwen3-8B: q/k/v, o and gate/up over 32 blocks each, down over 96
-            want = sum(n for _, _, n in family_solves_of(hf)) * GPTQ_LAYERS
+            want = sum(n for _, _, n in family_solves_of(hf)) * FAMILY_LAYERS
         else:
             run_cli(["rtn-quantize", "--model_name_or_path", str(ckpt), "--quant_type", "Q4_K",
                      "--save_dir", str(save), "--outfile", str(gguf), "--device", str(device)])
@@ -4556,7 +4583,7 @@ def phase_families(tmp: Path, device) -> dict:
             want = 0
         r["solve_launches"] = gptq.solve_block.launches
         names = artifacts.list_layers(save)
-        n_arts = 7 * GPTQ_LAYERS + 2 * (fam == "qwen3")
+        n_arts = 7 * FAMILY_LAYERS + 2 * (fam == "qwen3")
         if r["solve_launches"] != want or len(names) != n_arts:
             raise RuntimeError(f"{fam}: {r['solve_launches']} solve launches (want {want}), "
                                f"{len(names)} artifacts (want {n_arts})")
@@ -4564,7 +4591,8 @@ def phase_families(tmp: Path, device) -> dict:
         shutil.rmtree(ckpt)
         rd = GGUFReader(gguf)
         arch = rd.get("general.architecture")
-        extra = {"qwen3": "blk.1.attn_k_norm.weight", "qwen2": "blk.1.attn_v.bias"}[fam]
+        extra = f"blk.{FAMILY_LAYERS - 1}." + {"qwen3": "attn_k_norm.weight",
+                                               "qwen2": "attn_v.bias"}[fam]
         if arch != fam or extra not in rd.tensors \
                 or rd.tensors["output.weight"].ggml_type.name != ("Q4_K" if fam == "qwen3"
                                                                     else "F16"):
@@ -4604,6 +4632,533 @@ def phase_families(tmp: Path, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the rest of evals/ and the search's leftovers
+# ---------------------------------------------------------------------------
+
+EVAL_PPL_ARGS = ("--datasets", "synthetic", "--eval_tokens", str(2 * 512), "--sequence_length",
+                 "512")
+LADDER_TOKENS, LADDER_SEQ = 4096, 512   # the ladders' and estimate-errors' calibration set
+LADDER_BITS = (2, 3, 4, 5, 6, 8)        # JAX's default bit widths; the walk propagates 4
+# FastOBC at one level each side of 0.5 (3 files a linear): JAX's default of
+# four (9 files) would be ~8 GB of f16 files at this width
+OBC_SPARSITY, OBC_LEVELS, OWL_LAMBDA = 0.5, 1, 0.08
+PARITY_TOKENS, PARITY_EVAL = 16384, 4096
+SCORE_PAIRS = 16
+K_PROJ_ROWS = 256  # 12c's card / CPU comparison: rows of layer 0's k_proj
+# log-probs at batch 8 against batch 1: JAX's own bound between its batched
+# scorer and one forward a request (tests/test_lmeval.py); the two differ
+# only by the f32 GEMMs' order of sums at another M
+SCORE_LIMIT = 1e-3
+SCORE_NEAR_TIE = 1e-4  # top-2 gap (logits) below which a greedy flag may flip
+
+
+def ppl_of(argv, out: Path, args=EVAL_PPL_ARGS) -> float:
+    """``ppl`` through the command line; its perplexity."""
+    run_cli(["ppl", *argv, *args, "--output_path", str(out)])
+    return json.loads(out.read_text())["synthetic"]
+
+
+def level_stem(qtype: str) -> str:
+    """A K-quant's level as the layer database names its files (4.5-Q4_K)."""
+    from gptq_gguf_tpu_torch.mapper import splitter
+
+    return f"{splitter._bits_prefix(splitter.nominal_bits(qtype))}-{qtype}"
+
+
+def evals_compressed(tmp: Path, q4_gguf: Path, device) -> dict:
+    """12a: ``ppl`` with phase 5's layers-hf database swapped into the
+    checkpoint, by the searched config (its files named per line) and at
+    the Q4_K level, each against the GGUF holding the same dequantized
+    weights (the stitched one, the uniform Q4_K one) scored dense: within
+    0.05 nats/token (f16 files against the GGUF's f32 dequantization);
+    layer 1 dropped (attn+mlp): finite and not the undropped value;
+    ``--memory_efficient``: within a relative 1e-3 of plain ``ppl``."""
+    from gptq_gguf_tpu_torch.search import evopress
+
+    hf_db = tmp / "db" / "layers-hf"
+    chosen = evopress.parse_state_config(hf_db / f"evo-sparse_kl-configuration-{SEARCH_BITS}.txt")
+    comp_cfg, drops = tmp / "compressed.txt", tmp / "drops.txt"
+    # the loader's form of the searched config: one line a linear, its file's level
+    comp_cfg.write_text("\n".join(f"{n}: {f[:-len('.pth')]}" for n, (_, f) in chosen.items()))
+    drops.write_text("\n".join(["none", "attn+mlp"] + ["none"] * (GPTQ_LAYERS - 2)) + "\n")
+    ckpt = ["--model_name_or_path", str(tmp / "ckpt")]
+    db = ["--compressed_weights_path", str(hf_db)]
+    runs = {"plain": ckpt, "searched config": ckpt + db + ["--compressed_config_path",
+                                                            str(comp_cfg)],
+            "stitched GGUF, dense": ["--gguf-file", str(tmp / "mixed.gguf"), "--gguf-path",
+                                     "dense"],
+            "Q4_K level": ckpt + db + ["--default_level", level_stem("Q4_K")],
+            "Q4_K GGUF, dense": ["--gguf-file", str(q4_gguf), "--gguf-path", "dense"],
+            "layer 1 dropped": ckpt + ["--drop_layer_config", str(drops)],
+            "memory efficient": ckpt + ["--memory_efficient"]}
+    ppl, secs = {}, {}
+    for label, argv in runs.items():
+        t = time.perf_counter()
+        ppl[label] = ppl_of([*argv, "--device", str(device)], tmp / "ppl12.json")
+        secs[label] = time.perf_counter() - t
+    log(f"  ppl (2 x 512 synthetic tokens): " + ", ".join(
+        f"{k} {v:.4f} ({secs[k]:.1f} s)" for k, v in ppl.items()))
+    gaps = {"searched": abs(np.log(ppl["searched config"]) - np.log(ppl["stitched GGUF, dense"])),
+            "Q4_K": abs(np.log(ppl["Q4_K level"]) - np.log(ppl["Q4_K GGUF, dense"]))}
+    me = abs(ppl["memory efficient"] - ppl["plain"]) / ppl["plain"]
+    log(f"  compressed weights against their GGUF: {gaps['searched']:.2e} nats/token (searched "
+        f"config), {gaps['Q4_K']:.2e} (Q4_K level); --memory_efficient against plain: "
+        f"{me:.2e} relative")
+    if not all(np.isfinite(v) for v in ppl.values()) or max(gaps.values()) > 0.05 \
+            or me > 1e-3 or ppl["layer 1 dropped"] == ppl["plain"]:
+        raise RuntimeError(f"12a: perplexities {ppl}")
+    return dict(ppl=ppl, nats_apart=gaps, memory_efficient_rel=me, seconds=secs)
+
+
+def evals_estimate_errors(tmp: Path, device) -> dict:
+    """12b: ``estimate-errors`` over phase 5's layers-hf database: every
+    linear both levels, Q6_K below Q4_K on each; layer 0's o_proj at Q4_K
+    against a float64 host computation from the same H (relative 1e-4)."""
+    from gptq_gguf_tpu_torch.ops import sparse_gptq
+
+    rel0, shapes, o_proj = sparse_gptq.relative_layer_error, [], []
+
+    def recording(W, W_hat, H):
+        # layer 0's calls in order: q, k, v, o (two files each); o's first is Q4_K
+        shapes.append(tuple(W.shape))
+        if len(shapes) == 7:
+            o_proj.extend(t.cpu() for t in (W, W_hat, H))
+        return rel0(W, W_hat, H)
+
+    out = tmp / "errors.json"
+    t = time.perf_counter()
+    sparse_gptq.relative_layer_error = recording
+    try:
+        run_cli(["estimate-errors", "--model_name_or_path", str(tmp / "ckpt"), "--db_path",
+                 str(tmp / "db" / "layers-hf"), "--calibration_data", "synthetic",
+                 "--calibration_tokens", str(LADDER_TOKENS), "--calibration_sequence_length",
+                 str(LADDER_SEQ), "--output_path", str(out), "--device", str(device)])
+    finally:
+        sparse_gptq.relative_layer_error = rel0
+    secs = time.perf_counter() - t
+    errs = json.loads(out.read_text())
+    q4, q6 = f"{level_stem('Q4_K')}.pth", f"{level_stem('Q6_K')}.pth"
+    bad = [n for n, e in errs.items() if sorted(e) != [q4, q6] or not e[q6] < e[q4]]
+    if len(errs) != 7 * GPTQ_LAYERS or bad or shapes[2][0] != N_KV * HD:
+        raise RuntimeError(f"12b: {len(errs)} linears, not both levels or Q6_K not below Q4_K: "
+                           f"{bad}")
+    W, W_hat, Hm = (t.double().numpy() for t in o_proj)
+    dW = W - W_hat
+    ref = float(np.sum(dW * (dW @ Hm)) / np.sum(W * (W @ Hm)))
+    got = errs["model.layers.0.self_attn.o_proj"][q4]
+    log(f"  estimate-errors in {secs:.1f} s: {len(errs)} linears, Q6_K below Q4_K on each "
+        f"(Q4_K {min(e[q4] for e in errs.values()):.3e}-{max(e[q4] for e in errs.values()):.3e}, "
+        f"Q6_K {min(e[q6] for e in errs.values()):.3e}-{max(e[q6] for e in errs.values()):.3e}); "
+        f"layer 0 o_proj at Q4_K {got:.6e}, float64 on the host {ref:.6e} "
+        f"({abs(got - ref) / ref:.1e} relative)")
+    if not abs(got - ref) <= 1e-4 * ref:
+        raise RuntimeError(f"12b: o_proj error {got} against float64 {ref}")
+    return dict(seconds=secs, o_proj_q4=got, o_proj_q4_f64=ref,
+                q4_range=[min(e[q4] for e in errs.values()), max(e[q4] for e in errs.values())],
+                q6_range=[min(e[q6] for e in errs.values()), max(e[q6] for e in errs.values())])
+
+
+def evals_ladders(tmp: Path, device):
+    """12c: the FastOBQ ladder at LADDER_BITS (propagating 4 bits; 84
+    files), ``estimate_layer_errors`` over it with each linear's flat 4-bit RTN
+    beside (errors strictly falling with bits, 4 bits at or below RTN), the
+    FastOBC ladder at OBC_SPARSITY (3 levels a linear; every block of every
+    level holds exactly the zeros its threshold gives: its k plus the
+    entries tied with the k-th score), the OWL ratios and distribution,
+    and layer 0's k_proj (K_PROJ_ROWS rows) through both solvers on the
+    card and on the CPU from one factor (codes and masks equal on at least
+    99.9%). Seconds per layer and the ladders' bytes printed, the files
+    removed. Returns (record, (dense, pruned) layer-0 down_proj for 12f)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.models import llama, loader
+    from gptq_gguf_tpu_torch.ops import sparse_gptq
+    from gptq_gguf_tpu_torch.search import ladder
+    from gptq_gguf_tpu_torch.utils.data import get_synthetic
+
+    rec, secs = {}, {}
+    ckpt = tmp / "ckpt"
+    cfg = loader.load_config(ckpt)
+    params = loader.load_params(ckpt, cfg)
+    calib = get_synthetic(LADDER_TOKENS, LADDER_SEQ, cfg.vocab_size)
+
+    # FastOBQ, layer 0's k_proj (W, H) kept for the card / CPU comparison
+    obq0, kept, n_obq, solve_s = sparse_gptq.fast_obq_quantize, {}, [0], []
+
+    def keep_k(W, H, bitwidths, **kw):
+        n_obq[0] += 1
+        if n_obq[0] == 2:  # q, then k
+            kept["k"] = (W.float().cpu(), H.cpu())
+        t0 = time.perf_counter()
+        out = obq0(W, H, bitwidths, **kw)
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t0)
+        return out
+
+    obq = tmp / "obq"
+    t = time.perf_counter()
+    sparse_gptq.fast_obq_quantize = keep_k
+    try:
+        ladder.build_fastobq_ladder(params, cfg, calib, obq, LADDER_BITS, propagate_bits=4,
+                                    device=device)
+    finally:
+        sparse_gptq.fast_obq_quantize = obq0
+    torch.cuda.synchronize()
+    secs["fastobq"] = time.perf_counter() - t
+    files = sorted(obq.rglob("*.pth"))
+    rec["fastobq_bytes"] = disk_bytes(obq)
+    if len(files) != 7 * GPTQ_LAYERS * len(LADDER_BITS) or kept["k"][0].shape[0] != N_KV * HD:
+        raise RuntimeError(f"12c: {len(files)} FastOBQ files")
+    # each linear's flat 4-bit round-to-nearest, scored beside the ladder
+    for layer_dir in sorted(p for p in obq.iterdir() if p.is_dir()):
+        W = llama.get_linear(params, layer_dir.name).to(device).float()
+        p = sparse_gptq.simple_find_params(W, 4, False)
+        _, wq = sparse_gptq._flat_quantize(W, p.scale[:, None], p.zero[:, None], 15.0)
+        torch.save(wq.half().cpu(), layer_dir / "rtn4.pth")
+    t = time.perf_counter()  # the command ran in 12b: here its function, on the loaded model
+    errs = ladder.estimate_layer_errors(params, cfg, calib, obq, device=device)
+    secs["estimate_errors"] = time.perf_counter() - t
+    bad = [n for n, e in errs.items()
+           if not all(e[f"{a}.pth"] > e[f"{b}.pth"] for a, b in zip(LADDER_BITS, LADDER_BITS[1:]))
+           or not e["4.pth"] <= e["rtn4.pth"]]
+    gain = [errs[n]["4.pth"] / errs[n]["rtn4.pth"] for n in errs]
+    secs["fastobq_solves"] = sum(solve_s)
+    log(f"  FastOBQ ladder ({len(LADDER_BITS)} bit widths, {LADDER_TOKENS} tokens in sequences "
+        f"of {LADDER_SEQ}) in {secs['fastobq']:.1f} s ({secs['fastobq'] / GPTQ_LAYERS:.1f} s a "
+        f"layer, of which the 7 solves {sum(solve_s) / GPTQ_LAYERS:.1f} s: "
+        f"{[round(x, 2) for x in solve_s[:7]]}): {len(files)} files, {rec['fastobq_bytes']} "
+        f"bytes; estimate-errors over it in "
+        f"{secs['estimate_errors']:.1f} s: errors fall with bits on {len(errs) - len(bad)} of "
+        f"{len(errs)} linears, 4-bit error / flat 4-bit RTN's {min(gain):.3f}-{max(gain):.3f}")
+    if bad or len(errs) != 7 * GPTQ_LAYERS:
+        raise RuntimeError(f"12c: FastOBQ errors not falling with bits or above RTN: {bad}")
+    rec["obq_over_rtn_4bit"] = [min(gain), max(gain)]
+    shutil.rmtree(obq)
+
+    # FastOBC: every block's zeros against its threshold's count
+    obc0, blocks = sparse_gptq.fast_obc_prune, []
+
+    def checked(W, H, sparsities, **kw):
+        stats = []
+        t0 = time.perf_counter()
+        out = obc0(W, H, sparsities, stats=stats, **kw)
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t0)
+        if len(solve_s) == 7:  # layer 0's down_proj, level 0: 12f's weight
+            levels = ladder.obc_levels(W.numel(), OBC_SPARSITY, OBC_LEVELS, 1 << 20)[0]
+            kept["down"] = (W.float(), out[levels.index(0)])
+        bs = kw.get("block_size", 128)
+        zeros = [(w.view(w.shape[0], -1, bs) == 0).sum(dim=(0, 2)).tolist() for w in out]
+        n_le = torch.stack([n for *_, n in stats]).tolist()  # one read a linear
+        blocks.extend((zeros[ci][blk], n, k) for (ci, blk, k, _), n in zip(stats, n_le))
+        return out
+
+    obc = tmp / "obc"
+    solve_s.clear()
+    t = time.perf_counter()
+    sparse_gptq.fast_obc_prune = checked
+    try:
+        ladder.build_fastobc_ladder(params, cfg, calib, obc, OBC_SPARSITY, OBC_LEVELS,
+                                    device=device)
+    finally:
+        sparse_gptq.fast_obc_prune = obc0
+    torch.cuda.synchronize()
+    secs["fastobc"] = time.perf_counter() - t
+    secs["fastobc_solves"] = sum(solve_s)
+    n_obc = len(list(obc.rglob("*.pth")))
+    rec["fastobc_bytes"] = disk_bytes(obc)
+    want_files = sum(len(ladder.obc_levels(llama.get_linear(params, n).numel(), OBC_SPARSITY,
+                                           OBC_LEVELS, 1 << 20)[0])
+                     for n in llama.linear_layer_names(cfg))
+    wrong = sum(z != n for z, n, _ in blocks)
+    tied = [n - k for _, n, k in blocks if n != k]
+    log(f"  FastOBC ladder (sparsity {OBC_SPARSITY}, up to {2 * OBC_LEVELS + 1} levels) in "
+        f"{secs['fastobc']:.1f} s ({secs['fastobc'] / GPTQ_LAYERS:.1f} s a layer, the solves "
+        f"{sum(solve_s) / GPTQ_LAYERS:.1f} s): {n_obc} "
+        f"files, {rec['fastobc_bytes']} bytes; {len(blocks) - wrong} of {len(blocks)} blocks "
+        f"hold exactly the zeros their threshold gives, {len(blocks) - len(tied)} exactly k, "
+        f"{len(tied)} k plus entries tied with the k-th score (at most {max(tied, default=0)})")
+    if wrong or n_obc != want_files:
+        raise RuntimeError(f"12c: {n_obc} FastOBC files, {wrong} blocks off their count")
+    rec["obc_blocks"], rec["obc_tied_blocks"] = len(blocks), len(tied)
+    shutil.rmtree(obc)
+
+    t = time.perf_counter()
+    ratios = ladder.compute_owl_outlier_ratios(params, cfg, calib, device=device)
+    dist = sparse_gptq.owl_sparsity_distribution(ratios, OBC_SPARSITY, OWL_LAMBDA)
+    secs["owl"] = time.perf_counter() - t
+    log(f"  OWL in {secs['owl']:.1f} s: outlier ratios {[round(r, 6) for r in ratios]}, "
+        f"sparsities {[round(float(x), 6) for x in dist]} (mean {dist.mean():.12f})")
+    if not (np.all(np.isfinite(ratios)) and np.all(np.isfinite(dist))
+            and abs(dist.mean() - OBC_SPARSITY) < 1e-12):
+        raise RuntimeError(f"12c: OWL ratios {ratios}, distribution {dist}")
+    rec["owl_ratios"], rec["owl_sparsities"] = ratios, dist.tolist()
+
+    # layer 0's k_proj through both solvers on the card and on the CPU, from
+    # one factorization (the card's): f32 Cholesky factors of this
+    # ill-conditioned H (4096 tokens over 4096 columns, 1% damping) from
+    # cuSOLVER and from LAPACK differ far above f32 rounding, which moves
+    # the solutions by more than either solver does (printed beside)
+    from gptq_gguf_tpu_torch.ops import gptq
+
+    W, Hk = kept.pop("k")
+    levels, sparsities = ladder.obc_levels(W.numel(), OBC_SPARSITY, OBC_LEVELS, 1 << 20)
+    W32, U, _ = gptq.prepare_hessian_inverse(Hk.to(device), W.to(device), 1e-2)
+    # its first K_PROJ_ROWS rows: rows are independent given U, so these are
+    # the whole linear's solve on them (the CPU's eager loop is the cost)
+    W, W32 = W[:K_PROJ_ROWS], W32[:K_PROJ_ROWS]
+    _, U_cpu, _ = gptq.prepare_hessian_inverse(Hk, W, 1e-2)
+    u_gap = float((U.cpu() - U_cpu).abs().max() / U_cpu.abs().max())
+    L, rows = len(LADDER_BITS), W.shape[0]
+    maxq = torch.tensor([2.0 ** b - 1 for b in LADDER_BITS]).repeat_interleave(rows)
+    chunks = [(k * rows, (k + 1) * rows, sp) for k, sp in enumerate(sparsities)]
+
+    def solve(dev):
+        w, u = W32.to(dev), U.to(dev)
+        codes = sparse_gptq._stacked_fast_obq(w.repeat(L, 1), u, maxq.to(dev), False,
+                                              w.shape[1], 128)[0]
+        pruned = sparse_gptq._stacked_fast_obc(w.repeat(len(chunks), 1), u, chunks, 128)
+        return codes.cpu(), pruned.cpu()
+
+    for key, where in (("card", device), ("cpu", torch.device("cpu"))):
+        t = time.perf_counter()
+        kept[key] = solve(where)
+        torch.cuda.synchronize()
+        secs[f"k_proj_{key}"] = time.perf_counter() - t
+    (c_card, w_card), (c_cpu, w_cpu) = kept.pop("card"), kept.pop("cpu")
+    codes = [float((c_card[k * rows:(k + 1) * rows] == c_cpu[k * rows:(k + 1) * rows])
+                   .float().mean()) for k in range(L)]
+    masks = [float(((w_card[r0:r1] == 0) == (w_cpu[r0:r1] == 0)).float().mean())
+             for r0, r1, _ in chunks]
+    own = sparse_gptq.fast_obq_quantize(W, Hk, (4,))[4][0]
+    own_agree = float((own == c_card[2 * rows:3 * rows]).float().mean())
+    log(f"  layer 0 k_proj (its first {rows} rows x {W.shape[1]}) through both solvers from "
+        f"the card's "
+        f"factor: card {secs['k_proj_card']:.2f} s, CPU {secs['k_proj_cpu']:.2f} s; codes equal "
+        f"{[round(c, 6) for c in codes]} (bits {LADDER_BITS}), masks equal "
+        f"{[round(m, 6) for m in masks]} (sparsities {[round(x, 4) for x in sparsities]}); the "
+        f"CPU's own factor {u_gap:.1e} of max|U| from the card's, its 4-bit codes "
+        f"{own_agree:.4f} equal")
+    if min(codes + masks) < 0.999:
+        raise RuntimeError(f"12c: card and CPU solvers apart: codes {codes}, masks {masks}")
+    rec.update(card_cpu_codes=codes, card_cpu_masks=masks, factor_gap=u_gap,
+               own_factor_4bit_codes=own_agree, seconds=secs)
+    return rec, kept.pop("down")
+
+
+def evals_parity(tmp: Path, device) -> dict:
+    """12d: ``parity`` at Q4_K and Q6_K on the checkpoint (PARITY_TOKENS
+    calibration tokens, one PARITY_EVAL-token sequence): 416 solve-kernel
+    launches a bit width, JAX's report keys with no reference row (passed
+    null); each GGUF through ``ppl --gguf-path serving`` (a v2g launch per
+    K-quant linear and forward: ppl does not fuse, and the f16 head is
+    dense; within 0.05 nats/token of the report's perplexity)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.ops import gptq
+    from gptq_gguf_tpu_torch.quant import calibrate
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    out_dir = tmp / "parity"
+    walk0, walks = calibrate.quantize_model, []
+
+    def counted(*a, **kw):
+        gptq.solve_block.launches = 0
+        t0 = time.perf_counter()
+        res = walk0(*a, **kw)
+        torch.cuda.synchronize()
+        walks.append((gptq.solve_block.launches, time.perf_counter() - t0))
+        return res
+
+    t = time.perf_counter()
+    calibrate.quantize_model = counted
+    try:
+        run_cli(["parity", "--model_name_or_path", str(tmp / "ckpt"), "--calibration_data",
+                 "synthetic", "--calibration_tokens", str(PARITY_TOKENS), "--eval_tokens",
+                 str(PARITY_EVAL), "--bit_widths", "Q4_K", "Q6_K", "--out_dir", str(out_dir),
+                 "--device", str(device)])
+    finally:
+        calibrate.quantize_model = walk0
+    parity_s = time.perf_counter() - t
+    report = json.loads((out_dir / "parity_report.json").read_text())
+    want = sum(n for _, _, n in SOLVE_SHAPES) * GPTQ_LAYERS
+    keys = {"bit_width", "measured_ppl", "reference_ppl", "delta", "passed", "gguf_path",
+            "seconds"}
+    if sorted(report) != ["eval_dataset", "model", "results", "tolerance"] or any(
+            set(r) != keys or r["passed"] is not None for r in report["results"]) \
+            or [n for n, _ in walks] != [want, want]:
+        raise RuntimeError(f"12d: report {report}, solve launches {walks}")
+    fwd0, forwards, rec = qmodel.forward_cached, [0], {}
+
+    def counted_forward(*a, **kw):
+        forwards[0] += 1
+        return fwd0(*a, **kw)
+
+    for r, (launches, walk_s) in zip(report["results"], walks):
+        gguf = Path(r["gguf_path"])
+        types = {n: i.ggml_type.name for n, i in GGUFReader(gguf).tensors.items()}
+        # ppl loads without fusing: every K-quant linear one call, the f16 head dense
+        per_forward = sum(t.endswith("_K") for n, t in types.items() if n.startswith("blk."))
+        reset_matmul_counts()
+        forwards[0] = 0
+        t = time.perf_counter()
+        qmodel.forward_cached = counted_forward
+        try:
+            served = ppl_of(["--gguf-file", str(gguf), "--gguf-path", "serving", "--device",
+                             str(device)], tmp / "ppl12.json",
+                            ("--datasets", "synthetic", "--eval_tokens", str(PARITY_EVAL),
+                             "--sequence_length", str(PARITY_EVAL)))
+        finally:
+            qmodel.forward_cached = fwd0
+        serve_s = time.perf_counter() - t
+        v2g = matmul_counts()["v2g"]
+        apart = abs(np.log(served) - np.log(r["measured_ppl"]))
+        log(f"  parity {r['bit_width']}: walk {walk_s:.1f} s ({launches} solve-kernel launches), "
+            f"report ppl {r['measured_ppl']:.4f} in {r['seconds']:.1f} s (walk, dense ppl, "
+            f"pack); {gguf.name} ({gguf.stat().st_size} bytes, output.weight "
+            f"{types['output.weight']}) through ppl --gguf-path serving {served:.4f} in "
+            f"{serve_s:.1f} s, {apart:.2e} nats/token apart; v2g launches {v2g} = "
+            f"{per_forward} x {forwards[0]} forwards")
+        if not np.isfinite(served) or apart > 0.05 or v2g != per_forward * forwards[0] \
+                or not forwards[0]:
+            raise RuntimeError(f"12d: {r['bit_width']} served {served}, {v2g} v2g launches")
+        rec[r["bit_width"]] = dict(report_ppl=r["measured_ppl"], served_ppl=served,
+                                   nats_apart=apart, solve_launches=launches, walk_s=walk_s,
+                                   report_s=r["seconds"], serve_ppl_s=serve_s,
+                                   v2g_launches=v2g, gguf_bytes=gguf.stat().st_size)
+    shutil.rmtree(out_dir)
+    return dict(rec, parity_s=parity_s, report_keys=sorted(report))
+
+
+def evals_scorers(tmp: Path, device) -> dict:
+    """12e: SCORE_PAIRS seeded (context, continuation) pairs scored at
+    batch 8 and at batch 1 (the first 4 continued by their greedy token):
+    log-probs within SCORE_LIMIT, greedy flags equal but at a near-tie;
+    ``score_rolling`` of one 512-token sequence within a relative 1e-3 of
+    its summed NLL from ``compute_perplexity``."""
+    import torch
+
+    from gptq_gguf_tpu_torch.evals import lmeval, ppl as ppl_mod
+    from gptq_gguf_tpu_torch.models import llama, loader
+    from gptq_gguf_tpu_torch.utils.data import get_synthetic
+
+    ckpt = tmp / "ckpt"
+    cfg = loader.load_config(ckpt)
+    host = loader.load_params(ckpt, cfg)
+    params = {k: v.to(device) for k, v in host.items() if k != "layers"}
+    params["layers"] = [{k: v.to(device) for k, v in layer.items()} for layer in host["layers"]]
+    del host
+    rng = np.random.default_rng(SEED + 12)
+    pairs = []
+    with torch.no_grad():
+        for i in range(SCORE_PAIRS):
+            ctx = rng.integers(0, cfg.vocab_size, int(rng.integers(16, 120))).tolist()
+            cont = rng.integers(0, cfg.vocab_size, int(rng.integers(1, 9))).tolist()
+            if i < 4:
+                cont = [int(llama.forward(params, torch.as_tensor([ctx], device=device),
+                                          cfg)[0, -1].argmax())]
+            pairs.append((ctx, cont))
+    t = time.perf_counter()
+    s8 = lmeval.score_continuations(params, cfg, pairs, cfg.max_position_embeddings, 8)
+    t8 = time.perf_counter() - t
+    t = time.perf_counter()
+    s1 = lmeval.score_continuations(params, cfg, pairs, cfg.max_position_embeddings, 1)
+    t1 = time.perf_counter() - t
+    lp_gap = max(abs(a[0] - b[0]) for a, b in zip(s8, s1))
+    flips = [i for i, (a, b) in enumerate(zip(s8, s1)) if a[1] != b[1]]
+    for i in flips:
+        ctx, cont = pairs[i]
+        with torch.no_grad():
+            logits = llama.forward(params, torch.as_tensor([ctx + cont], device=device), cfg)[0]
+        top2 = logits[len(ctx) - 1:-1].topk(2, dim=-1).values
+        if float((top2[:, 0] - top2[:, 1]).min()) >= SCORE_NEAR_TIE:
+            raise RuntimeError(f"12e: pair {i}'s greedy flag differs away from a tie")
+    seq = get_synthetic(512, 512, cfg.vocab_size, seed=SEED)[0]
+    roll = lmeval.score_rolling(params, cfg, [seq[0].tolist()], cfg.max_position_embeddings)[0]
+    nll = float(np.log(ppl_mod.compute_perplexity(params, cfg, [seq]))) * (seq.shape[1] - 1)
+    roll_rel = abs(-roll - nll) / nll
+    log(f"  lm-eval scorers: {SCORE_PAIRS} pairs at batch 8 in {t8:.2f} s and at batch 1 in "
+        f"{t1:.2f} s, log-probs at most {lp_gap:.2e} apart (limit {SCORE_LIMIT:g}), greedy "
+        f"{sum(g for _, g in s8)} of {SCORE_PAIRS}, {len(flips)} flags differ (near-ties); "
+        f"score_rolling {roll:.4f} against compute_perplexity's summed NLL {-nll:.4f} "
+        f"({roll_rel:.1e} relative)")
+    if lp_gap > SCORE_LIMIT or roll_rel > 1e-3 or sum(g for _, g in s1) < 2:
+        raise RuntimeError(f"12e: log-probs {lp_gap} apart, rolling {roll_rel} relative")
+    return dict(pairs=SCORE_PAIRS, logprob_gap=lp_gap, flag_flips=len(flips),
+                greedy=sum(g for _, g in s8), rolling_rel=roll_rel, batch8_s=t8, batch1_s=t1)
+
+
+def evals_distill(dense, pruned, device) -> dict:
+    """12f: one ``masked_sgd`` step on the FastOBC-pruned layer-0
+    down_proj (level 0 of 12c's ladder, kept from its walk) under
+    ``squarehead_loss`` against the dense weight's outputs: the loss
+    finite, every pruned weight still exactly 0."""
+    import torch
+
+    from gptq_gguf_tpu_torch.search import distill
+
+    name = "model.layers.0.mlp.down_proj"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x = torch.randn((512, dense.shape[1]), generator=gen, device=device)
+    w = pruned.clone().requires_grad_(True)
+    mask = distill.sparsity_masks({"w": pruned})["w"]
+    opt = distill.masked_sgd(1e-2, [mask], [w])
+    teacher = x @ dense.T
+    loss = distill.squarehead_loss(x @ w.T, teacher)
+    loss.backward()
+    opt.step()
+    with torch.no_grad():
+        after = float(distill.squarehead_loss(x @ w.T, teacher))
+    kept_zero = bool((w.detach()[mask == 0] == 0).all())
+    moved = int((w.detach() != pruned).sum())
+    log(f"  distillation: one masked_sgd step on the pruned {name} ({int((mask == 0).sum())} "
+        f"of {mask.numel()} weights zero): squarehead loss {float(loss.detach()):.6f} -> "
+        f"{after:.6f}, "
+        f"{moved} weights moved, every pruned weight still 0: {kept_zero}")
+    loss = float(loss.detach())
+    if not (np.isfinite(loss) and np.isfinite(after) and kept_zero and moved):
+        raise RuntimeError(f"12f: loss {loss} -> {after}, pruned kept {kept_zero}")
+    return dict(loss=loss, loss_after=after, zeros=int((mask == 0).sum()), moved=moved)
+
+
+def phase_evals(tmp: Path, q4_gguf: Path, device) -> dict:
+    """12: the rest of evals/ and the search's leftovers on phase 5's
+    checkpoint, database, searched config and GGUFs (removed at the end):
+    (a) evals_compressed, (b) evals_estimate_errors, (c) evals_ladders,
+    (d) evals_parity, (e) evals_scorers, (f) evals_distill."""
+    import torch
+
+    t_phase = time.perf_counter()
+    rec, secs, down = {}, {}, None
+
+    def ladders():
+        nonlocal down
+        out, down = evals_ladders(tmp, device)
+        return out
+
+    for key, step in (("compressed", lambda: evals_compressed(tmp, q4_gguf, device)),
+                      ("estimate_errors", lambda: evals_estimate_errors(tmp, device)),
+                      ("ladders", ladders),
+                      ("parity", lambda: evals_parity(tmp, device)),
+                      ("scorers", lambda: evals_scorers(tmp, device)),
+                      ("distill", lambda: evals_distill(*down, device))):
+        t = time.perf_counter()
+        rec[key] = step()
+        torch.cuda.empty_cache()
+        secs[key] = time.perf_counter() - t
+    shutil.rmtree(tmp / "db")
+    for p in (tmp / "mixed.gguf", q4_gguf):
+        p.unlink()
+    secs["phase"] = time.perf_counter() - t_phase
+    log(f"phase 12 took {secs['phase']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items() if k != "phase")
+        + f" (card {card_name_and_power()})")
+    return dict(rec, seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the v2 kernel variants at full width
 # ---------------------------------------------------------------------------
 
@@ -4636,10 +5191,12 @@ VARIANT_DECODE_KERNELS = (("v2p", "qmatmul_v2m_mma.cuh", 844, ("lm_head",), "v2m
                           ("v2f", "qmatmul_v2_mma.cuh", 496, STEP, "v2f"))
 
 
-VARIANT_SERVING_LAYERS = 8  # 8c's depth (the first 8 of phase 3's 32 layers)
-FORMAT_SERVING_LAYERS = 8   # 7c's depth, likewise
-SAMPLED_SERVING_LAYERS = 8  # phase 9's depth (phase 11 keeps chip_smoke inside its limit)
-PAGED_SERVING_LAYERS = 8    # 6c-e's depth, likewise
+# the depths of the serving paths beside the main path (phase 3, 32 layers):
+# cut to keep chip_smoke inside its time limit beside phases 10-12
+VARIANT_SERVING_LAYERS = 4  # 8c's depth (the first 4 of phase 3's 32 layers)
+FORMAT_SERVING_LAYERS = 4   # 7c's depth, likewise
+SAMPLED_SERVING_LAYERS = 4  # phase 9's depth, likewise
+PAGED_SERVING_LAYERS = 4    # 6c-e's depth, likewise
 
 
 def variant_runs(n_layers: int):
@@ -4748,7 +5305,7 @@ def variant_case(name, variant, mxu, x, rql, flush, control=None):
     x_lib = x.to(dt)
     ms = cuda_ms(lambda: fn(x, rql, dt), 20, flush)
     wall_ms = call_ms(lambda: fn(x, rql, dt), 20)
-    plain_ms = cuda_ms(lambda: ref(x, rql, dt), 3, flush)
+    plain_ms = cuda_ms(lambda: ref(x, rql, dt), 1, flush)
     library_ms = cuda_ms(lambda: torch.matmul(x_lib, w_lib), 20, flush)
     del w_lib, x_lib
     nbytes = rql.bytes_read + x.numel() * x.element_size() + M * rql.d_out * 4
@@ -5305,17 +5862,27 @@ def paged_summary(name, source_line, krec, launches):
 
 
 def run(device) -> dict:
-    """All eleven phases on ``device``; returns the kernel summary."""
+    """All twelve phases on ``device``; returns the kernel summary."""
     import torch
 
     t_start = time.time()
     rng = np.random.default_rng(SEED)
     log("== phase 1: device and build")
-    phase_device_and_build()
-    log("== phase 2: kernel vs plain version")
+    finish_build = phase_device_and_build()
+    # while nvcc runs: phase 2's weights are packed on the card (no kernel)
+    # and, once the solve kernel is built, phase 5's two quantize walks run
+    # (they launch no other kernel); their temporary directory lasts to
+    # phase 12
     t = time.time()
     params, cfg = build_8b(rng, device)
     log(f"weights: {N_LAYERS} layers + lm_head packed in {time.time() - t:.1f} s")
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_gptq_")
+    finish_build("gptq_solve")
+    log("== phase 5 (its quantize walks, while the other kernels build)")
+    g_launches, gptq_rec, solves, arts = phase_gptq_quantize(Path(tmpdir.name), device)
+    finish_build()
+    log(f"phase 1 took {time.time() - t_start:.1f} s (the weights and the walks meanwhile)")
+    log("== phase 2: kernel vs plain version")
     recs = phase_kernels(params, rng, device)
     mrecs = phase_mma_kernels(params, ("v2g",), device)
     drecs = phase_decode_mma_kernels(params, device, rng)
@@ -5424,8 +5991,7 @@ def run(device) -> dict:
 
     log("== phase 5: GPTQ at full width")
     grecs = phase_gptq_kernel(rng, device)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gptq_") as tmp:
-        g_launches, gptq_rec, solves, arts = phase_gptq_quantize(Path(tmp), device)
+    with tmpdir as tmp:
         gptq_rec["whole_o_solve"] = phase_gptq_whole_solve(solves, device)
         gptq_rec["static_groups_bs0"] = phase_gptq_static_groups(Path(tmp), solves, device)
         del solves
@@ -5440,6 +6006,8 @@ def run(device) -> dict:
         recipes_rec = phase_recipes(Path(tmp), device)
         log("== phase 11: the qwen3 and qwen2 families, checkpoint to served tokens")
         families_rec = phase_families(Path(tmp), device)
+        log("== phase 12: the rest of evals/ and the search's leftovers")
+        evals_rec = phase_evals(Path(tmp), q4_gguf, device)
 
     # the kernel's numbers for one decode step at B=8: the four projections
     # of every layer plus the lm_head, at the M=8 shapes measured above
@@ -5528,7 +6096,7 @@ def run(device) -> dict:
                             vppl[run]["mma_launches"][variant])
         for name, source, line, variant, shapes, run in VARIANT_MMA_KERNELS],
         "serving": serve, "sampling": sampled, "gptq": gptq_rec, "paged": paged_rec,
-        "recipes": recipes_rec, "families": families_rec,
+        "recipes": recipes_rec, "families": families_rec, "evals": evals_rec,
         "formats": dict(serving=fserve, ppl=fppl, logits_between_formats=cross,
                         gptq_greedy=gptq_formats),
         "variants": dict(serving=vserve, ppl=vppl, logits=vcross),
@@ -5543,6 +6111,12 @@ def run(device) -> dict:
     for k in summary["kernels"]:
         if k["name"] in fam_launches:
             k["families_launches"] = fam_launches[k["name"]]
+    # phase 12's: parity's GPTQ walks and its GGUFs scored through serving
+    par = evals_rec["parity"]
+    for k in summary["kernels"]:
+        if k["name"] in ("qmatmul_v2g", "gptq_solve"):
+            key = "v2g_launches" if k["name"] == "qmatmul_v2g" else "solve_launches"
+            k["evals_launches"] = {bw: par[bw][key] for bw in ("Q4_K", "Q6_K")}
     return summary
 
 

@@ -15,7 +15,11 @@ llama-quantize recipes with importance vectors and round-to-nearest
 artifacts (``imatrix``, ``llama-quantize``, ``rtn-quantize``). The layer
 database, the EvoPress
 bit-width search and the stitcher that assembles a mixed GGUF
-(``build-db``, ``search``, ``stitch``). Serving a K-quant GGUF Llama:
+(``build-db``, ``search``, ``stitch``), and the rest of the evaluation
+and the search's databases: perplexity with layers dropped, a database's
+weights swapped in or block by block, the FastOBQ / FastOBC / OWL ladders
+and the error estimator, the parity harness and lm-eval's scorers
+(``ppl``, ``estimate-errors``, ``parity``, ``lm-eval``). Serving a K-quant GGUF Llama:
 GGUF reading, the v2 runtime weight format, the hand-written v2g
 dequant-matmul CUDA kernel, the dense Llama decoder with a contiguous bf16,
 int8 or int4 KV cache, the per-slot sampler chain (penalties, top-k / top-p

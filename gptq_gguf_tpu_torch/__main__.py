@@ -13,8 +13,12 @@ llama-quantize route: ``imatrix`` measures each linear's importance
 vector, ``rtn-quantize`` writes round-to-nearest artifacts (and a GGUF),
 ``llama-quantize`` requantizes a float GGUF with a llama.cpp recipe
 (``quant/{rtn,recipes,imatrix_io}.py``). ``ppl``
-scores a GGUF (dense, or through the serving kernels) or an HF checkpoint
-(``cli/tools.py``). ``serve``
+scores a GGUF (dense, or through the serving kernels) or an HF checkpoint,
+optionally with layers dropped, a database's weights swapped in, or block
+by block (``cli/tools.py``, ``evals/``); ``estimate-errors`` scores each
+level of a layer database, ``parity`` runs quantize -> pack -> perplexity
+against the reference's tables and ``lm-eval`` lm-eval-harness tasks.
+``serve``
 loads a K-quant llama GGUF onto the card, fuses q/k/v and gate/up, and
 either greedily decodes one prompt (token ids or text), or, with
 ``--http``, serves HTTP requests (greedy or sampled, with logprobs), or,
@@ -210,7 +214,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             ("imatrix", tools.build_imatrix, tools.run_imatrix,
              "importance vectors of every linear (.npz or llama.cpp .imatrix)"),
             ("llama-quantize", tools.build_llama_quantize, tools.run_llama_quantize,
-             "GGUF -> GGUF with a llama.cpp recipe (Q4_K_M, IQ4_XS, ...)")):
+             "GGUF -> GGUF with a llama.cpp recipe (Q4_K_M, IQ4_XS, ...)"),
+            ("estimate-errors", tools.build_estimate_errors, tools.run_estimate_errors,
+             "relative error of every level of a layer database"),
+            ("lm-eval", tools.build_lmeval, tools.run_lmeval, "lm-eval-harness tasks"),
+            ("parity", tools.build_parity, tools.run_parity_cmd,
+             "quantize -> pack -> perplexity against the reference's tables")):
         build(sub.add_parser(name, help=text))
         runs[name] = run
     args = ap.parse_args(argv)

@@ -30,6 +30,14 @@ def load_model(args):
     return cfg, loader.load_params(args.model_name_or_path, cfg)
 
 
+def float_params(host, device):
+    """Every weight of a host-staged param dict on ``device``, in f32."""
+    params = {k: v.to(device).float() for k, v in host.items() if k != "layers"}
+    params["layers"] = [{k: v.to(device).float() for k, v in layer.items()}
+                        for layer in host["layers"]]
+    return params
+
+
 def load_calibration(args, cfg):
     from ..utils.data import get_data
 

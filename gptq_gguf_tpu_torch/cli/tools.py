@@ -21,6 +21,27 @@ kept packed (``--gguf-path serving``: every projection and the lm_head run
 through the runtime format's kernel). ``auto`` picks dense below 2e9 bytes
 of f32 weights. Datasets are ``synthetic`` or pre-tokenized files, so no
 tokenizer is read; the text datasets raise in ``utils.data.get_data``.
+On the dense paths ``--drop_layer_config`` zeroes dropped sublayers,
+``--compressed_weights_path`` (with ``--compressed_config_path`` or
+``--default_level``) swaps in a layer database's weights, and
+``--memory_efficient`` scores block by block with the weights in host
+memory (``evals/compress.py``, ``evals/ppl.py``).
+
+The rest of the evaluation and the search's leftovers:
+
+    python -m gptq_gguf_tpu_torch estimate-errors --model_name_or_path /models/llama \
+      --db_path db/layers-hf --calibration_tokens 4096 \
+      --calibration_sequence_length 512 [--output_path errs.json] [--device cpu]
+    python -m gptq_gguf_tpu_torch parity --model_name_or_path /models/llama \
+      --bit_widths Q4_K Q6_K --out_dir parity [--synthetic-shapes tiny] [--device cpu]
+    python -m gptq_gguf_tpu_torch lm-eval --model_name_or_path /models/llama \
+      --tasks hellaswag [--device cpu]
+
+``estimate-errors`` walks the model (``search/ladder.py``) and scores every
+level file of the database by its relative layer error; ``parity``
+quantizes, scores and packs per bit width against the reference's tables
+(``evals/parity.py``); ``lm-eval`` runs lm-eval-harness tasks (it needs
+``lm_eval`` and the network, and exits without them).
 
 The layer database, the search and assembly (``mapper/``, ``search/``):
 
@@ -167,24 +188,29 @@ def build_ppl(p: argparse.ArgumentParser) -> None:
                         "weights kept packed; 'auto' picks dense below ~2 GB of f32 "
                         "weights")
     p.add_argument("--output_path", default=None)
+    p.add_argument("--compressed_weights_path", default=None,
+                   help="multi-level layer database (<layer>/<level>.pth) to swap weights from")
+    p.add_argument("--compressed_config_path", default=None,
+                   help="'<layer>: <level>' lines; without it every layer at --default_level")
+    p.add_argument("--default_level", default="0")
+    p.add_argument("--drop_layer_config", default=None,
+                   help="one drop mode per layer: none | attn | mlp | attn+mlp")
+    p.add_argument("--memory_efficient", action="store_true",
+                   help="layer-by-layer eval, each block staged onto the device in turn "
+                        "(metrics.py:122-192)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
-    # options of the JAX CLI that the port does not take yet
-    p.add_argument("--compressed_weights_path", default=None, help="not ported yet")
-    p.add_argument("--drop_layer_config", default=None, help="not ported yet")
-    p.add_argument("--memory_efficient", action="store_true", help="not ported yet")
 
 
 def run_ppl(args) -> dict:
     """Score each dataset; prints and returns {dataset: perplexity}."""
+    import torch
+
     from .. import resolve_device
-    from ..evals import ppl
+    from ..evals import compress, ppl
     from ..models.llama import _DTYPES
     from ..utils.data import get_data
 
-    for flag in ("compressed_weights_path", "drop_layer_config", "memory_efficient"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"ppl --{flag} is not ported yet")
     dev = resolve_device(args.device)
     serving_path = False
     if args.gguf_file:
@@ -196,20 +222,42 @@ def run_ppl(args) -> dict:
             n_el = sum(int(np.prod(i.shape)) for i in open_gguf(args.gguf_file).tensors.values())
             mode = "dense" if n_el * 4 < 2e9 else "serving"
         serving_path = mode == "serving"
+        if serving_path and (args.memory_efficient or args.drop_layer_config
+                             or args.compressed_weights_path):
+            raise SystemExit(
+                "--gguf-path serving scores packed weights directly; it "
+                "cannot combine with --memory_efficient / layer drops / "
+                "compressed weights (use --gguf-path dense)")
         params, cfg = qmodel.load_gguf_for_serving(
             args.gguf_file, dtype=_DTYPES[args.dtype], device=dev, dense=not serving_path)
     else:
         if not args.model_name_or_path:
             raise SystemExit("need --model_name_or_path or --gguf-file")
         cfg, host = common.load_model(args)
-        params = {k: v.to(dev).float() for k, v in host.items() if k != "layers"}
-        params["layers"] = [{k: v.to(dev).float() for k, v in layer.items()}
-                            for layer in host["layers"]]
+        # --memory_efficient keeps the weights in host memory: its walk
+        # stages one block onto the device at a time
+        params = common.float_params(host, torch.device("cpu") if args.memory_efficient
+                                     else dev)
+        del host
+    # drops first, then the database's weights (JAX cli/tools.py:309-317)
+    if args.drop_layer_config:
+        params = compress.apply_layer_drops(params, compress.load_drop_config(
+            args.drop_layer_config))
+    if args.compressed_weights_path:
+        params = compress.load_compressed_weights(
+            params, args.compressed_weights_path, args.compressed_config_path,
+            args.default_level)
+    if args.memory_efficient:
+        def score(data):
+            return ppl.compute_perplexity_layer_per_layer(params, cfg, data, device=dev)
+    else:
+        def score(data):
+            return ppl.compute_perplexity(params, cfg, data, serving=serving_path)
     seq = args.sequence_length or min(cfg.max_position_embeddings, 4096)
     results = {}
     for name in args.datasets:
         data = get_data(name, args.eval_tokens, seq, train=False, vocab_size=cfg.vocab_size)
-        results[name] = ppl.compute_perplexity(params, cfg, data, serving=serving_path)
+        results[name] = score(data)
         print(f"{name} perplexity: {results[name]:.3f}")
     if args.output_path:
         with open(args.output_path, "w") as f:
@@ -345,8 +393,7 @@ def run_search(args) -> str:
                                   "not ported yet (ROADMAP Queue 1, 'Scale-out')")
     dev = resolve_device(args.device)
     cfg, host = common.load_model(args)
-    params = {k: v.float() for k, v in host.items() if k != "layers"}
-    params["layers"] = [{k: v.float() for k, v in layer.items()} for layer in host["layers"]]
+    params = common.float_params(host, "cpu")
     del host
     calib = common.load_calibration(args, cfg)
     model = evopress.SearchModel(params, cfg, args.quant_weights_path, device=dev)
@@ -535,3 +582,123 @@ def run_llama_quantize(args) -> None:
                                  pure=args.pure, progress=progress, device=dev)
     summary = rtn.quantization_summary(out, args.summary)
     print(f"wrote {out} ({summary['bits_per_weight']:.3f} bpw)")
+
+
+# -- the rest of evals/ and the search: estimate-errors, lm-eval, parity ------
+
+
+def build_estimate_errors(p: argparse.ArgumentParser) -> None:
+    common.add_model_args(p)
+    common.add_data_args(p)
+    p.add_argument("--db_path", required=True, help="HF-layout multi-level database")
+    p.add_argument("--output_path", default=None)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+
+
+def run_estimate_errors(args) -> dict:
+    """Each linear's relative error at every database level; prints the
+    best level per linear and returns {linear: {file: error}}."""
+    from .. import resolve_device
+    from ..search import ladder
+
+    dev = resolve_device(args.device)
+    cfg, params = common.load_model(args)
+    calib = common.load_calibration(args, cfg)
+    res = ladder.estimate_layer_errors(params, cfg, calib, args.db_path,
+                                       batch_size=args.batch_size, out_path=args.output_path,
+                                       device=dev)
+    for name, errs in res.items():
+        best = min(errs, key=errs.get) if errs else None
+        print(f"{name}: {len(errs)} levels, best {best}")
+    return res
+
+
+def build_lmeval(p: argparse.ArgumentParser) -> None:
+    common.add_model_args(p)
+    p.add_argument("--tasks", nargs="+", required=True)
+    p.add_argument("--num_fewshot", type=int, default=None)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--compressed_weights_path", default=None)
+    p.add_argument("--compressed_config_path", default=None)
+    p.add_argument("--output_path", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+
+
+def run_lmeval(args) -> None:
+    """lm-eval-harness tasks on the dense model (optionally with a
+    database's weights swapped in); needs lm_eval and an HF tokenizer."""
+    from .. import resolve_device
+    from ..evals import compress, lmeval
+
+    if not lmeval.HAS_LM_EVAL:
+        raise SystemExit("lm_eval is not installed (pip install lm-eval)")
+    from transformers import AutoTokenizer
+
+    dev = resolve_device(args.device)
+    cfg, host = common.load_model(args)
+    params = common.float_params(host, dev)
+    del host
+    tokenizer = AutoTokenizer.from_pretrained(args.tokenizer_name or args.model_name_or_path)
+    if args.compressed_weights_path:
+        params = compress.load_compressed_weights(params, args.compressed_weights_path,
+                                                  args.compressed_config_path)
+    results = lmeval.evaluate(params, cfg, tokenizer, args.tasks, num_fewshot=args.num_fewshot,
+                              batch_size=args.batch_size, limit=args.limit)
+    print(json.dumps(results.get("results", results), indent=2, default=str))
+    if args.output_path:
+        with open(args.output_path, "w") as f:
+            json.dump(results, f, indent=2, default=str)
+
+
+def build_parity(p: argparse.ArgumentParser) -> None:
+    from ..evals.parity import PRESETS
+
+    p.add_argument("--model_name_or_path", default=None,
+                   help="local HF checkpoint; omit with --synthetic-shapes")
+    p.add_argument("--synthetic-shapes", dest="synthetic_shapes", default=None,
+                   choices=sorted(PRESETS),
+                   help="write a random checkpoint at real shapes (offline dry run)")
+    p.add_argument("--bit_widths", nargs="+", default=["Q4_K"],
+                   choices=["Q2_K", "Q3_K", "Q4_K", "Q5_K", "Q6_K"])
+    p.add_argument("--calibration_data", default=None,
+                   help="default: wikitext2 (synthetic under --synthetic-shapes)")
+    p.add_argument("--calibration_tokens", type=int, default=2**19)
+    p.add_argument("--sequence_length", type=int, default=None)
+    p.add_argument("--eval_tokens", type=int, default=2**19)
+    p.add_argument("--reference_name", default=None,
+                   help="override reference-table row matching (e.g. llama-3.2-1b)")
+    p.add_argument("--no-pack", dest="pack", action="store_false")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain PyTorch path")
+
+
+def run_parity_cmd(args) -> list:
+    """The parity harness; exits non-zero when a bit width misses the
+    reference table by more than its tolerance. Returns the results."""
+    from .. import resolve_device
+    from ..evals import parity
+
+    dev = resolve_device(args.device)
+    model_dir = args.model_name_or_path
+    if args.synthetic_shapes:
+        model_dir = parity.make_synthetic_checkpoint(
+            Path(args.out_dir) / "synthetic-checkpoint", args.synthetic_shapes)
+        print(f"synthetic {args.synthetic_shapes} checkpoint at {model_dir}")
+    if model_dir is None:
+        raise SystemExit("need --model_name_or_path or --synthetic-shapes")
+    calib = args.calibration_data or ("synthetic" if args.synthetic_shapes else "wikitext2")
+    results = parity.run_parity(
+        model_dir, args.out_dir, args.bit_widths, calibration_data=calib,
+        calibration_tokens=args.calibration_tokens, sequence_length=args.sequence_length,
+        eval_tokens=args.eval_tokens, reference_name=args.reference_name or args.synthetic_shapes,
+        pack=args.pack, device=dev)
+    failed = [r for r in results if r.passed is False]
+    if failed:
+        raise SystemExit(f"{len(failed)} bit-width(s) exceed the "
+                         f"{parity.PPL_TOLERANCE} ppl tolerance")
+    return results

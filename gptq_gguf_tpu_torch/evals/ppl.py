@@ -1,13 +1,14 @@
 """Perplexity and KL evaluation.
 
 Port of ``compute_perplexity`` (with its two batch scorers),
-``compute_kl_div`` and ``compute_sparse_kl_div`` from
-``gptq_gguf_tpu/evals/ppl.py``. Perplexity keeps the reference's
-running-mean NLL exactly: per batch, the mean cross-entropy over shifted
-tokens is folded into a running mean weighted by token counts, and
-perplexity is exp of the final mean. The KL scores are token means of
-KL(teacher || model) against cached teacher logits, dense or top-k. The
-batches run on the device the params live on.
+``compute_perplexity_layer_per_layer``, ``compute_kl_div`` and
+``compute_sparse_kl_div`` from ``gptq_gguf_tpu/evals/ppl.py``. Perplexity
+keeps the reference's running-mean NLL exactly: per batch, the mean
+cross-entropy over shifted tokens is folded into a running mean weighted by
+token counts, and perplexity is exp of the final mean. The KL scores are
+token means of KL(teacher || model) against cached teacher logits, dense or
+top-k. The batches run on the device the params live on (block by block:
+on the device asked for).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..models import llama
 from ..models.llama import LlamaConfig
+from ..quant.calibrate import activation_home
 
 
 def _shifted_nll(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -123,3 +125,52 @@ def compute_sparse_kl_div(params, cfg: LlamaConfig, data: Sequence[np.ndarray],
             total += float(kl.sum())
             count += kl.numel()
     return total / max(count, 1)
+
+
+def compute_perplexity_layer_per_layer(params, cfg: LlamaConfig, data: Sequence[np.ndarray],
+                                       batch_size: int = 1, device=None) -> float:
+    """Memory-bounded perplexity (metrics.py:122-192): the embedding of
+    every batch, then each block over every batch, then the head, with the
+    same running mean of NLLs as ``compute_perplexity``. Each block's
+    weights go to the device for its pass and the activations stay there,
+    unless they exceed 2 GiB (the calibration walk's rule,
+    ``quant.calibrate``): then they wait in host memory between blocks.
+    device: where the blocks run (default: where the embedding lives)."""
+    dev = torch.device(device) if device is not None else params["embed_tokens"].device
+    data = [np.atleast_2d(np.asarray(d)) for d in data]
+    batches = [np.concatenate(data[i: i + batch_size], axis=0)
+               for i in range(0, len(data), batch_size)]
+    S = batches[0].shape[1]
+    act_home = activation_home(batches, cfg, dev)
+    with torch.no_grad():
+        cos1, sin1 = llama.rope_cos_sin(cfg, torch.arange(S, device=dev)[None, :])
+        embed = {"embed_tokens": params["embed_tokens"].to(dev)}
+        xs = [llama.embed_forward(embed, torch.as_tensor(b, device=dev), cfg).to(act_home)
+              for b in batches]
+        del embed
+        for li, src in enumerate(params["layers"]):
+            layer = {k: v.to(dev) for k, v in src.items()}
+            new_xs = []
+            for x in xs:
+                b = x.shape[0]
+                mask = llama.causal_mask(b, S, device=dev)
+                new_xs.append(llama.block_forward(
+                    layer, x.to(dev), cos1.expand(b, S, cos1.shape[-1]),
+                    sin1.expand(b, S, sin1.shape[-1]), mask, cfg, li).to(act_home))
+            xs = new_xs
+            del layer
+        # the head's weight (lm_head, or the tied embedding) under the key
+        # head_forward falls back to
+        head = {"norm": params["norm"].to(dev),
+                "embed_tokens": params.get("lm_head", params["embed_tokens"]).to(dev)}
+        nll_running = 0.0
+        tokens_processed = 0
+        for ids, x in zip(batches, xs):
+            logits = llama.head_forward(head, x.to(dev), cfg)
+            loss = float(_shifted_nll(logits, torch.as_tensor(ids, device=dev)))
+            n_new = ids[:, 1:].size
+            a = n_new / (tokens_processed + n_new)
+            b_ = tokens_processed / (tokens_processed + n_new)
+            nll_running = a * loss + b_ * nll_running
+            tokens_processed += n_new
+    return float(np.exp(nll_running))

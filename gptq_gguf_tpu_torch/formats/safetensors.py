@@ -1,8 +1,9 @@
-"""Reader of the safetensors container.
+"""Reader and writer of the safetensors container.
 
 The port's counterpart of the JAX package's use of the ``safetensors``
-package (``models/loader.py::_iter_safetensors``), which the port does not
-depend on. A file is: a little-endian u64 header length N, N bytes of JSON
+package (``models/loader.py::_iter_safetensors``, and ``save_pretrained``
+through ``transformers`` for the synthetic checkpoints), which the port does
+not depend on. A file is: a little-endian u64 header length N, N bytes of JSON
 ``{name: {"dtype", "shape", "data_offsets": [begin, end]}, "__metadata__":
 {...}}``, then the raw little-endian tensor bytes, offsets relative to the
 end of the header.
@@ -31,6 +32,27 @@ _DTYPES = {
     "U8": (np.uint8, torch.uint8),
     "BOOL": (np.bool_, torch.bool),
 }
+
+
+def write_safetensors(tensors: Dict[str, torch.Tensor], path: Union[str, Path]) -> None:
+    """Write CPU tensors as one safetensors file, names sorted, the header
+    padded with spaces to 8 bytes."""
+    dtype_names = {t_dt: name for name, (_, t_dt) in _DTYPES.items()}
+    names = sorted(tensors)
+    header, off = {}, 0
+    for name in names:
+        t = tensors[name]
+        nb = t.numel() * t.element_size()
+        header[name] = {"dtype": dtype_names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + nb]}
+        off += nb
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name in names:
+            f.write(tensors[name].contiguous().view(torch.uint8).numpy())
 
 
 def read_header(path: Union[str, Path]) -> Tuple[Dict, int]:

@@ -64,6 +64,13 @@ def resolve_quant_config(
     return out
 
 
+def activation_home(batches: Sequence[np.ndarray], cfg: LlamaConfig, dev) -> torch.device:
+    """Where a block walk keeps its activations between blocks: the host
+    when the f32 hidden states of every batch exceed 2 GiB, else ``dev``."""
+    act_bytes = sum(b.size * cfg.hidden_size * 4 for b in batches)
+    return torch.device("cpu") if act_bytes > 2 * 2 ** 30 else torch.device(dev)
+
+
 def _capture_sizes(layer, cfg: LlamaConfig) -> Dict[str, int]:
     """capture name -> input dim of the dense-layer Hessians."""
     return {"qkv": cfg.hidden_size, "o": layer["o_proj"].shape[1],
@@ -154,8 +161,7 @@ def quantize_model(
                                   gptq_cfg, save_dir, verbose, dev)
 
     if offload_activations is None:
-        act_bytes = sum(b.shape[0] * S * cfg.hidden_size * 4 for b in batches)
-        offload_activations = act_bytes > 2 * 2 ** 30
+        offload_activations = activation_home(batches, cfg, dev) != torch.device(dev)
     if offload_weights is None:
         offload_weights = sum(t.numel() * t.element_size() for layer in params["layers"]
                               for t in layer.values()) > 4 * 2 ** 30

@@ -38,7 +38,7 @@ from ..models.llama import LlamaConfig
 from ..ops import kquant
 from . import artifacts
 from .calibrate import (_LINEAR_SPECS, DEFAULT_BLOCK_QTYPE, DEFAULT_NON_BLOCK_QTYPE,
-                        resolve_quant_config)
+                        activation_home, resolve_quant_config)
 
 
 def _accumulate_diag(d: torch.Tensor, num_samples: float,
@@ -71,8 +71,7 @@ def compute_imatrix(params: Dict[str, Any], cfg: LlamaConfig,
     batches = [np.concatenate(ids[i:i + batch_size], axis=0)
                for i in range(0, len(ids), batch_size)]
     cos1, sin1 = llama.rope_cos_sin(cfg, torch.arange(S, device=dev)[None, :])
-    act_bytes = sum(b.shape[0] * S * cfg.hidden_size * 4 for b in batches)
-    act_home = torch.device("cpu") if act_bytes > 2 * 2 ** 30 else dev
+    act_home = activation_home(batches, cfg, dev)
 
     embed = params["embed_tokens"].to(dev)
     xs = [llama.embed_forward({"embed_tokens": embed}, torch.as_tensor(b, device=dev),

@@ -33,7 +33,8 @@ def test_port_imports_no_jax(tmp_path_factory):
     for m in ("ops.paged_attention", "serving.paged", "serving.server", "serving.tokenizer",
               "ops.qmv4", "evals.ppl", "cli.tools", "export.packer", "export.spm",
               "mapper.splitter", "mapper.stitcher", "mapper.config_converter",
-              "mapper.db_builder", "search.evopress"):
+              "mapper.db_builder", "search.evopress", "ops.sparse_gptq", "evals.compress",
+              "evals.lmeval", "evals.parity", "search.ladder", "search.distill"):
         assert f"{PKG}.{m}" in mods
     # the kernel sources ops.qmatmul binds (the v2 variants among them) and
     # every header a source includes
@@ -144,12 +145,21 @@ def test_entry_points_default_to_cuda(no_cuda):
         lambda: main(["ppl", "--gguf-file", str(REPO / "missing.gguf")]),
     ]
     # the search: its model and its command line without --device
-    from gptq_gguf_tpu_torch.search import evopress
+    from gptq_gguf_tpu_torch.search import evopress, ladder
 
     calls += [
         lambda: evopress.SearchModel({"layers": []}, cfg, REPO / "missing"),
         lambda: main(["search", "--model_name_or_path", str(REPO / "missing"),
                       "--quant_weights_path", str(REPO / "missing"), "--target_bitwidth", "5"]),
+    ]
+    # the ladders, estimate-errors and parity
+    calls += [
+        lambda: ladder.build_fastobq_ladder({"layers": []}, cfg, [np.zeros((1, 4), np.int64)],
+                                            REPO / "missing"),
+        lambda: main(["estimate-errors", "--model_name_or_path", str(REPO / "missing"),
+                      "--db_path", str(REPO / "missing")]),
+        lambda: main(["parity", "--model_name_or_path", str(REPO / "missing"),
+                      "--out_dir", str(REPO / "missing")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

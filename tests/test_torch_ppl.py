@@ -126,10 +126,33 @@ def test_running_mean_weights_batches_by_tokens():
     assert ppl.compute_perplexity(params, cfg, seqs) == pytest.approx(want, rel=1e-6)
 
 
-def test_ppl_refuses_unported_options(gguf, tmp_path):  # noqa: F811
-    for flag in (["--memory_efficient"], ["--drop_layer_config", "x.json"],
-                 ["--compressed_weights_path", "w"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            cli.main(["ppl", "--gguf-file", str(gguf), "--device", "cpu", *flag])
+@pytest.mark.parametrize("flag", ["memory_efficient", "drop_layer_config",
+                                  "compressed_weights_path"])
+def test_ppl_options_match_jax(gguf, tmp_path, flag):  # noqa: F811
+    """The three options that once raised, on the GGUF's dense path through
+    both command lines: within a relative 1e-4 (the dense bound). The
+    database is ``split_hf`` of the GGUF itself (f16 of its dequantized
+    weights), at the level each layer holds. A call with no model exits."""
+    from gptq_gguf_tpu.__main__ import main as jmain
+    from gptq_gguf_tpu_torch.mapper import splitter
+
+    argv = ["--gguf-file", str(gguf), "--gguf-path", "dense"]
+    if flag == "memory_efficient":
+        argv += ["--memory_efficient"]
+    elif flag == "drop_layer_config":
+        (tmp_path / "drops.txt").write_text("attn\nmlp\n")
+        argv += ["--drop_layer_config", str(tmp_path / "drops.txt")]
+    else:
+        db = tmp_path / "db"
+        splitter.split_hf(gguf, db)
+        lines = [f"{d.name}: {sorted(d.glob('*.pth'))[0].stem}"
+                 for d in sorted(db.iterdir()) if d.is_dir()]
+        (tmp_path / "config.txt").write_text("\n".join(lines))
+        argv += ["--compressed_weights_path", str(db), "--compressed_config_path",
+                 str(tmp_path / "config.txt")]
+    want = _ppl(jmain, argv, tmp_path / "jax.json")
+    got = _ppl(cli.main, [*argv, "--device", "cpu"], tmp_path / "port.json")
+    assert np.isfinite(got) and abs(got - want) / want < 1e-4, (got, want)
     with pytest.raises(SystemExit):
-        cli.main(["ppl", "--device", "cpu"])
+        cli.main(["ppl", "--device", "cpu", f"--{flag}", *([] if flag == "memory_efficient"
+                                                          else ["x"])])

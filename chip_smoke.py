@@ -216,8 +216,8 @@ checkout of the repository. Phases, each raising on failure:
    with a planted control, greedy tokens against the plain versions' up
    to a near-tie); (e) ``llama-quantize --ftype Q3_K_M --imatrix``
    (Q3_K, Q4_K, Q5_K and Q6_K at 8B widths) checked and served the same way;
-11. the qwen3 and qwen2 families (run after phase 10, in the same temporary
-   directory): (a) a seeded 1-layer checkpoint of Qwen3-8B's widths (hidden
+11. the qwen3, qwen2, gemma2 and phi3 families (run after phase 10, in the
+   same temporary directory): (a) a seeded 1-layer checkpoint of Qwen3-8B's widths (hidden
    4096, 32 heads of 128, 8 KV heads, intermediate 12288, vocab 151936; q /
    k norm weights drawn) through ``quantize`` (GPTQ on the solve kernel,
    16384 tokens, embedding and head RTN at the default Q4_K; 192 solve
@@ -232,7 +232,26 @@ checkout of the repository. Phases, each raising on failure:
    biases drawn) through ``rtn-quantize --outfile`` and ``serve`` the same
    way (6 v2g calls a forward: q / k / v apart, the bf16 head dense), and
    the solve kernel at its block shapes and over one whole 18944-column
-   down solve, against its plain version;
+   down solve, against its plain version; (c) a seeded 2-layer checkpoint
+   of Gemma-2-9B's widths (hidden 3584, 16 heads of 256, 8 KV heads,
+   intermediate 14336, vocab 256000, window 4096 on layer 0, softcaps 50 /
+   30, ``query_pre_attn_scalar`` 256; its four norms a block drawn) through
+   ``quantize`` (400 solve launches), ``pack`` and ``serve`` (8 v2g calls a
+   forward, the tied head the dense embedding), both engines, one
+   4500-token request past the window on both (tokens equal; each step's
+   logits through forward_cached and forward_paged against v2g's plain
+   version within 2e-2 of max|logit|), the tied 256000-row Q4_K head at
+   v2g against its plain version, the paged kernels (bf16 and int4) at its
+   attention shape at fills 4095-4097 and the edges of pages 64 / 65,
+   timed at fill 4500 beside SDPA, and the solve kernel at its widths
+   (112 blocks over one 14336-column factor); (d) a seeded 1-layer
+   checkpoint of Phi-3-mini-128k's widths (hidden 3072, 32 heads of 96, 32
+   KV heads, intermediate 8192, vocab 32064, fused q / k / v and gate / up,
+   longrope at 4096 of 131072 with drawn factors) through ``rtn-quantize
+   --pure --outfile`` and ``serve`` (5 v2g calls a forward, the head
+   padded to 32256 rows), both engines (the paged kernel at hd 96), a
+   served forward at capacity 4608 (long factors) against the plain path,
+   and the paged kernel at its shape timed at fills 300 / 1900;
 12. the rest of evals/ and the search's leftovers (run after phase 11, on
    phase 5's checkpoint, layers-hf database, searched config and GGUFs):
    (a) ``ppl`` with the database's weights swapped in by the searched
@@ -4324,7 +4343,8 @@ def phase_recipes(tmp: Path, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the qwen3 and qwen2 families, checkpoint to served tokens
+# Phase 11: the qwen3, qwen2, gemma2 and phi3 families, checkpoint to served
+# tokens
 # ---------------------------------------------------------------------------
 
 # the published configs (Qwen/Qwen3-8B and Qwen/Qwen2.5-7B config.json),
@@ -4352,6 +4372,41 @@ FAMILY_V2G_PER_FORWARD = {"qwen3": 4 * FAMILY_LAYERS + 1, "qwen2": 6 * FAMILY_LA
 FAMILY_TOKENS = 6       # greedy tokens of each ``serve``
 FAMILY_REQUESTS = 4     # requests on the contiguous and the paged engine
 
+# 11c / 11d: the published configs of google/gemma-2-9b and
+# microsoft/Phi-3-mini-128k-instruct (config.json), their depth cut when
+# written: Gemma-2 to 2 layers (layer 0 slides over 4096 positions, layer 1
+# is global), Phi-3 to 1. Phi-3's 48 long and short rope factors are drawn
+# from the seed (family_rope_factors): its published values are not in the
+# repo.
+GEMMA2_9B = dict(model_type="gemma2", architectures=["Gemma2ForCausalLM"], vocab_size=256000,
+                 hidden_size=3584, intermediate_size=14336, num_hidden_layers=42,
+                 num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+                 max_position_embeddings=8192, rope_theta=10000.0, rms_norm_eps=1e-6,
+                 attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                 query_pre_attn_scalar=256, sliding_window=4096, attention_bias=False,
+                 hidden_act="gelu_pytorch_tanh", hidden_activation="gelu_pytorch_tanh",
+                 pad_token_id=0, bos_token_id=2, eos_token_id=1)
+PHI3_MINI_128K = dict(model_type="phi3", architectures=["Phi3ForCausalLM"], vocab_size=32064,
+                      hidden_size=3072, intermediate_size=8192, num_hidden_layers=32,
+                      num_attention_heads=32, num_key_value_heads=32,
+                      max_position_embeddings=131072, original_max_position_embeddings=4096,
+                      rope_theta=10000.0, rms_norm_eps=1e-5, sliding_window=262144,
+                      tie_word_embeddings=False, hidden_act="silu", bos_token_id=1,
+                      eos_token_id=32000, pad_token_id=32000)
+GEMMA2_LAYERS, PHI3_LAYERS = 2, 1
+# v2g calls of one forward: q/k/v fused, o, gate/up fused, down a layer;
+# gemma2's tied head is the dense embedding (pack writes no output.weight
+# for a config without tie_word_embeddings), phi3's a packed Q4_K head
+FAMILY2_V2G_PER_FORWARD = {"gemma2": 4 * GEMMA2_LAYERS, "phi3": 4 * PHI3_LAYERS + 1}
+LONG_PROMPT = 4500      # 11c: one request's prompt, past gemma2's window of 4096
+LONG_TOKENS = 8
+LONG_MAX_LEN = 4608     # 72 pages of 64
+FAMILY_LOGIT_LIMIT = 2e-2  # kernel path vs plain path, of max|logit| (the CPU tests' LOGIT_TOL)
+# 11c's paged kernel cases: fills at the window's edge (4095-4097), the last
+# and first positions of pages 64 / 65, and three others
+GEMMA2_FILLS = (4095, 4096, 4097, 4159, 4160, 300, 1900, 4500)
+PHI3_FILLS = (0, 5, 63, 64, 300, 1000, 1900, 2047)
+
 
 def family_solves_of(hf: dict):
     """(name, rows, column blocks) of a layer's block solves at ``hf``'s
@@ -4366,10 +4421,12 @@ def family_solves_of(hf: dict):
 
 
 def write_family_checkpoint(path: Path, hf: dict, device) -> None:
-    """A seeded checkpoint of ``hf``'s widths and FAMILY_LAYERS layers, bf16
-    weights of std 0.02 as write_checkpoint's; qwen2's q / k / v biases
-    (std 0.5) and qwen3's q / k norm weights (1 + 0.1 x normal) drawn, so
-    that both are exercised."""
+    """A seeded checkpoint of ``hf``'s widths and FAMILY_LAYERS layers
+    (GEMMA2_LAYERS, PHI3_LAYERS), bf16 weights of std 0.02 as
+    write_checkpoint's; qwen2's q / k / v biases (std 0.5), qwen3's q / k
+    norm weights (1 + 0.1 x normal) and gemma2's four norms a block (w of
+    1 + w: 0.1 x normal) drawn, so that each is exercised; phi3's q / k / v
+    and gate / up fused as its checkpoints hold them."""
     import torch
 
     from gptq_gguf_tpu_torch.formats import safetensors
@@ -4384,18 +4441,33 @@ def write_family_checkpoint(path: Path, hf: dict, device) -> None:
     h, inter, vocab = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
     nh, nkv = hf["num_attention_heads"], hf["num_key_value_heads"]
     hd = hf.get("head_dim") or h // nh
-    ones = torch.ones(h, dtype=torch.bfloat16)
-    t = {"model.embed_tokens.weight": rnd(vocab, h), "model.norm.weight": ones,
-         "lm_head.weight": rnd(vocab, h)}
-    for i in range(FAMILY_LAYERS):
+    mt = hf["model_type"]
+    layers = {"gemma2": GEMMA2_LAYERS, "phi3": PHI3_LAYERS}.get(mt, FAMILY_LAYERS)
+
+    def norm():  # gemma2 stores w of its (1 + w) norms
+        return rnd(h, std=0.1) if mt == "gemma2" else torch.ones(h, dtype=torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": rnd(vocab, h), "model.norm.weight": norm()}
+    if mt != "gemma2":  # gemma2's head is its embedding
+        t["lm_head.weight"] = rnd(vocab, h)
+    for i in range(layers):
         p = f"model.layers.{i}."
-        t.update({p + "input_layernorm.weight": ones, p + "post_attention_layernorm.weight": ones,
-                  p + "self_attn.q_proj.weight": rnd(nh * hd, h),
+        t.update({p + "input_layernorm.weight": norm(),
+                  p + "post_attention_layernorm.weight": norm(),
+                  p + "self_attn.o_proj.weight": rnd(h, nh * hd),
+                  p + "mlp.down_proj.weight": rnd(h, inter)})
+        if mt == "phi3":  # fused in the checkpoint: q, k, v and gate, up by rows
+            t[p + "self_attn.qkv_proj.weight"] = rnd((nh + 2 * nkv) * hd, h)
+            t[p + "mlp.gate_up_proj.weight"] = rnd(2 * inter, h)
+            continue
+        t.update({p + "self_attn.q_proj.weight": rnd(nh * hd, h),
                   p + "self_attn.k_proj.weight": rnd(nkv * hd, h),
                   p + "self_attn.v_proj.weight": rnd(nkv * hd, h),
-                  p + "self_attn.o_proj.weight": rnd(h, nh * hd),
-                  p + "mlp.gate_proj.weight": rnd(inter, h), p + "mlp.up_proj.weight": rnd(inter, h),
-                  p + "mlp.down_proj.weight": rnd(h, inter)})
+                  p + "mlp.gate_proj.weight": rnd(inter, h),
+                  p + "mlp.up_proj.weight": rnd(inter, h)})
+        if mt == "gemma2":
+            t[p + "pre_feedforward_layernorm.weight"] = norm()
+            t[p + "post_feedforward_layernorm.weight"] = norm()
         if hf["model_type"] == "qwen2":
             for k, n in (("q", nh), ("k", nkv), ("v", nkv)):
                 t[p + f"self_attn.{k}_proj.bias"] = rnd(n * hd, std=0.5)
@@ -4403,7 +4475,7 @@ def write_family_checkpoint(path: Path, hf: dict, device) -> None:
             t[p + "self_attn.q_norm.weight"] = rnd(hd, std=0.1, mean=1.0)
             t[p + "self_attn.k_norm.weight"] = rnd(hd, std=0.1, mean=1.0)
     path.mkdir(parents=True, exist_ok=True)
-    (path / "config.json").write_text(json.dumps(dict(hf, num_hidden_layers=FAMILY_LAYERS,
+    (path / "config.json").write_text(json.dumps(dict(hf, num_hidden_layers=layers,
                                                       torch_dtype="bfloat16")))
     safetensors.write_safetensors(t, path / "model.safetensors")
     write_tokenizer(path, vocab)
@@ -4474,10 +4546,11 @@ def family_engines(params, cfg, rng, device) -> dict:
     return dict(out, paged_launches=launches, decode_steps=steps[0], near_tie_flips=flips)
 
 
-def family_solves(rng, device) -> dict:
-    """The solve kernel at Qwen2.5-7B's block shapes against its plain
-    version (Q4_K, bit-equal), and the blocked solve of a down projection
-    over one 18944-column Hessian factor (148 blocks) through both: codes
+def family_solves(rng, device, hf=QWEN25_7B, width="Qwen2.5-7B") -> dict:
+    """The solve kernel at ``hf``'s block shapes (Qwen2.5-7B's by default)
+    against its plain version (Q4_K, bit-equal), and the blocked solve of a
+    down projection over one intermediate-wide Hessian factor (Qwen2.5-7B:
+    18944 columns, 148 blocks; Gemma-2-9B: 14336, 112) through both: codes
     and scales equal. The factor comes from the card (the walk factorizes
     above gptq.HOST_FACTORIZE_THRESHOLD columns on the host, in f64: ~20 s
     at this width, which the check does not need)."""
@@ -4487,15 +4560,15 @@ def family_solves(rng, device) -> dict:
     from gptq_gguf_tpu_torch.ops import gptq, kquant
 
     U_full = solve_factor(rng, device)
-    for name, d_row, _ in family_solves_of(QWEN25_7B):
+    for name, d_row, _ in family_solves_of(hf):
         args = solve_inputs(rng, u_block(U_full, BLOCK), d_row, T.Q4_K, device)
         qk, ek = gptq.solve_block(*args)
         qp, ep = gptq.solve_block_reference(*args)
         if not (torch.equal(qk, qp) and torch.equal(ek, ep)):
-            raise RuntimeError(f"gptq_solve {name} ({d_row} rows) at Qwen2.5-7B width: kernel "
+            raise RuntimeError(f"gptq_solve {name} ({d_row} rows) at {width} width: kernel "
                                "and plain differ")
     del U_full
-    h, inter = QWEN25_7B["hidden_size"], QWEN25_7B["intermediate_size"]
+    h, inter = hf["hidden_size"], hf["intermediate_size"]
     W = torch.as_tensor(rng.normal(size=(h, inter)) * 0.02, dtype=torch.float32, device=device)
     X = torch.as_tensor(rng.normal(size=(2048, inter)), dtype=torch.float32, device=device)
     cfg = gptq.GPTQConfig()
@@ -4524,14 +4597,464 @@ def family_solves(rng, device) -> dict:
     (qk, pk, sk, n), (qp, pp, sp, _) = runs["kernel"], runs["plain"]
     equal = torch.equal(qk, qp) and all(torch.equal(a, b) for a, b in zip(pk, pp))
     obj = h_objective(W32 - kquant.dequantize(qk, pk, T.Q4_K), Hd)
-    log(f"  solve kernel at Qwen2.5-7B's four block shapes bit-equal to its plain version; "
+    log(f"  solve kernel at {width}'s four block shapes bit-equal to its plain version; "
         f"down ({h}x{inter}) over one {inter}-column factor (device factorization "
         f"{fact_s:.2f} s): {n} launches, kernel {sk:.3f} s, plain {sp:.3f} s, codes and "
         f"scales equal: {equal}, objective {obj:.6e}")
     if bad or n != inter // BLOCK or not equal or not math.isfinite(obj):
-        raise RuntimeError("down solve at Qwen2.5-7B width: kernel and plain disagree")
+        raise RuntimeError(f"down solve at {width} width: kernel and plain disagree")
     return dict(kernel_s=sk, plain_s=sp, factorize_s=fact_s, launches=n, equal=equal,
                 objective=obj)
+
+
+def family_rope_factors() -> dict:
+    """Phi-3-mini-128k's longrope scaling, its 48 short and long factors
+    drawn from the seed (the published ones are not in the repo): short
+    sorted uniform in [1, 1.2), long sorted log-uniform in [1, 64)."""
+    rng = np.random.default_rng(SEED + 96)
+    n = PHI3_MINI_128K["hidden_size"] // PHI3_MINI_128K["num_attention_heads"] // 2
+    return {"type": "longrope",
+            "short_factor": [float(x) for x in np.sort(rng.uniform(1.0, 1.2, n))],
+            "long_factor": [float(x) for x in np.sort(np.exp(rng.uniform(0.0, np.log(64), n)))]}
+
+
+def family_paged_cost(fills, nkv, n_head, hd, page, q4: bool, window: int = 0):
+    """paged_cost at another attention shape: (bytes, f32 operations) of one
+    call over slots at ``fills``, pages wholly below the window unread."""
+    per_pos = hd + 2 * (hd // 32) * 4 if q4 else 2 * hd * 2
+    pages = positions = 0
+    for length in fills:
+        lo = max(length - window + 1, 0) if window else 0
+        pages += length // page + 1 - lo // page
+        positions += length + 1 - lo
+    n = len(fills)
+    nbytes = positions * nkv * per_pos + 2 * n * n_head * hd * 4 + pages * 4 + n * 4
+    return nbytes, 4.0 * hd * n_head * positions
+
+
+def family_paged_kernels(label, nkv, G, hd, page, pps, fills, timed, kw, q4s, device) -> dict:
+    """The paged kernel (bf16 pools; int4 too where ``q4s`` has True) at a
+    family's attention shape against its plain version at the mixed
+    ``fills`` (-1 past each slot's live pages; ``kw``: window / softcap),
+    within 1e-4 of max|out| (f32 sums in another order); then B=8 at each
+    uniform fill of ``timed``: kernel, plain version and one SDPA call over
+    the attended K / V gathered contiguous in bf16 (int4 dequantized first;
+    SDPA has no softcap: a yardstick of the same size), with the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from gptq_gguf_tpu_torch.models.llama import dequant_kv_q4
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + hd)
+    n_pool = max(len(fills), 8) * pps
+    rng = np.random.default_rng(SEED + hd)
+    scale = hd ** -0.5
+    window = kw.get("window", 0)
+
+    def table_of(lengths):
+        order = rng.permutation(n_pool)
+        table = np.full((len(lengths), pps), -1, np.int32)
+        used = 0
+        for b, length in enumerate(lengths):
+            live = length // page + 1
+            table[b, :live] = order[used:used + live]
+            used += live
+        return torch.as_tensor(table, device=device)
+
+    recs = {}
+    for q4 in q4s:
+        name = "paged_flash_decode_q4" if q4 else "paged_flash_decode"
+        fn = pa.paged_flash_decode_q4 if q4 else pa.paged_flash_decode
+        ref = pa.paged_flash_decode_q4_reference if q4 else pa.paged_flash_decode_reference
+        k = torch.randn((n_pool + 1, nkv, page, hd), generator=gen, device=device) * 0.3
+        v = torch.randn((n_pool + 1, nkv, page, hd), generator=gen, device=device)
+        if q4:
+            kq, ks = qmodel._quantize_kv_q4(k)
+            vq, vs = qmodel._quantize_kv_q4(v)
+            kp, vp = torch.cat([kq, vq], -1), torch.cat([ks, vs], -1).transpose(2, 3).contiguous()
+        else:
+            kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        del k, v
+        q = torch.randn((len(fills), nkv, G, hd), generator=gen, device=device)
+        lengths = torch.as_tensor(fills, dtype=torch.int32, device=device)
+        table = table_of(fills)
+        got = fn(q, kp, vp, table, lengths, scale=scale, **kw)
+        want = ref(q, kp, vp, table, lengths, scale=scale, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise RuntimeError(f"{label} {name}: kernel vs plain {err:.3e} > {tol:.3e}")
+        steady = {}
+        for fill in timed:
+            fl = [fill] * 8
+            ln = torch.as_tensor(fl, dtype=torch.int32, device=device)
+            tb = table_of(fl)
+            qq = torch.randn((8, nkv, G, hd), generator=gen, device=device)
+            args = (qq, kp, vp, tb, ln)
+            ms = cuda_ms(lambda: fn(*args, scale=scale, **kw), 50, flush_buf.zero_)
+            plain_ms = cuda_ms(lambda: ref(*args, scale=scale, **kw), 5, flush_buf.zero_)
+            lo = max(fill - window + 1, 0) if window else 0
+            if q4:
+                codes = pa._gather_slot_kv(kp, tb)[:, :, lo:fill + 1]
+                scl = pa._gather_slot_scales_t(vp, tb)[:, :, lo:fill + 1]
+                ng = hd // 32
+                k_l = dequant_kv_q4(codes[..., :hd // 2], scl[..., :ng]).to(torch.bfloat16)
+                v_l = dequant_kv_q4(codes[..., hd // 2:], scl[..., ng:]).to(torch.bfloat16)
+            else:
+                k_l = pa._gather_slot_kv(kp, tb)[:, :, lo:fill + 1].contiguous()
+                v_l = pa._gather_slot_kv(vp, tb)[:, :, lo:fill + 1].contiguous()
+            q_l = qq.reshape(8, nkv * G, 1, hd).to(torch.bfloat16)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q_l, k_l, v_l, scale=scale, enable_gqa=True), 50, flush_buf.zero_)
+            del k_l, v_l
+            nbytes, ops = family_paged_cost(fl, nkv, nkv * G, hd, page, q4, window)
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+            steady[fill] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+                                ops=ops, bound_ms=max(t_b, t_o),
+                                bound_by="bytes" if t_b >= t_o else "operations")
+            r = steady[fill]
+            log(f"  {label} {name} (nKV {nkv}, G {G}, hd {hd}, {kw or 'full attention'}) B=8 "
+                f"fill {fill}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  SDPA "
+                f"{library_ms:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes} B)"
+                f" (card {card_name_and_power()})")
+        log(f"  {label} {name}: fills {list(fills)} within {err:.3e} of the plain version "
+            f"(tol {tol:.3e})")
+        recs[name] = dict(max_abs_err=err, fills=list(fills), steady=steady)
+        del kp, vp
+    return recs
+
+
+def plain_v2g_calls():
+    """A context in which every dequant_matmul runs v2g's plain version."""
+    import contextlib
+
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import qmatmul
+
+    @contextlib.contextmanager
+    def ctx():
+        fn0, plain = qmatmul.dequant_matmul, variant_fns()["v2g"][1]
+        qmatmul.dequant_matmul = lambda x, rql: plain(x, rql, torch.bfloat16)
+        try:
+            yield
+        finally:
+            qmatmul.dequant_matmul = fn0
+
+    return ctx()
+
+
+def step_logits(fwd, params, cfg, prompt, feed, cache, device):
+    """The logits (f32, on the host) of a prefill of ``prompt`` and of one
+    decode step for each token of ``feed`` through ``fwd``."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        logits, cache = fwd(params, cfg, torch.as_tensor(prompt, device=device)[None], cache)
+        out.append(logits[0].float().cpu())
+        for t in feed:
+            logits, cache = fwd(params, cfg, torch.as_tensor([[int(t)]], device=device), cache)
+            out.append(logits[0].float().cpu())
+    return torch.stack(out).numpy()
+
+
+def held_to_plain(label, got, want) -> dict:
+    """Kernel-path logits against the plain path's, step by step: within
+    FAMILY_LOGIT_LIMIT of max|logit|, the greedy token equal where the top-2
+    gap is wider than that."""
+    err = float(np.abs(got - want).max())
+    tol = FAMILY_LOGIT_LIMIT * float(np.abs(want).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > tol
+    same = bool((got.argmax(-1)[clear] == want.argmax(-1)[clear]).all())
+    if not (np.isfinite(got).all() and err <= tol and same):
+        raise RuntimeError(f"{label}: {err:.3e} from the plain path (limit {tol:.3e}), greedy "
+                           f"equal where clear: {same}")
+    return dict(max_abs_err=err, tol=tol, steps=len(got), clear_steps=int(clear.sum()))
+
+
+def family_long_prompt(params, cfg, rng, device) -> dict:
+    """11c: one request of LONG_PROMPT tokens (past gemma2's window of 4096)
+    and LONG_TOKENS new tokens on the contiguous and the paged engine
+    (max_len LONG_MAX_LEN, pages of 64): the same tokens, or the first
+    difference at a near tie (NEAR_TIE); the paged kernel launched once a
+    layer and decode step. Then, fed the contiguous engine's tokens, each
+    step's logits through forward_cached and forward_paged (the kernels:
+    v2g, and the paged one at window 4096 and softcap 50 on layer 0) held to
+    forward_cached with v2g's plain version (held_to_plain)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.ops import paged_attention as pa
+    from gptq_gguf_tpu_torch.serving import engine, model as qmodel, paged
+
+    prompt = rng.integers(0, cfg.vocab_size, size=LONG_PROMPT)
+    toks, secs, steps = {}, {}, [0]
+    step0 = engine._paged_decode_step
+
+    def counted_step(*a, **kw):
+        steps[0] += 1
+        return step0(*a, **kw)
+
+    for label in ("contiguous", "paged"):
+        if label == "paged":
+            eng = engine.PagedContinuousBatchingEngine(params, cfg, num_slots=1,
+                                                       max_len=LONG_MAX_LEN, page_size=64,
+                                                       device=device)
+        else:
+            eng = engine.ContinuousBatchingEngine(params, cfg, num_slots=1, max_len=LONG_MAX_LEN)
+        uid = eng.submit(prompt, max_new_tokens=LONG_TOKENS)
+        pa.paged_flash_decode.launches = 0
+        engine._paged_decode_step = counted_step
+        t = time.perf_counter()
+        try:
+            done = {r.uid: r.output for r in eng.run_until_done()}
+        finally:
+            engine._paged_decode_step = step0
+        secs[label] = time.perf_counter() - t
+        toks[label] = [int(x) for x in done[uid]]
+        del eng
+    launches = pa.paged_flash_decode.launches
+    if not steps[0] or launches != cfg.num_hidden_layers * steps[0]:
+        raise RuntimeError(f"long prompt: {launches} paged-kernel launches over {steps[0]} "
+                           "decode steps")
+    a, b = toks["contiguous"], toks["paged"]
+    feed = a[:-1]
+    cache = qmodel.init_cache(cfg, 1, LONG_MAX_LEN, device=device)
+    with plain_v2g_calls():
+        plain = step_logits(qmodel.forward_cached, params, cfg, prompt, feed, cache, device)
+    cache = qmodel.init_cache(cfg, 1, LONG_MAX_LEN, device=device)
+    cont = step_logits(qmodel.forward_cached, params, cfg, prompt, feed, cache, device)
+    pc = paged.init_paged_cache(cfg, 1, LONG_MAX_LEN, 64, device=device)
+    pc = pc._replace(page_table=torch.arange(LONG_MAX_LEN // 64, dtype=torch.int32,
+                                             device=device)[None])
+    pa.paged_flash_decode.launches = 0
+    pag = step_logits(paged.forward_paged, params, cfg, prompt, feed, pc, device)
+    if pa.paged_flash_decode.launches != cfg.num_hidden_layers * len(feed):
+        raise RuntimeError(f"long prompt forward_paged: {pa.paged_flash_decode.launches} "
+                           "paged-kernel launches")
+    rec = dict(contiguous=held_to_plain("long prompt, contiguous", cont, plain),
+               paged=held_to_plain("long prompt, paged", pag, plain))
+    t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    gaps = (lambda s: ((s[:, -1] - s[:, -2]) / np.abs(cont).max(-1)).tolist())(
+        np.sort(cont, axis=-1))
+    if len(a) != LONG_TOKENS or len(b) != LONG_TOKENS \
+            or (t is not None and not gaps[t] < NEAR_TIE):
+        raise RuntimeError(f"long prompt: contiguous {a} and paged {b} tokens differ at {t}, "
+                           f"top-2 gaps {gaps}")
+    log(f"  long prompt ({LONG_PROMPT} tokens, window {cfg.sliding_window}): contiguous "
+        f"{secs['contiguous']:.2f} s, paged {secs['paged']:.2f} s ({launches} paged-kernel "
+        f"launches over {steps[0]} decode steps); tokens {a}"
+        + (" equal" if t is None else f", paged {b} (first difference at step {t}, a near tie)")
+        + f"; logits against the plain path: contiguous {rec['contiguous']['max_abs_err']:.3e}, "
+        f"paged {rec['paged']['max_abs_err']:.3e} (limit {rec['paged']['tol']:.3e}) "
+        f"(card {card_name_and_power()})")
+    return dict(rec, tokens=toks, seconds=secs, paged_launches=launches, decode_steps=steps[0],
+                first_difference=t, gaps=gaps)
+
+
+def tied_head_v2g(gguf: Path, device) -> dict:
+    """11c: gemma2's tied head at v2g: the GGUF's 256000-row Q4_K token
+    embedding packed for the kernel, held to v2g's plain version at M = 1
+    and 8 (1e-4 / 1e-5 of the largest sum of |terms|) and timed beside it
+    (the served model multiplies by the dense embedding, as the JAX package
+    does for a head without output.weight)."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats import convert
+    from gptq_gguf_tpu_torch.formats.ggml import KQUANT_SPECS
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.ops import qmatmul
+    from gptq_gguf_tpu_torch.ops.kquant import SuperGroupParams
+
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    r = GGUFReader(gguf)
+    info = r.tensors["token_embd.weight"]
+    raw = np.asarray(r.tensor_bytes("token_embd.weight"))
+    per_row = info.nbytes // info.shape[0]
+
+    def packed(a, b):  # row chunks on host threads, as the serving loader packs
+        q, ss, sc, sz, zq = convert.unpack_layer(raw[a * per_row:b * per_row], info.ggml_type,
+                                                 (b - a, info.shape[1]))
+        q = q.astype(np.int8 if KQUANT_SPECS[info.ggml_type].signed else np.uint8)
+        return qmatmul.pack_runtime_v2(q, SuperGroupParams(ss, sz, sc, zq), info.ggml_type,
+                                       device=torch.device("cpu"))
+
+    rql = qmodel._packed_to(qmatmul.fuse_rql_v2(convert.by_row_chunks(packed, info.shape[0])),
+                            device)
+    del raw, r
+    gen = torch.Generator().manual_seed(SEED)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    for M, limit in ((1, 1e-4), (8, 1e-5)):
+        x = torch.randn(M, rql.d_in, generator=gen).to(device, torch.bfloat16)
+        got = qmatmul.dequant_matmul_v2g(x, rql)
+        want = qmatmul.dequant_matmul_v2g_reference(x, rql)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = limit * variant_terms(x, rql, "v2g", "bf16")
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise RuntimeError(f"tied head v2g M={M}: {err:.3e} > {tol:.3e}")
+        ms = cuda_ms(lambda: qmatmul.dequant_matmul_v2g(x, rql), 20, flush_buf.zero_)
+        plain_ms = cuda_ms(lambda: qmatmul.dequant_matmul_v2g_reference(x, rql), 3,
+                           flush_buf.zero_)
+        out[M] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
+        log(f"  tied head ({info.shape[0]}x{info.shape[1]} {info.ggml_type.name}) v2g M={M}: "
+            f"{err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+            f"(card {card_name_and_power()})")
+    return out
+
+
+def phi3_long_factors(params, cfg, rng, device) -> dict:
+    """11d: a 64-token prefill and LONG_TOKENS decode steps in a cache of
+    LONG_MAX_LEN (above original_max_position_embeddings 4096: longrope's
+    long factors, as llama.cpp picks them by capacity) through the kernels,
+    held to v2g's plain version (held_to_plain); and the same in a cache of
+    128 (short factors), which must differ by more than that limit."""
+    from gptq_gguf_tpu_torch.models import llama
+    from gptq_gguf_tpu_torch.serving import model as qmodel
+
+    if not llama.uses_long_factors(cfg, LONG_MAX_LEN) or llama.uses_long_factors(cfg, 128):
+        raise RuntimeError(f"phi3 rope scaling does not switch at 4096: {cfg.rope_scaling}")
+    prompt = rng.integers(0, cfg.vocab_size, size=64)
+    feed = rng.integers(0, cfg.vocab_size, size=LONG_TOKENS - 1)
+    runs = {}
+    for label, cap in (("plain", LONG_MAX_LEN), ("kernel", LONG_MAX_LEN), ("short", 128)):
+        cache = qmodel.init_cache(cfg, 1, cap, device=device)
+        if label == "plain":
+            with plain_v2g_calls():
+                runs[label] = step_logits(qmodel.forward_cached, params, cfg, prompt, feed,
+                                          cache, device)
+        else:
+            runs[label] = step_logits(qmodel.forward_cached, params, cfg, prompt, feed, cache,
+                                      device)
+    rec = held_to_plain("phi3 long factors", runs["kernel"], runs["plain"])
+    moved = float(np.abs(runs["short"] - runs["kernel"]).max())
+    if not moved > rec["tol"]:
+        raise RuntimeError(f"phi3: long and short factors give logits {moved:.3e} apart")
+    log(f"  phi3 at capacity {LONG_MAX_LEN} (long factors): {rec['max_abs_err']:.3e} from the "
+        f"plain path (limit {rec['tol']:.3e}); capacity 128 (short factors) moves the logits by "
+        f"{moved:.3e} (card {card_name_and_power()})")
+    return dict(rec, short_vs_long=moved)
+
+
+def phase_families_gemma2_phi3(tmp: Path, rng, device) -> dict:
+    """11c: a Gemma-2-9B-width checkpoint (GEMMA2_LAYERS) through
+    ``quantize`` (GPTQ on the solve kernel, FAMILY_CALIB_TOKENS tokens, the
+    embedding RTN at Q4_K), ``pack`` and ``serve`` (v2g launches per
+    forward, the first forwards' calls held call by call, tokens against the
+    plain versions'), both engines on FAMILY_REQUESTS requests, one
+    LONG_PROMPT-token request past the window (family_long_prompt), the
+    tied head at v2g, the paged kernels at its attention shape (window 4096,
+    softcap 50, fills at the window's and the pages' edges) and the solve
+    kernel at its widths. 11d: a Phi-3-mini-128k-width checkpoint
+    (PHI3_LAYERS, fused q / k / v and gate / up, drawn rope factors) through
+    ``rtn-quantize --pure --outfile`` (Q4_K, its 32064-row head packed and
+    padded) and ``serve``, both engines (the paged kernel at hd 96), the
+    long factors held to the plain path, and the paged kernel at its shape."""
+    import torch
+
+    from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
+    from gptq_gguf_tpu_torch.ops import gptq
+    from gptq_gguf_tpu_torch.quant import artifacts
+
+    rec = {}
+    card = card_name_and_power()
+    for fam, hf in (("gemma2", GEMMA2_9B), ("phi3", dict(PHI3_MINI_128K,
+                                                          rope_scaling=family_rope_factors()))):
+        t_fam = time.perf_counter()
+        secs, r = {}, {}
+        layers = GEMMA2_LAYERS if fam == "gemma2" else PHI3_LAYERS
+        ckpt = tmp / fam
+        t = time.perf_counter()
+        write_family_checkpoint(ckpt, hf, device)
+        secs["checkpoint"] = time.perf_counter() - t
+        save, gguf = tmp / f"{fam}-layers", tmp / f"{fam}.gguf"
+        t = time.perf_counter()
+        gptq.solve_block.launches = 0
+        if fam == "gemma2":
+            run_cli(["quantize", "--model_name_or_path", str(ckpt), "--calibration_data",
+                     "synthetic", "--calibration_tokens", str(FAMILY_CALIB_TOKENS),
+                     "--calibration_sequence_length", str(CALIB_SEQ), "--default_bit_width",
+                     "Q4_K", "--quant_non_block_modules", "--save_dir", str(save),
+                     "--device", str(device)])
+            secs["quantize"] = time.perf_counter() - t
+            t = time.perf_counter()
+            run_cli(["pack", "--model_dir", str(ckpt), "--quant_dir", str(save),
+                     "--outfile", str(gguf)])
+            secs["pack"] = time.perf_counter() - t
+            want = sum(n for _, _, n in family_solves_of(hf)) * layers
+            # the embedding, and the head the walk fits for a config without
+            # tie_word_embeddings (pack writes none: the checkpoint has none)
+            n_arts = 7 * layers + 2
+        else:
+            run_cli(["rtn-quantize", "--model_name_or_path", str(ckpt), "--quant_type", "Q4_K",
+                     "--pure", "--save_dir", str(save), "--outfile", str(gguf), "--device",
+                     str(device)])
+            secs["rtn_quantize_and_pack"] = time.perf_counter() - t
+            want, n_arts = 0, 7 * layers + 2
+        r["solve_launches"] = gptq.solve_block.launches
+        names = artifacts.list_layers(save)
+        if r["solve_launches"] != want or len(names) != n_arts:
+            raise RuntimeError(f"{fam}: {r['solve_launches']} solve launches (want {want}), "
+                               f"{len(names)} artifacts (want {n_arts})")
+        shutil.rmtree(save)
+        shutil.rmtree(ckpt)
+        rd = GGUFReader(gguf)
+        arch, last = rd.get("general.architecture"), f"blk.{layers - 1}."
+        want_t = ({last + "post_ffw_norm.weight", last + "post_attention_norm.weight",
+                   last + "ffn_norm.weight", "token_embd.weight"} if fam == "gemma2" else
+                  {last + "attn_qkv.weight", last + "ffn_up.weight", "rope_factors_long.weight",
+                   "rope_factors_short.weight", "output.weight"})
+        if arch != fam or not want_t <= set(rd.tensors) \
+                or (fam == "gemma2") == ("output.weight" in rd.tensors):
+            raise RuntimeError(f"{gguf.name}: arch {arch}, tensors {sorted(rd.tensors)[:16]}")
+        r["gguf_bytes"] = gguf.stat().st_size
+        del rd
+        keep = {}
+        r["serve"] = serve_recipe(gguf, FAMILY2_V2G_PER_FORWARD[fam], FAMILY_TOKENS, device,
+                                  packed_head=fam == "phi3", keep=keep)
+        params, cfg = keep["params"], keep["cfg"]
+        layer = params["layers"][0]
+        if "qkv_proj" not in layer or "gateup_proj" not in layer \
+                or ("pre_feedforward_layernorm" in layer) != (fam == "gemma2") \
+                or (cfg.sliding_window, cfg.attn_logit_softcap) != (
+                    (4096, 50.0) if fam == "gemma2" else (262144, None)):
+            raise RuntimeError(f"{fam} serving params: {sorted(layer)}, {cfg}")
+        padded = -(-hf["vocab_size"] // 512) * 512  # 32064 -> 32256
+        if fam == "phi3" and params["lm_head"].d_out != padded:
+            raise RuntimeError(f"phi3 head d_out {params['lm_head'].d_out}, want {padded}")
+        r["engines"] = family_engines(params, cfg, rng, device)
+        if fam == "gemma2":
+            r["long_prompt"] = family_long_prompt(params, cfg, rng, device)
+        else:
+            r["long_factors"] = phi3_long_factors(params, cfg, rng, device)
+        del params, cfg, keep, layer
+        torch.cuda.empty_cache()
+        if fam == "gemma2":
+            r["tied_head"] = tied_head_v2g(gguf, device)
+            r["paged_kernels"] = family_paged_kernels(
+                "Gemma-2-9B", 8, 2, 256, 64, LONG_MAX_LEN // 64, GEMMA2_FILLS, (LONG_PROMPT,),
+                {"window": 4096, "softcap": 50.0}, (False, True), device)
+            r["solves"] = family_solves(rng, device, hf, "Gemma-2-9B")
+        else:
+            r["paged_kernels"] = family_paged_kernels(
+                "Phi-3-mini", 32, 1, 96, 64, 32, PHI3_FILLS, STEADY_FILLS, {}, (False,), device)
+        gguf.unlink()
+        torch.cuda.empty_cache()
+        secs["all"] = time.perf_counter() - t_fam
+        r["seconds"] = secs
+        log(f"  {fam}: GGUF {r['gguf_bytes']} bytes; seconds {secs}; v2g calls a forward "
+            f"{FAMILY2_V2G_PER_FORWARD[fam]}; worst call "
+            f"{r['serve']['call_by_call']['worst_vs_1e5']:.3f}x of 1e-5 of its terms (card {card})")
+        rec[fam] = r
+    return rec
 
 
 def phase_families(tmp: Path, device) -> dict:
@@ -4543,7 +5066,8 @@ def phase_families(tmp: Path, device) -> dict:
     the paged engine on FAMILY_REQUESTS requests; (b) a Qwen2.5-7B-width
     checkpoint with q / k / v biases through ``rtn-quantize --outfile`` and
     ``serve`` the same way (q / k / v unfused), and the solve kernel at its
-    widths (family_solves)."""
+    widths (family_solves); then (c) Gemma-2-9B and (d) Phi-3-mini-128k
+    widths (phase_families_gemma2_phi3)."""
     import torch
 
     from gptq_gguf_tpu_torch.formats.gguf import GGUFReader
@@ -4626,6 +5150,7 @@ def phase_families(tmp: Path, device) -> dict:
             f"{r['serve']['call_by_call']['worst_vs_1e5']:.3f}x of 1e-5 of its terms "
             f"(limit 1x, 10x on the prefill tiles: PREFILL_TILE_LIMIT) (card {card})")
         rec[fam] = r
+    rec.update(phase_families_gemma2_phi3(tmp, rng, device))
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"phase 11 took {rec['seconds']:.1f} s (card {card})")
     return rec
@@ -6004,7 +6529,8 @@ def run(device) -> dict:
         del v2_layers
         log("== phase 10: the llama-quantize route (imatrix, recipes, rtn-quantize)")
         recipes_rec = phase_recipes(Path(tmp), device)
-        log("== phase 11: the qwen3 and qwen2 families, checkpoint to served tokens")
+        log("== phase 11: the qwen3, qwen2, gemma2 and phi3 families, checkpoint to served "
+            "tokens")
         families_rec = phase_families(Path(tmp), device)
         log("== phase 12: the rest of evals/ and the search's leftovers")
         evals_rec = phase_evals(Path(tmp), q4_gguf, device)
@@ -6104,13 +6630,28 @@ def run(device) -> dict:
     # phase 11's launches beside each kernel's main-path count
     fam = families_rec
     fam_launches = {
-        "qmatmul_v2g": {f: fam[f]["serve"]["v2g_launches"] for f in ("qwen3", "qwen2")},
+        "qmatmul_v2g": {f: fam[f]["serve"]["v2g_launches"]
+                        for f in ("qwen3", "qwen2", "gemma2", "phi3")},
         "gptq_solve": {"qwen3": fam["qwen3"]["solve_launches"],
-                       "qwen2_down": fam["qwen2"]["solves"]["launches"]},
-        "paged_flash_decode": {"qwen3": fam["qwen3"]["engines"]["paged_launches"]}}
+                       "qwen2_down": fam["qwen2"]["solves"]["launches"],
+                       "gemma2": fam["gemma2"]["solve_launches"],
+                       "gemma2_down": fam["gemma2"]["solves"]["launches"]},
+        "paged_flash_decode": {"qwen3": fam["qwen3"]["engines"]["paged_launches"],
+                               "gemma2": fam["gemma2"]["engines"]["paged_launches"],
+                               "gemma2_long_prompt": fam["gemma2"]["long_prompt"][
+                                   "paged_launches"],
+                               "phi3": fam["phi3"]["engines"]["paged_launches"]}}
+    # phase 11's paged kernel readings at Phi-3's hd 96 and Gemma-2's hd 256
+    fam_shapes = {"paged_flash_decode": {
+        "phi3_hd96": fam["phi3"]["paged_kernels"]["paged_flash_decode"],
+        "gemma2_hd256_window4096_softcap50": fam["gemma2"]["paged_kernels"]["paged_flash_decode"]},
+        "paged_flash_decode_q4": {"gemma2_hd256_window4096_softcap50":
+                                  fam["gemma2"]["paged_kernels"]["paged_flash_decode_q4"]}}
     for k in summary["kernels"]:
         if k["name"] in fam_launches:
             k["families_launches"] = fam_launches[k["name"]]
+        if k["name"] in fam_shapes:
+            k["families_shapes"] = fam_shapes[k["name"]]
     # phase 12's: parity's GPTQ walks and its GGUFs scored through serving
     par = evals_rec["parity"]
     for k in summary["kernels"]:

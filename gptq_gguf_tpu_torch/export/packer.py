@@ -1,6 +1,6 @@
 """Pack a quantized dense model (HF checkpoint + per-layer artifacts) into a GGUF.
 
-Port of the llama / mistral / qwen2 / qwen3 path of
+Port of the llama / mistral / qwen2 / qwen3 / gemma / gemma2 / phi3 path of
 ``gptq_gguf_tpu/export/packer.py``: the same file, byte for byte, from the
 same checkpoint and artifacts. It walks the checkpoint's safetensors files
 (sorted by name, each file's tensors sorted by name) and, for each tensor,
@@ -8,10 +8,15 @@ either packs its GPTQ artifact into exact GGML K-quant blocks or writes the
 float tensor in the ``default_float`` type (norms, biases and other 1-D
 tensors stay f32). For llama and mistral the q / k rows go from HF's
 rotate-half rope layout to GGML's interleaved one (codes and every per-row
-scale of an artifact are permuted together); qwen2 and qwen3 keep HF's row
-order, as llama.cpp reads them. Metadata: the architecture
-keys, then the tokenizer's (BPE ``tokenizer.json`` or SentencePiece
-``tokenizer.model``), then any extra keys, then ``general.file_type``.
+scale of an artifact are permuted together); the other families keep HF's
+row order, as llama.cpp reads them. gemma and gemma2 store their norms as
+1 + w (llama.cpp's form) and gemma2's norm names are shifted against HF's
+(``ffn_norm`` is the pre-feed-forward norm); phi3's fused ``attn_qkv`` /
+``ffn_up`` are the row concatenations of the per-projection artifacts, and
+its longrope factors are written as the ``rope_factors_long`` / ``_short``
+tensors. Metadata: the architecture keys, then the tokenizer's (BPE
+``tokenizer.json`` or SentencePiece ``tokenizer.model``), then any extra
+keys, then ``general.file_type``.
 
 Host code: numpy, no card. Other model types, multimodal wrappers and the
 Unigram, WordPiece and RWKV vocabularies raise ``NotImplementedError``
@@ -21,8 +26,9 @@ naming what is missing.
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,6 +64,7 @@ def hf_to_gguf_name(name: str) -> Optional[str]:
         "self_attn.o_proj.bias": "attn_output.bias",
         "self_attn.q_norm.weight": "attn_q_norm.weight",
         "self_attn.k_norm.weight": "attn_k_norm.weight",
+        "post_feedforward_layernorm.weight": "post_ffw_norm.weight",
         "mlp.gate_proj.bias": "ffn_gate.bias",
         "mlp.up_proj.bias": "ffn_up.bias",
         "mlp.down_proj.bias": "ffn_down.bias",
@@ -128,6 +135,25 @@ class LlamaArch:
             return convert.gqa_permute_rows(n_rows, self.hf.get("num_key_value_heads", n_head))
         return None
 
+    def tensor_name(self, hf_name: str) -> Optional[str]:
+        return hf_to_gguf_name(hf_name)
+
+    def transform_float(self, gguf_name: str, arr: np.ndarray) -> np.ndarray:
+        """A float tensor's stored value (gemma folds its norms' + 1)."""
+        return arr
+
+    def extra_tensors(self) -> List[Tuple[str, np.ndarray]]:
+        """Tensors made from the config alone (phi3's rope factors)."""
+        return []
+
+    def _head_dim_metadata(self, md: Dict[str, Any]) -> Dict[str, Any]:
+        """The explicit key / value widths (head_dim need not be hidden / heads)."""
+        c = self.hf
+        head_dim = c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"]
+        md[f"{self.gguf_arch}.attention.key_length"] = head_dim
+        md[f"{self.gguf_arch}.attention.value_length"] = head_dim
+        return md
+
 
 class MistralArch(LlamaArch):
     """mistral: llama's keys and permutation under the llama arch tag, as
@@ -148,17 +174,97 @@ class Qwen3Arch(Qwen2Arch):
     gguf_arch = "qwen3"
 
     def metadata(self) -> Dict[str, Any]:
-        md = super().metadata()
-        c = self.hf
-        head_dim = c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"]
-        md[f"{self.gguf_arch}.attention.key_length"] = head_dim
-        md[f"{self.gguf_arch}.attention.value_length"] = head_dim
+        return self._head_dim_metadata(super().metadata())
+
+
+class GemmaArch(Qwen2Arch):
+    """gemma: q / k rows in HF's order, the explicit head width, and the
+    (1 + w) of its RMSNorm folded into every stored norm weight."""
+
+    gguf_arch = "gemma"
+
+    def metadata(self) -> Dict[str, Any]:
+        return self._head_dim_metadata(super().metadata())
+
+    def transform_float(self, gguf_name: str, arr: np.ndarray) -> np.ndarray:
+        return arr + 1.0 if gguf_name.endswith("norm.weight") else arr
+
+
+class Gemma2Arch(GemmaArch):
+    """gemma2: gemma's rules, the softcaps, the sliding window and
+    ``query_pre_attn_scalar``; its GGUF norm names are shifted against HF's:
+    ``post_attention_norm`` holds HF's post_attention_layernorm and
+    ``ffn_norm`` the pre-feed-forward norm."""
+
+    gguf_arch = "gemma2"
+
+    def tensor_name(self, hf_name: str) -> Optional[str]:
+        if hf_name.startswith("model.layers."):
+            parts = hf_name.split(".")
+            rest = ".".join(parts[3:])
+            if rest == "post_attention_layernorm.weight":
+                return f"blk.{parts[2]}.post_attention_norm.weight"
+            if rest == "pre_feedforward_layernorm.weight":
+                return f"blk.{parts[2]}.ffn_norm.weight"
+        return hf_to_gguf_name(hf_name)
+
+    def metadata(self) -> Dict[str, Any]:
+        md = LlamaArch.metadata(self)
+        c, a = self.hf, self.gguf_arch
+        md[f"{a}.attn_logit_softcapping"] = float(c.get("attn_logit_softcapping", 50.0))
+        md[f"{a}.final_logit_softcapping"] = float(c.get("final_logit_softcapping", 30.0))
+        md[f"{a}.attention.sliding_window"] = int(c.get("sliding_window", 4096))
+        self._head_dim_metadata(md)
+        if c.get("query_pre_attn_scalar") is not None:
+            md[f"{a}.attention.query_pre_attn_scalar"] = float(c["query_pre_attn_scalar"])
         return md
+
+
+class Phi3Arch(Qwen2Arch):
+    """phi3: q / k rows in HF's order; the longrope keys and factor tensors
+    (``rope.scaling.original_context_length``, ``attention.sliding_window``,
+    0 when absent, ``rope.scaling.attn_factor``); llama.cpp's fused
+    ``attn_qkv`` (q, k, v) and ``ffn_up`` (gate, up), made by row
+    concatenation of the per-projection artifacts (exact: K-quant rows are
+    independent)."""
+
+    gguf_arch = "phi3"
+    fused = {"self_attn.qkv_proj.weight": ("attn_qkv.weight",
+                                           ("self_attn.q_proj", "self_attn.k_proj",
+                                            "self_attn.v_proj")),
+             "mlp.gate_up_proj.weight": ("ffn_up.weight", ("mlp.gate_proj", "mlp.up_proj"))}
+
+    def metadata(self) -> Dict[str, Any]:
+        md = super().metadata()
+        c, a = self.hf, self.gguf_arch
+        orig = int(c.get("original_max_position_embeddings",
+                         c.get("max_position_embeddings", 4096)))
+        md[f"{a}.rope.scaling.original_context_length"] = orig
+        md[f"{a}.attention.sliding_window"] = int(c.get("sliding_window") or 0)
+        rs = dict(c.get("rope_scaling") or {})
+        rt = (rs.get("rope_type", rs.get("type")) or "").lower()
+        if rt in ("su", "longrope", "yarn"):
+            scale = c["max_position_embeddings"] / orig
+            if rt == "yarn":
+                attn = 0.1 * math.log(scale) + 1.0 if scale > 1.0 else 1.0
+            else:
+                attn = math.sqrt(1 + math.log(scale) / math.log(orig)) if scale > 1.0 else 1.0
+            md[f"{a}.rope.scaling.attn_factor"] = float(attn)
+        return md
+
+    def extra_tensors(self) -> List[Tuple[str, np.ndarray]]:
+        rs = dict(self.hf.get("rope_scaling") or {})
+        long_f, short_f = rs.get("long_factor"), rs.get("short_factor")
+        if long_f is None or short_f is None:
+            return []
+        return [("rope_factors_long.weight", np.asarray(long_f, dtype=np.float32)),
+                ("rope_factors_short.weight", np.asarray(short_f, dtype=np.float32))]
 
 
 # the conversion rules of each HF model type the port packs
 ARCH_BY_MODEL_TYPE = {"llama": LlamaArch, "mistral": MistralArch, "qwen2": Qwen2Arch,
-                      "qwen3": Qwen3Arch}
+                      "qwen3": Qwen3Arch, "gemma": GemmaArch, "gemma2": Gemma2Arch,
+                      "phi3": Phi3Arch}
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +273,7 @@ ARCH_BY_MODEL_TYPE = {"llama": LlamaArch, "mistral": MistralArch, "qwen2": Qwen2
 
 # llama.cpp picks its pretokenizer regex from tokenizer.ggml.pre
 PRE_TOKENIZER_BY_MODEL_TYPE = {"llama": "llama-bpe", "mistral": "llama-bpe",
-                               "qwen2": "qwen2", "qwen3": "qwen2"}
+                               "qwen2": "qwen2", "qwen3": "qwen2", "phi3": "llama-bpe"}
 
 _NORMAL, _CONTROL, _USER_DEFINED, _UNUSED = 1, 3, 4, 5  # GGUF token types
 
@@ -345,6 +451,17 @@ def _permute_artifact(art: artifacts.LayerArtifact, perm: np.ndarray) -> artifac
     )
 
 
+def _concat_artifacts(arts) -> artifacts.LayerArtifact:
+    """The row concatenation of per-projection artifacts (phi3's attn_qkv /
+    ffn_up); the parts must share a quant type."""
+    if len({a.q_type for a in arts}) != 1:
+        raise ValueError("the fused parts must share a quant type")
+    return artifacts.LayerArtifact(q_type=arts[0].q_type, **{
+        f: np.concatenate([getattr(a, f) for a in arts], axis=0)
+        for f in ("qweight", "super_group_scale", "super_group_zero", "group_scale_quant",
+                  "group_zero_quant")})
+
+
 def _to_f32(t: torch.Tensor) -> np.ndarray:
     """A checkpoint tensor as f32 numpy (bf16 and f16 widen exactly)."""
     if t.dtype == torch.bfloat16:
@@ -374,8 +491,8 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
                default_float: GGMLQuantizationType = GGMLQuantizationType.F16,
                extra_metadata: Optional[Dict[str, Any]] = None,
                vocab_only: bool = False) -> Path:
-    """Write a llama.cpp-loadable GGUF of an HF llama / mistral / qwen2 /
-    qwen3 checkpoint and its artifacts.
+    """Write a llama.cpp-loadable GGUF of an HF checkpoint of a family the
+    port packs (``ARCH_BY_MODEL_TYPE``) and its artifacts.
 
     model_dir: config.json + *.safetensors (+ tokenizer files). quant_dir:
     the ``<hf_module_name>/data.npz`` artifacts tree of ``quantize`` (None:
@@ -407,6 +524,7 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
         writer.write()
         return Path(out_path)
 
+    spec_extras = spec.extra_tensors()
     rs = dict(hf_cfg.get("rope_scaling") or {})
     if rs.get("rope_type", rs.get("type")) == "llama3":
         # llama.cpp's per-dimension frequency divisors (rope_freqs.weight)
@@ -417,6 +535,8 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
         base_inv = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
         corrected, _ = llama._rope_params(cfg)
         writer.add_tensor("rope_freqs.weight", (base_inv / corrected).astype(np.float32))
+    for ename, earr in spec_extras:
+        writer.add_tensor(ename, earr)
 
     type_counts: Dict[GGMLQuantizationType, int] = {}
 
@@ -430,7 +550,7 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
         type_counts[art.q_type] = type_counts.get(art.q_type, 0) + 1
 
     def add_float(gguf_name: str, hf_name: str, t: torch.Tensor):
-        arr = _to_f32(t)
+        arr = spec.transform_float(gguf_name, _to_f32(t))
         perm = spec.row_permutation(hf_name, arr.shape[0])
         if perm is not None:
             arr = arr[perm]
@@ -448,8 +568,22 @@ def pack_model(model_dir: Union[str, Path], quant_dir: Optional[Union[str, Path]
 
     seen_embed: Optional[torch.Tensor] = None
     has_lm_head = False
+    fused = getattr(spec, "fused", {})
     for name, t in safetensors.iter_dir(model_dir):
-        gguf_name = hf_to_gguf_name(name)
+        gguf_name = spec.tensor_name(name)
+        if gguf_name is None and name.startswith("model.layers."):
+            parts = name.split(".")
+            rest = ".".join(parts[3:])
+            if rest in fused:  # phi3: the split projections' artifacts, re-fused
+                gname, subs = fused[rest]
+                gname = f"blk.{parts[2]}.{gname}"
+                sub_names = [f"model.layers.{parts[2]}.{sub}" for sub in subs]
+                if all(sub in quant_layers for sub in sub_names):
+                    add_quantized(gname, name, _concat_artifacts(
+                        [artifacts.load_layer(quant_dir, sub) for sub in sub_names]))
+                else:
+                    add_float(gname, name, t)
+                continue
         if gguf_name is None:
             continue
         base = name[: -len(".weight")] if name.endswith(".weight") else name

@@ -1,14 +1,18 @@
 """Dense Llama building blocks in PyTorch.
 
 Port of the dense-Llama subset of ``gptq_gguf_tpu/models/llama.py``:
-the config, RMSNorm, RoPE (default / linear / llama3 / gguf_factors), the
-SwiGLU activation, the chunked online-softmax attention the serving path
-uses on long caches, and the non-cached block the calibration walk runs
-(``block_capture``: the block and the inputs of its linears). The block
-covers the llama, mistral, qwen2 and qwen3 families: qwen2's q / k / v
-biases and qwen3's per-head q / k RMSNorm before rope ride along as float
-params. Other model families, rope types and attention variants raise
-``NotImplementedError`` naming what is missing.
+the config, RMSNorm (gemma's (1 + w) form too), RoPE (default / linear /
+llama3 / longrope / gguf_factors), the SwiGLU and GELU-tanh activations,
+the chunked online-softmax attention the serving path uses on long caches,
+and the non-cached block the calibration walk runs (``block_capture``: the
+block and the inputs of its linears). The block covers the llama, mistral,
+qwen2, qwen3, gemma, gemma2 and phi3 families: qwen2's q / k / v biases,
+qwen3's per-head q / k RMSNorm before rope and gemma2's extra norms
+("sandwich" norms around attention and MLP) ride along as float params;
+gemma2's attention logit softcap, sliding-window layers and
+``query_pre_attn_scalar``, gemma's embedding scale and the final logit
+softcap are config fields. Other model families, rope types and attention
+variants raise ``NotImplementedError`` naming what is missing.
 """
 
 from __future__ import annotations
@@ -42,6 +46,19 @@ class LlamaConfig:
     qk_norm: bool = False  # qwen3-style per-head q/k RMSNorm before rope
     # frozen item-tuple (or dict) of HF-style rope_scaling keys
     rope_scaling: Optional[Any] = None
+    # gemma family: RMSNorm scales by (1 + w), embeddings by sqrt(hidden)
+    rms_add_unit: bool = False
+    embed_scale: bool = False
+    act_fn: str = "silu"  # silu | gelu_tanh
+    # gemma2: tanh softcaps of the attention scores and the final logits,
+    # the score scale query_pre_attn_scalar ** -0.5
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    # sliding-window attention: the even layers slide, or those the
+    # per-layer flags mark (HF layer_types)
+    sliding_window: Optional[int] = None
+    sliding_layers: Optional[Tuple[bool, ...]] = None
     dtype: torch.dtype = torch.float32
 
     @property
@@ -51,16 +68,28 @@ class LlamaConfig:
     @staticmethod
     def from_hf_dict(d: Dict[str, Any], dtype: torch.dtype = torch.float32) -> "LlamaConfig":
         """Build from a HF transformers config.json dict of the families the
-        port covers (``FAMILIES``), by the JAX package's rules: mistral's and
-        qwen2's ``sliding_window`` is dropped, qwen3 has the per-head q/k
-        norm, ``attention_bias`` is read as given (qwen2's biases are found
-        by their tensors)."""
+        port covers (``FAMILIES``), by the JAX package's rules: mistral's,
+        qwen2's and phi3's ``sliding_window`` is dropped (gemma2 keeps its
+        own, sliding on the layers ``layer_types`` marks, else on even
+        layers), qwen3 has the per-head q/k norm, the gemma types the (1 + w)
+        norm, the embedding scale and GELU-tanh, phi3's top-level
+        ``original_max_position_embeddings`` joins its ``rope_scaling``, and
+        ``attention_bias`` is read as given (qwen2's biases are found by
+        their tensors)."""
         mt = d.get("model_type", "llama")
         if mt not in FAMILIES:
             raise NotImplementedError(
                 f"model_type {mt!r} is not ported yet (supported: {', '.join(FAMILIES)})")
         if d.get("mlp_bias"):
             raise NotImplementedError(f"{mt} with mlp_bias=True is not ported yet")
+        rs = d.get("rope_scaling")
+        if rs and "original_max_position_embeddings" not in rs \
+                and d.get("original_max_position_embeddings"):
+            rs = {**rs, "original_max_position_embeddings": d["original_max_position_embeddings"]}
+        gemma = mt in ("gemma", "gemma2")
+        sliding_layers = None
+        if mt == "gemma2" and d.get("layer_types"):
+            sliding_layers = tuple(t == "sliding_attention" for t in d["layer_types"])
         return LlamaConfig(
             vocab_size=d["vocab_size"], hidden_size=d["hidden_size"],
             intermediate_size=d["intermediate_size"],
@@ -73,11 +102,17 @@ class LlamaConfig:
             tie_word_embeddings=d.get("tie_word_embeddings", False),
             attention_bias=bool(d.get("attention_bias", False)),
             qk_norm=mt == "qwen3",
-            rope_scaling=_freeze_value(d.get("rope_scaling")), dtype=dtype)
+            rope_scaling=_freeze_value(rs), rms_add_unit=gemma, embed_scale=gemma,
+            act_fn="gelu_tanh" if gemma else "silu",
+            attn_logit_softcap=d.get("attn_logit_softcapping"),
+            final_logit_softcap=d.get("final_logit_softcapping"),
+            query_pre_attn_scalar=d.get("query_pre_attn_scalar"),
+            sliding_window=d.get("sliding_window") if mt == "gemma2" else None,
+            sliding_layers=sliding_layers, dtype=dtype)
 
 
 # the HF model types whose dense blocks the port runs
-FAMILIES = ("llama", "mistral", "qwen2", "qwen3")
+FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "phi3")
 
 
 def _freeze_value(v):
@@ -92,17 +127,17 @@ def _freeze_value(v):
 # JAX LlamaConfig fields the dense path does not implement, with the value
 # that means "feature off"; config_from_reference refuses anything else
 _NEUTRAL = {
-    "arch": "llama", "norm_type": "rmsnorm", "act_fn": "silu",
-    "rms_add_unit": False, "embed_scale": False, "partial_rotary_factor": 1.0,
-    "rope_interleaved": False, "parallel_blocks": False, "sliding_window": None,
-    "sliding_layers": None, "rope_local_theta": None, "rope_sliding_only": False,
+    "norm_type": "rmsnorm", "partial_rotary_factor": 1.0,
+    "rope_interleaved": False, "parallel_blocks": False,
+    "rope_local_theta": None, "rope_sliding_only": False,
     "rope_layers": None, "qk_norm_after_rope": False,
-    "clip_qkv": None, "pos_type": "rope", "attn_logit_softcap": None,
-    "final_logit_softcap": None, "query_pre_attn_scalar": None,
+    "clip_qkv": None, "pos_type": "rope", "sliding_pattern": 2,
     "embedding_multiplier": None, "attention_scale": None,
     "residual_multiplier": None, "logits_multiplier": None,
     "moe_num_experts": None, "kv_lora_rank": None, "mlp_bias": False,
 }
+# the activations the port runs
+ACT_FNS = ("silu", "gelu_tanh")
 
 
 def config_from_reference(ref) -> LlamaConfig:
@@ -113,16 +148,20 @@ def config_from_reference(ref) -> LlamaConfig:
         if getattr(ref, name, off) != off:
             raise NotImplementedError(
                 f"LlamaConfig.{name}={getattr(ref, name)!r} is not ported yet")
+    if ref.act_fn not in ACT_FNS:
+        raise NotImplementedError(f"LlamaConfig.act_fn={ref.act_fn!r} is not ported yet")
     kw = {f.name: getattr(ref, f.name) for f in dataclasses.fields(LlamaConfig)
           if f.name != "dtype"}
     return LlamaConfig(**kw, dtype=_DTYPES[np.dtype(ref.dtype).name])
 
 
-# the keys of a dense block (qwen2's attention biases and qwen3's per-head
-# q / k norms among them), and the module-level keys of the params
+# the keys of a dense block (qwen2's attention biases, qwen3's per-head
+# q / k norms and gemma2's pre / post feed-forward norms among them), and
+# the module-level keys of the params
 _LAYER_KEYS = frozenset(("input_layernorm", "post_attention_layernorm", "q_proj", "k_proj",
                          "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
-                         "q_bias", "k_bias", "v_bias", "o_bias", "q_norm", "k_norm"))
+                         "q_bias", "k_bias", "v_bias", "o_bias", "q_norm", "k_norm",
+                         "pre_feedforward_layernorm", "post_feedforward_layernorm"))
 _TOP_KEYS = frozenset(("embed_tokens", "norm", "lm_head", "layers"))
 
 
@@ -134,7 +173,7 @@ def check_dense_layer(layer: Dict[str, Any]) -> None:
     if extra:
         raise NotImplementedError(
             f"block params {extra} are not ported yet (dense llama / mistral / qwen2 / "
-            "qwen3 blocks only)")
+            "qwen3 / gemma / gemma2 / phi3 blocks only)")
 
 
 def dense_params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device="cuda"):
@@ -169,29 +208,37 @@ def dense_params_from_numpy(tree: Dict[str, Any], cfg: LlamaConfig, device="cuda
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             add_unit: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, cast back; ``add_unit`` scales by (1 + w) (gemma)."""
     dt = x.dtype
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     normed = x32 * torch.rsqrt(var + eps)
-    return (normed * weight.float()).to(dt)
+    w = weight.float()
+    if add_unit:
+        w = 1.0 + w
+    return (normed * w).to(dt)
 
 
 def apply_norm(x: torch.Tensor, cfg: LlamaConfig, weight: torch.Tensor) -> torch.Tensor:
-    """Config-selected norm: RMSNorm on the dense Llama path."""
-    return rms_norm(x, weight, cfg.rms_norm_eps)
+    """Config-selected norm: RMSNorm, (1 + w) for the gemma family."""
+    return rms_norm(x, weight, cfg.rms_norm_eps, cfg.rms_add_unit)
 
 
-def _rope_params(cfg: LlamaConfig) -> Tuple[np.ndarray, float]:
+def _rope_params(cfg: LlamaConfig, seq_len: Optional[float] = None) -> Tuple[np.ndarray, float]:
     """(inv_freq, attention_scaling) following HF transformers'
-    modeling_rope_utils for default / linear / llama3, plus llama.cpp's
-    per-dim frequency factors (``gguf_factors``, rope_freqs.weight)."""
+    modeling_rope_utils for default / linear / llama3 / longrope, plus
+    llama.cpp's per-dim frequency factors (``gguf_factors``,
+    rope_freqs.weight). ``seq_len`` picks longrope's long factors when it
+    passes ``original_max_position_embeddings`` (short ones without it)."""
     hd = cfg.head_dim_  # full rotary on the dense Llama path
     base = cfg.rope_theta
     inv_freq = 1.0 / (base ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
     rs = cfg.rope_scaling
     rs = dict(rs) if rs is not None and not isinstance(rs, dict) else (rs or {})
     rope_type = rs.get("rope_type", rs.get("type"))
+    scaling = 1.0
     if rope_type == "llama3":
         factor = rs["factor"]
         low_factor = rs["low_freq_factor"]
@@ -209,37 +256,85 @@ def _rope_params(cfg: LlamaConfig) -> Tuple[np.ndarray, float]:
         pass
     elif rope_type == "linear":
         inv_freq = inv_freq / rs["factor"]
+    elif rope_type == "longrope":
+        # phi3's per-dim long / short factors and the attention scaling
+        old_len = rs.get("original_max_position_embeddings", cfg.max_position_embeddings)
+        use_long = seq_len is not None and seq_len > old_len
+        ext = np.asarray(rs["long_factor"] if use_long else rs["short_factor"],
+                         dtype=np.float64)
+        factor = cfg.max_position_embeddings / old_len
+        if rs.get("attention_factor") is not None:
+            scaling = rs["attention_factor"]
+        elif factor > 1.0:
+            scaling = math.sqrt(1 + math.log(factor) / math.log(old_len))
+        inv_freq = 1.0 / (ext * base ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
     elif rope_type == "gguf_factors":
         inv_freq = inv_freq / np.asarray(rs["factors"], dtype=np.float64)
     else:
         raise NotImplementedError(f"rope_type {rope_type!r} is not ported yet")
-    return inv_freq.astype(np.float32), 1.0
+    return inv_freq.astype(np.float32), float(scaling)
+
+
+def uses_long_factors(cfg: LlamaConfig, seq_len: Optional[int]) -> bool:
+    """Does ``seq_len`` select longrope's long factors (False for every
+    other rope type)?"""
+    rs = cfg.rope_scaling
+    rs = dict(rs) if rs is not None and not isinstance(rs, dict) else (rs or {})
+    if rs.get("rope_type", rs.get("type")) != "longrope" or seq_len is None:
+        return False
+    return seq_len > rs.get("original_max_position_embeddings", cfg.max_position_embeddings)
 
 
 @functools.lru_cache(maxsize=None)
-def _inv_freq(cfg: LlamaConfig, device: torch.device) -> Tuple[torch.Tensor, float]:
-    """The rope frequencies on ``device``, copied there once: a copy from
-    host memory on every step would make the host wait for the card."""
-    inv_freq, scaling = _rope_params(cfg)
+def _inv_freq(cfg: LlamaConfig, device: torch.device,
+              long: bool = False) -> Tuple[torch.Tensor, float]:
+    """The rope frequencies on ``device`` (longrope's long factors when
+    ``long``), copied there once: a copy from host memory on every step
+    would make the host wait for the card."""
+    inv_freq, scaling = _rope_params(cfg, math.inf if long else None)
     return torch.from_numpy(inv_freq).to(device), scaling
 
 
-def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables for given positions: (..., seq, head_dim) f32."""
-    inv_freq, scaling = _inv_freq(cfg, positions.device)
+def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor,
+                 seq_len: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for given positions: (..., seq, head_dim) f32.
+    ``seq_len`` picks longrope's factors (``_rope_params``)."""
+    inv_freq, scaling = _inv_freq(cfg, positions.device, uses_long_factors(cfg, seq_len))
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb) * scaling, torch.sin(emb) * scaling
 
 
-def rope_cos_sin_all(cfg: LlamaConfig, positions: torch.Tensor):
+def rope_cos_sin_all(cfg: LlamaConfig, positions: torch.Tensor, seq_len: Optional[int] = None):
     """cos/sin for the forward pass (one rope base on the dense path)."""
-    return rope_cos_sin(cfg, positions)
+    return rope_cos_sin(cfg, positions, seq_len)
 
 
 def is_sliding_layer(cfg: LlamaConfig, layer_idx: int) -> bool:
-    """Dense Llama has no sliding-window layers."""
-    return False
+    """Does this layer use sliding-window attention?"""
+    if not cfg.sliding_window:
+        return False
+    if cfg.sliding_layers is not None:
+        return bool(cfg.sliding_layers[layer_idx])
+    return layer_idx % 2 == 0
+
+
+def layer_window(cfg: LlamaConfig, layer_idx: int) -> Optional[int]:
+    """The layer's sliding window, or None for full attention."""
+    return cfg.sliding_window if is_sliding_layer(cfg, layer_idx) else None
+
+
+def attention_scale(cfg: LlamaConfig) -> Optional[float]:
+    """The score scale: ``query_pre_attn_scalar ** -0.5`` (gemma2), or None
+    for the default 1 / sqrt(head_dim)."""
+    if cfg.query_pre_attn_scalar is not None:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return None
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """cap * tanh(x / cap), or x unchanged without a cap."""
+    return cap * torch.tanh(x / cap) if cap else x
 
 
 def select_rope(cos, sin, cfg: LlamaConfig, layer_idx: int):
@@ -280,8 +375,8 @@ def dequant_kv_q4(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return w * torch.repeat_interleave(scales.float(), KV_Q4_GROUP, dim=-1)
 
 
-def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
-                    dynamic_length: bool = False,
+def flash_attention(q, k, v, qpos, scale=None, logit_softcap=None, sliding_window=None,
+                    chunk: int = FLASH_CHUNK, dynamic_length: bool = False,
                     n_live: Optional[int] = None,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -291,6 +386,8 @@ def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
     q: (B, nH, S, hd); k/v: (B, nKV, L, hd); qpos: (B, S) absolute position
     of each query (keys live at positions 0..L). Causal masking; GQA by
     head grouping. Peak memory is (S, chunk) scores per head.
+    logit_softcap caps the scores before masking; sliding_window keeps the
+    keys with qpos - kpos < window.
 
     dynamic_length=True reads only the chunks up to the live fill level:
     ``n_live`` chunks when the caller knows the count (the engine does, from
@@ -332,8 +429,11 @@ def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
                 kc = kc * k_scale[:, :, lo:hi, None]
                 vc = vc * v_scale[:, :, lo:hi, None]
         kp = torch.arange(lo, hi, device=q.device)
-        s = torch.einsum("bkgsh,bkth->bkgst", qg, kc)
-        vmask = (kp[None, None, :] <= qpos[:, :, None])[:, None, None]  # (B,1,1,S,t)
+        s = softcap(torch.einsum("bkgsh,bkth->bkgst", qg, kc), logit_softcap)
+        valid = kp[None, None, :] <= qpos[:, :, None]
+        if sliding_window:
+            valid = valid & ((qpos[:, :, None] - kp[None, None, :]) < sliding_window)
+        vmask = valid[:, None, None]  # (B,1,1,S,t)
         s = torch.where(vmask, s, -1e30)
         m2 = torch.maximum(m, s.amax(dim=-1))
         corr = torch.exp(m - m2)
@@ -346,7 +446,9 @@ def flash_attention(q, k, v, qpos, scale=None, chunk: int = FLASH_CHUNK,
 
 
 def _act_only(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """SiLU in f32, cast back (the dense Llama activation)."""
+    """SiLU, or GELU's tanh form (gemma), in f32, cast back."""
+    if cfg.act_fn == "gelu_tanh":
+        return torch.nn.functional.gelu(x.float(), approximate="tanh").to(x.dtype)
     return torch.nn.functional.silu(x.float()).to(x.dtype)
 
 
@@ -392,14 +494,16 @@ def head_qk_norm(q: torch.Tensor, k: torch.Tensor, layer: Dict[str, Any],
             rms_norm(k, layer["k_norm"], cfg.rms_norm_eps))
 
 
-def attention_scores(q, k, v, mask, scale=None) -> torch.Tensor:
+def attention_scores(q, k, v, mask, scale=None, logit_softcap=None) -> torch.Tensor:
     """Plain attention: q (B, nH, S, hd), k/v (B, nKV, S, hd), mask (B, S, S)
-    bool; GQA by head grouping. Returns f32 (B, nH, S, hd)."""
+    bool; GQA by head grouping; the softcap goes before the mask. Returns
+    f32 (B, nH, S, hd)."""
     B, nH, S, hd = q.shape
     nKV = k.shape[1]
     qg = q.reshape(B, nKV, nH // nKV, S, hd)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     scores = torch.einsum("bkgsh,bkth->bkgst", qg.float(), k.float()) * scale
+    scores = softcap(scores, logit_softcap)
     scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,bkth->bkgsh", probs.float(), v.float())
@@ -410,6 +514,13 @@ def causal_mask(B: int, S: int, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((S, S), dtype=torch.bool, device=device)).expand(B, S, S)
 
 
+def _sliding_mask(mask: torch.Tensor, window: int) -> torch.Tensor:
+    """``mask`` with the keys at window or more positions back cut off."""
+    S = mask.shape[-1]
+    pos = torch.arange(S, device=mask.device)
+    return mask & ((pos[:, None] - pos[None, :]) < window)[None]
+
+
 def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, mask: torch.Tensor, cfg: LlamaConfig,
                   layer_idx: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -417,11 +528,18 @@ def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Te
     linears: (out, {"qkv", "o", "gateup", "down"}). x: (B, S, H); cos/sin:
     (B, S, hd); mask: (B, S, S) causal. Attention biases are added inside
     the linears (f32, before the cast back), and the per-head q / k norm
-    runs before rope, as in the JAX package's block."""
+    runs before rope, as in the JAX package's block. gemma2's block
+    (``pre_feedforward_layernorm`` present) normalizes the attention output
+    by ``post_attention_layernorm`` before the residual add, the MLP input
+    by ``pre_feedforward_layernorm`` and its output by
+    ``post_feedforward_layernorm``; a sliding layer masks keys at
+    ``sliding_window`` or more positions back."""
     check_dense_layer(layer)
     B, S, H = x.shape
     hd = cfg.head_dim_
     nH, nKV = cfg.num_attention_heads, cfg.num_key_value_heads
+    window = layer_window(cfg, layer_idx)
+    scale = attention_scale(cfg)
     h1 = apply_norm(x, cfg, layer["input_layernorm"])
     q = _linear(h1, layer["q_proj"], layer.get("q_bias")).reshape(B, S, nH, hd).transpose(1, 2)
     k = _linear(h1, layer["k_proj"], layer.get("k_bias")).reshape(B, S, nKV, hd).transpose(1, 2)
@@ -431,16 +549,25 @@ def block_capture(layer: Dict[str, torch.Tensor], x: torch.Tensor, cos: torch.Te
     if S >= 2 * FLASH_CHUNK:
         # long sequences stream KV chunks (the causal mask is implied)
         qpos = torch.arange(S, device=x.device).expand(B, S)
-        attn = flash_attention(q, k, v, qpos)
+        attn = flash_attention(q, k, v, qpos, scale, cfg.attn_logit_softcap, window)
     else:
-        attn = attention_scores(q, k, v, mask)
+        attn = attention_scores(q, k, v, mask if window is None else _sliding_mask(mask, window),
+                                scale, cfg.attn_logit_softcap)
     attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
-    x = x + _linear(attn, layer["o_proj"], layer.get("o_bias"))
-    h2 = apply_norm(x, cfg, layer["post_attention_layernorm"])
+    attn_out = _linear(attn, layer["o_proj"], layer.get("o_bias"))
+    sandwich = "pre_feedforward_layernorm" in layer
+    if sandwich:
+        attn_out = apply_norm(attn_out, cfg, layer["post_attention_layernorm"])
+    x = x + attn_out
+    h2 = apply_norm(x, cfg, layer["pre_feedforward_layernorm" if sandwich
+                                  else "post_attention_layernorm"])
     gate = _linear(h2, layer["gate_proj"])
     up = _linear(h2, layer["up_proj"])
     down_in = _mlp_act(gate, up, cfg)
-    x = x + _linear(down_in, layer["down_proj"])
+    mlp_out = _linear(down_in, layer["down_proj"])
+    if "post_feedforward_layernorm" in layer:
+        mlp_out = apply_norm(mlp_out, cfg, layer["post_feedforward_layernorm"])
+    x = x + mlp_out
     return x, {"qkv": h1, "o": attn, "gateup": h2, "down": down_in}
 
 
@@ -449,22 +576,37 @@ def block_forward(layer, x, cos, sin, mask, cfg: LlamaConfig, layer_idx: int = 0
     return block_capture(layer, x, cos, sin, mask, cfg, layer_idx)[0]
 
 
+def scale_embeddings(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """gemma's sqrt(hidden) embedding scale, the factor itself cast to
+    ``cfg.dtype`` first (59.75 in bf16, 59.866... in f32 at hidden 3584), as
+    the JAX package multiplies."""
+    if not cfg.embed_scale:
+        return x
+    return x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=cfg.dtype, device=x.device)
+
+
+def final_softcap(logits: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """gemma2's final logit softcap (logits unchanged without one)."""
+    return softcap(logits, cfg.final_logit_softcap)
+
+
 def embed_forward(params, input_ids: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    return params["embed_tokens"][input_ids].to(cfg.dtype)
+    return scale_embeddings(params["embed_tokens"][input_ids].to(cfg.dtype), cfg)
 
 
 def head_forward(params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Final norm + lm head -> logits (B, S, V) in f32."""
+    """Final norm + lm head (+ the final softcap) -> logits (B, S, V) in f32."""
     h = apply_norm(x, cfg, params["norm"])
     w = params.get("lm_head", params["embed_tokens"])
-    return torch.matmul(h.float(), w.float().T)
+    return final_softcap(torch.matmul(h.float(), w.float().T), cfg)
 
 
 def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """Full forward pass of dense params: (B, S) ids -> logits (B, S, V) f32."""
+    """Full forward pass of dense params: (B, S) ids -> logits (B, S, V) f32.
+    Longrope picks its factors by the sequence length S."""
     B, S = input_ids.shape
     positions = torch.arange(S, device=input_ids.device).expand(B, S)
-    cos, sin = rope_cos_sin_all(cfg, positions)
+    cos, sin = rope_cos_sin_all(cfg, positions, seq_len=S)
     mask = causal_mask(B, S, device=input_ids.device)
     x = embed_forward(params, input_ids, cfg)
     for li, layer in enumerate(params["layers"]):
@@ -519,6 +661,7 @@ def set_linear(params, name: str, value):
 # Param dict layout (what serving/model.py builds):
 # {"embed_tokens": (V, H), "norm": (H,), "lm_head": packed (absent if tied),
 #  "layers": [{"input_layernorm", "post_attention_layernorm": (H,),
+#              ["pre_feedforward_layernorm", "post_feedforward_layernorm": (H,)],
 #              "qkv_proj" | "q_proj"/"k_proj"/"v_proj", "o_proj",
 #              "gateup_proj" | "gate_proj"/"up_proj", "down_proj",
 #              ["q_bias"/"k_bias"/"v_bias"/"o_bias": (d_out,) f32],

@@ -1,10 +1,13 @@
-"""HF checkpoint -> the port's param dict (dense llama, mistral, qwen2, qwen3).
+"""HF checkpoint -> the port's param dict (dense llama, mistral, qwen2, qwen3,
+gemma, gemma2, phi3).
 
 Port of the dense part of ``gptq_gguf_tpu/models/loader.py``: reads
 ``config.json`` and ``*.safetensors`` (through the port's own container
-reader) into the ``models.llama`` layout, attention biases and per-head
-q / k norms included. Other model types raise ``NotImplementedError``
-naming the type.
+reader) into the ``models.llama`` layout, attention biases, per-head q / k
+norms and gemma2's pre / post feed-forward norms included. phi3's fused
+``qkv_proj`` and ``gate_up_proj`` are split by rows into q / k / v (q the
+first nH * hd rows, then k and v of nKV * hd each) and gate / up (gate
+first). Other model types raise ``NotImplementedError`` naming the type.
 """
 
 from __future__ import annotations
@@ -35,10 +38,29 @@ _LAYER = {
     "self_attn.o_proj.bias": "o_bias",
     "self_attn.q_norm.weight": "q_norm",
     "self_attn.k_norm.weight": "k_norm",
+    "pre_feedforward_layernorm.weight": "pre_feedforward_layernorm",
+    "post_feedforward_layernorm.weight": "post_feedforward_layernorm",
     "mlp.gate_proj.weight": "gate_proj",
     "mlp.up_proj.weight": "up_proj",
     "mlp.down_proj.weight": "down_proj",
 }
+
+
+# phi3's fused projections and the layer keys of their row blocks
+_FUSED = {"self_attn.qkv_proj.weight": ("q_proj", "k_proj", "v_proj"),
+          "mlp.gate_up_proj.weight": ("gate_proj", "up_proj")}
+
+
+def _fused_rows(val: torch.Tensor, rest: str, cfg: LlamaConfig):
+    """The row blocks of a fused phi3 projection, each a contiguous copy."""
+    if rest.startswith("self_attn."):
+        hd = cfg.head_dim_
+        sizes = [cfg.num_attention_heads * hd] + [cfg.num_key_value_heads * hd] * 2
+    else:
+        sizes = [cfg.intermediate_size] * 2
+    if sum(sizes) != val.shape[0]:
+        raise ValueError(f"{rest}: {val.shape[0]} rows, the config gives {sum(sizes)}")
+    return [t.contiguous() for t in torch.split(val, sizes)]
 
 
 def load_config(model_dir: Union[str, Path], dtype=torch.float32) -> LlamaConfig:
@@ -74,6 +96,10 @@ def load_params(model_dir: Union[str, Path], cfg: Optional[LlamaConfig] = None) 
             rest = ".".join(parts[3:])
             if rest.endswith("rotary_emb.inv_freq"):
                 continue  # derived from the config
+            if rest in _FUSED:
+                for key, part in zip(_FUSED[rest], _fused_rows(val, rest, cfg)):
+                    layers[int(parts[2])][key] = part
+                continue
             if rest not in _LAYER:
                 raise NotImplementedError(f"checkpoint tensor {name} is not ported yet")
             layers[int(parts[2])][_LAYER[rest]] = val

@@ -64,23 +64,27 @@
 //     scale slice and the zero fill, and a build with the arithmetic taken
 //     out moved the bytes about as fast as a plain torch.amax over them
 //     (PERF.md §6): the copies are not what bounds it;
-//   * tensor-core body (MmaBody: bf16 and int4 pools, hd <= 128, the
-//     serving path): the G <= 16 query heads of a kv head on the M side of
-//     mma.sync m16n8k16, each warp 16 positions of the chunk; S = Q K^T,
+//   * tensor-core body (MmaBody: bf16 pools at hd 64 / 96 / 128 and int4
+//     pools at hd 64 / 128, the serving path): the G <= 16 query heads of
+//     a kv head on the M side of mma.sync m16n8k16, each warp 16 positions of the chunk; S = Q K^T,
 //     then O += P V with P's accumulator fragments reused as the A operand.
 //     q is staged once in three bf16 parts and P split in two, so the f32
 //     sums keep f32's accuracy to ~1e-6; bf16 K / V and int4 (nibble - 8)
 //     are exact bf16 operands, the int4 group scales applied in f32 (to
 //     each 32-feature group's partial scores; folded into P for V's). int4
 //     codes become bf16 in registers (0x4300 | nibble is 128 + nibble), no
-//     shared f32 tile. ~17 instructions per position by count;
+//     shared f32 tile. ~17 instructions per position by count. A staged
+//     bf16 row spans a power of two of 16-byte pieces (hd 96: 12 pieces
+//     padded to 16), so the XOR swizzle of a piece by its row's low three
+//     bits stays inside the row;
 //   * CUDA-core body (CoreBody: f32 pools, and bf16 / int4 at hd 192 /
 //     256): four query heads per warp, q and acc in registers, hd / 8 lanes per position and a
 //     shuffle reduction per head, for the shapes the tensor-core body's
 //     registers do not take;
 //   * warps meet once per chunk (the ring's barrier) and join their
 //     softmax states once per split.
-// Shape limits: hd a multiple of 64 up to 256, G <= 16, page <= 256.
+// Shape limits: hd 64, 96 (bf16 / f32 pools), 128, 192 or 256; G <= 16;
+// page <= 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,14 +127,17 @@ struct Tile {
   static constexpr int LP = pow2_ceil(HD / kF);  // CUDA-core lanes per position (hd 192: 24 of 32)
   static constexpr int PP = 32 / LP;             // CUDA-core positions per warp and pass
   static constexpr int ELT = MODE == kF32 ? 4 : 2;
+  static constexpr int GROW = HD * ELT;  // bytes of a bf16 / f32 row in the pool
   // positions per staged chunk: 64, or fewer so a stage of bf16 / f32 K + V stays 32 KB
   static constexpr int CH =
       MODE == kQ4 ? kQ4Chunk : clamp_int(pow2_floor(kStageBytes / (2 * HD * ELT)), 16, 64);
   static constexpr int NG = HD / kQ4Group;  // int4 scale groups of k (and of v)
   // bytes of one staged row: K or V (bf16 / f32; the tensor-core body's
-  // 16-byte pieces XOR-swizzled by row); int4 codes, padded for the
-  // tensor-core body so the 8 rows one LDS reads fall in different banks
-  static constexpr int ROW = MODE == kQ4 ? HD + (MMA ? 16 : 0) : HD * ELT;
+  // 16-byte pieces XOR-swizzled by row, in a power of two of pieces so the
+  // swizzle stays in the row); int4 codes, padded for the tensor-core body
+  // so the 8 rows one LDS reads fall in different banks
+  static constexpr int ROW =
+      MODE == kQ4 ? HD + (MMA ? 16 : 0) : (MMA ? 16 * pow2_ceil(GROW / 16) : GROW);
   static constexpr int SCS = CH + 2;  // floats per staged scale group (bank spread)
   static constexpr int STAGE =
       MODE == kQ4 ? round16(CH * ROW + 2 * NG * SCS * 4) : 2 * CH * ROW;
@@ -258,8 +265,8 @@ __device__ __forceinline__ void issue_chunk(uint8_t* st, const void* kpool, cons
       cp_async4(sc + g * TL::SCS + r, ok ? ssrc + g * page + r : ssrc, ok);
     }
   } else {
-    constexpr int kPieces = TL::ROW / 16;
-    const size_t row0 = (tile * page + c.off) * TL::ROW;
+    constexpr int kPieces = TL::GROW / 16;
+    const size_t row0 = (tile * page + c.off) * TL::GROW;
 #pragma unroll
     for (int which = 0; which < 2; ++which) {  // K rows, then V rows
       const uint8_t* src = static_cast<const uint8_t*>(which ? vpool : kpool) + row0;
@@ -268,7 +275,7 @@ __device__ __forceinline__ void issue_chunk(uint8_t* st, const void* kpool, cons
         const int r = i / kPieces, p = i % kPieces;
         const bool ok = r >= c.r_lo && r < c.r_hi;
         const int pd = TL::MMA ? p ^ (r & 7) : p;  // ldmatrix reads 8 rows bank-free
-        cp_async16(dst + r * TL::ROW + pd * 16, ok ? src + r * TL::ROW + p * 16 : src, ok);
+        cp_async16(dst + r * TL::ROW + pd * 16, ok ? src + r * TL::GROW + p * 16 : src, ok);
       }
     }
   }
@@ -924,6 +931,12 @@ int launch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch<64, MODE>(a, stream);
+    case 96:  // int4 needs hd / 2 a multiple of 32 (the scale groups of each half)
+      if constexpr (MODE == kQ4) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        return launch<96, MODE>(a, stream);
+      }
     case 128:
       return launch<128, MODE>(a, stream);
     case 192:
@@ -952,7 +965,7 @@ extern "C" int gg_paged_flash_decode(const float* q, const void* k_pool, const v
                                      int nKV, int G, int hd, int page, int pps, int n_pool,
                                      int n_split, int pps_split, float scale, int window,
                                      float softcap, cudaStream_t stream) {
-  if (B < 1 || nKV < 1 || G < 1 || G > kMaxG || hd % 64 != 0 || hd < 64 || hd > 256 ||
+  if (B < 1 || nKV < 1 || G < 1 || G > kMaxG || hd % 32 != 0 || hd < 64 || hd > 256 ||
       page < 1 || page > kMaxPage || pps < 1 || n_pool < 1 || n_split < 1 || n_split > kMaxSplit ||
       pps_split < 1 || (long long)n_split * pps_split < pps ||
       (long long)(n_split - 1) * pps_split >= pps || part == nullptr) {

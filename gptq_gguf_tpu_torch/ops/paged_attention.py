@@ -32,8 +32,9 @@ softmax in f32. ``paged_flash_decode_split_reference`` (and ``_q4_``) model
 the kernel's two passes on the CPU; nothing on the serving path calls
 them. The JAX package's Mosaic tiling rules (``page % 128``, the
 zero-padded query planes of its int4 kernel) are not carried over: the
-kernel takes hd a multiple of 64 up to 256, any page up to 256 and up to
-16 query heads per kv head, and raises on anything else.
+kernel takes hd 64, 96 (bf16 / f32 pools: Phi-3's heads), 128, 192 and 256,
+any page up to 256 and up to 16 query heads per kv head, and raises on
+anything else.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import torch
 from ..models.llama import KV_Q4_GROUP, dequant_kv_q4
 
 MAX_HEAD_DIM = 256
+HEAD_DIMS = (64, 96, 128, 192, 256)  # the kernel's instances; int4 pools: multiples of 64
 MAX_PAGE = 256
 MAX_GROUP = 16
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -238,9 +240,9 @@ def _launch(mode: int, q, k_pool, v_pool, table, lengths, scale, window, sinks, 
     if q.dim() != 4:
         raise ValueError(f"q must be (B, nKV, G, hd), got {tuple(q.shape)}")
     B, nKV, G, hd = q.shape
-    if hd % 64 or not 64 <= hd <= MAX_HEAD_DIM or not 1 <= G <= MAX_GROUP:
-        raise ValueError(f"the kernel takes hd a multiple of 64 up to {MAX_HEAD_DIM} and "
-                         f"1-{MAX_GROUP} query heads per kv head, got hd={hd}, G={G}")
+    if hd not in HEAD_DIMS or (mode == _MODE_Q4 and hd % 64) or not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS} (int4 pools: a multiple of 64) "
+                         f"and 1-{MAX_GROUP} query heads per kv head, got hd={hd}, G={G}")
     n_pool = k_pool.shape[0]
     page = k_pool.shape[2]
     if not 1 <= page <= MAX_PAGE:

@@ -1,9 +1,11 @@
 """Quantized serving model: a KV-cached dense model over runtime-packed weights.
 
 Port of the dense path of ``gptq_gguf_tpu/serving/model.py`` for the llama,
-mistral, qwen2 and qwen3 families (qwen2's q / k / v biases and qwen3's
-per-head q / k norm ride along as float params). Every projection and the
-lm_head go through ``ops.qmatmul.dequant_matmul``, which routes each packed
+mistral, qwen2, qwen3, gemma, gemma2 and phi3 families (qwen2's q / k / v
+biases, qwen3's per-head q / k norm and gemma2's extra norms ride along as
+float params; gemma2's softcaps, sliding windows and score scale, gemma's
+embedding scale and phi3's longrope factors come from the config). Every
+projection and the lm_head go through ``ops.qmatmul.dequant_matmul``, which routes each packed
 weight to its format's CUDA kernel on the card (v1, v2g or v4). The KV
 cache is a preallocated per-layer (B, n_kv, max_len + 1, hd) buffer
 updated in place: row ``max_len`` is a drop row that absorbs writes
@@ -178,11 +180,14 @@ def _quantize_kv_q4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q[..., : hd // 2] | (q[..., hd // 2:] << 4), s
 
 
-def _cached_attention(q, k_cache, v_cache, lengths, scale=None,
-                      n_live: Optional[int] = None, k_scale=None, v_scale=None):
+def _cached_attention(q, k_cache, v_cache, lengths, scale=None, logit_softcap=None,
+                      sliding_window=None, n_live: Optional[int] = None, k_scale=None,
+                      v_scale=None):
     """q: (B, nH, S, hd); caches (B, nKV, L, hd); slot b's queries sit at
     positions lengths[b] + [0, S). Long caches stream through the
     online-softmax path; decode reads only the ``n_live`` live chunks.
+    logit_softcap caps the scores before masking; sliding_window keeps the
+    keys fewer than ``sliding_window`` positions back.
     k_scale / v_scale: the per-entry scales of an int8 cache (B, nKV, L) or
     the group scales of an int4 cache (B, nKV, L, hd // KV_Q4_GROUP)."""
     B, nH, S, hd = q.shape
@@ -192,8 +197,9 @@ def _cached_attention(q, k_cache, v_cache, lengths, scale=None,
     if L >= 2 * llama.FLASH_CHUNK:
         qpos = lengths[:, None] + ar[None, :]
         return llama.flash_attention(
-            q, k_cache, v_cache, qpos, scale, dynamic_length=(S == 1),
-            n_live=n_live, k_scale=k_scale, v_scale=v_scale).to(q.dtype)
+            q, k_cache, v_cache, qpos, scale, logit_softcap, sliding_window,
+            dynamic_length=(S == 1), n_live=n_live, k_scale=k_scale,
+            v_scale=v_scale).to(q.dtype)
     if k_scale is not None and k_scale.ndim == 4:  # int4 packed cache
         k_cache = llama.dequant_kv_q4(k_cache, k_scale)
         v_cache = llama.dequant_kv_q4(v_cache, v_scale)
@@ -204,9 +210,12 @@ def _cached_attention(q, k_cache, v_cache, lengths, scale=None,
     qg = q.reshape(B, nKV, groups, S, hd)
     scale = scale if scale is not None else 1.0 / float(np.sqrt(hd))
     scores = torch.einsum("bkgsh,bkth->bkgst", qg.float(), k_cache.float()) * scale
+    scores = llama.softcap(scores, logit_softcap)
     pos = torch.arange(L, device=q.device)[None, None, :]
     qpos = lengths[:, None, None] + ar[None, :, None]
     mask = pos <= qpos  # (B, S, L) causal per slot
+    if sliding_window:
+        mask = mask & ((qpos - pos) < sliding_window)
     scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgst,bkth->bkgsh", probs.float(), v_cache.float())
@@ -239,6 +248,9 @@ def forward_cached(
 
     all_logits=True returns the logits of every fed position, (B, S, vocab)
     f32: the lm_head runs once over all B * S rows (perplexity scoring).
+
+    Longrope picks its factors by the cache's capacity (llama.cpp's rule,
+    as the JAX package), not by the live length.
     """
     if all_logits and n_valid is not None:
         raise ValueError("all_logits scores every position; n_valid does not apply")
@@ -249,7 +261,7 @@ def forward_cached(
     dev = input_ids.device
 
     positions = lengths[:, None] + torch.arange(S, device=dev)[None, :]
-    cos, sin = llama.rope_cos_sin_all(cfg, positions)
+    cos, sin = llama.rope_cos_sin_all(cfg, positions, seq_len=L)
     write_pos = torch.where(positions < L, positions, L)  # L = drop row
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
     n_live = None
@@ -259,7 +271,8 @@ def forward_cached(
 
     # int8 / int4 caches: each new entry quantized as it is written
     quant = {KVCacheQ8: _quantize_kv, KVCacheQ4: _quantize_kv_q4}.get(type(cache))
-    x = params["embed_tokens"][input_ids].to(cfg.dtype)
+    scale = llama.attention_scale(cfg)
+    x = llama.embed_forward(params, input_ids, cfg)
     for li, layer in enumerate(params["layers"]):
         h = llama.apply_norm(x, cfg, layer["input_layernorm"])
         if "qkv_proj" in layer:
@@ -296,18 +309,11 @@ def forward_cached(
         else:
             k_buf[bidx, :, write_pos] = k_new.to(k_buf.dtype)
             v_buf[bidx, :, write_pos] = v_new.to(v_buf.dtype)
-        attn = _cached_attention(q, k_buf[:, :, :L], v_buf[:, :, :L], lengths,
+        attn = _cached_attention(q, k_buf[:, :, :L], v_buf[:, :, :L], lengths, scale,
+                                 cfg.attn_logit_softcap, llama.layer_window(cfg, li),
                                  n_live=n_live, k_scale=ks, v_scale=vs)
         attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
-        x = x + _o_proj(attn, layer)
-
-        h = llama.apply_norm(x, cfg, layer["post_attention_layernorm"])
-        if "gateup_proj" in layer:
-            gate, up = torch.chunk(_q_linear(h, layer["gateup_proj"]), 2, dim=-1)
-        else:
-            gate = _q_linear(h, layer["gate_proj"])
-            up = _q_linear(h, layer["up_proj"])
-        x = x + _q_linear(llama._mlp_act(gate, up, cfg), layer["down_proj"])
+        x = _mlp_block(x, _o_proj(attn, layer), layer, cfg)
 
     if all_logits:
         last = x
@@ -328,17 +334,42 @@ def _o_proj(attn: torch.Tensor, layer: Dict[str, Any]) -> torch.Tensor:
     return out if layer.get("o_bias") is None else out + layer["o_bias"]
 
 
+def _mlp_block(x: torch.Tensor, attn_out: torch.Tensor, layer: Dict[str, Any],
+               cfg: LlamaConfig) -> torch.Tensor:
+    """The rest of a block after the attention output projection: the
+    residual add and the MLP with its norms (gemma2's sandwich norms where
+    the layer has ``pre_feedforward_layernorm``); fused (``gateup_proj``) or
+    apart."""
+    sandwich = "pre_feedforward_layernorm" in layer
+    if sandwich:
+        attn_out = llama.apply_norm(attn_out, cfg, layer["post_attention_layernorm"])
+    x = x + attn_out
+    h = llama.apply_norm(x, cfg, layer["pre_feedforward_layernorm" if sandwich
+                                       else "post_attention_layernorm"])
+    if "gateup_proj" in layer:
+        gate, up = torch.chunk(_q_linear(h, layer["gateup_proj"]), 2, dim=-1)
+    else:
+        gate = _q_linear(h, layer["gate_proj"])
+        up = _q_linear(h, layer["up_proj"])
+    mlp_out = _q_linear(llama._mlp_act(gate, up, cfg), layer["down_proj"])
+    if "post_feedforward_layernorm" in layer:
+        mlp_out = llama.apply_norm(mlp_out, cfg, layer["post_feedforward_layernorm"])
+    return x + mlp_out
+
+
 def _head_logits(params: Dict[str, Any], cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
-    """(..., vocab) f32 logits of the normed final hidden states (..., H);
-    a packed head runs once over all leading positions."""
+    """(..., vocab) f32 logits of the normed final hidden states (..., H),
+    the final softcap applied; a packed head runs once over all leading
+    positions."""
     head = params.get("lm_head", params["embed_tokens"])
     if isinstance(head, _QUANT_TYPES):
         logits = qmatmul.dequant_matmul(h.reshape(-1, h.shape[-1]), head)
         logits = logits.reshape(*h.shape[:-1], head.d_out)
         if logits.shape[-1] > cfg.vocab_size:
             logits = logits[..., :cfg.vocab_size]  # drop pad_dout_v2 rows
-        return logits
-    return h.float() @ head.float().T  # dense (or tied) head
+    else:
+        logits = h.float() @ head.float().T  # dense (or tied) head
+    return llama.final_softcap(logits, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -476,13 +507,18 @@ _UNPORTED_KEYS = ("expert_count", "embedding_scale", "residual_scale",
 # the GGUF architectures the serving loader takes, and those whose q / k
 # rows are in llama.cpp's interleaved rope layout (the JAX package's list;
 # the packer permutes the same ones)
-GGUF_ARCHES = ("llama", "mistral", "qwen2", "qwen3")
+GGUF_ARCHES = ("llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "phi3")
 PERMUTED_QK_ARCHES = ("llama", "mistral")
 
 
 def _config_from_gguf(r, arch: str, dtype) -> LlamaConfig:
     """LlamaConfig from a GGUF's {arch}.* metadata; the attention biases and
-    the per-head q / k norm are read off the tensors present."""
+    the per-head q / k norm are read off the tensors present, phi3's
+    longrope from its factor tensors. gemma's norms arrive with their + 1
+    folded in and serve as plain RMSNorm weights; gemma2's
+    ``query_pre_attn_scalar`` falls back as llama.cpp's (hidden / heads at
+    46 blocks, else head_dim); phi3's window of 0 means none (and, as in
+    the JAX package, slides only the even layers)."""
     if arch not in GGUF_ARCHES:
         raise NotImplementedError(
             f"GGUF architecture {arch!r} is not supported by the serving "
@@ -496,8 +532,25 @@ def _config_from_gguf(r, arch: str, dtype) -> LlamaConfig:
                      r.get(f"{arch}.rope.dimension_count", hidden // n_head))
     if r.get(f"{arch}.rope.dimension_count", head_dim) != head_dim:
         raise NotImplementedError("partial rotary embeddings are not ported yet")
+    n_layers = r.get(f"{arch}.block_count")
+    qpas = None
+    if arch == "gemma2":
+        qpas = r.get(f"{arch}.attention.query_pre_attn_scalar",
+                     hidden / n_head if n_layers == 46 else head_dim)
     rope_scaling = None
-    if "rope_freqs.weight" in r.tensors:
+    if "rope_factors_long.weight" in r.tensors and "rope_factors_short.weight" in r.tensors:
+        rope_scaling = (
+            ("rope_type", "longrope"),
+            ("long_factor", tuple(float(x) for x in r.tensor_float("rope_factors_long.weight"))),
+            ("short_factor", tuple(float(x)
+                                   for x in r.tensor_float("rope_factors_short.weight"))),
+            ("original_max_position_embeddings",
+             int(r.get(f"{arch}.rope.scaling.original_context_length", 4096))),
+        )
+        if r.get(f"{arch}.rope.scaling.attn_factor") is not None:
+            rope_scaling += (("attention_factor",
+                              float(r.get(f"{arch}.rope.scaling.attn_factor"))),)
+    elif "rope_freqs.weight" in r.tensors:
         rope_scaling = (
             ("factors", tuple(float(x) for x in r.tensor_float("rope_freqs.weight"))),
             ("rope_type", "gguf_factors"),
@@ -510,11 +563,12 @@ def _config_from_gguf(r, arch: str, dtype) -> LlamaConfig:
             ("factor", float(r.get(f"{arch}.rope.scaling.factor", 1.0))),
             ("rope_type", "linear"),
         )
+    gemma = arch in ("gemma", "gemma2")
     return LlamaConfig(
         vocab_size=r.get(f"{arch}.vocab_size") or len(r.get("tokenizer.ggml.tokens", [])),
         hidden_size=hidden,
         intermediate_size=r.get(f"{arch}.feed_forward_length"),
-        num_hidden_layers=r.get(f"{arch}.block_count"),
+        num_hidden_layers=n_layers,
         num_attention_heads=n_head,
         num_key_value_heads=r.get(f"{arch}.attention.head_count_kv", n_head),
         head_dim=head_dim,
@@ -524,6 +578,15 @@ def _config_from_gguf(r, arch: str, dtype) -> LlamaConfig:
         attention_bias="blk.0.attn_q.bias" in r.tensors,
         qk_norm="blk.0.attn_q_norm.weight" in r.tensors,
         rope_scaling=rope_scaling,
+        embed_scale=gemma,
+        act_fn="gelu_tanh" if gemma else "silu",
+        attn_logit_softcap=(r.get(f"{arch}.attn_logit_softcapping")
+                            if arch == "gemma2" else None),
+        final_logit_softcap=(r.get(f"{arch}.final_logit_softcapping")
+                             if arch == "gemma2" else None),
+        query_pre_attn_scalar=qpas,
+        sliding_window=(r.get(f"{arch}.attention.sliding_window")
+                        if arch in ("gemma2", "phi3") else None) or None,
         dtype=dtype,
     )
 
@@ -541,21 +604,32 @@ _NAME_MAP = {
     "ffn_up": "up_proj",
     "ffn_down": "down_proj",
 }
+# gemma2's names are shifted against HF's: ffn_norm is the pre-feed-forward
+# norm, post_attention_norm HF's post_attention_layernorm
+_GEMMA2_NAME_MAP = {
+    **_NAME_MAP,
+    "ffn_norm": "pre_feedforward_layernorm",
+    "post_attention_norm": "post_attention_layernorm",
+    "post_ffw_norm": "post_feedforward_layernorm",
+}
 # blk.N.<name>.bias of the attention projections -> their layer keys
 _BIAS_MAP = {"attn_q": "q_bias", "attn_k": "k_bias", "attn_v": "v_bias",
              "attn_output": "o_bias"}
 # layer keys held as f32 vectors
-_F32_KEYS = ("input_layernorm", "post_attention_layernorm", "q_norm", "k_norm")
+_F32_KEYS = ("input_layernorm", "post_attention_layernorm", "q_norm", "k_norm",
+             "pre_feedforward_layernorm", "post_feedforward_layernorm")
 
 
 def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
                           device="cuda", dense: bool = False
                           ) -> Tuple[Dict[str, Any], LlamaConfig]:
-    """Build a serving model directly from a llama / mistral / qwen2 / qwen3
-    .gguf (one file or a shard set). K-quant tensors are unpacked bit-exactly
-    to codes and scales and repacked on ``device`` in
+    """Build a serving model directly from a .gguf (one file or a shard set)
+    of an architecture in ``GGUF_ARCHES``. K-quant tensors are unpacked
+    bit-exactly to codes and scales and repacked on ``device`` in
     ``qmatmul.RUNTIME_FORMAT`` (``pack_runtime_auto``); other tensors load as
-    dense arrays. Large tensors are prepared in row chunks on host threads
+    dense arrays. phi3's fused ``attn_qkv`` / ``ffn_up`` are split by rows
+    into q / k / v and gate / up (``fuse_layer_projections`` fuses them
+    again for the kernel). Large tensors are prepared in row chunks on host threads
     (``convert.by_row_chunks``). Raises on
     tensor names it does not understand: a silently dropped tensor means
     silently wrong logits.
@@ -569,6 +643,7 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
     cfg = _config_from_gguf(r, arch, dtype)
     n_head, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
     permuted_qk = arch in PERMUTED_QK_ARCHES
+    name_map = _GEMMA2_NAME_MAP if arch == "gemma2" else _NAME_MAP
 
     def rows(name: str, a: int, b: int) -> np.ndarray:
         """The raw bytes of rows [a, b) of a 2-D tensor."""
@@ -592,16 +667,20 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
             w = w[inv]
         return torch.from_numpy(np.ascontiguousarray(w)).to(device=dev, dtype=dt)
 
-    def load_weight(name: str):
+    def load_weight(name: str, lo: int = 0, hi: Optional[int] = None):
+        """The tensor ``name`` (rows [lo, hi) of it), packed or dense."""
         info = r.tensors[name]
+        hi = info.shape[0] if hi is None else hi
         inv = None
         if permuted_qk and (".attn_q." in name or ".attn_k." in name):  # undo the rope permute
             heads = n_head if ".attn_q." in name else n_kv
             inv = np.argsort(convert.gqa_permute_rows(info.shape[0], heads))
         if dense or info.ggml_type not in K_QUANT_TYPES or info.shape[-1] % 256 != 0:
-            return dense_tensor(name, inv, dtype)
+            w = dense_tensor(name, inv, dtype)
+            return w if (lo, hi) == (0, info.shape[0]) else w[lo:hi].contiguous()
 
         def packed(a: int, b: int, where: torch.device):
+            a, b = a + lo, b + lo
             q, ss, sc, sz, zq = convert.unpack_layer(rows(name, a, b), info.ggml_type,
                                                      (b - a, info.shape[1]))
             if inv is not None:
@@ -613,11 +692,22 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
         # chunks of convert.CHUNK_ROWS rows packed on host threads and joined
         # along d_out (exact for v2 and v4; v1 and permuted q / k load whole)
         join = {"v2": qmatmul.fuse_rql_v2, "v4": qmv4.fuse_rql_v4}.get(qmatmul.RUNTIME_FORMAT)
-        if inv is not None or join is None or info.shape[0] <= convert.CHUNK_ROWS:
-            return packed(0, info.shape[0], dev)
+        if inv is not None or join is None or hi - lo <= convert.CHUNK_ROWS:
+            return packed(0, hi - lo, dev)
         host = torch.device("cpu")
         return _packed_to(join(convert.by_row_chunks(lambda a, b: packed(a, b, host),
-                                                     info.shape[0])), dev)
+                                                     hi - lo)), dev)
+
+    def split_rows(name: str, keys, sizes):
+        """A fused tensor's row blocks (phi3), each loaded as its own weight."""
+        li = int(name.split(".")[1])
+        if sum(sizes) != r.tensors[name].shape[0]:
+            raise ValueError(f"{name}: {r.tensors[name].shape[0]} rows, the config gives "
+                             f"{sum(sizes)}")
+        lo = 0
+        for key, n in zip(keys, sizes):
+            layers[li][key] = load_weight(name, lo, lo + n)
+            lo += n
 
     params: Dict[str, Any] = {}
     layers: List[Dict[str, Any]] = [dict() for _ in range(cfg.num_hidden_layers)]
@@ -631,12 +721,21 @@ def load_gguf_for_serving(gguf_path: Union[str, Path], dtype=torch.bfloat16,
             params["lm_head"] = head
         elif name == "output_norm.weight":
             params["norm"] = dense_tensor(name, None, torch.float32)
-        elif name == "rope_freqs.weight":
+        elif name in ("rope_freqs.weight", "rope_factors_long.weight",
+                      "rope_factors_short.weight"):
             continue  # folded into cfg.rope_scaling
+        elif name.startswith("blk.") and name.endswith(".attn_qkv.weight"):
+            hd = cfg.head_dim_
+            split_rows(name, ("q_proj", "k_proj", "v_proj"),
+                       (n_head * hd, n_kv * hd, n_kv * hd))
+        elif (name.startswith("blk.") and name.endswith(".ffn_up.weight")
+              and name.replace("ffn_up", "ffn_gate") not in r.tensors
+              and r.tensors[name].shape[0] == 2 * cfg.intermediate_size):
+            split_rows(name, ("gate_proj", "up_proj"), (cfg.intermediate_size,) * 2)
         elif name.startswith("blk.") and name.endswith(".weight") \
-                and name.split(".")[2] in _NAME_MAP:
+                and name.split(".")[2] in name_map:
             li, comp = int(name.split(".")[1]), name.split(".")[2]
-            key = _NAME_MAP[comp]
+            key = name_map[comp]
             layers[li][key] = (dense_tensor(name, None, torch.float32)
                                if key in _F32_KEYS else load_weight(name))
         elif name.startswith("blk.") and name.endswith(".bias") \

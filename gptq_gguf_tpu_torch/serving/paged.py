@@ -150,18 +150,22 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig, input_ids: torch.Ten
     """forward_cached over a paged cache (see that docstring for n_valid):
     the pools are written IN PLACE; returns (logits (B, vocab) f32, the
     cache with advanced lengths). Takes fused (``qkv_proj``,
-    ``gateup_proj``) and unfused projections alike."""
+    ``gateup_proj``) and unfused projections alike. The kernel gets each
+    layer's window, the attention softcap and the score scale; longrope
+    picks its factors by the slot's capacity (pages per slot times page)."""
     B, S = input_ids.shape
     hd = cfg.head_dim_
     lengths = cache.lengths
     dev = input_ids.device
     positions = lengths[:, None].long() + torch.arange(S, device=dev)[None, :]
-    cos, sin = llama.rope_cos_sin_all(cfg, positions)
+    cos, sin = llama.rope_cos_sin_all(cfg, positions, seq_len=cache.max_len)
     table = cache.page_table
     q4 = cache.q4
+    scale = llama.attention_scale(cfg)
 
-    x = params["embed_tokens"][input_ids].to(cfg.dtype)
+    x = llama.embed_forward(params, input_ids, cfg)
     for li, layer in enumerate(params["layers"]):
+        window = llama.layer_window(cfg, li)
         h = llama.apply_norm(x, cfg, layer["input_layernorm"])
         if "qkv_proj" in layer:
             qkv = _q_linear(h, layer["qkv_proj"])
@@ -199,7 +203,9 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig, input_ids: torch.Ten
             qk = q[:, :, 0].reshape(B, nKV, nH // nKV, hd)
             decode = (paged_attention.paged_flash_decode_q4 if q4
                       else paged_attention.paged_flash_decode)
-            attn = decode(qk, k_pool, v_pool, table, lengths, scale=1.0 / math.sqrt(hd))
+            attn = decode(qk, k_pool, v_pool, table, lengths,
+                          scale=scale if scale is not None else 1.0 / math.sqrt(hd),
+                          window=window or 0, softcap=cfg.attn_logit_softcap or 0.0)
             attn = attn.reshape(B, nH, 1, hd).to(q.dtype)
         else:
             if q4:
@@ -211,17 +217,10 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig, input_ids: torch.Ten
             else:
                 k_all = _gather_slot_kv(k_pool, table)
                 v_all = _gather_slot_kv(v_pool, table)
-            attn = qmodel._cached_attention(q, k_all, v_all, lengths)
+            attn = qmodel._cached_attention(q, k_all, v_all, lengths, scale,
+                                            cfg.attn_logit_softcap, window)
         attn = attn.transpose(1, 2).reshape(B, S, nH * hd)
-        x = x + qmodel._o_proj(attn, layer)
-
-        h = llama.apply_norm(x, cfg, layer["post_attention_layernorm"])
-        if "gateup_proj" in layer:
-            gate, up = torch.chunk(_q_linear(h, layer["gateup_proj"]), 2, dim=-1)
-        else:
-            gate = _q_linear(h, layer["gate_proj"])
-            up = _q_linear(h, layer["up_proj"])
-        x = x + _q_linear(llama._mlp_act(gate, up, cfg), layer["down_proj"])
+        x = qmodel._mlp_block(x, qmodel._o_proj(attn, layer), layer, cfg)
 
     if n_valid is None:
         last = x[:, -1, :]

@@ -117,7 +117,7 @@ def test_loader_matches_jax(ckpt, tmp_path):
 
 
 def test_loader_refuses_other_model_types(tmp_path):
-    for mt in ("phi3", "gemma"):  # families not ported yet
+    for mt in ("gemma3_text", "phi"):  # families not ported yet
         (tmp_path / "config.json").write_text(json.dumps({"model_type": mt}))
         with pytest.raises(NotImplementedError, match=mt):
             loader.load_config(tmp_path)

@@ -204,7 +204,7 @@ def test_logits_match_hf_and_jax(fam):
 def test_config_refusals():
     base = dict(vocab_size=8, hidden_size=8, intermediate_size=8, num_hidden_layers=1,
                 num_attention_heads=1)
-    for mt in ("phi3", "gemma", "qwen3_moe"):
+    for mt in ("gemma3_text", "phi", "qwen3_moe"):
         with pytest.raises(NotImplementedError, match=mt):
             llama.LlamaConfig.from_hf_dict(dict(base, model_type=mt))
     with pytest.raises(NotImplementedError, match="mlp_bias"):
@@ -307,8 +307,8 @@ def test_qk_rows_by_arch(fam, tmp_path, monkeypatch):
                                              dense=True)
         assert not np.array_equal(tp["layers"][1]["q_proj"].numpy(),
                                   want.q_proj.weight.detach().numpy())
-    with pytest.raises(NotImplementedError, match="'gemma'"):
-        qmodel.load_gguf_for_serving(_retagged(src, tmp_path / "gemma.gguf", "gemma"),
+    with pytest.raises(NotImplementedError, match="'gemma3'"):
+        qmodel.load_gguf_for_serving(_retagged(src, tmp_path / "gemma3.gguf", "gemma3"),
                                      device="cpu")
 
 

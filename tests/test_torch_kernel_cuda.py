@@ -590,15 +590,80 @@ def test_paged_decode_kernel_reads_no_device_tensor(cuda, mode):
 def test_paged_decode_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, table, lengths = _paged_inputs(2, 2, 4, 128, 16, 4, "bf16", 3, cuda)
     kw = dict(scale=0.1)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        pa.paged_flash_decode(q[..., :96].contiguous(), k[..., :96].contiguous(),
-                              v[..., :96].contiguous(), table, lengths, **kw)
+    with pytest.raises(ValueError, match="hd in"):
+        pa.paged_flash_decode(q[..., :80].contiguous(), k[..., :80].contiguous(),
+                              v[..., :80].contiguous(), table, lengths, **kw)
     with pytest.raises(ValueError, match="query heads"):
         pa.paged_flash_decode(q.repeat(1, 1, 5, 1), k, v, table, lengths, **kw)
     with pytest.raises(ValueError, match="table"):
         pa.paged_flash_decode(q, k, v, table.long(), lengths, **kw)
     with pytest.raises(ValueError, match="pools must be bf16 or f32"):
         pa.paged_flash_decode(q, k.half(), v.half(), table, lengths, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "f32", "q4"])
+@pytest.mark.parametrize("B,nKV,G,hd,page,pps,kw", [
+    # Phi-3-mini: 32 kv heads of one query head at hd 96, fills 300 and 1900
+    (4, 32, 1, 96, 64, 32, {"lengths": [300, 1900, 0, 2047]}),
+    # hd 96 with every tensor-core M row a head, a window across pages, a softcap
+    (3, 2, 16, 96, 16, 9, {"window": 20, "softcap": 5.0, "sinks": True}),
+    # Gemma-2-9B: 8 kv heads of two at hd 256, window 4096, softcap 50, fills
+    # 4095-4097 (the window's edge) and the last position of page 64
+    (5, 8, 2, 256, 64, 66, {"window": 4096, "softcap": 50.0,
+                            "lengths": [4095, 4096, 4097, 4159, 4160]}),
+])
+def test_paged_decode_kernel_at_the_gemma2_and_phi3_shapes(cuda, mode, B, nKV, G, hd, page,
+                                                           pps, kw):
+    """The paged kernel against its plain version at the attention shapes
+    of Phi-3-mini (hd 96: bf16 pools on the tensor-core body, f32 on the
+    CUDA-core one; int4 pools refused there, as in the JAX package) and
+    Gemma-2-9B (hd 256 on the CUDA-core body with its window and softcap),
+    within 1e-4 of max|out| as the kernel's other cases."""
+    q, k, v, table, lengths = _paged_inputs(B, nKV, G, hd, page, pps, mode, B * hd + page, cuda,
+                                            kw.get("lengths"))
+    kw = dict({k_: a for k_, a in kw.items() if k_ != "lengths"}, scale=hd ** -0.5)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn(nKV * G, generator=torch.Generator().manual_seed(1)).to(cuda)
+    fn, ref = ((pa.paged_flash_decode_q4, pa.paged_flash_decode_q4_reference) if mode == "q4"
+               else (pa.paged_flash_decode, pa.paged_flash_decode_reference))
+    if mode == "q4" and hd % 64:
+        with pytest.raises(ValueError, match="multiple of 64"):
+            fn(q, k, v, table, lengths, **kw)
+        return
+    n0 = fn.launches
+    got = fn(q, k, v, table, lengths, **kw)
+    want = ref(q, k, v, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_out,d_in,qtype", [(8192, 3584, T.Q4_K), (3584, 14336, T.Q4_K),
+                                              (256000, 3584, T.Q6_K), (9216, 3072, T.Q4_K),
+                                              (3072, 8192, T.Q4_K), (32064, 3072, T.Q6_K)],
+                         ids=["gemma2_qkv", "gemma2_down", "gemma2_head", "phi3_qkv",
+                              "phi3_down", "phi3_head"])
+def test_v2g_at_the_gemma2_and_phi3_shapes(cuda, d_out, d_in, qtype):
+    """v2g against its plain version at Gemma-2-9B's fused q / k / v, its
+    down projection and its 256000-row head, and at Phi-3-mini's fused
+    q / k / v, down and 32064-row head (padded to 32256 as the serving
+    loader pads it), with the limits of the qwen family case."""
+    rql = _rql(qtype, d_out, d_in, seed=d_out + d_in, device=cuda)
+    if d_out % 512:
+        rql = qmatmul.pad_dout_v2(rql)
+    fn = qmatmul.dequant_matmul_v2g
+    gen = torch.Generator().manual_seed(d_in)
+    for M, limit in ((1, 1e-4), (8, 1e-5), (128, 1e-4)):
+        x = torch.randn(M, d_in, generator=gen).to(cuda, torch.bfloat16)
+        got = fn(x, rql)
+        want = qmatmul.dequant_matmul_v2g_reference(x, rql)
+        torch.cuda.synchronize()
+        assert got.shape == (M, rql.d_out) and bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err <= limit * _v2_terms(x, rql, torch.bfloat16), (M, err)
 
 
 # the v2 kernel variants: (variant, wrapper, plain version) and the types

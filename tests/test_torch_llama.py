@@ -40,8 +40,8 @@ def test_config_from_reference():
     assert cfg.num_key_value_heads == 2 and cfg.rope_theta == 500000.0
     # qwen3's per-head q/k norm is ported; hunyuan's norm after rope is not
     assert llama.config_from_reference(dataclasses.replace(jcfg, qk_norm=True)).qk_norm
-    for bad in (dict(sliding_window=16), dict(qk_norm=True, qk_norm_after_rope=True),
-                dict(act_fn="gelu_tanh"),
+    for bad in (dict(rope_local_theta=10000.0), dict(qk_norm=True, qk_norm_after_rope=True),
+                dict(act_fn="relu2"),
                 dict(norm_type="layernorm"), dict(moe_num_experts=4)):
         with pytest.raises(NotImplementedError):
             llama.config_from_reference(dataclasses.replace(jcfg, **bad))

@@ -264,7 +264,7 @@ def test_pack_refusals(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="--mmproj is not ported yet"):
         main(["pack", "--model_dir", str(d), "--outfile", out, "--mmproj"])
     cfg = json.loads((d / "config.json").read_text())
-    for mt in ("phi3", "gemma"):  # families not ported yet
+    for mt in ("gemma3_text", "phi"):  # families not ported yet
         (d / "config.json").write_text(json.dumps({**cfg, "model_type": mt}))
         with pytest.raises(NotImplementedError, match=f"model_type '{mt}' is not ported yet"):
             packer.pack_model(d, q, out)
@@ -283,7 +283,8 @@ def test_pack_refusals(tmp_path, capsys):
         main(["pack", "--model_dir", str(d), "--outfile", out])
     capsys.readouterr()
     assert main(["pack", "--print-supported-models"]) == 0
-    assert capsys.readouterr().out.split() == ["llama", "mistral", "qwen2", "qwen3"]
+    assert capsys.readouterr().out.split() == ["llama", "mistral", "qwen2", "qwen3", "gemma",
+                                               "gemma2", "phi3"]
 
 
 def test_spm_reader_matches_jax(tmp_path):
